@@ -1,30 +1,30 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (goldrush_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py                 # all phases (one card)
-    python3 chip_smoke.py --kernels-only  # phases 1-3
+    python3 chip_smoke.py                 # one card
 
 Phases (one line each; any failure raises, so the exit code is non-zero):
   1. device: require CUDA; print the card and its power limit;
   2. build: compile the kernels of goldrush_tpu_torch/csrc with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the slice's shapes (B=32 reads, T=20 tiles of 1000, h=3, K=32, a
-     142,368,384-slot filter filled from seeded reads; B=1 for the live
-     re-probe), bit for bit (every output is an integer), with both times;
+     142,368,384-slot filter filled from seeded reads, then frozen into
+     the rank-compressed filter; B=1 for the live re-probe), bit for bit
+     (every output is an integer), with both times;
   4. end to end: goldrush-path (silver M=5, then golden) through the CLI
      entry point on 3,000 x 20 kb reads of a 5 Mbp genome at 5% error
-     (bench.py's dataset, seeds 11/12); every kernel must have launched,
+     (bench.py's dataset, seeds 11/12), once with the direct filter and
+     once with the rank-compressed one; every kernel must have launched,
      recruits > 0, each completed silver path > r*G bases;
-  5. digests: the port's silver paths on the 1 Mbp quality-gate dataset
-     must match tests/fixtures/torch_port_digests.json (written by the JAX
-     package on the CPU).
+  5. digests: the port's silver paths on the 1 Mbp quality-gate dataset,
+     with either filter, must match tests/fixtures/torch_port_digests.json
+     (written by the JAX package on the CPU).
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-import argparse
 import hashlib
 import json
 import os
@@ -110,6 +110,7 @@ def phase_kernels() -> dict:
     import torch
     from goldrush_tpu_torch.config import calc_optimal_size
     from goldrush_tpu_torch.io.fastq import encode
+    from goldrush_tpu_torch.mibf import compressed as cz
     from goldrush_tpu_torch.mibf import mibf as dm
     from goldrush_tpu_torch.ops.nthash import build_seed_family
     from goldrush_tpu_torch.ops.seeds import make_seed_pattern
@@ -178,14 +179,16 @@ def phase_kernels() -> dict:
             (2, 17, 13, True), (0, T - 1, 15, False)]
     for i, (lo, hi, base, tr) in enumerate(plan):
         dm.insert_read_sorted(st_k, slots[i], lo, hi, base, tr, params, T)
-        dm._insert_plain(st_p, slots[i], lo, hi, base, tr, params, T)
+        dm._insert_plain(st_p.words, st_p.counts, slots[i], lo, hi, base, tr,
+                         params, T, size, dm.PRESENT_BIT)
     err = max_abs_err([(st_k.words, st_p.words), (st_k.counts, st_p.counts)])
     scratch_k = dm.MibfState(st_k.words.clone(), st_k.counts.clone())
     scratch_p = dm.MibfState(st_k.words.clone(), st_k.counts.clone())
     ms = cuda_ms(lambda: dm.insert_read_sorted(
         scratch_k, slots[8], 0, T - 1, 17, False, params, T), 20)
-    pms = cuda_ms(lambda: dm._insert_plain(scratch_p, slots[8], 0, T - 1, 17,
-                                           False, params, T), 3)
+    pms = cuda_ms(lambda: dm._insert_plain(
+        scratch_p.words, scratch_p.counts, slots[8], 0, T - 1, 17, False,
+        params, T, size, dm.PRESENT_BIT), 3)
     del scratch_k, scratch_p
     out["insert_sorted"] = (err, ms, pms)
     say("kernels", kernel="insert_sorted", recruits=len(plan),
@@ -231,11 +234,69 @@ def phase_kernels() -> dict:
     say("kernels", kernel="classify", shape=f"{B}x{T}x{K}",
         decisions=decisions.tolist(), max_abs_err=err, ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}")
+    # --- the rank-compressed filter: freeze, lookup, D and B on ranks ----
+    bk, tk = cz.rank_pack(st_k.words, size)
+    bp, tp = cz._rank_pack_plain(st_k.words, size)
+    err = max_abs_err([(bk, bp), (tk, tp)])
+    ms = cuda_ms(lambda: cz.rank_pack(st_k.words, size), 20)
+    pms = cuda_ms(lambda: cz._rank_pack_plain(st_k.words, size), 3)
+    out["rank_pack"] = (err, ms, pms)
+    say("kernels", kernel="rank_pack", slots=size, max_abs_err=err,
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
+    # timed on a scratch copy: each call adds its carry again
+    scratch = bk.clone()
+    pop = cz.rank_carry(bk, tk)
+    pop_p = int(cz._rank_carry_plain(bp, tp))
+    err = max(max_abs_err([(bk, bp)]), abs(pop - pop_p))
+    ms = cuda_ms(lambda: cz._rank_carry_cuda(scratch, tk), 20)
+    pms = cuda_ms(lambda: cz._rank_carry_plain(scratch, tk), 3)
+    out["rank_carry"] = (err, ms, pms)
+    say("kernels", kernel="rank_carry", present=pop, max_abs_err=err,
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
+    del scratch, bp, tp
+    cs_k = cz.freeze(st_k.words, size)
+    if max_abs_err([(cs_k.bitrank, bk)]) != 0:
+        raise AssertionError("freeze differs from rank_pack + rank_carry")
+    ranks = cz.rank_grid(cs_k, slots, size)
+    err = max_abs_err([(ranks, cz._rank_grid_plain(cs_k, slots, size))])
+    ms = cuda_ms(lambda: cz.rank_grid(cs_k, slots, size), 20)
+    pms = cuda_ms(lambda: cz._rank_grid_plain(cs_k, slots, size), 3)
+    out["rank_lookup"] = (err, ms, pms)
+    ranked = int((ranks < cs_k.sentinel).sum())
+    say("kernels", kernel="rank_lookup", shape=f"{B}x3x{T * TL}",
+        present=ranked, max_abs_err=err, ms=f"{ms:.4f}",
+        plain_ms=f"{pms:.4f}")
+    cs_p = cz.CompressedState(cs_k.bitrank, cs_k.supers, cs_k.ids.clone(),
+                              cs_k.counts.clone())
+    for i, (lo, hi, base, tr) in enumerate(plan):
+        cz.insert_read_sorted(cs_k, ranks[i], lo, hi, base, tr, params, T)
+        dm._insert_plain(cs_p.ids, cs_p.counts, ranks[i], lo, hi, base, tr,
+                         params, T, cs_p.sentinel, 0)
+    err = max_abs_err([(cs_k.ids, cs_p.ids), (cs_k.counts, cs_p.counts)])
+    vk = cz.probe_and_vote(cs_k, ranks, ok, params, T)
+    vp = dm._probe_and_vote_plain(cs_k.ids, ranks, ok, params, T, True)
+    v1k = cz.probe_and_vote(cs_k, ranks[9:10], ok[9:10], params, T)
+    v1p = dm._probe_and_vote_plain(cs_k.ids, ranks[9:10], ok[9:10], params,
+                                   T, True)
+    err_b = max_abs_err(list(zip(vk, vp)) + list(zip(v1k, v1p)))
+    ms = cuda_ms(lambda: cz.probe_and_vote(cs_k, ranks, ok, params, T), 20)
+    pms = cuda_ms(lambda: dm._probe_and_vote_plain(cs_k.ids, ranks, ok,
+                                                   params, T, True), 3)
+    say("kernels", kernel="probe_vote", filter="compressed",
+        tiles_with_votes=int((vk.top_count > 0).sum()), max_abs_err=err_b,
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
+    say("kernels", kernel="insert_sorted", filter="compressed",
+        recruits=len(plan), max_abs_err=err)
+    out["insert_sorted"] = (max(out["insert_sorted"][0], err),
+                            *out["insert_sorted"][1:])
+    out["probe_vote"] = (max(out["probe_vote"][0], err_b),
+                         *out["probe_vote"][1:])
+    del cs_k, cs_p
     bad = {k: v[0] for k, v in out.items() if v[0] != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
-    if present == 0 or voted == 0 or decisions.sum() != B:
+    if present == 0 or voted == 0 or decisions.sum() != B or ranked == 0:
         raise AssertionError("kernel check inputs are degenerate")
     del st_k, st_p
     torch.cuda.empty_cache()
@@ -253,7 +314,9 @@ def make_reads(path: str, genome: int, genome_seed: int, n_reads: int,
 
 
 def phase_e2e() -> dict:
-    """goldrush-path through the CLI entry point at the bench scale."""
+    """goldrush-path through the CLI entry point at the bench scale, with
+    the direct and then the rank-compressed filter; every kernel's launch
+    count is read after both."""
     import torch
     from goldrush_tpu_torch import cli, kernels
     from goldrush_tpu_torch.io import fastq
@@ -262,46 +325,52 @@ def phase_e2e() -> dict:
     make_reads(reads + ".fq", **BENCH)
     say("e2e", dataset="5Mbp/3000x20kb/5%err",
         synth_s=f"{time.time() - t0:.1f}")
-    outdir = os.path.join(WORK, "bench_run")
-    argv = ["goldrush-path", f"reads={reads}", "G=5000000", "device=cuda",
-            f"prefix={outdir}", "dev=1"]
-    cmd, cfg, extra = cli.parse_args(argv)
-    torch.cuda.reset_peak_memory_stats()
     for k in kernels.ALL:
         k.launches = 0
-    t1 = time.time()
-    out = cli.run(cmd, cfg, extra)
-    wall = time.time() - t1
+    for mode in ("direct", "compressed"):
+        outdir = os.path.join(WORK, f"bench_{mode}")
+        argv = ["goldrush-path", f"reads={reads}", "G=5000000",
+                "device=cuda", f"mibf_mode={mode}", f"prefix={outdir}",
+                "dev=1"]
+        cmd, cfg, extra = cli.parse_args(argv)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        out = cli.run(cmd, cfg, extra)
+        wall = time.time() - t1
+        peak = torch.cuda.max_memory_allocated()
+        for stage, st in out["stats"].items():
+            rate = st.num_reads / max(st.wall_assign_s, 1e-9)
+            say("e2e", filter=mode, stage=stage,
+                fill_s=f"{st.wall_fill_s:.3f}",
+                assign_s=f"{st.wall_assign_s:.3f}",
+                submit_s=f"{st.wall_submit_s:.3f}",
+                replay_s=f"{st.wall_replay_s:.3f}",
+                reads=st.num_reads, recruits=st.recruits,
+                reads_per_s=f"{rate:.2f}",
+                paths_completed=st.paths_completed)
+        silver = out["stats"]["silver"]
+        if silver.recruits <= 0 or out["stats"]["golden"].recruits <= 0:
+            raise AssertionError(f"{mode}: no recruits")
+        target = cfg.r * cfg.G
+        for i in range(1, silver.paths_completed + 1):
+            p = os.path.join(outdir, f"{cfg.silver_prefix()}_{i}.fq")
+            bases = sum(len(r.seq) for r in fastq.read_records(p))
+            if bases <= target:
+                raise AssertionError(f"{mode} silver path {i}: {bases} <= "
+                                     f"r*G {target}")
+        golden = sum(len(r.seq) for r in fastq.read_records(
+            os.path.join(outdir, out["golden"])))
+        if golden <= 0:
+            raise AssertionError(f"{mode}: empty golden path")
+        say("e2e", filter=mode, wall_s=f"{wall:.2f}",
+            max_memory_allocated=peak,
+            silver_paths_ok=silver.paths_completed, golden_bases=golden)
     launches = {k.name: k.launches for k in kernels.ALL}
-    peak = torch.cuda.max_memory_allocated()
-    for stage, st in out["stats"].items():
-        say("e2e", stage=stage, fill_s=f"{st.wall_fill_s:.3f}",
-            assign_s=f"{st.wall_assign_s:.3f}",
-            submit_s=f"{st.wall_submit_s:.3f}",
-            replay_s=f"{st.wall_replay_s:.3f}",
-            reads=st.num_reads, recruits=st.recruits,
-            reads_per_s=f"{st.num_reads / max(st.wall_assign_s, 1e-9):.2f}",
-            paths_completed=st.paths_completed)
-    say("e2e", wall_s=f"{wall:.2f}", max_memory_allocated=peak,
-        launches=json.dumps(launches).replace(" ", ""))
-    silver = out["stats"]["silver"]
-    if silver.recruits <= 0 or out["stats"]["golden"].recruits <= 0:
-        raise AssertionError("no recruits")
+    say("e2e", launches=json.dumps(launches).replace(" ", ""))
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    target = cfg.r * cfg.G
-    for i in range(1, silver.paths_completed + 1):
-        p = os.path.join(outdir, f"{cfg.silver_prefix()}_{i}.fq")
-        bases = sum(len(r.seq) for r in fastq.read_records(p))
-        if bases <= target:
-            raise AssertionError(f"silver path {i}: {bases} <= r*G {target}")
-    golden = sum(len(r.seq) for r in fastq.read_records(
-        os.path.join(outdir, out["golden"])))
-    if golden <= 0:
-        raise AssertionError("empty golden path")
-    say("e2e", silver_paths_ok=silver.paths_completed, golden_bases=golden)
     return launches
 
 
@@ -317,25 +386,24 @@ def phase_digests() -> None:
     make_reads(fq, **ds)
     if sha256_file(fq) != fx["dataset"]["sha256"]:
         raise AssertionError("synth did not regenerate the gate dataset")
-    prefix = os.path.join(WORK, "qgate")
-    t0 = time.time()
-    st = GoldenPathEngine(PathConfig(input=fq, prefix_file=prefix,
-                                     **fx["engine"]), device="cuda").run()
-    got = {str(i): sha256_file(f"{prefix}_{i}.fq")
-           for i in range(1, fx["engine"]["max_paths"] + 1)
-           if os.path.exists(f"{prefix}_{i}.fq")}
-    say("digests", files=len(got), recruits=st.recruits,
-        seconds=f"{time.time() - t0:.1f}", match=got == fx["silver"])
-    if got != fx["silver"]:
-        raise AssertionError(f"silver digests differ: {got} vs "
-                             f"{fx['silver']}")
+    for mode in ("direct", "compressed"):
+        want = fx if mode == "direct" else fx[mode]
+        prefix = os.path.join(WORK, f"qgate_{mode}")
+        t0 = time.time()
+        st = GoldenPathEngine(PathConfig(input=fq, prefix_file=prefix,
+                                         mibf_mode=mode, **fx["engine"]),
+                              device="cuda").run()
+        got = {str(i): sha256_file(f"{prefix}_{i}.fq")
+               for i in range(1, fx["engine"]["max_paths"] + 1)
+               if os.path.exists(f"{prefix}_{i}.fq")}
+        say("digests", filter=mode, files=len(got), recruits=st.recruits,
+            seconds=f"{time.time() - t0:.1f}", match=got == want["silver"])
+        if got != want["silver"]:
+            raise AssertionError(f"{mode} silver digests differ: {got} vs "
+                                 f"{want['silver']}")
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel checks (phases 1-3)")
-    args = ap.parse_args()
     # the port must come from this checkout, never from an installed copy
     if not os.path.isdir(os.path.join(REPO, "goldrush_tpu_torch", "csrc")):
         raise SystemExit(f"chip_smoke: no goldrush_tpu_torch checkout beside "
@@ -346,8 +414,6 @@ def main() -> int:
     import torch
     phase_build()
     checks = phase_kernels()
-    if args.kernels_only:
-        return 0
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:

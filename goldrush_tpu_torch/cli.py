@@ -7,7 +7,9 @@ Usage (same command/parameter names as bin/goldrush and goldrush_tpu.cli):
 
 Parameters are make-style key=value pairs with the reference defaults
 (bin/goldrush:60-97).  ``device=cuda|cpu`` picks where the engine runs
-(default cuda; a missing card is an error, never a silent CPU run).  The
+(default cuda; a missing card is an error, never a silent CPU run), and
+``mibf_mode=direct|compressed`` the filter layout of both goldrush-path
+stages (default direct).  The
 commands that go past the golden path are recognised but raise
 ``NotImplementedError`` until their stages are ported.
 """
@@ -55,7 +57,8 @@ def parse_args(argv: list[str]) -> tuple[str, PipelineConfig, dict]:
         if k in ("frame_stride", "probe_seeds"):
             extra[k] = int(v)
             continue
-        if k in ("save_mibf", "load_mibf", "trace_dir", "device"):
+        if k in ("save_mibf", "load_mibf", "trace_dir", "device",
+                 "mibf_mode"):
             extra[k] = v
             continue
         if k not in fields:
@@ -77,6 +80,7 @@ def print_help() -> None:
     print("Commands:", ", ".join(COMMANDS))
     print("Key parameters: reads=<prefix> G=<genome size> t=<threads> "
           "k w tile b u a o x h s m M r P d p device=cuda|cpu "
+          "mibf_mode=direct|compressed "
           "save_mibf=<npz> load_mibf=<npz> trace_dir=<dir>")
 
 
@@ -89,6 +93,7 @@ def run(cmd: str, cfg: PipelineConfig, extra: dict) -> dict:
                         device=extra["device"],
                         frame_stride=extra.get("frame_stride", 1),
                         probe_seeds=extra.get("probe_seeds", 0),
+                        mibf_mode=extra.get("mibf_mode", "direct"),
                         engine_extra={k: v for k, v in extra.items()
                                       if k in ("save_mibf", "load_mibf",
                                                "trace_dir")})

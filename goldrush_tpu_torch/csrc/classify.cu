@@ -294,7 +294,7 @@ extern "C" int gr_classify(
     int a_max, int32_t* decision, int32_t* trim_start, int32_t* trim_end,
     int32_t* num_assigned, int32_t* ids, int32_t* bools, int64_t* scratch,
     int32_t* ids_trace, int32_t* bools_trace, cudaStream_t stream) {
-  if (B == 0) return cudaSuccess;
+  if (B == 0) return gr::kNoLaunch;
   const int threads = 32;
   gr::classify_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
       curr_id, cand_ids, cand_counts, n_tiles, B, T, K, threshold, u_min,

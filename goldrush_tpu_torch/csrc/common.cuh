@@ -2,9 +2,11 @@
 //
 // Filter words are uint32 bit patterns ([31] saturation, [30] presence,
 // [29..0] block id) held by int32 tensors; hashes are uint64 bit patterns
-// held by int64 tensors; slot grids are int64.  Every kernel is launched
-// through an extern "C" entry point that returns the cudaError_t of its
-// launch (cudaGetLastError), so the Python wrapper raises on a refused one.
+// held by int64 tensors; slot and rank grids are int64.  Every kernel is
+// launched through an extern "C" entry point that returns the cudaError_t
+// of its launch (cudaGetLastError), so the Python wrapper raises on a
+// refused one, or kNoLaunch when its inputs left nothing to launch, so the
+// wrapper counts launches and not calls.
 #pragma once
 
 #include <cstdint>
@@ -12,10 +14,46 @@
 
 namespace gr {
 
+constexpr int kNoLaunch = -1;
 constexpr uint32_t kPresent = 0x40000000u;
 constexpr uint32_t kIdMask = 0x3FFFFFFFu;
 constexpr unsigned long long kSentinel64 = 0xFFFFFFFFFFFFFFFFull;
 constexpr uint32_t kSentinel32 = 0xFFFFFFFFu;
+
+struct MaxOp {
+  __device__ long long operator()(long long a, long long b) const {
+    return a > b ? a : b;
+  }
+};
+
+struct AddOp {
+  __device__ unsigned long long operator()(unsigned long long a,
+                                           unsigned long long b) const {
+    return a + b;
+  }
+};
+
+// Block-wide exclusive scan of one value per thread: thread t gets
+// op(v_0, ..., v_{t-1}), thread 0 the identity.  `scratch` holds blockDim.x
+// values in shared memory.  Every thread of the block calls it; it starts
+// and ends with a barrier.  With MaxOp this is the per-block cummax, with
+// AddOp the per-block cumsum.
+template <typename V, typename Op>
+__device__ V block_exclusive_scan(V v, V identity, V* scratch, Op op) {
+  const int t = threadIdx.x, n = blockDim.x;
+  __syncthreads();
+  scratch[t] = v;
+  __syncthreads();
+  for (int off = 1; off < n; off <<= 1) {
+    const V x = t >= off ? scratch[t - off] : identity;
+    __syncthreads();
+    scratch[t] = op(scratch[t], x);
+    __syncthreads();
+  }
+  const V out = t > 0 ? scratch[t - 1] : identity;
+  __syncthreads();
+  return out;
+}
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;

@@ -139,7 +139,7 @@ int gr_seed_hash_grid(const uint8_t* codes, int64_t B, int64_t L,
                       int64_t size, int mode, int64_t* slots, bool* frame_ok,
                       cudaStream_t stream) {
   const int64_t TF = static_cast<int64_t>(T) * TL;
-  if (B == 0 || TF == 0) return cudaSuccess;
+  if (B == 0 || TF == 0) return gr::kNoLaunch;
   const dim3 grid(static_cast<unsigned>((TF + 255) / 256),
                   static_cast<unsigned>(B));
   gr::seed_hash_grid_kernel<<<grid, 256, 0, stream>>>(
@@ -150,7 +150,7 @@ int gr_seed_hash_grid(const uint8_t* codes, int64_t B, int64_t L,
 int gr_seed_hash_fill(const uint8_t* codes, int64_t B, int64_t L,
                       const int* lengths, const int* fam, int64_t size,
                       int mode, uint32_t* words, cudaStream_t stream) {
-  if (B == 0 || L == 0) return cudaSuccess;
+  if (B == 0 || L == 0) return gr::kNoLaunch;
   const dim3 grid(static_cast<unsigned>((L + 255) / 256),
                   static_cast<unsigned>(B));
   gr::seed_hash_fill_kernel<<<grid, 256, 0, stream>>>(

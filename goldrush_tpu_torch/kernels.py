@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-The four sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
+The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, bound with ``ctypes`` (no PyTorch headers,
 so a build takes seconds).  The library lands in the git-ignored ``_build/``
 directory next to this file, named by a hash of the sources and flags, so a
@@ -8,7 +8,9 @@ fresh checkout builds at first use and an unchanged one reuses its build.
 
 Each kernel entry point is a ``Kernel``: calling it launches on PyTorch's
 current stream, raises if the launch returns a CUDA error, and only then
-adds one to its ``launches`` count.  Nothing here is imported or compiled
+adds one to its ``launches`` count.  An entry whose inputs leave nothing to
+launch (an empty batch, an empty tile range) returns ``NO_LAUNCH`` and is
+not counted.  Nothing here is imported or compiled
 until a CUDA tensor reaches a wrapper, so CPU-only installs import freely.
 """
 
@@ -28,28 +30,34 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 SOURCES = ("seed_hash.cu", "probe_vote.cu", "classify.cu",
-           "insert_sorted.cu")
+           "insert_sorted.cu", "rank.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # the largest dynamic shared memory one block may use on Hopper
 MAX_SMEM = 232_448
+# what an entry returns when its inputs left nothing to launch (common.cuh)
+NO_LAUNCH = -1
 
 _lock = threading.Lock()
 _lib = None
 
 _P, _I, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                   ctypes.c_int64)
-# C signatures: every entry returns the cudaError_t of its launch
+# C signatures: every entry returns the cudaError_t of its launch, or
+# NO_LAUNCH
 _SIGNATURES = {
     "gr_seed_hash_grid": (_P, _L, _L, _P, _P, _I, _I, _L, _I, _P, _P, _P),
     "gr_seed_hash_fill": (_P, _L, _L, _P, _P, _L, _I, _P, _P),
-    "gr_probe_vote": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    "gr_probe_vote": (_P, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "gr_classify": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    "gr_insert_sorted": (_P, _P, _P, _I, _L, _I, _L, _I, _I, _U, _I, _I,
-                         _P, _I, _P),
+    "gr_insert_sorted": (_P, _P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I,
+                         _I, _P, _I, _P),
+    "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
+    "gr_rank_carry": (_P, _P, _L, _P, _P),
+    "gr_rank_lookup": (_P, _L, _P, _L, _L, _P, _P),
 }
 
 
@@ -125,18 +133,23 @@ class Kernel:
         self.name = name
         self.symbol = symbol
         self.source = source          # path of its CUDA source in the repo
-        self.replaces = replaces      # the JAX function it replaces
+        self.replaces = replaces      # the Pallas kernel and/or JAX
+                                      # function it replaces (file:line)
         self.launches = 0
 
-    def __call__(self, device: torch.device, *args) -> None:
+    def __call__(self, device: torch.device, *args) -> bool:
+        """Launch; True if a kernel ran, False if the inputs were empty."""
         dll = lib()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = getattr(dll, self.symbol)(*args, _P(stream))
+        if err == NO_LAUNCH:
+            return False
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed: "
                                f"{dll.gr_error_string(err).decode()}")
         self.launches += 1
+        return True
 
 
 SEED_HASH_GRID = Kernel(
@@ -150,7 +163,7 @@ SEED_HASH_FILL = Kernel(
 PROBE_VOTE = Kernel(
     "probe_vote", "gr_probe_vote",
     "goldrush_tpu_torch/csrc/probe_vote.cu",
-    "goldrush_tpu/mibf/mibf.py:361")
+    "tools/probe_pallas.py:100; goldrush_tpu/mibf/mibf.py:361")
 CLASSIFY = Kernel(
     "classify", "gr_classify",
     "goldrush_tpu_torch/csrc/classify.cu",
@@ -159,7 +172,17 @@ INSERT_SORTED = Kernel(
     "insert_sorted", "gr_insert_sorted",
     "goldrush_tpu_torch/csrc/insert_sorted.cu",
     "goldrush_tpu/mibf/mibf.py:540")
-ALL = (SEED_HASH_GRID, SEED_HASH_FILL, PROBE_VOTE, CLASSIFY, INSERT_SORTED)
+RANK_PACK = Kernel(
+    "rank_pack", "gr_rank_pack", "goldrush_tpu_torch/csrc/rank.cu",
+    "tools/probe_pallas.py:82; goldrush_tpu/mibf/compressed.py:132")
+RANK_CARRY = Kernel(
+    "rank_carry", "gr_rank_carry", "goldrush_tpu_torch/csrc/rank.cu",
+    "tools/probe_pallas.py:128; goldrush_tpu/mibf/compressed.py:153")
+RANK_LOOKUP = Kernel(
+    "rank_lookup", "gr_rank_lookup", "goldrush_tpu_torch/csrc/rank.cu",
+    "tools/probe_pallas.py:61; goldrush_tpu/mibf/compressed.py:218")
+ALL = (SEED_HASH_GRID, SEED_HASH_FILL, PROBE_VOTE, CLASSIFY, INSERT_SORTED,
+       RANK_PACK, RANK_CARRY, RANK_LOOKUP)
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

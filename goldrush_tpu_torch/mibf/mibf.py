@@ -15,7 +15,10 @@ tensor and launches its CUDA kernel for a CUDA tensor (or raises):
   fill_presence      kernel A, fill entry  (csrc/seed_hash.cu)
   build_slot_grid    kernel A, grid entry  (csrc/seed_hash.cu)
   probe_and_vote     kernel B              (csrc/probe_vote.cu)
-  insert_read_sorted kernel D              (csrc/insert_sorted.cu)
+  insert_blocks      kernel D              (csrc/insert_sorted.cu)
+
+``probe_and_vote`` and ``insert_blocks`` also serve the rank-compressed
+filter (``compressed.py``), keyed on ranks instead of slots.
 
 Unlike the JAX package, the filter is updated in place (``fill_presence``,
 ``insert_read_sorted``, ``reset_ids``): a 1.14 GB filter is never copied.
@@ -261,21 +264,26 @@ class VoteResult(NamedTuple):
 
 def probe_and_vote(words: torch.Tensor, slots: torch.Tensor,
                    frame_ok: torch.Tensor, params: MibfParams,
-                   num_tiles: int) -> VoteResult:
+                   num_tiles: int, ranked: bool = False) -> VoteResult:
     """Batched miBF probe + per-tile ID voting (goldrush_path.cpp:544-634,
     goldrush_tpu/mibf/mibf.py:361-441).
 
-    slots: int64 [B, H, T*F] probe grid; frame_ok: bool [B, T*F]."""
+    slots: int64 [B, H, T*F] probe grid; frame_ok: bool [B, T*F].  With
+    ``ranked`` the grid holds ranks and ``words`` is the compressed filter's
+    rank-indexed id table: a frame reads PRESENT | ids[rank], or 0 for the
+    sentinel rank ids.numel() - 1 (goldrush_tpu/mibf/compressed.py:248)."""
     if params.probe_seeds:
         raise NotImplementedError(
             "probe_seeds > 0 is ROADMAP queue 1 item 7 (throughput mode)")
     if words.is_cuda:
         return _probe_and_vote_cuda(words, slots, frame_ok, params,
-                                    num_tiles)
-    return _probe_and_vote_plain(words, slots, frame_ok, params, num_tiles)
+                                    num_tiles, ranked)
+    return _probe_and_vote_plain(words, slots, frame_ok, params, num_tiles,
+                                 ranked)
 
 
-def _probe_and_vote_cuda(words, slots, frame_ok, params, num_tiles):
+def _probe_and_vote_cuda(words, slots, frame_ok, params, num_tiles,
+                         ranked=False):
     B, H, TF = slots.shape
     T, K = num_tiles, params.vote_topk
     F = TF // T
@@ -287,7 +295,7 @@ def _probe_and_vote_cuda(words, slots, frame_ok, params, num_tiles):
         raise ValueError(f"unsupported probe grid {tuple(slots.shape)} "
                          f"for T={T}, K={K}")
     n2 = kernels.next_pow2(H * F)
-    if (2 * n2 + 4) * 8 > kernels.MAX_SMEM:
+    if (2 * n2 + 4 + 256) * 8 > kernels.MAX_SMEM:
         raise ValueError(f"tile of {H}x{F} frames exceeds the probe_vote "
                          "kernel's shared memory")
     i32 = dict(dtype=torch.int32, device=dev)
@@ -303,19 +311,25 @@ def _probe_and_vote_cuda(words, slots, frame_ok, params, num_tiles):
         hits=torch.zeros(B, dtype=torch.int64, device=dev),
         misses=torch.zeros(B, dtype=torch.int64, device=dev))
     kernels.PROBE_VOTE(
-        dev, kernels.ptr(words), kernels.ptr(slots), kernels.ptr(frame_ok),
-        B, H, T, F, K, params.vote_min, params.threshold, n2,
+        dev, kernels.ptr(words), kernels.ptr(slots), int(ranked),
+        words.shape[0] - 1, kernels.ptr(frame_ok), B, H, T, F, K,
+        params.vote_min, params.threshold, n2,
         *(kernels.ptr(t) for t in out))
     return out
 
 
-def _probe_and_vote_plain(words, slots, frame_ok, params, num_tiles):
+def _probe_and_vote_plain(words, slots, frame_ok, params, num_tiles,
+                          ranked=False):
     B, H, TF = slots.shape
     T = num_tiles
     F = TF // T
     K = params.vote_topk
     FH = F * H
     ws = [words[slots[:, s, :]] for s in range(H)]       # H gathers [B, TF]
+    if ranked:
+        sent = words.shape[0] - 1
+        ws = [torch.where(slots[:, s, :] < sent, w | PRESENT_BIT, 0)
+              for s, w in enumerate(ws)]
     present = ws[0] & PRESENT_BIT
     for s in range(1, H):
         present = present & ws[s]
@@ -389,23 +403,38 @@ def insert_read_sorted(state: MibfState, slots: torch.Tensor, tile_lo: int,
     pass 1, and goldrush-path never sets the saturation bit).  This is the
     semantics of ``build_insert_keys`` + ``insert_read_sorted``
     (goldrush_tpu/mibf/mibf.py:524-634)."""
+    insert_blocks(state.words, state.counts, slots, tile_lo, tile_hi,
+                  base_id, trimmed, params, num_tiles, params.size,
+                  PRESENT_BIT)
+    return state
+
+
+def insert_blocks(table: torch.Tensor, counts: torch.Tensor,
+                  grid: torch.Tensor, lo: int, hi: int, base_id: int,
+                  trimmed: bool, params: MibfParams, num_tiles: int,
+                  limit: int, or_bits: int) -> None:
+    """The reservoir insert over any key space (kernel D), in place: grid
+    entries < ``limit`` are real keys into ``table``/``counts``, and an
+    accepted key's entry becomes ``or_bits | id``.  Direct filter: slots,
+    limit = size, or_bits = PRESENT; compressed filter: ranks, limit = the
+    sentinel rank, or_bits = 0 (compressed.py:414-476)."""
     if params.frame_stride != 1:
         raise NotImplementedError(
             "insert_stride > 1 is ROADMAP queue 1 item 7 (throughput mode)")
-    if state.words.is_cuda:
-        _insert_cuda(state, slots, tile_lo, tile_hi, base_id, trimmed,
-                     params, num_tiles)
-        return state
-    return _insert_plain(state, slots, tile_lo, tile_hi, base_id, trimmed,
-                         params, num_tiles)
+    if table.is_cuda:
+        _insert_cuda(table, counts, grid, lo, hi, base_id, trimmed, params,
+                     num_tiles, limit, or_bits)
+    else:
+        _insert_plain(table, counts, grid, lo, hi, base_id, trimmed, params,
+                      num_tiles, limit, or_bits)
 
 
 def _block_id(base_id: int, m: int, bs: int, trimmed: bool) -> int:
     return (base_id + ((m * bs + 1) // bs if trimmed else m)) & _MASK32
 
 
-def _insert_cuda(state, slots, lo, hi, base_id, trimmed, params, T):
-    words, counts = state
+def _insert_cuda(words, counts, slots, lo, hi, base_id, trimmed, params, T,
+                 limit, or_bits):
     dev = words.device
     H, TF = slots.shape
     F = TF // T
@@ -413,8 +442,9 @@ def _insert_cuda(state, slots, lo, hi, base_id, trimmed, params, T):
     kernels.check(words, "words", torch.int32, device=dev)
     kernels.check(counts, "counts", torch.int32, words.shape, dev)
     kernels.check(slots, "slots", torch.int64, device=dev)
-    if F * T != TF or params.size >= 1 << 32:
-        raise ValueError(f"unsupported insert grid {tuple(slots.shape)}")
+    if F * T != TF or limit >= 1 << 32 or limit >= words.shape[0]:
+        raise ValueError(f"unsupported insert grid {tuple(slots.shape)} "
+                         f"or key limit {limit}")
     n2 = kernels.next_pow2(min(bs, T) * F * H)
     # one block's slot list sorts in shared memory when it fits; past
     # that the kernel sorts in a global scratch buffer allocated here
@@ -422,12 +452,13 @@ def _insert_cuda(state, slots, lo, hi, base_id, trimmed, params, T):
                else torch.empty(n2, dtype=torch.int32, device=dev))
     kernels.INSERT_SORTED(
         dev, kernels.ptr(words), kernels.ptr(counts), kernels.ptr(slots),
-        H, TF, F, params.size, int(lo), int(hi), int(base_id) & _MASK32,
-        int(bool(trimmed)), bs, kernels.ptr(scratch), n2)
+        H, TF, F, int(limit), int(or_bits), int(lo), int(hi),
+        int(base_id) & _MASK32, int(bool(trimmed)), bs,
+        kernels.ptr(scratch), n2)
 
 
-def _insert_plain(state, slots, lo, hi, base_id, trimmed, params, T):
-    words, counts = state
+def _insert_plain(words, counts, slots, lo, hi, base_id, trimmed, params, T,
+                  limit, or_bits):
     H, TF = slots.shape
     F = TF // T
     bs = params.block_size
@@ -437,14 +468,13 @@ def _insert_plain(state, slots, lo, hi, base_id, trimmed, params, T):
         t1 = min(hi, t0 + bs - 1, T - 1)
         bid = _block_id(base_id, m, bs, trimmed)
         blk = slots[:, t0 * F: (t1 + 1) * F].reshape(-1)
-        u = torch.unique(blk[blk < params.size])          # sorted, distinct
+        u = torch.unique(blk[blk < limit])                # sorted, distinct
         cnt = (counts[u].to(torch.int64) & _MASK32) + 1
         counts[u] = cnt.to(torch.int32)
         accept = (((u & _MASK32) ^ bid) % cnt) == cnt - 1
-        word = PRESENT_BIT | bid
+        word = or_bits | bid
         words[u[accept]] = word - (1 << 32) if word > 0x7FFFFFFF else word
         m += 1
-    return state
 
 
 def reset_ids(state: MibfState) -> MibfState:

@@ -1,16 +1,19 @@
 """Streaming golden/silver path engine (goldrush-path) on PyTorch + CUDA.
 
 The two-pass GoldRush-Path flow (goldrush_path.cpp:1096-1275) of
-``goldrush_tpu/path/engine.py`` in its exact mode with the direct filter at
-stride 1:
+``goldrush_tpu/path/engine.py`` in its exact mode at stride 1, with either
+filter layout (``mibf_mode``):
 
-  pass 1: host gates (length/phred/ACGT) -> presence fill (kernel A);
+  pass 1: host gates (length/phred/ACGT) -> presence fill (kernel A); the
+          compressed filter then freezes the presence bits into its rank
+          structure (rank_pack + rank_carry) and drops the direct words;
   pass 2: reads stream IN ORDER through batches: a batched classify
-          (kernel A grid -> kernel B probe/vote -> kernel C classify)
-          against the filter at batch start, then a host loop over the
-          batch that re-probes every read against the live filter from the
-          first in-batch change onward (kernels B and C on one read),
-          inserts recruits (kernel D) and rotates silver paths (reset_ids);
+          (kernel A grid [-> rank_lookup, compressed] -> kernel B
+          probe/vote -> kernel C classify) against the filter at batch
+          start, then a host loop over the batch that re-probes every read
+          against the live filter from the first in-batch change onward
+          (kernels B and C on one read), inserts recruits (kernel D) and
+          rotates silver paths (reset_ids);
   replay: path files and stats are rebuilt on the host from the per-read
           decision rows, as the JAX engine does.
 
@@ -30,6 +33,7 @@ import torch
 
 from ..config import PathConfig, calc_optimal_size
 from ..io import fastq, ingest
+from ..mibf import compressed as cz
 from ..mibf import mibf as dm
 from ..ops.nthash import build_seed_family
 from ..ops.phred import (MEDIAN_SAMPLES_NEEDED, MINIMUM_PHRED_THRESHOLD,
@@ -88,11 +92,9 @@ def _bucket_for(num_tiles: int, cap: int) -> int:
 
 
 def _check_slice(cfg: PathConfig) -> None:
-    """Raise for every configuration outside the exact/direct/stride-1
-    slice, naming the ROADMAP item that brings it."""
+    """Raise for every configuration outside the exact/stride-1 slice,
+    naming the ROADMAP item that brings it."""
     later = [
-        (cfg.mibf_mode != "direct", "mibf_mode='compressed'",
-         "queue 1 item 7"),
         (cfg.recheck != "exact", "recheck='optimistic'", "queue 1 item 7"),
         (cfg.frame_stride != 1, "frame_stride > 1", "queue 1 item 7"),
         (cfg.probe_seeds != 0, "probe_seeds > 0", "queue 1 item 7"),
@@ -142,7 +144,16 @@ class GoldenPathEngine:
             tile_length=cfg.tile_length, threshold=cfg.threshold,
             block_size=cfg.block_size, vote_topk=cfg.vote_topk,
             frame_stride=1, vote_min=2, probe_seeds=0, slot_map=cfg.slot_map)
-        self.state = dm.init_state(self.params, self.device)
+        # the compressed filter fills presence into the direct words, then
+        # freezes them into ``cstate`` (fill) and frees them
+        self.compressed = cfg.mibf_mode == "compressed"
+        self.cstate: cz.CompressedState | None = None
+        if self.compressed:
+            self.state = dm.MibfState(
+                words=torch.zeros(self.params.alloc, dtype=torch.int32,
+                                  device=self.device), counts=None)
+        else:
+            self.state = dm.init_state(self.params, self.device)
         # -f: read names to exclude from pass 2 (pass 1 still inserts their
         # presence bits — goldrush_path.cpp:1163-1170)
         self.filter_out: set[str] = set()
@@ -244,6 +255,12 @@ class GoldenPathEngine:
                 "no reads passed the Phred score and min length requirements")
         self._sync()
         st.wall_fill_stream_s = time.time() - t0
+        if self.compressed:
+            # the direct words go before the rank-indexed tables come
+            bitrank, pop = cz.build_rank(self.state.words, self.size)
+            self.state = None
+            self.cstate = cz.with_tables(bitrank, pop, self.size)
+            self._sync()
         st.wall_fill_s += time.time() - t0
 
     def _sync(self) -> None:
@@ -259,11 +276,26 @@ class GoldenPathEngine:
             w = fastq.PathWriter(f"{cfg.prefix_file}.fa", False)
         self.writers.append(w)
 
-    def _probe_classify(self, slots, frame_ok, n_tiles, T):
+    def _query_grid(self, codes, lengths, T):
+        """The batch's probe grid: slots (direct filter) or their ranks
+        (compressed filter), with frame_ok."""
+        slots, frame_ok = dm.build_slot_grid(codes, lengths, self.fam,
+                                             self.params, T)
+        if self.compressed:
+            slots = cz.rank_grid(self.cstate, slots, self.size)
+        return slots, frame_ok
+
+    def _vote(self, grid, frame_ok, T):
+        if self.compressed:
+            return cz.probe_and_vote(self.cstate, grid, frame_ok,
+                                     self.params, num_tiles=T)
+        return dm.probe_and_vote(self.state.words, grid, frame_ok,
+                                 self.params, num_tiles=T)
+
+    def _probe_classify(self, grid, frame_ok, n_tiles, T):
         """Vote + classify rows [B, 8] = (decision, trim_start, trim_end,
         num_assigned, queries, hits, misses, overflow) on the host."""
-        votes = dm.probe_and_vote(self.state.words, slots, frame_ok,
-                                  self.params, num_tiles=T)
+        votes = self._vote(grid, frame_ok, T)
         res = classify_batch(votes.curr_id, votes.top_count, votes.cand_ids,
                              votes.cand_counts, n_tiles, self.x_eff,
                              self.cfg.unassigned_min, self.cfg.assigned_max)
@@ -277,10 +309,8 @@ class GoldenPathEngine:
         """--debug: per-pass tile-state dumps of the batch's real reads
         against the live filter (log_tile_states parity,
         goldrush_path.cpp:109-124)."""
-        slots, frame_ok = dm.build_slot_grid(codes, lengths, self.fam,
-                                             self.params, T)
-        votes = dm.probe_and_vote(self.state.words, slots, frame_ok,
-                                  self.params, num_tiles=T)
+        grid, frame_ok = self._query_grid(codes, lengths, T)
+        votes = self._vote(grid, frame_ok, T)
         _, ids_tr, bools_tr = classify_batch(
             votes.curr_id, votes.top_count, votes.cand_ids,
             votes.cand_counts, n_tiles, self.x_eff,
@@ -303,16 +333,15 @@ class GoldenPathEngine:
         codes_d, lengths_d = self._to_device(codes), self._to_device(lengths)
         n_tiles_np = (lengths // TL).astype(np.int32)
         n_tiles_d = self._to_device(n_tiles_np)
-        slots_q, frame_ok = dm.build_slot_grid(codes_d, lengths_d, self.fam,
-                                               params, T)
-        rows0 = self._probe_classify(slots_q, frame_ok, n_tiles_d, T)
+        grid, frame_ok = self._query_grid(codes_d, lengths_d, T)
+        rows0 = self._probe_classify(grid, frame_ok, n_tiles_d, T)
         ids_ins, ins_bases, path_idx, done = scal
         changed = False
         for i in range(codes.shape[0]):
             if changed and not done:
                 # exact staleness: the filter changed inside this batch, so
                 # the read is re-probed against the live filter
-                row = self._probe_classify(slots_q[i:i + 1],
+                row = self._probe_classify(grid[i:i + 1],
                                            frame_ok[i:i + 1],
                                            n_tiles_d[i:i + 1], T)[0]
             else:
@@ -331,8 +360,11 @@ class GoldenPathEngine:
                 blocks = 1 + (te - ts) // bs
             else:
                 rec_len, blocks = 0, 0
-            if dec > 0 and not done:
-                dm.insert_read_sorted(self.state, slots_q[i], lo, hi,
+            if dec > 0 and not done and self.compressed:
+                cz.insert_read_sorted(self.cstate, grid[i], lo, hi,
+                                      ids_ins + 1, dec == 2, params, T)
+            elif dec > 0 and not done:
+                dm.insert_read_sorted(self.state, grid[i], lo, hi,
                                       ids_ins + 1, dec == 2, params, T)
             if not done:
                 ids_ins += blocks
@@ -343,7 +375,10 @@ class GoldenPathEngine:
                 if max_paths < path_idx:
                     done = 1
                 else:
-                    dm.reset_ids(self.state)
+                    if self.compressed:
+                        cz.reset_ids(self.cstate)
+                    else:
+                        dm.reset_ids(self.state)
                     ids_ins, ins_bases = 0, 0
             changed = changed or dec > 0
             rows_out.append((dec, ts, te, na, q, h, m, ov))

@@ -45,10 +45,12 @@ class _AtomicStage:
 def run_pipeline(cfg: PipelineConfig, workdir: str = ".",
                  until: str = "golden", device="cuda",
                  frame_stride: int = 1, probe_seeds: int = 0,
+                 mibf_mode: str = "direct",
                  engine_extra: dict | None = None) -> dict:
     """Run the pipeline up to stage ``until`` (silver or golden) on
-    ``device``.  Returns stage -> path, plus "stats": the EngineStats of
-    each goldrush-path stage that ran.  ``engine_extra``
+    ``device``, both goldrush-path stages with the ``mibf_mode`` filter.
+    Returns stage -> path, plus "stats": the EngineStats of each
+    goldrush-path stage that ran.  ``engine_extra``
     (save_mibf/load_mibf/trace_dir) applies to the silver stage, as in
     ``goldrush_tpu.pipeline``."""
     if until not in ORDER:
@@ -61,13 +63,13 @@ def run_pipeline(cfg: PipelineConfig, workdir: str = ".",
     os.chdir(workdir)
     try:
         return _run(cfg, until, device, frame_stride, probe_seeds,
-                    engine_extra or {})
+                    mibf_mode, engine_extra or {})
     finally:
         os.chdir(cwd)
 
 
 def _run(cfg: PipelineConfig, until: str, device, frame_stride: int,
-         probe_seeds: int, engine_extra: dict) -> dict:
+         probe_seeds: int, mibf_mode: str, engine_extra: dict) -> dict:
     files = stage_filenames(cfg)
     reads_file = None
     for ext in (".fq", ".fastq", ".fq.gz", ".fastq.gz"):
@@ -88,6 +90,7 @@ def _run(cfg: PipelineConfig, until: str, device, frame_stride: int,
         pc.input = reads
         pc.frame_stride = frame_stride
         pc.probe_seeds = probe_seeds
+        pc.mibf_mode = mibf_mode
         for k, v in (engine_extra.items() if silver else ()):
             setattr(pc, k, v)
         stats["silver" if silver else "golden"] = \

@@ -1,7 +1,8 @@
 """PyTorch port, the exact-mode slice end to end: the goldrush-path engine
 and pipeline write the same silver/golden files, counters, decision rows
-and final filter as goldrush_tpu on the test_engine_e2e.py dataset; the
-card is never silently replaced and out-of-slice configs raise."""
+and final filter as goldrush_tpu on the test_engine_e2e.py dataset, with
+the direct and the rank-compressed filter; the card is never silently
+replaced and out-of-slice configs raise."""
 
 import dataclasses
 import hashlib
@@ -22,6 +23,7 @@ from goldrush_tpu.utils import synth
 
 from goldrush_tpu_torch import cli
 from goldrush_tpu_torch.config import PathConfig
+from goldrush_tpu_torch.mibf import compressed as tcz
 from goldrush_tpu_torch.mibf import mibf as tdm
 from goldrush_tpu_torch.path.engine import GoldenPathEngine
 
@@ -79,9 +81,12 @@ def counters(stats):
     dict(batch_reads=1), dict(batch_reads=32),
     dict(batch_reads=1, silver_path=True),
     dict(batch_reads=32, silver_path=True),
-    dict(batch_reads=32, silver_path=True, slot_map="mod")],
+    dict(batch_reads=32, silver_path=True, slot_map="mod"),
+    dict(batch_reads=1, mibf_mode="compressed"),
+    dict(batch_reads=32, silver_path=True, mibf_mode="compressed")],
     ids=["golden-b1", "golden-b32", "silver-b1", "silver-b32",
-         "silver-b32-mod"])
+         "silver-b32-mod", "compressed-golden-b1",
+         "compressed-silver-b32"])
 def test_engine_matches_jax(dataset, over):
     d, path = dataset
     tag = "".join(f"{v}" for v in over.values())
@@ -90,6 +95,13 @@ def test_engine_matches_jax(dataset, over):
     assert ts.recruits > 0
     assert ts.paths_completed == (2 if over.get("silver_path") else 0)
     np.testing.assert_array_equal(te.last_rows, je.last_rows)
+    if over.get("mibf_mode") == "compressed":
+        got = tcz.state_to_numpy(te.cstate)
+        for name in ("bitrank", "supers", "ids", "counts"):
+            np.testing.assert_array_equal(
+                got[name], np.asarray(getattr(je.cstate, name)),
+                err_msg=name)
+        return
     words, counts = tdm.state_to_numpy(te.state)
     # slot `size` is the sentinel the JAX fill scatter dumps invalid frames
     # on; every real slot must agree
@@ -99,11 +111,13 @@ def test_engine_matches_jax(dataset, over):
                                   np.asarray(je.state.counts)[: te.size])
 
 
-def test_gate_dataset_silver_digests_match_jax(tmp_path):
+@pytest.mark.parametrize("mode", ["direct", "compressed"])
+def test_gate_dataset_silver_digests_match_jax(tmp_path, mode):
     """The 1 Mbp quality-gate dataset at exact defaults: the port's silver
     paths hash to the JAX package's digests (the same check chip_smoke.py
-    makes on the card)."""
+    makes on the card), with either filter layout."""
     fx = json.load(open(FIXTURES / "torch_port_digests.json"))
+    want = fx if mode == "direct" else fx["compressed"]
     ds = fx["dataset"]
     genome = synth.random_genome(ds["genome"], seed=ds["genome_seed"])
     reads = synth.simulate_reads(genome, ds["n_reads"], ds["read_len"],
@@ -114,13 +128,14 @@ def test_gate_dataset_silver_digests_match_jax(tmp_path):
     synth.write_fastq(fq, reads)
     prefix = str(tmp_path / "exact")
     st = GoldenPathEngine(PathConfig(input=fq, prefix_file=prefix,
-                                     **fx["engine"]), device="cpu").run()
+                                     mibf_mode=mode, **fx["engine"]),
+                          device="cpu").run()
     got = {str(i): hashlib.sha256(open(f"{prefix}_{i}.fq", "rb").read()
                                   ).hexdigest()
            for i in (1, 2, 3) if os.path.exists(f"{prefix}_{i}.fq")}
-    assert got == fx["silver"]
+    assert got == want["silver"]
     assert (st.recruits, st.paths_completed) == \
-        (fx["recruits"], fx["paths_completed"])
+        (want["recruits"], want["paths_completed"])
 
 
 def test_debug_dumps_and_filter_file_match_jax(dataset, capsys):
@@ -193,7 +208,7 @@ def test_cuda_without_a_card_raises(dataset, monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    dict(mibf_mode="compressed"), dict(recheck="optimistic"),
+    dict(mibf_mode="compressed", frame_stride=8), dict(recheck="optimistic"),
     dict(frame_stride=8), dict(probe_seeds=1), dict(insert_stride=2),
     dict(insert_seeds=2, probe_seeds=1), dict(wavefront=True),
     dict(ntcard=True), dict(devices=2), dict(model_shards=2)])

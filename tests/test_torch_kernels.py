@@ -15,6 +15,7 @@ import torch
 
 from goldrush_tpu_torch import kernels
 from goldrush_tpu_torch.config import PathConfig
+from goldrush_tpu_torch.mibf import compressed as tcz
 from goldrush_tpu_torch.mibf import mibf as tdm
 from goldrush_tpu_torch.ops.nthash import build_seed_family
 from goldrush_tpu_torch.ops.seeds import make_seed_pattern
@@ -137,6 +138,53 @@ def test_wrappers_check_their_inputs(cuda):
     before = kernels.SEED_HASH_GRID.launches
     tdm.build_slot_grid(codes, lens, FAM, params, 5)
     assert kernels.SEED_HASH_GRID.launches == before + 1
+    # an empty tile range launches nothing and is not counted
+    state = tdm.init_state(params, cuda)
+    slots = torch.zeros((3, 500), dtype=torch.int64, device=cuda)
+    before = kernels.INSERT_SORTED.launches
+    tdm.insert_read_sorted(state, slots, 3, 2, 1, False, params, 5)
+    assert kernels.INSERT_SORTED.launches == before
+    tdm.insert_read_sorted(state, slots, 0, 2, 1, False, params, 5)
+    assert kernels.INSERT_SORTED.launches == before + 1
+
+
+@pytest.mark.parametrize("size", [31, 1_000_003, 65_536 * 40])
+def test_rank_kernels(cuda, size):
+    """rank_pack + rank_carry (the freeze), rank_lookup, and kernels B and
+    D on the rank-indexed tables, against the plain versions."""
+    rng = np.random.default_rng(size)
+    alloc = -(-(size + 1) // 1024) * 1024
+    w = rng.integers(0, 1 << 30, alloc).astype(np.uint32)
+    w |= np.where(rng.random(alloc) < 0.3, np.uint32(tdm.PRESENT_BIT),
+                  np.uint32(0))
+    words = torch.from_numpy(w.view(np.int32).copy())
+    host, dev = tcz.freeze(words, size), tcz.freeze(words.to(cuda), size)
+    assert_same(dev, host)
+    assert int(host.bitrank[-2] >> 32) > 0 or size < 64
+    if size < 1000:
+        return
+    T = 6
+    params = tdm.MibfParams(size=size, h=3, k=22, spans=FAM.spans,
+                            tile_length=1000, threshold=4, block_size=2,
+                            vote_topk=8)
+    codes, lens = reads_batch(rng, [6000, 5300, 999, 0], T * 1000 + 1000)
+    slots, ok = tdm.build_slot_grid(codes, lens, FAM, params, T)
+    slots[0, 0, :2000] = torch.from_numpy(rng.integers(0, size, 2000))
+    ranks = tcz.rank_grid(host, slots, size)
+    assert torch.equal(tcz.rank_grid(dev, slots.to(cuda), size).cpu(), ranks)
+    ids = torch.from_numpy(rng.integers(0, 6, host.ids.shape[0],
+                                        dtype=np.int32))
+    ids[-1] = 0
+    host = host._replace(ids=ids)
+    dev = dev._replace(ids=ids.to(cuda))
+    for lo, hi, base, tr in [(0, T - 1, 3, False), (1, T - 2, 9, True)]:
+        tcz.insert_read_sorted(host, ranks[0], lo, hi, base, tr, params, T)
+        tcz.insert_read_sorted(dev, ranks[0].to(cuda), lo, hi, base, tr,
+                               params, T)
+        assert_same(dev, host)
+    assert_same(tcz.probe_and_vote(dev, ranks.to(cuda), ok.to(cuda),
+                                   params, T),
+                tcz.probe_and_vote(host, ranks, ok, params, T))
 
 
 def test_engine_on_card_matches_cpu(cuda, tmp_path):
@@ -149,17 +197,22 @@ def test_engine_on_card_matches_cpu(cuda, tmp_path):
                seed_preset="1011011110110111101101", tile_length=250,
                min_length=1000, block_size=4, phred_min=15,
                silver_path=True, max_paths=2, ratio=0.5, batch_reads=32)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        prefix = str(tmp_path / dev)
-        eng = GoldenPathEngine(PathConfig(input=path, prefix_file=prefix,
-                                          **cfg), device=dev)
-        st = eng.run()
-        files = [open(f"{prefix}_{i}.fq", "rb").read() for i in (1, 2)
-                 if os.path.exists(f"{prefix}_{i}.fq")]
-        runs[dev] = (files, st.recruits, st.queries, st.hits,
-                     eng.last_rows.tolist(), tdm.state_to_numpy(eng.state))
-    gpu, cpu = runs["cuda"], runs["cpu"]
-    assert gpu[:5] == cpu[:5] and len(gpu[0]) == 2
-    for a, b in zip(gpu[5], cpu[5]):
-        np.testing.assert_array_equal(a, b)
+    for mode in ("direct", "compressed"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            prefix = str(tmp_path / f"{mode}-{dev}")
+            eng = GoldenPathEngine(PathConfig(input=path, prefix_file=prefix,
+                                              mibf_mode=mode, **cfg),
+                                   device=dev)
+            st = eng.run()
+            files = [open(f"{prefix}_{i}.fq", "rb").read() for i in (1, 2)
+                     if os.path.exists(f"{prefix}_{i}.fq")]
+            state = (tcz.state_to_numpy(eng.cstate).values()
+                     if mode == "compressed"
+                     else tdm.state_to_numpy(eng.state))
+            runs[dev] = (files, st.recruits, st.queries, st.hits,
+                         eng.last_rows.tolist(), list(state))
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        assert gpu[:5] == cpu[:5] and len(gpu[0]) == 2
+        for a, b in zip(gpu[5], cpu[5]):
+            np.testing.assert_array_equal(a, b)

@@ -1,5 +1,6 @@
 """Write tests/fixtures/torch_port_digests.json: the JAX package's silver
-paths on the 1 Mbp quality-gate dataset, as sha256 digests.
+paths on the 1 Mbp quality-gate dataset, as sha256 digests, with the
+direct filter (top level) and the rank-compressed one ("compressed").
 
 The dataset and engine settings are those of the exact run in
 tests/test_quality_gate.py (600 x 20 kb reads at 5% error, 40% indels,
@@ -52,17 +53,23 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="torch_port_digests_") as d:
         fq = os.path.join(d, "reads.fq")
         synth.write_fastq(fq, reads)
-        prefix = os.path.join(d, "exact")
-        stats = GoldenPathEngine(PathConfig(input=fq, prefix_file=prefix,
-                                            **ENGINE)).run()
-        silver = {}
-        for i in range(1, ENGINE["max_paths"] + 1):
-            p = f"{prefix}_{i}.fq"
-            if os.path.exists(p):
-                silver[str(i)] = sha256_file(p)
+        runs = {}
+        for mode in ("direct", "compressed"):
+            prefix = os.path.join(d, mode)
+            stats = GoldenPathEngine(PathConfig(
+                input=fq, prefix_file=prefix, mibf_mode=mode,
+                **ENGINE)).run()
+            silver = {}
+            for i in range(1, ENGINE["max_paths"] + 1):
+                p = f"{prefix}_{i}.fq"
+                if os.path.exists(p):
+                    silver[str(i)] = sha256_file(p)
+            runs[mode] = {"recruits": stats.recruits,
+                          "paths_completed": stats.paths_completed,
+                          "silver": silver}
         out = {"dataset": {**DATASET, "sha256": sha256_file(fq)},
-               "engine": ENGINE, "recruits": stats.recruits,
-               "paths_completed": stats.paths_completed, "silver": silver}
+               "engine": ENGINE, **runs["direct"],
+               "compressed": runs["compressed"]}
     with open(OUT, "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)
         f.write("\n")
