@@ -10,7 +10,10 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      the slice's shapes (B=32 reads, T=20 tiles of 1000, h=3, K=32, a
      142,368,384-slot filter filled from seeded reads, then frozen into
      the rank-compressed filter; B=1 for the live re-probe), bit for bit
-     (every output is an integer), with both times;
+     (every output is an integer), with both times; kernel D also on
+     recruits whose keys one of its CTAs owns or that repeat one k-mer
+     (past a CTA's shared memory), in both filters, and timed on a
+     20-tile and a 2-tile trimmed recruit and for its window read alone;
   4. end to end: goldrush-path (silver M=5, then golden) through the CLI
      entry point on 3,000 x 20 kb reads of a 5 Mbp genome at 5% error
      (bench.py's dataset, seeds 11/12), once with the direct filter and
@@ -54,12 +57,16 @@ def sha256_file(path: str) -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call between CUDA events, after a warm-up."""
+    """Mean milliseconds per call between CUDA events, after a warm-up.  A
+    sleep kernel holds the stream while the calls are enqueued, so a
+    kernel shorter than its host-side call is timed on the device and not
+    at the host's enqueue rate (~0.02 ms per wrapper call)."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -78,6 +85,60 @@ def max_abs_err(pairs) -> int:
         d = (a.long() - b.long()).abs().max().item() if a.numel() else 0
         worst = max(worst, int(d))
     return worst
+
+
+def hard_recruits(limit: int, T: int, TL: int) -> list:
+    """Recruits that kernel D's key partition finds hard, as (grid, lo, hi,
+    base, trimmed) on the card: keys all owned by its first CTA, over a
+    2-tile window that fits one CTA's shared memory and over the full
+    window, which does not; and a repeated k-mer (one key per seed at every
+    frame), which puts 20,000 entries into each of up to three CTAs."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch.mibf import mibf as dm
+    rng = np.random.default_rng(9)
+    keys = torch.from_numpy(rng.integers(0, limit, 1_000_000))
+    pool = keys[dm.insert_part(keys) == 0]
+    one = pool[torch.from_numpy(rng.integers(0, len(pool), (3, T * TL)))]
+    homo = torch.from_numpy(
+        np.repeat(rng.integers(0, limit, (3, 1)), T * TL, axis=1))
+    one, homo = one.to("cuda"), homo.to("cuda")
+    return [(one, 4, 5, 21, True), (one, 0, T - 1, 23, False),
+            (homo, 0, T - 1, 25, False), (homo, 1, 18, 27, True)]
+
+
+def insert_phase(state_k, state_p, recruits, timed, params, T, limit,
+                 or_bits, label) -> tuple:
+    """Kernel D on state_k and its plain version on state_p, both (table,
+    counts), recruit after recruit; then both timed on scratch copies for
+    the full recruit of grid `timed` and a 2-tile trimmed one, and the
+    window read alone (key limit 0: every CTA streams the window and owns
+    no key).  Returns (max_abs_err, ms, plain_ms) of the full recruit."""
+    from goldrush_tpu_torch.mibf import mibf as dm
+    for grid, lo, hi, base, tr in recruits:
+        dm.insert_blocks(*state_k, grid, lo, hi, base, tr, params, T, limit,
+                         or_bits)
+        dm._insert_plain(*state_p, grid, lo, hi, base, tr, params, T, limit,
+                         or_bits)
+    err = max_abs_err(zip(state_k, state_p))
+    k = [t.clone() for t in state_k]
+    p = [t.clone() for t in state_k]
+    times = {}
+    for name, lo, hi, tr in (("full", 0, T - 1, False), ("2tile", 4, 5, True)):
+        times[name] = (
+            cuda_ms(lambda: dm.insert_blocks(*k, timed, lo, hi, 17, tr, params,
+                                             T, limit, or_bits), 20),
+            cuda_ms(lambda: dm._insert_plain(*p, timed, lo, hi, 17, tr, params,
+                                             T, limit, or_bits), 3))
+    window = cuda_ms(lambda: dm._insert_cuda(*k, timed, 0, T - 1, 17, False,
+                                             params, T, 0, or_bits), 20)
+    (ms, pms), (ms2, pms2) = times["full"], times["2tile"]
+    say("kernels", kernel="insert_sorted", filter=label,
+        recruits=len(recruits), max_abs_err=err, ms=f"{ms:.4f}",
+        plain_ms=f"{pms:.4f}", ms_2tile=f"{ms2:.4f}",
+        plain_ms_2tile=f"{pms2:.4f}", window_ms=f"{window:.4f}",
+        window_share=f"{window / ms:.4f}")
+    return err, ms, pms
 
 
 def phase_device():
@@ -173,26 +234,15 @@ def phase_kernels() -> dict:
     say("kernels", kernel="seed_hash_grid", shape=f"{B}x3x{T * TL}",
         max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
 
-    # --- D: insert 8 recruits (whole, trimmed, repeated slots) ----------
+    # --- D: insert 8 recruits (whole, trimmed, repeated slots), then the
+    # recruits its key partition finds hard ------------------------------
     plan = [(0, T - 1, 1, False), (0, T - 1, 3, False), (3, 14, 5, True),
             (0, T - 1, 7, False), (5, 5, 9, True), (0, T - 1, 11, False),
             (2, 17, 13, True), (0, T - 1, 15, False)]
-    for i, (lo, hi, base, tr) in enumerate(plan):
-        dm.insert_read_sorted(st_k, slots[i], lo, hi, base, tr, params, T)
-        dm._insert_plain(st_p.words, st_p.counts, slots[i], lo, hi, base, tr,
-                         params, T, size, dm.PRESENT_BIT)
-    err = max_abs_err([(st_k.words, st_p.words), (st_k.counts, st_p.counts)])
-    scratch_k = dm.MibfState(st_k.words.clone(), st_k.counts.clone())
-    scratch_p = dm.MibfState(st_k.words.clone(), st_k.counts.clone())
-    ms = cuda_ms(lambda: dm.insert_read_sorted(
-        scratch_k, slots[8], 0, T - 1, 17, False, params, T), 20)
-    pms = cuda_ms(lambda: dm._insert_plain(
-        scratch_p.words, scratch_p.counts, slots[8], 0, T - 1, 17, False,
-        params, T, size, dm.PRESENT_BIT), 3)
-    del scratch_k, scratch_p
-    out["insert_sorted"] = (err, ms, pms)
-    say("kernels", kernel="insert_sorted", recruits=len(plan),
-        max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
+    out["insert_sorted"] = insert_phase(
+        st_k, st_p, [(slots[i], *p) for i, p in enumerate(plan)]
+        + hard_recruits(size, T, TL), slots[8], params, T, size,
+        dm.PRESENT_BIT, "direct")
 
     # --- B: probe + vote, B=32 and the B=1 live re-probe ----------------
     vk = dm.probe_and_vote(st_k.words, slots, ok, params, T)
@@ -268,11 +318,11 @@ def phase_kernels() -> dict:
         plain_ms=f"{pms:.4f}")
     cs_p = cz.CompressedState(cs_k.bitrank, cs_k.supers, cs_k.ids.clone(),
                               cs_k.counts.clone())
-    for i, (lo, hi, base, tr) in enumerate(plan):
-        cz.insert_read_sorted(cs_k, ranks[i], lo, hi, base, tr, params, T)
-        dm._insert_plain(cs_p.ids, cs_p.counts, ranks[i], lo, hi, base, tr,
-                         params, T, cs_p.sentinel, 0)
-    err = max_abs_err([(cs_k.ids, cs_p.ids), (cs_k.counts, cs_p.counts)])
+    err = insert_phase(
+        (cs_k.ids, cs_k.counts), (cs_p.ids, cs_p.counts),
+        [(ranks[i], *p) for i, p in enumerate(plan)]
+        + hard_recruits(cs_k.sentinel, T, TL), ranks[8], params, T,
+        cs_k.sentinel, 0, "compressed")[0]
     vk = cz.probe_and_vote(cs_k, ranks, ok, params, T)
     vp = dm._probe_and_vote_plain(cs_k.ids, ranks, ok, params, T, True)
     v1k = cz.probe_and_vote(cs_k, ranks[9:10], ok[9:10], params, T)
@@ -285,8 +335,6 @@ def phase_kernels() -> dict:
     say("kernels", kernel="probe_vote", filter="compressed",
         tiles_with_votes=int((vk.top_count > 0).sum()), max_abs_err=err_b,
         ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
-    say("kernels", kernel="insert_sorted", filter="compressed",
-        recruits=len(plan), max_abs_err=err)
     out["insert_sorted"] = (max(out["insert_sorted"][0], err),
                             *out["insert_sorted"][1:])
     out["probe_vote"] = (max(out["probe_vote"][0], err_b),
@@ -327,6 +375,7 @@ def phase_e2e() -> dict:
         synth_s=f"{time.time() - t0:.1f}")
     for k in kernels.ALL:
         k.launches = 0
+    recruits = 0
     for mode in ("direct", "compressed"):
         outdir = os.path.join(WORK, f"bench_{mode}")
         argv = ["goldrush-path", f"reads={reads}", "G=5000000",
@@ -348,6 +397,7 @@ def phase_e2e() -> dict:
                 reads=st.num_reads, recruits=st.recruits,
                 reads_per_s=f"{rate:.2f}",
                 paths_completed=st.paths_completed)
+            recruits += st.recruits
         silver = out["stats"]["silver"]
         if silver.recruits <= 0 or out["stats"]["golden"].recruits <= 0:
             raise AssertionError(f"{mode}: no recruits")
@@ -371,6 +421,10 @@ def phase_e2e() -> dict:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    # kernel D covers a whole recruit in one launch
+    if launches["insert_sorted"] != recruits:
+        raise AssertionError(f"insert_sorted launched {launches['insert_sorted']}"
+                             f" times for {recruits} recruits")
     return launches
 
 

@@ -18,7 +18,6 @@ constexpr int kNoLaunch = -1;
 constexpr uint32_t kPresent = 0x40000000u;
 constexpr uint32_t kIdMask = 0x3FFFFFFFu;
 constexpr unsigned long long kSentinel64 = 0xFFFFFFFFFFFFFFFFull;
-constexpr uint32_t kSentinel32 = 0xFFFFFFFFu;
 
 struct MaxOp {
   __device__ long long operator()(long long a, long long b) const {

@@ -54,7 +54,7 @@ _SIGNATURES = {
     "gr_classify": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "gr_insert_sorted": (_P, _P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I,
-                         _I, _P, _I, _P),
+                         _I, _I, _I, _I, _I, _P, _P),
     "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
     "gr_rank_carry": (_P, _P, _L, _P, _P),
     "gr_rank_lookup": (_P, _L, _P, _L, _L, _P, _P),

@@ -396,9 +396,9 @@ def insert_read_sorted(state: MibfState, slots: torch.Tensor, tile_lo: int,
     slots: int64 [H, T*F] the read's probe grid (sentinel-padded).  Tiles
     lo..hi group into blocks of ``block_size``; block m gets id base + m,
     or base + (m*bs + 1) // bs when trimmed.  Blocks go in order; within a
-    block every distinct real slot bumps its counter once and takes the
-    block id iff (u32(slot) ^ id) % cnt == cnt - 1, so the last accepting
-    block wins.  The word becomes PRESENT | id: the JAX engine's
+    block every distinct real slot bumps its uint32 counter once and takes
+    the block id iff (u32(slot) ^ id) % max(cnt, 1) == cnt - 1, so the last
+    accepting block wins.  The word becomes PRESENT | id: the JAX engine's
     ``assume_present=True`` path (every inserted slot was presence-filled in
     pass 1, and goldrush-path never sets the saturation bit).  This is the
     semantics of ``build_insert_keys`` + ``insert_read_sorted``
@@ -433,6 +433,24 @@ def _block_id(base_id: int, m: int, bs: int, trimmed: bool) -> int:
     return (base_id + ((m * bs + 1) // bs if trimmed else m)) & _MASK32
 
 
+# Kernel D's launch shape, measured on an H100 (PERF.md): CTAs (each owns
+# the keys insert_part gives it), CTAs per thread-block cluster (which
+# share the window read), threads per CTA, and the entries a CTA holds in
+# shared memory (a power of two; a CTA owning more sorts in global scratch)
+INSERT_PARTS = 264
+INSERT_CLUSTER = 8
+INSERT_THREADS = 512
+INSERT_CAP = 8_192
+
+
+def insert_part(keys: torch.Tensor) -> torch.Tensor:
+    """The CTA of kernel D that owns each key (< 2^32): a multiplicative
+    hash of the key scaled to [0, INSERT_PARTS) (csrc/insert_sorted.cu
+    part_of).  The products wrap in int64 as uint64 does; only their low
+    32 bits are kept."""
+    return (((keys * 0x9E3779B1) & _MASK32) * INSERT_PARTS) >> 32
+
+
 def _insert_cuda(words, counts, slots, lo, hi, base_id, trimmed, params, T,
                  limit, or_bits):
     dev = words.device
@@ -442,19 +460,25 @@ def _insert_cuda(words, counts, slots, lo, hi, base_id, trimmed, params, T,
     kernels.check(words, "words", torch.int32, device=dev)
     kernels.check(counts, "counts", torch.int32, words.shape, dev)
     kernels.check(slots, "slots", torch.int64, device=dev)
-    if F * T != TF or limit >= 1 << 32 or limit >= words.shape[0]:
-        raise ValueError(f"unsupported insert grid {tuple(slots.shape)} "
-                         f"or key limit {limit}")
-    n2 = kernels.next_pow2(min(bs, T) * F * H)
-    # one block's slot list sorts in shared memory when it fits; past
-    # that the kernel sorts in a global scratch buffer allocated here
-    scratch = (None if 4 * n2 <= kernels.MAX_SMEM
-               else torch.empty(n2, dtype=torch.int32, device=dev))
+    if (F * T != TF or T >= 1 << 16 or TF >= 1 << 31 or lo < 0
+            or not 0 <= limit < min(1 << 32, words.shape[0])):
+        raise ValueError(f"unsupported insert grid {tuple(slots.shape)}, "
+                         f"tiles from {lo} or key limit {limit}")
+    window = H * max(0, min(hi, T - 1) - lo + 1) * F
+    # a CTA owning more than INSERT_CAP entries takes a power-of-two slice
+    # of this buffer (after its allocation counter): less than 2x the window
+    scratch = (torch.empty(1 + 2 * window, dtype=torch.int64, device=dev)
+               if window > INSERT_CAP else None)
     kernels.INSERT_SORTED(
         dev, kernels.ptr(words), kernels.ptr(counts), kernels.ptr(slots),
         H, TF, F, int(limit), int(or_bits), int(lo), int(hi),
-        int(base_id) & _MASK32, int(bool(trimmed)), bs,
-        kernels.ptr(scratch), n2)
+        int(base_id) & _MASK32, int(bool(trimmed)), bs, INSERT_PARTS,
+        INSERT_CLUSTER, INSERT_THREADS, INSERT_CAP, kernels.ptr(scratch))
+
+
+def _as_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values holding uint32 bits -> the int32 tensor of those bits."""
+    return torch.where(v > 0x7FFFFFFF, v - (1 << 32), v).to(torch.int32)
 
 
 def _insert_plain(words, counts, slots, lo, hi, base_id, trimmed, params, T,
@@ -469,9 +493,11 @@ def _insert_plain(words, counts, slots, lo, hi, base_id, trimmed, params, T,
         bid = _block_id(base_id, m, bs, trimmed)
         blk = slots[:, t0 * F: (t1 + 1) * F].reshape(-1)
         u = torch.unique(blk[blk < limit])                # sorted, distinct
-        cnt = (counts[u].to(torch.int64) & _MASK32) + 1
-        counts[u] = cnt.to(torch.int32)
-        accept = (((u & _MASK32) ^ bid) % cnt) == cnt - 1
+        # uint32 counter; a wrap to 0 never accepts (the JAX max(cnt, 1))
+        cnt = ((counts[u].to(torch.int64) & _MASK32) + 1) & _MASK32
+        counts[u] = _as_int32(cnt)
+        accept = ((((u & _MASK32) ^ bid) % torch.clamp(cnt, min=1))
+                  == (cnt - 1) & _MASK32)
         word = or_bits | bid
         words[u[accept]] = word - (1 << 32) if word > 0x7FFFFFFF else word
         m += 1

@@ -66,8 +66,9 @@ def test_seed_hash_grid_and_fill(cuda, mode):
 
 @pytest.mark.parametrize("bs,T", [(3, 6), (20, 24)])
 def test_probe_vote_and_insert(cuda, bs, T):
-    """bs=20 at T=24 makes one block's slot list 60,000 keys, past shared
-    memory: the insert kernel then sorts in its global scratch buffer."""
+    """bs=20 at T=24: the insert kernel takes a 72,000-entry window in one
+    launch, each CTA the keys insert_part gives it (in shared memory,
+    since random keys spread over every CTA)."""
     rng = np.random.default_rng(bs)
     size = 1_000_003
     params = tdm.MibfParams(size=size, h=3, k=22, spans=FAM.spans,
@@ -92,6 +93,57 @@ def test_probe_vote_and_insert(cuda, bs, T):
         assert_same(tdm.probe_and_vote(dev.words, s.to(cuda), o.to(cuda),
                                        params, T),
                     tdm.probe_and_vote(host.words, s, o, params, T))
+
+
+def hard_grid(rng, kind, limit, T, F):
+    """A [3, T*F] key grid with a sentinel tail: one repeated k-mer, keys
+    all owned by the kernel's first CTA, or uniform keys."""
+    if kind == "homopolymer":
+        g = np.repeat(rng.integers(0, limit, (3, 1)), T * F, axis=1)
+    elif kind == "one_partition":
+        keys = torch.from_numpy(rng.integers(0, limit, 1_000_000))
+        pool = keys[tdm.insert_part(keys) == 0].numpy()
+        g = pool[rng.integers(0, len(pool), (3, T * F))]
+    else:
+        g = rng.integers(0, limit, (3, T * F))
+    g[:, -377:] = limit
+    return torch.from_numpy(g.astype(np.int64))
+
+
+@pytest.mark.parametrize("near_max", [False, True])
+@pytest.mark.parametrize("kind", ["homopolymer", "one_partition", "random"])
+@pytest.mark.parametrize("space", ["slots", "ranks"])
+def test_insert_hard_cases(cuda, space, kind, near_max):
+    """Kernel D against its plain version in both key spaces (slots:
+    PRESENT | id words; ranks: bare ids), bs 1, 3, 10 and 20, whole and
+    trimmed recruits, counters that wrap past 0xFFFFFFFF.  A repeated
+    k-mer or keys of one CTA put a 24-tile window's 72,000 entries into
+    three CTAs or one, past INSERT_CAP: the global-scratch path."""
+    rng = np.random.default_rng([len(space), len(kind), int(near_max)])
+    T, F = 24, 1000
+    limit = 10_000_019 if space == "slots" else 3_999_999
+    or_bits = tdm.PRESENT_BIT if space == "slots" else 0
+    grid = hard_grid(rng, kind, limit, T, F)
+    if kind != "random":            # each seed's entries overflow alone
+        assert T * F - 377 > tdm.INSERT_CAP
+    n = -(-(limit + 1) // 1024) * 1024
+    w = rng.integers(0, 1 << 30, n).astype(np.uint32)
+    c = (0xFFFFFFFF - rng.integers(0, 4, n) if near_max
+         else rng.integers(0, 5, n)).astype(np.uint32)
+    host = [torch.from_numpy(a.view(np.int32).copy()) for a in (w, c)]
+    dev = [t.to(cuda) for t in host]
+    grid_d = grid.to(cuda)
+    for bs in (1, 3, 10, 20):
+        params = tdm.MibfParams(size=limit, h=3, k=22, spans=FAM.spans,
+                                tile_length=F, block_size=bs)
+        for lo, hi, tr, base in [(0, T - 1, False, 5 + bs),
+                                 (3, T - 2, True, 70 + bs)]:
+            tdm.insert_blocks(*dev, grid_d, lo, hi, base, tr, params, T,
+                              limit, or_bits)
+            tdm.insert_blocks(*host, grid, lo, hi, base, tr, params, T,
+                              limit, or_bits)
+            assert_same(dev, host)
+    assert int((host[1] != torch.from_numpy(c.view(np.int32))).sum()) >= 3
 
 
 def random_tables(rng, B, T, K, n_ids):

@@ -10,12 +10,14 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401
+from goldrush_tpu.mibf import compressed as jcz
 from goldrush_tpu.mibf import mibf as jdm
 from goldrush_tpu.mibf.mibf_np import MibfOracle
 from goldrush_tpu.ops import nthash_np as onthash
 from goldrush_tpu.ops.nthash import build_seed_family as jfamily
 from goldrush_tpu.ops.nthash import hash_positions as jhash
 
+from goldrush_tpu_torch.mibf import compressed as tcz
 from goldrush_tpu_torch.mibf import mibf as tdm
 from goldrush_tpu_torch.ops.nthash import build_seed_family
 from goldrush_tpu_torch.ops.seeds import make_seed_pattern
@@ -141,6 +143,90 @@ def test_insert_matches_jax(lo, hi, trimmed):
         tw, tc = words_np(st)
         np.testing.assert_array_equal(tw[:SIZE], np.asarray(js.words)[:SIZE])
         np.testing.assert_array_equal(tc[:SIZE], np.asarray(js.counts)[:SIZE])
+
+
+RANKS = 20_480          # rank-indexed table length: the sentinel rank is last
+
+
+def hard_grid(kind, limit, T, rng):
+    """A read's [3, T*TL] key grid of the kind kernel D finds hard, with a
+    sentinel-padded tail: one repeated k-mer (each seed probes one key at
+    every frame), or every key owned by the kernel's first CTA."""
+    if kind == "homopolymer":
+        g = np.repeat(rng.integers(0, limit, (3, 1)), T * TL, axis=1)
+    else:
+        keys = torch.arange(limit)
+        pool = keys[tdm.insert_part(keys) == 0].numpy()
+        g = pool[rng.integers(0, len(pool), (3, T * TL))]
+    g[:, -37:] = limit
+    return g.astype(np.int64)
+
+
+@pytest.mark.parametrize("near_max", [False, True])
+@pytest.mark.parametrize("bs", [1, 3, 10, 20])
+@pytest.mark.parametrize("kind", ["homopolymer", "one_partition"])
+@pytest.mark.parametrize("space", ["slots", "ranks"])
+def test_insert_hard_cases_match_jax(space, kind, bs, near_max):
+    """The reservoir insert against build_insert_keys + insert_read_sorted
+    on repeated keys and on keys one CTA of kernel D owns, in both filters'
+    key spaces (slots of the direct filter, ranks of the compressed one): a
+    whole recruit, then a trimmed one.  ``near_max`` presets the counters at 2^32 - 1 - {0..3},
+    so they wrap to 0 (which never accepts), and sets the first key's
+    counter and the base id so that it wraps in the key's last block, whose
+    id makes u32(key) ^ id == 0xFFFFFFFF."""
+    rng = np.random.default_rng([bs, int(near_max), len(kind), len(space)])
+    T = 24
+    jpar = dataclasses.replace(JP, block_size=bs)
+    tpar = dataclasses.replace(TP, block_size=bs)
+    slots = space == "slots"
+    limit = SIZE if slots else RANKS - 1
+    g = hard_grid(kind, limit, T, rng)
+    n = JP.alloc if slots else RANKS
+    w = rng.integers(0, 1 << 30, n).astype(np.uint32)
+    if slots:
+        w |= np.uint32(jdm.PRESENT_BIT)
+    if near_max:
+        c = (0xFFFFFFFF - rng.integers(0, 4, n)).astype(np.uint32)
+        k0 = int(g[0, 0])
+        blocks = np.unique(np.nonzero((g == k0).any(axis=0))[0] // TL // bs)
+        c[k0] = 0xFFFFFFFF - (len(blocks) - 1)
+        base = (~k0 - int(blocks[-1])) & 0xFFFFFFFF
+    else:
+        c = rng.integers(0, 5, n).astype(np.uint32)
+        base = 7
+    if slots:
+        j = jdm.MibfState(jnp.asarray(w), jnp.asarray(c))
+        t = tdm.state_from_numpy(w, c)
+    else:
+        empty = jnp.zeros(1, jnp.uint64)
+        j = jcz.CompressedState(empty, empty, jnp.asarray(w), jnp.asarray(c))
+        t = tcz.CompressedState(torch.zeros(1, dtype=torch.int64),
+                                torch.zeros(1, dtype=torch.int64),
+                                torch.from_numpy(w.view(np.int32).copy()),
+                                torch.from_numpy(c.view(np.int32).copy()))
+    # (rank << 16 | tile) keys are what jcz.build_insert_keys packs
+    keys = jdm.build_insert_keys(jnp.asarray(g), T)
+    for lo, hi, trimmed in [(0, T - 1, False), (2, T - 3, True)]:
+        args = (jnp.int32(lo), jnp.int32(hi), jnp.uint32(base),
+                jnp.asarray(trimmed), jnp.asarray(True))
+        if slots:
+            j = jdm.insert_read_sorted(j, keys, *args, jpar, num_tiles=T,
+                                       assume_present=True)
+            tdm.insert_read_sorted(t, torch.from_numpy(g), lo, hi, base,
+                                   trimmed, tpar, T)
+            got = words_np(t)
+        else:
+            j = jcz.insert_read_sorted(j, keys, *args, jpar, num_tiles=T,
+                                       assume_present=True)
+            tcz.insert_read_sorted(t, torch.from_numpy(g), lo, hi, base,
+                                   trimmed, tpar, T)
+            got = (tcz.state_to_numpy(t)["ids"],
+                   tcz.state_to_numpy(t)["counts"])
+        want = (np.asarray(j.words if slots else j.ids), np.asarray(j.counts))
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        base = (base + 40) & 0xFFFFFFFF
+    assert (got[1] != c).sum() >= 3 and (got[0] != w).any()
 
 
 def test_insert_and_probe_match_oracle():
