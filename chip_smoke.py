@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (goldrush_tpu_torch) on one GPU.
 
     python3 chip_smoke.py                 # one card
+    python3 chip_smoke.py --ab DIR        # phase 3 of an earlier tree of
+                                          # the port in DIR, then this one's
 
 Phases (one line each; any failure raises, so the exit code is non-zero):
   1. device: require CUDA; print the card and its power limit;
@@ -10,10 +12,14 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      the slice's shapes (B=32 reads, T=20 tiles of 1000, h=3, K=32, a
      142,368,384-slot filter filled from seeded reads, then frozen into
      the rank-compressed filter; B=1 for the live re-probe), bit for bit
-     (every output is an integer), with both times; kernel D also on
+     (every output is an integer), with both times and each kernel's bound (the
+     bytes it must move over the card's 3.35 TB/s); kernel D also on
      recruits whose keys one of its CTAs owns or that repeat one k-mer
      (past a CTA's shared memory), in both filters, and timed on a
      20-tile and a 2-tile trimmed recruit and for its window read alone;
+     kernels B and C also on the inputs their designs branch on
+     (goldrush_tpu_torch/hard_cases.py) at B=32 and B=1, B in both
+     filters, and C's warp cummax (row_cummax) against torch.cummax;
   4. end to end: goldrush-path (silver M=5, then golden) through the CLI
      entry point on 3,000 x 20 kb reads of a 5 Mbp genome at 5% error
      (bench.py's dataset, seeds 11/12), once with the direct filter and
@@ -24,6 +30,13 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      (written by the JAX package on the CPU).
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
+
+With --ab DIR it runs phase 3 alone, four times, each in a process of its
+own that imports the port from its tree: DIR (for example a `git archive`
+of the parent commit, whose kernels' entry points may differ: only the
+Python wrappers are called), this checkout, this checkout, DIR; then it
+prints each kernel's times side by side.  Every run checks its tree's
+kernels against their plain versions.
 """
 
 from __future__ import annotations
@@ -41,6 +54,8 @@ WORK = os.path.join(REPO, "smoke_work")
 PRESET = "1011011110110111101101"
 BENCH = dict(genome=5_000_000, genome_seed=11, n_reads=3_000,
              read_len=20_000, reads_seed=12, err_rate=0.05)
+# NVIDIA H100 SXM device memory rate (data sheet), for each kernel's bound
+HBM_BYTES_PER_S = 3.35e12
 
 
 def say(phase: str, **kv) -> None:
@@ -60,19 +75,132 @@ def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call between CUDA events, after a warm-up.  A
     sleep kernel holds the stream while the calls are enqueued, so a
     kernel shorter than its host-side call is timed on the device and not
-    at the host's enqueue rate (~0.02 ms per wrapper call)."""
+    at the host's enqueue rate: a wrapper call takes ~0.02-0.1 ms of host
+    time, more on a loaded host, and the sleep lasts ~0.5 ms per call."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000 * reps)
+    torch.cuda._sleep(1_000_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def checked(err: int, ms: float, plain_ms: float, nbytes: int, **extra
+            ) -> dict:
+    """A kernel's record: its exactness, times, and its bound, the bytes
+    it must move (each input read once, each output written once) over the
+    device memory rate: every kernel here does a few integer operations
+    per byte.  No single PyTorch call computes any of these functions, so
+    there is no library time."""
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None, **extra)
+
+
+def vote_bytes(grid, ok, T: int, K: int, limit: int, ranked: bool) -> int:
+    """Kernel B: the grid and frame_ok, one 4-byte word per seed of every
+    frame that reads the filter (ranked: ranks below the sentinel), and
+    the outputs."""
+    B, H, _ = grid.shape
+    reads = (ok[:, None, :] & (grid < limit)).sum() if ranked else \
+        ok.sum() * H
+    return (grid.numel() * 8 + ok.numel() + 4 * int(reads)
+            + B * T * 13 + 2 * B * T * K * 4 + 3 * B * 8)
+
+
+def classify_bytes(B: int, T: int, K: int) -> int:
+    """Kernel C: curr_id, the candidate table and n_tiles in; the four
+    per-read results and the ids/bools rows out."""
+    return B * T * 4 + 2 * B * T * K * 4 + B * 4 + 4 * B * 4 + 2 * B * T * 4
+
+
+def hard_cases(dev) -> tuple[int, int]:
+    """Kernels B and C against their plain versions on the inputs their
+    designs branch on (goldrush_tpu_torch/hard_cases.py), at B=32 and B=1: B in
+    both filters with vote_min 2 and 0 (a vote_min of 0 makes every
+    distinct id a candidate and sends tiles past the CTA's thread count to
+    the whole-table sort), C on reads of 0-16 and 20 tiles and on a
+    2,048-tile bucket.  Returns their max_abs_err."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch import hard_cases as hard
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.path import classify as clf
+    T, F, K = 20, 1000, 32
+    err_b = 0
+    for vote_min in (2, 0):
+        params = dm.MibfParams(size=1 << 20, h=3, k=22, spans=(22, 23, 24),
+                               tile_length=F, threshold=10, vote_topk=K,
+                               vote_min=vote_min)
+        g0, o0 = hard.vote_case(None, 32, T, F, 3, K, vote_min, 10, seed=3)
+        for ranked in (False, True):
+            w, g = hard.vote_words(), g0
+            if ranked:
+                w = np.append(w & np.uint32(0xBFFFFFFF), np.uint32(0))
+                g = np.where(g0 == hard.ABSENT, w.size - 1, g0)
+            words = torch.from_numpy(w.view(np.int32).copy()).to(dev)
+            grid = torch.from_numpy(g).to(dev)
+            ok = torch.from_numpy(o0).to(dev)
+            for rows in (slice(0, 32), slice(0, 1), slice(5, 6),
+                         slice(31, 32)):
+                gg, oo = grid[rows].contiguous(), ok[rows].contiguous()
+                err_b = max(err_b, max_abs_err(zip(
+                    dm.probe_and_vote(words, gg, oo, params, T, ranked),
+                    dm._probe_and_vote_plain(words, gg, oo, params, T,
+                                             ranked))))
+    err_c = 0
+    for n, T2 in (([0, 1, 2, 3, 14, 15, 16, T] * 4, T),
+                  ([2048, 5, 1500, 0], 2048)):
+        args = [torch.from_numpy(a).to(dev)
+                for a in hard.classify_case(n, T2, K, seed=T2)]
+        for rows in [slice(0, len(n))] + [slice(i, i + 1) for i in range(4)]:
+            a = [x[rows].contiguous() for x in args]
+            ck = clf.classify_batch(*a, 10, 5, 1, debug=True)
+            cp = clf._classify_plain(a[0], a[2], a[3], a[4], 10, 5, 1, True)
+            err_c = max(err_c, max_abs_err(list(zip(ck[0], cp[0]))
+                                           + [(ck[1], cp[1]),
+                                              (ck[2], cp[2])]))
+    say("kernels", kernel="hard_cases", probe_vote_max_abs_err=err_b,
+        classify_max_abs_err=err_c)
+    return err_b, err_c
+
+
+def cummax_check(dev) -> dict:
+    """C's warp cummax, launched alone (row_cummax), against torch.cummax
+    at C's shapes, B=32 and B=1 reads of 20 tiles and 4 of 2,048: rows of
+    run starts (a tile's index where a run of bools opens, else 0), as
+    passes 5 and 10 give it, and rows of any int32; both timed at 32 x 20,
+    where torch.cummax is the plain version and the library call alike.
+    Returns its record, keys prefixed `cummax_`."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch.path import classify as clf
+    rng = np.random.default_rng(4)
+    err = 0
+    for R, T in ((32, 20), (1, 20), (4, 2048)):
+        bv = rng.random((R, T)) < 0.6
+        starts = np.where(bv & ~np.roll(bv, 1, axis=1), np.arange(T), 0)
+        starts[:, 0] = 0
+        for x in (starts, rng.integers(-2**31, 2**31, (R, T))):
+            xd = torch.from_numpy(x.astype(np.int32)).to(dev)
+            err = max(err, max_abs_err([(clf.row_cummax(xd),
+                                         torch.cummax(xd, 1).values)]))
+        if R == 32:
+            ms = cuda_ms(lambda: clf.row_cummax(xd), 20)
+            lib = cuda_ms(lambda: torch.cummax(xd, 1), 20)
+            rec = checked(err, ms, lib, 2 * xd.numel() * 4)
+    rec.update(max_abs_err=err, library_ms=rec["plain_ms"])
+    say("kernels", kernel="row_cummax", shapes="32x20,1x20,4x2048",
+        max_abs_err=err, ms=f"{rec['ms']:.4f}",
+        library_ms=f"{rec['library_ms']:.4f}",
+        bound_ms=f"{rec['bound_ms']:.6f}")
+    return {f"cummax_{k}": v for k, v in rec.items()}
 
 
 def max_abs_err(pairs) -> int:
@@ -113,7 +241,10 @@ def insert_phase(state_k, state_p, recruits, timed, params, T, limit,
     counts), recruit after recruit; then both timed on scratch copies for
     the full recruit of grid `timed` and a 2-tile trimmed one, and the
     window read alone (key limit 0: every CTA streams the window and owns
-    no key).  Returns (max_abs_err, ms, plain_ms) of the full recruit."""
+    no key).  Returns the record of the full recruit, whose bound counts
+    the window's grid entries, each distinct key's counter read and
+    written, and the words it accepts."""
+    import torch
     from goldrush_tpu_torch.mibf import mibf as dm
     for grid, lo, hi, base, tr in recruits:
         dm.insert_blocks(*state_k, grid, lo, hi, base, tr, params, T, limit,
@@ -123,6 +254,11 @@ def insert_phase(state_k, state_p, recruits, timed, params, T, limit,
     err = max_abs_err(zip(state_k, state_p))
     k = [t.clone() for t in state_k]
     p = [t.clone() for t in state_k]
+    keys = torch.unique(timed[timed < limit])
+    dm._insert_plain(*p, timed, 0, T - 1, 17, False, params, T, limit,
+                     or_bits)
+    accepted = int((p[0] != k[0]).sum())
+    nbytes = timed.numel() * 8 + keys.numel() * 8 + accepted * 4
     times = {}
     for name, lo, hi, tr in (("full", 0, T - 1, False), ("2tile", 4, 5, True)):
         times[name] = (
@@ -138,7 +274,7 @@ def insert_phase(state_k, state_p, recruits, timed, params, T, limit,
         plain_ms=f"{pms:.4f}", ms_2tile=f"{ms2:.4f}",
         plain_ms_2tile=f"{pms2:.4f}", window_ms=f"{window:.4f}",
         window_share=f"{window / ms:.4f}")
-    return err, ms, pms
+    return checked(err, ms, pms, nbytes)
 
 
 def phase_device():
@@ -165,8 +301,10 @@ def phase_build():
         library=os.path.relpath(so, REPO))
 
 
-def phase_kernels() -> dict:
-    """Each kernel vs its plain version at the slice's shapes."""
+def phase_kernels(own: bool = True) -> dict:
+    """Each kernel vs its plain version at the slice's shapes; with `own`
+    also on the hard cases of B and C and C's warp cummax alone (an earlier
+    tree of the port, timed by --ab, may lack them)."""
     import numpy as np
     import torch
     from goldrush_tpu_torch.config import calc_optimal_size
@@ -208,11 +346,14 @@ def phase_kernels() -> dict:
         st_k.words, codes_d, lengths_d, fam, size, "fastrange"), 20)
     pms = cuda_ms(lambda: dm._fill_presence_plain(
         st_p.words, codes_d, lengths_d, fam, size, "fastrange"), 3)
-    out["seed_hash_fill"] = (err, ms, pms)
     present = int((st_k.words != 0).sum())
+    # codes and lengths in; each word it sets (from a zeroed filter) out
+    out["seed_hash_fill"] = checked(
+        err, ms, pms, codes.size + lengths.size * 4 + present * 4)
     say("kernels", kernel="seed_hash_fill", shape="64x32768x3",
         present_slots=present, max_abs_err=err, ms=f"{ms:.4f}",
-        plain_ms=f"{pms:.4f}")
+        plain_ms=f"{pms:.4f}",
+        bound_ms=f"{out['seed_hash_fill']['bound_ms']:.4f}")
 
     # --- A, grid entry: B=32, T=20 ---------------------------------------
     qc = torch.from_numpy(codes[:B, : T * TL + TL].copy()).to(dev)
@@ -230,9 +371,12 @@ def phase_kernels() -> dict:
     pg = plain_grid()
     err = max(err, max_abs_err([(pg[0], slots), (pg[1], ok)]))
     pms = cuda_ms(plain_grid, 3)
-    out["seed_hash_grid"] = (err, ms, pms)
+    out["seed_hash_grid"] = checked(
+        err, ms, pms, qc.numel() + ql.numel() * 4 + slots.numel() * 8
+        + ok.numel())
     say("kernels", kernel="seed_hash_grid", shape=f"{B}x3x{T * TL}",
-        max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
+        max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+        bound_ms=f"{out['seed_hash_grid']['bound_ms']:.4f}")
 
     # --- D: insert 8 recruits (whole, trimmed, repeated slots), then the
     # recruits its key partition finds hard ------------------------------
@@ -260,11 +404,16 @@ def phase_kernels() -> dict:
         st_k.words, slots[9:10], ok[9:10], params, T), 20)
     pms1 = cuda_ms(lambda: dm._probe_and_vote_plain(
         st_k.words, slots[9:10], ok[9:10], params, T), 3)
-    out["probe_vote"] = (err, ms, pms)
+    out["probe_vote"] = checked(
+        err, ms, pms, vote_bytes(slots, ok, T, K, size, False), ms_b1=ms1,
+        plain_ms_b1=pms1, bound_ms_b1=vote_bytes(
+            slots[9:10], ok[9:10], T, K, size, False) / HBM_BYTES_PER_S * 1e3)
     voted = int((vk.top_count > 0).sum())
     say("kernels", kernel="probe_vote", shape=f"{B}x{T}x{K}",
         tiles_with_votes=voted, max_abs_err=err, ms=f"{ms:.4f}",
-        plain_ms=f"{pms:.4f}", ms_b1=f"{ms1:.4f}", plain_ms_b1=f"{pms1:.4f}")
+        plain_ms=f"{pms:.4f}", ms_b1=f"{ms1:.4f}", plain_ms_b1=f"{pms1:.4f}",
+        bound_ms=f"{out['probe_vote']['bound_ms']:.4f}",
+        bound_ms_b1=f"{out['probe_vote']['bound_ms_b1']:.6f}")
 
     # --- C: classify with debug traces ----------------------------------
     n_t = (ql // TL).int()
@@ -279,20 +428,36 @@ def phase_kernels() -> dict:
         20)
     pms = cuda_ms(lambda: clf._classify_plain(
         vk.curr_id, vk.cand_ids, vk.cand_counts, n_t, 10, 5, 1, False), 3)
-    out["classify"] = (err, ms, pms)
+    # the live re-probe's classify: one read
+    v1 = [x[9:10].contiguous() for x in (vk.curr_id, vk.top_count,
+                                         vk.cand_ids, vk.cand_counts, n_t)]
+    c1k = clf.classify_batch(*v1, 10, 5, 1)
+    err = max(err, max_abs_err(zip(c1k, clf._classify_plain(
+        v1[0], v1[2], v1[3], v1[4], 10, 5, 1, False))))
+    ms1 = cuda_ms(lambda: clf.classify_batch(*v1, 10, 5, 1), 20)
+    pms1 = cuda_ms(lambda: clf._classify_plain(v1[0], v1[2], v1[3], v1[4],
+                                               10, 5, 1, False), 3)
+    out["classify"] = checked(
+        err, ms, pms, classify_bytes(B, T, K), ms_b1=ms1, plain_ms_b1=pms1,
+        bound_ms_b1=classify_bytes(1, T, K) / HBM_BYTES_PER_S * 1e3)
     decisions = np.bincount(ck[0].decision.cpu().numpy(), minlength=3)
     say("kernels", kernel="classify", shape=f"{B}x{T}x{K}",
         decisions=decisions.tolist(), max_abs_err=err, ms=f"{ms:.4f}",
-        plain_ms=f"{pms:.4f}")
+        plain_ms=f"{pms:.4f}", ms_b1=f"{ms1:.4f}", plain_ms_b1=f"{pms1:.4f}",
+        bound_ms=f"{out['classify']['bound_ms']:.6f}",
+        bound_ms_b1=f"{out['classify']['bound_ms_b1']:.6f}")
     # --- the rank-compressed filter: freeze, lookup, D and B on ranks ----
     bk, tk = cz.rank_pack(st_k.words, size)
     bp, tp = cz._rank_pack_plain(st_k.words, size)
     err = max_abs_err([(bk, bp), (tk, tp)])
     ms = cuda_ms(lambda: cz.rank_pack(st_k.words, size), 20)
     pms = cuda_ms(lambda: cz._rank_pack_plain(st_k.words, size), 3)
-    out["rank_pack"] = (err, ms, pms)
+    nw = -(-size // 32)
+    out["rank_pack"] = checked(err, ms, pms, nw * 32 * 4 + bk.numel() * 8
+                               + tk.numel() * 8)
     say("kernels", kernel="rank_pack", slots=size, max_abs_err=err,
-        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+        bound_ms=f"{out['rank_pack']['bound_ms']:.4f}")
     # timed on a scratch copy: each call adds its carry again
     scratch = bk.clone()
     pop = cz.rank_carry(bk, tk)
@@ -300,9 +465,12 @@ def phase_kernels() -> dict:
     err = max(max_abs_err([(bk, bp)]), abs(pop - pop_p))
     ms = cuda_ms(lambda: cz._rank_carry_cuda(scratch, tk), 20)
     pms = cuda_ms(lambda: cz._rank_carry_plain(scratch, tk), 3)
-    out["rank_carry"] = (err, ms, pms)
+    # the words' ranks read and written, the block totals read
+    out["rank_carry"] = checked(err, ms, pms, 2 * nw * 8 + tk.numel() * 8
+                                + 8)
     say("kernels", kernel="rank_carry", present=pop, max_abs_err=err,
-        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+        bound_ms=f"{out['rank_carry']['bound_ms']:.4f}")
     del scratch, bp, tp
     cs_k = cz.freeze(st_k.words, size)
     if max_abs_err([(cs_k.bitrank, bk)]) != 0:
@@ -311,18 +479,22 @@ def phase_kernels() -> dict:
     err = max_abs_err([(ranks, cz._rank_grid_plain(cs_k, slots, size))])
     ms = cuda_ms(lambda: cz.rank_grid(cs_k, slots, size), 20)
     pms = cuda_ms(lambda: cz._rank_grid_plain(cs_k, slots, size), 3)
-    out["rank_lookup"] = (err, ms, pms)
+    # slots in, ranks out, each distinct bitrank word gathered once
+    words_read = torch.unique(slots[slots < size] >> 5).numel()
+    out["rank_lookup"] = checked(err, ms, pms, slots.numel() * 16
+                                 + words_read * 8)
     ranked = int((ranks < cs_k.sentinel).sum())
     say("kernels", kernel="rank_lookup", shape=f"{B}x3x{T * TL}",
         present=ranked, max_abs_err=err, ms=f"{ms:.4f}",
-        plain_ms=f"{pms:.4f}")
+        plain_ms=f"{pms:.4f}",
+        bound_ms=f"{out['rank_lookup']['bound_ms']:.4f}")
     cs_p = cz.CompressedState(cs_k.bitrank, cs_k.supers, cs_k.ids.clone(),
                               cs_k.counts.clone())
     err = insert_phase(
         (cs_k.ids, cs_k.counts), (cs_p.ids, cs_p.counts),
         [(ranks[i], *p) for i, p in enumerate(plan)]
         + hard_recruits(cs_k.sentinel, T, TL), ranks[8], params, T,
-        cs_k.sentinel, 0, "compressed")[0]
+        cs_k.sentinel, 0, "compressed")["max_abs_err"]
     vk = cz.probe_and_vote(cs_k, ranks, ok, params, T)
     vp = dm._probe_and_vote_plain(cs_k.ids, ranks, ok, params, T, True)
     v1k = cz.probe_and_vote(cs_k, ranks[9:10], ok[9:10], params, T)
@@ -332,15 +504,28 @@ def phase_kernels() -> dict:
     ms = cuda_ms(lambda: cz.probe_and_vote(cs_k, ranks, ok, params, T), 20)
     pms = cuda_ms(lambda: dm._probe_and_vote_plain(cs_k.ids, ranks, ok,
                                                    params, T, True), 3)
+    ms1 = cuda_ms(lambda: cz.probe_and_vote(cs_k, ranks[9:10], ok[9:10],
+                                            params, T), 20)
+    out["probe_vote"].update(ms_compressed=ms, ms_b1_compressed=ms1)
+    bound = vote_bytes(ranks, ok, T, K, cs_k.sentinel, True) * 1e3 / \
+        HBM_BYTES_PER_S
     say("kernels", kernel="probe_vote", filter="compressed",
         tiles_with_votes=int((vk.top_count > 0).sum()), max_abs_err=err_b,
-        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
-    out["insert_sorted"] = (max(out["insert_sorted"][0], err),
-                            *out["insert_sorted"][1:])
-    out["probe_vote"] = (max(out["probe_vote"][0], err_b),
-                         *out["probe_vote"][1:])
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", ms_b1=f"{ms1:.4f}",
+        bound_ms=f"{bound:.4f}")
+    hard_b, hard_c = hard_cases(dev) if own else (0, 0)
+    if own:
+        out["classify"].update(cummax_check(dev))
+    err_cummax = out["classify"].get("cummax_max_abs_err", 0)
+    out["insert_sorted"]["max_abs_err"] = max(
+        out["insert_sorted"]["max_abs_err"], err)
+    out["probe_vote"]["max_abs_err"] = max(out["probe_vote"]["max_abs_err"],
+                                           err_b, hard_b)
+    out["classify"]["max_abs_err"] = max(out["classify"]["max_abs_err"],
+                                         hard_c, err_cummax)
     del cs_k, cs_p
-    bad = {k: v[0] for k, v in out.items() if v[0] != 0}
+    bad = {k: v["max_abs_err"] for k, v in out.items()
+           if v["max_abs_err"] != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
@@ -457,15 +642,55 @@ def phase_digests() -> None:
                                  f"{want['silver']}")
 
 
-def main() -> int:
-    # the port must come from this checkout, never from an installed copy
-    if not os.path.isdir(os.path.join(REPO, "goldrush_tpu_torch", "csrc")):
-        raise SystemExit(f"chip_smoke: no goldrush_tpu_torch checkout beside "
-                         f"{os.path.basename(__file__)}")
-    sys.path.insert(0, REPO)
+def phase_ab(earlier: str) -> None:
+    """Phase 3 of the tree `earlier` and of this checkout in turns (earlier,
+    this, this, earlier), each in a process of its own; prints every
+    kernel's times from the four runs side by side."""
+    runs = []
+    for tree in (earlier, REPO, REPO, earlier):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--kernels-of", tree], capture_output=True,
+                           text=True, timeout=900)
+        if r.returncode != 0:
+            raise AssertionError(f"phase 3 of {tree} failed:\n"
+                                 f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+        runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    for name, rec in runs[1].items():
+        for key in ("ms", "ms_b1", "ms_compressed", "ms_b1_compressed"):
+            if key in rec and key in runs[0].get(name, {}):
+                say("ab", kernel=name, time=key,
+                    earlier=",".join(f"{runs[i][name][key]:.4f}"
+                                     for i in (0, 3)),
+                    this=",".join(f"{runs[i][name][key]:.4f}"
+                                  for i in (1, 2)),
+                    max_abs_err=max(runs[i][name]["max_abs_err"]
+                                    for i in range(4)))
+
+
+def main(argv: list[str]) -> int:
+    tree = REPO
+    if argv[:1] == ["--kernels-of"] and len(argv) == 2:
+        tree = os.path.abspath(argv[1])
+    elif argv and not (argv[:1] == ["--ab"] and len(argv) == 2):
+        raise SystemExit(__doc__)
+    # the port must come from a checkout, never from an installed copy
+    if not os.path.isdir(os.path.join(tree, "goldrush_tpu_torch", "csrc")):
+        raise SystemExit(f"chip_smoke: no goldrush_tpu_torch checkout in "
+                         f"{tree}")
+    sys.path.insert(0, tree)
+    if argv[:1] == ["--kernels-of"]:
+        import torch
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: torch.cuda is not available")
+        phase_build()
+        print(json.dumps(phase_kernels(own=tree == REPO)))
+        return 0
     from goldrush_tpu_torch import kernels
     name = phase_device()
     import torch
+    if argv[:1] == ["--ab"]:
+        phase_ab(os.path.abspath(argv[1]))
+        return 0
     phase_build()
     checks = phase_kernels()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -477,8 +702,7 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
     record = [dict(name=k.name, route="cuda", source=k.source,
                    replaces=k.replaces, launches=launches[k.name],
-                   max_abs_err=checks[k.name][0], ms=checks[k.name][1],
-                   plain_ms=checks[k.name][2]) for k in kernels.ALL]
+                   **checks[k.name]) for k in kernels.ALL]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -487,4 +711,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -18,12 +18,7 @@ constexpr int kNoLaunch = -1;
 constexpr uint32_t kPresent = 0x40000000u;
 constexpr uint32_t kIdMask = 0x3FFFFFFFu;
 constexpr unsigned long long kSentinel64 = 0xFFFFFFFFFFFFFFFFull;
-
-struct MaxOp {
-  __device__ long long operator()(long long a, long long b) const {
-    return a > b ? a : b;
-  }
-};
+constexpr unsigned kFull = 0xFFFFFFFFu;  // all lanes of a warp
 
 struct AddOp {
   __device__ unsigned long long operator()(unsigned long long a,
@@ -35,8 +30,7 @@ struct AddOp {
 // Block-wide exclusive scan of one value per thread: thread t gets
 // op(v_0, ..., v_{t-1}), thread 0 the identity.  `scratch` holds blockDim.x
 // values in shared memory.  Every thread of the block calls it; it starts
-// and ends with a barrier.  With MaxOp this is the per-block cummax, with
-// AddOp the per-block cumsum.
+// and ends with a barrier.  With AddOp this is the per-block cumsum.
 template <typename V, typename Op>
 __device__ V block_exclusive_scan(V v, V identity, V* scratch, Op op) {
   const int t = threadIdx.x, n = blockDim.x;

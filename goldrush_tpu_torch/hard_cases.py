@@ -1,0 +1,125 @@
+"""Inputs on which kernels B (probe_and_vote) and C (classify_batch) branch,
+made with numpy from a seed.  The CPU tests hold the plain versions against
+the JAX package on them; the `gpu` tests and chip_smoke.py hold the kernels
+against the plain versions on them.  Numpy only."""
+
+from __future__ import annotations
+
+import numpy as np
+
+PRESENT, SAT, ID_MASK = 1 << 30, 1 << 31, (1 << 30) - 1
+
+# word indices of the vote table below: an absent slot (its frame fails the
+# all-seeds gate), a present slot without an id (a miss), the largest id
+# saturated and plain; id x >= 1 sits at index x + 3
+ABSENT, MISS, SAT_MAX, ID_MAX = 0, 1, 2, 3
+N_IDS = 65_536
+
+VOTE_KINDS = ("distinct", "ties_at_k", "at_gates", "overflow", "id_mask",
+              "no_votes")
+
+
+def vote_words() -> np.ndarray:
+    """uint32 [N_IDS + 4] words: index ABSENT 0, MISS PRESENT, SAT_MAX
+    PRESENT|SAT|ID_MASK, ID_MAX PRESENT|ID_MASK, x + 3 PRESENT|x."""
+    w = np.zeros(N_IDS + 4, np.uint32)
+    w[MISS] = PRESENT
+    w[SAT_MAX] = PRESENT | SAT | ID_MASK
+    w[ID_MAX] = PRESENT | ID_MASK
+    w[4:] = PRESENT | np.arange(1, N_IDS + 1, dtype=np.uint32)
+    return w
+
+
+def _tile(kind, rng, F, H, K, vote_min, threshold):
+    """[H, F] word indices and frame_ok [F] of one tile of `kind`."""
+    ok = np.ones(F, bool)
+    V = np.full(H * F, MISS, np.int64)      # seed-major: position s*F + f
+    ids = rng.permutation(N_IDS)[: H * F] + 1
+
+    def put(pairs):
+        """id x at c consecutive positions: c <= F keeps them in distinct
+        frames, so the count survives the per-frame dedupe."""
+        p = 0
+        for x, c in pairs:
+            V[p:p + c] = x + 3
+            p += c
+        assert p <= H * F
+
+    if kind == "distinct":                  # every vote its own id
+        V[:] = ids + 3
+    elif kind == "ties_at_k":               # equal counts straddle rank K
+        c = vote_min + 2
+        put([(ids[0], c + 3)] + [(x, c) for x in ids[1:K + 6]])
+    elif kind == "at_gates":                # counts at vote_min, threshold
+        top = threshold + int(rng.integers(0, 2))   # bool_init off / on
+        put([(ids[0], top)] + [(x, c) for x, c in zip(
+            ids[1:8], [threshold, vote_min, vote_min + 1, vote_min,
+                       vote_min + 1, 1, 1])])
+    elif kind == "overflow":                # more than K candidates
+        put([(x, vote_min + 1 + int(rng.integers(0, 6)))
+             for x in ids[: 2 * K + 5]])
+    elif kind == "id_mask":                 # saturated and plain ID_MASK
+        V[:] = rng.choice([MISS, SAT_MAX, ID_MAX, ids[0] + 3], H * F)
+        V[rng.random(H * F) < 0.1] = ABSENT      # some frames fail the gate
+        dup = rng.random(F) < 0.3                # one word on every seed
+        for s in range(1, H):
+            V[s * F:(s + 1) * F][dup] = V[:F][dup]
+    elif kind == "no_votes":                # gate fails, frame_ok off
+        V[:] = np.where(rng.random(H * F) < 0.5, ABSENT, MISS)
+        ok[rng.random(F) < 0.5] = False
+    else:
+        raise ValueError(kind)
+    V = V.reshape(H, F)[:, rng.permutation(F)]   # same frames for all seeds
+    return V, ok
+
+
+def vote_case(kind: str | None, B: int, T: int, F: int, H: int, K: int,
+              vote_min: int, threshold: int, seed: int
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """A [B, H, T*F] int64 grid of indices into ``vote_words()`` and
+    frame_ok bool [B, T*F]; every tile is of ``kind``, or of each kind in
+    turn when ``kind`` is None.  The last tile of every read has frame_ok
+    off throughout (a read shorter than the bucket)."""
+    rng = np.random.default_rng(seed)
+    grid = np.empty((B, H, T * F), np.int64)
+    ok = np.empty((B, T * F), bool)
+    for b in range(B):
+        for t in range(T):
+            k = kind or VOTE_KINDS[(b * T + t) % len(VOTE_KINDS)]
+            V, o = _tile(k, rng, F, H, K, vote_min, threshold)
+            grid[b, :, t * F:(t + 1) * F] = V
+            ok[b, t * F:(t + 1) * F] = o
+        if T > 1:
+            ok[b, (T - 1) * F:] = False
+    return grid, ok
+
+
+def classify_case(n_tiles, T: int, K: int, seed: int, n_ids: int = 8
+                  ) -> tuple[np.ndarray, ...]:
+    """Vote tables shaped like probe_and_vote's for reads of the given
+    tile counts in a bucket of T tiles: candidates with count > 2 sorted by
+    (count desc, id asc), zero padding, curr_id the top id (or a random id
+    of a tile without candidates).  Ids come from 1..n_ids so that
+    neighbouring tiles agree often enough for every smoothing pass to act.
+    Returns (curr_id, top_count, cand_ids, cand_counts, n_tiles)."""
+    rng = np.random.default_rng(seed)
+    B = len(n_tiles)
+    curr_id = np.zeros((B, T), np.int32)
+    ci = np.zeros((B, T, K), np.int32)
+    cc = np.zeros((B, T, K), np.int32)
+    for b in range(B):
+        run_id = int(rng.integers(1, n_ids + 1))
+        for t in range(T):
+            if rng.random() < 0.3:              # runs of one id, then a step
+                run_id = int(np.clip(run_id + rng.integers(-1, 2), 1, n_ids))
+            m = int(rng.integers(0, min(K, n_ids) + 1))
+            ids = rng.choice(np.arange(1, n_ids + 1), m, replace=False)
+            if m and run_id not in ids and rng.random() < 0.6:
+                ids[0] = run_id
+            counts = rng.integers(3, 25, m)
+            order = np.lexsort((ids, -counts))
+            ci[b, t, :m] = ids[order]
+            cc[b, t, :m] = counts[order]
+            curr_id[b, t] = ci[b, t, 0] if m else rng.integers(0, n_ids + 1)
+    n = np.minimum(np.asarray(n_tiles, np.int32), T)
+    return curr_id, np.zeros_like(curr_id), ci, cc, n

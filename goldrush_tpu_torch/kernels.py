@@ -34,8 +34,6 @@ SOURCES = ("seed_hash.cu", "probe_vote.cu", "classify.cu",
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# the largest dynamic shared memory one block may use on Hopper
-MAX_SMEM = 232_448
 # what an entry returns when its inputs left nothing to launch (common.cuh)
 NO_LAUNCH = -1
 
@@ -49,10 +47,11 @@ _P, _I, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
 _SIGNATURES = {
     "gr_seed_hash_grid": (_P, _L, _L, _P, _P, _I, _I, _L, _I, _P, _P, _P),
     "gr_seed_hash_fill": (_P, _L, _L, _P, _P, _L, _I, _P, _P),
-    "gr_probe_vote": (_P, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    "gr_probe_vote": (_P, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "gr_classify": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+                    _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "gr_row_cummax": (_P, _I, _I, _P, _P),
     "gr_insert_sorted": (_P, _P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I,
                          _I, _I, _I, _I, _I, _P, _P),
     "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
@@ -163,11 +162,11 @@ SEED_HASH_FILL = Kernel(
 PROBE_VOTE = Kernel(
     "probe_vote", "gr_probe_vote",
     "goldrush_tpu_torch/csrc/probe_vote.cu",
-    "tools/probe_pallas.py:100; goldrush_tpu/mibf/mibf.py:361")
+    "goldrush_tpu/mibf/mibf.py:361")
 CLASSIFY = Kernel(
     "classify", "gr_classify",
     "goldrush_tpu_torch/csrc/classify.cu",
-    "goldrush_tpu/path/classify.py:77")
+    "tools/probe_pallas.py:100; goldrush_tpu/path/classify.py:77")
 INSERT_SORTED = Kernel(
     "insert_sorted", "gr_insert_sorted",
     "goldrush_tpu_torch/csrc/insert_sorted.cu",
@@ -181,6 +180,12 @@ RANK_CARRY = Kernel(
 RANK_LOOKUP = Kernel(
     "rank_lookup", "gr_rank_lookup", "goldrush_tpu_torch/csrc/rank.cu",
     "tools/probe_pallas.py:61; goldrush_tpu/mibf/compressed.py:218")
+# kernel C's warp cummax (the arithmetic of tools/probe_pallas.py:98, run
+# inside C's passes 5 and 10) launched alone, to hold it against
+# torch.cummax; not a kernel of the path, so not in ALL
+ROW_CUMMAX = Kernel(
+    "row_cummax", "gr_row_cummax", "goldrush_tpu_torch/csrc/classify.cu",
+    "tools/probe_pallas.py:100")
 ALL = (SEED_HASH_GRID, SEED_HASH_FILL, PROBE_VOTE, CLASSIFY, INSERT_SORTED,
        RANK_PACK, RANK_CARRY, RANK_LOOKUP)
 
@@ -204,7 +209,3 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-
-
-def next_pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())

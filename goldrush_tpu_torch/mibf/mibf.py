@@ -294,11 +294,14 @@ def _probe_and_vote_cuda(words, slots, frame_ok, params, num_tiles,
     if F * T != TF or H > 8 or K > H * F:
         raise ValueError(f"unsupported probe grid {tuple(slots.shape)} "
                          f"for T={T}, K={K}")
-    n2 = kernels.next_pow2(H * F)
-    if (2 * n2 + 4 + 256) * 8 > kernels.MAX_SMEM:
+    # the kernel's vote table in shared memory holds up to 16,384 votes
+    if H * F > 1 << 14:
         raise ValueError(f"tile of {H}x{F} frames exceeds the probe_vote "
                          "kernel's shared memory")
     i32 = dict(dtype=torch.int32, device=dev)
+    # queries, hits, misses: accumulated with atomics across a read's
+    # tiles, so zeroed first, by one fill
+    counters = torch.zeros((3, B), dtype=torch.int64, device=dev)
     out = VoteResult(
         curr_id=torch.empty((B, T), **i32),
         top_count=torch.empty((B, T), **i32),
@@ -306,15 +309,11 @@ def _probe_and_vote_cuda(words, slots, frame_ok, params, num_tiles,
         cand_counts=torch.empty((B, T, K), **i32),
         bool_init=torch.empty((B, T), dtype=torch.bool, device=dev),
         overflow=torch.empty((B, T), **i32),
-        # accumulated with atomics across a read's tiles
-        queries=torch.zeros(B, dtype=torch.int64, device=dev),
-        hits=torch.zeros(B, dtype=torch.int64, device=dev),
-        misses=torch.zeros(B, dtype=torch.int64, device=dev))
+        queries=counters[0], hits=counters[1], misses=counters[2])
     kernels.PROBE_VOTE(
         dev, kernels.ptr(words), kernels.ptr(slots), int(ranked),
         words.shape[0] - 1, kernels.ptr(frame_ok), B, H, T, F, K,
-        params.vote_min, params.threshold, n2,
-        *(kernels.ptr(t) for t in out))
+        params.vote_min, params.threshold, *(kernels.ptr(t) for t in out))
     return out
 
 

@@ -3,8 +3,10 @@ evaluation and recruit decision (goldrush_path.cpp:628-888, :195-233,
 :341-527, :943-1081).
 
 ``classify_batch`` launches kernel C (csrc/classify.cu) for CUDA tensors:
-one thread per read runs the reference's sequential loops as transcribed in
-``goldrush_tpu/path/oracle.py``.  For CPU tensors it runs the plain PyTorch
+one warp per read runs the reference's sequential loops as transcribed in
+``goldrush_tpu/path/oracle.py``, with their inner loops (candidate
+lookups, the gap-bridge sort, flank counts) across its lanes and the rows
+in shared memory.  For CPU tensors it runs the plain PyTorch
 version below, a transcription of the JAX package's batched formulation
 (goldrush_tpu/path/classify.py:75-429: per-tile loops with [B]-wide carries,
 cummax interval painting), so the kernel and its plain version are two
@@ -71,19 +73,32 @@ def _classify_cuda(curr_id, cand_ids, cand_counts, n_tiles, threshold,
         decision=torch.empty(B, **i32), trim_start=torch.empty(B, **i32),
         trim_end=torch.empty(B, **i32), num_assigned=torch.empty(B, **i32),
         ids=torch.empty((B, T), **i32), bools=torch.empty((B, T), **i32))
-    # per-read sort space for the gap-bridging pass's (id, tile) keys
-    scratch = torch.empty((B, T), dtype=torch.int64, device=dev)
     ids_tr = torch.empty((B, 9, T), **i32) if debug else None
     bools_tr = torch.empty((B, 9, T), **i32) if debug else None
     kernels.CLASSIFY(
         dev, kernels.ptr(curr_id), kernels.ptr(cand_ids),
         kernels.ptr(cand_counts), kernels.ptr(n_tiles), B, T, K,
         int(threshold), int(u_min), int(a_max),
-        *(kernels.ptr(t) for t in res), kernels.ptr(scratch),
+        *(kernels.ptr(t) for t in res),
         kernels.ptr(ids_tr), kernels.ptr(bools_tr))
     if debug:
         return res, ids_tr, bools_tr
     return res
+
+
+def row_cummax(x: torch.Tensor) -> torch.Tensor:
+    """Running max along each row of an int32 [R, T] tensor.  For CUDA
+    tensors this launches, on its own, the warp cummax from which kernel
+    C's passes 5 and 10 take their run starts (csrc/classify.cu), so that
+    it can be held against torch.cummax; for CPU tensors it is
+    torch.cummax."""
+    if not x.is_cuda:
+        return torch.cummax(x, dim=1).values
+    R, T = x.shape
+    kernels.check(x, "x", torch.int32, (R, T))
+    out = torch.empty_like(x)
+    kernels.ROW_CUMMAX(x.device, kernels.ptr(x), R, T, kernels.ptr(out))
+    return out
 
 
 def _adj(a, b):

@@ -4,16 +4,18 @@ and per-pass debug traces exactly."""
 
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import tests.conftest  # noqa: F401
+from goldrush_tpu_torch import hard_cases as hard
 from tests.conftest import FIXTURES
 from goldrush_tpu.path import oracle
 from goldrush_tpu.path.classify import classify_batch as jclassify
 
-from goldrush_tpu_torch.path.classify import classify_batch
+from goldrush_tpu_torch.path.classify import classify_batch, row_cummax
 
 THRESHOLD, U_MIN, A_MAX = 10, 5, 1
 
@@ -101,3 +103,52 @@ def test_classifier_matches_jax_on_random_tables(seed, n_ids, K):
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
     np.testing.assert_array_equal(tbools.numpy(), np.asarray(jbools))
     assert set(np.unique(tr.decision.numpy())) == {0, 1, 2}
+
+
+def assert_matches_jax(curr_id, top, ci, cc, n):
+    jr, jids, jbools = jclassify(curr_id, top, ci, cc, n, THRESHOLD, U_MIN,
+                                 A_MAX, debug=True)
+    tr, tids, tbools = classify_batch(
+        *(torch.from_numpy(a) for a in (curr_id, top, ci, cc, n)),
+        THRESHOLD, U_MIN, A_MAX, debug=True)
+    for name in tr._fields:
+        np.testing.assert_array_equal(getattr(tr, name).numpy(),
+                                      np.asarray(getattr(jr, name)),
+                                      err_msg=name)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(tbools.numpy(), np.asarray(jbools))
+    return tr
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 14, 15, 16])
+def test_classifier_read_lengths_match_jax(n):
+    """Reads of n tiles in a 20-tile bucket, at the branches kernel C keeps
+    exact: no smoothing below 3 tiles, whole-flank evaluation below 15,
+    5-tile windows from 15 on, the end-tile fix, short runs."""
+    tr = assert_matches_jax(*hard.classify_case([n] * 24, 20, 8, seed=n))
+    assert bool((tr.num_assigned <= n).all())
+    if n >= 14:
+        assert set(tr.decision.tolist()) >= {0, 2}
+
+
+def test_classifier_long_bucket_matches_jax():
+    """A 2,048-tile bucket (the engine's largest) holding a full read, a
+    short one, a 1,500-tile one and an empty one."""
+    tr = assert_matches_jax(*hard.classify_case([2048, 5, 1500, 0], 2048, 8,
+                                                seed=5))
+    assert int(tr.num_assigned[0]) > 1000 and int(tr.num_assigned[3]) == 0
+
+
+@pytest.mark.parametrize("R,T", [(32, 20), (1, 20), (4, 2048)])
+def test_row_cummax_matches_jax(R, T):
+    """The running max that kernel C's passes 5 and 10 take their run
+    starts from, against jax.lax.cummax, on rows of run starts and on rows
+    of any int32."""
+    rng = np.random.default_rng(T)
+    bv = rng.random((R, T)) < 0.6
+    starts = np.where(bv & ~np.roll(bv, 1, axis=1), np.arange(T), 0)
+    for x in (starts.astype(np.int32),
+              rng.integers(-2**31, 2**31, (R, T)).astype(np.int32)):
+        np.testing.assert_array_equal(
+            row_cummax(torch.from_numpy(x)).numpy(),
+            np.asarray(jax.lax.cummax(x, axis=1)))

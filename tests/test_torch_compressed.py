@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401
+from goldrush_tpu_torch import hard_cases as hard
 from goldrush_tpu.mibf import compressed as jcz
 from goldrush_tpu.mibf import mibf as jdm
 from goldrush_tpu.ops.nthash import build_seed_family as jfamily
@@ -121,6 +122,34 @@ def test_probe_and_vote_matches_jax(vote_min):
                                                     ).astype(a.dtype),
                                       err_msg=name)
     assert int(got.top_count.max()) > 2 and int(got.hits.sum()) > 0
+
+
+
+@pytest.mark.parametrize("kind", hard.VOTE_KINDS)
+def test_probe_and_vote_ranks_hard_cases_match_jax(kind):
+    """The vote on a rank grid (kernel B on the id table) against the JAX
+    package's probe_and_vote_ranks on the tiles kernel B's design branches
+    on (goldrush_tpu_torch/hard_cases.py); the absent word's rank is the
+    sentinel."""
+    T = 4
+    grid, ok = hard.vote_case(kind, 3, T, TL, 3, TP.vote_topk, TP.vote_min,
+                              TP.threshold, seed=7 + len(kind))
+    ids = np.append(hard.vote_words() & np.uint32(0xBFFFFFFF), np.uint32(0))
+    ranks = np.where(grid == hard.ABSENT, ids.size - 1, grid)
+    want = jcz.probe_and_vote_ranks(jnp.asarray(ids), jnp.asarray(ranks),
+                                    jnp.asarray(ok), JP, num_tiles=T)
+    state = tcz.CompressedState(torch.zeros(1, dtype=torch.int64),
+                                torch.zeros(1, dtype=torch.int64),
+                                to_torch(ids), to_torch(np.zeros_like(ids)))
+    got = tcz.probe_and_vote(state, torch.from_numpy(ranks),
+                             torch.from_numpy(ok), TP, num_tiles=T)
+    for name in got._fields:
+        a = getattr(got, name).numpy()
+        np.testing.assert_array_equal(a, np.asarray(getattr(want, name)
+                                                    ).astype(a.dtype),
+                                      err_msg=name)
+    if kind != "no_votes":
+        assert int(got.top_count.max()) > 0
 
 
 @pytest.mark.parametrize("lo,hi,trimmed", [(0, 11, False), (3, 9, True),

@@ -13,13 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from goldrush_tpu_torch import hard_cases as hard
 from goldrush_tpu_torch import kernels
 from goldrush_tpu_torch.config import PathConfig
 from goldrush_tpu_torch.mibf import compressed as tcz
 from goldrush_tpu_torch.mibf import mibf as tdm
 from goldrush_tpu_torch.ops.nthash import build_seed_family
 from goldrush_tpu_torch.ops.seeds import make_seed_pattern
-from goldrush_tpu_torch.path.classify import classify_batch
+from goldrush_tpu_torch.path.classify import classify_batch, row_cummax
 from goldrush_tpu_torch.path.engine import GoldenPathEngine
 from goldrush_tpu_torch.utils import synth
 
@@ -173,6 +174,63 @@ def test_classify(cuda, n_ids, K, T):
     want = classify_batch(*args, 10, 5, 1, debug=True)
     assert_same(got[0], want[0])
     assert_same(got[1:], want[1:])
+
+
+
+@pytest.mark.parametrize("vote_min", [2, 0])
+@pytest.mark.parametrize("ranked", [False, True])
+def test_probe_vote_hard_cases(cuda, ranked, vote_min):
+    """Kernel B against its plain version at the main path's widths (H=3,
+    F=1000, K=32) on the tiles of goldrush_tpu_torch/hard_cases.py, each
+    kind in turn, at B=32 and for single reads (B=1).  A vote_min of 0
+    makes every distinct id a candidate: past the CTA's thread count the kernel sorts
+    its whole table."""
+    T, F, K = 20, 1000, 32
+    params = tdm.MibfParams(size=1 << 20, h=3, k=22, spans=FAM.spans,
+                            tile_length=F, threshold=10, vote_topk=K,
+                            vote_min=vote_min)
+    grid, ok = hard.vote_case(None, 32, T, F, 3, K, vote_min, 10, seed=3)
+    w = hard.vote_words()
+    if ranked:
+        w = np.append(w & np.uint32(~tdm.PRESENT_BIT & 0xFFFFFFFF),
+                      np.uint32(0))
+        grid = np.where(grid == hard.ABSENT, w.size - 1, grid)
+    words = torch.from_numpy(w.view(np.int32).copy()).to(cuda)
+    grid, ok = torch.from_numpy(grid).to(cuda), torch.from_numpy(ok).to(cuda)
+    for rows in [slice(0, 32)] + [slice(i, i + 1) for i in (0, 7, 31)]:
+        g, o = grid[rows].contiguous(), ok[rows].contiguous()
+        got = tdm.probe_and_vote(words, g, o, params, T, ranked)
+        assert_same(got, tdm._probe_and_vote_plain(words, g, o, params, T,
+                                                   ranked))
+    assert int(got.overflow.sum()) > 0
+
+
+@pytest.mark.parametrize("T", [20, 2048])
+def test_classify_hard_cases(cuda, T):
+    """Kernel C against its plain version on reads of 0, 1, 2, 3, 14, 15,
+    16 and T tiles (T=20, K=32, B=32 and single reads), and on a 2,048-tile
+    bucket holding a full, a short, a 1,500-tile and an empty read (its
+    candidates staged in chunks of 32 tiles)."""
+    n = [0, 1, 2, 3, 14, 15, 16, T] * 4 if T == 20 else [2048, 5, 1500, 0]
+    args = [torch.from_numpy(a) for a in hard.classify_case(n, T, 32,
+                                                            seed=T)]
+    for rows in [slice(0, len(n))] + [slice(i, i + 1) for i in range(8)
+                                      if i < len(n)]:
+        a = [x[rows].contiguous() for x in args]
+        got = classify_batch(*(x.to(cuda) for x in a), 10, 5, 1, debug=True)
+        want = classify_batch(*a, 10, 5, 1, debug=True)
+        assert_same(got[0], want[0])
+        assert_same(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("R,T", [(32, 20), (1, 20), (4, 2048), (3, 33)])
+def test_row_cummax(cuda, R, T):
+    """Kernel C's warp cummax launched alone, against torch.cummax."""
+    x = torch.from_numpy(np.random.default_rng(T).integers(
+        -2**31, 2**31, (R, T)).astype(np.int32))
+    before = kernels.ROW_CUMMAX.launches
+    assert_same([row_cummax(x.to(cuda))], [torch.cummax(x, 1).values])
+    assert kernels.ROW_CUMMAX.launches == before + 1
 
 
 def test_wrappers_check_their_inputs(cuda):

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401
+from goldrush_tpu_torch import hard_cases as hard
 from goldrush_tpu.mibf import compressed as jcz
 from goldrush_tpu.mibf import mibf as jdm
 from goldrush_tpu.mibf.mibf_np import MibfOracle
@@ -114,6 +115,47 @@ def test_probe_and_vote_matches_jax(seed):
             b = np.asarray(getattr(want, name))
             np.testing.assert_array_equal(a, b.astype(a.dtype), err_msg=name)
         assert int(got.top_count.max()) > 2 and int(got.overflow.sum()) > 0
+
+
+
+@pytest.mark.parametrize("kind", hard.VOTE_KINDS)
+def test_probe_and_vote_hard_cases_match_jax(kind):
+    """The vote against the JAX package on the tiles kernel B's design
+    branches on (goldrush_tpu_torch/hard_cases.py): all H*F votes distinct,
+    equal counts across rank K, counts at vote_min and at threshold, more
+    than K candidates, saturated and plain ID_MASK ids with cross-seed
+    duplicates, and tiles without votes; the last tile of each read has no
+    frames."""
+    T = 4
+    grid, ok = hard.vote_case(kind, 3, T, TL, 3, TP.vote_topk, TP.vote_min,
+                              TP.threshold, seed=len(kind))
+    words = hard.vote_words()
+    w = np.zeros(JP.alloc, np.uint32)
+    w[:words.size] = words
+    want = jdm.probe_and_vote(jnp.asarray(w), jnp.asarray(grid),
+                              jnp.asarray(ok), JP, num_tiles=T)
+    got = tdm.probe_and_vote(tdm.state_from_numpy(w, np.zeros_like(w)).words,
+                             torch.from_numpy(grid), torch.from_numpy(ok), TP,
+                             num_tiles=T)
+    for name in got._fields:
+        a = getattr(got, name).numpy()
+        np.testing.assert_array_equal(a, np.asarray(getattr(want, name)
+                                                    ).astype(a.dtype),
+                                      err_msg=name)
+    live = got.top_count[:, :-1]
+    assert int(got.top_count[:, -1].abs().sum()) == 0
+    if kind == "distinct":
+        assert bool((live == 1).all()) and int(got.overflow.sum()) == 0
+    elif kind in ("ties_at_k", "overflow"):
+        assert bool((got.overflow[:, :-1] > 0).all())
+    elif kind == "at_gates":
+        assert set(live.flatten().tolist()) == {TP.threshold,
+                                                TP.threshold + 1}
+        assert 0 < int(got.bool_init.sum()) < live.numel()
+    elif kind == "id_mask":
+        assert bool((got.curr_id[:, :-1] == hard.ID_MASK).any())
+    else:
+        assert int(live.sum()) == 0 and int(got.hits.sum()) == 0
 
 
 def _jax_insert(state, slots, lo, hi, base, trimmed, T):
