@@ -13,7 +13,11 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      142,368,384-slot filter filled from seeded reads, then frozen into
      the rank-compressed filter; B=1 for the live re-probe), bit for bit
      (every output is an integer), with both times and each kernel's bound (the
-     bytes it must move over the card's 3.35 TB/s); kernel D also on
+     bytes it must move over the card's 3.35 TB/s, or for kernel A its
+     integer operations, whichever takes longer); kernel A's fill, merge
+     and grid in both slot maps, the fill per 64-read batch and over a
+     whole fill pass of the bench's shape (47 batches and one merge),
+     the merge on the bench filter; kernel D also on
      recruits whose keys one of its CTAs owns or that repeat one k-mer
      (past a CTA's shared memory), in both filters, and timed on a
      20-tile and a 2-tile trimmed recruit and for its window read alone;
@@ -24,7 +28,8 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      entry point on 3,000 x 20 kb reads of a 5 Mbp genome at 5% error
      (bench.py's dataset, seeds 11/12), once with the direct filter and
      once with the rank-compressed one; every kernel must have launched,
-     recruits > 0, each completed silver path > r*G bases;
+     the fill once per batch and the merge once per fill pass, recruits
+     > 0, each completed silver path > r*G bases;
   5. digests: the port's silver paths on the 1 Mbp quality-gate dataset,
      with either filter, must match tests/fixtures/torch_port_digests.json
      (written by the JAX package on the CPU).
@@ -36,7 +41,9 @@ own that imports the port from its tree: DIR (for example a `git archive`
 of the parent commit, whose kernels' entry points may differ: only the
 Python wrappers are called), this checkout, this checkout, DIR; then it
 prints each kernel's times side by side.  Every run checks its tree's
-kernels against their plain versions.
+kernels against their plain versions.  The fill is also compared over a
+whole pass (`ms_fill_pass`): this tree's 47 batches into a bitmap and one
+merge against 47 calls of an earlier tree's fill_presence.
 """
 
 from __future__ import annotations
@@ -54,8 +61,12 @@ WORK = os.path.join(REPO, "smoke_work")
 PRESET = "1011011110110111101101"
 BENCH = dict(genome=5_000_000, genome_seed=11, n_reads=3_000,
              read_len=20_000, reads_seed=12, err_rate=0.05)
-# NVIDIA H100 SXM device memory rate (data sheet), for each kernel's bound
+# NVIDIA H100 SXM device memory rate and 32-bit rate outside the tensor
+# cores (data sheet), for each kernel's bound; an integer operation counts
+# as one operation at the float32 rate
 HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+FILL_BATCH, FILL_WIDTH = 64, 32_768     # the engine's pass-1 batches here
 
 
 def say(phase: str, **kv) -> None:
@@ -71,18 +82,19 @@ def sha256_file(path: str) -> str:
     return h.hexdigest()
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, hold: int = 1) -> float:
     """Mean milliseconds per call between CUDA events, after a warm-up.  A
     sleep kernel holds the stream while the calls are enqueued, so a
     kernel shorter than its host-side call is timed on the device and not
     at the host's enqueue rate: a wrapper call takes ~0.02-0.1 ms of host
-    time, more on a loaded host, and the sleep lasts ~0.5 ms per call."""
+    time, more on a loaded host, and the sleep lasts ~0.5 ms per call, or
+    `hold` times that for a call that launches many kernels."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(1_000_000 * reps)
+    torch.cuda._sleep(1_000_000 * reps * hold)
     start.record()
     for _ in range(reps):
         fn()
@@ -91,16 +103,53 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def checked(err: int, ms: float, plain_ms: float, nbytes: int, **extra
-            ) -> dict:
-    """A kernel's record: its exactness, times, and its bound, the bytes
-    it must move (each input read once, each output written once) over the
-    device memory rate: every kernel here does a few integer operations
+def checked(err: int, ms: float, plain_ms: float, nbytes: int,
+            ops: int = 0, **extra) -> dict:
+    """A kernel's record: its exactness, times, and its bound, the larger
+    of the bytes it must move (each input read once, each output written
+    once) over the device memory rate and its integer operations, where
+    counted, over OPS_PER_S; the other kernels do a few integer operations
     per byte.  No single PyTorch call computes any of these functions, so
     there is no library time."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bound_ms=max(by_bytes, by_ops) * 1e3,
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
                 library_ms=None, **extra)
+
+
+def hash_ops(positions: int, hashes: int, n_care: int) -> int:
+    """Kernel A's 32-bit integer operations: per position hashed, two XORs
+    of 64-bit values per care offset (4); per hash, the seed's rotates,
+    XORs and unsigned min of 64-bit values and the slot map's 64 x 64-bit
+    multiply-high (16)."""
+    return positions * 4 * n_care + hashes * 16
+
+
+def fill_pass_batches(dev) -> list:
+    """A fill pass of the bench dataset's shape, made on the card from a
+    seed: 3,000 reads of 20 kb sampled from a 5 Mbp random genome with 5%
+    substitutions (bench.py's sizes; ~3x coverage, as there), in the
+    engine's 47 batches of 64 reads padded to 32,768 bases."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(BENCH["genome_seed"])
+    n, L, G = BENCH["n_reads"], BENCH["read_len"], BENCH["genome"]
+    u8 = dict(dtype=torch.uint8, device=dev, generator=g)
+    genome = torch.randint(0, 4, (G,), **u8)
+    starts = torch.randint(0, G - L, (n, 1), device=dev, generator=g)
+    reads = genome[starts + torch.arange(L, device=dev)]
+    subst = torch.rand((n, L), device=dev, generator=g) < BENCH["err_rate"]
+    reads = torch.where(subst, torch.randint(0, 4, (n, L), **u8), reads)
+    batches = []
+    for i in range(0, n, FILL_BATCH):
+        part = reads[i: i + FILL_BATCH]
+        codes = torch.zeros((part.shape[0], FILL_WIDTH), dtype=torch.uint8,
+                            device=dev)
+        codes[:, :L] = part
+        batches.append((codes, torch.full((part.shape[0],), L,
+                                          dtype=torch.int32, device=dev)))
+    return batches
 
 
 def vote_bytes(grid, ok, T: int, K: int, limit: int, ranked: bool) -> int:
@@ -305,13 +354,15 @@ def phase_kernels(own: bool = True) -> dict:
     """Each kernel vs its plain version at the slice's shapes; with `own`
     also on the hard cases of B and C and C's warp cummax alone (an earlier
     tree of the port, timed by --ab, may lack them)."""
+    import dataclasses
+
     import numpy as np
     import torch
     from goldrush_tpu_torch.config import calc_optimal_size
     from goldrush_tpu_torch.io.fastq import encode
     from goldrush_tpu_torch.mibf import compressed as cz
     from goldrush_tpu_torch.mibf import mibf as dm
-    from goldrush_tpu_torch.ops.nthash import build_seed_family
+    from goldrush_tpu_torch.ops.nthash import build_seed_family, hash_positions
     from goldrush_tpu_torch.ops.seeds import make_seed_pattern
     from goldrush_tpu_torch.path import classify as clf
     from goldrush_tpu_torch.utils import synth
@@ -327,10 +378,13 @@ def phase_kernels(own: bool = True) -> dict:
     reads = synth.simulate_reads(genome, 64, 20_000, seed=8, err_rate=0.05)
     out = {}
 
-    # --- A, fill entry: 64 reads x 32,768 positions ---------------------
-    Lb = 32_768
-    codes = np.zeros((64, Lb), np.uint8)
-    lengths = np.zeros(64, np.int32)
+    # --- A, fill entry: one batch of 64 reads x 32,768 positions into a
+    # bitmap and its merge, in both slot maps; then a whole fill pass of 47
+    # batches and one merge (an earlier tree without the bitmap: 47 calls
+    # of its fill_presence) --------------------------------------------
+    bitmap = hasattr(dm, "fill_presence_bits")
+    codes = np.zeros((FILL_BATCH, FILL_WIDTH), np.uint8)
+    lengths = np.zeros(FILL_BATCH, np.int32)
     for i, (_, seq, _) in enumerate(reads):
         codes[i, :len(seq)] = encode(seq)
         lengths[i] = len(seq)
@@ -338,42 +392,106 @@ def phase_kernels(own: bool = True) -> dict:
     lengths_d = torch.from_numpy(lengths).to(dev)
     st_k = dm.init_state(params, dev)
     st_p = dm.init_state(params, dev)
-    dm.fill_presence(st_k.words, codes_d, lengths_d, fam, size, "fastrange")
-    dm._fill_presence_plain(st_p.words, codes_d, lengths_d, fam, size,
-                            "fastrange")
-    err = max_abs_err([(st_k.words, st_p.words)])
-    ms = cuda_ms(lambda: dm.fill_presence(
-        st_k.words, codes_d, lengths_d, fam, size, "fastrange"), 20)
-    pms = cuda_ms(lambda: dm._fill_presence_plain(
-        st_p.words, codes_d, lengths_d, fam, size, "fastrange"), 3)
+    err = err_merge = 0
+    fill_args = (codes_d, lengths_d, fam, size)
+    for mode in ("mod", "fastrange"):     # the fastrange filter stays for D, B
+        st_k.words.zero_()
+        st_p.words.zero_()
+        if bitmap:
+            bk = dm.fill_presence_bits(dm.presence_bitmap(size, dev),
+                                       *fill_args, mode)
+            bp = dm._fill_bits_plain(dm.presence_bitmap(size, dev),
+                                     *fill_args, mode)
+            err = max(err, max_abs_err([(bk, bp)]))
+            # the merge on the same bits; then the plain fill and merge
+            dm.merge_presence(st_k.words, bk, size)
+            dm._merge_plain(st_p.words, bk, size)
+            err_merge = max(err_merge, max_abs_err([(st_k.words,
+                                                     st_p.words)]))
+            dm._merge_plain(st_p.words.zero_(), bp, size)
+        else:
+            dm.fill_presence(st_k.words, *fill_args, mode)
+            dm._fill_presence_plain(st_p.words, *fill_args, mode)
+        err = max(err, max_abs_err([(st_k.words, st_p.words)]))
     present = int((st_k.words != 0).sum())
-    # codes and lengths in; each word it sets (from a zeroed filter) out
+    if bitmap:
+        ms = cuda_ms(lambda: dm.fill_presence_bits(bk, *fill_args,
+                                                   "fastrange"), 20)
+        pms = cuda_ms(lambda: dm._fill_bits_plain(bk, *fill_args,
+                                                  "fastrange"), 3)
+        written = int((bk != 0).sum())        # bitmap words it sets
+    else:
+        ms = cuda_ms(lambda: dm.fill_presence(st_k.words, *fill_args,
+                                              "fastrange"), 20)
+        pms = cuda_ms(lambda: dm._fill_presence_plain(st_p.words, *fill_args,
+                                                      "fastrange"), 3)
+        written = present
+    n_care = len(fam.care_left) + len(fam.care_right)
+    ln = lengths.astype(np.int64)
+    frames = [int(np.maximum(ln - span + 1, 0).sum()) for span in fam.spans]
+    batches = fill_pass_batches(dev)
+    pass_words = torch.zeros(params.alloc, dtype=torch.int32, device=dev)
+
+    def fill_pass():
+        if not bitmap:
+            for c, n in batches:
+                dm.fill_presence(pass_words, c, n, fam, size, "fastrange")
+            return
+        b = dm.presence_bitmap(size, dev)
+        for c, n in batches:
+            dm.fill_presence_bits(b, c, n, fam, size, "fastrange")
+        dm.merge_presence(pass_words, b, size)
+        return b
+    pass_bits = fill_pass()
+    ms_pass = cuda_ms(fill_pass, 3, hold=40)
+    # codes and lengths in, each bitmap word set (from a zeroed one) out
     out["seed_hash_fill"] = checked(
-        err, ms, pms, codes.size + lengths.size * 4 + present * 4)
+        err, ms, pms, int(ln.sum()) + ln.size * 4 + written * 4,
+        hash_ops(frames[0], sum(frames), n_care), ms_fill_pass=ms_pass,
+        fill_pass_batches=len(batches))
     say("kernels", kernel="seed_hash_fill", shape="64x32768x3",
         present_slots=present, max_abs_err=err, ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}",
-        bound_ms=f"{out['seed_hash_fill']['bound_ms']:.4f}")
+        bound_ms=f"{out['seed_hash_fill']['bound_ms']:.4f}",
+        fill_pass_ms=f"{ms_pass:.4f}", fill_pass_batches=len(batches))
+    if bitmap:
+        # the merge of the pass's bitmap into words holding every bit
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        w0 = torch.randint(-2**31, 2**31, (params.alloc,), dtype=torch.int32,
+                           device=dev, generator=g)
+        mk = dm.merge_presence(w0.clone(), pass_bits, size)
+        mp = dm._merge_plain(w0, pass_bits, size)
+        err_merge = max(err_merge, max_abs_err([(mk, mp)]))
+        ms = cuda_ms(lambda: dm.merge_presence(mk, pass_bits, size), 20)
+        pms = cuda_ms(lambda: dm._merge_plain(mp, pass_bits, size), 3)
+        set_slots = int((pass_words != 0).sum())
+        # the bitmap in, each set slot's word read and written
+        out["presence_merge"] = checked(err_merge, ms, pms,
+                                        pass_bits.numel() * 4 + set_slots * 8)
+        say("kernels", kernel="presence_merge", slots=size,
+            set_slots=set_slots, max_abs_err=err_merge, ms=f"{ms:.4f}",
+            plain_ms=f"{pms:.4f}",
+            bound_ms=f"{out['presence_merge']['bound_ms']:.4f}")
+        del w0, mk, mp, pass_bits
+    del pass_words, batches
 
-    # --- A, grid entry: B=32, T=20 ---------------------------------------
+    # --- A, grid entry: B=32, T=20, both slot maps ------------------------
     qc = torch.from_numpy(codes[:B, : T * TL + TL].copy()).to(dev)
     ql = torch.from_numpy(lengths[:B].copy()).to(dev)
-    slots, ok = dm.build_slot_grid(qc, ql, fam, params, T)
-    ps, pok = dm.build_slot_grid(qc.cpu(), ql.cpu(), fam, params, T)
-    ps_d, pok_d = ps.to(dev), pok.to(dev)
-    err = max_abs_err([(slots, ps_d), (ok, pok_d)])
+    err = 0
+    for mode in ("mod", "fastrange"):
+        par = dataclasses.replace(params, slot_map=mode)
+        slots, ok = dm.build_slot_grid(qc, ql, fam, par, T)
+        pg = dm.tile_slot_grid(hash_positions(qc, fam, T * TL), ql, par, T)
+        err = max(err, max_abs_err([(slots, pg[0]), (ok, pg[1])]))
     ms = cuda_ms(lambda: dm.build_slot_grid(qc, ql, fam, params, T), 20)
-
-    def plain_grid():
-        from goldrush_tpu_torch.ops.nthash import hash_positions
-        return dm.tile_slot_grid(hash_positions(qc, fam, T * TL), ql,
-                                 params, T)
-    pg = plain_grid()
-    err = max(err, max_abs_err([(pg[0], slots), (pg[1], ok)]))
-    pms = cuda_ms(plain_grid, 3)
+    pms = cuda_ms(lambda: dm.tile_slot_grid(hash_positions(qc, fam, T * TL),
+                                            ql, params, T), 3)
+    n_ok = int(ok.sum())
     out["seed_hash_grid"] = checked(
         err, ms, pms, qc.numel() + ql.numel() * 4 + slots.numel() * 8
-        + ok.numel())
+        + ok.numel(), hash_ops(n_ok, n_ok * fam.h, n_care))
     say("kernels", kernel="seed_hash_grid", shape=f"{B}x3x{T * TL}",
         max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
         bound_ms=f"{out['seed_hash_grid']['bound_ms']:.4f}")
@@ -549,18 +667,49 @@ def make_reads(path: str, genome: int, genome_seed: int, n_reads: int,
 def phase_e2e() -> dict:
     """goldrush-path through the CLI entry point at the bench scale, with
     the direct and then the rank-compressed filter; every kernel's launch
-    count is read after both."""
-    import torch
-    from goldrush_tpu_torch import cli, kernels
-    from goldrush_tpu_torch.io import fastq
+    count is read after both.  The calls of the fill's two wrappers are
+    counted apart from the kernels' launches: the fill must launch once
+    per batch and the merge once per fill pass (one per stage run)."""
+    from goldrush_tpu_torch.mibf import mibf as dm
     t0 = time.time()
     reads = os.path.join(WORK, "bench_reads")
     make_reads(reads + ".fq", **BENCH)
     say("e2e", dataset="5Mbp/3000x20kb/5%err",
         synth_s=f"{time.time() - t0:.1f}")
+    calls = dict.fromkeys(("fill_presence_bits", "merge_presence"), 0)
+    wrapped = {name: getattr(dm, name) for name in calls}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return wrapped[name](*args, **kwargs)
+        return call
+    for name in calls:
+        setattr(dm, name, counted(name))
+    try:
+        launches, fill_passes = drive_bench(reads)
+    finally:
+        for name, fn in wrapped.items():
+            setattr(dm, name, fn)
+    if (launches["seed_hash_fill"] != calls["fill_presence_bits"]
+            or launches["presence_merge"] != calls["merge_presence"]
+            or calls["merge_presence"] != fill_passes):
+        raise AssertionError(f"fill launches {launches} for wrapper calls "
+                             f"{calls} over {fill_passes} fill passes")
+    say("e2e", fill_batches=calls["fill_presence_bits"],
+        fill_passes=fill_passes)
+    return launches
+
+
+def drive_bench(reads: str) -> tuple[dict, int]:
+    """Both filters' silver and golden stages on the bench reads: the
+    kernels' launch counts and the number of fill passes (stage runs)."""
+    import torch
+    from goldrush_tpu_torch import cli, kernels
+    from goldrush_tpu_torch.io import fastq
     for k in kernels.ALL:
         k.launches = 0
-    recruits = 0
+    recruits = fill_passes = 0
     for mode in ("direct", "compressed"):
         outdir = os.path.join(WORK, f"bench_{mode}")
         argv = ["goldrush-path", f"reads={reads}", "G=5000000",
@@ -583,6 +732,7 @@ def phase_e2e() -> dict:
                 reads_per_s=f"{rate:.2f}",
                 paths_completed=st.paths_completed)
             recruits += st.recruits
+            fill_passes += 1
         silver = out["stats"]["silver"]
         if silver.recruits <= 0 or out["stats"]["golden"].recruits <= 0:
             raise AssertionError(f"{mode}: no recruits")
@@ -610,7 +760,7 @@ def phase_e2e() -> dict:
     if launches["insert_sorted"] != recruits:
         raise AssertionError(f"insert_sorted launched {launches['insert_sorted']}"
                              f" times for {recruits} recruits")
-    return launches
+    return launches, fill_passes
 
 
 def phase_digests() -> None:
@@ -656,7 +806,8 @@ def phase_ab(earlier: str) -> None:
                                  f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
         runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
     for name, rec in runs[1].items():
-        for key in ("ms", "ms_b1", "ms_compressed", "ms_b1_compressed"):
+        for key in ("ms", "ms_b1", "ms_compressed", "ms_b1_compressed",
+                    "ms_fill_pass"):
             if key in rec and key in runs[0].get(name, {}):
                 say("ab", kernel=name, time=key,
                     earlier=",".join(f"{runs[i][name][key]:.4f}"

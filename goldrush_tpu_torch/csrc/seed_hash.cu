@@ -1,63 +1,133 @@
-// Kernel A: canonical spaced-seed ntHash -> slot, with two entries.
+// Kernel A: canonical spaced-seed ntHash -> slot, with two entries, and the
+// merge that closes a presence fill.
 //
-// Replaces the JAX package's hash_positions (goldrush_tpu/ops/nthash.py:131)
-// + slot_of (mibf/mibf.py:115) + tile_slot_grid (mibf/mibf.py:158) for the
-// GRID entry, and the fused hash + fill_presence (mibf/mibf.py:122,
-// engine.py:405-408) for the FILL entry.
+//   seed_hash_grid   replaces hash_positions (goldrush_tpu/ops/nthash.py:131)
+//                    + slot_of (mibf/mibf.py:115) + tile_slot_grid
+//                    (mibf/mibf.py:158): the probe grid of a batch;
+//   seed_hash_fill   replaces hash_positions + slot_of + fill_presence
+//                    (mibf/mibf.py:122): one batch of pass 1, into a
+//                    presence bitmap;
+//   presence_merge   the bitmap into the filter's words (PRESENT), once per
+//                    fill pass.
 //
-// Design.  The JAX kernel factors the hash into per-base rotated constants
-// and correlations over shifted slices, a shape chosen for 128-lane TPU
-// vectors.  Here every thread evaluates the definition directly for its own
-// (read, position): fwd = XOR_j rol64(TAB[c[p+j]], span-1-j), rev = XOR_j
-// rol64(TABC[c[p+j]], j), canon = min(fwd, rev), over the seed's care
-// offsets (16 for the default seeds), so positions are independent and no
-// rolling state or intermediate hash array exists.  fastrange is a native
-// 64x64->128 __umul64hi.
+// Hashing.  Both entries stage the codes window a CTA needs in shared
+// memory (zero at or past the batch width L, as hash_positions pads), with
+// the seed family's per-base constants, rotations already applied, and its
+// care offsets (SeedFamily.kernel_table, read from global memory once per
+// CTA).  Seed s = left + s zeros + right factorises (ops/nthash.py):
 //
-// Bound.  The grid entry reads the reads' codes (1 B/base, served from L1
-// across the ~16 neighbouring reads of a warp) and writes 8 B per slot per
-// seed plus 1 B per frame: at B=32, T=20, TL=1000, h=3 that is 15.4 MB of
-// output for 1.9 M hashes, so it is store-bound.  The fill entry's cost is
-// its atomicOr traffic into the 570 MB words array, one random 4-byte
-// read-modify-write per valid hash (the JAX path sorted and deduped first
-// only to reach XLA's unique-index scatter).
+//   fwd_s(p) = rol64(FL(p), s) ^ FR(p + half + s)
+//   rev_s(p) = RL(p) ^ rol64(RR(p + half + s), s)
+//
+// so the left-half partials (FL, RL) of a position are XORed once in
+// registers, the right-half ones (FR, RR) once per position into shared
+// memory, and seed s then costs two loads, one rotate per strand and an
+// unsigned min.  The per-base constants are a shared-memory lookup by the
+// code (a 16-byte (fwd, rev) pair); nothing indexes constant memory by a
+// base.  This is the algebra of the JAX kernel (nthash.py:229-246) in
+// 64-bit registers, with the position rotations moved into the table.
+//
+// Bounds on the H100 (3.35 TB/s; hashing is ~100 integer operations per
+// position, under the bytes' time at every shape of the path):
+//  - grid: one CTA per (read, tile) writes TL frames x h int64 slots plus
+//    frame_ok; at B=32, T=20, TL=1000, h=3 that is 15.4 MB of stores for
+//    1.28 MB of codes: store-bound, each warp storing 256 contiguous bytes
+//    per seed;
+//  - fill: one CTA per (read, chunk of 1,024 positions); a CTA whose chunk
+//    starts past the read's last frame returns at once, so the padding of
+//    the power-of-two batch width costs nothing.  Each valid hash sets bit
+//    slot & 31 of word slot >> 5 of a ceil(size / 32)-word bitmap with a
+//    reduction (atomicOr whose result is unused): 17.8 MB at the bench's
+//    142 M slots, inside the 50 MB L2, where the direct words (570 MB)
+//    would take a DRAM read-modify-write per hash.  Bound: the reads'
+//    codes in and the bitmap words set out;
+//  - merge: streams the bitmap once and read-modify-writes the words of
+//    every group of 4 slots with a set bit: bytes-bound.
 #include "common.cuh"
 
 namespace gr {
 
-__constant__ uint64_t kTab[4] = {0x3C8BFBB395C60474ull, 0x3193C18562A02B4Cull,
-                                 0x20323ED082572324ull, 0x295549F54BE24456ull};
-// complement under A=0 C=1 G=2 T=3 is 3-b
-__constant__ uint64_t kTabC[4] = {0x295549F54BE24456ull, 0x20323ED082572324ull,
-                                  0x3193C18562A02B4Cull, 0x3C8BFBB395C60474ull};
+constexpr int kThreads = 256;     // threads per CTA of every entry
+constexpr int kFillChunk = 1024;  // positions per CTA of the fill
 
-// Seed family descriptor (ops/nthash.py SeedFamily.descriptor):
-// fam = [h, k, half, nl, nr, care_left[nl]..., care_right[nr]...]; seed s
-// has span k + s and care offsets care_left + (half + s + care_right).
+// A seed family as the kernels read it: its scalars by value, its table
+// (SeedFamily.kernel_table: nl + nr care offsets, then (nl + nr) x 4 bases
+// of (fwd, rev) constants) in device memory.  pad = SeedFamily.pad_needed.
 struct Family {
-  int h, k, half, nl, nr;
-  const int* left;
-  const int* right;
-  __device__ explicit Family(const int* fam)
-      : h(fam[0]), k(fam[1]), half(fam[2]), nl(fam[3]), nr(fam[4]),
-        left(fam + 5), right(fam + 5 + fam[3]) {}
+  int h, k, half, nl, nr, pad;
+  const uint64_t* table;
 };
 
-// Canonical hash of seed s at position pos of one read's codes; positions
-// at or past L read as base 0 (the zero padding of hash_positions), and
-// only the low 2 bits of a code are used.
-__device__ __forceinline__ uint64_t canon_hash(const uint8_t* codes,
-                                               int64_t L, int64_t pos,
-                                               const Family& f, int s) {
-  const int span = f.k + s;
-  uint64_t fwd = 0, rev = 0;
-  for (int i = 0; i < f.nl + f.nr; ++i) {
-    const int j = i < f.nl ? f.left[i] : f.half + s + f.right[i - f.nl];
-    const int64_t q = pos + j;
-    const unsigned c = q < L ? (codes[q] & 3u) : 0u;
-    fwd ^= rol64(kTab[c], static_cast<unsigned>(span - 1 - j));
-    rev ^= rol64(kTabC[c], static_cast<unsigned>(j));
+// Shared-memory bytes of a CTA that stages m right-half partials.
+__host__ __device__ inline size_t stage_bytes(const Family& f, int m) {
+  const int nc = f.nl + f.nr;
+  return sizeof(ulonglong2) * (4 * nc + m) + sizeof(int) * nc + m + f.pad;
+}
+
+// One CTA's staged window: the family's constants and care offsets, the
+// codes of window positions [0, m + pad) and the right-half partials
+// (FR, RR) of window positions half + i, i < m.
+struct Stage {
+  ulonglong2* tab;    // [(nl + nr) * 4]
+  ulonglong2* right;  // [m]
+  int* care;          // [nl + nr]
+  uint8_t* codes;     // [m + pad]
+
+  __device__ Stage(ulonglong2* smem, const Family& f, int m)
+      : tab(smem), right(smem + 4 * (f.nl + f.nr)),
+        care(reinterpret_cast<int*>(right + m)),
+        codes(reinterpret_cast<uint8_t*>(care + f.nl + f.nr)) {}
+};
+
+// Stage read positions [p0, p0 + m + pad) of `row` (zero at or past L) and
+// the right-half partials of the first m window positions.  Every thread
+// of the CTA calls it; it ends with a barrier.
+__device__ void stage(const Family& f, const uint8_t* __restrict__ row,
+                      int64_t L, int64_t p0, int m, const Stage& st) {
+  const int nc = f.nl + f.nr;
+  for (int i = threadIdx.x; i < 4 * nc; i += blockDim.x) {
+    st.tab[i] = make_ulonglong2(f.table[nc + 2 * i], f.table[nc + 2 * i + 1]);
   }
+  for (int i = threadIdx.x; i < nc; i += blockDim.x) {
+    st.care[i] = static_cast<int>(f.table[i]);
+  }
+  for (int i = threadIdx.x; i < m + f.pad; i += blockDim.x) {
+    const int64_t q = p0 + i;
+    st.codes[i] = q < L ? (row[q] & 3u) : 0u;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const uint8_t* c = st.codes + f.half + i;
+    uint64_t fw = 0, rv = 0;
+    for (int r = f.nl; r < nc; ++r) {
+      const ulonglong2 v = st.tab[4 * r + c[st.care[r]]];
+      fw ^= v.x;
+      rv ^= v.y;
+    }
+    st.right[i] = make_ulonglong2(fw, rv);
+  }
+  __syncthreads();
+}
+
+// Left-half partials (FL, RL) of window position p.
+__device__ __forceinline__ ulonglong2 left_at(const Family& f, const Stage& st,
+                                              int p) {
+  uint64_t fw = 0, rv = 0;
+  for (int r = 0; r < f.nl; ++r) {
+    const ulonglong2 v = st.tab[4 * r + st.codes[p + st.care[r]]];
+    fw ^= v.x;
+    rv ^= v.y;
+  }
+  return make_ulonglong2(fw, rv);
+}
+
+// Canonical hash of seed s at window position p (p + s < m), from p's left
+// partials.
+__device__ __forceinline__ uint64_t canon(const Stage& st, ulonglong2 left,
+                                          int p, int s) {
+  const ulonglong2 r = st.right[p + s];
+  const uint64_t fwd = rol64(left.x, s) ^ r.x;
+  const uint64_t rev = left.y ^ rol64(r.y, s);
   return fwd < rev ? fwd : rev;
 }
 
@@ -66,64 +136,93 @@ __device__ __forceinline__ uint64_t slot_of(uint64_t h, uint64_t size,
   return mode ? h % size : __umul64hi(h, size);
 }
 
-// grid (ceil(T*TL/256), B): one thread per (read, tile, frame), all seeds.
-// Frame f of tile t is valid iff t < L/TL and f < frames_t; seed s probes
-// position t*TL + f, or the clamp t*TL + F_ts - 1 once f >= F_ts
-// (F_ts = frames_t - s: the stale tail); invalid frames get slot `size`.
-__global__ void seed_hash_grid_kernel(const uint8_t* __restrict__ codes,
-                                      int64_t L, const int* __restrict__ lengths,
-                                      const int* __restrict__ fam, int T, int TL,
-                                      int64_t size, int mode,
-                                      int64_t* __restrict__ slots,
-                                      bool* __restrict__ frame_ok) {
-  const Family f(fam);
+// grid (T, B): one CTA per (read, tile).  Frame f of tile t is valid iff
+// t < len / TL and f < frames_t; seed s probes position t*TL + f, or
+// t*TL + F_ts - 1 once f >= F_ts = frames_t - s (the stale tail); invalid
+// frames get slot `size`.  Invariant: in a valid tile len - t*TL >= TL, so
+// frames_t >= TL - k + 1 and, with TL >= k + h - 1 (checked by the entry),
+// F_ts >= 1: every probed position p has p + s < frames_t, inside the
+// tile's staged window of m = frames_t right-half partials.
+__global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
+    const uint8_t* __restrict__ codes, int64_t L,
+    const int* __restrict__ lengths, const Family f, int T, int TL,
+    int64_t size, int mode, int64_t* __restrict__ slots,
+    bool* __restrict__ frame_ok) {
+  extern __shared__ ulonglong2 smem[];
+  const int t = blockIdx.x, b = blockIdx.y;
   const int64_t TF = static_cast<int64_t>(T) * TL;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (col >= TF) return;
-  const int b = blockIdx.y;
-  const int t = static_cast<int>(col / TL);
-  const int64_t fr = col - static_cast<int64_t>(t) * TL;
+  const int64_t col0 = static_cast<int64_t>(t) * TL;
   const int64_t len = lengths[b];
-  const int64_t tile_len = min64(static_cast<int64_t>(TL) + f.k - 1,
-                                 len - static_cast<int64_t>(t) * TL);
-  const int64_t frames_t = tile_len - f.k + 1;
-  const bool ok = t < len / TL && fr < frames_t;
-  frame_ok[b * TF + col] = ok;
-  const uint8_t* rc = codes + static_cast<int64_t>(b) * L;
-  for (int s = 0; s < f.h; ++s) {
-    int64_t out = size;
-    if (ok) {
-      const int64_t F_ts = frames_t - s;
-      int64_t pos = static_cast<int64_t>(t) * TL + fr;
-      if (fr >= max64(F_ts, 0)) {
-        pos = min64(max64(static_cast<int64_t>(t) * TL + F_ts - 1, 0), TF - 1);
+  const int frames_t = t < len / TL
+      ? static_cast<int>(min64(TL + f.k - 1, len - col0)) - f.k + 1 : 0;
+  bool* ok_row = frame_ok + b * TF + col0;
+  int64_t* out = slots + static_cast<int64_t>(b) * f.h * TF + col0;
+  const Stage st(smem, f, frames_t);
+  if (frames_t > 0) stage(f, codes + b * L, L, col0, frames_t, st);
+  for (int fr = threadIdx.x; fr < TL; fr += blockDim.x) {
+    const bool ok = fr < frames_t;
+    ok_row[fr] = ok;
+    ulonglong2 own = make_ulonglong2(0, 0);
+    if (ok) own = left_at(f, st, fr);
+    for (int s = 0; s < f.h; ++s) {
+      int64_t v = size;
+      if (ok) {
+        const int F_ts = frames_t - s;
+        const int p = fr < F_ts ? fr : F_ts - 1;
+        const ulonglong2 left = p == fr ? own : left_at(f, st, p);
+        v = static_cast<int64_t>(slot_of(canon(st, left, p, s),
+                                         static_cast<uint64_t>(size), mode));
       }
-      out = static_cast<int64_t>(
-          slot_of(canon_hash(rc, L, pos, f, s), static_cast<uint64_t>(size), mode));
+      out[s * TF + fr] = v;
     }
-    slots[(static_cast<int64_t>(b) * f.h + s) * TF + col] = out;
   }
 }
 
-// grid (ceil(L/256), B): one thread per (read, position), all seeds.  Frame
-// p of seed s is valid iff p < length - span_s + 1; its slot gets PRESENT.
-__global__ void seed_hash_fill_kernel(const uint8_t* __restrict__ codes,
-                                      int64_t L, const int* __restrict__ lengths,
-                                      const int* __restrict__ fam, int64_t size,
-                                      int mode, uint32_t* __restrict__ words) {
-  const Family f(fam);
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+// grid (ceil(L / kFillChunk), B): one CTA per (read, chunk).  Frame p of
+// seed s is valid iff p < len - span_s + 1, i.e. p + s < len - k + 1; its
+// slot's bit is set in `bits`.
+__global__ void __launch_bounds__(kThreads) seed_hash_fill_kernel(
+    const uint8_t* __restrict__ codes, int64_t L,
+    const int* __restrict__ lengths, const Family f, int64_t size, int mode,
+    uint32_t* __restrict__ bits) {
+  extern __shared__ ulonglong2 smem[];
   const int b = blockIdx.y;
-  if (p >= L) return;
-  const int64_t len = lengths[b];
-  const uint8_t* rc = codes + static_cast<int64_t>(b) * L;
-  for (int s = 0; s < f.h; ++s) {
-    if (p < len - (f.k + s) + 1) {
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kFillChunk;
+  const int64_t rem = static_cast<int64_t>(lengths[b]) - f.k + 1 - p0;
+  if (rem <= 0) return;  // the chunk holds no frame of any seed
+  // positions of this chunk, and the right partials their seeds reach
+  const int n = static_cast<int>(min64(kFillChunk, rem));
+  const int m = static_cast<int>(min64(kFillChunk + f.h - 1, rem));
+  const Stage st(smem, f, m);
+  stage(f, codes + b * L, L, p0, m, st);
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    const ulonglong2 left = left_at(f, st, p);
+    for (int s = 0; s < f.h && p + s < m; ++s) {
       const uint64_t slot =
-          slot_of(canon_hash(rc, L, p, f, s), static_cast<uint64_t>(size), mode);
-      atomicOr(words + slot, kPresent);
+          slot_of(canon(st, left, p, s), static_cast<uint64_t>(size), mode);
+      atomicOr(bits + (slot >> 5), 1u << (slot & 31u));
     }
   }
+}
+
+// grid ceil(size / 4 / kThreads): thread i owns slots 4i..4i+3 (one nibble
+// of the bitmap) and, if any is set, ORs PRESENT into their words with one
+// 16-byte load and store.
+__global__ void __launch_bounds__(kThreads) presence_merge_kernel(
+    const uint32_t* __restrict__ bits, int64_t size,
+    uint32_t* __restrict__ words) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t s0 = 4 * i;
+  if (s0 >= size) return;
+  uint32_t nib = (bits[s0 >> 5] >> (s0 & 31)) & 0xFu;
+  if (size - s0 < 4) nib &= (1u << (size - s0)) - 1u;
+  if (nib == 0) return;
+  uint4 w = reinterpret_cast<uint4*>(words)[i];
+  if (nib & 1u) w.x |= kPresent;
+  if (nib & 2u) w.y |= kPresent;
+  if (nib & 4u) w.z |= kPresent;
+  if (nib & 8u) w.w |= kPresent;
+  reinterpret_cast<uint4*>(words)[i] = w;
 }
 
 }  // namespace gr
@@ -134,27 +233,50 @@ const char* gr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// fam_table: the family's kernel_table on the card; h..pad its scalars.
 int gr_seed_hash_grid(const uint8_t* codes, int64_t B, int64_t L,
-                      const int* lengths, const int* fam, int T, int TL,
+                      const int* lengths, const uint64_t* fam_table, int h,
+                      int k, int half, int nl, int nr, int pad, int T, int TL,
                       int64_t size, int mode, int64_t* slots, bool* frame_ok,
                       cudaStream_t stream) {
-  const int64_t TF = static_cast<int64_t>(T) * TL;
-  if (B == 0 || TF == 0) return gr::kNoLaunch;
-  const dim3 grid(static_cast<unsigned>((TF + 255) / 256),
-                  static_cast<unsigned>(B));
-  gr::seed_hash_grid_kernel<<<grid, 256, 0, stream>>>(
-      codes, L, lengths, fam, T, TL, size, mode, slots, frame_ok);
+  const gr::Family f{h, k, half, nl, nr, pad, fam_table};
+  if (TL < k + h - 1) return cudaErrorInvalidValue;  // the clamp invariant
+  if (B == 0 || T == 0) return gr::kNoLaunch;
+  const size_t smem = gr::stage_bytes(f, TL);
+  const cudaError_t err = gr::allow_smem(gr::seed_hash_grid_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(T), static_cast<unsigned>(B));
+  gr::seed_hash_grid_kernel<<<grid, gr::kThreads, smem, stream>>>(
+      codes, L, lengths, f, T, TL, size, mode, slots, frame_ok);
   return cudaGetLastError();
 }
 
 int gr_seed_hash_fill(const uint8_t* codes, int64_t B, int64_t L,
-                      const int* lengths, const int* fam, int64_t size,
-                      int mode, uint32_t* words, cudaStream_t stream) {
+                      const int* lengths, const uint64_t* fam_table, int h,
+                      int k, int half, int nl, int nr, int pad, int64_t size,
+                      int mode, uint32_t* bits, cudaStream_t stream) {
+  const gr::Family f{h, k, half, nl, nr, pad, fam_table};
   if (B == 0 || L == 0) return gr::kNoLaunch;
-  const dim3 grid(static_cast<unsigned>((L + 255) / 256),
+  const size_t smem = gr::stage_bytes(f, gr::kFillChunk + h - 1);
+  const cudaError_t err = gr::allow_smem(gr::seed_hash_fill_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>((L + gr::kFillChunk - 1) /
+                                        gr::kFillChunk),
                   static_cast<unsigned>(B));
-  gr::seed_hash_fill_kernel<<<grid, 256, 0, stream>>>(
-      codes, L, lengths, fam, size, mode, words);
+  gr::seed_hash_fill_kernel<<<grid, gr::kThreads, smem, stream>>>(
+      codes, L, lengths, f, size, mode, bits);
+  return cudaGetLastError();
+}
+
+// words: 16-byte aligned, at least 4 * ceil(size / 4) entries.
+int gr_presence_merge(const uint32_t* bits, int64_t size, uint32_t* words,
+                      cudaStream_t stream) {
+  if (size <= 0) return gr::kNoLaunch;
+  const int64_t groups = (size + 3) / 4;
+  const unsigned grid =
+      static_cast<unsigned>((groups + gr::kThreads - 1) / gr::kThreads);
+  gr::presence_merge_kernel<<<grid, gr::kThreads, 0, stream>>>(bits, size,
+                                                              words);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
-"""Inputs on which kernels B (probe_and_vote) and C (classify_batch) branch,
-made with numpy from a seed.  The CPU tests hold the plain versions against
-the JAX package on them; the `gpu` tests and chip_smoke.py hold the kernels
-against the plain versions on them.  Numpy only."""
+"""Inputs on which kernels A (build_slot_grid), B (probe_and_vote) and C
+(classify_batch) branch, made with numpy from a seed.  The CPU tests hold
+the plain versions against the JAX package on them; the `gpu` tests and
+chip_smoke.py hold the kernels against the plain versions on them.  Numpy
+only."""
 
 from __future__ import annotations
 
@@ -17,6 +18,32 @@ N_IDS = 65_536
 
 VOTE_KINDS = ("distinct", "ties_at_k", "at_gates", "overflow", "id_mask",
               "no_votes")
+
+
+def grid_lengths(TL: int, k: int) -> dict:
+    """Read lengths on which kernel A's grid branches (tiles and the
+    stale-tail clamp), as name -> (lengths, T): shorter than k, one tile,
+    TL + k - 2 (the last length before a tile's frames are all whole), a
+    multiple of TL, reads that fill the bucket of T tiles and pass it, and
+    a bucket of one tile."""
+    return {
+        "shorter_than_k": ([k - 1, 5, 0], 2),
+        "one_tile": ([TL, TL - 1, TL + 1], 2),
+        "tl_plus_k_minus_2": ([TL + k - 2, TL + k - 1, TL + k - 3], 2),
+        "multiple_of_tl": ([3 * TL, 2 * TL, TL], 4),
+        "fills_bucket": ([4 * TL + TL // 2, 4 * TL + k - 1, 4 * TL], 4),
+        "one_tile_bucket": ([TL + 7, TL, 3], 1),
+    }
+
+
+def read_batch(lengths, width: int, seed: int) -> tuple:
+    """uint8 codes [B, width] (random bases, zero past each length) and
+    int32 lengths [B]."""
+    rng = np.random.default_rng(seed)
+    codes = np.zeros((len(lengths), width), np.uint8)
+    for i, n in enumerate(lengths):
+        codes[i, :n] = rng.integers(0, 4, n)
+    return codes, np.asarray(lengths, np.int32)
 
 
 def vote_words() -> np.ndarray:

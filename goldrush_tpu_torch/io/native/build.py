@@ -1,10 +1,11 @@
 """Build + ctypes bindings for the native seqio FASTQ/FASTA reader.
 
-The C++ source is the JAX package's ``goldrush_tpu/io/native/seqio.cpp``,
-compiled by file path (never imported) into this package's git-ignored
-build directory, keyed by a hash of the source.  Compiled lazily with g++;
-``available()`` is False where the toolchain or the source is missing, and
-the ingest layer then uses the pure-Python reader, as the JAX package does.
+The C++ source, ``seqio.cpp`` beside this file, is this package's own copy
+of the JAX package's reader (byte for byte the same, so both read a file
+alike).  It is compiled lazily with g++ into this package's git-ignored
+build directory, keyed by a hash of the source; ``available()`` is False
+where the toolchain is missing, and the ingest layer then uses the
+pure-Python reader, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -18,8 +19,7 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SRC = os.path.join(os.path.dirname(_PKG), "goldrush_tpu", "io", "native",
-                   "seqio.cpp")
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "seqio.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _lock = threading.Lock()
 _lib = None

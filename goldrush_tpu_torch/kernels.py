@@ -45,8 +45,11 @@ _P, _I, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
 # C signatures: every entry returns the cudaError_t of its launch, or
 # NO_LAUNCH
 _SIGNATURES = {
-    "gr_seed_hash_grid": (_P, _L, _L, _P, _P, _I, _I, _L, _I, _P, _P, _P),
-    "gr_seed_hash_fill": (_P, _L, _L, _P, _P, _L, _I, _P, _P),
+    "gr_seed_hash_grid": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _L, _I, _P, _P, _P),
+    "gr_seed_hash_fill": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _L, _I, _P, _P),
+    "gr_presence_merge": (_P, _L, _P, _P),
     "gr_probe_vote": (_P, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "gr_classify": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -159,6 +162,10 @@ SEED_HASH_FILL = Kernel(
     "seed_hash_fill", "gr_seed_hash_fill",
     "goldrush_tpu_torch/csrc/seed_hash.cu",
     "goldrush_tpu/mibf/mibf.py:122")
+PRESENCE_MERGE = Kernel(
+    "presence_merge", "gr_presence_merge",
+    "goldrush_tpu_torch/csrc/seed_hash.cu",
+    "goldrush_tpu/mibf/mibf.py:122")
 PROBE_VOTE = Kernel(
     "probe_vote", "gr_probe_vote",
     "goldrush_tpu_torch/csrc/probe_vote.cu",
@@ -186,8 +193,8 @@ RANK_LOOKUP = Kernel(
 ROW_CUMMAX = Kernel(
     "row_cummax", "gr_row_cummax", "goldrush_tpu_torch/csrc/classify.cu",
     "tools/probe_pallas.py:100")
-ALL = (SEED_HASH_GRID, SEED_HASH_FILL, PROBE_VOTE, CLASSIFY, INSERT_SORTED,
-       RANK_PACK, RANK_CARRY, RANK_LOOKUP)
+ALL = (SEED_HASH_GRID, SEED_HASH_FILL, PRESENCE_MERGE, PROBE_VOTE, CLASSIFY,
+       INSERT_SORTED, RANK_PACK, RANK_CARRY, RANK_LOOKUP)
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

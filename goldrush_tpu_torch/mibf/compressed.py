@@ -112,6 +112,7 @@ def _rank_pack_cuda(words, size):
     if words.data_ptr() % 16:
         raise ValueError("words must be 16-byte aligned")
     bitrank = torch.empty(nw + 1, dtype=torch.int64, device=dev)
+    bitrank[nw:].zero_()     # the appended word; the kernel writes the rest
     totals = torch.empty(-(-nw * 32 // RANK_BLOCK_SLOTS), dtype=torch.int64,
                          device=dev)
     kernels.RANK_PACK(dev, kernels.ptr(words), size, nw, kernels.ptr(bitrank),

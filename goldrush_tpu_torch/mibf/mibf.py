@@ -9,18 +9,24 @@ both carried as int32 tensors holding the uint32 bits (PyTorch has no
 uint32 arithmetic on the CPU), with slot ``size`` the sentinel that invalid
 probe frames point at.  Slot grids are int64 throughout.
 
-Four functions own a kernel; each runs its plain PyTorch version for a CPU
-tensor and launches its CUDA kernel for a CUDA tensor (or raises):
+Five functions own a kernel; each runs its plain PyTorch version for CPU
+tensors and launches its CUDA kernel for CUDA tensors (or raises):
 
-  fill_presence      kernel A, fill entry  (csrc/seed_hash.cu)
+  fill_presence_bits kernel A, fill entry  (csrc/seed_hash.cu)
+  merge_presence     presence_merge        (csrc/seed_hash.cu)
   build_slot_grid    kernel A, grid entry  (csrc/seed_hash.cu)
   probe_and_vote     kernel B              (csrc/probe_vote.cu)
   insert_blocks      kernel D              (csrc/insert_sorted.cu)
 
+A fill pass sets bits in a presence bitmap of ceil(size / 32) words batch
+by batch (``fill_presence_bits``), then ORs PRESENT into the words of its
+set slots once (``merge_presence``); ``fill_presence`` does both for one
+batch.
+
 ``probe_and_vote`` and ``insert_blocks`` also serve the rank-compressed
 filter (``compressed.py``), keyed on ranks instead of slots.
 
-Unlike the JAX package, the filter is updated in place (``fill_presence``,
+Unlike the JAX package, the filter is updated in place (``merge_presence``,
 ``insert_read_sorted``, ``reset_ids``): a 1.14 GB filter is never copied.
 """
 
@@ -118,46 +124,74 @@ def _slot_mode(mode: str) -> int:
     return int(mode == "mod")
 
 
-def _family_tensor(fam: SeedFamily, device) -> torch.Tensor:
-    return torch.from_numpy(fam.descriptor()).to(device)
+# kernel A's table of each seed family, on each device it was used on
+_FAMILY_TABLES: dict = {}
+
+
+def _family_args(fam: SeedFamily, device) -> tuple:
+    """Kernel A's family arguments: its ``kernel_table`` on ``device``,
+    copied there once per family and device, and its scalars."""
+    table = _FAMILY_TABLES.get((fam, device))
+    if table is None:
+        table = torch.from_numpy(fam.kernel_table().view(np.int64)).to(device)
+        _FAMILY_TABLES[(fam, device)] = table
+    return (kernels.ptr(table), fam.h, fam.k, fam.half, len(fam.care_left),
+            len(fam.care_right), fam.pad_needed)
 
 
 # ---------------------------------------------------------------------------
 # pass-1 presence fill
 # ---------------------------------------------------------------------------
 
+def presence_bitmap(size: int, device="cpu") -> torch.Tensor:
+    """A zeroed presence bitmap: int32 [ceil(size / 32)] (uint32 bits), bit
+    slot & 31 of word slot >> 5 standing for slot."""
+    return torch.zeros(-(-size // 32), dtype=torch.int32, device=device)
+
+
 def fill_presence(words: torch.Tensor, codes: torch.Tensor,
                   lengths: torch.Tensor, fam: SeedFamily, size: int,
                   slot_mode: str = "fastrange") -> torch.Tensor:
-    """Pass-1 presence fill (MIBFConstructSupport.hpp:134-147), in place:
-    set PRESENT at the slot of every valid hash of every read.
+    """Pass-1 presence fill (MIBFConstructSupport.hpp:134-147) of one
+    batch, in place: set PRESENT at the slot of every valid hash of every
+    read, through a bitmap of its own (``fill_presence_bits``, then
+    ``merge_presence``).  Returns ``words``."""
+    bits = presence_bitmap(size, words.device)
+    fill_presence_bits(bits, codes, lengths, fam, size, slot_mode)
+    return merge_presence(words, bits, size)
+
+
+def fill_presence_bits(bits: torch.Tensor, codes: torch.Tensor,
+                       lengths: torch.Tensor, fam: SeedFamily, size: int,
+                       slot_mode: str = "fastrange") -> torch.Tensor:
+    """Set, in the bitmap ``bits`` (``presence_bitmap``), the bit of the
+    slot of every valid hash of a batch (kernel A's fill entry).
 
     codes: uint8 [B, L] zero-padded reads; lengths: int32 [B].  Frame p of
     seed s is valid when p < lengths[b] - span_s + 1, the mask the JAX
     engine builds for ``goldrush_tpu.mibf.mibf.fill_presence``
-    (engine.py:465-471).  Returns ``words``."""
-    if words.is_cuda:
-        return _fill_presence_cuda(words, codes, lengths, fam, size,
-                                   slot_mode)
-    return _fill_presence_plain(words, codes, lengths, fam, size, slot_mode)
+    (engine.py:465-471).  Returns ``bits``."""
+    if bits.is_cuda or codes.is_cuda or lengths.is_cuda:
+        return _fill_bits_cuda(bits, codes, lengths, fam, size, slot_mode)
+    return _fill_bits_plain(bits, codes, lengths, fam, size, slot_mode)
 
 
-def _fill_presence_cuda(words, codes, lengths, fam, size, slot_mode):
+def _fill_bits_cuda(bits, codes, lengths, fam, size, slot_mode):
     B, L = codes.shape
-    dev = words.device
-    kernels.check(words, "words", torch.int32, device=dev)
+    dev = bits.device
+    kernels.check(bits, "bits", torch.int32, (-(-size // 32),), dev)
     kernels.check(codes, "codes", torch.uint8, device=dev)
     kernels.check(lengths, "lengths", torch.int32, (B,), dev)
-    if size + 1 > words.shape[0] or size >= 1 << 32:
-        raise ValueError(f"size {size} does not fit words [{words.shape[0]}]")
+    if not 0 < size < 1 << 32:
+        raise ValueError(f"size {size} is not a uint32 slot count")
     kernels.SEED_HASH_FILL(
         dev, kernels.ptr(codes), B, L, kernels.ptr(lengths),
-        kernels.ptr(_family_tensor(fam, dev)), size, _slot_mode(slot_mode),
-        kernels.ptr(words))
-    return words
+        *_family_args(fam, dev), size, _slot_mode(slot_mode),
+        kernels.ptr(bits))
+    return bits
 
 
-def _fill_presence_plain(words, codes, lengths, fam, size, slot_mode):
+def _fill_bits_plain(bits, codes, lengths, fam, size, slot_mode):
     B, L = codes.shape
     P = max(L - fam.k + 1, 1)
     hashes = hash_positions(codes, fam, P)                  # [B, h, P]
@@ -165,8 +199,42 @@ def _fill_presence_plain(words, codes, lengths, fam, size, slot_mode):
     spans = torch.tensor(fam.spans, device=codes.device)
     n_valid = lengths.to(torch.int64)[:, None] - spans[None, :] + 1
     valid = p[None, None, :] < n_valid[:, :, None]          # [B, h, P]
-    slots = slot_of(hashes[valid], size, slot_mode)
-    words[slots] = words[slots] | PRESENT_BIT
+    # no scatter-OR here: distinct slots give each word distinct bits,
+    # whose sum is their OR
+    slots = torch.unique(slot_of(hashes[valid], size, slot_mode))
+    word, inv = torch.unique(slots >> 5, return_inverse=True)
+    new = torch.zeros(word.shape, dtype=torch.int64, device=bits.device)
+    new.index_add_(0, inv, torch.ones_like(slots) << (slots & 31))
+    bits[word] = _as_int32((bits[word].to(torch.int64) & _MASK32) | new)
+    return bits
+
+
+def merge_presence(words: torch.Tensor, bits: torch.Tensor, size: int
+                   ) -> torch.Tensor:
+    """OR PRESENT into ``words[slot]`` for every slot < size set in the
+    bitmap ``bits``, keeping every other bit of the word (in place).
+    Returns ``words``."""
+    if words.is_cuda or bits.is_cuda:
+        return _merge_cuda(words, bits, size)
+    return _merge_plain(words, bits, size)
+
+
+def _merge_cuda(words, bits, size):
+    dev = words.device
+    kernels.check(words, "words", torch.int32, device=dev)
+    kernels.check(bits, "bits", torch.int32, (-(-size // 32),), dev)
+    # the kernel moves 4 slots' words at a time, as one aligned 16 bytes
+    if words.shape[0] < -(-size // 4) * 4 or words.data_ptr() % 16:
+        raise ValueError(f"words [{words.shape[0]}] must be 16-byte aligned "
+                         f"and cover {size} slots in groups of 4")
+    kernels.PRESENCE_MERGE(dev, kernels.ptr(bits), size, kernels.ptr(words))
+    return words
+
+
+def _merge_plain(words, bits, size):
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    present = ((bits[:, None] >> shifts) & 1).reshape(-1)[:size]
+    words[:size].bitwise_or_(present << 30)                 # PRESENT_BIT
     return words
 
 
@@ -220,7 +288,7 @@ def build_slot_grid(codes: torch.Tensor, lengths: torch.Tensor,
     if params.frame_stride != 1:
         raise NotImplementedError(
             "frame_stride > 1 is ROADMAP queue 1 item 7 (sampled grids)")
-    if codes.is_cuda:
+    if codes.is_cuda or lengths.is_cuda:
         return _build_slot_grid_cuda(codes, lengths, fam, params,
                                      num_tiles_max)
     T, TL = num_tiles_max, params.tile_length
@@ -236,11 +304,14 @@ def _build_slot_grid_cuda(codes, lengths, fam, params, T):
     kernels.check(lengths, "lengths", torch.int32, (B,), dev)
     if fam.h != params.h or fam.k != params.k:
         raise ValueError("seed family does not match params")
+    # the kernel's stale-tail clamp stays inside the tile (seed_hash.cu)
+    if TL < fam.k + fam.h - 1:
+        raise ValueError(f"tile_length {TL} < k + h - 1")
     slots = torch.empty((B, params.h, T * TL), dtype=torch.int64, device=dev)
     frame_ok = torch.empty((B, T * TL), dtype=torch.bool, device=dev)
     kernels.SEED_HASH_GRID(
         dev, kernels.ptr(codes), B, L, kernels.ptr(lengths),
-        kernels.ptr(_family_tensor(fam, dev)), T, TL, params.size,
+        *_family_args(fam, dev), T, TL, params.size,
         _slot_mode(params.slot_map), kernels.ptr(slots),
         kernels.ptr(frame_ok))
     return slots, frame_ok

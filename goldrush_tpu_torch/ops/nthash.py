@@ -10,10 +10,20 @@ published per-base constants restricted to the seed's care positions
 
 ``hash_positions`` evaluates that definition directly with torch ops; it is
 the plain version that the CPU path and the tests use.  On the card the main
-path never materialises raw hashes: kernel A (csrc/seed_hash.cu) computes the
-same definition per thread and fuses it with the slot map into the probe
-grid (``mibf.build_slot_grid``) and the presence fill
-(``mibf.fill_presence``).
+path never materialises raw hashes: kernel A (csrc/seed_hash.cu) fuses them
+with the slot map into the probe grid (``mibf.build_slot_grid``) and the
+presence fill (``mibf.fill_presence_bits``), through the factorisation that
+``SeedFamily.kernel_table`` tabulates.  Seed s = left + s zeros + right
+splits into a left half whose rotations grow by s and a right half that
+starts s later but whose forward rotations do not depend on s:
+
+  fwd_s(p) = rol64(FL(p), s) ^ FR(p + half + s)
+  rev_s(p) = RL(p) ^ rol64(RR(p + half + s), s)
+
+with FL, RL the XOR over the left care offsets j of rol64(TAB[b], k-1-j)
+and rol64(TABC[b], j), and FR, RR over the right ones c of
+rol64(TAB[b], k-1-half-c) and rol64(TABC[b], half+c).  The four partials
+are computed once per position and shared by all h seeds.
 
 Hashes are carried as int64 tensors holding the uint64 bits: PyTorch has no
 shifts, comparisons or ``min`` on uint64, so rotates use masked logical
@@ -76,12 +86,19 @@ class SeedFamily:
         return self.care_left + tuple(self.half + s + c
                                       for c in self.care_right)
 
-    def descriptor(self) -> np.ndarray:
-        """int32 [5 + nl + nr] layout read by kernel A:
-        (h, k, half, nl, nr, care_left..., care_right...)."""
-        return np.array([self.h, self.k, self.half, len(self.care_left),
-                         len(self.care_right), *self.care_left,
-                         *self.care_right], dtype=np.int32)
+    def kernel_table(self) -> np.ndarray:
+        """uint64 [(nl + nr) * 9] read by kernel A: the care offsets
+        (care_left..., care_right...), then for each of them and each base
+        b its (forward, reverse) constant with the rotation of the
+        factorisation above applied (module docstring)."""
+        k, half = self.k, self.half
+        rows = ([(k - 1 - j, j) for j in self.care_left]
+                + [(k - 1 - half - c, half + c) for c in self.care_right])
+        table = [(_rol64_np(NT_TAB, rf), _rol64_np(NT_TABC, rr))
+                 for rf, rr in rows]
+        pairs = np.stack([np.stack(t, axis=1) for t in table]).reshape(-1)
+        care = np.array(self.care_left + self.care_right, dtype=np.uint64)
+        return np.concatenate([care, pairs])
 
 
 def build_seed_family(seeds: list[str]) -> SeedFamily:

@@ -214,6 +214,10 @@ class GoldenPathEngine:
             st.num_passed_reads = -1     # unknown; loaded
             st.wall_fill_s += time.time() - t0
             return
+        # pass 1 sets bits in a presence bitmap, batch by batch, and ORs
+        # them into the words once at the end: the same filter, since the
+        # OR commutes and pass 1 fills a fresh filter
+        bits = dm.presence_bitmap(self.size, self.device)
         with ingest.ReadStream(path, prefetch=self._prefetch) as rs:
             for block in rs:
                 st.num_reads += len(block)
@@ -246,13 +250,14 @@ class GoldenPathEngine:
                     for j, r in enumerate(batch):
                         codes[j, : r.length] = r.codes
                         lengths[j] = r.length
-                    dm.fill_presence(self.state.words,
-                                     self._to_device(codes),
-                                     self._to_device(lengths), self.fam,
-                                     self.size, self.cfg.slot_map)
+                    dm.fill_presence_bits(bits, self._to_device(codes),
+                                          self._to_device(lengths), self.fam,
+                                          self.size, self.cfg.slot_map)
         if st.num_passed_reads == 0:
             raise RuntimeError(
                 "no reads passed the Phred score and min length requirements")
+        dm.merge_presence(self.state.words, bits, self.size)
+        del bits
         self._sync()
         st.wall_fill_stream_s = time.time() - t0
         if self.compressed:

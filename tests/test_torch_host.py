@@ -136,12 +136,23 @@ def test_ingest_matches_jax_package(fq, use_native):
 
 
 def test_native_reader_builds_from_the_shared_source(fq):
+    """The port builds its reader from its own copy of the source, which
+    is byte for byte the JAX package's, into its own build directory, and
+    reads the fixture as the JAX package's reader does."""
     if not native_available():
         pytest.skip("g++/zlib unavailable for the native reader")
-    assert tnative.SRC.endswith(os.path.join("goldrush_tpu", "io", "native",
-                                             "seqio.cpp"))
+    pkg = REPO / "goldrush_tpu_torch"
+    assert tnative.SRC == str(pkg / "io" / "native" / "seqio.cpp")
+    assert (pkg / "io" / "native" / "seqio.cpp").read_bytes() == \
+        (REPO / "goldrush_tpu" / "io" / "native" / "seqio.cpp").read_bytes()
     lib = tnative.get_lib()
-    assert os.path.dirname(lib._name) == tnative.BUILD_DIR
+    assert os.path.dirname(lib._name) == tnative.BUILD_DIR == \
+        str(pkg / "_build")
+    with JReadStream(fq, block_records=17, prefetch=0, use_native=True) as a, \
+            TReadStream(fq, block_records=17, prefetch=0,
+                        use_native=True) as b:
+        assert [(r.id, r.seq_bytes(), r.qual_bytes()) for r in a.records()] \
+            == [(r.id, r.seq_bytes(), r.qual_bytes()) for r in b.records()]
 
 
 def test_fastq_records_and_writer(fq, tmp_path):

@@ -7,6 +7,7 @@ neither JAX nor tests/conftest.py, so it also runs where JAX is absent:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -59,10 +60,60 @@ def test_seed_hash_grid_and_fill(cuda, mode):
     got = tdm.build_slot_grid(codes.to(cuda), lens.to(cuda), FAM, params, T)
     assert_same(got, tdm.build_slot_grid(codes, lens, FAM, params, T))
     words = torch.zeros(params.alloc, dtype=torch.int32)
+    before = (kernels.SEED_HASH_FILL.launches, kernels.PRESENCE_MERGE.launches)
     wk = tdm.fill_presence(words.to(cuda), codes.to(cuda), lens.to(cuda),
                            FAM, params.size, mode)
     wp = tdm.fill_presence(words, codes, lens, FAM, params.size, mode)
     assert torch.equal(wk.cpu(), wp) and int((wp != 0).sum()) > 100_000
+    assert (kernels.SEED_HASH_FILL.launches, kernels.PRESENCE_MERGE.launches) \
+        == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("mode", ["fastrange", "mod"])
+def test_seed_hash_fill_bits_and_merge(cuda, mode):
+    """Kernel A's fill into one bitmap over several batches, one of them
+    32,768 wide for reads of at most 2,000 bases (most of its CTAs hold no
+    frame), then the merge into words holding ids and saturation bits, all
+    against the plain versions; and the merge alone on sizes that end
+    inside a 4-slot group and a bitmap word."""
+    rng = np.random.default_rng(2)
+    size = 1_000_003
+    bits_k = tdm.presence_bitmap(size, cuda)
+    bits_p = tdm.presence_bitmap(size)
+    for lengths, width in [([20_000, 19_999, 5_432, 999, 21, 0], 21_000),
+                           ([2_000, 1_024, 1_023, 22, 23], 32_768),
+                           ([4_096] * 8, 4_096)]:
+        codes, lens = reads_batch(rng, lengths, width)
+        tdm.fill_presence_bits(bits_k, codes.to(cuda), lens.to(cuda), FAM,
+                               size, mode)
+        tdm.fill_presence_bits(bits_p, codes, lens, FAM, size, mode)
+        assert torch.equal(bits_k.cpu(), bits_p)
+    alloc = -(-(size + 1) // 1024) * 1024
+    w = torch.from_numpy(rng.integers(-2**31, 2**31, alloc, dtype=np.int64)
+                         .astype(np.int32))
+    wk = tdm.merge_presence(w.to(cuda), bits_k, size)
+    wp = tdm.merge_presence(w.clone(), bits_p, size)
+    assert torch.equal(wk.cpu(), wp) and not torch.equal(wp, w)
+    for n in (31, 33, 1_000_001):
+        b = torch.from_numpy(rng.integers(-2**31, 2**31, -(-n // 32),
+                                          dtype=np.int64).astype(np.int32))
+        assert torch.equal(tdm.merge_presence(w.to(cuda), b.to(cuda), n).cpu(),
+                           tdm.merge_presence(w.clone(), b, n))
+
+
+@pytest.mark.parametrize("mode", ["fastrange", "mod"])
+@pytest.mark.parametrize("case", list(hard.grid_lengths(1000, 22)))
+def test_seed_hash_grid_cases(cuda, case, mode):
+    """Kernel A's grid against its plain version on the lengths its tiles
+    and stale-tail clamp branch on (goldrush_tpu_torch/hard_cases.py), at
+    the path's tile length."""
+    params = tdm.MibfParams(size=142_368_384, h=3, k=22, spans=FAM.spans,
+                            tile_length=1000, slot_map=mode)
+    lengths, T = hard.grid_lengths(1000, 22)[case]
+    codes, lens = (torch.from_numpy(a) for a in
+                   hard.read_batch(lengths, T * 1000 + 1000, seed=len(case)))
+    got = tdm.build_slot_grid(codes.to(cuda), lens.to(cuda), FAM, params, T)
+    assert_same(got, tdm.build_slot_grid(codes, lens, FAM, params, T))
 
 
 @pytest.mark.parametrize("bs,T", [(3, 6), (20, 24)])
@@ -245,6 +296,15 @@ def test_wrappers_check_their_inputs(cuda):
     words = torch.zeros(params.alloc, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         tdm.fill_presence(words, codes.cpu(), lens, FAM, params.size)
+    with pytest.raises(ValueError):
+        tdm.fill_presence_bits(tdm.presence_bitmap(params.size), codes, lens,
+                               FAM, params.size)
+    with pytest.raises(ValueError):
+        tdm.merge_presence(words[1:], tdm.presence_bitmap(params.size, cuda),
+                           params.size)
+    with pytest.raises(ValueError):    # a tile shorter than k + h - 1
+        tdm.build_slot_grid(codes, lens, FAM,
+                            dataclasses.replace(params, tile_length=23), 5)
     before = kernels.SEED_HASH_GRID.launches
     tdm.build_slot_grid(codes, lens, FAM, params, 5)
     assert kernels.SEED_HASH_GRID.launches == before + 1
@@ -268,6 +328,9 @@ def test_rank_kernels(cuda, size):
     w |= np.where(rng.random(alloc) < 0.3, np.uint32(tdm.PRESENT_BIT),
                   np.uint32(0))
     words = torch.from_numpy(w.view(np.int32).copy())
+    # the first half alone, its appended word included
+    assert_same(tcz.rank_pack(words.to(cuda), size),
+                tcz.rank_pack(words, size))
     host, dev = tcz.freeze(words, size), tcz.freeze(words.to(cuda), size)
     assert_same(dev, host)
     assert int(host.bitrank[-2] >> 32) > 0 or size < 64

@@ -73,6 +73,68 @@ def test_fill_presence_matches_jax(mode):
     assert int((words_np(st)[0] != 0).sum()) > 1000
 
 
+@pytest.mark.parametrize("mode", ["fastrange", "mod"])
+def test_fill_bits_then_merge_matches_jax(mode):
+    """Several batches into one bitmap (fill_presence_bits), one merge,
+    against goldrush_tpu's fill_presence batch after batch, on the real
+    slots; the bitmap holds exactly the filled slots."""
+    jw = jnp.zeros(JP.alloc, jnp.uint32)
+    bits = tdm.presence_bitmap(SIZE)
+    for i, lengths in enumerate([[505, 333, 30, 0, 1024], [700, 21, 22, 23],
+                                 [1024] * 3]):
+        codes, lens = hard.read_batch(lengths, 1024, seed=i)
+        P = codes.shape[1] - 22 + 1
+        valid = np.zeros((len(lens), 3, P), dtype=bool)
+        for b, L in enumerate(lens):
+            for s, span in enumerate(JP.spans):
+                valid[b, s, : max(L - span + 1, 0)] = True
+        jw = jdm.fill_presence(jw, jhash(codes, JFAM, P), jnp.asarray(valid),
+                               SIZE, slot_mode=mode)
+        tdm.fill_presence_bits(bits, torch.from_numpy(codes),
+                               torch.from_numpy(lens), FAM, SIZE, mode)
+    st = tdm.init_state(TP)
+    tdm.merge_presence(st.words, bits, SIZE)
+    want = np.asarray(jw)[:SIZE]
+    np.testing.assert_array_equal(words_np(st)[0][:SIZE], want)
+    assert int(words_np(st)[0][SIZE:].max()) == 0
+    flat = np.unpackbits(bits.numpy().view(np.uint8), bitorder="little")
+    np.testing.assert_array_equal(flat[:SIZE], want != 0)
+    assert int(flat[SIZE:].sum()) == 0 and int(flat.sum()) > 1000
+
+
+def test_merge_keeps_the_other_bits():
+    """A merge ORs PRESENT into the words of set slots and leaves every
+    other bit (saturation, id) of every word, and the counters, as they
+    were; slots at or past size are never written."""
+    rng = np.random.default_rng(5)
+    w, c = random_state(JP.alloc, ids=1 << 30, present=0.3, rng=rng)
+    w[::3] |= np.uint32(jdm.SAT_BIT)
+    set_ = rng.random(SIZE) < 0.4
+    set_[-5:] = True
+    bits = np.packbits(np.pad(set_, (0, -SIZE % 32)),
+                       bitorder="little").view(np.int32)
+    st = tdm.state_from_numpy(w, c)
+    tdm.merge_presence(st.words, torch.from_numpy(bits.copy()), SIZE)
+    want = w.copy()
+    want[:SIZE][set_] |= np.uint32(jdm.PRESENT_BIT)
+    got_w, got_c = words_np(st)
+    np.testing.assert_array_equal(got_w, want)
+    np.testing.assert_array_equal(got_c, c)
+
+
+@pytest.mark.parametrize("case", list(hard.grid_lengths(TL, 22)))
+def test_build_slot_grid_clamp_cases_match_jax(case):
+    """The grid against goldrush_tpu on the lengths kernel A's tiles and
+    stale-tail clamp branch on (goldrush_tpu_torch/hard_cases.py)."""
+    lengths, T = hard.grid_lengths(TL, 22)[case]
+    codes, lens = hard.read_batch(lengths, T * TL + TL, seed=len(case))
+    js, jok = jdm.build_slot_grid(codes, lens, JFAM, JP, T)
+    ts, tok = tdm.build_slot_grid(torch.from_numpy(codes),
+                                  torch.from_numpy(lens), FAM, TP, T)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js).astype(np.int64))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+
+
 @pytest.mark.parametrize("lengths,T", [([505, 423, 150, 99, 0], 5),
                                        ([1000, 1021, 1099], 10),
                                        ([1100, 250], 12)])

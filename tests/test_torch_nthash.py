@@ -51,6 +51,44 @@ def test_hash_positions_matches_jax_and_oracle(preset, k, w, h):
             np.testing.assert_array_equal(got[i, s, :n], np.minimum(fwd, rev))
 
 
+def _rol(x: np.ndarray, r: int) -> np.ndarray:
+    r %= 64
+    return x if r == 0 else (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+@pytest.mark.parametrize("preset,k,w,h", [
+    ("1011011110110111101101", 22, 16, 3),
+    ("", 22, 16, 3),
+    ("", 20, 14, 4),
+    ("", 18, 12, 1),
+])
+def test_kernel_table_factorises_the_jax_hash(preset, k, w, h):
+    """Kernel A's arithmetic on SeedFamily.kernel_table, in numpy: per
+    position the left-half partials (FL, RL) and the right-half ones
+    (FR, RR), then seed s = min(rol(FL, s) ^ FR[+half+s], RL ^ rol(RR[+half
+    +s], s)), equals goldrush_tpu's hash_positions at every frame."""
+    seeds = make_seed_pattern(preset, k, w, h)
+    fam = build_seed_family(seeds)
+    nl, nr = len(fam.care_left), len(fam.care_right)
+    table = fam.kernel_table()
+    care = table[: nl + nr].astype(np.int64)
+    const = table[nl + nr:].reshape(nl + nr, 4, 2)     # [offset, base, strand]
+    codes = RNG.integers(0, 4, (3, 300)).astype(np.uint8)
+    P = 250
+    c = np.pad(codes.astype(np.int64), ((0, 0), (0, P + fam.pad_needed)))
+    part = np.zeros((2, 2, 3, P + h), np.uint64)       # [half, strand]
+    for r, off in enumerate(care):
+        start = off if r < nl else fam.half + off
+        part[int(r >= nl)] ^= np.moveaxis(
+            const[r][c[:, start: start + P + h]], -1, 0)
+    want = np.asarray(jhash(codes, jfamily(seeds), P))
+    with np.errstate(over="ignore"):
+        for s in range(h):
+            fwd = _rol(part[0, 0, :, :P], s) ^ part[1, 0, :, s: s + P]
+            rev = part[0, 1, :, :P] ^ _rol(part[1, 1, :, s: s + P], s)
+            np.testing.assert_array_equal(np.minimum(fwd, rev), want[:, s])
+
+
 def test_hash_positions_short_codes_pad_with_zero():
     fam = build_seed_family(make_seed_pattern("1011011110110111101101",
                                               22, 16, 3))
