@@ -15,9 +15,11 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      (every output is an integer), with both times and each kernel's bound (the
      bytes it must move over the card's 3.35 TB/s, or for kernel A its
      integer operations, whichever takes longer); kernel A's fill, merge
-     and grid in both slot maps, the fill per 64-read batch and over a
-     whole fill pass of the bench's shape (47 batches and one merge),
-     the merge on the bench filter; kernel D also on
+     and both grids in both slot maps, the fill per 64-read batch and over
+     a whole fill pass of the bench's shape (47 batches and the direct
+     filter's merge), the merge on the bench filter as the words' first
+     write (dirty memory) and as an OR, rank_pack on the pass's bitmap;
+     kernel D also on
      recruits whose keys one of its CTAs owns or that repeat one k-mer
      (past a CTA's shared memory), in both filters, and timed on a
      20-tile and a 2-tile trimmed recruit and for its window read alone;
@@ -28,8 +30,10 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      entry point on 3,000 x 20 kb reads of a 5 Mbp genome at 5% error
      (bench.py's dataset, seeds 11/12), once with the direct filter and
      once with the rank-compressed one; every kernel must have launched,
-     the fill once per batch and the merge once per fill pass, recruits
-     > 0, each completed silver path > r*G bases;
+     the fill once per batch, the merge once per direct fill pass and
+     never in the compressed filter, each grid entry once per grid of its
+     filter, recruits > 0, each completed silver path > r*G bases; each
+     filter's peak device memory is printed;
   5. digests: the port's silver paths on the 1 Mbp quality-gate dataset,
      with either filter, must match tests/fixtures/torch_port_digests.json
      (written by the JAX package on the CPU).
@@ -41,9 +45,14 @@ own that imports the port from its tree: DIR (for example a `git archive`
 of the parent commit, whose kernels' entry points may differ: only the
 Python wrappers are called), this checkout, this checkout, DIR; then it
 prints each kernel's times side by side.  Every run checks its tree's
-kernels against their plain versions.  The fill is also compared over a
-whole pass (`ms_fill_pass`): this tree's 47 batches into a bitmap and one
-merge against 47 calls of an earlier tree's fill_presence.
+kernels against their plain versions.  Steps whose kernels changed are
+compared as each tree's engine runs them: the whole fill pass
+(`ms_fill_pass`), the direct filter's words from the pass's bitmap
+(`ms_words_merge`: a first write, or an earlier tree's zero-fill and OR),
+the compressed freeze up to rank_carry (`ms_freeze_pack`: rank_pack of
+the bitmap, or the zero-fill, the merge and rank_pack of the words) and
+the compressed grid (seed_hash_rank_grid's `ms`, or the slot grid and its
+rank lookup).
 """
 
 from __future__ import annotations
@@ -352,8 +361,12 @@ def phase_build():
 
 def phase_kernels(own: bool = True) -> dict:
     """Each kernel vs its plain version at the slice's shapes; with `own`
-    also on the hard cases of B and C and C's warp cummax alone (an earlier
-    tree of the port, timed by --ab, may lack them)."""
+    also on the hard cases of B and C and C's warp cummax alone.  Without
+    it (an earlier tree of the port, timed by --ab) the entry points are
+    the parent's: its rank_pack takes the direct words, its merge has no
+    first write and its slots map to ranks by a lookup after the grid;
+    each such step is timed as that tree's engine runs it, under this
+    tree's kernel name."""
     import dataclasses
 
     import numpy as np
@@ -380,9 +393,7 @@ def phase_kernels(own: bool = True) -> dict:
 
     # --- A, fill entry: one batch of 64 reads x 32,768 positions into a
     # bitmap and its merge, in both slot maps; then a whole fill pass of 47
-    # batches and one merge (an earlier tree without the bitmap: 47 calls
-    # of its fill_presence) --------------------------------------------
-    bitmap = hasattr(dm, "fill_presence_bits")
+    # batches and the direct filter's merge -------------------------------
     codes = np.zeros((FILL_BATCH, FILL_WIDTH), np.uint8)
     lengths = np.zeros(FILL_BATCH, np.int32)
     for i, (_, seq, _) in enumerate(reads):
@@ -397,50 +408,41 @@ def phase_kernels(own: bool = True) -> dict:
     for mode in ("mod", "fastrange"):     # the fastrange filter stays for D, B
         st_k.words.zero_()
         st_p.words.zero_()
-        if bitmap:
-            bk = dm.fill_presence_bits(dm.presence_bitmap(size, dev),
-                                       *fill_args, mode)
-            bp = dm._fill_bits_plain(dm.presence_bitmap(size, dev),
-                                     *fill_args, mode)
-            err = max(err, max_abs_err([(bk, bp)]))
-            # the merge on the same bits; then the plain fill and merge
-            dm.merge_presence(st_k.words, bk, size)
-            dm._merge_plain(st_p.words, bk, size)
-            err_merge = max(err_merge, max_abs_err([(st_k.words,
-                                                     st_p.words)]))
-            dm._merge_plain(st_p.words.zero_(), bp, size)
-        else:
-            dm.fill_presence(st_k.words, *fill_args, mode)
-            dm._fill_presence_plain(st_p.words, *fill_args, mode)
+        bk = dm.fill_presence_bits(dm.presence_bitmap(size, dev), *fill_args,
+                                   mode)
+        bp = dm._fill_bits_plain(dm.presence_bitmap(size, dev), *fill_args,
+                                 mode)
+        err = max(err, max_abs_err([(bk, bp)]))
+        # the merge on the same bits; then the plain fill and merge
+        dm.merge_presence(st_k.words, bk, size)
+        dm._merge_plain(st_p.words, bk, size)
+        err_merge = max(err_merge, max_abs_err([(st_k.words, st_p.words)]))
+        dm._merge_plain(st_p.words.zero_(), bp, size)
         err = max(err, max_abs_err([(st_k.words, st_p.words)]))
     present = int((st_k.words != 0).sum())
-    if bitmap:
-        ms = cuda_ms(lambda: dm.fill_presence_bits(bk, *fill_args,
-                                                   "fastrange"), 20)
-        pms = cuda_ms(lambda: dm._fill_bits_plain(bk, *fill_args,
-                                                  "fastrange"), 3)
-        written = int((bk != 0).sum())        # bitmap words it sets
-    else:
-        ms = cuda_ms(lambda: dm.fill_presence(st_k.words, *fill_args,
-                                              "fastrange"), 20)
-        pms = cuda_ms(lambda: dm._fill_presence_plain(st_p.words, *fill_args,
-                                                      "fastrange"), 3)
-        written = present
+    ms = cuda_ms(lambda: dm.fill_presence_bits(bk, *fill_args, "fastrange"),
+                 20)
+    pms = cuda_ms(lambda: dm._fill_bits_plain(bk, *fill_args, "fastrange"), 3)
+    written = int((bk != 0).sum())        # bitmap words it sets
     n_care = len(fam.care_left) + len(fam.care_right)
     ln = lengths.astype(np.int64)
     frames = [int(np.maximum(ln - span + 1, 0).sum()) for span in fam.spans]
     batches = fill_pass_batches(dev)
-    pass_words = torch.zeros(params.alloc, dtype=torch.int32, device=dev)
+    pass_words = torch.empty(params.alloc, dtype=torch.int32, device=dev)
+
+    def words_merge(words, bits):
+        """The direct filter's words from a pass's bitmap, as the engine
+        writes them: one first write (an earlier tree: its zero-fill of
+        the words, then the OR)."""
+        if own:
+            return dm.merge_presence(words, bits, size, first_write=True)
+        return dm.merge_presence(words.zero_(), bits, size)
 
     def fill_pass():
-        if not bitmap:
-            for c, n in batches:
-                dm.fill_presence(pass_words, c, n, fam, size, "fastrange")
-            return
         b = dm.presence_bitmap(size, dev)
         for c, n in batches:
             dm.fill_presence_bits(b, c, n, fam, size, "fastrange")
-        dm.merge_presence(pass_words, b, size)
+        words_merge(pass_words, b)
         return b
     pass_bits = fill_pass()
     ms_pass = cuda_ms(fill_pass, 3, hold=40)
@@ -454,27 +456,46 @@ def phase_kernels(own: bool = True) -> dict:
         plain_ms=f"{pms:.4f}",
         bound_ms=f"{out['seed_hash_fill']['bound_ms']:.4f}",
         fill_pass_ms=f"{ms_pass:.4f}", fill_pass_batches=len(batches))
-    if bitmap:
-        # the merge of the pass's bitmap into words holding every bit
-        g = torch.Generator(device=dev)
-        g.manual_seed(5)
-        w0 = torch.randint(-2**31, 2**31, (params.alloc,), dtype=torch.int32,
-                           device=dev, generator=g)
-        mk = dm.merge_presence(w0.clone(), pass_bits, size)
-        mp = dm._merge_plain(w0, pass_bits, size)
-        err_merge = max(err_merge, max_abs_err([(mk, mp)]))
-        ms = cuda_ms(lambda: dm.merge_presence(mk, pass_bits, size), 20)
-        pms = cuda_ms(lambda: dm._merge_plain(mp, pass_bits, size), 3)
-        set_slots = int((pass_words != 0).sum())
-        # the bitmap in, each set slot's word read and written
-        out["presence_merge"] = checked(err_merge, ms, pms,
-                                        pass_bits.numel() * 4 + set_slots * 8)
-        say("kernels", kernel="presence_merge", slots=size,
-            set_slots=set_slots, max_abs_err=err_merge, ms=f"{ms:.4f}",
-            plain_ms=f"{pms:.4f}",
-            bound_ms=f"{out['presence_merge']['bound_ms']:.4f}")
-        del w0, mk, mp, pass_bits
-    del pass_words, batches
+    # the merge of the pass's bitmap: as an OR into words holding every
+    # bit, and as the direct filter's first write into dirty words
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    w0 = torch.randint(-2**31, 2**31, (params.alloc,), dtype=torch.int32,
+                       device=dev, generator=g)
+    mk = dm.merge_presence(w0.clone(), pass_bits, size)
+    mp = dm._merge_plain(w0.clone(), pass_bits, size)
+    err_merge = max(err_merge, max_abs_err([(mk, mp)]))
+    ms_or = cuda_ms(lambda: dm.merge_presence(mk, pass_bits, size), 20)
+    pms_or = cuda_ms(lambda: dm._merge_plain(mp, pass_bits, size), 3)
+    set_slots = int((pass_words != 0).sum())
+    ms_words = cuda_ms(lambda: words_merge(mk, pass_bits), 20)
+    # the bitmap in; the OR reads and writes each set slot's word
+    or_bytes = pass_bits.numel() * 4 + set_slots * 8
+    rec = dict(ms_or=ms_or, plain_ms_or=pms_or,
+               bound_ms_or=or_bytes / HBM_BYTES_PER_S * 1e3,
+               ms_words_merge=ms_words)
+    if own:
+        fk = dm.merge_presence(w0.clone(), pass_bits, size, first_write=True)
+        fp = dm._merge_plain(w0.clone(), pass_bits, size, first_write=True)
+        err_merge = max(err_merge, max_abs_err([(fk, fp), (fk, pass_words)]))
+        ms = ms_words
+        pms = cuda_ms(lambda: dm._merge_plain(fp, pass_bits, size, True), 3)
+        del fk, fp
+        # the bitmap in, every word of the allocation out
+        out["presence_merge"] = checked(
+            err_merge, ms, pms, pass_bits.numel() * 4 + params.alloc * 4,
+            **rec)
+    else:
+        out["presence_merge"] = checked(err_merge, ms_or, pms_or, or_bytes,
+                                        **rec)
+    say("kernels", kernel="presence_merge", slots=size,
+        set_slots=set_slots, max_abs_err=err_merge,
+        ms=f"{out['presence_merge']['ms']:.4f}",
+        plain_ms=f"{out['presence_merge']['plain_ms']:.4f}",
+        bound_ms=f"{out['presence_merge']['bound_ms']:.4f}",
+        ms_or=f"{ms_or:.4f}", plain_ms_or=f"{pms_or:.4f}",
+        bound_ms_or=f"{rec['bound_ms_or']:.4f}")
+    del w0, mk, mp, batches
 
     # --- A, grid entry: B=32, T=20, both slot maps ------------------------
     qc = torch.from_numpy(codes[:B, : T * TL + TL].copy()).to(dev)
@@ -564,18 +585,34 @@ def phase_kernels(own: bool = True) -> dict:
         plain_ms=f"{pms:.4f}", ms_b1=f"{ms1:.4f}", plain_ms_b1=f"{pms1:.4f}",
         bound_ms=f"{out['classify']['bound_ms']:.6f}",
         bound_ms_b1=f"{out['classify']['bound_ms_b1']:.6f}")
-    # --- the rank-compressed filter: freeze, lookup, D and B on ranks ----
-    bk, tk = cz.rank_pack(st_k.words, size)
-    bp, tp = cz._rank_pack_plain(st_k.words, size)
+    # --- the rank-compressed filter: the freeze from the pass's bitmap
+    # (an earlier tree: from its words), A's rank grid, D and B on ranks ----
+    pack_in = pass_bits if own else pass_words
+    bk, tk = cz.rank_pack(pack_in, size)
+    bp, tp = cz._rank_pack_plain(pack_in, size)
     err = max_abs_err([(bk, bp), (tk, tp)])
-    ms = cuda_ms(lambda: cz.rank_pack(st_k.words, size), 20)
-    pms = cuda_ms(lambda: cz._rank_pack_plain(st_k.words, size), 3)
+    ms = cuda_ms(lambda: cz.rank_pack(pack_in, size), 20)
+    pms = cuda_ms(lambda: cz._rank_pack_plain(pack_in, size), 3)
+
+    def freeze_pack():
+        """The compressed fill's end up to rank_carry, as the engine runs
+        it: rank_pack of the bitmap (an earlier tree: its zero-filled
+        words, the merge into them and rank_pack of the words)."""
+        if own:
+            return cz.rank_pack(pass_bits, size)
+        dm.merge_presence(pass_words.zero_(), pass_bits, size)
+        return cz.rank_pack(pass_words, size)
+    ms_freeze = cuda_ms(freeze_pack, 20)
     nw = -(-size // 32)
-    out["rank_pack"] = checked(err, ms, pms, nw * 32 * 4 + bk.numel() * 8
-                               + tk.numel() * 8)
+    # the bitmap in (an earlier tree: the words), bitrank + totals out
+    out["rank_pack"] = checked(err, ms, pms, pack_in.numel() * 4
+                               + bk.numel() * 8 + tk.numel() * 8,
+                               ms_freeze_pack=ms_freeze)
     say("kernels", kernel="rank_pack", slots=size, max_abs_err=err,
         ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
-        bound_ms=f"{out['rank_pack']['bound_ms']:.4f}")
+        bound_ms=f"{out['rank_pack']['bound_ms']:.4f}",
+        ms_freeze_pack=f"{ms_freeze:.4f}")
+    del pass_words, pass_bits
     # timed on a scratch copy: each call adds its carry again
     scratch = bk.clone()
     pop = cz.rank_carry(bk, tk)
@@ -589,23 +626,43 @@ def phase_kernels(own: bool = True) -> dict:
     say("kernels", kernel="rank_carry", present=pop, max_abs_err=err,
         ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
         bound_ms=f"{out['rank_carry']['bound_ms']:.4f}")
-    del scratch, bp, tp
+    del scratch, bp, tp, bk, tk
+    # the filter of the grid's batch, frozen (freeze: its words' bits packed
+    # by plain torch ops, then rank_pack and rank_carry); the plain rank
+    # map (an earlier tree's rank_grid launched its lookup kernel)
     cs_k = cz.freeze(st_k.words, size)
-    if max_abs_err([(cs_k.bitrank, bk)]) != 0:
-        raise AssertionError("freeze differs from rank_pack + rank_carry")
-    ranks = cz.rank_grid(cs_k, slots, size)
-    err = max_abs_err([(ranks, cz._rank_grid_plain(cs_k, slots, size))])
-    ms = cuda_ms(lambda: cz.rank_grid(cs_k, slots, size), 20)
-    pms = cuda_ms(lambda: cz._rank_grid_plain(cs_k, slots, size), 3)
-    # slots in, ranks out, each distinct bitrank word gathered once
+    rank_plain = cz.rank_grid if own else cz._rank_grid_plain
+    err = 0
+    for mode in ("mod", "fastrange"):     # the fastrange grid stays for D, B
+        par = dataclasses.replace(params, slot_map=mode)
+        pg = dm.tile_slot_grid(hash_positions(qc, fam, T * TL), ql, par, T)
+        want = (rank_plain(cs_k, pg[0], size), pg[1])
+        if own:
+            got = cz.build_rank_grid(cs_k, qc, ql, fam, par, T)
+        else:
+            sk, ok_k = dm.build_slot_grid(qc, ql, fam, par, T)
+            got = (cz.rank_grid(cs_k, sk, size), ok_k)
+        err = max(err, max_abs_err(zip(got, want)))
+    ranks = got[0]
+    if own:
+        ms = cuda_ms(lambda: cz.build_rank_grid(cs_k, qc, ql, fam, params, T),
+                     20)
+    else:
+        ms = cuda_ms(lambda: cz.rank_grid(cs_k, dm.build_slot_grid(
+            qc, ql, fam, params, T)[0], size), 20)
+    pms = cuda_ms(lambda: rank_plain(cs_k, dm.tile_slot_grid(
+        hash_positions(qc, fam, T * TL), ql, params, T)[0], size), 3)
+    # codes in, ranks + frame_ok out, each distinct bitrank word gathered
+    # once
     words_read = torch.unique(slots[slots < size] >> 5).numel()
-    out["rank_lookup"] = checked(err, ms, pms, slots.numel() * 16
-                                 + words_read * 8)
+    out["seed_hash_rank_grid"] = checked(
+        err, ms, pms, qc.numel() + ql.numel() * 4 + ranks.numel() * 8
+        + ok.numel() + words_read * 8, hash_ops(n_ok, n_ok * fam.h, n_care))
     ranked = int((ranks < cs_k.sentinel).sum())
-    say("kernels", kernel="rank_lookup", shape=f"{B}x3x{T * TL}",
+    say("kernels", kernel="seed_hash_rank_grid", shape=f"{B}x3x{T * TL}",
         present=ranked, max_abs_err=err, ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}",
-        bound_ms=f"{out['rank_lookup']['bound_ms']:.4f}")
+        bound_ms=f"{out['seed_hash_rank_grid']['bound_ms']:.4f}")
     cs_p = cz.CompressedState(cs_k.bitrank, cs_k.supers, cs_k.ids.clone(),
                               cs_k.counts.clone())
     err = insert_phase(
@@ -667,50 +724,70 @@ def make_reads(path: str, genome: int, genome_seed: int, n_reads: int,
 def phase_e2e() -> dict:
     """goldrush-path through the CLI entry point at the bench scale, with
     the direct and then the rank-compressed filter; every kernel's launch
-    count is read after both.  The calls of the fill's two wrappers are
-    counted apart from the kernels' launches: the fill must launch once
-    per batch and the merge once per fill pass (one per stage run)."""
+    count is read after both, and each filter's after its own run.  The
+    calls of the fill's and the grids' wrappers are counted apart from the
+    kernels' launches: the fill must launch once per batch, the merge once
+    per direct fill pass (one per stage run) and never in the compressed
+    filter, the slot grid once per grid of the direct filter and the rank
+    grid once per grid of the compressed one."""
+    from goldrush_tpu_torch.mibf import compressed as cz
     from goldrush_tpu_torch.mibf import mibf as dm
     t0 = time.time()
     reads = os.path.join(WORK, "bench_reads")
     make_reads(reads + ".fq", **BENCH)
     say("e2e", dataset="5Mbp/3000x20kb/5%err",
         synth_s=f"{time.time() - t0:.1f}")
-    calls = dict.fromkeys(("fill_presence_bits", "merge_presence"), 0)
-    wrapped = {name: getattr(dm, name) for name in calls}
+    wrappers = {(dm, "fill_presence_bits"): "seed_hash_fill",
+                (dm, "merge_presence"): "presence_merge",
+                (dm, "build_slot_grid"): "seed_hash_grid",
+                (cz, "build_rank_grid"): "seed_hash_rank_grid"}
+    calls = dict.fromkeys(wrappers.values(), 0)
+    wrapped = {key: getattr(*key) for key in wrappers}
 
-    def counted(name):
+    def counted(key):
         def call(*args, **kwargs):
-            calls[name] += 1
-            return wrapped[name](*args, **kwargs)
+            calls[wrappers[key]] += 1
+            return wrapped[key](*args, **kwargs)
         return call
-    for name in calls:
-        setattr(dm, name, counted(name))
+    for key in wrappers:
+        setattr(*key, counted(key))
     try:
-        launches, fill_passes = drive_bench(reads)
+        launches, per_filter = drive_bench(reads, calls)
     finally:
-        for name, fn in wrapped.items():
-            setattr(dm, name, fn)
-    if (launches["seed_hash_fill"] != calls["fill_presence_bits"]
-            or launches["presence_merge"] != calls["merge_presence"]
-            or calls["merge_presence"] != fill_passes):
-        raise AssertionError(f"fill launches {launches} for wrapper calls "
-                             f"{calls} over {fill_passes} fill passes")
-    say("e2e", fill_batches=calls["fill_presence_bits"],
-        fill_passes=fill_passes)
+        for (mod, name), fn in wrapped.items():
+            setattr(mod, name, fn)
+    for mode, (got, called, passes) in per_filter.items():
+        want = dict(called)
+        if mode == "direct":
+            want.update(presence_merge=passes, seed_hash_rank_grid=0)
+        else:
+            want.update(presence_merge=0, seed_hash_grid=0,
+                        rank_pack=passes, rank_carry=passes)
+        if any(got[k] != n or called.get(k, n) != n
+               for k, n in want.items()):
+            raise AssertionError(f"{mode}: launches {got} for wrapper calls "
+                                 f"{called} over {passes} fill passes")
+        say("e2e", filter=mode, fill_batches=called["seed_hash_fill"],
+            fill_passes=passes, grids=called["seed_hash_grid"]
+            + called["seed_hash_rank_grid"])
     return launches
 
 
-def drive_bench(reads: str) -> tuple[dict, int]:
+def drive_bench(reads: str, calls: dict) -> tuple[dict, dict]:
     """Both filters' silver and golden stages on the bench reads: the
-    kernels' launch counts and the number of fill passes (stage runs)."""
+    kernels' launch counts over both, and for each filter its launches,
+    its counted wrapper calls and its number of fill passes (stage
+    runs)."""
     import torch
     from goldrush_tpu_torch import cli, kernels
     from goldrush_tpu_torch.io import fastq
     for k in kernels.ALL:
         k.launches = 0
-    recruits = fill_passes = 0
+    recruits = 0
+    per_filter = {}
     for mode in ("direct", "compressed"):
+        before = {k.name: k.launches for k in kernels.ALL}
+        called0 = dict(calls)
         outdir = os.path.join(WORK, f"bench_{mode}")
         argv = ["goldrush-path", f"reads={reads}", "G=5000000",
                 "device=cuda", f"mibf_mode={mode}", f"prefix={outdir}",
@@ -732,7 +809,10 @@ def drive_bench(reads: str) -> tuple[dict, int]:
                 reads_per_s=f"{rate:.2f}",
                 paths_completed=st.paths_completed)
             recruits += st.recruits
-            fill_passes += 1
+        per_filter[mode] = (
+            {k.name: k.launches - before[k.name] for k in kernels.ALL},
+            {k: n - called0[k] for k, n in calls.items()},
+            len(out["stats"]))
         silver = out["stats"]["silver"]
         if silver.recruits <= 0 or out["stats"]["golden"].recruits <= 0:
             raise AssertionError(f"{mode}: no recruits")
@@ -760,7 +840,7 @@ def drive_bench(reads: str) -> tuple[dict, int]:
     if launches["insert_sorted"] != recruits:
         raise AssertionError(f"insert_sorted launched {launches['insert_sorted']}"
                              f" times for {recruits} recruits")
-    return launches, fill_passes
+    return launches, per_filter
 
 
 def phase_digests() -> None:
@@ -807,7 +887,8 @@ def phase_ab(earlier: str) -> None:
         runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
     for name, rec in runs[1].items():
         for key in ("ms", "ms_b1", "ms_compressed", "ms_b1_compressed",
-                    "ms_fill_pass"):
+                    "ms_fill_pass", "ms_or", "ms_words_merge",
+                    "ms_freeze_pack"):
             if key in rec and key in runs[0].get(name, {}):
                 say("ab", kernel=name, time=key,
                     earlier=",".join(f"{runs[i][name][key]:.4f}"

@@ -1,16 +1,22 @@
-// Kernel A: canonical spaced-seed ntHash -> slot, with two entries, and the
-// merge that closes a presence fill.
+// Kernel A: canonical spaced-seed ntHash -> slot, with three entries, and
+// the merge that closes a presence fill of the direct filter.
 //
-//   seed_hash_grid   replaces hash_positions (goldrush_tpu/ops/nthash.py:131)
-//                    + slot_of (mibf/mibf.py:115) + tile_slot_grid
-//                    (mibf/mibf.py:158): the probe grid of a batch;
-//   seed_hash_fill   replaces hash_positions + slot_of + fill_presence
-//                    (mibf/mibf.py:122): one batch of pass 1, into a
-//                    presence bitmap;
-//   presence_merge   the bitmap into the filter's words (PRESENT), once per
-//                    fill pass.
+//   seed_hash_grid       replaces hash_positions (goldrush_tpu/ops/nthash.py:
+//                        131) + slot_of (mibf/mibf.py:115) + tile_slot_grid
+//                        (mibf/mibf.py:158): the probe grid of a batch;
+//   seed_hash_rank_grid  the same grid mapped through the compressed
+//                        filter's frozen rank structure as it is stored:
+//                        + _rank_lookup / rank_grid (goldrush_tpu/mibf/
+//                        compressed.py:218, :506), the resident-table gather
+//                        of tools/probe_pallas.py:59 (pallas_call :61);
+//   seed_hash_fill       replaces hash_positions + slot_of + fill_presence
+//                        (mibf/mibf.py:122): one batch of pass 1, into a
+//                        presence bitmap;
+//   presence_merge       the bitmap into the direct filter's words
+//                        (PRESENT), once per fill pass; the compressed
+//                        filter freezes from the bitmap itself (rank.cu).
 //
-// Hashing.  Both entries stage the codes window a CTA needs in shared
+// Hashing.  Every entry stages the codes window a CTA needs in shared
 // memory (zero at or past the batch width L, as hash_positions pads), with
 // the seed family's per-base constants, rotations already applied, and its
 // care offsets (SeedFamily.kernel_table, read from global memory once per
@@ -33,6 +39,16 @@
 //    frame_ok; at B=32, T=20, TL=1000, h=3 that is 15.4 MB of stores for
 //    1.28 MB of codes: store-bound, each warp storing 256 contiguous bytes
 //    per seed;
+//  - rank grid: the grid's stores, ranks in place of slots, plus one 8-byte
+//    bitrank[slot >> 5] gather per valid entry from a 35.6 MB table (at the
+//    bench sizing) that fits the 50 MB L2.  A thread computes its frame's h
+//    slots and issues their h gathers before it uses any of them, so h
+//    gathers are in flight per thread, not one; the slots never reach
+//    device memory, which saves the separate lookup's 30.7 MB round trip
+//    (slots written, read back) and its launch.  Registers decide how many
+//    of the 640 CTAs of a B=32, T=20 grid run at once (four per SM at 62
+//    registers a thread: two waves), so the gathers are issued in groups
+//    of kGather seeds;
 //  - fill: one CTA per (read, chunk of 1,024 positions); a CTA whose chunk
 //    starts past the read's last frame returns at once, so the padding of
 //    the power-of-two batch width costs nothing.  Each valid hash sets bit
@@ -41,14 +57,19 @@
 //    142 M slots, inside the 50 MB L2, where the direct words (570 MB)
 //    would take a DRAM read-modify-write per hash.  Bound: the reads'
 //    codes in and the bitmap words set out;
-//  - merge: streams the bitmap once and read-modify-writes the words of
-//    every group of 4 slots with a set bit: bytes-bound.
+//  - merge: streams the bitmap once.  As the words' first write (the
+//    direct filter's pass 1, into memory allocated without a zero-fill) it
+//    stores every word of the allocation with no read, 16 bytes per thread:
+//    bytes-bound at the bitmap in and the words out.  As an OR (a filter
+//    that already holds bits) it read-modify-writes the words of every
+//    group of 4 slots with a set bit.
 #include "common.cuh"
 
 namespace gr {
 
 constexpr int kThreads = 256;     // threads per CTA of every entry
 constexpr int kFillChunk = 1024;  // positions per CTA of the fill
+constexpr int kGather = 4;        // rank grid: seeds whose gathers overlap
 
 // A seed family as the kernels read it: its scalars by value, its table
 // (SeedFamily.kernel_table: nl + nr care offsets, then (nl + nr) x 4 bases
@@ -136,6 +157,30 @@ __device__ __forceinline__ uint64_t slot_of(uint64_t h, uint64_t size,
   return mode ? h % size : __umul64hi(h, size);
 }
 
+// The slot seed s probes at valid frame fr of a tile with frames_t frames,
+// from fr's left partials `own`: position fr, or frames_t - s - 1 once fr
+// reaches it (the stale tail).
+__device__ __forceinline__ uint64_t frame_slot(const Family& f,
+                                               const Stage& st,
+                                               ulonglong2 own, int fr,
+                                               int frames_t, int s,
+                                               uint64_t size, int mode) {
+  const int F_ts = frames_t - s;
+  const int p = fr < F_ts ? fr : F_ts - 1;
+  const ulonglong2 left = p == fr ? own : left_at(f, st, p);
+  return slot_of(canon(st, left, p, s), size, mode);
+}
+
+// The rank of the slot at bit b of bitrank word e (rank.cu's layout: rank
+// of the word's first slot above, presence bits below), or `sentinel` if
+// the slot is absent.
+__device__ __forceinline__ int64_t rank_in(unsigned long long e, unsigned b,
+                                           int64_t sentinel) {
+  const uint32_t bits = static_cast<uint32_t>(e);
+  if (!((bits >> b) & 1u)) return sentinel;
+  return static_cast<int64_t>(e >> 32) + __popc(bits & ((1u << b) - 1u));
+}
+
 // grid (T, B): one CTA per (read, tile).  Frame f of tile t is valid iff
 // t < len / TL and f < frames_t; seed s probes position t*TL + f, or
 // t*TL + F_ts - 1 once f >= F_ts = frames_t - s (the stale tail); invalid
@@ -143,10 +188,18 @@ __device__ __forceinline__ uint64_t slot_of(uint64_t h, uint64_t size,
 // frames_t >= TL - k + 1 and, with TL >= k + h - 1 (checked by the entry),
 // F_ts >= 1: every probed position p has p + s < frames_t, inside the
 // tile's staged window of m = frames_t right-half partials.
+//
+// kRanked: store the rank of each slot in the frozen structure `bitrank`
+// instead, and `sentinel` for absent slots and invalid frames.  A thread
+// issues the gathers of up to kGather seeds of its frame before it uses
+// any (all h = 3 of the path's seeds); the words are held as (bitrank
+// word, bit) pairs, not slots, to keep registers for more CTAs per SM.
+template <bool kRanked>
 __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
     const uint8_t* __restrict__ codes, int64_t L,
     const int* __restrict__ lengths, const Family f, int T, int TL,
-    int64_t size, int mode, int64_t* __restrict__ slots,
+    int64_t size, int mode, const unsigned long long* __restrict__ bitrank,
+    int64_t sentinel, int64_t* __restrict__ grid,
     bool* __restrict__ frame_ok) {
   extern __shared__ ulonglong2 smem[];
   const int t = blockIdx.x, b = blockIdx.y;
@@ -155,8 +208,9 @@ __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
   const int64_t len = lengths[b];
   const int frames_t = t < len / TL
       ? static_cast<int>(min64(TL + f.k - 1, len - col0)) - f.k + 1 : 0;
+  const uint64_t usize = static_cast<uint64_t>(size);
   bool* ok_row = frame_ok + b * TF + col0;
-  int64_t* out = slots + static_cast<int64_t>(b) * f.h * TF + col0;
+  int64_t* out = grid + static_cast<int64_t>(b) * f.h * TF + col0;
   const Stage st(smem, f, frames_t);
   if (frames_t > 0) stage(f, codes + b * L, L, col0, frames_t, st);
   for (int fr = threadIdx.x; fr < TL; fr += blockDim.x) {
@@ -164,16 +218,33 @@ __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
     ok_row[fr] = ok;
     ulonglong2 own = make_ulonglong2(0, 0);
     if (ok) own = left_at(f, st, fr);
-    for (int s = 0; s < f.h; ++s) {
-      int64_t v = size;
-      if (ok) {
-        const int F_ts = frames_t - s;
-        const int p = fr < F_ts ? fr : F_ts - 1;
-        const ulonglong2 left = p == fr ? own : left_at(f, st, p);
-        v = static_cast<int64_t>(slot_of(canon(st, left, p, s),
-                                         static_cast<uint64_t>(size), mode));
+    if constexpr (kRanked) {
+      for (int s0 = 0; s0 < f.h; s0 += kGather) {
+        unsigned long long e[kGather] = {};
+        unsigned bit[kGather] = {};
+#pragma unroll
+        for (int j = 0; j < kGather; ++j) {
+          if (ok && s0 + j < f.h) {
+            const uint64_t slot =
+                frame_slot(f, st, own, fr, frames_t, s0 + j, usize, mode);
+            bit[j] = static_cast<unsigned>(slot & 31u);
+            e[j] = bitrank[slot >> 5];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kGather; ++j) {
+          if (s0 + j < f.h)
+            out[(s0 + j) * TF + fr] = ok ? rank_in(e[j], bit[j], sentinel)
+                                         : sentinel;
+        }
       }
-      out[s * TF + fr] = v;
+    } else {
+      for (int s = 0; s < f.h; ++s) {
+        out[s * TF + fr] =
+            ok ? static_cast<int64_t>(
+                     frame_slot(f, st, own, fr, frames_t, s, usize, mode))
+               : size;
+      }
     }
   }
 }
@@ -205,24 +276,53 @@ __global__ void __launch_bounds__(kThreads) seed_hash_fill_kernel(
   }
 }
 
-// grid ceil(size / 4 / kThreads): thread i owns slots 4i..4i+3 (one nibble
-// of the bitmap) and, if any is set, ORs PRESENT into their words with one
-// 16-byte load and store.
+// grid ceil(groups / kThreads): thread i owns words 4i..4i+3, whose slots
+// below size are one nibble of the bitmap.  first_write: it stores all four
+// (PRESENT where the bit is set, else 0; groups cover every word of the
+// allocation, so slot `size` and the padding get 0) with one 16-byte store
+// and no load.  Otherwise (groups cover the slots): if a bit is set, it
+// ORs PRESENT into their words with one 16-byte load and store.
 __global__ void __launch_bounds__(kThreads) presence_merge_kernel(
-    const uint32_t* __restrict__ bits, int64_t size,
-    uint32_t* __restrict__ words) {
+    const uint32_t* __restrict__ bits, int64_t size, int64_t groups,
+    bool first_write, uint32_t* __restrict__ words) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= groups) return;
   const int64_t s0 = 4 * i;
-  if (s0 >= size) return;
-  uint32_t nib = (bits[s0 >> 5] >> (s0 & 31)) & 0xFu;
-  if (size - s0 < 4) nib &= (1u << (size - s0)) - 1u;
-  if (nib == 0) return;
-  uint4 w = reinterpret_cast<uint4*>(words)[i];
+  uint32_t nib = 0;
+  if (s0 < size) {
+    nib = (bits[s0 >> 5] >> (s0 & 31)) & 0xFu;
+    if (size - s0 < 4) nib &= (1u << (size - s0)) - 1u;
+  }
+  uint4 w;
+  if (first_write) {
+    w = make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    if (nib == 0) return;
+    w = reinterpret_cast<uint4*>(words)[i];
+  }
   if (nib & 1u) w.x |= kPresent;
   if (nib & 2u) w.y |= kPresent;
   if (nib & 4u) w.z |= kPresent;
   if (nib & 8u) w.w |= kPresent;
   reinterpret_cast<uint4*>(words)[i] = w;
+}
+
+// Both grid entries: check the clamp invariant and launch.
+template <bool kRanked>
+int launch_grid(const uint8_t* codes, int64_t B, int64_t L, const int* lengths,
+                const Family& f, int T, int TL, int64_t size, int mode,
+                const unsigned long long* bitrank, int64_t sentinel,
+                int64_t* grid, bool* frame_ok, cudaStream_t stream) {
+  if (TL < f.k + f.h - 1) return cudaErrorInvalidValue;  // the clamp invariant
+  if (B == 0 || T == 0) return kNoLaunch;
+  const size_t smem = stage_bytes(f, TL);
+  const cudaError_t err = allow_smem(seed_hash_grid_kernel<kRanked>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 blocks(static_cast<unsigned>(T), static_cast<unsigned>(B));
+  seed_hash_grid_kernel<kRanked><<<blocks, kThreads, smem, stream>>>(
+      codes, L, lengths, f, T, TL, size, mode, bitrank, sentinel, grid,
+      frame_ok);
+  return cudaGetLastError();
 }
 
 }  // namespace gr
@@ -240,15 +340,22 @@ int gr_seed_hash_grid(const uint8_t* codes, int64_t B, int64_t L,
                       int64_t size, int mode, int64_t* slots, bool* frame_ok,
                       cudaStream_t stream) {
   const gr::Family f{h, k, half, nl, nr, pad, fam_table};
-  if (TL < k + h - 1) return cudaErrorInvalidValue;  // the clamp invariant
-  if (B == 0 || T == 0) return gr::kNoLaunch;
-  const size_t smem = gr::stage_bytes(f, TL);
-  const cudaError_t err = gr::allow_smem(gr::seed_hash_grid_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(T), static_cast<unsigned>(B));
-  gr::seed_hash_grid_kernel<<<grid, gr::kThreads, smem, stream>>>(
-      codes, L, lengths, f, T, TL, size, mode, slots, frame_ok);
-  return cudaGetLastError();
+  return gr::launch_grid<false>(codes, B, L, lengths, f, T, TL, size, mode,
+                                nullptr, 0, slots, frame_ok, stream);
+}
+
+// bitrank: the frozen structure of a filter of `size` slots (ceil(size /
+// 32) + 1 words); sentinel: the rank absent slots and invalid frames get.
+int gr_seed_hash_rank_grid(const uint8_t* codes, int64_t B, int64_t L,
+                           const int* lengths, const uint64_t* fam_table,
+                           int h, int k, int half, int nl, int nr, int pad,
+                           int T, int TL, int64_t size, int mode,
+                           const unsigned long long* bitrank,
+                           int64_t sentinel, int64_t* ranks, bool* frame_ok,
+                           cudaStream_t stream) {
+  const gr::Family f{h, k, half, nl, nr, pad, fam_table};
+  return gr::launch_grid<true>(codes, B, L, lengths, f, T, TL, size, mode,
+                               bitrank, sentinel, ranks, frame_ok, stream);
 }
 
 int gr_seed_hash_fill(const uint8_t* codes, int64_t B, int64_t L,
@@ -268,15 +375,17 @@ int gr_seed_hash_fill(const uint8_t* codes, int64_t B, int64_t L,
   return cudaGetLastError();
 }
 
-// words: 16-byte aligned, at least 4 * ceil(size / 4) entries.
+// words: 16-byte aligned, n entries (n >= 4 * ceil(size / 4)); with
+// first_write n is a multiple of 4 and every entry is written.
 int gr_presence_merge(const uint32_t* bits, int64_t size, uint32_t* words,
-                      cudaStream_t stream) {
-  if (size <= 0) return gr::kNoLaunch;
-  const int64_t groups = (size + 3) / 4;
+                      int64_t n, int first_write, cudaStream_t stream) {
+  if (size <= 0 || n < 4 * ((size + 3) / 4) || (first_write && n % 4))
+    return cudaErrorInvalidValue;
+  const int64_t groups = first_write ? n / 4 : (size + 3) / 4;
   const unsigned grid =
       static_cast<unsigned>((groups + gr::kThreads - 1) / gr::kThreads);
-  gr::presence_merge_kernel<<<grid, gr::kThreads, 0, stream>>>(bits, size,
-                                                              words);
+  gr::presence_merge_kernel<<<grid, gr::kThreads, 0, stream>>>(
+      bits, size, groups, first_write != 0, words);
   return cudaGetLastError();
 }
 

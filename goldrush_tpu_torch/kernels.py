@@ -49,7 +49,9 @@ _SIGNATURES = {
                           _I, _I, _L, _I, _P, _P, _P),
     "gr_seed_hash_fill": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
                           _L, _I, _P, _P),
-    "gr_presence_merge": (_P, _L, _P, _P),
+    "gr_seed_hash_rank_grid": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _L, _I, _P, _L, _P, _P, _P),
+    "gr_presence_merge": (_P, _L, _P, _L, _I, _P),
     "gr_probe_vote": (_P, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "gr_classify": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -59,7 +61,6 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _P, _P),
     "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
     "gr_rank_carry": (_P, _P, _L, _P, _P),
-    "gr_rank_lookup": (_P, _L, _P, _L, _L, _P, _P),
 }
 
 
@@ -158,6 +159,10 @@ SEED_HASH_GRID = Kernel(
     "seed_hash_grid", "gr_seed_hash_grid",
     "goldrush_tpu_torch/csrc/seed_hash.cu",
     "goldrush_tpu/mibf/mibf.py:158")
+SEED_HASH_RANK_GRID = Kernel(
+    "seed_hash_rank_grid", "gr_seed_hash_rank_grid",
+    "goldrush_tpu_torch/csrc/seed_hash.cu",
+    "tools/probe_pallas.py:61; goldrush_tpu/mibf/compressed.py:218")
 SEED_HASH_FILL = Kernel(
     "seed_hash_fill", "gr_seed_hash_fill",
     "goldrush_tpu_torch/csrc/seed_hash.cu",
@@ -180,21 +185,18 @@ INSERT_SORTED = Kernel(
     "goldrush_tpu/mibf/mibf.py:540")
 RANK_PACK = Kernel(
     "rank_pack", "gr_rank_pack", "goldrush_tpu_torch/csrc/rank.cu",
-    "tools/probe_pallas.py:82; goldrush_tpu/mibf/compressed.py:132")
+    "tools/probe_pallas.py:82; goldrush_tpu/mibf/compressed.py:153")
 RANK_CARRY = Kernel(
     "rank_carry", "gr_rank_carry", "goldrush_tpu_torch/csrc/rank.cu",
     "tools/probe_pallas.py:128; goldrush_tpu/mibf/compressed.py:153")
-RANK_LOOKUP = Kernel(
-    "rank_lookup", "gr_rank_lookup", "goldrush_tpu_torch/csrc/rank.cu",
-    "tools/probe_pallas.py:61; goldrush_tpu/mibf/compressed.py:218")
 # kernel C's warp cummax (the arithmetic of tools/probe_pallas.py:98, run
 # inside C's passes 5 and 10) launched alone, to hold it against
 # torch.cummax; not a kernel of the path, so not in ALL
 ROW_CUMMAX = Kernel(
     "row_cummax", "gr_row_cummax", "goldrush_tpu_torch/csrc/classify.cu",
     "tools/probe_pallas.py:100")
-ALL = (SEED_HASH_GRID, SEED_HASH_FILL, PRESENCE_MERGE, PROBE_VOTE, CLASSIFY,
-       INSERT_SORTED, RANK_PACK, RANK_CARRY, RANK_LOOKUP)
+ALL = (SEED_HASH_GRID, SEED_HASH_RANK_GRID, SEED_HASH_FILL, PRESENCE_MERGE,
+       PROBE_VOTE, CLASSIFY, INSERT_SORTED, RANK_PACK, RANK_CARRY)
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

@@ -10,19 +10,22 @@ the reference's (MIBloomFilter.hpp:94-101, MIBFConstructSupport::setup()):
                present slot; the last entry is the sentinel rank
 
 carried as int64 (bitrank, supers) and int32 (ids, counts) tensors holding
-the unsigned bits.  The engine fills presence into the direct layout's
-words (kernel A), freezes them into this structure, and from then on maps
-each batch's slot grid to ranks once: probes and inserts read and write the
-rank-indexed tables through kernels B and D, keyed on the rank exactly like
-the reference's accept rule (MIBFConstructSupport.hpp:274-282).
+the unsigned bits.  The engine fills presence into a bitmap of ceil(size /
+32) words (kernel A's fill), freezes the bitmap into this structure, and
+from then on hashes each batch straight to ranks once (kernel A's rank
+grid): probes and inserts read and write the rank-indexed tables through
+kernels B and D, keyed on the rank exactly like the reference's accept
+rule (MIBFConstructSupport.hpp:274-282).  The direct filter's words are
+never allocated.
 
-Three functions own the kernels of csrc/rank.cu; each runs its plain
-PyTorch version for a CPU tensor and its kernel for a CUDA tensor (or
-raises), and ``freeze`` chains the first two:
+Three functions own a kernel; each runs its plain PyTorch version for a CPU
+tensor and its kernel for a CUDA tensor (or raises), and ``build_rank``
+chains the first two:
 
-  rank_pack    pack presence bits, popcount, cumsum within 65,536-slot blocks
-  rank_carry   add each block's carry (the totals of the blocks before it)
-  rank_grid    slot -> rank lookup (kernel rank_lookup)
+  rank_pack        popcount the bitmap, cumsum within 65,536-slot blocks
+  rank_carry       add each block's carry (the totals of the blocks before it)
+  build_rank_grid  hash a batch to its probe grid of ranks (kernel A's rank
+                   grid entry); ``rank_grid`` is the plain slot -> rank map
 """
 
 from __future__ import annotations
@@ -60,24 +63,40 @@ def rank_alloc(size: int) -> int:
 def freeze(words: torch.Tensor, size: int) -> CompressedState:
     """Freeze a direct-layout presence fill into the rank structure
     (goldrush_tpu/mibf/compressed.py:132-182, ``freeze_device_words``):
-    ``build_rank`` then ``with_tables``.  ``words`` is only read; a caller
-    that owns them drops them between the two steps, so the direct words
-    and the rank-indexed tables are never on the device together."""
-    bitrank, pop = build_rank(words, size)
-    return with_tables(bitrank, pop, size)
+    bit 30 of every slot word packed into a bitmap with plain torch ops,
+    then ``build_rank`` and ``with_tables``.  The engine never holds direct
+    words in this filter: it freezes its fill's bitmap."""
+    return with_tables(*build_rank(_present_bits(words, size), size), size)
 
 
-def build_rank(words: torch.Tensor, size: int) -> tuple[torch.Tensor, int]:
-    """Pack bit 30 of every slot word and rank them: (bitrank, number of
-    present slots)."""
-    if size <= 0 or size >= 1 << SUPER_BITS:
-        raise ValueError(f"size {size}: the port's filters have one "
-                         "superblock (0 < size < 2^32)")
+def _present_bits(words: torch.Tensor, size: int) -> torch.Tensor:
+    """The presence bitmap of direct-layout words: bit slot & 31 of word
+    slot >> 5 is bit 30 of ``words[slot]``, for slot < size (int32
+    [ceil(size / 32)])."""
     nw = -(-size // 32)
     if words.shape[0] < nw * 32:
         raise ValueError(f"words [{words.shape[0]}] do not cover {size} "
                          "slots")
-    bitrank, totals = rank_pack(words, size)
+    b = ((words[: nw * 32] >> 30) & 1).to(torch.int64)
+    b[size:] = 0
+    bits = (b.reshape(nw, 32) << torch.arange(32, device=words.device)
+            ).sum(dim=1)
+    return dm._as_int32(bits)
+
+
+def build_rank(bits: torch.Tensor, size: int) -> tuple[torch.Tensor, int]:
+    """Rank the presence bitmap ``bits`` (int32 [ceil(size / 32)], the fill's
+    ``dm.presence_bitmap``; bits at or past ``size`` are ignored): (bitrank,
+    number of present slots).  ``bits`` is only read; a caller that owns it
+    drops it before ``with_tables``, so the bitmap and the rank-indexed
+    tables are never on the device together."""
+    if size <= 0 or size >= 1 << SUPER_BITS:
+        raise ValueError(f"size {size}: the port's filters have one "
+                         "superblock (0 < size < 2^32)")
+    if bits.shape != (-(-size // 32),):
+        raise ValueError(f"bitmap {tuple(bits.shape)} is not ceil({size} / "
+                         "32) words")
+    bitrank, totals = rank_pack(bits, size)
     return bitrank, rank_carry(bitrank, totals)
 
 
@@ -95,45 +114,44 @@ def with_tables(bitrank: torch.Tensor, pop: int, size: int
         counts=torch.zeros(alloc, dtype=torch.int32, device=dev))
 
 
-def rank_pack(words: torch.Tensor, size: int
+def rank_pack(bits: torch.Tensor, size: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """First half of the freeze: bitrank [nw + 1] with each word's presence
-    bits and its exclusive in-block rank (blocks of 65,536 slots), and the
-    per-block totals."""
-    if words.is_cuda:
-        return _rank_pack_cuda(words, size)
-    return _rank_pack_plain(words, size)
+    """First half of the freeze: bitrank [nw + 1] with each bitmap word's
+    presence bits (slots at or past ``size`` cleared) and its exclusive
+    in-block rank (blocks of 65,536 slots), and the per-block totals."""
+    if bits.is_cuda:
+        return _rank_pack_cuda(bits, size)
+    return _rank_pack_plain(bits, size)
 
 
-def _rank_pack_cuda(words, size):
+def _rank_pack_cuda(bits, size):
     nw = -(-size // 32)
-    dev = words.device
-    kernels.check(words, "words", torch.int32, device=dev)
-    if words.data_ptr() % 16:
-        raise ValueError("words must be 16-byte aligned")
+    dev = bits.device
+    kernels.check(bits, "bits", torch.int32, (nw,), dev)
+    if bits.data_ptr() % 8:
+        raise ValueError("bits must be 8-byte aligned")
     bitrank = torch.empty(nw + 1, dtype=torch.int64, device=dev)
     bitrank[nw:].zero_()     # the appended word; the kernel writes the rest
     totals = torch.empty(-(-nw * 32 // RANK_BLOCK_SLOTS), dtype=torch.int64,
                          device=dev)
-    kernels.RANK_PACK(dev, kernels.ptr(words), size, nw, kernels.ptr(bitrank),
+    kernels.RANK_PACK(dev, kernels.ptr(bits), size, nw, kernels.ptr(bitrank),
                       kernels.ptr(totals))
     return bitrank, totals
 
 
-def _rank_pack_plain(words, size):
+def _rank_pack_plain(bits, size):
     nw = -(-size // 32)
     bw = RANK_BLOCK_SLOTS // 32
     nblk = -(-nw // bw)
-    b = ((words[: nw * 32] >> 30) & 1).to(torch.int64)
-    b[size:] = 0                                  # slots >= size are not real
-    b = b.reshape(nw, 32)
-    bits = (b << torch.arange(32, device=words.device)).sum(dim=1)
-    pops = torch.zeros(nblk * bw, dtype=torch.int64, device=words.device)
-    pops[:nw] = b.sum(dim=1)
+    b = bits.to(torch.int64) & _MASK32
+    if size % 32:                                 # slots >= size are not real
+        b[-1] &= (1 << (size % 32)) - 1
+    pops = torch.zeros(nblk * bw, dtype=torch.int64, device=bits.device)
+    pops[:nw] = _popcount32(b)
     pops = pops.reshape(nblk, bw)
     local = (torch.cumsum(pops, 1) - pops).reshape(-1)[:nw]
-    bitrank = torch.zeros(nw + 1, dtype=torch.int64, device=words.device)
-    bitrank[:nw] = (local << 32) | bits
+    bitrank = torch.zeros(nw + 1, dtype=torch.int64, device=bits.device)
+    bitrank[:nw] = (local << 32) | b
     return bitrank, pops.sum(dim=1)
 
 
@@ -178,29 +196,10 @@ def _popcount32(v: torch.Tensor) -> torch.Tensor:
 def rank_grid(state: CompressedState, slots: torch.Tensor, size: int
               ) -> torch.Tensor:
     """Map a slot grid (any shape, int64, sentinel ``size`` for invalid
-    frames) through the frozen rank structure: the rank of every present
-    slot, the sentinel rank for the rest (goldrush_tpu/mibf/compressed.py:
-    218-244, :506-517).  The structure never changes after ``freeze``, so
-    a batch's grid is mapped once and serves every later probe and insert
-    of its reads."""
-    if slots.is_cuda:
-        return _rank_grid_cuda(state, slots, size)
-    return _rank_grid_plain(state, slots, size)
-
-
-def _rank_grid_cuda(state, slots, size):
-    dev = slots.device
-    kernels.check(slots, "slots", torch.int64, device=dev)
-    kernels.check(state.bitrank, "bitrank", torch.int64,
-                  (-(-size // 32) + 1,), dev)
-    ranks = torch.empty_like(slots)
-    kernels.RANK_LOOKUP(dev, kernels.ptr(slots), slots.numel(),
-                        kernels.ptr(state.bitrank), size, state.sentinel,
-                        kernels.ptr(ranks))
-    return ranks
-
-
-def _rank_grid_plain(state, slots, size):
+    frames) through the frozen rank structure with plain torch ops: the
+    rank of every present slot, the sentinel rank for the rest
+    (goldrush_tpu/mibf/compressed.py:218-244, :506-517).  The plain half of
+    ``build_rank_grid``; the card's main path hashes straight to ranks."""
     nw = state.bitrank.shape[0] - 1
     in_range = (slots >= 0) & (slots < size)
     e = state.bitrank[torch.where(in_range, slots >> 5, nw)]
@@ -210,6 +209,42 @@ def _rank_grid_plain(state, slots, size):
     below = bits & ((torch.ones_like(bit) << bit) - 1)
     rank = ((e >> 32) & _MASK32) + _popcount32(below)
     return torch.where(present, rank, state.sentinel)
+
+
+def build_rank_grid(state: CompressedState, codes: torch.Tensor,
+                    lengths: torch.Tensor, fam, params: dm.MibfParams,
+                    num_tiles_max: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """codes uint8 [B, L] + lengths int32 [B] -> (ranks int64 [B, h,
+    T*TL], frame_ok bool [B, T*TL]): ``dm.build_slot_grid`` mapped through
+    ``rank_grid``, the sentinel rank for absent slots and invalid frames.
+    The structure never changes after the freeze, so a batch's grid is
+    mapped once and serves every later probe and insert of its reads.  On
+    the card one launch of kernel A hashes straight to ranks."""
+    if params.frame_stride != 1:
+        raise NotImplementedError(
+            "frame_stride > 1 is ROADMAP queue 1 item 7 (sampled grids)")
+    if codes.is_cuda or lengths.is_cuda:
+        return _build_rank_grid_cuda(state, codes, lengths, fam, params,
+                                     num_tiles_max)
+    return _build_rank_grid_plain(state, codes, lengths, fam, params,
+                                  num_tiles_max)
+
+
+def _build_rank_grid_cuda(state, codes, lengths, fam, params, T):
+    ranks, frame_ok, args = dm.grid_launch_args(codes, lengths, fam, params,
+                                                T)
+    kernels.check(state.bitrank, "bitrank", torch.int64,
+                  (-(-params.size // 32) + 1,), ranks.device)
+    kernels.SEED_HASH_RANK_GRID(*args, kernels.ptr(state.bitrank),
+                                state.sentinel, kernels.ptr(ranks),
+                                kernels.ptr(frame_ok))
+    return ranks, frame_ok
+
+
+def _build_rank_grid_plain(state, codes, lengths, fam, params, T):
+    slots, frame_ok = dm._build_slot_grid_plain(codes, lengths, fam, params,
+                                                T)
+    return rank_grid(state, slots, params.size), frame_ok
 
 
 def probe_and_vote(state: CompressedState, ranks: torch.Tensor,

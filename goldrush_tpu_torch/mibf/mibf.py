@@ -19,9 +19,10 @@ tensors and launches its CUDA kernel for CUDA tensors (or raises):
   insert_blocks      kernel D              (csrc/insert_sorted.cu)
 
 A fill pass sets bits in a presence bitmap of ceil(size / 32) words batch
-by batch (``fill_presence_bits``), then ORs PRESENT into the words of its
-set slots once (``merge_presence``); ``fill_presence`` does both for one
-batch.
+by batch (``fill_presence_bits``), then the direct filter stores PRESENT
+into the words of its set slots once (``merge_presence``): as their first
+write into words allocated without a zero-fill, or as an OR into words
+that already hold bits.  ``fill_presence`` does the OR for one batch.
 
 ``probe_and_vote`` and ``insert_blocks`` also serve the rank-compressed
 filter (``compressed.py``), keyed on ranks instead of slots.
@@ -209,31 +210,38 @@ def _fill_bits_plain(bits, codes, lengths, fam, size, slot_mode):
     return bits
 
 
-def merge_presence(words: torch.Tensor, bits: torch.Tensor, size: int
-                   ) -> torch.Tensor:
-    """OR PRESENT into ``words[slot]`` for every slot < size set in the
-    bitmap ``bits``, keeping every other bit of the word (in place).
-    Returns ``words``."""
+def merge_presence(words: torch.Tensor, bits: torch.Tensor, size: int,
+                   first_write: bool = False) -> torch.Tensor:
+    """Set PRESENT in ``words[slot]`` for every slot < size set in the
+    bitmap ``bits``, in place.  By default an OR that keeps every other bit
+    of every word; with ``first_write`` every word of ``words`` is stored,
+    whatever it held: PRESENT where the bit is set, 0 elsewhere (slot
+    ``size`` and the padding included).  Returns ``words``."""
     if words.is_cuda or bits.is_cuda:
-        return _merge_cuda(words, bits, size)
-    return _merge_plain(words, bits, size)
+        return _merge_cuda(words, bits, size, first_write)
+    return _merge_plain(words, bits, size, first_write)
 
 
-def _merge_cuda(words, bits, size):
+def _merge_cuda(words, bits, size, first_write=False):
     dev = words.device
     kernels.check(words, "words", torch.int32, device=dev)
     kernels.check(bits, "bits", torch.int32, (-(-size // 32),), dev)
+    n = words.shape[0]
     # the kernel moves 4 slots' words at a time, as one aligned 16 bytes
-    if words.shape[0] < -(-size // 4) * 4 or words.data_ptr() % 16:
-        raise ValueError(f"words [{words.shape[0]}] must be 16-byte aligned "
-                         f"and cover {size} slots in groups of 4")
-    kernels.PRESENCE_MERGE(dev, kernels.ptr(bits), size, kernels.ptr(words))
+    if (n < -(-size // 4) * 4 or (first_write and n % 4)
+            or words.data_ptr() % 16):
+        raise ValueError(f"words [{n}] must be 16-byte aligned and cover "
+                         f"{size} slots in groups of 4")
+    kernels.PRESENCE_MERGE(dev, kernels.ptr(bits), size, kernels.ptr(words),
+                           n, int(first_write))
     return words
 
 
-def _merge_plain(words, bits, size):
+def _merge_plain(words, bits, size, first_write=False):
     shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
     present = ((bits[:, None] >> shifts) & 1).reshape(-1)[:size]
+    if first_write:
+        words.zero_()
     words[:size].bitwise_or_(present << 30)                 # PRESENT_BIT
     return words
 
@@ -291,12 +299,24 @@ def build_slot_grid(codes: torch.Tensor, lengths: torch.Tensor,
     if codes.is_cuda or lengths.is_cuda:
         return _build_slot_grid_cuda(codes, lengths, fam, params,
                                      num_tiles_max)
-    T, TL = num_tiles_max, params.tile_length
-    hashes = hash_positions(codes, fam, T * TL)
-    return tile_slot_grid(hashes, lengths, params, T)
+    return _build_slot_grid_plain(codes, lengths, fam, params, num_tiles_max)
 
 
 def _build_slot_grid_cuda(codes, lengths, fam, params, T):
+    grid, frame_ok, args = grid_launch_args(codes, lengths, fam, params, T)
+    kernels.SEED_HASH_GRID(*args, kernels.ptr(grid), kernels.ptr(frame_ok))
+    return grid, frame_ok
+
+
+def _build_slot_grid_plain(codes, lengths, fam, params, T):
+    hashes = hash_positions(codes, fam, T * params.tile_length)
+    return tile_slot_grid(hashes, lengths, params, T)
+
+
+def grid_launch_args(codes, lengths, fam, params, T) -> tuple:
+    """Kernel A's grid entries: the checked inputs as the leading launch
+    arguments (device first, the slot map last), and the empty grid
+    [B, h, T*TL] (int64) and frame_ok [B, T*TL] they fill."""
     B, L = codes.shape
     TL = params.tile_length
     dev = codes.device
@@ -307,14 +327,12 @@ def _build_slot_grid_cuda(codes, lengths, fam, params, T):
     # the kernel's stale-tail clamp stays inside the tile (seed_hash.cu)
     if TL < fam.k + fam.h - 1:
         raise ValueError(f"tile_length {TL} < k + h - 1")
-    slots = torch.empty((B, params.h, T * TL), dtype=torch.int64, device=dev)
+    grid = torch.empty((B, params.h, T * TL), dtype=torch.int64, device=dev)
     frame_ok = torch.empty((B, T * TL), dtype=torch.bool, device=dev)
-    kernels.SEED_HASH_GRID(
-        dev, kernels.ptr(codes), B, L, kernels.ptr(lengths),
-        *_family_args(fam, dev), T, TL, params.size,
-        _slot_mode(params.slot_map), kernels.ptr(slots),
-        kernels.ptr(frame_ok))
-    return slots, frame_ok
+    args = (dev, kernels.ptr(codes), B, L, kernels.ptr(lengths),
+            *_family_args(fam, dev), T, TL, params.size,
+            _slot_mode(params.slot_map))
+    return grid, frame_ok, args
 
 
 # ---------------------------------------------------------------------------

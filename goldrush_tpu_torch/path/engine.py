@@ -4,16 +4,18 @@ The two-pass GoldRush-Path flow (goldrush_path.cpp:1096-1275) of
 ``goldrush_tpu/path/engine.py`` in its exact mode at stride 1, with either
 filter layout (``mibf_mode``):
 
-  pass 1: host gates (length/phred/ACGT) -> presence fill (kernel A); the
-          compressed filter then freezes the presence bits into its rank
-          structure (rank_pack + rank_carry) and drops the direct words;
+  pass 1: host gates (length/phred/ACGT) -> presence fill into a bitmap
+          (kernel A); the direct filter then writes its words from the
+          bitmap (presence_merge), the compressed filter freezes the bitmap
+          into its rank structure (rank_pack + rank_carry) and never holds
+          direct words;
   pass 2: reads stream IN ORDER through batches: a batched classify
-          (kernel A grid [-> rank_lookup, compressed] -> kernel B
-          probe/vote -> kernel C classify) against the filter at batch
-          start, then a host loop over the batch that re-probes every read
-          against the live filter from the first in-batch change onward
-          (kernels B and C on one read), inserts recruits (kernel D) and
-          rotates silver paths (reset_ids);
+          (kernel A's slot grid, or its rank grid in the compressed
+          filter, -> kernel B probe/vote -> kernel C classify) against the
+          filter at batch start, then a host loop over the batch that
+          re-probes every read against the live filter from the first
+          in-batch change onward (kernels B and C on one read), inserts
+          recruits (kernel D) and rotates silver paths (reset_ids);
   replay: path files and stats are rebuilt on the host from the per-read
           decision rows, as the JAX engine does.
 
@@ -144,16 +146,20 @@ class GoldenPathEngine:
             tile_length=cfg.tile_length, threshold=cfg.threshold,
             block_size=cfg.block_size, vote_topk=cfg.vote_topk,
             frame_stride=1, vote_min=2, probe_seeds=0, slot_map=cfg.slot_map)
-        # the compressed filter fills presence into the direct words, then
-        # freezes them into ``cstate`` (fill) and frees them
+        # the compressed filter freezes pass 1's bitmap into ``cstate``
+        # (fill) and never holds the direct words; the direct filter's
+        # words need no zero-fill, since the merge that closes pass 1
+        # writes every one of them
         self.compressed = cfg.mibf_mode == "compressed"
         self.cstate: cz.CompressedState | None = None
-        if self.compressed:
+        self.state: dm.MibfState | None = None
+        if not self.compressed:
+            alloc = self.params.alloc
             self.state = dm.MibfState(
-                words=torch.zeros(self.params.alloc, dtype=torch.int32,
-                                  device=self.device), counts=None)
-        else:
-            self.state = dm.init_state(self.params, self.device)
+                words=torch.empty(alloc, dtype=torch.int32,
+                                  device=self.device),
+                counts=torch.zeros(alloc, dtype=torch.int32,
+                                   device=self.device))
         # -f: read names to exclude from pass 2 (pass 1 still inserts their
         # presence bits — goldrush_path.cpp:1163-1170)
         self.filter_out: set[str] = set()
@@ -214,9 +220,9 @@ class GoldenPathEngine:
             st.num_passed_reads = -1     # unknown; loaded
             st.wall_fill_s += time.time() - t0
             return
-        # pass 1 sets bits in a presence bitmap, batch by batch, and ORs
-        # them into the words once at the end: the same filter, since the
-        # OR commutes and pass 1 fills a fresh filter
+        # pass 1 sets bits in a presence bitmap, batch by batch; the
+        # direct filter writes its words from it once at the end: the
+        # filter that ORing every batch into zeroed words would give
         bits = dm.presence_bitmap(self.size, self.device)
         with ingest.ReadStream(path, prefetch=self._prefetch) as rs:
             for block in rs:
@@ -256,14 +262,15 @@ class GoldenPathEngine:
         if st.num_passed_reads == 0:
             raise RuntimeError(
                 "no reads passed the Phred score and min length requirements")
-        dm.merge_presence(self.state.words, bits, self.size)
-        del bits
+        if not self.compressed:
+            dm.merge_presence(self.state.words, bits, self.size,
+                              first_write=True)
         self._sync()
         st.wall_fill_stream_s = time.time() - t0
         if self.compressed:
-            # the direct words go before the rank-indexed tables come
-            bitrank, pop = cz.build_rank(self.state.words, self.size)
-            self.state = None
+            # the bitmap goes before the rank-indexed tables come
+            bitrank, pop = cz.build_rank(bits, self.size)
+            del bits
             self.cstate = cz.with_tables(bitrank, pop, self.size)
             self._sync()
         st.wall_fill_s += time.time() - t0
@@ -284,11 +291,10 @@ class GoldenPathEngine:
     def _query_grid(self, codes, lengths, T):
         """The batch's probe grid: slots (direct filter) or their ranks
         (compressed filter), with frame_ok."""
-        slots, frame_ok = dm.build_slot_grid(codes, lengths, self.fam,
-                                             self.params, T)
         if self.compressed:
-            slots = cz.rank_grid(self.cstate, slots, self.size)
-        return slots, frame_ok
+            return cz.build_rank_grid(self.cstate, codes, lengths, self.fam,
+                                      self.params, T)
+        return dm.build_slot_grid(codes, lengths, self.fam, self.params, T)
 
     def _vote(self, grid, frame_ok, T):
         if self.compressed:

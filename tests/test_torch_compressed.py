@@ -1,6 +1,8 @@
-"""PyTorch port, rank-compressed miBF: the freeze, the slot -> rank map,
+"""PyTorch port, rank-compressed miBF: the freeze (from direct words and
+from the fill's bitmap), the slot -> rank map and the batch's rank grid,
 probe/vote on the id table, the rank-keyed reservoir insert and the reset
-equal goldrush_tpu.mibf.compressed bit for bit."""
+equal goldrush_tpu.mibf.compressed bit for bit; the compressed engine never
+holds the direct words."""
 
 import dataclasses
 
@@ -16,12 +18,16 @@ from goldrush_tpu.mibf import mibf as jdm
 from goldrush_tpu.ops.nthash import build_seed_family as jfamily
 from goldrush_tpu.ops.nthash import hash_positions as jhash
 
+from goldrush_tpu_torch.config import PathConfig
 from goldrush_tpu_torch.mibf import compressed as tcz
 from goldrush_tpu_torch.mibf import mibf as tdm
+from goldrush_tpu_torch.ops.nthash import build_seed_family
 from goldrush_tpu_torch.ops.seeds import make_seed_pattern
+from goldrush_tpu_torch.path.engine import GoldenPathEngine
+from goldrush_tpu_torch.utils import synth
 
 SEEDS = make_seed_pattern("1011011110110111101101", 22, 16, 3)
-JFAM = jfamily(SEEDS)
+FAM, JFAM = build_seed_family(SEEDS), jfamily(SEEDS)
 SIZE = 100003          # not a multiple of 32: the last word is masked
 TL = 100
 KW = dict(size=SIZE, h=3, k=22, spans=(22, 23, 24), tile_length=TL,
@@ -59,6 +65,36 @@ def test_freeze_matches_jax(size):
     for name in ("bitrank", "supers", "ids", "counts"):
         np.testing.assert_array_equal(got[name], np.asarray(getattr(j, name)),
                                       err_msg=name)
+
+
+def bitmap(set_, size):
+    """The uint32 bitmap of ceil(size / 32) words whose bit slot & 31 of word
+    slot >> 5 is set_[slot]."""
+    return np.packbits(np.pad(set_, (0, -size % 32)),
+                       bitorder="little").view(np.uint32)
+
+
+@pytest.mark.parametrize("size", [SIZE, 70_016, 31, 65_536 * 3 + 5])
+def test_build_rank_from_bits_matches_jax(size):
+    """The freeze of the main path: the fill's bitmap ranked by build_rank
+    equals _freeze_from_bits (bitrank, supers, the present count), and bits
+    at or past size, which the fill never sets, are ignored."""
+    rng = np.random.default_rng(size + 1)
+    set_ = rng.random(size) < 0.13
+    bits = bitmap(set_, size)
+    j = jcz._freeze_from_bits(bits, size)
+    bitrank, pop = tcz.build_rank(to_torch(bits), size)
+    got = tcz.state_to_numpy(tcz.with_tables(bitrank, pop, size))
+    jbr = np.asarray(j.bitrank)
+    np.testing.assert_array_equal(got["bitrank"], jbr)
+    np.testing.assert_array_equal(got["supers"], np.asarray(j.supers))
+    jpop = int(jbr[-2] >> np.uint64(32)) + bin(int(bits[-1])).count("1")
+    assert pop == jpop == int(set_.sum())
+    dirty = bits.copy()
+    dirty[-1] |= np.uint32(0xFFFFFFFF << (size % 32) & 0xFFFFFFFF
+                           if size % 32 else 0)
+    again, pop2 = tcz.build_rank(to_torch(dirty), size)
+    assert torch.equal(again, bitrank) and pop2 == pop
 
 
 def batch(rng, T, lengths):
@@ -100,6 +136,67 @@ def filled_pair(rng, codes_lengths, T):
     j = j._replace(ids=jnp.asarray(ids), counts=jnp.asarray(cnt))
     t = t._replace(ids=to_torch(ids), counts=to_torch(cnt))
     return j, t
+
+
+@pytest.mark.parametrize("mode", ["fastrange", "mod"])
+def test_fill_bits_then_build_rank_matches_jax(mode):
+    """Several batches into one bitmap (fill_presence_bits), then build_rank
+    and with_tables, against freeze_device_words of goldrush_tpu's fill of
+    the same batches: the engine's compressed pass 1."""
+    jw = jnp.zeros(JP.alloc, jnp.uint32)
+    bits = tdm.presence_bitmap(SIZE)
+    for i, lengths in enumerate([[505, 333, 30, 0, 1024], [700, 21, 22, 23],
+                                 [1024] * 3]):
+        codes, lens = hard.read_batch(lengths, 1024, seed=i)
+        P = codes.shape[1] - 22 + 1
+        valid = np.zeros((len(lens), 3, P), dtype=bool)
+        for b, L in enumerate(lens):
+            for s, span in enumerate(JP.spans):
+                valid[b, s, : max(L - span + 1, 0)] = True
+        jw = jdm.fill_presence(jw, jhash(codes, JFAM, P), jnp.asarray(valid),
+                               SIZE, slot_mode=mode)
+        tdm.fill_presence_bits(bits, torch.from_numpy(codes),
+                               torch.from_numpy(lens), FAM, SIZE, mode)
+    j = jcz.freeze_device_words(jw, SIZE)
+    got = tcz.state_to_numpy(tcz.with_tables(*tcz.build_rank(bits, SIZE),
+                                             SIZE))
+    for name in ("bitrank", "supers", "ids", "counts"):
+        np.testing.assert_array_equal(got[name], np.asarray(getattr(j, name)),
+                                      err_msg=name)
+    assert int(got["bitrank"][-2] >> np.uint64(32)) > 1000
+
+
+@pytest.mark.parametrize("mode", ["fastrange", "mod"])
+@pytest.mark.parametrize("case", list(hard.grid_lengths(TL, 22)))
+def test_build_rank_grid_matches_jax(case, mode):
+    """The batch's rank grid (kernel A's rank entry on the card) against
+    goldrush_tpu's hash + tile_slot_grid + rank_grid on the lengths the
+    grid's tiles and stale-tail clamp branch on
+    (goldrush_tpu_torch/hard_cases.py), over a filter holding the batch's
+    own slots and a random 5%."""
+    lengths, T = hard.grid_lengths(TL, 22)[case]
+    codes, lens = hard.read_batch(lengths, T * TL + TL, seed=len(case))
+    jpar = dataclasses.replace(JP, slot_map=mode)
+    tpar = dataclasses.replace(TP, slot_map=mode)
+    P = codes.shape[1] - 21
+    jw = np.array(jdm.fill_presence(jnp.zeros(JP.alloc, jnp.uint32),
+                                    jhash(codes, JFAM, P),
+                                    jnp.ones((len(lens), 3, P), bool), SIZE,
+                                    slot_mode=mode))
+    rng = np.random.default_rng(len(case))
+    jw[rng.random(jw.size) < 0.05] |= np.uint32(jdm.PRESENT_BIT)
+    j = jcz.freeze_device_words(jnp.asarray(jw), SIZE)
+    t = tcz.freeze(to_torch(jw), SIZE)
+    slots, jok = jdm.build_slot_grid(codes, lens, JFAM, jpar, T)
+    want = np.asarray(jcz.rank_grid(j, slots, SIZE)).astype(np.int64)
+    got, ok = tcz.build_rank_grid(t, torch.from_numpy(codes),
+                                  torch.from_numpy(lens), FAM, tpar, T)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    valid = np.asarray(jok)[:, None, :]
+    assert (want[~np.broadcast_to(valid, want.shape)] == t.sentinel).all()
+    if valid.any():
+        assert (want < t.sentinel).sum() > valid.sum()
 
 
 @pytest.mark.parametrize("vote_min", [2, 0])
@@ -184,3 +281,30 @@ def test_reset_ids_matches_jax():
     for name in ("bitrank", "supers", "ids", "counts"):
         np.testing.assert_array_equal(got[name], np.asarray(getattr(j, name)),
                                       err_msg=name)
+
+
+def test_compressed_engine_holds_no_direct_words(tmp_path):
+    """A compressed engine allocates no direct words, before or after pass
+    1, and freezes the filter a direct engine's pass 1 fills; the direct
+    engine's first-write merge leaves every word past size at 0."""
+    genome = synth.random_genome(20_000, seed=2)
+    path = str(tmp_path / "reads.fq")
+    synth.write_fastq(path, synth.simulate_reads(genome, 12, 3000, seed=3,
+                                                 err_rate=0.0, phred=20))
+    kw = dict(input=path, genome_size=20_000, kmer_size=22, weight=16,
+              hash_num=3, seed_preset="1011011110110111101101",
+              tile_length=250, min_length=1000, phred_min=15)
+    comp = GoldenPathEngine(PathConfig(mibf_mode="compressed", **kw),
+                            device="cpu")
+    assert comp.state is None
+    comp.fill(path)
+    assert comp.state is None and comp.cstate is not None
+    direct = GoldenPathEngine(PathConfig(**kw), device="cpu")
+    direct.fill(path)
+    words = direct.state.words
+    assert int((words[direct.size:] != 0).sum()) == 0
+    assert int((words != 0).sum()) > 1000
+    want = tcz.state_to_numpy(tcz.freeze(words, direct.size))
+    got = tcz.state_to_numpy(comp.cstate)
+    for name in ("bitrank", "supers", "ids", "counts"):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)

@@ -73,9 +73,10 @@ def test_seed_hash_grid_and_fill(cuda, mode):
 def test_seed_hash_fill_bits_and_merge(cuda, mode):
     """Kernel A's fill into one bitmap over several batches, one of them
     32,768 wide for reads of at most 2,000 bases (most of its CTAs hold no
-    frame), then the merge into words holding ids and saturation bits, all
-    against the plain versions; and the merge alone on sizes that end
-    inside a 4-slot group and a bitmap word."""
+    frame), then the merge into words holding ids and saturation bits, as
+    an OR and as the words' first write, all against the plain versions;
+    and the merge alone on sizes that end inside a 4-slot group and a
+    bitmap word."""
     rng = np.random.default_rng(2)
     size = 1_000_003
     bits_k = tdm.presence_bitmap(size, cuda)
@@ -91,14 +92,18 @@ def test_seed_hash_fill_bits_and_merge(cuda, mode):
     alloc = -(-(size + 1) // 1024) * 1024
     w = torch.from_numpy(rng.integers(-2**31, 2**31, alloc, dtype=np.int64)
                          .astype(np.int32))
-    wk = tdm.merge_presence(w.to(cuda), bits_k, size)
-    wp = tdm.merge_presence(w.clone(), bits_p, size)
-    assert torch.equal(wk.cpu(), wp) and not torch.equal(wp, w)
-    for n in (31, 33, 1_000_001):
+    for first in (False, True):
+        wk = tdm.merge_presence(w.to(cuda), bits_k, size, first)
+        wp = tdm.merge_presence(w.clone(), bits_p, size, first)
+        assert torch.equal(wk.cpu(), wp) and not torch.equal(wp, w)
+    # the merge alone, both forms, the first write on dirty words
+    for n in (31, 33, 1_000_001, 1_000_003):
         b = torch.from_numpy(rng.integers(-2**31, 2**31, -(-n // 32),
                                           dtype=np.int64).astype(np.int32))
-        assert torch.equal(tdm.merge_presence(w.to(cuda), b.to(cuda), n).cpu(),
-                           tdm.merge_presence(w.clone(), b, n))
+        for first in (False, True):
+            assert torch.equal(
+                tdm.merge_presence(w.to(cuda), b.to(cuda), n, first).cpu(),
+                tdm.merge_presence(w.clone(), b, n, first))
 
 
 @pytest.mark.parametrize("mode", ["fastrange", "mod"])
@@ -114,6 +119,31 @@ def test_seed_hash_grid_cases(cuda, case, mode):
                    hard.read_batch(lengths, T * 1000 + 1000, seed=len(case)))
     got = tdm.build_slot_grid(codes.to(cuda), lens.to(cuda), FAM, params, T)
     assert_same(got, tdm.build_slot_grid(codes, lens, FAM, params, T))
+
+
+@pytest.mark.parametrize("mode", ["fastrange", "mod"])
+@pytest.mark.parametrize("case", list(hard.grid_lengths(1000, 22)))
+def test_seed_hash_rank_grid_cases(cuda, case, mode):
+    """Kernel A's rank grid against its plain version (the slot grid mapped
+    through rank_grid) on the grid cases, at the path's tile length, over a
+    frozen filter holding the batch's own slots and random others."""
+    size = 1_000_003
+    params = tdm.MibfParams(size=size, h=3, k=22, spans=FAM.spans,
+                            tile_length=1000, slot_map=mode)
+    lengths, T = hard.grid_lengths(1000, 22)[case]
+    codes, lens = (torch.from_numpy(a) for a in
+                   hard.read_batch(lengths, T * 1000 + 1000, seed=len(case)))
+    rng = np.random.default_rng(len(case))
+    bits = torch.from_numpy(rng.integers(0, 2**31, -(-size // 32),
+                                         dtype=np.int64).astype(np.int32))
+    tdm.fill_presence_bits(bits, codes, lens, FAM, size, mode)
+    host = tcz.with_tables(*tcz.build_rank(bits, size), size)
+    dev = tcz.with_tables(*tcz.build_rank(bits.to(cuda), size), size)
+    before = kernels.SEED_HASH_RANK_GRID.launches
+    got = tcz.build_rank_grid(dev, codes.to(cuda), lens.to(cuda), FAM, params,
+                              T)
+    assert kernels.SEED_HASH_RANK_GRID.launches == before + 1
+    assert_same(got, tcz.build_rank_grid(host, codes, lens, FAM, params, T))
 
 
 @pytest.mark.parametrize("bs,T", [(3, 6), (20, 24)])
@@ -302,6 +332,9 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         tdm.merge_presence(words[1:], tdm.presence_bitmap(params.size, cuda),
                            params.size)
+    with pytest.raises(ValueError):    # a first write of a partial group
+        tdm.merge_presence(words[:-2], tdm.presence_bitmap(params.size, cuda),
+                           params.size, first_write=True)
     with pytest.raises(ValueError):    # a tile shorter than k + h - 1
         tdm.build_slot_grid(codes, lens, FAM,
                             dataclasses.replace(params, tile_length=23), 5)
@@ -320,17 +353,23 @@ def test_wrappers_check_their_inputs(cuda):
 
 @pytest.mark.parametrize("size", [31, 1_000_003, 65_536 * 40])
 def test_rank_kernels(cuda, size):
-    """rank_pack + rank_carry (the freeze), rank_lookup, and kernels B and
-    D on the rank-indexed tables, against the plain versions."""
+    """rank_pack from a bitmap (dirty past size) and rank_carry (the
+    freeze), kernel A's rank grid, and kernels B and D on the rank-indexed
+    tables, against the plain versions."""
     rng = np.random.default_rng(size)
+    bits = torch.from_numpy(rng.integers(-2**31, 2**31, -(-size // 32),
+                                         dtype=np.int64).astype(np.int32))
+    # the first half alone, its appended word included
+    assert_same(tcz.rank_pack(bits.to(cuda), size), tcz.rank_pack(bits, size))
+    host = tcz.with_tables(*tcz.build_rank(bits, size), size)
+    dev = tcz.with_tables(*tcz.build_rank(bits.to(cuda), size), size)
+    assert_same(dev, host)
+    # the freeze of direct words: their bits packed, then the same kernels
     alloc = -(-(size + 1) // 1024) * 1024
     w = rng.integers(0, 1 << 30, alloc).astype(np.uint32)
     w |= np.where(rng.random(alloc) < 0.3, np.uint32(tdm.PRESENT_BIT),
                   np.uint32(0))
     words = torch.from_numpy(w.view(np.int32).copy())
-    # the first half alone, its appended word included
-    assert_same(tcz.rank_pack(words.to(cuda), size),
-                tcz.rank_pack(words, size))
     host, dev = tcz.freeze(words, size), tcz.freeze(words.to(cuda), size)
     assert_same(dev, host)
     assert int(host.bitrank[-2] >> 32) > 0 or size < 64
@@ -341,10 +380,10 @@ def test_rank_kernels(cuda, size):
                             tile_length=1000, threshold=4, block_size=2,
                             vote_topk=8)
     codes, lens = reads_batch(rng, [6000, 5300, 999, 0], T * 1000 + 1000)
-    slots, ok = tdm.build_slot_grid(codes, lens, FAM, params, T)
-    slots[0, 0, :2000] = torch.from_numpy(rng.integers(0, size, 2000))
-    ranks = tcz.rank_grid(host, slots, size)
-    assert torch.equal(tcz.rank_grid(dev, slots.to(cuda), size).cpu(), ranks)
+    ranks, ok = tcz.build_rank_grid(host, codes, lens, FAM, params, T)
+    assert_same(tcz.build_rank_grid(dev, codes.to(cuda), lens.to(cuda), FAM,
+                                    params, T), (ranks, ok))
+    assert int((ranks < host.sentinel).sum()) > 1000
     ids = torch.from_numpy(rng.integers(0, 6, host.ids.shape[0],
                                         dtype=np.int32))
     ids[-1] = 0

@@ -122,6 +122,31 @@ def test_merge_keeps_the_other_bits():
     np.testing.assert_array_equal(got_c, c)
 
 
+@pytest.mark.parametrize("size", [31, 33, 64, 1021, SIZE])
+def test_first_write_merge_matches_or_on_zeros(size):
+    """The merge that closes the direct filter's pass 1 stores every word of
+    a dirty allocation: it equals the OR merge into zeroed words, for sizes
+    that end inside a 4-slot group and inside a 32-slot word, with 0 on
+    slot size and the padding; bitmap bits past size are ignored."""
+    rng = np.random.default_rng(size)
+    alloc = -(-(size + 1) // 1024) * 1024
+    set_ = rng.random(size) < 0.4
+    set_[-3:] = True
+    bits = np.packbits(np.pad(set_, (0, -size % 32)),
+                       bitorder="little").view(np.uint32)
+    if size % 32:
+        bits[-1] |= np.uint32(0xFFFFFFFF << (size % 32) & 0xFFFFFFFF)
+    bits = torch.from_numpy(bits.view(np.int32).copy())
+    dirty = rng.integers(-2**31, 2**31, alloc, dtype=np.int64)
+    got = tdm.merge_presence(torch.from_numpy(dirty.astype(np.int32)), bits,
+                             size, first_write=True)
+    want = tdm.merge_presence(torch.zeros(alloc, dtype=torch.int32), bits,
+                              size)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(want[:size].numpy() != 0, set_)
+    assert int(want[size:].abs().sum()) == 0
+
+
 @pytest.mark.parametrize("case", list(hard.grid_lengths(TL, 22)))
 def test_build_slot_grid_clamp_cases_match_jax(case):
     """The grid against goldrush_tpu on the lengths kernel A's tiles and

@@ -2,14 +2,16 @@
 
   bitmap  this tree's design: each batch sets bits in a ceil(size / 32)-word
           presence bitmap (17.8 MB at the bench sizing, L2-resident), and
-          one merge ORs PRESENT into the words after the last batch;
+          one merge writes every word from it after the last batch (the
+          words' first write, as the direct filter's pass 1 does);
   direct  the same kernel with its reduction aimed at the words themselves
           (PRESENT into words[slot], 570 MB): built from a copy of csrc/ in
           which that one line is replaced, into smoke_work/.
 
 Both run a fill pass of the bench dataset's shape (chip_smoke.py's
-fill_pass_batches: 47 batches of 64 x 32,768) into a zeroed filter, in the
-order bitmap, direct, direct, bitmap, and must leave the same words.
+fill_pass_batches: 47 batches of 64 x 32,768), the direct design into a
+zeroed filter, in the order bitmap, direct, direct, bitmap, and must leave
+the same words.
 Prints the card and its power limit, then one line per run.
 
     python3 tools/torch_port_fill_designs.py
@@ -75,14 +77,14 @@ def main() -> None:
     batches = fill_pass_batches(dev)
     direct = build_direct()
     kernels.lib()
-    words = {d: torch.zeros(alloc, dtype=torch.int32, device=dev)
-             for d in ("bitmap", "direct")}
+    words = dict(bitmap=torch.empty(alloc, dtype=torch.int32, device=dev),
+                 direct=torch.zeros(alloc, dtype=torch.int32, device=dev))
 
     def bitmap_pass():
         bits = dm.presence_bitmap(size, dev)
         for codes, lengths in batches:
             dm.fill_presence_bits(bits, codes, lengths, fam, size)
-        dm.merge_presence(words["bitmap"], bits, size)
+        dm.merge_presence(words["bitmap"], bits, size, first_write=True)
 
     def direct_pass():
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -4,9 +4,13 @@ Runs goldrush-path's silver stage (GoldenPathEngine, exact mode) over
 bench.py's dataset (3,000 x 20 kb reads of a 5 Mbp genome at 5% error,
 seeds 11/12, M=5) with the chosen filter: twice unprofiled for the wall
 times, then once under torch.profiler.  Prints the card and its power
-limit, the EngineStats times and launch counts of each run, and, for the
-profiled run, device time per kernel, the largest host-side costs, and the
-device busy share (summed kernel time over the profiled assign time).
+limit, the engine's construction time (init_s: the direct filter
+allocates its words there), the EngineStats times and launch counts of
+each run, and, for the profiled run, device time per kernel (the 15
+largest, then every other kernel of csrc/, whose names are in namespace
+gr), the largest host-side costs, and the device busy share (summed
+kernel time over the profiled assign time).  Copied into an earlier
+tree's tools/, it profiles that tree's port.
 
     python3 tools/torch_port_profile.py [direct|compressed]
 """
@@ -53,8 +57,16 @@ def main() -> None:
             mibf_mode=mode, prefix_file=os.path.join(WORK, tag)),
             device="cuda")
 
-    def report(tag, st):
-        print(f"{tag} filter={mode} fill_s={st.wall_fill_s:.4f} "
+    def timed_run(tag):
+        t0 = time.time()
+        eng = engine(tag)
+        init_s = time.time() - t0
+        return eng.run(), init_s
+
+    def report(tag, st, init_s):
+        print(f"{tag} filter={mode} init_s={init_s:.4f} "
+              f"fill_s={st.wall_fill_s:.4f} "
+              f"fill_stream_s={st.wall_fill_stream_s:.4f} "
               f"assign_s={st.wall_assign_s:.4f} "
               f"submit_s={st.wall_submit_s:.4f} "
               f"replay_s={st.wall_replay_s:.4f} recruits={st.recruits} "
@@ -66,14 +78,14 @@ def main() -> None:
         for rep in range(2):
             for k in kernels.ALL:
                 k.launches = 0
-            report(f"run{rep}", engine(f"run{rep}").run())
+            report(f"run{rep}", *timed_run(f"run{rep}"))
         for k in kernels.ALL:
             k.launches = 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            st = engine("profiled").run()
+            st, init_s = timed_run("profiled")
             torch.cuda.synchronize()
-        report("profiled", st)
+        report("profiled", st, init_s)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     events = prof.key_averages()
@@ -82,8 +94,9 @@ def main() -> None:
     print(f"device_time_s={total_us / 1e6:.4f} "
           f"busy_share_of_assign={total_us / 1e6 / st.wall_assign_s:.4f}")
     print("--- device time by kernel / op")
-    for e in sorted(dev, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:15]:
+    ranked = sorted(dev, key=lambda e: e.self_device_time_total,
+                    reverse=True)
+    for e in ranked[:15] + [e for e in ranked[15:] if "gr::" in e.key]:
         print(f"{e.key[:60]:60s} calls={e.count:7d} "
               f"device_s={e.self_device_time_total / 1e6:9.4f} "
               f"share={e.self_device_time_total / total_us:.4f}")
