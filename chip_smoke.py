@@ -19,24 +19,40 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      a whole fill pass of the bench's shape (47 batches and the direct
      filter's merge), the merge on the bench filter as the words' first
      write (dirty memory) and as an OR, rank_pack on the pass's bitmap;
+     both grids also at a frame stride: the throughput mode's query grid
+     (B=64, h=1, S=8), S=2 with h=3 and its full-resolution insert grid
+     (B=64, h=3), timed, and the grid cases of hard_cases.grid_lengths;
      kernel D also on
      recruits whose keys one of its CTAs owns or that repeat one k-mer
      (past a CTA's shared memory), in both filters, and timed on a
      20-tile and a 2-tile trimmed recruit and for its window read alone;
+     insert_max (the throughput mode's max-id-wins insert) on the same
+     recruits and ids near 2^30 in both filters, timed on the 20-tile and
+     the 2-tile recruit beside torch's scatter_reduce_(amax) on the
+     20-tile recruit's precomputed keys and values (the library time);
      kernels B and C also on the inputs their designs branch on
      (goldrush_tpu_torch/hard_cases.py) at B=32 and B=1, B in both
      filters, and C's warp cummax (row_cummax) against torch.cummax;
-  4. end to end: goldrush-path (silver M=5, then golden) through the CLI
+  4. end to end, two paths, each with every launch count zeroed just
+     before it and read just after:
+     exact: goldrush-path (silver M=5, then golden) through the CLI
      entry point on 3,000 x 20 kb reads of a 5 Mbp genome at 5% error
      (bench.py's dataset, seeds 11/12), once with the direct filter and
-     once with the rank-compressed one; every kernel must have launched,
-     the fill once per batch, the merge once per direct fill pass and
-     never in the compressed filter, each grid entry once per grid of its
-     filter, recruits > 0, each completed silver path > r*G bases; each
-     filter's peak device memory is printed;
+     once with the rank-compressed one; the fill once per batch, the
+     merge once per direct fill pass and never in the compressed filter,
+     each grid entry once per grid of its filter, kernel D once per
+     recruit, recruits > 0, each completed silver path > r*G bases;
+     throughput: bench.py's throughput cell (stride 8, one probed seed,
+     optimistic staleness, batches of 64; bench.py:173-180) through
+     GoldenPathEngine on the same reads, compressed filter then direct;
+     insert_max once per recruit and kernel D never; kernel B's launches
+     split into batched probes, live re-probes and full-resolution
+     rechecks; every kernel must have launched in one of the two paths;
+     each run's times, reads/s and peak device memory are printed;
   5. digests: the port's silver paths on the 1 Mbp quality-gate dataset,
-     with either filter, must match tests/fixtures/torch_port_digests.json
-     (written by the JAX package on the CPU).
+     with either filter, in exact mode and in the throughput mode, must
+     match tests/fixtures/torch_port_digests.json (written by the JAX
+     package on the CPU).
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -45,14 +61,9 @@ own that imports the port from its tree: DIR (for example a `git archive`
 of the parent commit, whose kernels' entry points may differ: only the
 Python wrappers are called), this checkout, this checkout, DIR; then it
 prints each kernel's times side by side.  Every run checks its tree's
-kernels against their plain versions.  Steps whose kernels changed are
-compared as each tree's engine runs them: the whole fill pass
-(`ms_fill_pass`), the direct filter's words from the pass's bitmap
-(`ms_words_merge`: a first write, or an earlier tree's zero-fill and OR),
-the compressed freeze up to rank_carry (`ms_freeze_pack`: rank_pack of
-the bitmap, or the zero-fill, the merge and rank_pack of the words) and
-the compressed grid (seed_hash_rank_grid's `ms`, or the slot grid and its
-rank lookup).
+kernels against their plain versions.  An earlier tree skips what its
+wrappers cannot run: the strided grids, insert_max, and the hard cases of
+B and C.
 """
 
 from __future__ import annotations
@@ -76,6 +87,12 @@ BENCH = dict(genome=5_000_000, genome_seed=11, n_reads=3_000,
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 FILL_BATCH, FILL_WIDTH = 64, 32_768     # the engine's pass-1 batches here
+# bench.py's engine_cfg (bench.py:80-84) and its throughput cell (:173-180)
+BENCH_ENGINE = dict(genome_size=5_000_000, kmer_size=22, weight=16,
+                    hash_num=3, seed_preset=PRESET, silver_path=True,
+                    max_paths=5, min_length=20_000)
+THROUGHPUT = dict(frame_stride=8, probe_seeds=1, recheck="optimistic",
+                  batch_reads=64)
 
 
 def say(phase: str, **kv) -> None:
@@ -335,6 +352,148 @@ def insert_phase(state_k, state_p, recruits, timed, params, T, limit,
     return checked(err, ms, pms, nbytes)
 
 
+def insert_max_phase(table, recruits, timed, params, T, limit, or_bits,
+                     label) -> dict:
+    """insert_max on `table` and its plain version on a copy, recruit after
+    recruit; then, on scratch copies, both timed for the full recruit of
+    grid `timed` and a 2-tile trimmed one, and torch's scatter_reduce_
+    (amax) for the full recruit from its keys and values precomputed (the
+    library yardstick, held to the kernel's result).  Returns the full
+    recruit's record, whose bound counts the window's grid entries read
+    and one 32-byte sector per distinct key written."""
+    import torch
+    from goldrush_tpu_torch.mibf import mibf as dm
+    bs = params.block_size
+    before, plain = table.clone(), table.clone()
+    for grid, lo, hi, base, tr in recruits:
+        dm.insert_max(table, grid, lo, hi, base, tr, params, T, limit,
+                      or_bits)
+        dm._insert_max_plain(plain, grid, lo, hi, base, tr, bs, T, limit,
+                             or_bits)
+    err = max_abs_err([(table, plain)])
+    changed = int((table != before).sum())
+    del before
+    H, TF = timed.shape
+    cols = torch.arange(TF, device=timed.device) // (TF // T) // bs
+    real = timed < limit
+    keys = timed[real]
+    vals = (or_bits | (17 + cols)).to(torch.int32).expand(H, -1)[real]
+    k, lib = table.clone(), table.clone()
+    dm.insert_max(k, timed, 0, T - 1, 17, False, params, T, limit, or_bits)
+    lib.scatter_reduce_(0, keys, vals, "amax")
+    err = max(err, max_abs_err([(k, lib)]))
+    accepted = int((k != table).sum())
+    times = {}
+    for name, lo, hi, tr in (("full", 0, T - 1, False), ("2tile", 4, 5, True)):
+        times[name] = (
+            cuda_ms(lambda: dm.insert_max(k, timed, lo, hi, 17, tr, params,
+                                          T, limit, or_bits), 20),
+            cuda_ms(lambda: dm._insert_max_plain(plain, timed, lo, hi, 17, tr,
+                                                 bs, T, limit, or_bits), 3))
+    lib_ms = cuda_ms(lambda: lib.scatter_reduce_(0, keys, vals, "amax"), 20)
+    (ms, pms), (ms2, pms2) = times["full"], times["2tile"]
+    distinct = torch.unique(keys).numel()
+    say("kernels", kernel="insert_max", filter=label,
+        recruits=len(recruits), max_abs_err=err, changed=changed,
+        accepted=accepted,
+        distinct_keys=distinct, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+        library_ms=f"{lib_ms:.4f}", ms_2tile=f"{ms2:.4f}",
+        plain_ms_2tile=f"{pms2:.4f}")
+    if changed == 0 or accepted == 0:
+        raise AssertionError(f"insert_max {label}: degenerate check inputs")
+    rec = checked(err, ms, pms, timed.numel() * 8 + distinct * 32,
+                  ms_2tile=ms2, plain_ms_2tile=pms2)
+    rec["library_ms"] = lib_ms
+    return rec
+
+
+def strided_grids(codes, lengths, params, cs, n_care) -> tuple:
+    """Kernel A's slot and rank grid entries at a frame stride against their
+    plain versions (the JAX package's sampled routes: the last-tile grid at
+    S >= h, the general one below) in both slot maps: the throughput
+    mode's query grid (B=64, h=1, S=8), S=2 with h=3 at B=32, and the
+    full-resolution grid a B=64 throughput batch inserts from (h=3, S=1),
+    each timed in the fastrange map; and the grid cases of
+    hard_cases.grid_lengths at S=8 with h=1 and S=2 with h=3.  Returns the
+    two entries' extra record keys and their max_abs_err."""
+    import dataclasses
+
+    import torch
+    from goldrush_tpu_torch import hard_cases as hard
+    from goldrush_tpu_torch.mibf import compressed as cz
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.ops.nthash import build_seed_family
+    from goldrush_tpu_torch.ops.seeds import make_seed_pattern
+    dev = torch.device("cuda", 0)
+    seeds = make_seed_pattern(PRESET, 22, 16, 3)
+    fams = {h: build_seed_family(seeds[:h]) for h in (1, 3)}
+    T, TL, size = 20, params.tile_length, params.size
+
+    def par(h, S, mode="fastrange"):
+        return dataclasses.replace(
+            params, h=h, spans=fams[h].spans, frame_stride=S,
+            threshold=max(1, params.threshold // S), slot_map=mode,
+            vote_min=2 if S == 1 else max(1, 2 // S))
+
+    def both(c, n, h, S, mode, Tg):
+        """Both entries on the card and plain: their max_abs_err, and the
+        kernel's slots and frame_ok."""
+        p = par(h, S, mode)
+        sk = dm.build_slot_grid(c, n, fams[h], p, Tg)
+        rk = cz.build_rank_grid(cs, c, n, fams[h], p, Tg)
+        es = max_abs_err(zip(sk, dm._build_slot_grid_plain(c, n, fams[h], p,
+                                                            Tg)))
+        er = max_abs_err(zip(rk, cz._build_rank_grid_plain(cs, c, n, fams[h],
+                                                            p, Tg)))
+        return es, er, sk
+    slot_rec, rank_rec = {}, {}
+    err_s = err_r = 0
+    for tag, (B, h, S) in {"s8": (64, 1, 8), "s2": (32, 3, 2),
+                           "ins_b64": (64, 3, 1)}.items():
+        qc = torch.from_numpy(codes[:B, : T * TL + TL].copy()).to(dev)
+        ql = torch.from_numpy(lengths[:B].copy()).to(dev)
+        for mode in ("mod", "fastrange"):
+            es, er, (slots, ok) = both(qc, ql, h, S, mode, T)
+            err_s, err_r = max(err_s, es), max(err_r, er)
+        p, fam = par(h, S), fams[h]
+        n_ok = int(ok.sum())
+        ops = hash_ops(n_ok, n_ok * h, len(fam.care_left)
+                       + len(fam.care_right))
+        # codes in, slots (ranks) + frame_ok out; the rank entry also
+        # gathers each distinct bitrank word once
+        nbytes = qc.numel() + ql.numel() * 4 + slots.numel() * 8 + ok.numel()
+        words = torch.unique(slots[slots < size] >> 5).numel()
+        for rec, fn, plain, extra in (
+                (slot_rec, lambda: dm.build_slot_grid(qc, ql, fam, p, T),
+                 lambda: dm._build_slot_grid_plain(qc, ql, fam, p, T), 0),
+                (rank_rec, lambda: cz.build_rank_grid(cs, qc, ql, fam, p, T),
+                 lambda: cz._build_rank_grid_plain(cs, qc, ql, fam, p, T),
+                 words * 8)):
+            r = checked(0, cuda_ms(fn, 20), cuda_ms(plain, 3),
+                        nbytes + extra, ops)
+            rec.update({f"{k}_{tag}": r[k]
+                        for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        say("kernels", kernel="seed_hash_grid+rank_grid", stride=S, h=h,
+            shape=f"{B}x{h}x{slots.shape[2]}",
+            ms=f"{slot_rec['ms_' + tag]:.4f}",
+            plain_ms=f"{slot_rec['plain_ms_' + tag]:.4f}",
+            bound_ms=f"{slot_rec['bound_ms_' + tag]:.4f}",
+            rank_ms=f"{rank_rec['ms_' + tag]:.4f}",
+            rank_plain_ms=f"{rank_rec['plain_ms_' + tag]:.4f}",
+            rank_bound_ms=f"{rank_rec['bound_ms_' + tag]:.4f}")
+    cases = hard.grid_lengths(TL, 22)
+    for h, S in ((1, 8), (3, 2)):
+        for case, (lens, Tc) in cases.items():
+            c, n = (torch.from_numpy(a).to(dev) for a in
+                    hard.read_batch(lens, Tc * TL + TL, seed=len(case)))
+            for mode in ("mod", "fastrange"):
+                es, er, _ = both(c, n, h, S, mode, Tc)
+                err_s, err_r = max(err_s, es), max(err_r, er)
+    say("kernels", kernel="seed_hash_grid+rank_grid", strides="8,2",
+        grid_cases=len(cases), max_abs_err=max(err_s, err_r))
+    return slot_rec, rank_rec, err_s, err_r
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -361,12 +520,9 @@ def phase_build():
 
 def phase_kernels(own: bool = True) -> dict:
     """Each kernel vs its plain version at the slice's shapes; with `own`
-    also on the hard cases of B and C and C's warp cummax alone.  Without
-    it (an earlier tree of the port, timed by --ab) the entry points are
-    the parent's: its rank_pack takes the direct words, its merge has no
-    first write and its slots map to ranks by a lookup after the grid;
-    each such step is timed as that tree's engine runs it, under this
-    tree's kernel name."""
+    also kernel A at a stride, insert_max, the hard cases of B and C and
+    C's warp cummax alone, which an earlier tree of the port (timed by
+    --ab) may lack."""
     import dataclasses
 
     import numpy as np
@@ -432,11 +588,8 @@ def phase_kernels(own: bool = True) -> dict:
 
     def words_merge(words, bits):
         """The direct filter's words from a pass's bitmap, as the engine
-        writes them: one first write (an earlier tree: its zero-fill of
-        the words, then the OR)."""
-        if own:
-            return dm.merge_presence(words, bits, size, first_write=True)
-        return dm.merge_presence(words.zero_(), bits, size)
+        writes them: one first write."""
+        return dm.merge_presence(words, bits, size, first_write=True)
 
     def fill_pass():
         b = dm.presence_bitmap(size, dev)
@@ -474,20 +627,15 @@ def phase_kernels(own: bool = True) -> dict:
     rec = dict(ms_or=ms_or, plain_ms_or=pms_or,
                bound_ms_or=or_bytes / HBM_BYTES_PER_S * 1e3,
                ms_words_merge=ms_words)
-    if own:
-        fk = dm.merge_presence(w0.clone(), pass_bits, size, first_write=True)
-        fp = dm._merge_plain(w0.clone(), pass_bits, size, first_write=True)
-        err_merge = max(err_merge, max_abs_err([(fk, fp), (fk, pass_words)]))
-        ms = ms_words
-        pms = cuda_ms(lambda: dm._merge_plain(fp, pass_bits, size, True), 3)
-        del fk, fp
-        # the bitmap in, every word of the allocation out
-        out["presence_merge"] = checked(
-            err_merge, ms, pms, pass_bits.numel() * 4 + params.alloc * 4,
-            **rec)
-    else:
-        out["presence_merge"] = checked(err_merge, ms_or, pms_or, or_bytes,
-                                        **rec)
+    fk = dm.merge_presence(w0.clone(), pass_bits, size, first_write=True)
+    fp = dm._merge_plain(w0.clone(), pass_bits, size, first_write=True)
+    err_merge = max(err_merge, max_abs_err([(fk, fp), (fk, pass_words)]))
+    pms = cuda_ms(lambda: dm._merge_plain(fp, pass_bits, size, True), 3)
+    del fk, fp
+    # the bitmap in, every word of the allocation out
+    out["presence_merge"] = checked(
+        err_merge, ms_words, pms, pass_bits.numel() * 4 + params.alloc * 4,
+        **rec)
     say("kernels", kernel="presence_merge", slots=size,
         set_slots=set_slots, max_abs_err=err_merge,
         ms=f"{out['presence_merge']['ms']:.4f}",
@@ -526,6 +674,16 @@ def phase_kernels(own: bool = True) -> dict:
         st_k, st_p, [(slots[i], *p) for i, p in enumerate(plan)]
         + hard_recruits(size, T, TL), slots[8], params, T, size,
         dm.PRESENT_BIT, "direct")
+    # --- insert_max (throughput mode): D's recruits, then ids near 2^30 ---
+    # (grid row, lo, hi, base, trimmed)
+    max_plan = [(i, *p) for i, p in enumerate(plan)] + [
+        (10, 0, T - 1, dm.ID_MASK - 40, True),
+        (11, 2, 17, dm.ID_MASK - 20, False)]
+    if own:
+        out["insert_max"] = insert_max_phase(
+            st_k.words.clone(), [(slots[i], *p) for i, *p in max_plan]
+            + hard_recruits(size, T, TL),
+            slots[8], params, T, size, dm.PRESENT_BIT, "direct")
 
     # --- B: probe + vote, B=32 and the B=1 live re-probe ----------------
     vk = dm.probe_and_vote(st_k.words, slots, ok, params, T)
@@ -585,33 +743,20 @@ def phase_kernels(own: bool = True) -> dict:
         plain_ms=f"{pms:.4f}", ms_b1=f"{ms1:.4f}", plain_ms_b1=f"{pms1:.4f}",
         bound_ms=f"{out['classify']['bound_ms']:.6f}",
         bound_ms_b1=f"{out['classify']['bound_ms_b1']:.6f}")
-    # --- the rank-compressed filter: the freeze from the pass's bitmap
-    # (an earlier tree: from its words), A's rank grid, D and B on ranks ----
-    pack_in = pass_bits if own else pass_words
-    bk, tk = cz.rank_pack(pack_in, size)
-    bp, tp = cz._rank_pack_plain(pack_in, size)
+    # --- the rank-compressed filter: the freeze from the pass's bitmap,
+    # A's rank grid, D and B on ranks ------------------------------------
+    bk, tk = cz.rank_pack(pass_bits, size)
+    bp, tp = cz._rank_pack_plain(pass_bits, size)
     err = max_abs_err([(bk, bp), (tk, tp)])
-    ms = cuda_ms(lambda: cz.rank_pack(pack_in, size), 20)
-    pms = cuda_ms(lambda: cz._rank_pack_plain(pack_in, size), 3)
-
-    def freeze_pack():
-        """The compressed fill's end up to rank_carry, as the engine runs
-        it: rank_pack of the bitmap (an earlier tree: its zero-filled
-        words, the merge into them and rank_pack of the words)."""
-        if own:
-            return cz.rank_pack(pass_bits, size)
-        dm.merge_presence(pass_words.zero_(), pass_bits, size)
-        return cz.rank_pack(pass_words, size)
-    ms_freeze = cuda_ms(freeze_pack, 20)
+    ms = cuda_ms(lambda: cz.rank_pack(pass_bits, size), 20)
+    pms = cuda_ms(lambda: cz._rank_pack_plain(pass_bits, size), 3)
     nw = -(-size // 32)
-    # the bitmap in (an earlier tree: the words), bitrank + totals out
-    out["rank_pack"] = checked(err, ms, pms, pack_in.numel() * 4
-                               + bk.numel() * 8 + tk.numel() * 8,
-                               ms_freeze_pack=ms_freeze)
+    # the bitmap in, bitrank + totals out
+    out["rank_pack"] = checked(err, ms, pms, pass_bits.numel() * 4
+                               + bk.numel() * 8 + tk.numel() * 8)
     say("kernels", kernel="rank_pack", slots=size, max_abs_err=err,
         ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
-        bound_ms=f"{out['rank_pack']['bound_ms']:.4f}",
-        ms_freeze_pack=f"{ms_freeze:.4f}")
+        bound_ms=f"{out['rank_pack']['bound_ms']:.4f}")
     del pass_words, pass_bits
     # timed on a scratch copy: each call adds its carry again
     scratch = bk.clone()
@@ -628,29 +773,18 @@ def phase_kernels(own: bool = True) -> dict:
         bound_ms=f"{out['rank_carry']['bound_ms']:.4f}")
     del scratch, bp, tp, bk, tk
     # the filter of the grid's batch, frozen (freeze: its words' bits packed
-    # by plain torch ops, then rank_pack and rank_carry); the plain rank
-    # map (an earlier tree's rank_grid launched its lookup kernel)
+    # by plain torch ops, then rank_pack and rank_carry); the plain rank map
     cs_k = cz.freeze(st_k.words, size)
-    rank_plain = cz.rank_grid if own else cz._rank_grid_plain
     err = 0
     for mode in ("mod", "fastrange"):     # the fastrange grid stays for D, B
         par = dataclasses.replace(params, slot_map=mode)
         pg = dm.tile_slot_grid(hash_positions(qc, fam, T * TL), ql, par, T)
-        want = (rank_plain(cs_k, pg[0], size), pg[1])
-        if own:
-            got = cz.build_rank_grid(cs_k, qc, ql, fam, par, T)
-        else:
-            sk, ok_k = dm.build_slot_grid(qc, ql, fam, par, T)
-            got = (cz.rank_grid(cs_k, sk, size), ok_k)
+        want = (cz.rank_grid(cs_k, pg[0], size), pg[1])
+        got = cz.build_rank_grid(cs_k, qc, ql, fam, par, T)
         err = max(err, max_abs_err(zip(got, want)))
     ranks = got[0]
-    if own:
-        ms = cuda_ms(lambda: cz.build_rank_grid(cs_k, qc, ql, fam, params, T),
-                     20)
-    else:
-        ms = cuda_ms(lambda: cz.rank_grid(cs_k, dm.build_slot_grid(
-            qc, ql, fam, params, T)[0], size), 20)
-    pms = cuda_ms(lambda: rank_plain(cs_k, dm.tile_slot_grid(
+    ms = cuda_ms(lambda: cz.build_rank_grid(cs_k, qc, ql, fam, params, T), 20)
+    pms = cuda_ms(lambda: cz.rank_grid(cs_k, dm.tile_slot_grid(
         hash_positions(qc, fam, T * TL), ql, params, T)[0], size), 3)
     # codes in, ranks + frame_ok out, each distinct bitrank word gathered
     # once
@@ -670,6 +804,24 @@ def phase_kernels(own: bool = True) -> dict:
         [(ranks[i], *p) for i, p in enumerate(plan)]
         + hard_recruits(cs_k.sentinel, T, TL), ranks[8], params, T,
         cs_k.sentinel, 0, "compressed")["max_abs_err"]
+    if own:
+        rec = insert_max_phase(
+            cs_k.ids.clone(), [(ranks[i], *p) for i, *p in max_plan]
+            + hard_recruits(cs_k.sentinel, T, TL), ranks[8], params, T,
+            cs_k.sentinel, 0, "compressed")
+        out["insert_max"].update(
+            max_abs_err=max(out["insert_max"]["max_abs_err"],
+                            rec["max_abs_err"]),
+            ms_compressed=rec["ms"], plain_ms_compressed=rec["plain_ms"],
+            library_ms_compressed=rec["library_ms"],
+            bound_ms_compressed=rec["bound_ms"])
+        srec, rrec, err_s, err_r = strided_grids(codes, lengths, params, cs_k,
+                                                 n_care)
+        out["seed_hash_grid"].update(srec)
+        out["seed_hash_rank_grid"].update(rrec)
+        for name, e in (("seed_hash_grid", err_s),
+                        ("seed_hash_rank_grid", err_r)):
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
     vk = cz.probe_and_vote(cs_k, ranks, ok, params, T)
     vp = dm._probe_and_vote_plain(cs_k.ids, ranks, ok, params, T, True)
     v1k = cz.probe_and_vote(cs_k, ranks[9:10], ok[9:10], params, T)
@@ -832,10 +984,11 @@ def drive_bench(reads: str, calls: dict) -> tuple[dict, dict]:
             silver_paths_ok=silver.paths_completed, golden_bases=golden)
     launches = {k.name: k.launches for k in kernels.ALL}
     say("e2e", launches=json.dumps(launches).replace(" ", ""))
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    # every kernel but the throughput mode's insert
+    missing = [k for k, n in launches.items() if n <= 0 and k != "insert_max"]
+    if missing or launches["insert_max"]:
+        raise AssertionError(f"exact path: kernels never launched {missing}, "
+                             f"insert_max {launches['insert_max']}")
     # kernel D covers a whole recruit in one launch
     if launches["insert_sorted"] != recruits:
         raise AssertionError(f"insert_sorted launched {launches['insert_sorted']}"
@@ -843,8 +996,92 @@ def drive_bench(reads: str, calls: dict) -> tuple[dict, dict]:
     return launches, per_filter
 
 
+def phase_throughput() -> dict:
+    """bench.py's throughput cell at full width on the bench reads (written
+    by phase_e2e): GoldenPathEngine(device="cuda") with bench.py's
+    engine_cfg and its throughput settings, compressed filter then direct,
+    every launch count zeroed just before and read just after.  Kernel B's
+    launches are split by the consume loop's probes: the batch's, the live
+    re-probes and the full-resolution trim rechecks.  insert_max must
+    launch once per recruit and kernel D never; every kernel but D must
+    launch.  Returns the launch counts."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.io import fastq
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    reads = os.path.join(WORK, "bench_reads.fq")
+    probes = dict(batched=0, live=0, recheck=0)
+    batch_open = [False]
+    consume, probe = Engine._consume, Engine._probe_classify
+
+    def counted_consume(self, *args):
+        batch_open[0] = True            # its first probe is the batch's
+        return consume(self, *args)
+
+    def counted_probe(self, grid, frame_ok, n_tiles, T, full=False):
+        before = kernels.PROBE_VOTE.launches
+        rows = probe(self, grid, frame_ok, n_tiles, T, full)
+        kind = "recheck" if full else "batched" if batch_open[0] else "live"
+        batch_open[0] = False
+        probes[kind] += kernels.PROBE_VOTE.launches - before
+        return rows
+    Engine._consume, Engine._probe_classify = counted_consume, counted_probe
+    try:
+        for k in kernels.ALL:
+            k.launches = 0
+        for mode in ("compressed", "direct"):
+            before = {k.name: k.launches for k in kernels.ALL}
+            p0 = dict(probes)
+            prefix = os.path.join(WORK, f"throughput_{mode}")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            eng = Engine(PathConfig(input=reads, prefix_file=prefix,
+                                    mibf_mode=mode, **BENCH_ENGINE,
+                                    **THROUGHPUT), device="cuda")
+            st = eng.run()
+            wall = time.time() - t0
+            got = {k.name: k.launches - before[k.name] for k in kernels.ALL}
+            n = {k: v - p0[k] for k, v in probes.items()}
+            say("throughput", filter=mode, fill_s=f"{st.wall_fill_s:.3f}",
+                assign_s=f"{st.wall_assign_s:.3f}",
+                submit_s=f"{st.wall_submit_s:.3f}",
+                replay_s=f"{st.wall_replay_s:.3f}", reads=st.num_reads,
+                recruits=st.recruits,
+                reads_per_s=f"{st.num_reads / max(st.wall_assign_s, 1e-9):.2f}",
+                batches=st.num_batches, batched_probes=n["batched"],
+                live_probes=n["live"], recheck_probes=n["recheck"],
+                paths_completed=st.paths_completed, wall_s=f"{wall:.2f}",
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+            if (st.recruits <= 0 or got["insert_max"] != st.recruits
+                    or got["insert_sorted"] or n["batched"] != st.num_batches
+                    or sum(n.values()) != got["probe_vote"]):
+                raise AssertionError(f"throughput {mode}: launches {got}, "
+                                     f"probes {n}, {st.recruits} recruits, "
+                                     f"{st.num_batches} batches")
+            target = eng.cfg.ratio * eng.cfg.genome_size
+            for i in range(1, st.paths_completed + 1):
+                bases = sum(len(r.seq) for r in
+                            fastq.read_records(f"{prefix}_{i}.fq"))
+                if bases <= target:
+                    raise AssertionError(f"throughput {mode} silver path {i}:"
+                                         f" {bases} <= r*G {target}")
+            del eng                     # its filter must not count in the next
+    finally:
+        Engine._consume, Engine._probe_classify = consume, probe
+    launches = {k.name: k.launches for k in kernels.ALL}
+    say("throughput", launches=json.dumps(launches).replace(" ", ""))
+    missing = [k for k, n in launches.items()
+               if n <= 0 and k != "insert_sorted"]
+    if missing:
+        raise AssertionError(f"throughput path: kernels never launched "
+                             f"{missing}")
+    return launches
+
+
 def phase_digests() -> None:
-    """Silver digests of the port on the card vs the JAX package's."""
+    """Silver digests of the port on the card vs the JAX package's, in
+    exact mode and in the throughput mode."""
     from goldrush_tpu_torch.config import PathConfig
     from goldrush_tpu_torch.path.engine import GoldenPathEngine
     with open(os.path.join(REPO, "tests", "fixtures",
@@ -855,21 +1092,26 @@ def phase_digests() -> None:
     make_reads(fq, **ds)
     if sha256_file(fq) != fx["dataset"]["sha256"]:
         raise AssertionError("synth did not regenerate the gate dataset")
-    for mode in ("direct", "compressed"):
-        want = fx if mode == "direct" else fx[mode]
-        prefix = os.path.join(WORK, f"qgate_{mode}")
+    tp = fx["throughput"]
+    for cell, mode, want, extra in (
+            ("exact", "direct", fx, {}),
+            ("exact", "compressed", fx["compressed"], {}),
+            ("throughput", "direct", tp["direct"], tp["engine"]),
+            ("throughput", "compressed", tp["compressed"], tp["engine"])):
+        prefix = os.path.join(WORK, f"qgate_{cell}_{mode}")
         t0 = time.time()
         st = GoldenPathEngine(PathConfig(input=fq, prefix_file=prefix,
-                                         mibf_mode=mode, **fx["engine"]),
-                              device="cuda").run()
+                                         mibf_mode=mode, **fx["engine"],
+                                         **extra), device="cuda").run()
         got = {str(i): sha256_file(f"{prefix}_{i}.fq")
                for i in range(1, fx["engine"]["max_paths"] + 1)
                if os.path.exists(f"{prefix}_{i}.fq")}
-        say("digests", filter=mode, files=len(got), recruits=st.recruits,
-            seconds=f"{time.time() - t0:.1f}", match=got == want["silver"])
-        if got != want["silver"]:
-            raise AssertionError(f"{mode} silver digests differ: {got} vs "
-                                 f"{want['silver']}")
+        say("digests", cell=cell, filter=mode, files=len(got),
+            recruits=st.recruits, seconds=f"{time.time() - t0:.1f}",
+            match=got == want["silver"])
+        if got != want["silver"] or st.recruits != want["recruits"]:
+            raise AssertionError(f"{cell} {mode} silver digests differ: {got}"
+                                 f" ({st.recruits} recruits) vs {want}")
 
 
 def phase_ab(earlier: str) -> None:
@@ -887,8 +1129,8 @@ def phase_ab(earlier: str) -> None:
         runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
     for name, rec in runs[1].items():
         for key in ("ms", "ms_b1", "ms_compressed", "ms_b1_compressed",
-                    "ms_fill_pass", "ms_or", "ms_words_merge",
-                    "ms_freeze_pack"):
+                    "ms_fill_pass", "ms_or", "ms_words_merge", "ms_2tile",
+                    "ms_s8", "ms_s2", "ms_ins_b64"):
             if key in rec and key in runs[0].get(name, {}):
                 say("ab", kernel=name, time=key,
                     earlier=",".join(f"{runs[i][name][key]:.4f}"
@@ -928,12 +1170,16 @@ def main(argv: list[str]) -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
-        launches = phase_e2e()
+        exact = phase_e2e()
+        throughput = phase_throughput()
         phase_digests()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     record = [dict(name=k.name, route="cuda", source=k.source,
-                   replaces=k.replaces, launches=launches[k.name],
+                   replaces=k.replaces,
+                   launches=exact[k.name] + throughput[k.name],
+                   launches_exact=exact[k.name],
+                   launches_throughput=throughput[k.name],
                    **checks[k.name]) for k in kernels.ALL]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,10 @@
 //
 //   seed_hash_grid       replaces hash_positions (goldrush_tpu/ops/nthash.py:
 //                        131) + slot_of (mibf/mibf.py:115) + tile_slot_grid
-//                        (mibf/mibf.py:158): the probe grid of a batch;
+//                        (mibf/mibf.py:158): the probe grid of a batch; at a
+//                        frame stride S > 1 also hash_sampled (nthash.py:
+//                        324, with hash_at :310) + tile_slot_grid_sampled
+//                        and _lt (mibf/mibf.py:214-341), the sampled grid;
 //   seed_hash_rank_grid  the same grid mapped through the compressed
 //                        filter's frozen rank structure as it is stored:
 //                        + _rank_lookup / rank_grid (goldrush_tpu/mibf/
@@ -35,10 +38,14 @@
 //
 // Bounds on the H100 (3.35 TB/s; hashing is ~100 integer operations per
 // position, under the bytes' time at every shape of the path):
-//  - grid: one CTA per (read, tile) writes TL frames x h int64 slots plus
-//    frame_ok; at B=32, T=20, TL=1000, h=3 that is 15.4 MB of stores for
-//    1.28 MB of codes: store-bound, each warp storing 256 contiguous bytes
-//    per seed;
+//  - grid: one CTA per (read, tile) writes TL/S frames x h int64 slots plus
+//    frame_ok; at B=32, T=20, TL=1000, h=3, S=1 that is 15.4 MB of stores
+//    for 1.28 MB of codes: store-bound, each warp storing 256 contiguous
+//    bytes per seed.  At a stride S the CTA still stages its tile's whole
+//    codes window, but computes right-half partials only where its frames
+//    and the stale-tail clamp read them, and hashes only the frames it
+//    emits: at B=64, T=20, h=1, S=8 (the throughput mode's query grid)
+//    1.3 MB of codes in and 1.4 MB out;
 //  - rank grid: the grid's stores, ranks in place of slots, plus one 8-byte
 //    bitrank[slot >> 5] gather per valid entry from a 35.6 MB table (at the
 //    bench sizing) that fits the 50 MB L2.  A thread computes its frame's h
@@ -101,10 +108,13 @@ struct Stage {
 };
 
 // Stage read positions [p0, p0 + m + pad) of `row` (zero at or past L) and
-// the right-half partials of the first m window positions.  Every thread
-// of the CTA calls it; it ends with a barrier.
+// the right-half partials of the first m window positions: all of them at
+// stride 1, else those that frames at multiples of `stride` and the clamp
+// read (i % stride < h, and m - 1); the rest stay unset.  Every thread of
+// the CTA calls it; it ends with a barrier.
 __device__ void stage(const Family& f, const uint8_t* __restrict__ row,
-                      int64_t L, int64_t p0, int m, const Stage& st) {
+                      int64_t L, int64_t p0, int m, int stride,
+                      const Stage& st) {
   const int nc = f.nl + f.nr;
   for (int i = threadIdx.x; i < 4 * nc; i += blockDim.x) {
     st.tab[i] = make_ulonglong2(f.table[nc + 2 * i], f.table[nc + 2 * i + 1]);
@@ -118,6 +128,7 @@ __device__ void stage(const Family& f, const uint8_t* __restrict__ row,
   }
   __syncthreads();
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    if (stride > 1 && i % stride >= f.h && i != m - 1) continue;
     const uint8_t* c = st.codes + f.half + i;
     uint64_t fw = 0, rv = 0;
     for (int r = f.nl; r < nc; ++r) {
@@ -181,13 +192,16 @@ __device__ __forceinline__ int64_t rank_in(unsigned long long e, unsigned b,
   return static_cast<int64_t>(e >> 32) + __popc(bits & ((1u << b) - 1u));
 }
 
-// grid (T, B): one CTA per (read, tile).  Frame f of tile t is valid iff
-// t < len / TL and f < frames_t; seed s probes position t*TL + f, or
-// t*TL + F_ts - 1 once f >= F_ts = frames_t - s (the stale tail); invalid
-// frames get slot `size`.  Invariant: in a valid tile len - t*TL >= TL, so
+// grid (T, B): one CTA per (read, tile).  Frame j < TL / S of tile t sits
+// at tile position f = j * S and is valid iff t < len / TL and f <
+// frames_t; seed s probes position t*TL + f, or t*TL + F_ts - 1 once f >=
+// F_ts = frames_t - s (the stale tail); invalid frames get slot `size`.
+// That is the stride-1 grid subsampled, which both of the JAX package's
+// sampled grids equal.  Invariant: in a valid tile len - t*TL >= TL, so
 // frames_t >= TL - k + 1 and, with TL >= k + h - 1 (checked by the entry),
 // F_ts >= 1: every probed position p has p + s < frames_t, inside the
-// tile's staged window of m = frames_t right-half partials.
+// tile's staged window of m = frames_t right-half partials (an unclamped
+// frame reads partials f..f+s, a clamped one partial frames_t - 1).
 //
 // kRanked: store the rank of each slot in the frozen structure `bitrank`
 // instead, and `sentinel` for absent slots and invalid frames.  A thread
@@ -197,25 +211,28 @@ __device__ __forceinline__ int64_t rank_in(unsigned long long e, unsigned b,
 template <bool kRanked>
 __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
     const uint8_t* __restrict__ codes, int64_t L,
-    const int* __restrict__ lengths, const Family f, int T, int TL,
+    const int* __restrict__ lengths, const Family f, int T, int TL, int S,
     int64_t size, int mode, const unsigned long long* __restrict__ bitrank,
     int64_t sentinel, int64_t* __restrict__ grid,
     bool* __restrict__ frame_ok) {
   extern __shared__ ulonglong2 smem[];
   const int t = blockIdx.x, b = blockIdx.y;
-  const int64_t TF = static_cast<int64_t>(T) * TL;
-  const int64_t col0 = static_cast<int64_t>(t) * TL;
+  const int F = TL / S;                         // frames per tile
+  const int64_t TF = static_cast<int64_t>(T) * F;
+  const int64_t pos0 = static_cast<int64_t>(t) * TL;  // tile's read position
+  const int64_t col0 = static_cast<int64_t>(t) * F;   // its first column
   const int64_t len = lengths[b];
   const int frames_t = t < len / TL
-      ? static_cast<int>(min64(TL + f.k - 1, len - col0)) - f.k + 1 : 0;
+      ? static_cast<int>(min64(TL + f.k - 1, len - pos0)) - f.k + 1 : 0;
   const uint64_t usize = static_cast<uint64_t>(size);
   bool* ok_row = frame_ok + b * TF + col0;
   int64_t* out = grid + static_cast<int64_t>(b) * f.h * TF + col0;
   const Stage st(smem, f, frames_t);
-  if (frames_t > 0) stage(f, codes + b * L, L, col0, frames_t, st);
-  for (int fr = threadIdx.x; fr < TL; fr += blockDim.x) {
+  if (frames_t > 0) stage(f, codes + b * L, L, pos0, frames_t, S, st);
+  for (int j = threadIdx.x; j < F; j += blockDim.x) {
+    const int fr = j * S;
     const bool ok = fr < frames_t;
-    ok_row[fr] = ok;
+    ok_row[j] = ok;
     ulonglong2 own = make_ulonglong2(0, 0);
     if (ok) own = left_at(f, st, fr);
     if constexpr (kRanked) {
@@ -223,24 +240,24 @@ __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
         unsigned long long e[kGather] = {};
         unsigned bit[kGather] = {};
 #pragma unroll
-        for (int j = 0; j < kGather; ++j) {
-          if (ok && s0 + j < f.h) {
+        for (int g = 0; g < kGather; ++g) {
+          if (ok && s0 + g < f.h) {
             const uint64_t slot =
-                frame_slot(f, st, own, fr, frames_t, s0 + j, usize, mode);
-            bit[j] = static_cast<unsigned>(slot & 31u);
-            e[j] = bitrank[slot >> 5];
+                frame_slot(f, st, own, fr, frames_t, s0 + g, usize, mode);
+            bit[g] = static_cast<unsigned>(slot & 31u);
+            e[g] = bitrank[slot >> 5];
           }
         }
 #pragma unroll
-        for (int j = 0; j < kGather; ++j) {
-          if (s0 + j < f.h)
-            out[(s0 + j) * TF + fr] = ok ? rank_in(e[j], bit[j], sentinel)
-                                         : sentinel;
+        for (int g = 0; g < kGather; ++g) {
+          if (s0 + g < f.h)
+            out[(s0 + g) * TF + j] = ok ? rank_in(e[g], bit[g], sentinel)
+                                        : sentinel;
         }
       }
     } else {
       for (int s = 0; s < f.h; ++s) {
-        out[s * TF + fr] =
+        out[s * TF + j] =
             ok ? static_cast<int64_t>(
                      frame_slot(f, st, own, fr, frames_t, s, usize, mode))
                : size;
@@ -265,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) seed_hash_fill_kernel(
   const int n = static_cast<int>(min64(kFillChunk, rem));
   const int m = static_cast<int>(min64(kFillChunk + f.h - 1, rem));
   const Stage st(smem, f, m);
-  stage(f, codes + b * L, L, p0, m, st);
+  stage(f, codes + b * L, L, p0, m, 1, st);
   for (int p = threadIdx.x; p < n; p += blockDim.x) {
     const ulonglong2 left = left_at(f, st, p);
     for (int s = 0; s < f.h && p + s < m; ++s) {
@@ -307,20 +324,21 @@ __global__ void __launch_bounds__(kThreads) presence_merge_kernel(
   reinterpret_cast<uint4*>(words)[i] = w;
 }
 
-// Both grid entries: check the clamp invariant and launch.
+// Both grid entries: check the clamp invariant and the stride, and launch.
 template <bool kRanked>
 int launch_grid(const uint8_t* codes, int64_t B, int64_t L, const int* lengths,
-                const Family& f, int T, int TL, int64_t size, int mode,
+                const Family& f, int T, int TL, int S, int64_t size, int mode,
                 const unsigned long long* bitrank, int64_t sentinel,
                 int64_t* grid, bool* frame_ok, cudaStream_t stream) {
   if (TL < f.k + f.h - 1) return cudaErrorInvalidValue;  // the clamp invariant
+  if (S < 1 || TL % S) return cudaErrorInvalidValue;
   if (B == 0 || T == 0) return kNoLaunch;
   const size_t smem = stage_bytes(f, TL);
   const cudaError_t err = allow_smem(seed_hash_grid_kernel<kRanked>, smem);
   if (err != cudaSuccess) return err;
   const dim3 blocks(static_cast<unsigned>(T), static_cast<unsigned>(B));
   seed_hash_grid_kernel<kRanked><<<blocks, kThreads, smem, stream>>>(
-      codes, L, lengths, f, T, TL, size, mode, bitrank, sentinel, grid,
+      codes, L, lengths, f, T, TL, S, size, mode, bitrank, sentinel, grid,
       frame_ok);
   return cudaGetLastError();
 }
@@ -333,14 +351,15 @@ const char* gr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// fam_table: the family's kernel_table on the card; h..pad its scalars.
+// fam_table: the family's kernel_table on the card; h..pad its scalars;
+// S the frame stride (divides TL): slots [B, h, T*TL/S].
 int gr_seed_hash_grid(const uint8_t* codes, int64_t B, int64_t L,
                       const int* lengths, const uint64_t* fam_table, int h,
                       int k, int half, int nl, int nr, int pad, int T, int TL,
-                      int64_t size, int mode, int64_t* slots, bool* frame_ok,
-                      cudaStream_t stream) {
+                      int S, int64_t size, int mode, int64_t* slots,
+                      bool* frame_ok, cudaStream_t stream) {
   const gr::Family f{h, k, half, nl, nr, pad, fam_table};
-  return gr::launch_grid<false>(codes, B, L, lengths, f, T, TL, size, mode,
+  return gr::launch_grid<false>(codes, B, L, lengths, f, T, TL, S, size, mode,
                                 nullptr, 0, slots, frame_ok, stream);
 }
 
@@ -349,12 +368,12 @@ int gr_seed_hash_grid(const uint8_t* codes, int64_t B, int64_t L,
 int gr_seed_hash_rank_grid(const uint8_t* codes, int64_t B, int64_t L,
                            const int* lengths, const uint64_t* fam_table,
                            int h, int k, int half, int nl, int nr, int pad,
-                           int T, int TL, int64_t size, int mode,
+                           int T, int TL, int S, int64_t size, int mode,
                            const unsigned long long* bitrank,
                            int64_t sentinel, int64_t* ranks, bool* frame_ok,
                            cudaStream_t stream) {
   const gr::Family f{h, k, half, nl, nr, pad, fam_table};
-  return gr::launch_grid<true>(codes, B, L, lengths, f, T, TL, size, mode,
+  return gr::launch_grid<true>(codes, B, L, lengths, f, T, TL, S, size, mode,
                                bitrank, sentinel, ranks, frame_ok, stream);
 }
 

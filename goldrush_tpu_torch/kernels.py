@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, bound with ``ctypes`` (no PyTorch headers,
-so a build takes seconds).  The library lands in the git-ignored ``_build/``
+The sources are compiled by ``nvcc`` for ``sm_90a``, one process per source
+and all at once, and linked into one shared library with a plain C
+interface, bound with ``ctypes`` (no PyTorch headers, so a build takes
+seconds).  The library lands in the git-ignored ``_build/``
 directory next to this file, named by a hash of the sources and flags, so a
 fresh checkout builds at first use and an unchanged one reuses its build.
 
@@ -30,10 +31,10 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 SOURCES = ("seed_hash.cu", "probe_vote.cu", "classify.cu",
-           "insert_sorted.cu", "rank.cu")
+           "insert_sorted.cu", "insert_max.cu", "rank.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 # what an entry returns when its inputs left nothing to launch (common.cuh)
 NO_LAUNCH = -1
 
@@ -46,11 +47,11 @@ _P, _I, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
 # NO_LAUNCH
 _SIGNATURES = {
     "gr_seed_hash_grid": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _L, _I, _P, _P, _P),
+                          _I, _I, _I, _L, _I, _P, _P, _P),
     "gr_seed_hash_fill": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
                           _L, _I, _P, _P),
     "gr_seed_hash_rank_grid": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _L, _I, _P, _L, _P, _P, _P),
+                               _I, _I, _I, _L, _I, _P, _L, _P, _P, _P),
     "gr_presence_merge": (_P, _L, _P, _L, _I, _P),
     "gr_probe_vote": (_P, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "gr_row_cummax": (_P, _I, _I, _P, _P),
     "gr_insert_sorted": (_P, _P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I,
                          _I, _I, _I, _I, _I, _P, _P),
+    "gr_insert_max": (_P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I, _I, _P),
     "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
     "gr_rank_carry": (_P, _P, _L, _P, _P),
 }
@@ -95,22 +97,28 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *(["-Xptxas=-v"] if verbose else []), *NVCC_FLAGS, "-c",
+             os.path.join(CSRC, s), "-o", o], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for s, o in zip(SOURCES, objs)]
+        outs = [p.communicate() for p in procs]
+        for s, p, (_, err) in zip(SOURCES, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n"
+                                   f"{err}")
+            if verbose:
+                print(err, end="")
+        lib_tmp = os.path.join(tmp, "lib.so")
+        r = subprocess.run([nvcc, "-shared", *NVCC_FLAGS, "-o", lib_tmp,
+                            *objs], capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        if verbose:
-            print(r.stderr, end="")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        os.replace(lib_tmp, so)
     return so
 
 
@@ -158,11 +166,13 @@ class Kernel:
 SEED_HASH_GRID = Kernel(
     "seed_hash_grid", "gr_seed_hash_grid",
     "goldrush_tpu_torch/csrc/seed_hash.cu",
-    "goldrush_tpu/mibf/mibf.py:158")
+    "goldrush_tpu/mibf/mibf.py:158; sampled: goldrush_tpu/mibf/mibf.py:234, "
+    ":288, goldrush_tpu/ops/nthash.py:324")
 SEED_HASH_RANK_GRID = Kernel(
     "seed_hash_rank_grid", "gr_seed_hash_rank_grid",
     "goldrush_tpu_torch/csrc/seed_hash.cu",
-    "tools/probe_pallas.py:61; goldrush_tpu/mibf/compressed.py:218")
+    "tools/probe_pallas.py:61; goldrush_tpu/mibf/compressed.py:218; "
+    "sampled: goldrush_tpu/mibf/mibf.py:234, :288")
 SEED_HASH_FILL = Kernel(
     "seed_hash_fill", "gr_seed_hash_fill",
     "goldrush_tpu_torch/csrc/seed_hash.cu",
@@ -183,6 +193,9 @@ INSERT_SORTED = Kernel(
     "insert_sorted", "gr_insert_sorted",
     "goldrush_tpu_torch/csrc/insert_sorted.cu",
     "goldrush_tpu/mibf/mibf.py:540")
+INSERT_MAX = Kernel(
+    "insert_max", "gr_insert_max", "goldrush_tpu_torch/csrc/insert_max.cu",
+    "goldrush_tpu/mibf/mibf.py:638; goldrush_tpu/mibf/compressed.py:480")
 RANK_PACK = Kernel(
     "rank_pack", "gr_rank_pack", "goldrush_tpu_torch/csrc/rank.cu",
     "tools/probe_pallas.py:82; goldrush_tpu/mibf/compressed.py:153")
@@ -196,7 +209,8 @@ ROW_CUMMAX = Kernel(
     "row_cummax", "gr_row_cummax", "goldrush_tpu_torch/csrc/classify.cu",
     "tools/probe_pallas.py:100")
 ALL = (SEED_HASH_GRID, SEED_HASH_RANK_GRID, SEED_HASH_FILL, PRESENCE_MERGE,
-       PROBE_VOTE, CLASSIFY, INSERT_SORTED, RANK_PACK, RANK_CARRY)
+       PROBE_VOTE, CLASSIFY, INSERT_SORTED, INSERT_MAX, RANK_PACK,
+       RANK_CARRY)
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

@@ -24,8 +24,12 @@ chains the first two:
 
   rank_pack        popcount the bitmap, cumsum within 65,536-slot blocks
   rank_carry       add each block's carry (the totals of the blocks before it)
-  build_rank_grid  hash a batch to its probe grid of ranks (kernel A's rank
-                   grid entry); ``rank_grid`` is the plain slot -> rank map
+  build_rank_grid  hash a batch to its probe grid of ranks at any stride
+                   (kernel A's rank grid entry); ``rank_grid`` is the plain
+                   slot -> rank map
+
+The probe (kernel B) and both inserts (kernel D, and insert_max for the
+throughput mode) are the direct filter's, keyed on ranks.
 """
 
 from __future__ import annotations
@@ -215,14 +219,12 @@ def build_rank_grid(state: CompressedState, codes: torch.Tensor,
                     lengths: torch.Tensor, fam, params: dm.MibfParams,
                     num_tiles_max: int) -> tuple[torch.Tensor, torch.Tensor]:
     """codes uint8 [B, L] + lengths int32 [B] -> (ranks int64 [B, h,
-    T*TL], frame_ok bool [B, T*TL]): ``dm.build_slot_grid`` mapped through
-    ``rank_grid``, the sentinel rank for absent slots and invalid frames.
-    The structure never changes after the freeze, so a batch's grid is
-    mapped once and serves every later probe and insert of its reads.  On
-    the card one launch of kernel A hashes straight to ranks."""
-    if params.frame_stride != 1:
-        raise NotImplementedError(
-            "frame_stride > 1 is ROADMAP queue 1 item 7 (sampled grids)")
+    T*TL/S], frame_ok bool [B, T*TL/S]): ``dm.build_slot_grid`` at the
+    params' stride S mapped through ``rank_grid``, the sentinel rank for
+    absent slots and invalid frames.  The structure never changes after
+    the freeze, so a batch's grid is mapped once and serves every later
+    probe and insert of its reads.  On the card one launch of kernel A
+    hashes straight to ranks."""
     if codes.is_cuda or lengths.is_cuda:
         return _build_rank_grid_cuda(state, codes, lengths, fam, params,
                                      num_tiles_max)
@@ -270,11 +272,29 @@ def insert_read_sorted(state: CompressedState, ranks: torch.Tensor,
     return state
 
 
-def reset_ids(state: CompressedState) -> CompressedState:
-    """Silver-path rotation, in place: forget ids and counters; the rank
-    structure (presence) stays."""
+def insert_read_max(state: CompressedState, ranks: torch.Tensor,
+                    tile_lo: int, tile_hi: int, base_id: int, trimmed: bool,
+                    params: dm.MibfParams, num_tiles: int) -> CompressedState:
+    """Throughput-mode insert on the rank-indexed id table, in place: a
+    scatter-max of the bare block id into ``ids[rank]`` for every rank
+    below the sentinel in tiles lo..hi of the read's full-resolution rank
+    grid; counts stay as they are.  The semantics of both
+    ``insert_read_max`` and ``insert_ranks_max``
+    (goldrush_tpu/mibf/compressed.py:480-503, :536-556)."""
+    dm.insert_max(state.ids, ranks, tile_lo, tile_hi, base_id, trimmed,
+                  params, num_tiles, state.sentinel, 0)
+    return state
+
+
+def reset_ids(state: CompressedState, counts: bool = True
+              ) -> CompressedState:
+    """Silver-path rotation, in place: forget ids, and with ``counts`` (the
+    exact policy) the counters, which the throughput policy leaves as they
+    are (goldrush_tpu/path/engine.py:771-772); the rank structure
+    (presence) stays."""
     state.ids.zero_()
-    state.counts.zero_()
+    if counts:
+        state.counts.zero_()
     return state
 
 

@@ -8,8 +8,10 @@ published per-base constants restricted to the seed's care positions
   rev(p) = XOR_{j in care} rol64(TABC[s[p+j]], j)
   canon  = min(fwd, rev)            (as unsigned 64-bit values)
 
-``hash_positions`` evaluates that definition directly with torch ops; it is
-the plain version that the CPU path and the tests use.  On the card the main
+``hash_positions`` (every position, or every stride-th), ``hash_at``
+(per-seed positions) and ``hash_sampled`` (both, as the sampled grid needs
+them) evaluate that definition directly with torch ops; they are the plain
+versions that the CPU path and the tests use.  On the card the main
 path never materialises raw hashes: kernel A (csrc/seed_hash.cu) fuses them
 with the slot map into the probe grid (``mibf.build_slot_grid``) and the
 presence fill (``mibf.fill_presence_bits``), through the factorisation that
@@ -126,33 +128,85 @@ def umin64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where((a ^ _SIGN) < (b ^ _SIGN), a, b)
 
 
+def _padded_codes(codes: torch.Tensor, width: int) -> torch.Tensor:
+    """The codes' low 2 bits as int64, zero-padded to at least ``width``."""
+    c = codes.to(torch.int64) & 3
+    if c.shape[1] < width:
+        c = torch.nn.functional.pad(c, (0, width - c.shape[1]))
+    return c
+
+
+def _canon(fam: SeedFamily, s: int, at) -> torch.Tensor:
+    """Canonical hash of seed s where ``at(j)`` gives the codes at care
+    offset j of every frame hashed."""
+    span = fam.spans[s]
+    fwd = rev = None
+    for j in fam.care(s):
+        cj = at(j)
+        tf = _as_i64(_rol64_np(NT_TAB, span - 1 - j)).to(cj.device)
+        tr = _as_i64(_rol64_np(NT_TABC, j)).to(cj.device)
+        fwd = tf[cj] if fwd is None else fwd ^ tf[cj]
+        rev = tr[cj] if rev is None else rev ^ tr[cj]
+    return umin64(fwd, rev)
+
+
 def hash_positions(codes: torch.Tensor, fam: SeedFamily,
-                   num_frames: int) -> torch.Tensor:
+                   num_frames: int, stride: int = 1) -> torch.Tensor:
     """Canonical hashes at every position of a padded batch.
 
     codes: uint8 [B, L] base codes (only the low 2 bits are read, as the JAX
     kernel does); positions past L read as 0, the zero padding of
     ``goldrush_tpu.ops.nthash.hash_positions``.  Returns int64 [B, h,
-    num_frames] (uint64 bits): entry [b, s, p] hashes codes[b, p : p+span_s].
-    Frames past a read's valid range hold hashes of the padding, which the
-    callers mask or clamp exactly as the JAX package does.
+    num_frames // stride] (uint64 bits): entry [b, s, q] hashes
+    codes[b, p : p+span_s] at p = q * stride (a multiple of stride must
+    divide num_frames).  Frames past a read's valid range hold hashes of the
+    padding, which the callers mask or clamp exactly as the JAX package does.
     """
-    B, L = codes.shape
+    B, _ = codes.shape
     P = num_frames
-    need = P + fam.pad_needed
-    c = (codes.to(torch.int64) & 3)
-    if L < need:
-        c = torch.nn.functional.pad(c, (0, need - L))
-    out = torch.empty((B, fam.h, P), dtype=torch.int64, device=codes.device)
+    if P % stride:
+        raise ValueError("num_frames must be a multiple of stride")
+    c = _padded_codes(codes, P + fam.pad_needed)
+    out = torch.empty((B, fam.h, P // stride), dtype=torch.int64,
+                      device=codes.device)
     for s in range(fam.h):
-        span = fam.spans[s]
-        fwd = torch.zeros((B, P), dtype=torch.int64, device=codes.device)
-        rev = torch.zeros_like(fwd)
-        for j in fam.care(s):
-            tf = _as_i64(_rol64_np(NT_TAB, span - 1 - j)).to(codes.device)
-            tr = _as_i64(_rol64_np(NT_TABC, j)).to(codes.device)
-            cj = c[:, j: j + P]
-            fwd ^= tf[cj]
-            rev ^= tr[cj]
-        out[:, s] = umin64(fwd, rev)
+        out[:, s] = _canon(fam, s, lambda j: c[:, j: j + P: stride])
     return out
+
+
+def _hash_at_padded(c: torch.Tensor, fam: SeedFamily, pos: torch.Tensor,
+                    L_valid: int) -> torch.Tensor:
+    """Hashes at per-seed positions of padded codes ``c``, each position
+    clipped to [0, L_valid - 1] (goldrush_tpu/ops/nthash.py:276-306)."""
+    B, h, N = pos.shape
+    if h != fam.h:
+        raise ValueError(f"positions for {h} seeds, family has {fam.h}")
+    pos = pos.to(torch.int64).clamp(0, L_valid - 1)
+    out = torch.empty((B, h, N), dtype=torch.int64, device=c.device)
+    for s in range(h):
+        out[:, s] = _canon(fam, s, lambda j: torch.gather(c, 1, pos[:, s] + j))
+    return out
+
+
+def hash_at(codes: torch.Tensor, fam: SeedFamily, pos: torch.Tensor
+            ) -> torch.Tensor:
+    """Canonical hashes at arbitrary per-seed positions: pos int [B, h, N]
+    (row s holds seed s's positions) -> int64 [B, h, N], equal to
+    ``hash_positions(...)[b, s, pos[b, s, n]]`` for positions inside the
+    batch (goldrush_tpu/ops/nthash.py:310)."""
+    L = codes.shape[1]
+    return _hash_at_padded(_padded_codes(codes, L + fam.pad_needed), fam,
+                           pos, L)
+
+
+def hash_sampled(codes: torch.Tensor, fam: SeedFamily, num_frames: int,
+                 stride: int, clamp_pos: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hash_positions(codes, fam, num_frames, stride), the hashes at
+    ``clamp_pos``): the codes are padded to num_frames + pad_needed, and
+    the clamp positions clipped to that width less pad_needed
+    (goldrush_tpu/ops/nthash.py:324-373)."""
+    L = max(codes.shape[1], num_frames + fam.pad_needed)
+    h_strided = hash_positions(codes, fam, num_frames, stride)
+    c = _padded_codes(codes, L)
+    return h_strided, _hash_at_padded(c, fam, clamp_pos, L - fam.pad_needed)

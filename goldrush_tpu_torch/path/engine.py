@@ -1,31 +1,39 @@
 """Streaming golden/silver path engine (goldrush-path) on PyTorch + CUDA.
 
 The two-pass GoldRush-Path flow (goldrush_path.cpp:1096-1275) of
-``goldrush_tpu/path/engine.py`` in its exact mode at stride 1, with either
-filter layout (``mibf_mode``):
+``goldrush_tpu/path/engine.py``, with either filter layout (``mibf_mode``),
+in exact mode or the throughput mode (sampled query grids, optimistic
+staleness, max-id-wins insert, full-resolution trim recheck):
 
-  pass 1: host gates (length/phred/ACGT) -> presence fill into a bitmap
-          (kernel A); the direct filter then writes its words from the
-          bitmap (presence_merge), the compressed filter freezes the bitmap
-          into its rank structure (rank_pack + rank_carry) and never holds
-          direct words;
+  pass 1: host gates (length/phred/ACGT) -> presence fill of every insert
+          seed into a bitmap (kernel A); the direct filter then writes its
+          words from the bitmap (presence_merge), the compressed filter
+          freezes the bitmap into its rank structure (rank_pack +
+          rank_carry) and never holds direct words;
   pass 2: reads stream IN ORDER through batches: a batched classify
           (kernel A's slot grid, or its rank grid in the compressed
-          filter, -> kernel B probe/vote -> kernel C classify) against the
-          filter at batch start, then a host loop over the batch that
-          re-probes every read against the live filter from the first
-          in-batch change onward (kernels B and C on one read), inserts
-          recruits (kernel D) and rotates silver paths (reset_ids);
+          filter, at the query stride over the probed seeds -> kernel B
+          probe/vote -> kernel C classify) against the filter at batch
+          start, and where inserts or rechecks need it the full-resolution
+          grid of every insert seed; then a host loop over the batch that
+          re-probes reads against the live filter once it changed inside
+          the batch (kernels B and C on one read; under the optimistic
+          policy only candidates, and every read after a silver reset),
+          re-classifies the boundary zone at full resolution (trim
+          recheck), inserts recruits (kernel D, or insert_max under the
+          optimistic policy) and rotates silver paths (reset_ids);
   replay: path files and stats are rebuilt on the host from the per-read
           decision rows, as the JAX engine does.
 
 The "exact" staleness policy makes the result bit-identical to sequential
-processing at any batch size.  Configurations of later slices raise
+processing at any batch size; both policies are bit-identical to the JAX
+engine under the same config.  Configurations of later slices raise
 ``NotImplementedError`` at construction (see ``_check_slice``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from dataclasses import dataclass
@@ -43,6 +51,7 @@ from ..ops.phred import (MEDIAN_SAMPLES_NEEDED, MINIMUM_PHRED_THRESHOLD,
 from ..ops.seeds import make_seed_pattern
 from ..utils import observability as obs
 from .classify import classify_batch
+from .engine_util import recheck_zone, tile_min_count
 
 # tile-bucket sizes and the per-batch tile budget of the JAX engine
 # (goldrush_tpu/path/engine.py:47-52): the same batching gives the same
@@ -94,15 +103,13 @@ def _bucket_for(num_tiles: int, cap: int) -> int:
 
 
 def _check_slice(cfg: PathConfig) -> None:
-    """Raise for every configuration outside the exact/stride-1 slice,
-    naming the ROADMAP item that brings it."""
+    """Raise for every configuration the port does not run yet, naming the
+    ROADMAP item that brings it."""
     later = [
-        (cfg.recheck != "exact", "recheck='optimistic'", "queue 1 item 7"),
-        (cfg.frame_stride != 1, "frame_stride > 1", "queue 1 item 7"),
-        (cfg.probe_seeds != 0, "probe_seeds > 0", "queue 1 item 7"),
-        (cfg.insert_seeds not in (0, cfg.hash_num), "insert_seeds",
-         "queue 1 item 7"),
-        (cfg.insert_stride != 1, "insert_stride > 1", "queue 1 item 7"),
+        (cfg.insert_seeds not in (0, cfg.hash_num), "insert_seeds < h",
+         "queue 1 item 7, after 7d"),
+        (cfg.insert_stride != 1, "insert_stride > 1",
+         "queue 1 item 7, after 7d"),
         (cfg.wavefront, "wavefront", "queue 1 item 10"),
         (cfg.ntcard, "ntcard", "queue 1 item 9"),
         (cfg.devices > 1 or cfg.model_shards > 1,
@@ -139,13 +146,45 @@ class GoldenPathEngine:
         self.fam = build_seed_family(self.seeds)
         self.universe = cfg.derived_hash_universe()
         self.size = calc_optimal_size(self.universe, 1, cfg.occupancy)
-        self.x_eff = cfg.threshold
+        # the query tier probes every S-th frame of the first probe_seeds
+        # seeds with the gates scaled to S; fill and insert cover the
+        # insert seeds at full resolution, and params_full, the trim
+        # recheck's classifier, probes those with the exact gates
+        # (goldrush_tpu/path/engine.py:141-186)
+        S = cfg.frame_stride
+        if cfg.tile_length % S:
+            raise ValueError("frame_stride must divide tile_length")
+        self.x_eff = max(1, cfg.threshold // S)
+        self.h_active = cfg.probe_seeds or cfg.hash_num
+        seeds_q = self.seeds[: self.h_active]
+        self.fam_q = (self.fam if self.h_active == cfg.hash_num
+                      else build_seed_family(seeds_q))
+        self.h_ins = cfg.insert_seeds or cfg.hash_num
+        self.fam_ins = (self.fam if self.h_ins == cfg.hash_num
+                        else build_seed_family(self.seeds[: self.h_ins]))
         self.params = dm.MibfParams(
-            size=self.size, h=cfg.hash_num, k=cfg.kmer_size,
-            spans=tuple(len(s) for s in self.seeds),
-            tile_length=cfg.tile_length, threshold=cfg.threshold,
+            size=self.size, h=self.h_active, k=cfg.kmer_size,
+            spans=tuple(len(s) for s in seeds_q),
+            tile_length=cfg.tile_length, threshold=self.x_eff,
             block_size=cfg.block_size, vote_topk=cfg.vote_topk,
-            frame_stride=1, vote_min=2, probe_seeds=0, slot_map=cfg.slot_map)
+            frame_stride=S, vote_min=2 if S == 1 else max(1, 2 // S),
+            probe_seeds=0, slot_map=cfg.slot_map)
+        self.params_full = dataclasses.replace(
+            self.params, h=self.h_ins,
+            spans=tuple(len(s) for s in self.seeds[: self.h_ins]),
+            frame_stride=1, vote_min=2, threshold=cfg.threshold)
+        self.params_ins = dataclasses.replace(
+            self.params_full, frame_stride=cfg.insert_stride)
+        # the optimistic policy re-probes only candidates and inserts by
+        # scatter-max; the trim recheck runs where the query tier is not
+        # already the full classifier; the query grid doubles as the
+        # insert grid at full common resolution over the same seeds
+        # (goldrush_tpu/path/engine.py:665-686)
+        self.fast = cfg.recheck == "optimistic"
+        self.rech_on = (cfg.trim_recheck and cfg.insert_stride == 1
+                        and (S > 1 or self.h_active < self.h_ins))
+        self.reuse_q = (S == 1 and cfg.insert_stride == 1
+                        and self.h_active == self.h_ins)
         # the compressed filter freezes pass 1's bitmap into ``cstate``
         # (fill) and never holds the direct words; the direct filter's
         # words need no zero-fill, since the merge that closes pass 1
@@ -210,7 +249,9 @@ class GoldenPathEngine:
             # resume from a saved filter (either package's .npz): skip
             # pass 1; its gate bookkeeping is not reconstructed
             state, meta = dm.load_state(self.cfg.load_mibf, self.device)
-            p = self.params
+            # the fill's geometry: every insert seed (a probed prefix of
+            # them loads the same filter)
+            p = self.params_full
             want = dict(size=p.size, h=p.h, k=p.k, spans=tuple(p.spans),
                         tile_length=p.tile_length)
             if meta != want:
@@ -257,8 +298,9 @@ class GoldenPathEngine:
                         codes[j, : r.length] = r.codes
                         lengths[j] = r.length
                     dm.fill_presence_bits(bits, self._to_device(codes),
-                                          self._to_device(lengths), self.fam,
-                                          self.size, self.cfg.slot_map)
+                                          self._to_device(lengths),
+                                          self.fam_ins, self.size,
+                                          self.cfg.slot_map)
         if st.num_passed_reads == 0:
             raise RuntimeError(
                 "no reads passed the Phred score and min length requirements")
@@ -288,40 +330,48 @@ class GoldenPathEngine:
             w = fastq.PathWriter(f"{cfg.prefix_file}.fa", False)
         self.writers.append(w)
 
-    def _query_grid(self, codes, lengths, T):
-        """The batch's probe grid: slots (direct filter) or their ranks
-        (compressed filter), with frame_ok."""
+    def _grid(self, codes, lengths, T, fam, params):
+        """A batch's probe grid for ``fam``/``params``: slots (direct
+        filter) or their ranks (compressed filter), with frame_ok."""
         if self.compressed:
-            return cz.build_rank_grid(self.cstate, codes, lengths, self.fam,
-                                      self.params, T)
-        return dm.build_slot_grid(codes, lengths, self.fam, self.params, T)
+            return cz.build_rank_grid(self.cstate, codes, lengths, fam,
+                                      params, T)
+        return dm.build_slot_grid(codes, lengths, fam, params, T)
 
-    def _vote(self, grid, frame_ok, T):
+    def _vote(self, grid, frame_ok, T, params):
         if self.compressed:
-            return cz.probe_and_vote(self.cstate, grid, frame_ok,
-                                     self.params, num_tiles=T)
-        return dm.probe_and_vote(self.state.words, grid, frame_ok,
-                                 self.params, num_tiles=T)
+            return cz.probe_and_vote(self.cstate, grid, frame_ok, params,
+                                     num_tiles=T)
+        return dm.probe_and_vote(self.state.words, grid, frame_ok, params,
+                                 num_tiles=T)
 
-    def _probe_classify(self, grid, frame_ok, n_tiles, T):
+    def _probe_classify(self, grid, frame_ok, n_tiles, T, full=False):
         """Vote + classify rows [B, 8] = (decision, trim_start, trim_end,
-        num_assigned, queries, hits, misses, overflow) on the host."""
-        votes = self._vote(grid, frame_ok, T)
+        num_assigned, queries, hits, misses, overflow) on the host, against
+        the live filter: with the query tier's params and gates, or with
+        ``full`` the trim recheck's (params_full, cfg.threshold).  With the
+        recheck on, the query tier's rows carry a ninth column, each read's
+        minimum in-read top count (``tile_min_count``)."""
+        params = self.params_full if full else self.params
+        x = self.cfg.threshold if full else self.x_eff
+        votes = self._vote(grid, frame_ok, T, params)
         res = classify_batch(votes.curr_id, votes.top_count, votes.cand_ids,
-                             votes.cand_counts, n_tiles, self.x_eff,
+                             votes.cand_counts, n_tiles, x,
                              self.cfg.unassigned_min, self.cfg.assigned_max)
-        rows = torch.stack([
-            res.decision.long(), res.trim_start.long(), res.trim_end.long(),
-            res.num_assigned.long(), votes.queries, votes.hits, votes.misses,
-            votes.overflow.long().sum(dim=1)], dim=1)
-        return rows.cpu().numpy()
+        cols = [res.decision.long(), res.trim_start.long(),
+                res.trim_end.long(), res.num_assigned.long(), votes.queries,
+                votes.hits, votes.misses, votes.overflow.long().sum(dim=1)]
+        if self.rech_on and not full:
+            cols.append(tile_min_count(votes.top_count, n_tiles))
+        return torch.stack(cols, dim=1).cpu().numpy()
 
     def _debug_dump(self, codes, lengths, n_tiles, T, num_reads):
         """--debug: per-pass tile-state dumps of the batch's real reads
         against the live filter (log_tile_states parity,
         goldrush_path.cpp:109-124)."""
-        grid, frame_ok = self._query_grid(codes, lengths, T)
-        votes = self._vote(grid, frame_ok, T)
+        grid, frame_ok = self._grid(codes, lengths, T, self.fam_q,
+                                    self.params)
+        votes = self._vote(grid, frame_ok, T, self.params)
         _, ids_tr, bools_tr = classify_batch(
             votes.curr_id, votes.top_count, votes.cand_ids,
             votes.cand_counts, n_tiles, self.x_eff,
@@ -331,36 +381,69 @@ class GoldenPathEngine:
             for p in range(ids_tr.shape[1]):
                 obs.log_tile_states(ids_tr[i, p, :n], bools_tr[i, p, :n])
 
+    def _insert(self, grid, lo, hi, base, trimmed, T):
+        """Insert one recruit's blocks from its full-resolution grid: the
+        reservoir rule (kernel D) or, under the optimistic policy, max id
+        wins (insert_max)."""
+        p = self.params_ins
+        if self.compressed:
+            fn = cz.insert_read_max if self.fast else cz.insert_read_sorted
+            fn(self.cstate, grid, lo, hi, base, trimmed, p, T)
+        else:
+            fn = dm.insert_read_max if self.fast else dm.insert_read_sorted
+            fn(self.state, grid, lo, hi, base, trimmed, p, T)
+
     def _consume(self, codes, lengths, full_lengths, T, scal, rows_out):
         """One padded batch: batched classify against the filter at batch
-        start, then the in-order scan (goldrush_tpu/path/engine.py:892-1003,
-        exact/direct branch).  ``scal`` = [ids_inserted, inserted_bases,
-        path_idx, done] carries across batches; one row per read is
-        appended to ``rows_out``."""
-        cfg, params = self.cfg, self.params
-        TL, bs = params.tile_length, params.block_size
+        start, then the in-order scan (goldrush_tpu/path/engine.py:865-1003).
+        ``scal`` = [ids_inserted, inserted_bases, path_idx, done] carries
+        across batches; one row per read is appended to ``rows_out``."""
+        cfg = self.cfg
+        TL, bs = self.params.tile_length, self.params.block_size
+        S = self.params.frame_stride
         silver = bool(cfg.silver_path)
         target, max_paths = int(cfg.target_bases()), int(cfg.max_paths)
         codes_d, lengths_d = self._to_device(codes), self._to_device(lengths)
         n_tiles_np = (lengths // TL).astype(np.int32)
         n_tiles_d = self._to_device(n_tiles_np)
-        grid, frame_ok = self._query_grid(codes_d, lengths_d, T)
+        grid, frame_ok = self._grid(codes_d, lengths_d, T, self.fam_q,
+                                    self.params)
+        # the full-resolution grid of every insert seed: what recruits
+        # insert and the trim recheck probes
+        if self.reuse_q:
+            grid_ins, ok_ins = grid, frame_ok
+        else:
+            grid_ins, ok_ins = self._grid(codes_d, lengths_d, T, self.fam_ins,
+                                          self.params_ins)
         rows0 = self._probe_classify(grid, frame_ok, n_tiles_d, T)
         ids_ins, ins_bases, path_idx, done = scal
-        changed = False
+        changed = reset_seen = False
         for i in range(codes.shape[0]):
-            if changed and not done:
-                # exact staleness: the filter changed inside this batch, so
-                # the read is re-probed against the live filter
-                row = self._probe_classify(grid[i:i + 1],
-                                           frame_ok[i:i + 1],
+            if self.fast:
+                # optimistic: a batch-time drop stays dropped; after an
+                # in-batch silver reset every later read re-probes
+                live = (changed and rows0[i][0] != 0) or reset_seen
+            else:
+                # exact: every read after an in-batch change re-probes
+                live = changed
+            if live and not done:
+                row = self._probe_classify(grid[i:i + 1], frame_ok[i:i + 1],
                                            n_tiles_d[i:i + 1], T)[0]
             else:
                 row = rows0[i]
-            dec, ts, te, na, q, h, m, ov = (int(x) for x in row)
+            dec, ts, te, na, q, h, m, ov = (int(x) for x in row[:8])
+            n_t, L = int(n_tiles_np[i]), int(full_lengths[i])
+            if (self.rech_on and not done
+                    and recheck_zone(dec, na, n_t, ts, te, int(row[8]), S,
+                                     cfg.threshold, cfg.assigned_max)):
+                # boundary zone: re-classify at full resolution, all insert
+                # seeds, the exact gates
+                dec, ts, te, na, q, h, m, ov = (int(x) for x in
+                                                self._probe_classify(
+                    grid_ins[i:i + 1], ok_ins[i:i + 1], n_tiles_d[i:i + 1],
+                    T, full=True)[0])
             if done:
                 dec = 0
-            n_t, L = int(n_tiles_np[i]), int(full_lengths[i])
             if dec == 1:
                 rec_len, lo, hi = L, 0, n_t - 1
                 blocks = 1 + L // (TL * bs)
@@ -371,12 +454,8 @@ class GoldenPathEngine:
                 blocks = 1 + (te - ts) // bs
             else:
                 rec_len, blocks = 0, 0
-            if dec > 0 and not done and self.compressed:
-                cz.insert_read_sorted(self.cstate, grid[i], lo, hi,
-                                      ids_ins + 1, dec == 2, params, T)
-            elif dec > 0 and not done:
-                dm.insert_read_sorted(self.state, grid[i], lo, hi,
-                                      ids_ins + 1, dec == 2, params, T)
+            if dec > 0 and not done:
+                self._insert(grid_ins[i], lo, hi, ids_ins + 1, dec == 2, T)
             if not done:
                 ids_ins += blocks
                 ins_bases += rec_len
@@ -386,11 +465,13 @@ class GoldenPathEngine:
                 if max_paths < path_idx:
                     done = 1
                 else:
+                    # the optimistic policy keeps the counters
                     if self.compressed:
-                        cz.reset_ids(self.cstate)
+                        cz.reset_ids(self.cstate, counts=not self.fast)
                     else:
-                        dm.reset_ids(self.state)
+                        dm.reset_ids(self.state, counts=not self.fast)
                     ids_ins, ins_bases = 0, 0
+                    reset_seen = True
             changed = changed or dec > 0
             rows_out.append((dec, ts, te, na, q, h, m, ov))
         return [ids_ins, ins_bases, path_idx, done]
@@ -579,7 +660,8 @@ class GoldenPathEngine:
             with obs.phase_timer("inserting bit vector", self.cfg.verbose):
                 self.fill(path)
             if self.cfg.save_mibf:
-                dm.save_state(self.state, self.params, self.cfg.save_mibf)
+                dm.save_state(self.state, self.params_full,
+                              self.cfg.save_mibf)
             if self.cfg.verbose:
                 obs.log_filter_breakdown(self.stats)
             with obs.phase_timer("assigned", self.cfg.verbose):

@@ -83,10 +83,12 @@ def counters(stats):
     dict(batch_reads=32, silver_path=True),
     dict(batch_reads=32, silver_path=True, slot_map="mod"),
     dict(batch_reads=1, mibf_mode="compressed"),
-    dict(batch_reads=32, silver_path=True, mibf_mode="compressed")],
+    dict(batch_reads=32, silver_path=True, mibf_mode="compressed"),
+    dict(batch_reads=32, silver_path=True, slot_map="mod",
+         mibf_mode="compressed")],
     ids=["golden-b1", "golden-b32", "silver-b1", "silver-b32",
          "silver-b32-mod", "compressed-golden-b1",
-         "compressed-silver-b32"])
+         "compressed-silver-b32", "compressed-silver-b32-mod"])
 def test_engine_matches_jax(dataset, over):
     d, path = dataset
     tag = "".join(f"{v}" for v in over.values())
@@ -208,13 +210,21 @@ def test_cuda_without_a_card_raises(dataset, monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    dict(mibf_mode="compressed", frame_stride=8), dict(recheck="optimistic"),
-    dict(frame_stride=8), dict(probe_seeds=1), dict(insert_stride=2),
-    dict(insert_seeds=2, probe_seeds=1), dict(wavefront=True),
-    dict(ntcard=True), dict(devices=2), dict(model_shards=2)])
+    dict(insert_stride=2), dict(insert_seeds=2, probe_seeds=1),
+    dict(wavefront=True), dict(ntcard=True), dict(devices=2),
+    dict(model_shards=2)])
 def test_out_of_slice_config_raises(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GoldenPathEngine(PathConfig(**{**CFG, **over}), device="cpu")
+
+
+@pytest.mark.parametrize("stride", [3, 8])
+def test_stride_must_divide_tile_length(stride):
+    """A frame stride that does not divide tile_length (250) raises, as the
+    JAX engine's construction does."""
+    with pytest.raises(ValueError, match="frame_stride must divide"):
+        GoldenPathEngine(PathConfig(**{**CFG, "frame_stride": stride}),
+                         device="cpu")
 
 
 @pytest.mark.parametrize("cmd", ["run", "path-polish",

@@ -146,6 +146,75 @@ def test_seed_hash_rank_grid_cases(cuda, case, mode):
     assert_same(got, tcz.build_rank_grid(host, codes, lens, FAM, params, T))
 
 
+@pytest.mark.parametrize("ranked", [False, True])
+@pytest.mark.parametrize("mode", ["fastrange", "mod"])
+@pytest.mark.parametrize("h,S", [(1, 8), (3, 2), (3, 4), (1, 5)])
+@pytest.mark.parametrize("case", list(hard.grid_lengths(1000, 22)))
+def test_seed_hash_grid_strided_cases(cuda, case, h, S, mode, ranked):
+    """Kernel A's slot and rank grids at a frame stride against their plain
+    versions (the JAX package's sampled routes: the last-tile grid at
+    S >= h, the general one below) on the grid cases, for the throughput
+    mode's one probed seed and for all three."""
+    size = 1_000_003
+    fam = FAM if h == 3 else build_seed_family(
+        make_seed_pattern("1011011110110111101101", 22, 16, 3)[:h])
+    params = tdm.MibfParams(size=size, h=h, k=22, spans=fam.spans,
+                            tile_length=1000, frame_stride=S, slot_map=mode)
+    lengths, T = hard.grid_lengths(1000, 22)[case]
+    codes, lens = (torch.from_numpy(a) for a in
+                   hard.read_batch(lengths, T * 1000 + 1000, seed=len(case)))
+    if not ranked:
+        got = tdm.build_slot_grid(codes.to(cuda), lens.to(cuda), fam, params,
+                                  T)
+        assert_same(got, tdm.build_slot_grid(codes, lens, fam, params, T))
+        return
+    rng = np.random.default_rng(len(case))
+    bits = torch.from_numpy(rng.integers(0, 2**31, -(-size // 32),
+                                         dtype=np.int64).astype(np.int32))
+    host = tcz.with_tables(*tcz.build_rank(bits, size), size)
+    dev = tcz.with_tables(*tcz.build_rank(bits.to(cuda), size), size)
+    got = tcz.build_rank_grid(dev, codes.to(cuda), lens.to(cuda), fam,
+                              params, T)
+    assert_same(got, tcz.build_rank_grid(host, codes, lens, fam, params, T))
+
+
+@pytest.mark.parametrize("space", ["slots", "ranks"])
+@pytest.mark.parametrize("kind", ["homopolymer", "one_partition", "random"])
+def test_insert_max_cases(cuda, space, kind):
+    """insert_max against its plain version in both key spaces (slots:
+    PRESENT | id words; ranks: bare ids), bs 1, 3 and 10, whole and trimmed
+    recruits, one past the bucket, an empty tile range and ids up to
+    ID_MASK, over keys that repeat within and across blocks and sentinel
+    entries."""
+    rng = np.random.default_rng([len(space), len(kind)])
+    T, F = 24, 1000
+    limit = 10_000_019 if space == "slots" else 3_999_999
+    or_bits = tdm.PRESENT_BIT if space == "slots" else 0
+    grid = hard_grid(rng, kind, limit, T, F)
+    n = -(-(limit + 1) // 1024) * 1024
+    w = rng.integers(0, 1 << 20, n).astype(np.int32) | or_bits
+    host = torch.from_numpy(w.copy())
+    dev = host.to(cuda)
+    grid_d = grid.to(cuda)
+    before = kernels.INSERT_MAX.launches
+    calls = 0
+    for bs in (1, 3, 10):
+        params = tdm.MibfParams(size=limit, h=3, k=22, spans=FAM.spans,
+                                tile_length=F, block_size=bs)
+        for lo, hi, tr, base in [(0, T - 1, False, 5 + bs),
+                                 (3, T - 2, True, 70 + bs),
+                                 (20, T + 5, False, 90), (7, 6, False, 1),
+                                 (0, T - 1, True, tdm.ID_MASK - 30)]:
+            tdm.insert_max(dev, grid_d, lo, hi, base, tr, params, T, limit,
+                           or_bits)
+            tdm.insert_max(host, grid, lo, hi, base, tr, params, T, limit,
+                           or_bits)
+            calls += lo <= min(hi, T - 1)
+            assert torch.equal(dev.cpu(), host)
+    assert kernels.INSERT_MAX.launches == before + calls
+    assert int((host != torch.from_numpy(w)).sum()) >= 3
+
+
 @pytest.mark.parametrize("bs,T", [(3, 6), (20, 24)])
 def test_probe_vote_and_insert(cuda, bs, T):
     """bs=20 at T=24: the insert kernel takes a 72,000-entry window in one
@@ -397,6 +466,44 @@ def test_rank_kernels(cuda, size):
     assert_same(tcz.probe_and_vote(dev, ranks.to(cuda), ok.to(cuda),
                                    params, T),
                 tcz.probe_and_vote(host, ranks, ok, params, T))
+
+
+@pytest.mark.parametrize("mode", ["direct", "compressed"])
+def test_throughput_engine_on_card_matches_cpu(cuda, tmp_path, mode):
+    """bench.py's throughput cell at 60 kb (stride 8 over tiles of 256, one
+    probed seed, optimistic, trim recheck, batch_reads 64) on the card and
+    on the CPU: files, counters, rows and the final filter agree."""
+    genome = synth.random_genome(60_000, seed=3)
+    reads = synth.simulate_reads(genome, n_reads=120, read_len=3000, seed=4,
+                                 err_rate=0.0, phred=20)
+    path = str(tmp_path / "reads.fq")
+    synth.write_fastq(path, reads)
+    cfg = dict(genome_size=60_000, kmer_size=22, weight=16, hash_num=3,
+               seed_preset="1011011110110111101101", tile_length=256,
+               min_length=1000, block_size=4, phred_min=15,
+               silver_path=True, max_paths=2, ratio=0.5, batch_reads=64,
+               frame_stride=8, probe_seeds=1, recheck="optimistic",
+               vote_topk=32, mibf_mode=mode)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        before = kernels.INSERT_MAX.launches
+        prefix = str(tmp_path / f"{mode}-{dev}")
+        eng = GoldenPathEngine(PathConfig(input=path, prefix_file=prefix,
+                                          **cfg), device=dev)
+        st = eng.run()
+        if dev == "cuda":
+            assert kernels.INSERT_MAX.launches - before == st.recruits > 0
+        files = [open(f"{prefix}_{i}.fq", "rb").read() for i in (1, 2)
+                 if os.path.exists(f"{prefix}_{i}.fq")]
+        state = (tcz.state_to_numpy(eng.cstate).values()
+                 if mode == "compressed"
+                 else tdm.state_to_numpy(eng.state))
+        runs[dev] = (files, st.recruits, st.queries, st.hits,
+                     eng.last_rows.tolist(), list(state))
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu[:5] == cpu[:5] and len(gpu[0]) == 2
+    for a, b in zip(gpu[5], cpu[5]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_engine_on_card_matches_cpu(cuda, tmp_path):

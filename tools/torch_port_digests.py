@@ -1,6 +1,9 @@
 """Write tests/fixtures/torch_port_digests.json: the JAX package's silver
 paths on the 1 Mbp quality-gate dataset, as sha256 digests, with the
-direct filter (top level) and the rank-compressed one ("compressed").
+direct filter (top level) and the rank-compressed one ("compressed"), in
+exact mode; and under "throughput", both filters in the throughput mode
+that bench.py ships (stride 8, one probed seed, optimistic staleness, the
+full-resolution trim recheck; "engine" holds those settings).
 
 The dataset and engine settings are those of the exact run in
 tests/test_quality_gate.py (600 x 20 kb reads at 5% error, 40% indels,
@@ -30,6 +33,8 @@ DATASET = dict(genome=1_000_000, genome_seed=51, n_reads=600,
 ENGINE = dict(genome_size=1_000_000, kmer_size=22, weight=16, hash_num=3,
               seed_preset="1011011110110111101101", silver_path=True,
               max_paths=3, ratio=0.75, min_length=15_000, batch_reads=64)
+# bench.py:173-180's throughput settings, over ENGINE
+THROUGHPUT = dict(frame_stride=8, probe_seeds=1, recheck="optimistic")
 
 
 def sha256_file(path: str) -> str:
@@ -54,22 +59,28 @@ def main() -> None:
         fq = os.path.join(d, "reads.fq")
         synth.write_fastq(fq, reads)
         runs = {}
-        for mode in ("direct", "compressed"):
-            prefix = os.path.join(d, mode)
+        for mode, tag, extra in (("direct", "direct", {}),
+                                 ("compressed", "compressed", {}),
+                                 ("direct", "tp_direct", THROUGHPUT),
+                                 ("compressed", "tp_compressed", THROUGHPUT)):
+            prefix = os.path.join(d, tag)
             stats = GoldenPathEngine(PathConfig(
                 input=fq, prefix_file=prefix, mibf_mode=mode,
-                **ENGINE)).run()
+                **ENGINE, **extra)).run()
             silver = {}
             for i in range(1, ENGINE["max_paths"] + 1):
                 p = f"{prefix}_{i}.fq"
                 if os.path.exists(p):
                     silver[str(i)] = sha256_file(p)
-            runs[mode] = {"recruits": stats.recruits,
+            runs[tag] = {"recruits": stats.recruits,
                           "paths_completed": stats.paths_completed,
                           "silver": silver}
         out = {"dataset": {**DATASET, "sha256": sha256_file(fq)},
                "engine": ENGINE, **runs["direct"],
-               "compressed": runs["compressed"]}
+               "compressed": runs["compressed"],
+               "throughput": {"engine": THROUGHPUT,
+                              "direct": runs["tp_direct"],
+                              "compressed": runs["tp_compressed"]}}
     with open(OUT, "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -1,8 +1,10 @@
 """Where the time goes in the PyTorch port's silver pass, on one GPU.
 
-Runs goldrush-path's silver stage (GoldenPathEngine, exact mode) over
-bench.py's dataset (3,000 x 20 kb reads of a 5 Mbp genome at 5% error,
-seeds 11/12, M=5) with the chosen filter: twice unprofiled for the wall
+Runs goldrush-path's silver stage (GoldenPathEngine, exact mode, or with
+`throughput` bench.py's throughput settings: frame stride 8, one probed
+seed, optimistic staleness, batches of 64 reads) over bench.py's dataset
+(3,000 x 20 kb reads of a 5 Mbp genome at 5% error, seeds 11/12, M=5)
+with the chosen filter: twice unprofiled for the wall
 times, then once under torch.profiler.  Prints the card and its power
 limit, the engine's construction time (init_s: the direct filter
 allocates its words there), the EngineStats times and launch counts of
@@ -12,7 +14,7 @@ gr), the largest host-side costs, and the device busy share (summed
 kernel time over the profiled assign time).  Copied into an earlier
 tree's tools/, it profiles that tree's port.
 
-    python3 tools/torch_port_profile.py [direct|compressed]
+    python3 tools/torch_port_profile.py [direct|compressed] [throughput]
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 WORK = os.path.join(REPO, "smoke_work", "profile")
+# bench.py:173-180's throughput cell, over the exact defaults
+THROUGHPUT = dict(frame_stride=8, probe_seeds=1, recheck="optimistic",
+                  batch_reads=64)
 
 
 def main() -> None:
@@ -36,7 +41,11 @@ def main() -> None:
     from goldrush_tpu_torch.path.engine import GoldenPathEngine
     from goldrush_tpu_torch.utils import synth
 
-    mode = sys.argv[1] if len(sys.argv) > 1 else "direct"
+    args = sys.argv[1:]
+    if any(a not in ("direct", "compressed", "throughput") for a in args):
+        raise SystemExit(__doc__)
+    mode = "compressed" if "compressed" in args else "direct"
+    cell = THROUGHPUT if "throughput" in args else {}
     if not torch.cuda.is_available():
         raise SystemExit("torch_port_profile: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -54,7 +63,7 @@ def main() -> None:
             input=fq, genome_size=5_000_000, kmer_size=22, weight=16,
             hash_num=3, seed_preset="1011011110110111101101",
             silver_path=True, max_paths=5, min_length=20_000,
-            mibf_mode=mode, prefix_file=os.path.join(WORK, tag)),
+            mibf_mode=mode, prefix_file=os.path.join(WORK, tag), **cell),
             device="cuda")
 
     def timed_run(tag):
@@ -64,7 +73,8 @@ def main() -> None:
         return eng.run(), init_s
 
     def report(tag, st, init_s):
-        print(f"{tag} filter={mode} init_s={init_s:.4f} "
+        print(f"{tag} filter={mode} cell={'throughput' if cell else 'exact'} "
+              f"init_s={init_s:.4f} "
               f"fill_s={st.wall_fill_s:.4f} "
               f"fill_stream_s={st.wall_fill_stream_s:.4f} "
               f"assign_s={st.wall_assign_s:.4f} "
