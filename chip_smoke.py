@@ -33,6 +33,14 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      kernels B and C also on the inputs their designs branch on
      (goldrush_tpu_torch/hard_cases.py) at B=32 and B=1, B in both
      filters, and C's warp cummax (row_cummax) against torch.cummax;
+     the stages' kernels: minimizer_keys (K20) on 32 x 32,768 codes at
+     (k, w) = (15, 10), (40, 250), (32, 1,000), one 2^20-wide chunk and
+     rows narrower than k + w - 1, beside unfold(1, w, 1).amin(-1) on
+     precomputed keys; kmer_count (K21) of 64 x 32,768 reads into a
+     2^22+1-slot table and of a homopolymer batch, beside index_add_;
+     kmer_query on one 1 Mbp contig row and 40,000 candidate windows of
+     width 2k + 2, beside advanced indexing (each library call on
+     precomputed slots and held to the kernel);
   4. end to end, two paths, each with every launch count zeroed just
      before it and read just after:
      exact: goldrush-path (silver M=5, then golden) through the CLI
@@ -52,7 +60,16 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
   5. digests: the port's silver paths on the 1 Mbp quality-gate dataset,
      with either filter, in exact mode and in the throughput mode, must
      match tests/fixtures/torch_port_digests.json (written by the JAX
-     package on the CPU).
+     package on the CPU);
+  6. pipeline: `goldrush run` (silver -> golden -> polish -> tigmint ->
+     ntLink -> targeted polish) through the CLI entry points, every launch
+     count zeroed just before and read just after: (a) on
+     tests/test_pipeline.py's 60 kb dataset, whose stage files must match
+     the JAX package's digests (the fixture's "pipeline" key); (b) on the
+     1 Mbp quality-gate dataset with G=1e6, M=3, r=0.75, track_time=1,
+     printing each stage's seconds, the final assembly's stats (its total
+     within [0.8, 1.8] x G) and the launches of K20 and K21, each of which
+     must launch in (a) or (b).
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -494,6 +511,166 @@ def strided_grids(codes, lengths, params, cs, n_care) -> tuple:
     return slot_rec, rank_rec, err_s, err_r
 
 
+def minimizer_check(dev) -> dict:
+    """K20 against its plain version at the slice's shapes, bit for bit:
+    32 x 32,768 codes (1% N) at (k, w) = (15, 10), (40, 250) and (32,
+    1,000), the first rows of each batch as long as the windows branch on
+    (shorter than k + w - 1, one window, one tile of 2,048 windows and one
+    more); one 2^20-wide chunk (the mapper's position-packing limit) at
+    (15, 10) and (32, 1,000); and rows narrower than k + w - 1.  Each
+    32-row shape is timed beside the plain version and the library call,
+    unfold(1, w, 1).amin(-1) on its keys precomputed with the sign bit
+    flipped (held to the kernel's keys).  Returns the (15, 10) record, the
+    others under suffixed keys."""
+    import torch
+    from goldrush_tpu_torch import hard_cases as hard
+    from goldrush_tpu_torch.ops import minimizers as tmin
+    from goldrush_tpu_torch.stages import mapping as tmap
+    sign = -(1 << 63)
+    W, err, rec = 32_768, 0, {}
+    for k, w in ((15, 10), (40, 250), (32, 1000)):
+        lengths = hard.minimizer_lengths(k, w, W, 32)
+        codes, _ = hard.stage_codes(lengths, W, seed=k + w, n_frac=0.01)
+        c = torch.from_numpy(codes).to(dev)
+        P = W - k + 1
+        keys, hashes = tmin.minimizer_keys(c, k, w, P)
+        err = max(err, max_abs_err(zip((keys, hashes),
+                                       tmin._minimizer_keys_plain(c, k, w,
+                                                                  P))))
+        flipped = ((hashes & ~tmin.POS_MASK)
+                   | torch.arange(P, device=dev)) ^ sign
+        err = max(err, max_abs_err([(flipped.unfold(1, w, 1).amin(-1) ^ sign,
+                                     keys)]))
+        ms = cuda_ms(lambda: tmin.minimizer_keys(c, k, w, P), 20)
+        pms = cuda_ms(lambda: tmin._minimizer_keys_plain(c, k, w, P), 3)
+        lib = cuda_ms(lambda: flipped.unfold(1, w, 1).amin(-1), 3)
+        # codes in, keys and hashes out; per position the rolling hash of
+        # both strands, the canonical min and the key (~40 operations), per
+        # window one 64-bit min (~5) per doubling pass
+        nw = keys.shape[1]
+        r = checked(0, ms, pms, c.numel() + (keys.numel() + hashes.numel())
+                    * 8, 32 * (P * 40 + nw * 5 * (w.bit_length())))
+        r["library_ms"] = lib
+        tag = "" if (k, w) == (15, 10) else f"_k{k}_w{w}"
+        rec.update({f"{key}{tag}": r[key] for key in
+                    ("ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms")})
+        say("kernels", kernel="minimizer_keys", shape=f"32x{W}", k=k, w=w,
+            ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", library_ms=f"{lib:.4f}",
+            bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"])
+    L = tmap.MAX_SEQ - 2
+    codes, _ = hard.stage_codes([L], L, seed=5)
+    c = torch.from_numpy(codes).to(dev)
+    for k, w in ((15, 10), (32, 1000)):
+        err = max(err, max_abs_err(zip(
+            tmin.minimizer_keys(c, k, w, L - k + 1),
+            tmin._minimizer_keys_plain(c, k, w, L - k + 1))))
+    rec["ms_chunk"] = cuda_ms(lambda: tmin.minimizer_keys(c, 15, 10,
+                                                          L - 14), 20)
+    short, _ = hard.stage_codes([30, 7, 0, 40], 40, seed=6)
+    s = torch.from_numpy(short).to(dev)
+    for k, w in ((15, 10), (24, 100), (32, 1000)):
+        P = max(40 - k + 1, w)
+        err = max(err, max_abs_err(zip(tmin.minimizer_keys(s, k, w, P),
+                                       tmin._minimizer_keys_plain(s, k, w,
+                                                                  P))))
+    rec["max_abs_err"] = err
+    say("kernels", kernel="minimizer_keys", chunk=L,
+        ms_chunk=f"{rec['ms_chunk']:.4f}", short_rows=4, max_abs_err=err)
+    return rec
+
+
+def kmer_check(dev) -> tuple[dict, dict]:
+    """K21 against its plain versions at the slice's shapes, bit for bit:
+    the count of 64 x 32,768 reads into a 2^22+1-slot table, then of a
+    homopolymer batch (every position adds to one slot), at k = 32 (the
+    polish schedule's largest) and at 13 and 24 (targeted polish); the
+    query of one 1 Mbp contig row and of 40,000 candidate windows of width
+    2k + 2 on the filled table.  Timed at k = 32 beside the plain versions
+    and the library calls on the slots precomputed: index_add_ for the
+    count, advanced indexing for the query (both held to the kernels).
+    Returns the count's and the query's records (the candidate batch; the
+    contig row under `_contig`)."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch import hard_cases as hard
+    from goldrush_tpu_torch.stages import polish as tpol
+    size = (1 << 22) | 1
+    W = 32_768
+    codes, lens = hard.stage_codes([W] * 64, W, seed=11)
+    homo = np.full((64, W), 2, np.uint8)
+    contig, _ = hard.stage_codes([1_000_000], 1_000_000, seed=12)
+    one = torch.tensor([1_000_000], device=dev)
+    batches = [(torch.from_numpy(x).to(dev), torch.from_numpy(n).to(dev))
+               for x, n in ((codes, lens), (homo, lens))]
+    err_c = err_q = 0
+    for k in (32, 13, 24):
+        ck = torch.zeros(size + 1, dtype=torch.int32, device=dev)
+        cp = ck.clone()
+        for c, n in batches:
+            tpol.count_kmers(ck, c, n, k, size)
+            tpol._count_kmers_plain(cp, c, n, k, size)
+            err_c = max(err_c, max_abs_err([(ck, cp)]))
+        cand = [torch.from_numpy(x).to(dev) for x in
+                hard.candidate_windows(contig[0], 40_000, k, seed=k)]
+        rows = torch.from_numpy(contig).to(dev)
+        for c, n in ((rows, one), cand):
+            err_q = max(err_q, max_abs_err(zip(
+                tpol.query_kmers(ck, c, n, k, size),
+                (tpol._query_kmers_plain(ck, c, k, size),
+                 tpol._valid(n, k, c.shape[1] - k + 1)))))
+        if k == 32:
+            table, cand32 = ck, cand
+    k = 32
+    c, n = batches[0]
+    slots = tpol._slots_plain(c, k, size).reshape(-1)
+    ones = torch.ones_like(slots, dtype=torch.int32)
+    lib_t = table.clone()
+    scratch = table.clone()
+    tpol.count_kmers(scratch, c, n, k, size)
+    lib_t.index_add_(0, slots, ones)
+    err_c = max(err_c, max_abs_err([(scratch, lib_t)]))
+    ms = cuda_ms(lambda: tpol.count_kmers(scratch, c, n, k, size), 20)
+    pms = cuda_ms(lambda: tpol._count_kmers_plain(scratch, c, n, k, size), 3)
+    lib = cuda_ms(lambda: lib_t.index_add_(0, slots, ones), 20)
+    homo_ms = cuda_ms(lambda: tpol.count_kmers(scratch, *batches[1], k,
+                                               size), 5)
+    distinct = torch.unique(slots).numel()
+    # codes and lengths in; each distinct slot read and written once; per
+    # position the rolling hash of both strands and the slot's multiply
+    # (~50 operations)
+    count = checked(err_c, ms, pms, c.numel() + n.numel() * 8
+                    + distinct * 8, slots.numel() * 50, ms_homopolymer=homo_ms)
+    count["library_ms"] = lib
+    say("kernels", kernel="kmer_count", shape=f"64x{W}", k=k, table=size,
+        distinct_slots=distinct, max_abs_err=err_c, ms=f"{ms:.4f}",
+        plain_ms=f"{pms:.4f}", library_ms=f"{lib:.4f}",
+        ms_homopolymer=f"{homo_ms:.4f}", bound_ms=f"{count['bound_ms']:.4f}")
+    query = {}
+    for tag, (c, n) in (("", cand32), ("_contig", (rows, one))):
+        sl = tpol._slots_plain(c, k, size)
+        got = tpol.query_kmers(table, c, n, k, size)[0]
+        err_q = max(err_q, max_abs_err([(got, table[sl])]))
+        ms = cuda_ms(lambda: tpol.query_kmers(table, c, n, k, size), 20)
+        pms = cuda_ms(lambda: tpol._query_kmers_plain(table, c, k, size), 3)
+        lib = cuda_ms(lambda: table[sl], 20)
+        distinct = torch.unique(sl).numel()
+        # codes in, counts out, each distinct slot read once
+        r = checked(0, ms, pms, c.numel() + got.numel() * 4 + distinct * 4,
+                    sl.numel() * 50)
+        r["library_ms"] = lib
+        query.update({f"{key}{tag}": r[key] for key in
+                      ("ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")})
+        say("kernels", kernel="kmer_query", shape="x".join(
+            map(str, c.shape)), k=k, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+            library_ms=f"{lib:.4f}", bound_ms=f"{r['bound_ms']:.4f}")
+    query["max_abs_err"] = err_q
+    say("kernels", kernel="kmer_count+kmer_query", ks="32,13,24",
+        max_abs_err=max(err_c, err_q))
+    return count, query
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -843,6 +1020,8 @@ def phase_kernels(own: bool = True) -> dict:
     hard_b, hard_c = hard_cases(dev) if own else (0, 0)
     if own:
         out["classify"].update(cummax_check(dev))
+        out["minimizer_keys"] = minimizer_check(dev)
+        out["kmer_count"], out["kmer_query"] = kmer_check(dev)
     err_cummax = out["classify"].get("cummax_max_abs_err", 0)
     out["insert_sorted"]["max_abs_err"] = max(
         out["insert_sorted"]["max_abs_err"], err)
@@ -865,11 +1044,12 @@ def phase_kernels(own: bool = True) -> dict:
 
 def make_reads(path: str, genome: int, genome_seed: int, n_reads: int,
                read_len: int, reads_seed: int, err_rate: float,
-               indel_frac: float = 0.0) -> None:
+               indel_frac: float = 0.0, phred: int = 20) -> None:
     from goldrush_tpu_torch.utils import synth
     g = synth.random_genome(genome, seed=genome_seed)
     reads = synth.simulate_reads(g, n_reads, read_len, seed=reads_seed,
-                                 err_rate=err_rate, indel_frac=indel_frac)
+                                 err_rate=err_rate, indel_frac=indel_frac,
+                                 phred=phred)
     synth.write_fastq(path, reads)
 
 
@@ -938,7 +1118,7 @@ def drive_bench(reads: str, calls: dict) -> tuple[dict, dict]:
     recruits = 0
     per_filter = {}
     for mode in ("direct", "compressed"):
-        before = {k.name: k.launches for k in kernels.ALL}
+        before = {k.name: k.launches for k in kernels.PATH}
         called0 = dict(calls)
         outdir = os.path.join(WORK, f"bench_{mode}")
         argv = ["goldrush-path", f"reads={reads}", "G=5000000",
@@ -962,7 +1142,7 @@ def drive_bench(reads: str, calls: dict) -> tuple[dict, dict]:
                 paths_completed=st.paths_completed)
             recruits += st.recruits
         per_filter[mode] = (
-            {k.name: k.launches - before[k.name] for k in kernels.ALL},
+            {k.name: k.launches - before[k.name] for k in kernels.PATH},
             {k: n - called0[k] for k, n in calls.items()},
             len(out["stats"]))
         silver = out["stats"]["silver"]
@@ -984,6 +1164,9 @@ def drive_bench(reads: str, calls: dict) -> tuple[dict, dict]:
             silver_paths_ok=silver.paths_completed, golden_bases=golden)
     launches = {k.name: k.launches for k in kernels.ALL}
     say("e2e", launches=json.dumps(launches).replace(" ", ""))
+    if any(k.launches for k in kernels.STAGES):
+        raise AssertionError("goldrush-path launched a later stage's kernel")
+    launches = {k.name: k.launches for k in kernels.PATH}
     # every kernel but the throughput mode's insert
     missing = [k for k, n in launches.items() if n <= 0 and k != "insert_max"]
     if missing or launches["insert_max"]:
@@ -1031,7 +1214,7 @@ def phase_throughput() -> dict:
         for k in kernels.ALL:
             k.launches = 0
         for mode in ("compressed", "direct"):
-            before = {k.name: k.launches for k in kernels.ALL}
+            before = {k.name: k.launches for k in kernels.PATH}
             p0 = dict(probes)
             prefix = os.path.join(WORK, f"throughput_{mode}")
             torch.cuda.reset_peak_memory_stats()
@@ -1041,7 +1224,8 @@ def phase_throughput() -> dict:
                                     **THROUGHPUT), device="cuda")
             st = eng.run()
             wall = time.time() - t0
-            got = {k.name: k.launches - before[k.name] for k in kernels.ALL}
+            got = {k.name: k.launches - before[k.name]
+                   for k in kernels.PATH}
             n = {k: v - p0[k] for k, v in probes.items()}
             say("throughput", filter=mode, fill_s=f"{st.wall_fill_s:.3f}",
                 assign_s=f"{st.wall_assign_s:.3f}",
@@ -1071,6 +1255,9 @@ def phase_throughput() -> dict:
         Engine._consume, Engine._probe_classify = consume, probe
     launches = {k.name: k.launches for k in kernels.ALL}
     say("throughput", launches=json.dumps(launches).replace(" ", ""))
+    if any(k.launches for k in kernels.STAGES):
+        raise AssertionError("goldrush-path launched a later stage's kernel")
+    launches = {k.name: k.launches for k in kernels.PATH}
     missing = [k for k, n in launches.items()
                if n <= 0 and k != "insert_sorted"]
     if missing:
@@ -1114,6 +1301,89 @@ def phase_digests() -> None:
                                  f" ({st.recruits} recruits) vs {want}")
 
 
+def run_cli(argv: list[str]) -> dict:
+    """One pipeline command through the CLI's entry points; its result
+    with the wall seconds under "wall_s"."""
+    import torch
+    from goldrush_tpu_torch import cli
+    cmd, cfg, extra = cli.parse_args(argv)
+    t0 = time.time()
+    out = cli.run(cmd, cfg, extra)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.time() - t0
+    out["cfg"] = cfg
+    return out
+
+
+def phase_pipeline() -> dict:
+    """`goldrush run` on the card through cli.parse_args / cli.run, every
+    launch count zeroed just before and read just after:
+    (a) digests: tests/test_pipeline.py's 60 kb dataset and configuration
+        (from the fixture's "pipeline" key); the sha256 of the polished,
+        tigmint, ntLink (and its .gaps.json) and final files must equal the
+        JAX package's;
+    (b) scale: the 1 Mbp quality-gate dataset of phase 5 with G=1e6, M=3,
+        r=0.75, track_time=1; each stage's seconds, the final
+        assembly_stats and the new kernels' launches are printed, and the
+        assembly's total must lie within [0.8, 1.8] x G.
+    Every kernel of the stages after the golden path must launch in (a) or
+    (b).  Returns the launch counts of every kernel over both."""
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.config import stage_filenames
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "torch_port_digests.json")) as f:
+        fx = json.load(f)["pipeline"]
+    ds = {k: v for k, v in fx["dataset"].items() if k != "sha256"}
+    reads = os.path.join(WORK, "pipe_reads")
+    make_reads(reads + ".fq", **ds)
+    if sha256_file(reads + ".fq") != fx["dataset"]["sha256"]:
+        raise AssertionError("synth did not regenerate the pipeline dataset")
+    for k in kernels.ALL:
+        k.launches = 0
+    out = run_cli(["run", f"reads={reads}", "device=cuda",
+                   f"prefix={os.path.join(WORK, 'pipe')}"]
+                  + [f"{k}={int(v) if isinstance(v, bool) else v}"
+                     for k, v in fx["config"].items()])
+    files = stage_filenames(out["cfg"])
+    path = os.path.join(WORK, "pipe")
+    got = {s: sha256_file(os.path.join(path, files[s]))
+           for s in ("polished", "tigmint", "ntlink", "final")}
+    got["gaps"] = sha256_file(os.path.join(path, files["ntlink"]
+                                           + ".gaps.json"))
+    small = {k.name: k.launches for k in kernels.STAGES}
+    say("pipeline", run="a", dataset="60kb/300x4kb/1%err",
+        wall_s=f"{out['wall_s']:.2f}", stats=json.dumps(
+            out["assembly_stats"]).replace(" ", ""), match=got == fx["files"],
+        launches=json.dumps(small).replace(" ", ""))
+    if got != fx["files"] or out["assembly_stats"] != fx["assembly_stats"]:
+        raise AssertionError(f"pipeline digests differ: {got} vs "
+                             f"{fx['files']}")
+    for k in kernels.STAGES:
+        k.launches = 0
+    out = run_cli(["run", f"reads={os.path.join(WORK, 'qgate')}", "G=1e6",
+                   "M=3", "r=0.75", "track_time=1", "device=cuda",
+                   f"prefix={os.path.join(WORK, 'scale')}"])
+    big = {k.name: k.launches for k in kernels.STAGES}
+    for stage, sec in out["seconds"].items():
+        say("pipeline", run="b", stage=stage.replace(" ", "_"),
+            seconds=f"{sec:.2f}")
+    st = out["assembly_stats"]
+    G = out["cfg"].G
+    say("pipeline", run="b", dataset="1Mbp/600x20kb/5%err",
+        wall_s=f"{out['wall_s']:.2f}",
+        stats=json.dumps(st).replace(" ", ""),
+        launches=json.dumps(big).replace(" ", ""))
+    if not 0.8 * G <= st["total"] <= 1.8 * G:
+        raise AssertionError(f"final assembly total {st['total']} outside "
+                             f"[0.8, 1.8] x G")
+    missing = [k for k in small if small[k] + big[k] <= 0]
+    if missing:
+        raise AssertionError(f"pipeline: kernels never launched {missing}")
+    launches = {k.name: k.launches for k in kernels.ALL}
+    launches.update({k: small[k] + big[k] for k in small})
+    return launches
+
+
 def phase_ab(earlier: str) -> None:
     """Phase 3 of the tree `earlier` and of this checkout in turns (earlier,
     this, this, earlier), each in a process of its own; prints every
@@ -1130,7 +1400,9 @@ def phase_ab(earlier: str) -> None:
     for name, rec in runs[1].items():
         for key in ("ms", "ms_b1", "ms_compressed", "ms_b1_compressed",
                     "ms_fill_pass", "ms_or", "ms_words_merge", "ms_2tile",
-                    "ms_s8", "ms_s2", "ms_ins_b64"):
+                    "ms_s8", "ms_s2", "ms_ins_b64", "ms_k40_w250",
+                    "ms_k32_w1000", "ms_chunk", "ms_homopolymer",
+                    "ms_contig"):
             if key in rec and key in runs[0].get(name, {}):
                 say("ab", kernel=name, time=key,
                     earlier=",".join(f"{runs[i][name][key]:.4f}"
@@ -1173,13 +1445,15 @@ def main(argv: list[str]) -> int:
         exact = phase_e2e()
         throughput = phase_throughput()
         phase_digests()
+        pipeline = phase_pipeline()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    runs = {"exact": exact, "throughput": throughput, "pipeline": pipeline}
     record = [dict(name=k.name, route="cuda", source=k.source,
                    replaces=k.replaces,
-                   launches=exact[k.name] + throughput[k.name],
-                   launches_exact=exact[k.name],
-                   launches_throughput=throughput[k.name],
+                   launches=sum(r.get(k.name, 0) for r in runs.values()),
+                   **{f"launches_{p}": r.get(k.name, 0)
+                      for p, r in runs.items()},
                    **checks[k.name]) for k in kernels.ALL]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
-"""goldrush-tpu-torch: the GoldRush golden-path engine in PyTorch + CUDA.
+"""goldrush-tpu-torch: the GoldRush assembler in PyTorch + CUDA: the
+golden-path engine and the stages after it (polish, tigmint, ntLink,
+targeted polish).
 
 The second implementation of the goldrush-tpu system, beside the JAX package
 ``goldrush_tpu`` (which stays the reference).  Plain functions on tensors

@@ -2,9 +2,9 @@
 
 Field names and defaults are those of ``goldrush_tpu.config`` (which mirror
 the reference's goldrush_path/opt.cpp:7-32 and bin/goldrush:60-97), so one
-set of keyword arguments configures both packages.  The PyTorch engine runs
-the exact-mode, direct-filter, stride-1 slice; ``GoldenPathEngine`` raises
-``NotImplementedError`` for the knobs of later slices (see ROADMAP.md).
+set of keyword arguments configures both packages.  ``GoldenPathEngine``
+raises ``NotImplementedError`` for the engine knobs not ported yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations

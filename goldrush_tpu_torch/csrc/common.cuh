@@ -61,6 +61,48 @@ __device__ __forceinline__ uint64_t rol64(uint64_t x, unsigned r) {
   return r ? (x << r) | (x >> (64u - r)) : x;
 }
 
+__device__ __forceinline__ uint64_t ror64(uint64_t x, unsigned r) {
+  return rol64(x, 64u - (r & 63u));
+}
+
+// ntHash's per-base constant of base code c (A=0 C=1 G=2 T=3, low two bits
+// read); its complement's is nt_tab(c ^ 3).
+__device__ __forceinline__ uint64_t nt_tab(unsigned c) {
+  const uint64_t lo = c & 1u ? 0x3193C18562A02B4Cull : 0x3C8BFBB395C60474ull;
+  const uint64_t hi = c & 1u ? 0x295549F54BE24456ull : 0x20323ED082572324ull;
+  return c & 2u ? hi : lo;
+}
+
+// Canonical unspaced ntHash of a k-mer and its one-base roll (the classic
+// recurrence; exact in integer arithmetic):
+//   fwd(p) = XOR_j rol64(TAB[c_{p+j}], k-1-j)
+//   rev(p) = XOR_j rol64(TABC[c_{p+j}], j),   canonical = min(fwd, rev)
+//   fwd(p+1) = rol(fwd, 1) ^ rol(TAB[c_p], k) ^ TAB[c_{p+k}]
+//   rev(p+1) = ror(rev, 1) ^ ror(TABC[c_p], 1) ^ rol(TABC[c_{p+k}], k-1)
+// `at(j)` gives the base code at offset j from the k-mer's start.
+struct NtRoll {
+  uint64_t fwd = 0, rev = 0;
+  unsigned k;
+
+  __device__ explicit NtRoll(unsigned k_) : k(k_) {}
+
+  template <typename At>
+  __device__ void init(At at) {
+    fwd = rev = 0;
+    for (unsigned j = 0; j < k; ++j) fwd = rol64(fwd, 1) ^ nt_tab(at(j));
+    for (unsigned j = k; j-- > 0;) rev = rol64(rev, 1) ^ nt_tab(at(j) ^ 3u);
+  }
+
+  // from the k-mer at p to the one at p+1: `out` = c_p, `in` = c_{p+k}
+  __device__ void roll(unsigned out, unsigned in) {
+    fwd = rol64(fwd, 1) ^ rol64(nt_tab(out), k) ^ nt_tab(in);
+    rev = ror64(rev, 1) ^ ror64(nt_tab(out ^ 3u), 1) ^
+          rol64(nt_tab(in ^ 3u), k - 1);
+  }
+
+  __device__ uint64_t canonical() const { return fwd < rev ? fwd : rev; }
+};
+
 // In-block ascending bitonic sort of n (a power of two) keys; every thread
 // of the block calls it, and it ends with a barrier.
 template <typename K>

@@ -1,5 +1,6 @@
 """Inputs on which kernels A (build_slot_grid), B (probe_and_vote) and C
-(classify_batch) branch, made with numpy from a seed.  The CPU tests hold
+(classify_batch) branch, and the shapes the minimizer kernel (K20) and the
+k-mer table (K21) meet, made with numpy from a seed.  The CPU tests hold
 the plain versions against the JAX package on them; the `gpu` tests and
 chip_smoke.py hold the kernels against the plain versions on them.  Numpy
 only."""
@@ -150,3 +151,46 @@ def classify_case(n_tiles, T: int, K: int, seed: int, n_ids: int = 8
             curr_id[b, t] = ci[b, t, 0] if m else rng.integers(0, n_ids + 1)
     n = np.minimum(np.asarray(n_tiles, np.int32), T)
     return curr_id, np.zeros_like(curr_id), ci, cc, n
+
+
+def stage_codes(lengths, width: int, seed: int, n_frac: float = 0.0
+                ) -> tuple:
+    """uint8 codes [B, width] of random bases with a share `n_frac` of N
+    (code 4), zero past each length, and int64 lengths [B]: a batch of the
+    minimizer mapper or the k-mer polisher."""
+    rng = np.random.default_rng(seed)
+    codes = np.zeros((len(lengths), width), np.uint8)
+    for i, n in enumerate(lengths):
+        c = rng.integers(0, 4, n).astype(np.uint8)
+        c[rng.random(n) < n_frac] = 4
+        codes[i, :n] = c
+    return codes, np.asarray(lengths, np.int64)
+
+
+def minimizer_lengths(k: int, w: int, width: int, rows: int) -> list:
+    """`rows` sequence lengths up to `width` for K20, the first of them the
+    edges its windows branch on: shorter than k, shorter than k + w - 1,
+    exactly k + w - 1 (one window), one tile of 2,048 windows and one more,
+    and the full width."""
+    edges = [k - 1, k + w - 2, k + w - 1, 2048 + k + w - 2, 2049 + k + w - 2,
+             width]
+    rng = np.random.default_rng(k * 1000 + w)
+    rest = rng.integers(width // 2, width + 1, max(rows - len(edges), 0))
+    return [min(n, width) for n in edges][:rows] + rest.tolist()
+
+
+def candidate_windows(contig: np.ndarray, n: int, k: int, seed: int
+                      ) -> tuple:
+    """The polisher's candidate batch (stages/polish.py): `n` windows of
+    at most 2k + 2 bases cut from `contig` around random sites, each with
+    one edit, zero-padded to 2k + 2; and int64 lengths."""
+    rng = np.random.default_rng(seed)
+    W = 2 * k + 2
+    codes = np.zeros((n, W), np.uint8)
+    lengths = rng.integers(k + 1, W + 1, n)
+    starts = rng.integers(0, len(contig) - W, n)
+    for i in range(n):
+        win = contig[starts[i]: starts[i] + lengths[i]].copy()
+        win[rng.integers(0, lengths[i])] = rng.integers(0, 4)
+        codes[i, :lengths[i]] = win
+    return codes, lengths.astype(np.int64)

@@ -31,7 +31,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 SOURCES = ("seed_hash.cu", "probe_vote.cu", "classify.cu",
-           "insert_sorted.cu", "insert_max.cu", "rank.cu")
+           "insert_sorted.cu", "insert_max.cu", "rank.cu", "minimizers.cu",
+           "kmer_count.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -41,8 +42,8 @@ NO_LAUNCH = -1
 _lock = threading.Lock()
 _lib = None
 
-_P, _I, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
-                  ctypes.c_int64)
+_P, _I, _U, _L, _Q = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                      ctypes.c_int64, ctypes.c_uint64)
 # C signatures: every entry returns the cudaError_t of its launch, or
 # NO_LAUNCH
 _SIGNATURES = {
@@ -63,6 +64,9 @@ _SIGNATURES = {
     "gr_insert_max": (_P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I, _I, _P),
     "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
     "gr_rank_carry": (_P, _P, _L, _P, _P),
+    "gr_minimizer_keys": (_P, _I, _L, _L, _I, _I, _P, _P),
+    "gr_kmer_count": (_P, _I, _L, _P, _I, _Q, _P),
+    "gr_kmer_query": (_P, _I, _L, _I, _Q, _P, _P),
 }
 
 
@@ -202,15 +206,29 @@ RANK_PACK = Kernel(
 RANK_CARRY = Kernel(
     "rank_carry", "gr_rank_carry", "goldrush_tpu_torch/csrc/rank.cu",
     "tools/probe_pallas.py:128; goldrush_tpu/mibf/compressed.py:153")
+MINIMIZER_KEYS = Kernel(
+    "minimizer_keys", "gr_minimizer_keys",
+    "goldrush_tpu_torch/csrc/minimizers.cu",
+    "goldrush_tpu/ops/minimizers.py:46 (+ _sliding_min :31)")
+KMER_COUNT = Kernel(
+    "kmer_count", "gr_kmer_count", "goldrush_tpu_torch/csrc/kmer_count.cu",
+    "goldrush_tpu/stages/polish.py:82")
+KMER_QUERY = Kernel(
+    "kmer_query", "gr_kmer_query", "goldrush_tpu_torch/csrc/kmer_count.cu",
+    "goldrush_tpu/stages/polish.py:93")
 # kernel C's warp cummax (the arithmetic of tools/probe_pallas.py:98, run
 # inside C's passes 5 and 10) launched alone, to hold it against
 # torch.cummax; not a kernel of the path, so not in ALL
 ROW_CUMMAX = Kernel(
     "row_cummax", "gr_row_cummax", "goldrush_tpu_torch/csrc/classify.cu",
     "tools/probe_pallas.py:100")
-ALL = (SEED_HASH_GRID, SEED_HASH_RANK_GRID, SEED_HASH_FILL, PRESENCE_MERGE,
-       PROBE_VOTE, CLASSIFY, INSERT_SORTED, INSERT_MAX, RANK_PACK,
-       RANK_CARRY)
+# goldrush-path's kernels, and those of the stages after the golden path
+# (the minimizer mapper and the k-mer polisher)
+PATH = (SEED_HASH_GRID, SEED_HASH_RANK_GRID, SEED_HASH_FILL, PRESENCE_MERGE,
+        PROBE_VOTE, CLASSIFY, INSERT_SORTED, INSERT_MAX, RANK_PACK,
+        RANK_CARRY)
+STAGES = (MINIMIZER_KEYS, KMER_COUNT, KMER_QUERY)
+ALL = PATH + STAGES
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

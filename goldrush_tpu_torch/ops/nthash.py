@@ -35,6 +35,7 @@ shifts and the unsigned minimum compares with the sign bit flipped.
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -117,6 +118,13 @@ def build_seed_family(seeds: list[str]) -> SeedFamily:
         care_left=tuple(j for j, c in enumerate(left) if c == "1"),
         care_right=tuple(j for j, c in enumerate(right) if c == "1"),
     )
+
+
+@lru_cache(maxsize=None)
+def unspaced_family(k: int) -> SeedFamily:
+    """The family of one all-care seed of span k: the classic canonical
+    ntHash of k-mers, which the mapper (K20) and the polisher (K21) use."""
+    return build_seed_family(["1" * k])
 
 
 def _as_i64(x: np.ndarray) -> torch.Tensor:

@@ -36,6 +36,17 @@ CFG = dict(genome_size=60_000, kmer_size=22, weight=16, hash_num=3,
 SILVER = dict(max_paths=2, ratio=0.5)
 
 
+@pytest.fixture(autouse=True)
+def two_torch_threads():
+    """The tier-1 run shares the host's cores among parallel workers; two
+    intra-op threads run these engines at half the CPU time of one per
+    core and little more wall time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_e2e")
@@ -229,8 +240,23 @@ def test_stride_must_divide_tile_length(stride):
 
 @pytest.mark.parametrize("cmd", ["run", "path-polish",
                                  "path-tigmint-ntLink-target"])
-def test_stages_past_golden_raise(dataset, cmd):
+def test_stages_past_golden_raise(dataset, cmd, tmp_path, monkeypatch,
+                                  capsys):
+    """The commands past the golden path no longer raise: each reaches
+    run_pipeline with its stage and prints that stage's output
+    (tests/test_torch_pipeline.py runs them end to end)."""
+    from goldrush_tpu_torch import pipeline
     d, path = dataset
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([cmd, f"reads={os.path.splitext(path)[0]}", "G=60000",
-                  "device=cpu", f"prefix={d / cmd}"])
+    seen = []
+
+    def fake_run(cfg, workdir, until, **kw):
+        seen.append((until, kw["device"]))
+        return {until: f"{until}.fa"}
+    monkeypatch.setattr(pipeline, "run_pipeline", fake_run)
+    monkeypatch.chdir(tmp_path)
+    assert cli.main([cmd, f"reads={os.path.splitext(path)[0]}", "G=60000",
+                     "device=cpu", f"prefix={tmp_path / cmd}"]) == 0
+    assert seen == [(cli.COMMANDS[cmd], "cpu")]
+    want = {"polished": "Polished assembly: polished.fa",
+            "final": "Final assembly: final.fa"}[cli.COMMANDS[cmd]]
+    assert capsys.readouterr().out.splitlines()[-1] == want

@@ -535,3 +535,115 @@ def test_engine_on_card_matches_cpu(cuda, tmp_path):
         assert gpu[:5] == cpu[:5] and len(gpu[0]) == 2
         for a, b in zip(gpu[5], cpu[5]):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("k,w", [(15, 10), (40, 250), (32, 1000)])
+def test_minimizer_keys(cuda, k, w):
+    """K20 against its plain version at chip_smoke.py's shapes: 32 x 32,768
+    codes with N bases, rows shorter than k + w - 1 among them."""
+    from goldrush_tpu_torch.ops import minimizers as tmin
+    lengths = hard.minimizer_lengths(k, w, 32_768, 32)
+    codes, _ = hard.stage_codes(lengths, 32_768, seed=k + w, n_frac=0.01)
+    c = torch.from_numpy(codes).to(cuda)
+    P = 32_768 - k + 1
+    before = kernels.MINIMIZER_KEYS.launches
+    assert_same(tmin.minimizer_keys(c, k, w, P),
+                tmin._minimizer_keys_plain(c, k, w, P))
+    assert kernels.MINIMIZER_KEYS.launches == before + 1
+
+
+def test_minimizer_keys_one_chunk_and_short_rows(cuda):
+    """One 2^20-wide chunk (the mapper's position-packing limit) and rows
+    narrower than k + w - 1, whose positions past the codes read as A."""
+    from goldrush_tpu_torch.ops import minimizers as tmin
+    from goldrush_tpu_torch.stages import mapping as tmap
+    L = tmap.MAX_SEQ - 2
+    codes, _ = hard.stage_codes([L], L, seed=5)
+    c = torch.from_numpy(codes).to(cuda)
+    for k, w in ((15, 10), (32, 1000)):
+        P = L - k + 1
+        assert_same(tmin.minimizer_keys(c, k, w, P),
+                    tmin._minimizer_keys_plain(c, k, w, P))
+    short, _ = hard.stage_codes([30, 7, 0], 40, seed=6)
+    s = torch.from_numpy(short).to(cuda)
+    assert_same(tmin.minimizer_keys(s, 24, 100, 100),
+                tmin._minimizer_keys_plain(s, 24, 100, 100))
+    with pytest.raises(ValueError):
+        tmin.minimizer_keys(c[:, :10], 15, 10, (1 << 20) + 1)
+
+
+@pytest.mark.parametrize("k", [13, 16, 24, 32])
+def test_kmer_count_and_query(cuda, k):
+    """K21 against its plain version at chip_smoke.py's shapes: 64 x 32,768
+    reads into a 2^22+1-slot table, a homopolymer batch, one 1 Mbp contig
+    row and 40,000 candidate windows of width 2k + 2."""
+    from goldrush_tpu_torch.stages import polish as tpol
+    size = (1 << 22) | 1
+    lengths = [32_768, 0, k - 1, k] + list(
+        np.random.default_rng(k).integers(1, 32_769, 60))
+    codes, lens = hard.stage_codes(lengths, 32_768, seed=k)
+    homo = np.full((8, 4_096), 3, np.uint8)
+    counts = {d: torch.zeros(size + 1, dtype=torch.int32, device=d)
+              for d in (cuda, "cpu")}
+    for c, n in ((codes, lens), (homo, np.full(8, 4_096, np.int64))):
+        for d in (cuda, "cpu"):
+            tpol.count_kmers(counts[d], torch.from_numpy(c).to(d),
+                             torch.from_numpy(n).to(d), k, size)
+        assert_same([counts[cuda]], [counts["cpu"]])
+    assert int(counts["cpu"].max()) >= 8 * (4_096 - k + 1)
+    contig, _ = hard.stage_codes([1_000_000], 1_000_000, seed=9)
+    cand = hard.candidate_windows(contig[0], 40_000, k, seed=10)
+    for c, n in ((contig, np.array([1_000_000])), cand):
+        got = tpol.query_kmers(counts[cuda], torch.from_numpy(c).to(cuda),
+                               torch.from_numpy(n).to(cuda), k, size)
+        want = tpol.query_kmers(counts["cpu"], torch.from_numpy(c),
+                                torch.from_numpy(n), k, size)
+        assert_same(got, want)
+
+
+def test_stage_wrappers_check_their_inputs(cuda):
+    from goldrush_tpu_torch.ops import minimizers as tmin
+    from goldrush_tpu_torch.stages import polish as tpol
+    codes = torch.zeros((2, 100), dtype=torch.uint8, device=cuda)
+    n = torch.full((2,), 100, dtype=torch.int64, device=cuda)
+    counts = torch.zeros(65_538, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        tmin.minimizer_keys(codes.int(), 15, 10, 86)
+    with pytest.raises(TypeError):
+        tpol.count_kmers(counts, codes, n.int(), 13, 65_537)
+    with pytest.raises(ValueError):
+        tpol.count_kmers(counts.cpu(), codes, n, 13, 65_537)
+    with pytest.raises(ValueError):
+        tpol.query_kmers(counts, codes[:, ::2], n, 13, 65_537)
+    before = kernels.KMER_COUNT.launches
+    tpol.count_kmers(counts, codes[:0], n[:0], 13, 65_537)   # empty batch
+    assert kernels.KMER_COUNT.launches == before
+    tpol.count_kmers(counts, codes, n, 13, 65_537)
+    assert kernels.KMER_COUNT.launches == before + 1
+
+
+def test_pipeline_on_card_matches_fixture(cuda, tmp_path):
+    """`run` on the card on tests/test_pipeline.py's 60 kb dataset writes
+    the stage files whose digests tests/fixtures/torch_port_digests.json
+    holds (the JAX package's), and launches K20 and K21."""
+    import hashlib
+    import json
+    from goldrush_tpu_torch.config import PipelineConfig, stage_filenames
+    from goldrush_tpu_torch.pipeline import run_pipeline
+    fx = json.load(open(os.path.join(os.path.dirname(__file__), "fixtures",
+                                     "torch_port_digests.json")))["pipeline"]
+    ds = fx["dataset"]
+    genome = synth.random_genome(ds["genome"], seed=ds["genome_seed"])
+    synth.write_fastq(str(tmp_path / "reads.fq"), synth.simulate_reads(
+        genome, ds["n_reads"], ds["read_len"], seed=ds["reads_seed"],
+        err_rate=ds["err_rate"], phred=ds["phred"]))
+    cfg = PipelineConfig(reads=str(tmp_path / "reads"), **fx["config"])
+    before = [k.launches for k in kernels.STAGES]
+    run_pipeline(cfg, workdir=str(tmp_path), until="final", device=cuda)
+    assert all(k.launches > n for k, n in zip(kernels.STAGES, before))
+    files = stage_filenames(cfg)
+    got = {s: hashlib.sha256(open(tmp_path / files[s], "rb").read())
+           .hexdigest() for s in ("polished", "tigmint", "ntlink", "final")}
+    got["gaps"] = hashlib.sha256(open(
+        tmp_path / (files["ntlink"] + ".gaps.json"), "rb").read()).hexdigest()
+    assert got == fx["files"]

@@ -14,7 +14,17 @@ gr), the largest host-side costs, and the device busy share (summed
 kernel time over the profiled assign time).  Copied into an earlier
 tree's tools/, it profiles that tree's port.
 
+With `pipeline` it runs `goldrush run` (chip_smoke.py's phase 6(b): the
+1 Mbp quality-gate dataset of tests/fixtures/torch_port_digests.json,
+G=1e6, M=3, r=0.75) stage by stage, each stage resumed from the files of
+the one before it: once unprofiled for each stage's wall seconds, then
+again with each stage under its own torch.profiler, which gives per stage
+the device time of each kernel of csrc/ and of the largest other device
+ops, and the busy share (summed device time over the stage's profiled
+wall time).
+
     python3 tools/torch_port_profile.py [direct|compressed] [throughput]
+    python3 tools/torch_port_profile.py pipeline
 """
 
 from __future__ import annotations
@@ -33,6 +43,65 @@ THROUGHPUT = dict(frame_stride=8, probe_seeds=1, recheck="optimistic",
                   batch_reads=64)
 
 
+def pipeline() -> None:
+    """`goldrush run` stage by stage on the card (module docstring)."""
+    import json
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.config import PipelineConfig
+    from goldrush_tpu_torch.pipeline import ORDER, run_pipeline
+    from goldrush_tpu_torch.utils import synth
+
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "torch_port_digests.json")) as f:
+        ds = json.load(f)["dataset"]
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    fq = os.path.join(WORK, "qgate.fq")
+    genome = synth.random_genome(ds["genome"], seed=ds["genome_seed"])
+    synth.write_fastq(fq, synth.simulate_reads(
+        genome, ds["n_reads"], ds["read_len"], seed=ds["reads_seed"],
+        err_rate=ds["err_rate"], indel_frac=ds["indel_frac"]))
+    cfg = PipelineConfig(reads=os.path.join(WORK, "qgate"), G=1_000_000,
+                         M=3, r=0.75)
+
+    def stage(workdir, name):
+        t0 = time.time()
+        out = run_pipeline(cfg, workdir=workdir, until=name, device="cuda")
+        torch.cuda.synchronize()
+        return time.time() - t0, out
+
+    kernels.lib()                      # the build is not a stage's time
+    try:
+        for k in kernels.ALL:
+            k.launches = 0
+        for name in ORDER:
+            wall, out = stage(os.path.join(WORK, "plain"), name)
+            print(f"unprofiled stage={name} wall_s={wall:.4f}", flush=True)
+        print("assembly_stats=" + json.dumps(out["assembly_stats"]))
+        print("launches=" + ",".join(f"{k.name}:{k.launches}"
+                                     for k in kernels.ALL))
+        for name in ORDER:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall, _ = stage(os.path.join(WORK, "profiled"), name)
+            dev = [e for e in prof.key_averages()
+                   if e.self_device_time_total > 0]
+            total = sum(e.self_device_time_total for e in dev) / 1e6
+            print(f"profiled stage={name} wall_s={wall:.4f} "
+                  f"device_s={total:.4f} busy_share={total / wall:.4f}",
+                  flush=True)
+            ranked = sorted(dev, key=lambda e: e.self_device_time_total,
+                            reverse=True)
+            for e in ranked[:6] + [e for e in ranked[6:] if "gr::" in e.key]:
+                print(f"  {e.key[:56]:56s} calls={e.count:7d} device_s="
+                      f"{e.self_device_time_total / 1e6:9.4f}")
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+
+
 def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -42,6 +111,14 @@ def main() -> None:
     from goldrush_tpu_torch.utils import synth
 
     args = sys.argv[1:]
+    if args == ["pipeline"]:
+        if not torch.cuda.is_available():
+            raise SystemExit("torch_port_profile: needs a CUDA card")
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip())
+        pipeline()
+        return
     if any(a not in ("direct", "compressed", "throughput") for a in args):
         raise SystemExit(__doc__)
     mode = "compressed" if "compressed" in args else "direct"
