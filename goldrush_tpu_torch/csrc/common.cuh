@@ -20,6 +20,37 @@ constexpr uint32_t kIdMask = 0x3FFFFFFFu;
 constexpr unsigned long long kSentinel64 = 0xFFFFFFFFFFFFFFFFull;
 constexpr unsigned kFull = 0xFFFFFFFFu;  // all lanes of a warp
 
+// Every kernel's dynamic shared memory.
+extern __shared__ __align__(16) unsigned char gr_smem[];
+
+// A load of memory that another CTA of the same launch may have written
+// (`kCoherent`, the fused consume kernel: through L2, never from a stale L1
+// line; a grid barrier orders the write before it), or a plain load (the
+// standalone kernels, whose read-only inputs the compiler sees through
+// their const __restrict__ parameters).
+template <bool kCoherent, typename V>
+__device__ __forceinline__ V load(const V* p) {
+  if constexpr (kCoherent) {
+    return __ldcg(p);
+  } else {
+    return *p;
+  }
+}
+
+// `load`, with the standalone path through the read-only data cache
+// (ld.global.nc).  Kernel C's standalone launch reads its vote table so,
+// kernel B's gathers do not: the choice that kept each within 2% of its
+// time before the two shared their code with the consume kernel
+// (chip_smoke.py --ab on an H100).
+template <bool kCoherent, typename V>
+__device__ __forceinline__ V load_ro(const V* p) {
+  if constexpr (kCoherent) {
+    return __ldcg(p);
+  } else {
+    return __ldg(p);
+  }
+}
+
 struct AddOp {
   __device__ unsigned long long operator()(unsigned long long a,
                                            unsigned long long b) const {

@@ -22,7 +22,7 @@
 // h = 3 (F = 1000): the 480 KB window in, one 32-byte sector per distinct
 // key written; ~1 us at the card's rate, so a launch costs more than its
 // bytes.
-#include "common.cuh"
+#include "insert.cuh"
 
 namespace gr {
 
@@ -35,13 +35,8 @@ __global__ void __launch_bounds__(kMaxThreads) insert_max_kernel(
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (e >= total) return;
-  const int64_t s = e / window;
-  const int64_t col = static_cast<int64_t>(lo) * F + e % window;
-  const int64_t key = grid[s * TF + col];
-  if (key < 0 || key >= limit) return;
-  const uint32_t m = static_cast<uint32_t>(col / F - lo) / bs;
-  const uint32_t id = base_id + (trimmed ? (m * bs + 1) / bs : m);
-  atomicMax(table + key, static_cast<int>(or_bits | id));
+  insert_max_entry(table, grid, TF, F, limit, or_bits, lo, window, e,
+                   base_id, trimmed, bs);
 }
 
 }  // namespace gr

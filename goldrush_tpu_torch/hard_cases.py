@@ -1,5 +1,6 @@
 """Inputs on which kernels A (build_slot_grid), B (probe_and_vote) and C
-(classify_batch) branch, and the shapes the minimizer kernel (K20) and the
+(classify_batch) branch, the rows on which the trim recheck's zone
+predicate (K18) turns, and the shapes the minimizer kernel (K20) and the
 k-mer table (K21) meet, made with numpy from a seed.  The CPU tests hold
 the plain versions against the JAX package on them; the `gpu` tests and
 chip_smoke.py hold the kernels against the plain versions on them.  Numpy
@@ -194,3 +195,18 @@ def candidate_windows(contig: np.ndarray, n: int, k: int, seed: int
         win[rng.integers(0, lengths[i])] = rng.integers(0, 4)
         codes[i, :lengths[i]] = win
     return codes, lengths.astype(np.int64)
+
+
+# tests/test_recheck_zone.py's vectors (stride 8, threshold 10, assigned_max
+# 1 unless the stride column says otherwise), and reads without tiles at
+# the strides whose int32 product wraps: (dec, na, n_tiles, ts, te,
+# tile_min, stride)
+ZONE_ROWS = [
+    (2, 5, 20, 3, 4, 1000, 8), (0, 20, 20, 0, 19, 1000, 8),
+    (0, 20, 20, 0, 19, 2, 8), (0, 20, 20, 0, 19, 3, 8),
+    (0, 20, 20, 0, 19, 19, 1), (0, 20, 20, 0, 19, 20, 1),
+    (0, 10, 20, 5, 7, 1000, 8), (0, 10, 20, 5, 9, 1000, 8),
+    (0, 3, 20, 5, 7, 1000, 8), (0, 4, 20, 5, 7, 1000, 8),
+    (1, 0, 20, 0, 19, 0, 8), (0, 0, 0, 0, 1, 1 << 30, 1),
+    (0, 0, 0, 0, 1, 1 << 30, 2), (0, 0, 0, 0, 1, 1 << 30, 5),
+    (0, 0, 0, 0, 1, 1 << 30, 8)]

@@ -32,8 +32,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 SOURCES = ("seed_hash.cu", "probe_vote.cu", "classify.cu",
            "insert_sorted.cu", "insert_max.cu", "rank.cu", "minimizers.cu",
-           "kmer_count.cu")
-HEADERS = ("common.cuh",)
+           "kmer_count.cu", "consume.cu")
+HEADERS = ("common.cuh", "probe_vote.cuh", "classify.cuh", "insert.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # what an entry returns when its inputs left nothing to launch (common.cuh)
@@ -60,13 +60,18 @@ _SIGNATURES = {
                     _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "gr_row_cummax": (_P, _I, _I, _P, _P),
     "gr_insert_sorted": (_P, _P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I,
-                         _I, _I, _I, _I, _I, _P, _P),
+                         _I, _I, _I, _I, _P, _P),
     "gr_insert_max": (_P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I, _I, _P),
     "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
     "gr_rank_carry": (_P, _P, _L, _P, _P),
     "gr_minimizer_keys": (_P, _I, _L, _L, _I, _I, _P, _P),
     "gr_kmer_count": (_P, _I, _L, _P, _I, _Q, _P),
     "gr_kmer_query": (_P, _I, _L, _I, _Q, _P, _P),
+    "gr_consume": (_P, _P, _L, _I, _L, _L, _U, _P, _P, _I, _I, _P, _P, _I,
+                   _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _I, _I, _I, _I, _L, _L, _I, _P, _P, _P, _P, _P,
+                   _P, _P),
+    "gr_recheck_zone": (_P, _I, _I, _I, _I, _P),
 }
 
 
@@ -216,17 +221,29 @@ KMER_COUNT = Kernel(
 KMER_QUERY = Kernel(
     "kmer_query", "gr_kmer_query", "goldrush_tpu_torch/csrc/kmer_count.cu",
     "goldrush_tpu/stages/polish.py:93")
+CONSUME = Kernel(
+    "consume", "gr_consume", "goldrush_tpu_torch/csrc/consume.cu",
+    "goldrush_tpu/path/engine.py:892-1024 (K9); K18 "
+    "goldrush_tpu/path/engine_util.py:10; K10/K19 "
+    "goldrush_tpu/mibf/mibf.py:686, goldrush_tpu/mibf/compressed.py:559")
+# the consume kernel's zone predicate (K18) launched alone, to hold it
+# against the plain predicate; not a kernel of the path, so not in ALL
+RECHECK_ZONE = Kernel(
+    "recheck_zone", "gr_recheck_zone", "goldrush_tpu_torch/csrc/consume.cu",
+    "goldrush_tpu/path/engine_util.py:10")
 # kernel C's warp cummax (the arithmetic of tools/probe_pallas.py:98, run
 # inside C's passes 5 and 10) launched alone, to hold it against
 # torch.cummax; not a kernel of the path, so not in ALL
 ROW_CUMMAX = Kernel(
     "row_cummax", "gr_row_cummax", "goldrush_tpu_torch/csrc/classify.cu",
     "tools/probe_pallas.py:100")
-# goldrush-path's kernels, and those of the stages after the golden path
-# (the minimizer mapper and the k-mer polisher)
+# the kernels goldrush-path's main path launches, and those of the stages
+# after the golden path (the minimizer mapper and the k-mer polisher).
+# Kernel D's and insert_max's code runs inside the consume kernel; their
+# standalone launches (held to their plain versions and timed on their own)
+# are not on the path, so not in ALL
 PATH = (SEED_HASH_GRID, SEED_HASH_RANK_GRID, SEED_HASH_FILL, PRESENCE_MERGE,
-        PROBE_VOTE, CLASSIFY, INSERT_SORTED, INSERT_MAX, RANK_PACK,
-        RANK_CARRY)
+        PROBE_VOTE, CLASSIFY, RANK_PACK, RANK_CARRY, CONSUME)
 STAGES = (MINIMIZER_KEYS, KMER_COUNT, KMER_QUERY)
 ALL = PATH + STAGES
 

@@ -291,11 +291,29 @@ def reset_ids(state: CompressedState, counts: bool = True
     """Silver-path rotation, in place: forget ids, and with ``counts`` (the
     exact policy) the counters, which the throughput policy leaves as they
     are (goldrush_tpu/path/engine.py:771-772); the rank structure
-    (presence) stays."""
+    (presence) stays.  The plain version of K19: on the card the consume
+    kernel resets inside its launch (csrc/consume.cu)."""
     state.ids.zero_()
     if counts:
         state.counts.zero_()
     return state
+
+
+def state_from_numpy(bitrank, supers, ids, counts, device="cpu"
+                     ) -> CompressedState:
+    """The JAX package's arrays (uint64 bitrank/supers, uint32 ids/counts)
+    as a state on ``device`` (bit views); the inverse of
+    ``state_to_numpy``."""
+    import numpy as np
+
+    def conv(a, dtype, view):
+        a = np.ascontiguousarray(a, dtype=dtype).view(view)
+        return torch.from_numpy(a.copy()).to(device)
+    return CompressedState(
+        bitrank=conv(bitrank, np.uint64, np.int64),
+        supers=conv(supers, np.uint64, np.int64),
+        ids=conv(ids, np.uint32, np.int32),
+        counts=conv(counts, np.uint32, np.int32))
 
 
 def state_to_numpy(state: CompressedState) -> dict:

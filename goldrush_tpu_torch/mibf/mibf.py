@@ -635,12 +635,11 @@ def _block_id(base_id: int, m: int, bs: int, trimmed: bool) -> int:
     return (base_id + ((m * bs + 1) // bs if trimmed else m)) & _MASK32
 
 
-# Kernel D's launch shape, measured on an H100 (PERF.md): CTAs (each owns
-# the keys insert_part gives it), CTAs per thread-block cluster (which
-# share the window read), threads per CTA, and the entries a CTA holds in
+# Kernel D's launch shape, the consume kernel's on an H100 (132 SMs, one
+# CTA of 512 threads each, csrc/consume.cu): CTAs (each owns the keys
+# insert_part gives it), threads per CTA, and the entries a CTA holds in
 # shared memory (a power of two; a CTA owning more sorts in global scratch)
-INSERT_PARTS = 264
-INSERT_CLUSTER = 8
+INSERT_PARTS = 132
 INSERT_THREADS = 512
 INSERT_CAP = 8_192
 
@@ -675,7 +674,7 @@ def _insert_cuda(words, counts, slots, lo, hi, base_id, trimmed, params, T,
         dev, kernels.ptr(words), kernels.ptr(counts), kernels.ptr(slots),
         H, TF, F, int(limit), int(or_bits), int(lo), int(hi),
         int(base_id) & _MASK32, int(bool(trimmed)), bs, INSERT_PARTS,
-        INSERT_CLUSTER, INSERT_THREADS, INSERT_CAP, kernels.ptr(scratch))
+        INSERT_THREADS, INSERT_CAP, kernels.ptr(scratch))
 
 
 def _as_int32(v: torch.Tensor) -> torch.Tensor:
@@ -777,7 +776,9 @@ def reset_ids(state: MibfState, counts: bool = True) -> MibfState:
     """Silver-path rotation (goldrush_path.cpp:156-187), in place: zero IDs,
     keep presence bits; with ``counts`` (the exact policy) zero the
     counters too, which the throughput policy leaves as they are
-    (goldrush_tpu/path/engine.py:824-825)."""
+    (goldrush_tpu/path/engine.py:824-825).  The plain version of K10: on
+    the card the consume kernel resets inside its launch
+    (csrc/consume.cu)."""
     state.words.bitwise_and_(PRESENT_BIT)
     if counts:
         state.counts.zero_()

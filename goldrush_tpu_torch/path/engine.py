@@ -15,13 +15,16 @@ staleness, max-id-wins insert, full-resolution trim recheck):
           filter, at the query stride over the probed seeds -> kernel B
           probe/vote -> kernel C classify) against the filter at batch
           start, and where inserts or rechecks need it the full-resolution
-          grid of every insert seed; then a host loop over the batch that
-          re-probes reads against the live filter once it changed inside
-          the batch (kernels B and C on one read; under the optimistic
-          policy only candidates, and every read after a silver reset),
-          re-classifies the boundary zone at full resolution (trim
-          recheck), inserts recruits (kernel D, or insert_max under the
-          optimistic policy) and rotates silver paths (reset_ids);
+          grid of every insert seed; then the in-order consume scan of the
+          batch (path/consume.py: one launch of the consume kernel on the
+          card), which re-probes reads against the live filter once it
+          changed inside the batch (under the optimistic policy only
+          candidates, and every read after a silver reset), re-classifies
+          the boundary zone at full resolution (trim recheck), inserts
+          recruits (the reservoir rule, or max id wins under the
+          optimistic policy) and rotates silver paths.  Nothing returns to
+          the host inside the pass: the rows and the scan's scalars are
+          fetched once, after the last batch;
   replay: path files and stats are rebuilt on the host from the per-read
           decision rows, as the JAX engine does.
 
@@ -51,7 +54,8 @@ from ..ops.phred import (MEDIAN_SAMPLES_NEEDED, MINIMUM_PHRED_THRESHOLD,
 from ..ops.seeds import make_seed_pattern
 from ..utils import observability as obs
 from .classify import classify_batch
-from .engine_util import recheck_zone, tile_min_count
+from .consume import COUNTS, ConsumeSpec, consume_batch, new_counters
+from .engine_util import tile_min_count
 
 # tile-bucket sizes and the per-batch tile budget of the JAX engine
 # (goldrush_tpu/path/engine.py:47-52): the same batching gives the same
@@ -215,6 +219,17 @@ class GoldenPathEngine:
         self.stats = EngineStats()
         self.writers: list[fastq.PathWriter] = []
         self.last_rows = np.zeros((0, 8), dtype=np.int64)
+        self.spec = ConsumeSpec(
+            params=self.params, params_full=self.params_full,
+            params_ins=self.params_ins,
+            unassigned_min=cfg.unassigned_min,
+            assigned_max=cfg.assigned_max, fast=self.fast,
+            rech_on=self.rech_on, silver=bool(cfg.silver_path),
+            target=int(cfg.target_bases()), max_paths=int(cfg.max_paths))
+        # the consume scan's counts over the last pass (consume.COUNTS:
+        # live re-probes, trim rechecks, inserts, silver resets); kept out
+        # of EngineStats, whose fields are the JAX engine's
+        self.consume_counts: dict[str, int] = {}
 
     # ------------------------------------------------------------------
     def calc_phred_threshold(self, path: str) -> None:
@@ -239,6 +254,15 @@ class GoldenPathEngine:
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A batch array on the device without waiting for it: on the card
+        through pinned memory, asynchronously (a pageable copy would wait
+        for the stream)."""
+        if self.device.type == "cpu":
+            return torch.from_numpy(a)
+        return torch.from_numpy(a).pin_memory().to(self.device,
+                                                   non_blocking=True)
 
     # ------------------------------------------------------------------
     def fill(self, path: str) -> None:
@@ -345,25 +369,22 @@ class GoldenPathEngine:
         return dm.probe_and_vote(self.state.words, grid, frame_ok, params,
                                  num_tiles=T)
 
-    def _probe_classify(self, grid, frame_ok, n_tiles, T, full=False):
-        """Vote + classify rows [B, 8] = (decision, trim_start, trim_end,
-        num_assigned, queries, hits, misses, overflow) on the host, against
-        the live filter: with the query tier's params and gates, or with
-        ``full`` the trim recheck's (params_full, cfg.threshold).  With the
-        recheck on, the query tier's rows carry a ninth column, each read's
-        minimum in-read top count (``tile_min_count``)."""
-        params = self.params_full if full else self.params
-        x = self.cfg.threshold if full else self.x_eff
-        votes = self._vote(grid, frame_ok, T, params)
+    def _probe_classify(self, grid, frame_ok, n_tiles, T):
+        """The batched verdicts against the filter at batch start, on the
+        device: rows int64 [B, 8] = (decision, trim_start, trim_end,
+        num_assigned, queries, hits, misses, overflow), with the trim
+        recheck on a ninth column, each read's minimum in-read top count
+        (``tile_min_count``)."""
+        votes = self._vote(grid, frame_ok, T, self.params)
         res = classify_batch(votes.curr_id, votes.top_count, votes.cand_ids,
-                             votes.cand_counts, n_tiles, x,
+                             votes.cand_counts, n_tiles, self.x_eff,
                              self.cfg.unassigned_min, self.cfg.assigned_max)
         cols = [res.decision.long(), res.trim_start.long(),
                 res.trim_end.long(), res.num_assigned.long(), votes.queries,
                 votes.hits, votes.misses, votes.overflow.long().sum(dim=1)]
-        if self.rech_on and not full:
+        if self.rech_on:
             cols.append(tile_min_count(votes.top_count, n_tiles))
-        return torch.stack(cols, dim=1).cpu().numpy()
+        return torch.stack(cols, dim=1)
 
     def _debug_dump(self, codes, lengths, n_tiles, T, num_reads):
         """--debug: per-pass tile-state dumps of the batch's real reads
@@ -381,100 +402,39 @@ class GoldenPathEngine:
             for p in range(ids_tr.shape[1]):
                 obs.log_tile_states(ids_tr[i, p, :n], bools_tr[i, p, :n])
 
-    def _insert(self, grid, lo, hi, base, trimmed, T):
-        """Insert one recruit's blocks from its full-resolution grid: the
-        reservoir rule (kernel D) or, under the optimistic policy, max id
-        wins (insert_max)."""
-        p = self.params_ins
-        if self.compressed:
-            fn = cz.insert_read_max if self.fast else cz.insert_read_sorted
-            fn(self.cstate, grid, lo, hi, base, trimmed, p, T)
-        else:
-            fn = dm.insert_read_max if self.fast else dm.insert_read_sorted
-            fn(self.state, grid, lo, hi, base, trimmed, p, T)
-
-    def _consume(self, codes, lengths, full_lengths, T, scal, rows_out):
-        """One padded batch: batched classify against the filter at batch
-        start, then the in-order scan (goldrush_tpu/path/engine.py:865-1003).
-        ``scal`` = [ids_inserted, inserted_bases, path_idx, done] carries
-        across batches; one row per read is appended to ``rows_out``."""
-        cfg = self.cfg
-        TL, bs = self.params.tile_length, self.params.block_size
-        S = self.params.frame_stride
-        silver = bool(cfg.silver_path)
-        target, max_paths = int(cfg.target_bases()), int(cfg.max_paths)
-        codes_d, lengths_d = self._to_device(codes), self._to_device(lengths)
-        n_tiles_np = (lengths // TL).astype(np.int32)
-        n_tiles_d = self._to_device(n_tiles_np)
+    def _batch_inputs(self, codes, lengths, full_lengths, T) -> tuple:
+        """One padded batch on the device: its query grid and frame_ok,
+        the full-resolution grid of every insert seed (what recruits insert
+        and the trim recheck probes) and its frame_ok, n_tiles, the full
+        lengths, and the batched verdicts against the filter at batch start
+        (``_probe_classify``)."""
+        TL = self.params.tile_length
+        codes_d, lengths_d = self._upload(codes), self._upload(lengths)
+        n_tiles_d = self._upload((lengths // TL).astype(np.int32))
+        full_d = self._upload(full_lengths)
         grid, frame_ok = self._grid(codes_d, lengths_d, T, self.fam_q,
                                     self.params)
-        # the full-resolution grid of every insert seed: what recruits
-        # insert and the trim recheck probes
         if self.reuse_q:
             grid_ins, ok_ins = grid, frame_ok
         else:
             grid_ins, ok_ins = self._grid(codes_d, lengths_d, T, self.fam_ins,
                                           self.params_ins)
         rows0 = self._probe_classify(grid, frame_ok, n_tiles_d, T)
-        ids_ins, ins_bases, path_idx, done = scal
-        changed = reset_seen = False
-        for i in range(codes.shape[0]):
-            if self.fast:
-                # optimistic: a batch-time drop stays dropped; after an
-                # in-batch silver reset every later read re-probes
-                live = (changed and rows0[i][0] != 0) or reset_seen
-            else:
-                # exact: every read after an in-batch change re-probes
-                live = changed
-            if live and not done:
-                row = self._probe_classify(grid[i:i + 1], frame_ok[i:i + 1],
-                                           n_tiles_d[i:i + 1], T)[0]
-            else:
-                row = rows0[i]
-            dec, ts, te, na, q, h, m, ov = (int(x) for x in row[:8])
-            n_t, L = int(n_tiles_np[i]), int(full_lengths[i])
-            if (self.rech_on and not done
-                    and recheck_zone(dec, na, n_t, ts, te, int(row[8]), S,
-                                     cfg.threshold, cfg.assigned_max)):
-                # boundary zone: re-classify at full resolution, all insert
-                # seeds, the exact gates
-                dec, ts, te, na, q, h, m, ov = (int(x) for x in
-                                                self._probe_classify(
-                    grid_ins[i:i + 1], ok_ins[i:i + 1], n_tiles_d[i:i + 1],
-                    T, full=True)[0])
-            if done:
-                dec = 0
-            if dec == 1:
-                rec_len, lo, hi = L, 0, n_t - 1
-                blocks = 1 + L // (TL * bs)
-            elif dec == 2:
-                rec_len = (L - ts * TL if te == n_t - 1
-                           else (te - ts + 1) * TL)
-                lo, hi = ts, te
-                blocks = 1 + (te - ts) // bs
-            else:
-                rec_len, blocks = 0, 0
-            if dec > 0 and not done:
-                self._insert(grid_ins[i], lo, hi, ids_ins + 1, dec == 2, T)
-            if not done:
-                ids_ins += blocks
-                ins_bases += rec_len
-            # silver rotation (goldrush_path.cpp:156-187)
-            if silver and dec > 0 and target < ins_bases and not done:
-                path_idx += 1
-                if max_paths < path_idx:
-                    done = 1
-                else:
-                    # the optimistic policy keeps the counters
-                    if self.compressed:
-                        cz.reset_ids(self.cstate, counts=not self.fast)
-                    else:
-                        dm.reset_ids(self.state, counts=not self.fast)
-                    ids_ins, ins_bases = 0, 0
-                    reset_seen = True
-            changed = changed or dec > 0
-            rows_out.append((dec, ts, te, na, q, h, m, ov))
-        return [ids_ins, ins_bases, path_idx, done]
+        return grid, frame_ok, grid_ins, ok_ins, n_tiles_d, full_d, rows0
+
+    def _consume(self, codes, lengths, full_lengths, T, scal, rows_out,
+                 counters):
+        """One padded batch: its grids and the batched classify against the
+        filter at batch start, then the in-order consume scan
+        (path/consume.py; goldrush_tpu/path/engine.py:865-1024), which
+        updates the filter, ``scal`` = [ids_inserted, inserted_bases,
+        path_idx, done] (carried across batches) and ``counters`` in place
+        and writes one row per read into ``rows_out``, all on the
+        device."""
+        state = self.cstate if self.compressed else self.state
+        consume_batch(self.spec, state,
+                      *self._batch_inputs(codes, lengths, full_lengths, T),
+                      scal, rows_out, counters, T)
 
     # ------------------------------------------------------------------
     def _eligible(self, path: str):
@@ -494,47 +454,68 @@ class GoldenPathEngine:
             Bpad = 1 << max(0, (B - 1)).bit_length()
         return Bpad
 
+    def _pack_batch(self, batch) -> tuple:
+        """A batch of records as the device takes it: codes uint8 [Bpad,
+        T*TL + TL], lengths int32 [Bpad] (capped at the tile bucket T),
+        the full lengths int64 [Bpad], and T."""
+        TL = self.cfg.tile_length
+        T = max(_bucket_for(r.length // TL, self.cfg.max_tiles)
+                for r in batch)
+        Bpad = self._pad_batch(len(batch), T)
+        Lmax = T * TL + TL
+        codes = np.zeros((Bpad, Lmax), dtype=np.uint8)
+        lengths = np.zeros(Bpad, dtype=np.int32)
+        full_lengths = np.zeros(Bpad, dtype=np.int64)
+        for i, r in enumerate(batch):
+            L = min(r.length, Lmax)
+            codes[i, :L] = r.codes[:L]
+            # reads longer than the bucket classify on its first tiles
+            lengths[i] = min(r.length, T * TL + TL - 1)
+            full_lengths[i] = r.length
+        return codes, lengths, full_lengths, T
+
     def assign(self, path: str) -> None:
         """Pass 2: the submit pass runs the batches on the device, then the
-        replay pass writes the path files from the per-read rows."""
+        replay pass writes the path files from the per-read rows.  The
+        submit pass neither fetches nor waits inside the pass: the scan's
+        scalars and rows stay on the device, in a rows buffer that grows by
+        doubling, and are fetched once after the last batch."""
         t0 = time.time()
         cfg, st = self.cfg, self.stats
         TL = cfg.tile_length
         cap = cfg.max_tiles
         read_T: list[int] = []                  # per-eligible-read bucket
-        rows: list[tuple] = []
         # submit-pass record cache: replay skips the second input stream
         # when the eligible records fit the cap
         cache: list | None = []
         cached_bytes = 0
         cache_bufs: set = set()
-        scal = [0, 0, 1, 0]
+        dev = self.device
+        scal_d = torch.tensor([0, 0, 1, 0], dtype=torch.int64).to(dev)
+        counters = new_counters(dev)
+        rows_d = torch.empty((4096, 8), dtype=torch.int64, device=dev)
+        n_rows = 0
 
         def submit(batch):
-            nonlocal scal
+            nonlocal rows_d, n_rows
             B = len(batch)
-            T = max(_bucket_for(r.length // TL, cap) for r in batch)
+            codes, lengths, full_lengths, T = self._pack_batch(batch)
             read_T.extend([T] * B)
-            Bpad = self._pad_batch(B, T)
-            Lmax = T * TL + TL
-            codes = np.zeros((Bpad, Lmax), dtype=np.uint8)
-            lengths = np.zeros(Bpad, dtype=np.int32)
-            full_lengths = np.zeros(Bpad, dtype=np.int64)
-            for i, r in enumerate(batch):
-                L = min(r.length, Lmax)
-                codes[i, :L] = r.codes[:L]
-                # reads longer than the bucket classify on its first tiles
-                lengths[i] = min(r.length, T * TL + TL - 1)
-                full_lengths[i] = r.length
+            Bpad = codes.shape[0]
             if cfg.debug:
                 self._debug_dump(self._to_device(codes),
                                  self._to_device(lengths),
                                  self._to_device(lengths // TL), T, B)
             tb = time.time()
-            batch_rows: list[tuple] = []
-            scal = self._consume(codes, lengths, full_lengths, T, scal,
-                                 batch_rows)
-            rows.extend(batch_rows[:B])
+            if n_rows + Bpad > rows_d.shape[0]:
+                grown = torch.empty((2 * (n_rows + Bpad), 8),
+                                    dtype=torch.int64, device=dev)
+                grown[:n_rows] = rows_d[:n_rows]
+                rows_d = grown
+            # the padding's rows are overwritten by the next batch
+            self._consume(codes, lengths, full_lengths, T, scal_d,
+                          rows_d[n_rows: n_rows + Bpad], counters)
+            n_rows += B
             if st.num_batches == 0:
                 st.wall_submit_first_s += time.time() - tb
             st.num_batches += 1
@@ -565,9 +546,12 @@ class GoldenPathEngine:
                 pend_T = 1
         if pending:
             submit(pending)
-        self._sync()
+        # the pass's one fetch
+        rows = rows_d[:n_rows].cpu().numpy()
+        scal = scal_d.tolist()
+        self.consume_counts = dict(zip(COUNTS, counters.tolist()))
         st.wall_submit_s += time.time() - t0
-        self.last_rows = np.asarray(rows, dtype=np.int64).reshape(-1, 8)
+        self.last_rows = rows
 
         # ---- replay pass ---------------------------------------------------
         t1 = time.time()

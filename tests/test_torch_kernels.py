@@ -486,13 +486,16 @@ def test_throughput_engine_on_card_matches_cpu(cuda, tmp_path, mode):
                vote_topk=32, mibf_mode=mode)
     runs = {}
     for dev in ("cuda", "cpu"):
-        before = kernels.INSERT_MAX.launches
+        before = (kernels.INSERT_MAX.launches, kernels.CONSUME.launches)
         prefix = str(tmp_path / f"{mode}-{dev}")
         eng = GoldenPathEngine(PathConfig(input=path, prefix_file=prefix,
                                           **cfg), device=dev)
         st = eng.run()
         if dev == "cuda":
-            assert kernels.INSERT_MAX.launches - before == st.recruits > 0
+            # the inserts run inside the consume kernel, one launch a batch
+            assert kernels.INSERT_MAX.launches == before[0]
+            assert kernels.CONSUME.launches - before[1] == st.num_batches
+        assert eng.consume_counts["insert"] == st.recruits > 0
         files = [open(f"{prefix}_{i}.fq", "rb").read() for i in (1, 2)
                  if os.path.exists(f"{prefix}_{i}.fq")]
         state = (tcz.state_to_numpy(eng.cstate).values()
@@ -535,6 +538,100 @@ def test_engine_on_card_matches_cpu(cuda, tmp_path):
         assert gpu[:5] == cpu[:5] and len(gpu[0]) == 2
         for a, b in zip(gpu[5], cpu[5]):
             np.testing.assert_array_equal(a, b)
+
+
+# the consume scan (K9) on tests/test_torch_consume.py's cases: (config,
+# scal at the first batch's start, batches, bases inserted set at the last
+# batch's start or None)
+CONSUME_CFG = dict(genome_size=60_000, kmer_size=22, weight=16, hash_num=3,
+                   seed_preset="1011011110110111101101", tile_length=250,
+                   min_length=1000, threshold=10, block_size=4,
+                   unassigned_min=5, assigned_max=1, occupancy=0.1,
+                   phred_min=15, silver_path=True, max_paths=2, ratio=0.5,
+                   batch_reads=32)
+OPT, S5 = dict(recheck="optimistic"), dict(recheck="optimistic",
+                                           frame_stride=5, probe_seeds=1)
+TARGET, ROT = 30_000, dict(max_paths=4, ratio=2.0)
+CONSUME_CASES = {
+    "exact-direct": ({}, [0, 0, 1, 0], 2, None),
+    "exact-compressed": (dict(mibf_mode="compressed"), [0, 0, 1, 0], 2,
+                         None),
+    "opt-direct": (OPT, [0, 0, 1, 0], 2, None),
+    "opt-compressed": (dict(OPT, mibf_mode="compressed"), [0, 0, 1, 0], 2,
+                       None),
+    "exact-rotation": (ROT, [0, 0, 1, 0], 2, 119_999),
+    "opt-compressed-rotation": (dict(OPT, mibf_mode="compressed", **ROT),
+                                [0, 0, 1, 0], 2, 119_999),
+    "opt-direct-rotation": (dict(OPT, **ROT), [0, 0, 1, 0], 2, 119_999),
+    "exact-done": ({}, [7, TARGET - 6001, 2, 0], 1, None),
+    "opt-compressed-done": (dict(OPT, mibf_mode="compressed"),
+                            [7, TARGET - 6001, 2, 0], 1, None),
+    "s5-p1-opt-compressed-recheck": (dict(S5, mibf_mode="compressed"),
+                                     [0, 0, 1, 0], 2, None),
+    "s5-p1-opt-direct-recheck": (S5, [0, 0, 1, 0], 2, None),
+    "s2-exact-direct-recheck": (dict(frame_stride=2), [0, 0, 1, 0], 2, None),
+}
+
+
+@pytest.mark.parametrize("case", list(CONSUME_CASES))
+def test_consume_matches_plain(cuda, tmp_path, case):
+    """The consume kernel against consume_batch_plain on the same batches
+    of a filter the card filled: rows, scal, counters and the filter, bit
+    for bit; one launch per batch."""
+    from goldrush_tpu_torch.path import consume as tcons
+    over, scal0, n, bump = CONSUME_CASES[case]
+    genome = synth.random_genome(60_000, seed=3)
+    reads = synth.simulate_reads(genome, n_reads=120, read_len=3000, seed=4,
+                                 err_rate=0.0, phred=20)
+    path = str(tmp_path / "reads.fq")
+    synth.write_fastq(path, reads)
+    te = GoldenPathEngine(PathConfig(input=path, **{**CONSUME_CFG, **over}),
+                          device=cuda)
+    te.calc_phred_threshold(path)
+    te.fill(path)
+    state_k = te.cstate if te.compressed else te.state
+    state_p = type(state_k)(*(t.clone() for t in state_k))
+    recs = list(te._eligible(path))
+    scal_k = torch.tensor(scal0, dtype=torch.int64, device=cuda)
+    scal_p = scal_k.clone()
+    ck, cp = tcons.new_counters(cuda), tcons.new_counters(cuda)
+    before = kernels.CONSUME.launches
+    k = te.batch_reads
+    for b in range(n):
+        if b == n - 1 and bump is not None:
+            scal_k[1] = scal_p[1] = bump
+        codes, lengths, full, T = te._pack_batch(recs[b * k: (b + 1) * k])
+        inputs = te._batch_inputs(codes, lengths, full, T)
+        rows_k = torch.empty((codes.shape[0], 8), dtype=torch.int64,
+                             device=cuda)
+        rows_p = torch.empty_like(rows_k)
+        tcons.consume_batch(te.spec, state_k, *inputs, scal_k, rows_k, ck, T)
+        tcons.consume_batch_plain(te.spec, state_p, *inputs, scal_p, rows_p,
+                                  cp, T)
+        assert_same([rows_k, scal_k, ck, *state_k],
+                    [rows_p, scal_p, cp, *state_p])
+    assert kernels.CONSUME.launches == before + n
+    assert ck[0] > 0 and ck[2] > 0
+    # a configuration the kernel refuses raises, and is not counted
+    spec = dataclasses.replace(
+        te.spec, params=dataclasses.replace(te.spec.params, vote_topk=10_000),
+        params_full=dataclasses.replace(te.spec.params_full,
+                                        vote_topk=10_000))
+    with pytest.raises(RuntimeError, match="consume"):
+        tcons.consume_batch(spec, state_k, *inputs, scal_k, rows_k, ck, T)
+    assert kernels.CONSUME.launches == before + n
+
+
+def test_recheck_zone_device_predicate(cuda):
+    """The consume kernel's zone predicate (K18), launched alone, against
+    the plain one."""
+    from goldrush_tpu_torch.path.engine_util import recheck_zone, zone_batch
+    for stride in sorted({r[6] for r in hard.ZONE_ROWS}):
+        rows = [r[:6] for r in hard.ZONE_ROWS if r[6] == stride]
+        got = zone_batch(torch.tensor(rows, dtype=torch.int64, device=cuda),
+                         stride, 10, 1)
+        assert got.cpu().tolist() == [recheck_zone(*r, stride, 10, 1)
+                                      for r in rows]
 
 
 @pytest.mark.parametrize("k,w", [(15, 10), (40, 250), (32, 1000)])

@@ -10,9 +10,14 @@ limit, the engine's construction time (init_s: the direct filter
 allocates its words there), the EngineStats times and launch counts of
 each run, and, for the profiled run, device time per kernel (the 15
 largest, then every other kernel of csrc/, whose names are in namespace
-gr), the largest host-side costs, and the device busy share (summed
-kernel time over the profiled assign time).  Copied into an earlier
-tree's tools/, it profiles that tree's port.
+gr; the consume kernel, `gr::consume_kernel`, holds the whole in-order
+scan of a batch), the largest host-side costs, the device busy share
+(summed kernel time over the profiled assign time), and per pass the
+device operations (kernels and copies), the host's kernel launches
+(`cudaLaunchKernel` and `cudaLaunchCooperativeKernel` calls) and its
+`aten::empty` calls, and the consume scan's counts (live re-probes,
+trim rechecks, inserts, silver resets).  Copied into an earlier tree's
+tools/, it profiles that tree's port.
 
 With `pipeline` it runs `goldrush run` (chip_smoke.py's phase 6(b): the
 1 Mbp quality-gate dataset of tests/fixtures/torch_port_digests.json,
@@ -147,9 +152,9 @@ def main() -> None:
         t0 = time.time()
         eng = engine(tag)
         init_s = time.time() - t0
-        return eng.run(), init_s
+        return eng.run(), init_s, eng
 
-    def report(tag, st, init_s):
+    def report(tag, st, init_s, eng):
         print(f"{tag} filter={mode} cell={'throughput' if cell else 'exact'} "
               f"init_s={init_s:.4f} "
               f"fill_s={st.wall_fill_s:.4f} "
@@ -157,7 +162,8 @@ def main() -> None:
               f"assign_s={st.wall_assign_s:.4f} "
               f"submit_s={st.wall_submit_s:.4f} "
               f"replay_s={st.wall_replay_s:.4f} recruits={st.recruits} "
-              f"paths={st.paths_completed} launches="
+              f"paths={st.paths_completed} batches={st.num_batches} "
+              f"consume={getattr(eng, 'consume_counts', None)} launches="
               + ",".join(f"{k.name}:{k.launches}" for k in kernels.ALL),
               flush=True)
 
@@ -170,9 +176,9 @@ def main() -> None:
             k.launches = 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            st, init_s = timed_run("profiled")
+            st, init_s, eng = timed_run("profiled")
             torch.cuda.synchronize()
-        report("profiled", st, init_s)
+        report("profiled", st, init_s, eng)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     events = prof.key_averages()
@@ -180,6 +186,13 @@ def main() -> None:
     total_us = sum(e.self_device_time_total for e in dev)
     print(f"device_time_s={total_us / 1e6:.4f} "
           f"busy_share_of_assign={total_us / 1e6 / st.wall_assign_s:.4f}")
+    launch_calls = sum(e.count for e in events
+                       if e.key in ("cudaLaunchKernel",
+                                    "cudaLaunchCooperativeKernel",
+                                    "cudaLaunchKernelExC"))
+    empties = sum(e.count for e in events if e.key == "aten::empty")
+    print(f"per_pass device_ops={sum(e.count for e in dev)} "
+          f"launch_calls={launch_calls} aten_empty={empties}")
     print("--- device time by kernel / op")
     ranked = sorted(dev, key=lambda e: e.self_device_time_total,
                     reverse=True)
