@@ -81,7 +81,22 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      1 Mbp quality-gate dataset with G=1e6, M=3, r=0.75, track_time=1,
      printing each stage's seconds, the final assembly's stats (its total
      within [0.8, 1.8] x G) and the launches of K20 and K21, each of which
-     must launch in (a) or (b).
+     must launch in (a) or (b);
+  7. genome scale, the compressed filter past 2^32 slots: (a) the
+     fixture's "superblocks" digests (silver and golden paths of the 1 Mbp
+     gate dataset at 4,603,242,496 slots, two superblocks: exact with
+     slot_map "mod" and "fastrange", the throughput cell with "mod");
+     (b) the bench reads with hash_universe=6e9 (56,947,329,536 slots, 14
+     superblocks, ~62 GB on the card), slot_map "mod", one silver pass in
+     exact mode and one in the throughput cell: supers and pop against a
+     plain per-superblock popcount of the bitmap, 2^20+ rank lookups
+     against host int64 arithmetic, the first two consume batches against
+     consume_batch_plain (on the host), and the sizes, the freeze's kernel
+     times against their bounds, reads/s and peak memory printed; every
+     launch count zeroed before (a) and read after (b); (c) ranks at or
+     above 2^32: an all-ones bitmap of 2^32 + 2^26 slots frozen, its rank
+     grid, one exact insert and one insert_max against their plain
+     versions.
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -234,6 +249,17 @@ def vote_bytes(grid, ok, T: int, K: int, limit: int, ranked: bool) -> int:
         ok.sum() * H
     return (grid.numel() * 8 + ok.numel() + 4 * int(reads)
             + B * T * 13 + 2 * B * T * K * 4 + 3 * B * 8)
+
+
+def scan_bytes(blocks: int, n_super: int) -> int:
+    """rank_scan: the block totals read and their carries written, each
+    superblock's total written and read back, its base written, pop."""
+    return 16 * blocks + 24 * n_super + 8
+
+
+def carry_bytes(nw: int, blocks: int) -> int:
+    """rank_carry: the words' ranks read and written, the carries read."""
+    return 16 * nw + 8 * blocks + 8
 
 
 def classify_bytes(B: int, T: int, K: int) -> int:
@@ -1028,6 +1054,40 @@ def phase_build():
         library=os.path.relpath(so, REPO))
 
 
+def freeze_steps(bk, tk, bp, tp, size: int) -> dict:
+    """rank_scan and rank_carry after rank_pack (bitrank and totals from
+    the kernel, bk/tk, and from the plain version, bp/tp), each against
+    its plain version and timed: their records."""
+    from goldrush_tpu_torch.mibf import compressed as cz
+    out = {}
+    nw = -(-size // 32)
+    # the scan turns the totals into carries in place: timed on a copy
+    scratch = tk.clone()
+    sk, pop = cz.rank_scan(tk, size)
+    sp, pop_p = cz._rank_scan_plain(tp, size)
+    err = max(max_abs_err([(tk, tp), (sk, sp)]), abs(pop - pop_p))
+    ms = cuda_ms(lambda: cz._rank_scan_cuda(scratch, size), 20)
+    pms = cuda_ms(lambda: cz._rank_scan_plain(scratch, size), 3)
+    out["rank_scan"] = checked(err, ms, pms, scan_bytes(tk.numel(),
+                                                        sk.numel()))
+    say("kernels", kernel="rank_scan", blocks=tk.numel(),
+        superblocks=sk.numel(), present=pop, max_abs_err=err,
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+        bound_ms=f"{out['rank_scan']['bound_ms']:.6f}")
+    # timed on a scratch copy: each call adds its carries again
+    scratch = bk.clone()
+    cz.rank_carry(bk, tk)
+    cz._rank_carry_plain(bp, tp)
+    err = max_abs_err([(bk, bp)])
+    ms = cuda_ms(lambda: cz._rank_carry_cuda(scratch, tk), 20)
+    pms = cuda_ms(lambda: cz._rank_carry_plain(scratch, tk), 3)
+    out["rank_carry"] = checked(err, ms, pms, carry_bytes(nw, tk.numel()))
+    say("kernels", kernel="rank_carry", max_abs_err=err,
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+        bound_ms=f"{out['rank_carry']['bound_ms']:.4f}")
+    return out
+
+
 def phase_kernels(own: bool = True) -> dict:
     """Each kernel vs its plain version at the slice's shapes; with `own`
     also the consume kernel, which an earlier tree of the port (timed by
@@ -1266,20 +1326,11 @@ def phase_kernels(own: bool = True) -> dict:
         ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
         bound_ms=f"{out['rank_pack']['bound_ms']:.4f}")
     del pass_words, pass_bits
-    # timed on a scratch copy: each call adds its carry again
-    scratch = bk.clone()
-    pop = cz.rank_carry(bk, tk)
-    pop_p = int(cz._rank_carry_plain(bp, tp))
-    err = max(max_abs_err([(bk, bp)]), abs(pop - pop_p))
-    ms = cuda_ms(lambda: cz._rank_carry_cuda(scratch, tk), 20)
-    pms = cuda_ms(lambda: cz._rank_carry_plain(scratch, tk), 3)
-    # the words' ranks read and written, the block totals read
-    out["rank_carry"] = checked(err, ms, pms, 2 * nw * 8 + tk.numel() * 8
-                                + 8)
-    say("kernels", kernel="rank_carry", present=pop, max_abs_err=err,
-        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
-        bound_ms=f"{out['rank_carry']['bound_ms']:.4f}")
-    del scratch, bp, tp, bk, tk
+    # the scan and the add (an earlier tree of the port, timed by --ab,
+    # carried without superblocks: it has neither)
+    if hasattr(cz, "rank_scan"):
+        out.update(freeze_steps(bk, tk, bp, tp, size))
+    del bp, tp, bk, tk
     # the filter of the grid's batch, frozen (freeze: its words' bits packed
     # by plain torch ops, then rank_pack and rank_carry); the plain rank map
     cs_k = cz.freeze(st_k.words, size)
@@ -1424,7 +1475,8 @@ def phase_e2e() -> dict:
             want.update(presence_merge=passes, seed_hash_rank_grid=0)
         else:
             want.update(presence_merge=0, seed_hash_grid=0,
-                        rank_pack=passes, rank_carry=passes)
+                        rank_pack=passes, rank_scan=passes,
+                        rank_carry=passes)
         if any(got[k] != n or called.get(k, n) != n
                for k, n in want.items()):
             raise AssertionError(f"{mode}: launches {got} for wrapper calls "
@@ -1740,6 +1792,496 @@ def phase_pipeline() -> dict:
     return launches
 
 
+GENOME_UNIVERSE = 6_000_000_000      # 56,947,329,536 slots, 14 superblocks
+HIGH_SLOTS = (1 << 32) + (1 << 26)   # phase 7(c)'s all-ones filter
+
+
+def plain_popcount_supers(bits, size: int):
+    """The plain per-superblock popcount of a presence bitmap on the card,
+    one superblock (2^27 words, 512 MB) at a time: (the exclusive prefix of
+    the superblocks' counts, their sum), both int64 on the host."""
+    import torch
+    from goldrush_tpu_torch.mibf import compressed as cz
+    words = 1 << (cz.SUPER_BITS - 5)
+    counts = []
+    for w0 in range(0, bits.shape[0], words):
+        chunk = bits[w0: w0 + words].clone()
+        if w0 + words >= bits.shape[0] and size % 32:
+            chunk[-1] &= (1 << (size % 32)) - 1
+        counts.append(int(cz._popcount32_(chunk).sum(dtype=torch.int64)))
+        del chunk
+    prefix = [sum(counts[:s]) for s in range(len(counts))]
+    return prefix, sum(counts)
+
+
+def host_ranks(slots, words, supers, size: int, sentinel: int):
+    """Ranks of int64 slots in numpy int64 arithmetic on the host, from
+    each slot's bitrank word (`words`, bitrank[slot >> 5] as int64) and the
+    superblock bases: the rank of a present slot, the sentinel for absent
+    and invalid ones."""
+    import numpy as np
+    ok = (slots >= 0) & (slots < size)
+    e = words.view(np.uint64)
+    bit = (slots & 31).astype(np.uint64)
+    bits = e & np.uint64(0xFFFFFFFF)
+    present = ok & (((bits >> bit) & np.uint64(1)) == 1)
+    below = bits & ((np.uint64(1) << bit) - np.uint64(1))
+    pc = np.zeros(below.shape, np.int64)
+    for j in range(32):
+        pc += ((below >> np.uint64(j)) & np.uint64(1)).astype(np.int64)
+    sup = supers[np.clip(slots >> 32, 0, supers.shape[0] - 1)]
+    rank = sup + (e >> np.uint64(32)).astype(np.int64) + pc
+    return np.where(present, rank, sentinel)
+
+
+def genome_digests(fx: dict) -> None:
+    """7(a): the port's silver and golden paths on the 1 Mbp gate dataset
+    (written by phase 5) at 4,603,242,496 slots, in the fixture's three
+    "superblocks" cases, against the JAX package's digests."""
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    sb = fx["superblocks"]
+    fq = os.path.join(WORK, "qgate.fq")
+    for tag, case in sb["cases"].items():
+        extra = {**sb["engine"], **case}
+        prefix = os.path.join(WORK, f"super_{tag}")
+        t0 = time.time()
+        st = Engine(PathConfig(input=fq, prefix_file=prefix, **fx["engine"],
+                               **extra), device="cuda").run()
+        silver = {}
+        with open(prefix + "_all.fq", "wb") as cat:
+            for i in range(1, fx["engine"]["max_paths"] + 1):
+                p = f"{prefix}_{i}.fq"
+                if os.path.exists(p):
+                    silver[str(i)] = sha256_file(p)
+                    with open(p, "rb") as f:
+                        cat.write(f.read())
+        gold = Engine(PathConfig(
+            input=prefix + "_all.fq", prefix_file=prefix + "_golden",
+            **{**fx["engine"], "silver_path": False, "min_length": 0},
+            **extra), device="cuda").run()
+        got = {"recruits": st.recruits,
+               "paths_completed": st.paths_completed, "silver": silver,
+               "golden": sha256_file(prefix + "_golden.fa"),
+               "golden_recruits": gold.recruits}
+        say("genome", part="a", case=tag, files=len(silver) + 1,
+            recruits=st.recruits, golden_recruits=gold.recruits,
+            seconds=f"{time.time() - t0:.1f}", match=got == sb[tag])
+        if got != sb[tag]:
+            raise AssertionError(f"superblocks {tag}: {got} vs {sb[tag]}")
+
+
+class FreezeProbe:
+    """Wraps the freeze's three steps while one engine fills: the plain
+    per-superblock popcount of the bitmap before rank_pack reads it, the
+    supers and pop rank_scan returns, and each step's time between CUDA
+    events."""
+
+    def __init__(self, size: int):
+        from goldrush_tpu_torch.mibf import compressed as cz
+        self.cz, self.size = cz, size
+        self.real = {n: getattr(cz, n) for n in
+                     ("rank_pack", "rank_scan", "rank_carry")}
+        self.ms, self.plain, self.got = {}, None, None
+        self.check_s = 0.0
+
+    def timed(self, name):
+        import torch
+
+        def call(*args):
+            if name == "rank_pack":
+                t0 = time.time()
+                self.plain = plain_popcount_supers(args[0], self.size)
+                self.check_s = time.time() - t0
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real[name](*args)
+            stop.record()
+            torch.cuda.synchronize()
+            self.ms[name] = start.elapsed_time(stop)
+            if name == "rank_scan":
+                self.got = (out[0].tolist(), out[1])
+            return out
+        return call
+
+    def __enter__(self):
+        for n in self.real:
+            setattr(self.cz, n, self.timed(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.cz, n, fn)
+
+
+class ConsumeProbe:
+    """Wraps the engine's consume_batch: the first `n` batches of a pass
+    also run consume_batch_plain on host copies of their inputs, from host
+    tables that start as the fresh filter's (zeros); each batch's rows,
+    scal and counters, and after the n-th the whole id and counter tables,
+    must equal.  The seconds the checks take are kept apart."""
+
+    def __init__(self, n: int = 2):
+        from goldrush_tpu_torch.path import engine as em
+        self.em, self.n, self.real = em, n, em.consume_batch
+        self.batches, self.check_s, self.host = 0, 0.0, None
+        self.plain_s = self.compare_s = 0.0
+
+    def call(self, spec, state, *args):
+        import torch
+        from goldrush_tpu_torch.mibf import compressed as cz
+        from goldrush_tpu_torch.path import consume as tcons
+        if self.batches >= self.n:
+            return self.real(spec, state, *args)
+        t0 = time.time()
+        *inputs, scal, rows, counters, T = args
+        if self.host is None:
+            self.host = cz.CompressedState(
+                torch.empty(0, dtype=torch.int64),
+                torch.empty(0, dtype=torch.int64),
+                torch.zeros(state.ids.shape, dtype=torch.int32),
+                torch.zeros(state.counts.shape, dtype=torch.int32))
+            self.scal, self.counters = scal.cpu(), counters.cpu()
+        host_in = [t.cpu() for t in inputs]
+        rows_p = torch.empty(rows.shape, dtype=torch.int64)
+        self.check_s += time.time() - t0
+        self.real(spec, state, *args)
+        t0 = time.time()
+        tcons.consume_batch_plain(spec, self.host, *host_in, self.scal,
+                                  rows_p, self.counters, T)
+        self.plain_s += time.time() - t0
+        self.batches += 1
+        same = (torch.equal(rows.cpu(), rows_p)
+                and torch.equal(scal.cpu(), self.scal)
+                and torch.equal(counters.cpu(), self.counters))
+        if same and self.batches == self.n:
+            t1 = time.time()
+            same = (tables_equal(state.ids, self.host.ids)
+                    and tables_equal(state.counts, self.host.counts))
+            self.host = None
+            self.compare_s = time.time() - t1
+        self.check_s += time.time() - t0
+        if not same:
+            raise AssertionError(f"consume batch {self.batches} differs "
+                                 "from consume_batch_plain")
+
+    def __enter__(self):
+        self.em.consume_batch = self.call
+        return self
+
+    def __exit__(self, *exc):
+        self.em.consume_batch = self.real
+        self.host = None
+
+
+def rank_lookup_check(eng, reads: str) -> int:
+    """2^20+ rank lookups through kernel A's rank grid: 9 reads of the
+    engine's input `reads` (present slots) and 9 random ones (absent slots;
+    four of them short, so frames are invalid), 18 x 3 seeds x 20,000
+    frames, against host int64 arithmetic on bitrank and supers.  Every
+    superblock must hold present and absent lookups and the sentinel must
+    appear.  The grid is also timed at this filter's size.  The check's
+    launches are not counted.  Returns the number of lookups, the grid's
+    ms and its bound (codes in, ranks and frame_ok out, each distinct
+    bitrank word and superblock base gathered once)."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.io import fastq
+    from goldrush_tpu_torch.mibf import compressed as cz
+    from goldrush_tpu_torch.mibf import mibf as dm
+    dev = torch.device("cuda", 0)
+    T, TL = 20, eng.cfg.tile_length
+    codes = np.zeros((18, T * TL + TL), np.uint8)
+    for i, r in enumerate(fastq.read_records(reads)):
+        if i == 9:
+            break
+        codes[i, : min(len(r.seq), T * TL)] = \
+            fastq.encode(r.seq)[: T * TL]
+    rng = np.random.default_rng(31)
+    codes[9:, : T * TL] = rng.integers(0, 4, (9, T * TL), dtype=np.uint8)
+    lengths = np.full(18, T * TL, np.int32)
+    lengths[14:] = [999, 5_500, 12_345, 1_000]
+    codes, lengths = torch.from_numpy(codes).to(dev), \
+        torch.from_numpy(lengths).to(dev)
+    p, cs = eng.params_full, eng.cstate
+    before = kernels.SEED_HASH_RANK_GRID.launches
+    ranks, ok = cz.build_rank_grid(cs, codes, lengths, eng.fam_ins, p, T)
+    ms = cuda_ms(lambda: cz.build_rank_grid(cs, codes, lengths, eng.fam_ins,
+                                            p, T), 20)
+    kernels.SEED_HASH_RANK_GRID.launches = before
+    slots, ok_p = dm._build_slot_grid_plain(codes, lengths, eng.fam_ins, p,
+                                            T)
+    # the words gathered on the card, the arithmetic on the host
+    nw = cs.bitrank.shape[0] - 1
+    words = cs.bitrank[torch.where(slots < p.size, slots >> 5, nw)]
+    sl, got = slots.cpu().numpy(), ranks.cpu().numpy()
+    sup = cs.supers.cpu().numpy()
+    want = host_ranks(sl, words.cpu().numpy(), sup, p.size, cs.sentinel)
+    present = want != cs.sentinel
+    cover = [(int((present & (sl >> 32 == s)).sum()),
+              int((~present & (sl >> 32 == s) & (sl < p.size)).sum()))
+             for s in range(sup.shape[0])]
+    if (not np.array_equal(got, want) or not torch.equal(ok.cpu(), ok_p.cpu())
+            or any(a == 0 or b == 0 for a, b in cover)
+            or not (got == cs.sentinel).any()):
+        raise AssertionError(f"rank grid at {p.size} slots: "
+                             f"{int((got != want).sum())} lookups differ, "
+                             f"cover {cover}")
+    real = sl[sl < p.size]
+    nbytes = (codes.numel() + lengths.numel() * 4 + got.size * 8 + ok.numel()
+              + np.unique(real >> 5).size * 8 + sup.size * 8)
+    return got.size, ms, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def genome_bench() -> dict:
+    """7(b): the bench reads (written by phase 4) through GoldenPathEngine
+    with the compressed filter sized for a ~2 Gbp genome
+    (hash_universe=6e9: 56,947,329,536 slots, 14 superblocks, slot_map
+    "mod"), one silver pass in exact mode and one in the throughput cell.
+    Checks the freeze's supers and pop against a plain popcount of the
+    bitmap, 2^20+ rank lookups against host arithmetic and the first two
+    consume batches against consume_batch_plain; prints the sizes, times,
+    reads/s and peak memory (the times less the checks').  Returns the
+    freeze kernels' times and bounds, keyed by kernel."""
+    import torch
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.mibf import compressed as cz
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    reads = os.path.join(WORK, "bench_reads.fq")
+    rec = {}
+    for cell, extra in (("exact", {}), ("throughput", THROUGHPUT)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        eng = Engine(PathConfig(input=reads,
+                                prefix_file=os.path.join(WORK, f"g_{cell}"),
+                                mibf_mode="compressed", slot_map="mod",
+                                hash_universe=GENOME_UNIVERSE,
+                                **BENCH_ENGINE, **extra), device="cuda")
+        init_s = time.time() - t0
+        with FreezeProbe(eng.size) as fp, ConsumeProbe(2) as cp:
+            st = eng.run()
+        cs = eng.cstate
+        supers = cs.supers.tolist()
+        if (fp.got != (fp.plain[0], fp.plain[1]) or supers != fp.plain[0]
+                or len(supers) != 14 or cp.batches != 2):
+            raise AssertionError(f"{cell}: supers/pop {fp.got} vs the "
+                                 f"bitmap's {fp.plain}, {cp.batches} "
+                                 "batches checked")
+        lookups, grid_ms, grid_bound = rank_lookup_check(eng, reads)
+        net = st.wall_assign_s - cp.check_s
+        # the bitmap in, bitrank and the block totals out
+        blocks = -(-eng.size // cz.RANK_BLOCK_SLOTS)
+        pack_bytes = ((-(-eng.size // 32)) * 4 + cs.bitrank.numel() * 8
+                      + blocks * 8)
+        bound = {"rank_pack": pack_bytes,
+                 "rank_scan": scan_bytes(blocks, len(supers)),
+                 "rank_carry": carry_bytes(cs.bitrank.numel() - 1, blocks)}
+        say("genome", part="b", cell=cell, size=eng.size,
+            n_super=len(supers), pop=fp.got[1], alloc=cs.ids.numel(),
+            init_s=f"{init_s:.3f}",
+            fill_s=f"{st.wall_fill_s - fp.check_s:.3f}",
+            fill_stream_s=f"{st.wall_fill_stream_s:.3f}",
+            freeze_s=f"{st.wall_freeze_s - fp.check_s:.3f}",
+            freeze_check_s=f"{fp.check_s:.3f}",
+            **{f"{k}_ms": f"{v:.4f}" for k, v in fp.ms.items()},
+            **{f"{k}_bound_ms": f"{v / HBM_BYTES_PER_S * 1e3:.4f}"
+               for k, v in bound.items()},
+            assign_s=f"{st.wall_assign_s:.3f}",
+            consume_check_s=f"{cp.check_s:.3f}",
+            consume_plain_s=f"{cp.plain_s:.3f}",
+            table_compare_s=f"{cp.compare_s:.3f}",
+            reads=st.num_reads, recruits=st.recruits,
+            reads_per_s=f"{st.num_reads / max(net, 1e-9):.2f}",
+            paths_completed=st.paths_completed, rank_lookups=lookups,
+            rank_grid_ms=f"{grid_ms:.4f}",
+            rank_grid_bound_ms=f"{grid_bound:.4f}",
+            max_memory_allocated=st.device_peak_bytes)
+        if st.recruits <= 0 or not 0 < st.device_peak_bytes < 80e9:
+            raise AssertionError(f"{cell}: {st.recruits} recruits, peak "
+                                 f"{st.device_peak_bytes}")
+        for k, v in fp.ms.items():
+            rec.setdefault(k, {}).update({
+                f"ms_genome_{cell}": v,
+                f"bound_ms_genome_{cell}": bound[k] / HBM_BYTES_PER_S * 1e3})
+        rec.setdefault("seed_hash_rank_grid", {}).update({
+            f"ms_genome_{cell}": grid_ms,
+            f"bound_ms_genome_{cell}": grid_bound})
+        del eng, cs
+        gc_cuda()
+    return rec
+
+
+def tables_equal(dev_t, host_t) -> bool:
+    """Whether a table on the card equals one on the host, 2^24 entries at
+    a time: the same number of nonzero entries, and the card's values at
+    the host's nonzero positions (the tables of a fresh filter are zero but
+    for the few entries inserts wrote, and a filter-sized copy to the host
+    takes ~13 s per table)."""
+    import torch
+    step = 1 << 24     # the card's temporaries stay below 0.2 GB
+    for a in range(0, dev_t.shape[0], step):
+        h = host_t[a: a + step]
+        d = dev_t[a: a + step]
+        idx = torch.nonzero(h).flatten()
+        if (int(torch.count_nonzero(d)) != idx.numel()
+                or not torch.equal(d[idx.to(d.device)].cpu(), h[idx])):
+            return False
+    return True
+
+
+def table_sum(t) -> int:
+    """The int64 sum of a filter-sized int32 table, 2^28 entries at a time
+    (a whole-table sum would widen it to int64 first: 35 GB here)."""
+    import torch
+    step = 1 << 28
+    return sum(int(t[a: a + step].sum(dtype=torch.int64))
+               for a in range(0, t.shape[0], step))
+
+
+def gc_cuda() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def genome_high_ranks() -> None:
+    """7(c): ranks at or above 2^32, which 7(b)'s reads never reach.  An
+    all-ones bitmap of 2^32 + 2^26 slots (pop > 2^32, ~35 GB of tables)
+    frozen by the kernels and by the plain versions; kernel A's rank grid
+    against its plain version (every slot present: rank = slot); kernel D
+    and insert_max on a recruit grid of ranks above 2^32, with pairs of
+    keys 2^32 apart (equal low 32 bits), against their plain versions on
+    host tables."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch.mibf import compressed as cz
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.ops.nthash import build_seed_family
+    from goldrush_tpu_torch.ops.seeds import make_seed_pattern
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+    size = HIGH_SLOTS
+    bits = torch.full((size // 32,), -1, dtype=torch.int32, device=dev)
+    bitrank, supers, pop = cz.build_rank(bits, size)
+    bp, tp = cz._rank_pack_plain(bits, size)
+    sp, pop_p = cz._rank_scan_plain(tp, size)
+    cz._rank_carry_plain(bp, tp)
+    if (not torch.equal(bitrank, bp) or not torch.equal(supers, sp)
+            or pop != pop_p or pop != size or supers.tolist() != [0, 1 << 32]):
+        raise AssertionError(f"all-ones freeze: pop {pop} / {pop_p}, supers "
+                             f"{supers.tolist()} / {sp.tolist()}")
+    del bits, bp, tp, sp
+    cs = cz.with_tables(bitrank, supers, pop, size)
+    fam = build_seed_family(make_seed_pattern(PRESET, 22, 16, 3))
+    T, TL = 20, 1000
+    params = dm.MibfParams(size=size, h=3, k=22, spans=fam.spans,
+                           tile_length=TL, threshold=10, block_size=10,
+                           vote_topk=32, slot_map="mod")
+    g = torch.Generator(device=dev)
+    g.manual_seed(41)
+    codes = torch.randint(0, 4, (32, T * TL + TL), dtype=torch.uint8,
+                          device=dev, generator=g)
+    lengths = torch.full((32,), T * TL, dtype=torch.int32, device=dev)
+    ranks, ok = cz.build_rank_grid(cs, codes, lengths, fam, params, T)
+    want, ok_p = cz._build_rank_grid_plain(cs, codes, lengths, fam, params, T)
+    slots, _ = dm._build_slot_grid_plain(codes, lengths, fam, params, T)
+    high = int((ranks >= 1 << 32).sum())
+    if (not torch.equal(ranks, want) or not torch.equal(ok, ok_p)
+            or not torch.equal(ranks, torch.where(ok[:, None], slots,
+                                                  cs.sentinel))
+            or high == 0):
+        raise AssertionError(f"rank grid at ranks >= 2^32: {high} high "
+                             f"ranks, {int((ranks != want).sum())} differ")
+    # a recruit's grid [3, T*TL] of ranks: most above 2^32, and keys r and
+    # r + 2^32 side by side, some repeated, some sentinels
+    F = TL
+    gen = torch.Generator().manual_seed(43)
+    low = torch.randint(0, 1 << 26, (3, T * F // 2), generator=gen)
+    grid = torch.stack([low + (1 << 32), low], dim=2).reshape(3, T * F)
+    grid[:, ::97] = grid[:, :1]
+    grid[:, 5::101] = cs.sentinel
+    grid[1] = torch.where(torch.rand(T * F, generator=gen) < 0.5,
+                          torch.randint(1 << 32, size, (T * F,),
+                                        generator=gen), grid[1])
+    grid_d = grid.to(dev)
+    keys = torch.unique(grid[grid < cs.sentinel])
+    keys_d = keys.to(dev)
+    host_ids = torch.zeros(cs.ids.shape, dtype=torch.int32)
+    host_counts = torch.zeros(cs.counts.shape, dtype=torch.int32)
+    times = {}
+    for lo, hi, base, trimmed in ((0, T - 1, 1, False), (3, 14, 50, True),
+                                  (0, T - 1, 90, False)):
+        t0 = time.time()
+        dm.insert_blocks(cs.ids, cs.counts, grid_d, lo, hi, base, trimmed,
+                         params, T, cs.sentinel, 0)
+        torch.cuda.synchronize()
+        times.setdefault("insert_sorted_s", time.time() - t0)
+        dm._insert_plain(host_ids, host_counts, grid, lo, hi, base, trimmed,
+                         params, T, cs.sentinel, 0)
+    same = (torch.equal(cs.ids[keys_d].cpu(), host_ids[keys])
+            and torch.equal(cs.counts[keys_d].cpu(), host_counts[keys])
+            and table_sum(cs.ids) == int(host_ids[keys].long().sum())
+            and table_sum(cs.counts) == int(host_counts[keys].long().sum()))
+    accepted = int((host_ids[keys[keys >= 1 << 32]] != 0).sum())
+    cs.ids.zero_()
+    host_ids = torch.zeros(cs.ids.shape, dtype=torch.int32)
+    t0 = time.time()
+    dm.insert_max(cs.ids, grid_d, 0, T - 1, 1_000, False, params, T,
+                  cs.sentinel, 0)
+    torch.cuda.synchronize()
+    times["insert_max_s"] = time.time() - t0
+    dm._insert_max_plain(host_ids, grid, 0, T - 1, 1_000, False,
+                         params.block_size, T, cs.sentinel, 0)
+    same_max = (torch.equal(cs.ids[keys_d].cpu(), host_ids[keys])
+                and table_sum(cs.ids) == int(host_ids[keys].long().sum()))
+    say("genome", part="c", size=size, pop=pop, alloc=cs.ids.numel(),
+        high_ranks_in_grid=high, keys=keys.numel(),
+        keys_above_2_32=int((keys >= 1 << 32).sum()),
+        accepted_above_2_32=accepted, insert_sorted_ok=same,
+        insert_max_ok=same_max,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        **{k: f"{v:.4f}" for k, v in times.items()})
+    if not (same and same_max and accepted > 0):
+        raise AssertionError("inserts at ranks >= 2^32 differ from their "
+                             "plain versions")
+    del cs, bitrank, supers, host_ids, host_counts
+    gc_cuda()
+
+
+def phase_genome() -> dict:
+    """Phase 7, the genome scale: (a) the "superblocks" digests, (b) the
+    bench reads at 56,947,329,536 slots in both cells, every launch count
+    zeroed just before (a) and read just after (b), (c) ranks at or above
+    2^32.  Every kernel of the compressed path must launch in (a) and
+    (b).  Returns the launch counts and the freeze kernels' times at 14
+    superblocks."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    gc_cuda()
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "torch_port_digests.json")) as f:
+        fx = json.load(f)
+    say("genome", allocated_before=torch.cuda.memory_allocated())
+    for k in kernels.ALL + (kernels.INSERT_SORTED, kernels.INSERT_MAX):
+        k.launches = 0
+    genome_digests(fx)
+    freeze = genome_bench()
+    launches = {k.name: k.launches for k in kernels.ALL}
+    say("genome", launches=json.dumps(launches).replace(" ", ""))
+    compressed = ("seed_hash_fill", "seed_hash_rank_grid", "rank_pack",
+                  "rank_scan", "rank_carry", "probe_vote", "classify",
+                  "consume")
+    missing = [k for k in compressed if launches[k] <= 0]
+    if missing or launches["presence_merge"] or launches["seed_hash_grid"]:
+        raise AssertionError(f"genome path: launches {launches}")
+    genome_high_ranks()
+    return launches, freeze
+
+
 def phase_ab(earlier: str) -> None:
     """Phase 3 of the tree `earlier` and of this checkout in turns (earlier,
     this, this, earlier), each in a process of its own; prints every
@@ -1802,9 +2344,13 @@ def main(argv: list[str]) -> int:
         throughput = phase_throughput()
         phase_digests()
         pipeline = phase_pipeline()
+        genome, freeze = phase_genome()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    runs = {"exact": exact, "throughput": throughput, "pipeline": pipeline}
+    runs = {"exact": exact, "throughput": throughput, "pipeline": pipeline,
+            "genome": genome}
+    for name, rec in freeze.items():
+        checks[name].update(rec)
     # kernel D's and insert_max's code runs inside the consume kernel: their
     # standalone launches' checks and times go with its record
     for inner in ("insert_sorted", "insert_max"):

@@ -8,7 +8,10 @@
 
 namespace gr {
 
-// The CTA (of `parts`) that owns key k < 2^32 (mibf.py insert_part).
+// The CTA (of `parts`) that owns key k (mibf.py insert_part): a hash of
+// its low 32 bits, so keys that differ only at or above bit 32 (ranks of a
+// filter with more than 2^32 present slots) may share a CTA, which tells
+// them apart by the whole key.
 __device__ __forceinline__ uint32_t part_of(int64_t k, uint32_t parts) {
   return __umulhi(static_cast<uint32_t>(k) * 0x9E3779B1u, parts);
 }
@@ -38,8 +41,9 @@ __device__ void stream_window(const int64_t* __restrict__ slots, int H,
   }
 }
 
-// Kernel D's sort entry of the window entry `key` at grid column c:
-// key << 16 | m, m = (c / F - lo) / bs the tile's block.
+// Kernel D's sort entry of the window entry `key` (below 2^48, which the
+// wrappers check) at grid column c: key << 16 | m, m = (c / F - lo) / bs
+// the tile's block.
 __device__ __forceinline__ uint64_t insert_entry(int64_t key, int c, int F,
                                                  int lo, int bs) {
   return (static_cast<uint64_t>(key) << 16) |
@@ -90,8 +94,8 @@ __device__ void insert_owned(uint32_t* words, uint32_t* counts,
   __syncthreads();
   block_bitonic_sort(buf, n2);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const uint32_t key = static_cast<uint32_t>(buf[i] >> 16);
-    if (i > 0 && static_cast<uint32_t>(buf[i - 1] >> 16) == key) continue;
+    const uint64_t key = buf[i] >> 16;
+    if (i > 0 && buf[i - 1] >> 16 == key) continue;
     uint32_t before;
     if constexpr (kFused) {
       before = __ldcg(counts + key);
@@ -100,14 +104,15 @@ __device__ void insert_owned(uint32_t* words, uint32_t* counts,
     }
     uint32_t j = 0, id_won = 0;
     bool won = false;
-    for (int k = i; k < n && static_cast<uint32_t>(buf[k] >> 16) == key;
-         ++k) {
+    for (int k = i; k < n && buf[k] >> 16 == key; ++k) {
       if (k > i && buf[k] == buf[k - 1]) continue;
       const uint32_t m = static_cast<uint32_t>(buf[k] & 0xFFFFu);
       const uint32_t b = static_cast<uint32_t>(bs);
       const uint32_t id = base + (trimmed ? (m * b + 1u) / b : m);
       const uint32_t cnt = before + ++j;
-      if ((key ^ id) % (cnt ? cnt : 1u) == cnt - 1u) {
+      // the accept rule keys on the key's low 32 bits, as the JAX
+      // package's u32(rank) ^ id does
+      if ((static_cast<uint32_t>(key) ^ id) % (cnt ? cnt : 1u) == cnt - 1u) {
         won = true;
         id_won = id;
       }

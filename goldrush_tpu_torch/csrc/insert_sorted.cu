@@ -23,7 +23,9 @@
 // the recruit:
 //   1. every CTA streams the whole window grid[:, lo*F : (hi+1)*F] from L2
 //      (16-byte loads where aligned) and appends each entry it owns to its
-//      shared memory as (key << 16 | m), m = (t - lo) / bs;
+//      shared memory as (key << 16 | m), m = (t - lo) / bs, in 64 bits: a
+//      rank at or above 2^32 (a filter of more than 2^32 present slots)
+//      keeps its high bits;
 //   2. each CTA sorts its entries (bitonic, in shared memory): a key's
 //      entries become one run in ascending m, repeated (key, m) side by
 //      side;

@@ -55,15 +55,19 @@
 //    (slots written, read back) and its launch.  Registers decide how many
 //    of the 640 CTAs of a B=32, T=20 grid run at once (four per SM at 62
 //    registers a thread: two waves), so the gathers are issued in groups
-//    of kGather seeds;
+//    of kGather seeds.  A filter of 2^32 slots or more also reads its
+//    slot's superblock base, supers[slot >> 32], from a table of a few
+//    entries (14 at 56,947,329,536 slots) that stays in L1;
 //  - fill: one CTA per (read, chunk of 1,024 positions); a CTA whose chunk
 //    starts past the read's last frame returns at once, so the padding of
 //    the power-of-two batch width costs nothing.  Each valid hash sets bit
 //    slot & 31 of word slot >> 5 of a ceil(size / 32)-word bitmap with a
 //    reduction (atomicOr whose result is unused): 17.8 MB at the bench's
 //    142 M slots, inside the 50 MB L2, where the direct words (570 MB)
-//    would take a DRAM read-modify-write per hash.  Bound: the reads'
-//    codes in and the bitmap words set out;
+//    would take a DRAM read-modify-write per hash.  At 56,947,329,536
+//    slots the bitmap is 7.1 GB and each set bit a DRAM sector's
+//    read-modify-write; its word index slot >> 5 is 64-bit.  Bound: the
+//    reads' codes in and the bitmap words set out;
 //  - merge: streams the bitmap once.  As the words' first write (the
 //    direct filter's pass 1, into memory allocated without a zero-fill) it
 //    stores every word of the allocation with no read, 16 bytes per thread:
@@ -77,6 +81,9 @@ namespace gr {
 constexpr int kThreads = 256;     // threads per CTA of every entry
 constexpr int kFillChunk = 1024;  // positions per CTA of the fill
 constexpr int kGather = 4;        // rank grid: seeds whose gathers overlap
+// what a grid entry stores: slots, ranks in a filter of one superblock
+// (below 2^32 slots), ranks in a filter of several
+constexpr int kSlots = 0, kRanks = 1, kRanksSupers = 2;
 
 // A seed family as the kernels read it: its scalars by value, its table
 // (SeedFamily.kernel_table: nl + nr care offsets, then (nl + nr) x 4 bases
@@ -163,9 +170,15 @@ __device__ __forceinline__ uint64_t canon(const Stage& st, ulonglong2 left,
   return fwd < rev ? fwd : rev;
 }
 
+// The slot map (mibf.py slot_of): h % size, or fastrange.  Below 2^32
+// slots fastrange is floor(h * size / 2^64), the exact high half; at 2^32
+// and more the JAX function's two partial products wrap in uint64, so its
+// slots stay below 2^32 (ROADMAP queue 3), and this computes the same wrap.
 __device__ __forceinline__ uint64_t slot_of(uint64_t h, uint64_t size,
                                             int mode) {
-  return mode ? h % size : __umul64hi(h, size);
+  if (mode) return h % size;
+  if (size >> 32 == 0) return __umul64hi(h, size);
+  return ((h >> 32) * size + (((h & 0xFFFFFFFFull) * size) >> 32)) >> 32;
 }
 
 // The slot seed s probes at valid frame fr of a tile with frames_t frames,
@@ -182,14 +195,17 @@ __device__ __forceinline__ uint64_t frame_slot(const Family& f,
   return slot_of(canon(st, left, p, s), size, mode);
 }
 
-// The rank of the slot at bit b of bitrank word e (rank.cu's layout: rank
-// of the word's first slot above, presence bits below), or `sentinel` if
-// the slot is absent.
+// The rank of the slot at bit b of bitrank word e in the superblock whose
+// base is `sup` (rank.cu's layout: the rank of the word's first slot
+// within its superblock above, presence bits below), or `sentinel` if the
+// slot is absent.
 __device__ __forceinline__ int64_t rank_in(unsigned long long e, unsigned b,
+                                           unsigned long long sup,
                                            int64_t sentinel) {
   const uint32_t bits = static_cast<uint32_t>(e);
   if (!((bits >> b) & 1u)) return sentinel;
-  return static_cast<int64_t>(e >> 32) + __popc(bits & ((1u << b) - 1u));
+  return static_cast<int64_t>(sup + (e >> 32)) +
+         __popc(bits & ((1u << b) - 1u));
 }
 
 // grid (T, B): one CTA per (read, tile).  Frame j < TL / S of tile t sits
@@ -203,16 +219,22 @@ __device__ __forceinline__ int64_t rank_in(unsigned long long e, unsigned b,
 // tile's staged window of m = frames_t right-half partials (an unclamped
 // frame reads partials f..f+s, a clamped one partial frames_t - 1).
 //
-// kRanked: store the rank of each slot in the frozen structure `bitrank`
-// instead, and `sentinel` for absent slots and invalid frames.  A thread
-// issues the gathers of up to kGather seeds of its frame before it uses
-// any (all h = 3 of the path's seeds); the words are held as (bitrank
-// word, bit) pairs, not slots, to keep registers for more CTAs per SM.
-template <bool kRanked>
+// kStore kRanks: store the rank of each slot in the frozen structure
+// (`bitrank`) instead, and `sentinel` for absent slots and invalid frames;
+// kRanksSupers: the same in a filter of n_super > 1 superblocks, adding
+// each slot's superblock base supers[slot >> 32].  A thread issues the
+// gathers of up to kGather seeds of its frame before it uses any (all h =
+// 3 of the path's seeds); the words are held as (bitrank word, bit) pairs,
+// with the base in kRanksSupers, not slots, to keep registers for more
+// CTAs per SM.  A filter of one superblock runs without the base's
+// registers: with them its B=32, T=20 grid took 0.0392 ms on an H100
+// against 0.0334 without (chip_smoke.py --ab).
+template <int kStore>
 __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
     const uint8_t* __restrict__ codes, int64_t L,
     const int* __restrict__ lengths, const Family f, int T, int TL, int S,
     int64_t size, int mode, const unsigned long long* __restrict__ bitrank,
+    const unsigned long long* __restrict__ supers, int64_t n_super,
     int64_t sentinel, int64_t* __restrict__ grid,
     bool* __restrict__ frame_ok) {
   extern __shared__ ulonglong2 smem[];
@@ -235,9 +257,9 @@ __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
     ok_row[j] = ok;
     ulonglong2 own = make_ulonglong2(0, 0);
     if (ok) own = left_at(f, st, fr);
-    if constexpr (kRanked) {
+    if constexpr (kStore != kSlots) {
       for (int s0 = 0; s0 < f.h; s0 += kGather) {
-        unsigned long long e[kGather] = {};
+        unsigned long long e[kGather] = {}, sup[kGather] = {};
         unsigned bit[kGather] = {};
 #pragma unroll
         for (int g = 0; g < kGather; ++g) {
@@ -246,13 +268,18 @@ __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
                 frame_slot(f, st, own, fr, frames_t, s0 + g, usize, mode);
             bit[g] = static_cast<unsigned>(slot & 31u);
             e[g] = bitrank[slot >> 5];
+            if constexpr (kStore == kRanksSupers) {
+              const uint64_t s = slot >> 32;
+              sup[g] = supers[s < static_cast<uint64_t>(n_super)
+                                  ? s : n_super - 1];
+            }
           }
         }
 #pragma unroll
         for (int g = 0; g < kGather; ++g) {
           if (s0 + g < f.h)
-            out[(s0 + g) * TF + j] = ok ? rank_in(e[g], bit[g], sentinel)
-                                        : sentinel;
+            out[(s0 + g) * TF + j] =
+                ok ? rank_in(e[g], bit[g], sup[g], sentinel) : sentinel;
         }
       }
     } else {
@@ -325,21 +352,23 @@ __global__ void __launch_bounds__(kThreads) presence_merge_kernel(
 }
 
 // Both grid entries: check the clamp invariant and the stride, and launch.
-template <bool kRanked>
+template <int kStore>
 int launch_grid(const uint8_t* codes, int64_t B, int64_t L, const int* lengths,
                 const Family& f, int T, int TL, int S, int64_t size, int mode,
-                const unsigned long long* bitrank, int64_t sentinel,
-                int64_t* grid, bool* frame_ok, cudaStream_t stream) {
+                const unsigned long long* bitrank,
+                const unsigned long long* supers, int64_t n_super,
+                int64_t sentinel, int64_t* grid, bool* frame_ok,
+                cudaStream_t stream) {
   if (TL < f.k + f.h - 1) return cudaErrorInvalidValue;  // the clamp invariant
   if (S < 1 || TL % S) return cudaErrorInvalidValue;
   if (B == 0 || T == 0) return kNoLaunch;
   const size_t smem = stage_bytes(f, TL);
-  const cudaError_t err = allow_smem(seed_hash_grid_kernel<kRanked>, smem);
+  const cudaError_t err = allow_smem(seed_hash_grid_kernel<kStore>, smem);
   if (err != cudaSuccess) return err;
   const dim3 blocks(static_cast<unsigned>(T), static_cast<unsigned>(B));
-  seed_hash_grid_kernel<kRanked><<<blocks, kThreads, smem, stream>>>(
-      codes, L, lengths, f, T, TL, S, size, mode, bitrank, sentinel, grid,
-      frame_ok);
+  seed_hash_grid_kernel<kStore><<<blocks, kThreads, smem, stream>>>(
+      codes, L, lengths, f, T, TL, S, size, mode, bitrank, supers, n_super,
+      sentinel, grid, frame_ok);
   return cudaGetLastError();
 }
 
@@ -359,22 +388,32 @@ int gr_seed_hash_grid(const uint8_t* codes, int64_t B, int64_t L,
                       int S, int64_t size, int mode, int64_t* slots,
                       bool* frame_ok, cudaStream_t stream) {
   const gr::Family f{h, k, half, nl, nr, pad, fam_table};
-  return gr::launch_grid<false>(codes, B, L, lengths, f, T, TL, S, size, mode,
-                                nullptr, 0, slots, frame_ok, stream);
+  return gr::launch_grid<gr::kSlots>(codes, B, L, lengths, f, T, TL, S, size,
+                                     mode, nullptr, nullptr, 0, 0, slots,
+                                     frame_ok, stream);
 }
 
-// bitrank: the frozen structure of a filter of `size` slots (ceil(size /
-// 32) + 1 words); sentinel: the rank absent slots and invalid frames get.
+// bitrank, supers: the frozen structure of a filter of `size` slots
+// (ceil(size / 32) + 1 words, n_super = ceil(size / 2^32) superblock
+// bases); sentinel: the rank absent slots and invalid frames get.
 int gr_seed_hash_rank_grid(const uint8_t* codes, int64_t B, int64_t L,
                            const int* lengths, const uint64_t* fam_table,
                            int h, int k, int half, int nl, int nr, int pad,
                            int T, int TL, int S, int64_t size, int mode,
                            const unsigned long long* bitrank,
+                           const unsigned long long* supers, int64_t n_super,
                            int64_t sentinel, int64_t* ranks, bool* frame_ok,
                            cudaStream_t stream) {
+  if (n_super < 1) return cudaErrorInvalidValue;
   const gr::Family f{h, k, half, nl, nr, pad, fam_table};
-  return gr::launch_grid<true>(codes, B, L, lengths, f, T, TL, S, size, mode,
-                               bitrank, sentinel, ranks, frame_ok, stream);
+  if (n_super == 1)
+    return gr::launch_grid<gr::kRanks>(codes, B, L, lengths, f, T, TL, S,
+                                       size, mode, bitrank, supers, n_super,
+                                       sentinel, ranks, frame_ok, stream);
+  return gr::launch_grid<gr::kRanksSupers>(codes, B, L, lengths, f, T, TL, S,
+                                           size, mode, bitrank, supers,
+                                           n_super, sentinel, ranks, frame_ok,
+                                           stream);
 }
 
 int gr_seed_hash_fill(const uint8_t* codes, int64_t B, int64_t L,

@@ -52,7 +52,8 @@ _SIGNATURES = {
     "gr_seed_hash_fill": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
                           _L, _I, _P, _P),
     "gr_seed_hash_rank_grid": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _L, _I, _P, _L, _P, _P, _P),
+                               _I, _I, _I, _L, _I, _P, _P, _L, _L, _P, _P,
+                               _P),
     "gr_presence_merge": (_P, _L, _P, _L, _I, _P),
     "gr_probe_vote": (_P, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
@@ -63,7 +64,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _P, _P),
     "gr_insert_max": (_P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I, _I, _P),
     "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
-    "gr_rank_carry": (_P, _P, _L, _P, _P),
+    "gr_rank_scan": (_P, _L, _P, _P, _P),
+    "gr_rank_carry": (_P, _P, _L, _P),
     "gr_minimizer_keys": (_P, _I, _L, _L, _I, _I, _P, _P),
     "gr_kmer_count": (_P, _I, _L, _P, _I, _Q, _P),
     "gr_kmer_query": (_P, _I, _L, _I, _Q, _P, _P),
@@ -185,7 +187,7 @@ SEED_HASH_RANK_GRID = Kernel(
 SEED_HASH_FILL = Kernel(
     "seed_hash_fill", "gr_seed_hash_fill",
     "goldrush_tpu_torch/csrc/seed_hash.cu",
-    "goldrush_tpu/mibf/mibf.py:122")
+    "goldrush_tpu/mibf/mibf.py:122; K12 goldrush_tpu/mibf/compressed.py:65")
 PRESENCE_MERGE = Kernel(
     "presence_merge", "gr_presence_merge",
     "goldrush_tpu_torch/csrc/seed_hash.cu",
@@ -207,7 +209,12 @@ INSERT_MAX = Kernel(
     "goldrush_tpu/mibf/mibf.py:638; goldrush_tpu/mibf/compressed.py:480")
 RANK_PACK = Kernel(
     "rank_pack", "gr_rank_pack", "goldrush_tpu_torch/csrc/rank.cu",
-    "tools/probe_pallas.py:82; goldrush_tpu/mibf/compressed.py:153")
+    "tools/probe_pallas.py:82; goldrush_tpu/mibf/compressed.py:153; K12 "
+    "goldrush_tpu/mibf/compressed.py:104, :90, :52")
+RANK_SCAN = Kernel(
+    "rank_scan", "gr_rank_scan", "goldrush_tpu_torch/csrc/rank.cu",
+    "tools/probe_pallas.py:128; goldrush_tpu/mibf/compressed.py:153-169 "
+    "(super_base); K12 goldrush_tpu/mibf/compressed.py:104, :90")
 RANK_CARRY = Kernel(
     "rank_carry", "gr_rank_carry", "goldrush_tpu_torch/csrc/rank.cu",
     "tools/probe_pallas.py:128; goldrush_tpu/mibf/compressed.py:153")
@@ -243,7 +250,7 @@ ROW_CUMMAX = Kernel(
 # standalone launches (held to their plain versions and timed on their own)
 # are not on the path, so not in ALL
 PATH = (SEED_HASH_GRID, SEED_HASH_RANK_GRID, SEED_HASH_FILL, PRESENCE_MERGE,
-        PROBE_VOTE, CLASSIFY, RANK_PACK, RANK_CARRY, CONSUME)
+        PROBE_VOTE, CLASSIFY, RANK_PACK, RANK_SCAN, RANK_CARRY, CONSUME)
 STAGES = (MINIMIZER_KEYS, KMER_COUNT, KMER_QUERY)
 ALL = PATH + STAGES
 

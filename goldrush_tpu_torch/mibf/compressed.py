@@ -3,27 +3,34 @@
 The layout is the JAX package's (goldrush_tpu/mibf/compressed.py), itself
 the reference's (MIBloomFilter.hpp:94-101, MIBFConstructSupport::setup()):
 
-  bitrank[w] = [63..32: present slots before slot 32w][31..0: presence bits
-               of slots 32w .. 32w+31], one zero word appended
-  supers     = the per-2^32-slot superblock bases (one, 0, below 2^32 slots)
+  bitrank[w] = [63..32: present slots before slot 32w within its superblock
+               of 2^32 slots][31..0: presence bits of slots 32w .. 32w+31],
+               one zero word appended
+  supers[s]  = present slots before superblock s (slots s * 2^32 ..): one
+               entry, 0, below 2^32 slots; 14 at 56,947,329,536 slots
   ids[rank], counts[rank] = block id and reservoir counter of the rank-th
                present slot; the last entry is the sentinel rank
 
 carried as int64 (bitrank, supers) and int32 (ids, counts) tensors holding
-the unsigned bits.  The engine fills presence into a bitmap of ceil(size /
-32) words (kernel A's fill), freezes the bitmap into this structure, and
-from then on hashes each batch straight to ranks once (kernel A's rank
-grid): probes and inserts read and write the rank-indexed tables through
-kernels B and D, keyed on the rank exactly like the reference's accept
-rule (MIBFConstructSupport.hpp:274-282).  The direct filter's words are
-never allocated.
+the unsigned bits; ranks are int64 everywhere, so a filter of more than
+2^32 present slots needs nothing else.  The engine fills presence into a
+bitmap of ceil(size / 32) words (kernel A's fill: the JAX package's
+byte-per-slot transient of ``fill_bytes``, a bit per slot here), freezes the
+bitmap into this structure (K12's ``freeze_device``), and from then on
+hashes each batch straight to ranks once (kernel A's rank grid): probes
+and inserts read and write the rank-indexed tables through kernels B and
+D, keyed on the rank exactly like the reference's accept rule
+(MIBFConstructSupport.hpp:274-282).  The direct filter's words are never
+allocated.
 
-Three functions own a kernel; each runs its plain PyTorch version for a CPU
+Four functions own a kernel; each runs its plain PyTorch version for a CPU
 tensor and its kernel for a CUDA tensor (or raises), and ``build_rank``
-chains the first two:
+chains the first three:
 
   rank_pack        popcount the bitmap, cumsum within 65,536-slot blocks
-  rank_carry       add each block's carry (the totals of the blocks before it)
+  rank_scan        the block totals -> each block's carry within its
+                   superblock, the superblock bases and the population
+  rank_carry       add each block's carry to its words
   build_rank_grid  hash a batch to its probe grid of ranks at any stride
                    (kernel A's rank grid entry); ``rank_grid`` is the plain
                    slot -> rank map
@@ -43,7 +50,15 @@ from . import mibf as dm
 
 SUPER_BITS = 32          # slots per superblock = 2^32
 RANK_BLOCK_SLOTS = 65_536   # slots per rank_pack block (csrc/rank.cu)
+# rank_pack blocks per superblock: a block never straddles two
+SUPER_BLOCKS = (1 << SUPER_BITS) // RANK_BLOCK_SLOTS
 _MASK32 = 0xFFFFFFFF
+
+
+def n_supers(size: int) -> int:
+    """Superblocks of a filter of ``size`` slots (the JAX package's
+    n_super, compressed.py:163)."""
+    return max(-(-size // (1 << SUPER_BITS)), 1)
 
 
 class CompressedState(NamedTuple):
@@ -88,39 +103,41 @@ def _present_bits(words: torch.Tensor, size: int) -> torch.Tensor:
     return dm._as_int32(bits)
 
 
-def build_rank(bits: torch.Tensor, size: int) -> tuple[torch.Tensor, int]:
+def build_rank(bits: torch.Tensor, size: int
+               ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Rank the presence bitmap ``bits`` (int32 [ceil(size / 32)], the fill's
     ``dm.presence_bitmap``; bits at or past ``size`` are ignored): (bitrank,
-    number of present slots).  ``bits`` is only read; a caller that owns it
-    drops it before ``with_tables``, so the bitmap and the rank-indexed
-    tables are never on the device together."""
-    if size <= 0 or size >= 1 << SUPER_BITS:
-        raise ValueError(f"size {size}: the port's filters have one "
-                         "superblock (0 < size < 2^32)")
+    supers, number of present slots), at any size.  ``bits`` is only read;
+    a caller that owns it drops it before ``with_tables``, so the bitmap and
+    the rank-indexed tables are never on the device together."""
+    if size <= 0:
+        raise ValueError(f"size {size}: a filter has slots")
     if bits.shape != (-(-size // 32),):
         raise ValueError(f"bitmap {tuple(bits.shape)} is not ceil({size} / "
                          "32) words")
-    bitrank, totals = rank_pack(bits, size)
-    return bitrank, rank_carry(bitrank, totals)
+    bitrank, carries = rank_pack(bits, size)
+    supers, pop = rank_scan(carries, size)
+    rank_carry(bitrank, carries)
+    return bitrank, supers, pop
 
 
-def with_tables(bitrank: torch.Tensor, pop: int, size: int
-                ) -> CompressedState:
-    """The compressed state over a frozen ``bitrank``: zeroed rank-indexed
-    id/counter tables of ``max(rank_alloc(size), pop + 1)`` entries rounded
-    up to 1024, the JAX package's allocation (compressed.py:172-182)."""
+def with_tables(bitrank: torch.Tensor, supers: torch.Tensor, pop: int,
+                size: int) -> CompressedState:
+    """The compressed state over a frozen ``bitrank`` and ``supers``:
+    zeroed rank-indexed id/counter tables of ``max(rank_alloc(size), pop +
+    1)`` entries rounded up to 1024, the JAX package's allocation
+    (compressed.py:172-182)."""
     alloc = max(rank_alloc(size), -(-(pop + 1) // 1024) * 1024)
     dev = bitrank.device
     return CompressedState(
-        bitrank=bitrank,
-        supers=torch.zeros(1, dtype=torch.int64, device=dev),
+        bitrank=bitrank, supers=supers,
         ids=torch.zeros(alloc, dtype=torch.int32, device=dev),
         counts=torch.zeros(alloc, dtype=torch.int32, device=dev))
 
 
 def rank_pack(bits: torch.Tensor, size: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """First half of the freeze: bitrank [nw + 1] with each bitmap word's
+    """First step of the freeze: bitrank [nw + 1] with each bitmap word's
     presence bits (slots at or past ``size`` cleared) and its exclusive
     in-block rank (blocks of 65,536 slots), and the per-block totals."""
     if bits.is_cuda:
@@ -147,46 +164,83 @@ def _rank_pack_plain(bits, size):
     nw = -(-size // 32)
     bw = RANK_BLOCK_SLOTS // 32
     nblk = -(-nw // bw)
-    b = bits.to(torch.int64) & _MASK32
+    b = bits.clone()
     if size % 32:                                 # slots >= size are not real
         b[-1] &= (1 << (size % 32)) - 1
-    pops = torch.zeros(nblk * bw, dtype=torch.int64, device=bits.device)
-    pops[:nw] = _popcount32(b)
+    # int32 throughout the block cumsum (a block holds 65,536 slots), in
+    # place: a 2^32-slot bitmap is 512 MB of words
+    pops = torch.zeros(nblk * bw, dtype=torch.int32, device=bits.device)
+    pops[:nw] = _popcount32_(b.clone())
     pops = pops.reshape(nblk, bw)
-    local = (torch.cumsum(pops, 1) - pops).reshape(-1)[:nw]
+    local = torch.cumsum(pops, 1, dtype=torch.int32).sub_(pops)
     bitrank = torch.zeros(nw + 1, dtype=torch.int64, device=bits.device)
-    bitrank[:nw] = (local << 32) | b
-    return bitrank, pops.sum(dim=1)
+    bitrank[:nw] = local.reshape(-1)[:nw]
+    bitrank[:nw] <<= 32
+    bitrank[:nw] |= b.to(torch.int64) & _MASK32
+    return bitrank, pops.sum(dim=1, dtype=torch.int64)
 
 
-def rank_carry(bitrank: torch.Tensor, totals: torch.Tensor) -> int:
-    """Second half of the freeze, in place: add to every word's in-block
-    rank the totals of the blocks before its block, zero the appended
-    word; returns the total number of present slots."""
+def rank_scan(totals: torch.Tensor, size: int
+              ) -> tuple[torch.Tensor, int]:
+    """Second step of the freeze, in place: rank_pack's per-block totals
+    become each block's carry, the totals of the blocks before it in its
+    superblock of 2^32 slots.  Returns (supers, pop): int64 [n_super], the
+    present slots before each superblock (the JAX package's super_base),
+    and the number of present slots."""
+    if totals.is_cuda:
+        supers, pop = _rank_scan_cuda(totals, size)
+        return supers, int(pop.item())
+    return _rank_scan_plain(totals, size)
+
+
+def _rank_scan_cuda(totals, size):
+    nw = -(-size // 32)
+    dev = totals.device
+    kernels.check(totals, "totals", torch.int64,
+                  (-(-nw * 32 // RANK_BLOCK_SLOTS),), dev)
+    supers = torch.empty(n_supers(size), dtype=torch.int64, device=dev)
+    pop = torch.empty(1, dtype=torch.int64, device=dev)
+    kernels.RANK_SCAN(dev, kernels.ptr(totals), nw, kernels.ptr(supers),
+                      kernels.ptr(pop))
+    return supers, pop
+
+
+def _rank_scan_plain(totals, size):
+    if totals.shape[0] != -(-size // RANK_BLOCK_SLOTS):
+        raise ValueError(f"{totals.shape[0]} block totals for {size} slots")
+    cum = torch.cumsum(totals, 0) - totals       # global exclusive prefix
+    supers = cum[::SUPER_BLOCKS].clone()
+    sup_of = torch.arange(totals.shape[0], device=totals.device) \
+        // SUPER_BLOCKS
+    pop = int(totals.sum())
+    totals.copy_(cum - supers[sup_of])
+    return supers, pop
+
+
+def rank_carry(bitrank: torch.Tensor, carries: torch.Tensor) -> None:
+    """Last step of the freeze, in place: add to every word's in-block rank
+    its block's carry (``rank_scan``), making it the word's rank within its
+    superblock, and zero the appended word."""
     if bitrank.is_cuda:
-        return int(_rank_carry_cuda(bitrank, totals).item())
-    return int(_rank_carry_plain(bitrank, totals))
+        _rank_carry_cuda(bitrank, carries)
+    else:
+        _rank_carry_plain(bitrank, carries)
 
 
-def _rank_carry_cuda(bitrank, totals):
+def _rank_carry_cuda(bitrank, carries):
     nw = bitrank.shape[0] - 1
     dev = bitrank.device
     kernels.check(bitrank, "bitrank", torch.int64, device=dev)
-    kernels.check(totals, "totals", torch.int64,
+    kernels.check(carries, "carries", torch.int64,
                   (-(-nw * 32 // RANK_BLOCK_SLOTS),), dev)
-    pop = torch.empty(1, dtype=torch.int64, device=dev)
-    kernels.RANK_CARRY(dev, kernels.ptr(bitrank), kernels.ptr(totals), nw,
-                       kernels.ptr(pop))
-    return pop
+    kernels.RANK_CARRY(dev, kernels.ptr(bitrank), kernels.ptr(carries), nw)
 
 
-def _rank_carry_plain(bitrank, totals):
+def _rank_carry_plain(bitrank, carries):
     nw = bitrank.shape[0] - 1
-    carry = torch.cumsum(totals, 0) - totals
-    blk = torch.arange(nw, device=bitrank.device) // (RANK_BLOCK_SLOTS // 32)
-    bitrank[:nw] += carry[blk] << 32
+    bitrank[:nw] += torch.repeat_interleave(
+        carries << 32, RANK_BLOCK_SLOTS // 32)[:nw]
     bitrank[nw] = 0
-    return totals.sum()
 
 
 def _popcount32(v: torch.Tensor) -> torch.Tensor:
@@ -195,6 +249,19 @@ def _popcount32(v: torch.Tensor) -> torch.Tensor:
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
     return ((v * 0x01010101) >> 24) & 0xFF
+
+
+def _popcount32_(v: torch.Tensor) -> torch.Tensor:
+    """``_popcount32`` of int32 words holding uint32 bits, in place.  The
+    signed shifts give the unsigned ones' bits wherever the masks keep
+    them, and the count (at most 32) leaves the sign bit clear."""
+    t = v >> 1
+    v.sub_(t.bitwise_and_(0x55555555))
+    torch.bitwise_right_shift(v, 2, out=t).bitwise_and_(0x33333333)
+    v.bitwise_and_(0x33333333).add_(t)
+    torch.bitwise_right_shift(v, 4, out=t)
+    v.add_(t).bitwise_and_(0x0F0F0F0F)
+    return v.mul_(0x01010101).bitwise_right_shift_(24)
 
 
 def rank_grid(state: CompressedState, slots: torch.Tensor, size: int
@@ -212,6 +279,10 @@ def rank_grid(state: CompressedState, slots: torch.Tensor, size: int
     present = in_range & (((bits >> bit) & 1) == 1)
     below = bits & ((torch.ones_like(bit) << bit) - 1)
     rank = ((e >> 32) & _MASK32) + _popcount32(below)
+    n_super = state.supers.shape[0]
+    if n_super > 1:
+        rank += state.supers[torch.clamp(slots >> SUPER_BITS, 0,
+                                         n_super - 1)]
     return torch.where(present, rank, state.sentinel)
 
 
@@ -237,7 +308,11 @@ def _build_rank_grid_cuda(state, codes, lengths, fam, params, T):
                                                 T)
     kernels.check(state.bitrank, "bitrank", torch.int64,
                   (-(-params.size // 32) + 1,), ranks.device)
+    n_super = n_supers(params.size)
+    kernels.check(state.supers, "supers", torch.int64, (n_super,),
+                  ranks.device)
     kernels.SEED_HASH_RANK_GRID(*args, kernels.ptr(state.bitrank),
+                                kernels.ptr(state.supers), n_super,
                                 state.sentinel, kernels.ptr(ranks),
                                 kernels.ptr(frame_ok))
     return ranks, frame_ok

@@ -103,8 +103,11 @@ def state_to_numpy(state: MibfState) -> tuple[np.ndarray, np.ndarray]:
 def fastrange(h: torch.Tensor, size: int) -> torch.Tensor:
     """floor(h * size / 2**64) for uint64 bits in int64 and size < 2**32.
 
-    The partial products wrap in int64 exactly as uint64 does; the true sum
-    stays below 2**64, so the logical shift of the wrapped bits is exact."""
+    The partial products wrap in int64 exactly as uint64 does; below 2**32
+    the true sum stays below 2**64, so the logical shift of the wrapped bits
+    is exact.  At 2**32 slots and more the JAX function's uint64 products
+    wrap and every slot stays below 2**32; this computes the same wrap
+    (ROADMAP queue 3), and so does kernel A."""
     hi = (h >> 32) & _MASK32
     lo = h & _MASK32
     p = hi * size + ((lo * size >> 32) & _MASK32)
@@ -185,8 +188,8 @@ def _fill_bits_cuda(bits, codes, lengths, fam, size, slot_mode):
     kernels.check(bits, "bits", torch.int32, (-(-size // 32),), dev)
     kernels.check(codes, "codes", torch.uint8, device=dev)
     kernels.check(lengths, "lengths", torch.int32, (B,), dev)
-    if not 0 < size < 1 << 32:
-        raise ValueError(f"size {size} is not a uint32 slot count")
+    if size <= 0:
+        raise ValueError(f"size {size}: a filter has slots")
     kernels.SEED_HASH_FILL(
         dev, kernels.ptr(codes), B, L, kernels.ptr(lengths),
         *_family_args(fam, dev), size, _slot_mode(slot_mode),
@@ -645,10 +648,10 @@ INSERT_CAP = 8_192
 
 
 def insert_part(keys: torch.Tensor) -> torch.Tensor:
-    """The CTA of kernel D that owns each key (< 2^32): a multiplicative
-    hash of the key scaled to [0, INSERT_PARTS) (csrc/insert_sorted.cu
+    """The CTA of kernel D that owns each key: a multiplicative hash of the
+    key's low 32 bits scaled to [0, INSERT_PARTS) (csrc/insert.cuh
     part_of).  The products wrap in int64 as uint64 does; only their low
-    32 bits are kept."""
+    32 bits, which depend only on the key's, are kept."""
     return (((keys * 0x9E3779B1) & _MASK32) * INSERT_PARTS) >> 32
 
 
@@ -661,8 +664,9 @@ def _insert_cuda(words, counts, slots, lo, hi, base_id, trimmed, params, T,
     kernels.check(words, "words", torch.int32, device=dev)
     kernels.check(counts, "counts", torch.int32, words.shape, dev)
     kernels.check(slots, "slots", torch.int64, device=dev)
+    # a key is sorted as key << 16 | block (csrc/insert.cuh): below 2^48
     if (F * T != TF or T >= 1 << 16 or TF >= 1 << 31 or lo < 0
-            or not 0 <= limit < min(1 << 32, words.shape[0])):
+            or not 0 <= limit < min(1 << 48, words.shape[0])):
         raise ValueError(f"unsupported insert grid {tuple(slots.shape)}, "
                          f"tiles from {lo} or key limit {limit}")
     window = H * max(0, min(hi, T - 1) - lo + 1) * F
@@ -748,7 +752,7 @@ def _insert_max_cuda(table, grid, lo, hi, base_id, trimmed, bs, T, limit,
     kernels.check(table, "table", torch.int32, device=dev)
     kernels.check(grid, "grid", torch.int64, device=dev)
     if (TF % T or TF >= 1 << 31 or lo < 0
-            or not 0 <= limit < min(1 << 32, table.shape[0] + 1)):
+            or not 0 <= limit <= table.shape[0]):
         raise ValueError(f"unsupported insert grid {tuple(grid.shape)}, "
                          f"tiles from {lo} or key limit {limit}")
     kernels.INSERT_MAX(dev, kernels.ptr(table), kernels.ptr(grid), H, TF,

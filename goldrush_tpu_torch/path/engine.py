@@ -8,8 +8,9 @@ staleness, max-id-wins insert, full-resolution trim recheck):
   pass 1: host gates (length/phred/ACGT) -> presence fill of every insert
           seed into a bitmap (kernel A); the direct filter then writes its
           words from the bitmap (presence_merge), the compressed filter
-          freezes the bitmap into its rank structure (rank_pack +
-          rank_carry) and never holds direct words;
+          freezes the bitmap into its rank structure (rank_pack, rank_scan
+          and rank_carry: superblocks of 2^32 slots, at any size) and
+          never holds direct words;
   pass 2: reads stream IN ORDER through batches: a batched classify
           (kernel A's slot grid, or its rank grid in the compressed
           filter, at the query stride over the probed seeds -> kernel B
@@ -96,7 +97,11 @@ class EngineStats:
     wall_submit_s: float = 0.0        # assign: device submit pass
     wall_submit_first_s: float = 0.0  # first batch (includes kernel load)
     wall_replay_s: float = 0.0        # assign: host replay pass
+    wall_freeze_s: float = 0.0        # fill: the compressed filter's freeze
     num_batches: int = 0
+    # the process's peak device memory (torch.cuda.max_memory_allocated)
+    # after pass 2; 0 on the CPU.  Not a field of the JAX engine's stats
+    device_peak_bytes: int = 0
 
 
 def _bucket_for(num_tiles: int, cap: int) -> int:
@@ -108,8 +113,11 @@ def _bucket_for(num_tiles: int, cap: int) -> int:
 
 def _check_slice(cfg: PathConfig) -> None:
     """Raise for every configuration the port does not run yet, naming the
-    ROADMAP item that brings it."""
+    ROADMAP item that brings it, before anything is allocated."""
+    size = calc_optimal_size(cfg.derived_hash_universe(), 1, cfg.occupancy)
     later = [
+        (cfg.mibf_mode != "compressed" and size >= 1 << 32,
+         f"the direct filter at {size} >= 2^32 slots", "queue 1 item 12"),
         (cfg.insert_seeds not in (0, cfg.hash_num), "insert_seeds < h",
          "queue 1 item 7, after 7d"),
         (cfg.insert_stride != 1, "insert_stride > 1",
@@ -335,10 +343,12 @@ class GoldenPathEngine:
         st.wall_fill_stream_s = time.time() - t0
         if self.compressed:
             # the bitmap goes before the rank-indexed tables come
-            bitrank, pop = cz.build_rank(bits, self.size)
+            t1 = time.time()
+            bitrank, supers, pop = cz.build_rank(bits, self.size)
             del bits
-            self.cstate = cz.with_tables(bitrank, pop, self.size)
+            self.cstate = cz.with_tables(bitrank, supers, pop, self.size)
             self._sync()
+            st.wall_freeze_s += time.time() - t1
         st.wall_fill_s += time.time() - t0
 
     def _sync(self) -> None:
@@ -629,6 +639,8 @@ class GoldenPathEngine:
                   f"but only {curr_path} generated.")
         st.wall_replay_s += time.time() - t1
         st.wall_assign_s += time.time() - t0
+        if dev.type == "cuda":
+            st.device_peak_bytes = torch.cuda.max_memory_allocated(dev)
 
     # ------------------------------------------------------------------
     def run(self, input_path: str | None = None) -> EngineStats:

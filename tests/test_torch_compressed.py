@@ -83,8 +83,8 @@ def test_build_rank_from_bits_matches_jax(size):
     set_ = rng.random(size) < 0.13
     bits = bitmap(set_, size)
     j = jcz._freeze_from_bits(bits, size)
-    bitrank, pop = tcz.build_rank(to_torch(bits), size)
-    got = tcz.state_to_numpy(tcz.with_tables(bitrank, pop, size))
+    bitrank, supers, pop = tcz.build_rank(to_torch(bits), size)
+    got = tcz.state_to_numpy(tcz.with_tables(bitrank, supers, pop, size))
     jbr = np.asarray(j.bitrank)
     np.testing.assert_array_equal(got["bitrank"], jbr)
     np.testing.assert_array_equal(got["supers"], np.asarray(j.supers))
@@ -93,7 +93,7 @@ def test_build_rank_from_bits_matches_jax(size):
     dirty = bits.copy()
     dirty[-1] |= np.uint32(0xFFFFFFFF << (size % 32) & 0xFFFFFFFF
                            if size % 32 else 0)
-    again, pop2 = tcz.build_rank(to_torch(dirty), size)
+    again, _, pop2 = tcz.build_rank(to_torch(dirty), size)
     assert torch.equal(again, bitrank) and pop2 == pop
 
 

@@ -468,6 +468,73 @@ def test_rank_kernels(cuda, size):
                 tcz.probe_and_vote(host, ranks, ok, params, T))
 
 
+@pytest.mark.parametrize("size", [(1 << 32) - 64, 4_603_242_496,
+                                  (3 << 32) + 12_345])
+@pytest.mark.parametrize("mode", ["fastrange", "mod"])
+def test_seed_hash_past_2_32_slots(cuda, mode, size):
+    """Kernel A's slot grid and bitmap fill at 2^32 slots and more, where
+    fastrange computes the JAX function's wrapped products, against the
+    plain versions on the card."""
+    rng = np.random.default_rng(size % 1000)
+    params = tdm.MibfParams(size=size, h=3, k=22, spans=FAM.spans,
+                            tile_length=1000, slot_map=mode)
+    T = 20
+    codes, lens = reads_batch(rng, [20_000, 19_999, 5_432, 999, 0, 20_500],
+                              T * 1000 + 1000)
+    codes, lens = codes.to(cuda), lens.to(cuda)
+    got = tdm.build_slot_grid(codes, lens, FAM, params, T)
+    want = tdm._build_slot_grid_plain(codes, lens, FAM, params, T)
+    assert_same(got, want)
+    real = got[0][got[1][:, None, :].expand_as(got[0])]
+    assert (int(real.max()) >= 1 << 32) == (mode == "mod" and size > 1 << 32)
+    bk = tdm.fill_presence_bits(tdm.presence_bitmap(size, cuda), codes,
+                                lens, FAM, size, mode)
+    bp = tdm._fill_bits_plain(tdm.presence_bitmap(size, cuda), codes, lens,
+                              FAM, size, mode)
+    assert torch.equal(bk, bp) and int((bk != 0).sum()) > 10_000
+
+
+def test_rank_superblocks(cuda):
+    """The freeze (rank_pack, rank_scan, rank_carry) of a bitmap of three
+    superblocks and a partial fourth, and kernel A's rank grid through it,
+    against the plain versions on the card."""
+    size = (3 << 32) + 12_345
+    rng = np.random.default_rng(11)
+    nw = -(-size // 32)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(12)
+    bits = torch.randint(-2**31, 2**31, (nw,), dtype=torch.int32,
+                         device=cuda, generator=g)
+    bits &= torch.randint(-2**31, 2**31, (nw,), dtype=torch.int32,
+                          device=cuda, generator=g)
+    bk, tk = tcz.rank_pack(bits, size)
+    bp, tp = tcz._rank_pack_plain(bits, size)
+    assert_same((bk, tk), (bp, tp))
+    sk, pop = tcz.rank_scan(tk, size)
+    sp, pop_p = tcz._rank_scan_plain(tp, size)
+    assert_same((tk, sk), (tp, sp))
+    # a quarter of the slots set: ~3.2e9 present, ranks past 2^31
+    assert pop == pop_p and sk.shape == (4,) and pop > 3 << 29
+    tcz.rank_carry(bk, tk)
+    tcz._rank_carry_plain(bp, tp)
+    assert torch.equal(bk, bp)
+    del bits, bp, tp
+    # the rank grid reads the tables' length only: the sentinel rank
+    table = torch.empty(1, dtype=torch.int32, device=cuda).expand(pop + 1)
+    state = tcz.CompressedState(bk, sk, table, table)
+    T = 20
+    params = tdm.MibfParams(size=size, h=3, k=22, spans=FAM.spans,
+                            tile_length=1000, slot_map="mod")
+    codes, lens = reads_batch(rng, [20_000] * 8 + [7_777, 0],
+                              T * 1000 + 1000)
+    codes, lens = codes.to(cuda), lens.to(cuda)
+    got = tcz.build_rank_grid(state, codes, lens, FAM, params, T)
+    want = tcz._build_rank_grid_plain(state, codes, lens, FAM, params, T)
+    assert_same(got, want)
+    high = (got[0] >= int(sk[2])) & (got[0] < state.sentinel)
+    assert int(high.sum()) > 100
+
+
 @pytest.mark.parametrize("mode", ["direct", "compressed"])
 def test_throughput_engine_on_card_matches_cpu(cuda, tmp_path, mode):
     """bench.py's throughput cell at 60 kb (stride 8 over tiles of 256, one

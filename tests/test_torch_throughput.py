@@ -98,8 +98,10 @@ def out_files(prefix, silver):
 
 
 def counters(stats):
+    """The counters of an engine's stats: neither its times nor the port's
+    peak device memory, which the JAX engine does not record."""
     return {f.name: getattr(stats, f.name) for f in dataclasses.fields(stats)
-            if not f.name.startswith("wall_")}
+            if not f.name.startswith(("wall_", "device_"))}
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -13,6 +13,20 @@ polished, tigmint, ntlink, its .gaps.json and final.  Both
 tests/test_torch_pipeline.py (on the CPU) and chip_smoke.py (on the card)
 hold the port's stage files to these digests.
 
+Under "superblocks": the JAX package's compressed filter at 2^32 slots
+and more, on the same 1 Mbp dataset and ENGINE settings with
+hash_universe=485,000,000 (4,603,242,496 slots, two superblocks; the
+JAX engine takes K12's byte-per-slot fill and freeze_device there): the
+silver paths and the golden path over their concatenation (as
+pipeline.py runs it: silver_path off, min_length 0), in three cases,
+exact with slot_map "mod", exact with "fastrange" (whose slots the JAX
+function keeps below 2^32 by its wrapped products) and the throughput
+cell with "mod".  ``chip_smoke.py`` phase 7(a) holds the port on the card
+to them.  The JAX engine allocates a direct-layout state at construction
+(dm.init_state: 8 B per slot, 36.8 GB here) that the compressed filter at
+this size never reads and drops at its freeze; this tool gives it empty
+arrays instead, which changes no output.
+
 The dataset and engine settings are those of the exact run in
 tests/test_quality_gate.py (600 x 20 kb reads at 5% error, 40% indels,
 seeds 51/52; exact defaults, max_paths=3, ratio=0.75, min_length=15000,
@@ -23,6 +37,7 @@ dataset byte for byte, so the two cannot drift apart.
 
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py            # all
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py pipeline   # ~1 min
+    JAX_PLATFORMS=cpu python tools/torch_port_digests.py superblocks
 """
 
 from __future__ import annotations
@@ -51,6 +66,11 @@ PIPE_CFG = dict(G=60_000, t=2, k=22, w=16, tile=250, b=4, m=2000, M=3, r=0.5,
                 P=15, x=10, u=5, a=1, span=2, dist=500, cut=250,
                 k_ntLink=24, w_ntLink=100, rounds=3, z=500, dev=True)
 PIPE_STAGES = ("polished", "tigmint", "ntlink", "final")
+# the compressed filter at 4,603,242,496 slots, and its three cases
+SUPER = dict(hash_universe=485_000_000, mibf_mode="compressed")
+SUPER_CASES = {"exact_mod": dict(slot_map="mod"),
+               "exact_fastrange": dict(slot_map="fastrange"),
+               "throughput_mod": dict(THROUGHPUT, slot_map="mod")}
 
 
 def sha256_file(path: str) -> str:
@@ -96,6 +116,68 @@ def pipeline_entry() -> dict:
                 "files": stage_digests(d, stage_filenames(cfg))}
 
 
+def silver_golden(engine, config, fq: str, prefix: str, extra: dict
+                  ) -> dict:
+    """One package's silver paths on `fq` and the golden path over their
+    concatenation, as pipeline.py runs the two stages: the digests of
+    every file, the silver run's recruits and paths, the golden run's
+    recruits."""
+    stats = engine(config(input=fq, prefix_file=prefix, **ENGINE,
+                          **extra)).run()
+    silver = {}
+    with open(prefix + "_all.fq", "wb") as cat:
+        for i in range(1, ENGINE["max_paths"] + 1):
+            p = f"{prefix}_{i}.fq"
+            if os.path.exists(p):
+                silver[str(i)] = sha256_file(p)
+                with open(p, "rb") as f:
+                    cat.write(f.read())
+    golden = engine(config(input=prefix + "_all.fq",
+                           prefix_file=prefix + "_golden",
+                           **{**ENGINE, "silver_path": False,
+                              "min_length": 0}, **extra)).run()
+    return {"recruits": stats.recruits,
+            "paths_completed": stats.paths_completed, "silver": silver,
+            "golden": sha256_file(prefix + "_golden.fa"),
+            "golden_recruits": golden.recruits}
+
+
+def superblocks_entry(fq: str, workdir: str) -> dict:
+    """The "superblocks" key: the JAX package's silver and golden paths at
+    4,603,242,496 slots, each case of SUPER_CASES, with the engine's
+    unread direct-layout state left empty (see the module docstring)."""
+    import jax.numpy as jnp
+    from goldrush_tpu.config import PathConfig
+    from goldrush_tpu.mibf import mibf as jdm
+    from goldrush_tpu.path import engine as jengine
+    real = jdm.init_state
+
+    def lean(params):
+        if params.size >= 1 << 32:
+            return jdm.MibfState(words=jnp.zeros(0, jnp.uint32),
+                                 counts=jnp.zeros(0, jnp.uint32))
+        return real(params)
+    jengine.dm.init_state = lean
+    try:
+        cases = {tag: silver_golden(jengine.GoldenPathEngine, PathConfig, fq,
+                                    os.path.join(workdir, f"super_{tag}"),
+                                    {**SUPER, **case})
+                 for tag, case in SUPER_CASES.items()}
+    finally:
+        jengine.dm.init_state = real
+    return {"engine": SUPER, "cases": SUPER_CASES, **cases}
+
+
+def write_gate_dataset(path: str) -> None:
+    from goldrush_tpu.utils import synth
+    genome = synth.random_genome(DATASET["genome"],
+                                 seed=DATASET["genome_seed"])
+    synth.write_fastq(path, synth.simulate_reads(
+        genome, DATASET["n_reads"], DATASET["read_len"],
+        seed=DATASET["reads_seed"], err_rate=DATASET["err_rate"],
+        indel_frac=DATASET["indel_frac"]))
+
+
 def main() -> None:
     if sys.argv[1:] == ["pipeline"]:
         with open(OUT) as f:
@@ -103,20 +185,24 @@ def main() -> None:
         out["pipeline"] = pipeline_entry()
         write(out)
         return
+    if sys.argv[1:] == ["superblocks"]:
+        with open(OUT) as f:
+            out = json.load(f)
+        with tempfile.TemporaryDirectory(prefix="torch_port_super_") as d:
+            fq = os.path.join(d, "reads.fq")
+            write_gate_dataset(fq)
+            if sha256_file(fq) != out["dataset"]["sha256"]:
+                raise SystemExit("the gate dataset does not regenerate")
+            out["superblocks"] = superblocks_entry(fq, d)
+        write(out)
+        return
     if sys.argv[1:]:
         raise SystemExit(__doc__)
     from goldrush_tpu.config import PathConfig
     from goldrush_tpu.path.engine import GoldenPathEngine
-    from goldrush_tpu.utils import synth
-    genome = synth.random_genome(DATASET["genome"],
-                                 seed=DATASET["genome_seed"])
-    reads = synth.simulate_reads(
-        genome, DATASET["n_reads"], DATASET["read_len"],
-        seed=DATASET["reads_seed"], err_rate=DATASET["err_rate"],
-        indel_frac=DATASET["indel_frac"])
     with tempfile.TemporaryDirectory(prefix="torch_port_digests_") as d:
         fq = os.path.join(d, "reads.fq")
-        synth.write_fastq(fq, reads)
+        write_gate_dataset(fq)
         runs = {}
         for mode, tag, extra in (("direct", "direct", {}),
                                  ("compressed", "compressed", {}),
@@ -140,7 +226,8 @@ def main() -> None:
                "throughput": {"engine": THROUGHPUT,
                               "direct": runs["tp_direct"],
                               "compressed": runs["tp_compressed"]},
-               "pipeline": pipeline_entry()}
+               "pipeline": pipeline_entry(),
+               "superblocks": superblocks_entry(fq, d)}
     write(out)
 
 
