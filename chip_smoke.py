@@ -30,6 +30,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      recruits and ids near 2^30 in both filters, timed on the 20-tile and
      the 2-tile recruit beside torch's scatter_reduce_(amax) on the
      20-tile recruit's precomputed keys and values (the library time);
+     both inserts also on recruits of insert grids at insert strides 2
+     and 8 (kernel A's grids at S, F = TL / S frames per tile), each
+     timed on a 20-tile recruit;
      kernels B and C also on the inputs their designs branch on
      (goldrush_tpu_torch/hard_cases.py) at B=32 and B=1, B in both
      filters, and C's warp cummax (row_cummax) against torch.cummax;
@@ -96,7 +99,22 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      launch count zeroed before (a) and read after (b); (c) ranks at or
      above 2^32: an all-ones bitmap of 2^32 + 2^26 slots frozen, its rank
      grid, one exact insert and one insert_max against their plain
-     versions.
+     versions;
+  8. ntCard's sizing and the sampled inserts: (a) ntcard_count (K22)
+     against its plain version on the bench reads' batches (2^24 bases a
+     launch) at rbits 22 and 27 (3 GiB of counters), counters and each
+     seed's F0 equal, timed beside its bound, the plain version and
+     index_add_ on precomputed bank indices; then, every launch count
+     zeroed just before and read just after, (b) the engine sized by
+     ntCard on the gate dataset, each filter: universe, size, silver and
+     golden digests against the fixture's "ntcard" key; (c) the
+     fixture's "insert" cases (insert_stride 2 and 8, insert_seeds 2,
+     the exact policy at insert_stride 2): silver digests, one insert in
+     the consume kernel per recruit; (d) the bench reads' silver pass in
+     the throughput cell, compressed filter, sized by ntCard and by the
+     closed form: universe, size, occupancy after the fill, ntCard's and
+     the fill's seconds, reads/s, peak memory.  ntcard_count and every
+     kernel of both paths must launch in (b)-(d).
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -383,17 +401,30 @@ def hard_recruits(limit: int, T: int, TL: int) -> list:
             (homo, 0, T - 1, 25, False), (homo, 1, 18, 27, True)]
 
 
+def stride_recruits(strided: dict, T: int) -> list:
+    """Recruits of the insert grids at insert strides (S -> grid [B, h,
+    T*TL/S]): a whole one and a trimmed one of each, as (grid, lo, hi,
+    base, trimmed)."""
+    out = []
+    for S, g in strided.items():
+        out += [(g[0], 0, T - 1, 31 + S, False), (g[1], 3, 14, 41 + S, True)]
+    return out
+
+
 def insert_phase(state_k, state_p, recruits, timed, params, T, limit,
-                 or_bits, label) -> tuple:
+                 or_bits, label, strided: dict) -> tuple:
     """Kernel D on state_k and its plain version on state_p, both (table,
-    counts), recruit after recruit; then both timed on scratch copies for
-    the full recruit of grid `timed` and a 2-tile trimmed one, and the
-    window read alone (key limit 0: every CTA streams the window and owns
-    no key).  Returns the record of the full recruit, whose bound counts
-    the window's grid entries, each distinct key's counter read and
-    written, and the words it accepts."""
+    counts), recruit after recruit, those of the insert grids at insert
+    strides (`strided`: S -> grid, F = TL / S frames per tile) last; then
+    both timed on scratch copies for the full recruit of grid `timed` and a
+    2-tile trimmed one, the window read alone (key limit 0: every CTA
+    streams the window and owns no key), and the full recruit of row 2 of
+    each strided grid (ms_s2, ms_s8, ...).  Returns the record of the full
+    recruit, whose bound counts the window's grid entries, each distinct
+    key's counter read and written, and the words it accepts."""
     import torch
     from goldrush_tpu_torch.mibf import mibf as dm
+    recruits = recruits + stride_recruits(strided, T)
     for grid, lo, hi, base, tr in recruits:
         dm.insert_blocks(*state_k, grid, lo, hi, base, tr, params, T, limit,
                          or_bits)
@@ -402,11 +433,24 @@ def insert_phase(state_k, state_p, recruits, timed, params, T, limit,
     err = max_abs_err(zip(state_k, state_p))
     k = [t.clone() for t in state_k]
     p = [t.clone() for t in state_k]
-    keys = torch.unique(timed[timed < limit])
-    dm._insert_plain(*p, timed, 0, T - 1, 17, False, params, T, limit,
-                     or_bits)
-    accepted = int((p[0] != k[0]).sum())
-    nbytes = timed.numel() * 8 + keys.numel() * 8 + accepted * 4
+
+    def nbytes_of(g):
+        q = [t.clone() for t in state_k]
+        dm._insert_plain(*q, g, 0, T - 1, 17, False, params, T, limit,
+                         or_bits)
+        accepted = int((q[0] != state_k[0]).sum())
+        keys = torch.unique(g[g < limit])
+        return g.numel() * 8 + keys.numel() * 8 + accepted * 4
+    nbytes = nbytes_of(timed)
+    extra = {}
+    for S, g in strided.items():
+        r = checked(0, cuda_ms(lambda: dm.insert_blocks(
+            *k, g[2], 0, T - 1, 17, False, params, T, limit, or_bits), 20),
+            cuda_ms(lambda: dm._insert_plain(
+                *p, g[2], 0, T - 1, 17, False, params, T, limit, or_bits), 3),
+            nbytes_of(g[2]))
+        extra.update({f"{key}_s{S}": r[key]
+                      for key in ("ms", "plain_ms", "bound_ms")})
     times = {}
     for name, lo, hi, tr in (("full", 0, T - 1, False), ("2tile", 4, 5, True)):
         times[name] = (
@@ -421,15 +465,18 @@ def insert_phase(state_k, state_p, recruits, timed, params, T, limit,
         recruits=len(recruits), max_abs_err=err, ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}", ms_2tile=f"{ms2:.4f}",
         plain_ms_2tile=f"{pms2:.4f}", window_ms=f"{window:.4f}",
-        window_share=f"{window / ms:.4f}")
-    return checked(err, ms, pms, nbytes)
+        window_share=f"{window / ms:.4f}",
+        **{key: f"{v:.4f}" for key, v in extra.items()})
+    return checked(err, ms, pms, nbytes, **extra)
 
 
 def insert_max_phase(table, recruits, timed, params, T, limit, or_bits,
-                     label) -> dict:
+                     label, strided: dict) -> dict:
     """insert_max on `table` and its plain version on a copy, recruit after
-    recruit; then, on scratch copies, both timed for the full recruit of
-    grid `timed` and a 2-tile trimmed one, and torch's scatter_reduce_
+    recruit, those of the insert grids at insert strides (`strided`) last;
+    then, on scratch copies, both timed for the full recruit of grid
+    `timed` and a 2-tile trimmed one, and for the full recruit of row 2 of
+    each strided grid (ms_s2, ms_s8, ...), and torch's scatter_reduce_
     (amax) for the full recruit from its keys and values precomputed (the
     library yardstick, held to the kernel's result).  Returns the full
     recruit's record, whose bound counts the window's grid entries read
@@ -437,6 +484,7 @@ def insert_max_phase(table, recruits, timed, params, T, limit, or_bits,
     import torch
     from goldrush_tpu_torch.mibf import mibf as dm
     bs = params.block_size
+    recruits = recruits + stride_recruits(strided, T)
     before, plain = table.clone(), table.clone()
     for grid, lo, hi, base, tr in recruits:
         dm.insert_max(table, grid, lo, hi, base, tr, params, T, limit,
@@ -466,16 +514,26 @@ def insert_max_phase(table, recruits, timed, params, T, limit, or_bits,
     lib_ms = cuda_ms(lambda: lib.scatter_reduce_(0, keys, vals, "amax"), 20)
     (ms, pms), (ms2, pms2) = times["full"], times["2tile"]
     distinct = torch.unique(keys).numel()
+    extra = {}
+    for S, g in strided.items():
+        r = checked(0, cuda_ms(lambda: dm.insert_max(
+            k, g[2], 0, T - 1, 17, False, params, T, limit, or_bits), 20),
+            cuda_ms(lambda: dm._insert_max_plain(
+                plain, g[2], 0, T - 1, 17, False, bs, T, limit, or_bits), 3),
+            g[2].numel() * 8 + torch.unique(g[2][g[2] < limit]).numel() * 32)
+        extra.update({f"{key}_s{S}": r[key]
+                      for key in ("ms", "plain_ms", "bound_ms")})
     say("kernels", kernel="insert_max", filter=label,
         recruits=len(recruits), max_abs_err=err, changed=changed,
         accepted=accepted,
         distinct_keys=distinct, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
         library_ms=f"{lib_ms:.4f}", ms_2tile=f"{ms2:.4f}",
-        plain_ms_2tile=f"{pms2:.4f}")
+        plain_ms_2tile=f"{pms2:.4f}",
+        **{key: f"{v:.4f}" for key, v in extra.items()})
     if changed == 0 or accepted == 0:
         raise AssertionError(f"insert_max {label}: degenerate check inputs")
     rec = checked(err, ms, pms, timed.numel() * 8 + distinct * 32,
-                  ms_2tile=ms2, plain_ms_2tile=pms2)
+                  ms_2tile=ms2, plain_ms_2tile=pms2, **extra)
     rec["library_ms"] = lib_ms
     return rec
 
@@ -1235,14 +1293,19 @@ def phase_kernels(own: bool = True) -> dict:
         bound_ms=f"{out['seed_hash_grid']['bound_ms']:.4f}")
 
     # --- D: insert 8 recruits (whole, trimmed, repeated slots), then the
-    # recruits its key partition finds hard ------------------------------
+    # recruits its key partition finds hard, then recruits of insert grids
+    # at insert strides 2 and 8 (kernel A's slot grid at S) ---------------
+    ins_params = {S: dataclasses.replace(params, frame_stride=S)
+                  for S in (2, 8)}
+    strided = {S: dm.build_slot_grid(qc, ql, fam, p, T)[0]
+               for S, p in ins_params.items()}
     plan = [(0, T - 1, 1, False), (0, T - 1, 3, False), (3, 14, 5, True),
             (0, T - 1, 7, False), (5, 5, 9, True), (0, T - 1, 11, False),
             (2, 17, 13, True), (0, T - 1, 15, False)]
     out["insert_sorted"] = insert_phase(
         st_k, st_p, [(slots[i], *p) for i, p in enumerate(plan)]
         + hard_recruits(size, T, TL), slots[8], params, T, size,
-        dm.PRESENT_BIT, "direct")
+        dm.PRESENT_BIT, "direct", strided)
     # --- insert_max (throughput mode): D's recruits, then ids near 2^30 ---
     # (grid row, lo, hi, base, trimmed)
     max_plan = [(i, *p) for i, p in enumerate(plan)] + [
@@ -1251,7 +1314,7 @@ def phase_kernels(own: bool = True) -> dict:
     out["insert_max"] = insert_max_phase(
         st_k.words.clone(), [(slots[i], *p) for i, *p in max_plan]
         + hard_recruits(size, T, TL),
-        slots[8], params, T, size, dm.PRESENT_BIT, "direct")
+        slots[8], params, T, size, dm.PRESENT_BIT, "direct", strided)
 
     # --- B: probe + vote, B=32 and the B=1 live re-probe ----------------
     vk = dm.probe_and_vote(st_k.words, slots, ok, params, T)
@@ -1358,15 +1421,18 @@ def phase_kernels(own: bool = True) -> dict:
         bound_ms=f"{out['seed_hash_rank_grid']['bound_ms']:.4f}")
     cs_p = cz.CompressedState(cs_k.bitrank, cs_k.supers, cs_k.ids.clone(),
                               cs_k.counts.clone())
+    strided = {S: cz.build_rank_grid(cs_k, qc, ql, fam, p, T)[0]
+               for S, p in ins_params.items()}
     err = insert_phase(
         (cs_k.ids, cs_k.counts), (cs_p.ids, cs_p.counts),
         [(ranks[i], *p) for i, p in enumerate(plan)]
         + hard_recruits(cs_k.sentinel, T, TL), ranks[8], params, T,
-        cs_k.sentinel, 0, "compressed")["max_abs_err"]
+        cs_k.sentinel, 0, "compressed", strided)["max_abs_err"]
     rec = insert_max_phase(
         cs_k.ids.clone(), [(ranks[i], *p) for i, *p in max_plan]
         + hard_recruits(cs_k.sentinel, T, TL), ranks[8], params, T,
-        cs_k.sentinel, 0, "compressed")
+        cs_k.sentinel, 0, "compressed", strided)
+    del strided
     out["insert_max"].update(
         max_abs_err=max(out["insert_max"]["max_abs_err"],
                         rec["max_abs_err"]),
@@ -1834,38 +1900,48 @@ def host_ranks(slots, words, supers, size: int, sentinel: int):
     return np.where(present, rank, sentinel)
 
 
+def silver_golden(fq: str, prefix: str, engine: dict, extra: dict,
+                  sizing: bool = False) -> dict:
+    """The port's silver paths on `fq` and its golden path over their
+    concatenation, as tools/torch_port_digests.py's silver_golden records
+    them (with `sizing`, also the silver engine's universe and size)."""
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    eng = Engine(PathConfig(input=fq, prefix_file=prefix, **engine, **extra),
+                 device="cuda")
+    size = {"universe": eng.universe, "size": eng.size} if sizing else {}
+    st = eng.run()
+    del eng
+    silver = {}
+    with open(prefix + "_all.fq", "wb") as cat:
+        for i in range(1, engine["max_paths"] + 1):
+            p = f"{prefix}_{i}.fq"
+            if os.path.exists(p):
+                silver[str(i)] = sha256_file(p)
+                with open(p, "rb") as f:
+                    cat.write(f.read())
+    gold = Engine(PathConfig(
+        input=prefix + "_all.fq", prefix_file=prefix + "_golden",
+        **{**engine, "silver_path": False, "min_length": 0}, **extra),
+        device="cuda").run()
+    return {**size, "recruits": st.recruits,
+            "paths_completed": st.paths_completed, "silver": silver,
+            "golden": sha256_file(prefix + "_golden.fa"),
+            "golden_recruits": gold.recruits}
+
+
 def genome_digests(fx: dict) -> None:
     """7(a): the port's silver and golden paths on the 1 Mbp gate dataset
     (written by phase 5) at 4,603,242,496 slots, in the fixture's three
     "superblocks" cases, against the JAX package's digests."""
-    from goldrush_tpu_torch.config import PathConfig
-    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
     sb = fx["superblocks"]
     fq = os.path.join(WORK, "qgate.fq")
     for tag, case in sb["cases"].items():
-        extra = {**sb["engine"], **case}
-        prefix = os.path.join(WORK, f"super_{tag}")
         t0 = time.time()
-        st = Engine(PathConfig(input=fq, prefix_file=prefix, **fx["engine"],
-                               **extra), device="cuda").run()
-        silver = {}
-        with open(prefix + "_all.fq", "wb") as cat:
-            for i in range(1, fx["engine"]["max_paths"] + 1):
-                p = f"{prefix}_{i}.fq"
-                if os.path.exists(p):
-                    silver[str(i)] = sha256_file(p)
-                    with open(p, "rb") as f:
-                        cat.write(f.read())
-        gold = Engine(PathConfig(
-            input=prefix + "_all.fq", prefix_file=prefix + "_golden",
-            **{**fx["engine"], "silver_path": False, "min_length": 0},
-            **extra), device="cuda").run()
-        got = {"recruits": st.recruits,
-               "paths_completed": st.paths_completed, "silver": silver,
-               "golden": sha256_file(prefix + "_golden.fa"),
-               "golden_recruits": gold.recruits}
-        say("genome", part="a", case=tag, files=len(silver) + 1,
-            recruits=st.recruits, golden_recruits=gold.recruits,
+        got = silver_golden(fq, os.path.join(WORK, f"super_{tag}"),
+                            fx["engine"], {**sb["engine"], **case})
+        say("genome", part="a", case=tag, files=len(got["silver"]) + 1,
+            recruits=got["recruits"], golden_recruits=got["golden_recruits"],
             seconds=f"{time.time() - t0:.1f}", match=got == sb[tag])
         if got != sb[tag]:
             raise AssertionError(f"superblocks {tag}: {got} vs {sb[tag]}")
@@ -2282,6 +2358,211 @@ def phase_genome() -> dict:
     return launches, freeze
 
 
+NTCARD_RBITS = (22, 27)        # the engine's and the reference's
+
+
+def ntcard_kernel_check(dev, reads: str) -> dict:
+    """8(a): ntcard_count (K22) against its plain version on the card, on
+    the bench dataset's batches, at rbits 22 (the engine's: 3 banks of
+    2^23 uint32) and 27 (the reference's: 3 banks of 2^28, 3 GiB), sbits
+    7: the counters equal and each seed's F0 too.  The first batch timed
+    beside the plain version and index_add_ of ones into the counters from
+    its sampled hashes' bank indices precomputed (the library call, held
+    to the kernel's counters).  Bound: the hash's integer operations
+    (hash_ops over the batch's positions and every seed's own frames) or
+    the codes in and one 32-byte sector per sampled hash's atomic.
+    Returns the record at rbits 22 with the rbits 27 times beside it."""
+    import torch
+    from goldrush_tpu_torch.ops.nthash import build_seed_family
+    from goldrush_tpu_torch.ops.seeds import make_seed_pattern
+    from goldrush_tpu_torch.utils import ntcard as nt
+    fam = build_seed_family(make_seed_pattern(PRESET, 22, 16, 3))
+    sbits = 7
+    batches = [nt.pack_batch(c, o, fam.k, dev)
+               for c, o in nt.read_batches(reads)]
+    first = batches[0]
+    codes, offsets = first.codes, first.offsets
+    lens = offsets[1:] - offsets[:-1]
+    frames = torch.clamp(lens - fam.k + 1, min=0)
+    positions = int(frames.sum())
+    hashes = sum(int(torch.minimum(frames, torch.clamp(
+        frames - s, min=1)).sum()) for s in range(fam.h))
+    n_care = len(fam.care_left) + len(fam.care_right)
+    out = {}
+    for rbits in NTCARD_RBITS:
+        zeros = lambda: torch.zeros((fam.h, 2 << rbits),  # noqa: E731
+                                    dtype=torch.int32, device=dev)
+        k, p = zeros(), zeros()
+        for b in batches:
+            nt.ntcard_count(k, b, fam, rbits, sbits)
+            nt._ntcard_count_plain(p, b.codes, b.offsets, fam, rbits, sbits)
+        err = max_abs_err([(k, p)])
+        f0 = [nt._estimate_f0(k[s], rbits, sbits, 10000)[0]
+              for s in range(fam.h)]
+        f0_plain = [nt._estimate_f0(p[s], rbits, sbits, 10000)[0]
+                    for s in range(fam.h)]
+        if f0 != f0_plain:
+            raise AssertionError(f"ntcard rbits {rbits}: F0 {f0} vs "
+                                 f"{f0_plain}")
+        del p
+        # the first batch's sampled counters, one per own frame (the stale
+        # tail repeated), as the plain version computes them
+        idx = []
+        for s, (hs, valid) in enumerate(nt.seed_hashes(codes, offsets, fam)):
+            i = nt.bank_index(hs[valid], rbits, sbits)
+            idx.append(s * (2 << rbits) + i[i < 2 << rbits])
+        idx = torch.cat(idx)
+        ones = torch.ones(idx.shape, dtype=torch.int32, device=dev)
+        one_k, lib = zeros(), zeros()
+        nt.ntcard_count(one_k, first, fam, rbits, sbits)
+        lib.view(-1).index_add_(0, idx, ones)
+        err = max(err, max_abs_err([(one_k, lib)]))
+        ms = cuda_ms(lambda: nt.ntcard_count(one_k, first, fam, rbits,
+                                             sbits), 10)
+        pms = cuda_ms(lambda: nt._ntcard_count_plain(
+            lib, codes, offsets, fam, rbits, sbits), 2)
+        lib_ms = cuda_ms(lambda: lib.view(-1).index_add_(0, idx, ones), 10)
+        sampled = idx.numel()
+        rec = checked(err, ms, pms, codes.numel() + offsets.numel() * 8
+                      + sampled * 32, hash_ops(positions, hashes, n_care)
+                      + hashes * 4)
+        rec["library_ms"] = lib_ms
+        say("ntcard", part="a", rbits=rbits, batches=len(batches),
+            batch_bases=codes.numel(), positions=positions, hashes=hashes,
+            sampled=sampled, counters=k.numel(), max_abs_err=err,
+            f0=",".join(str(int(x)) for x in f0), ms=f"{ms:.4f}",
+            plain_ms=f"{pms:.4f}", library_ms=f"{lib_ms:.4f}",
+            bound_ms=f"{rec['bound_ms']:.4f}", bound_by=rec["bound_by"])
+        if err or sampled == 0:
+            raise AssertionError(f"ntcard rbits {rbits}: max_abs_err {err}, "
+                                 f"{sampled} sampled")
+        del k, one_k, lib, idx, ones
+        gc_cuda()
+        if not out:
+            out = rec
+        else:
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out.update({f"{key}_r{rbits}": rec[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    return out
+
+
+def ntcard_digests(fx: dict) -> None:
+    """8(b): the engine sized by ntCard on the 1 Mbp gate dataset, exact
+    mode, each filter: universe, size, silver and golden digests against
+    the fixture's "ntcard" key."""
+    nc = fx["ntcard"]
+    fq = os.path.join(WORK, "qgate.fq")
+    for mode in ("direct", "compressed"):
+        t0 = time.time()
+        got = silver_golden(fq, os.path.join(WORK, f"ntcard_{mode}"),
+                            fx["engine"], {**nc["engine"], "mibf_mode": mode},
+                            sizing=True)
+        say("ntcard", part="b", filter=mode, universe=got["universe"],
+            size=got["size"], files=len(got["silver"]) + 1,
+            recruits=got["recruits"], golden_recruits=got["golden_recruits"],
+            seconds=f"{time.time() - t0:.1f}", match=got == nc[mode])
+        if got != nc[mode]:
+            raise AssertionError(f"ntcard {mode}: {got} vs {nc[mode]}")
+
+
+def insert_digests(fx: dict) -> None:
+    """8(c): the sampled inserts on the 1 Mbp gate dataset, each case of
+    the fixture's "insert" key: the silver digests, recruits > 0 and one
+    insert inside the consume kernel per recruit."""
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    ins = fx["insert"]
+    fq = os.path.join(WORK, "qgate.fq")
+    for tag, case in ins["cases"].items():
+        prefix = os.path.join(WORK, f"insert_{tag}")
+        t0 = time.time()
+        consume0 = kernels.CONSUME.launches
+        eng = Engine(PathConfig(input=fq, prefix_file=prefix,
+                                **fx["engine"], **case), device="cuda")
+        st = eng.run()
+        silver = {str(i): sha256_file(f"{prefix}_{i}.fq")
+                  for i in range(1, fx["engine"]["max_paths"] + 1)
+                  if os.path.exists(f"{prefix}_{i}.fq")}
+        got = {"recruits": st.recruits,
+               "paths_completed": st.paths_completed, "silver": silver}
+        c = eng.consume_counts
+        say("ntcard", part="c", case=tag, files=len(silver),
+            recruits=st.recruits, consume_launches=kernels.CONSUME.launches
+            - consume0, consume_inserts=c["insert"],
+            recheck_probes=c["recheck"], seconds=f"{time.time() - t0:.1f}",
+            match=got == ins[tag])
+        if got != ins[tag] or st.recruits <= 0 or \
+                c["insert"] != st.recruits:
+            raise AssertionError(f"insert {tag}: {got} vs {ins[tag]}, "
+                                 f"consume counts {c}")
+
+
+def ntcard_bench(reads: str) -> None:
+    """8(d): the bench reads' silver pass in the throughput cell with the
+    compressed filter, sized by ntCard and then by the closed form (G):
+    the estimate, size, superblocks, the occupancy after the fill, the
+    ntCard pass's wall time, the fill's, assign reads/s and peak device
+    memory."""
+    import torch
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.mibf import compressed as cz
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    for sizing, extra in (("ntcard", {"ntcard": True}), ("closed_form", {})):
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(PathConfig(input=reads,
+                                prefix_file=os.path.join(WORK, f"nb_{sizing}"),
+                                mibf_mode="compressed", **BENCH_ENGINE,
+                                **THROUGHPUT, **extra), device="cuda")
+        st = eng.run()
+        pop = int(cz._popcount32(eng.cstate.bitrank[:-1]
+                                 & 0xFFFFFFFF).sum())
+        say("ntcard", part="d", sizing=sizing, universe=eng.universe,
+            size=eng.size, n_super=cz.n_supers(eng.size), pop=pop,
+            occupancy=f"{pop / eng.size:.4f}",
+            ntcard_s=f"{st.wall_ntcard_s:.3f}", fill_s=f"{st.wall_fill_s:.3f}",
+            assign_s=f"{st.wall_assign_s:.3f}", recruits=st.recruits,
+            reads_per_s=f"{st.num_reads / max(st.wall_assign_s, 1e-9):.2f}",
+            paths_completed=st.paths_completed,
+            device_peak_bytes=st.device_peak_bytes)
+        if st.recruits <= 0 or (sizing == "ntcard") != (st.wall_ntcard_s > 0):
+            raise AssertionError(f"ntcard bench {sizing}: {st}")
+        del eng
+
+
+def phase_ntcard() -> tuple[dict, dict]:
+    """Phase 8, ntCard's sizing and the sampled inserts: (a) the kernel
+    against its plain version; then, every launch count zeroed just before
+    and read just after, (b) the "ntcard" digests, (c) the "insert"
+    digests, (d) the bench reads sized by ntCard.  ntcard_count and every
+    kernel of the compressed and the direct path must launch in (b)-(d).
+    Returns the launch counts and ntcard_count's record."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    gc_cuda()
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "torch_port_digests.json")) as f:
+        fx = json.load(f)
+    reads = os.path.join(WORK, "bench_reads.fq")
+    rec = ntcard_kernel_check(dev, reads)
+    inserts = (kernels.INSERT_SORTED, kernels.INSERT_MAX)
+    for k in kernels.ALL + inserts:
+        k.launches = 0
+    ntcard_digests(fx)
+    insert_digests(fx)
+    ntcard_bench(reads)
+    launches = {k.name: k.launches for k in kernels.ALL}
+    say("ntcard", launches=json.dumps(launches).replace(" ", ""))
+    missing = [k.name for k in kernels.PATH + kernels.SIZING
+               if launches[k.name] <= 0]
+    if missing or any(k.launches for k in inserts + kernels.STAGES):
+        raise AssertionError(f"ntcard path: launches {launches}")
+    return launches, rec
+
+
 def phase_ab(earlier: str) -> None:
     """Phase 3 of the tree `earlier` and of this checkout in turns (earlier,
     this, this, earlier), each in a process of its own; prints every
@@ -2345,10 +2626,11 @@ def main(argv: list[str]) -> int:
         phase_digests()
         pipeline = phase_pipeline()
         genome, freeze = phase_genome()
+        ntcard, checks["ntcard_count"] = phase_ntcard()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     runs = {"exact": exact, "throughput": throughput, "pipeline": pipeline,
-            "genome": genome}
+            "genome": genome, "ntcard": ntcard}
     for name, rec in freeze.items():
         checks[name].update(rec)
     # kernel D's and insert_max's code runs inside the consume kernel: their

@@ -385,9 +385,12 @@ int gr_consume(uint32_t* table, uint32_t* counts, int64_t alloc, int ranked,
                unsigned long long* spill, cudaStream_t stream) {
   using gr::kThreads;
   const int bits_q = gr::table_bits(Hq * Fq), bits_f = gr::table_bits(Hi * Fi);
+  // the insert grid is probed only by the trim recheck: at an insert
+  // stride (no recheck) its tiles may hold fewer frames than K
   if (B < 0 || T < 1 || K < 1 || Hq < 1 || Hi < 1 || Hq > gr::kMaxH ||
-      Hi > gr::kMaxH || K > Hq * Fq || K > Hi * Fi || bits_q > 14 ||
-      bits_f > 14 || alloc % 4 || bs < 1 || TL < 1 || cap < 1 ||
+      Hi > gr::kMaxH || K > Hq * Fq || bits_q > 14 ||
+      (rech_on && (K > Hi * Fi || bits_f > 14)) || alloc % 4 || bs < 1 ||
+      TL < 1 || cap < 1 ||
       (cap & (cap - 1)) || rows0_cols < (rech_on ? 9 : 8) ||
       (!fast && spill == nullptr) ||
       reinterpret_cast<uintptr_t>(table) % 16 ||
@@ -401,7 +404,7 @@ int gr_consume(uint32_t* table, uint32_t* counts, int64_t alloc, int ranked,
   const int chunk = (T < 32 ? T : 32) * K;
   const int cbuf = t2 > chunk ? t2 : chunk;
   size_t smem = 8 * static_cast<size_t>(((T + 1) & ~1) + cbuf);
-  for (int bits : {bits_q, bits_f})
+  for (int bits : {bits_q, rech_on ? bits_f : 1})
     smem = std::max(smem, ((static_cast<size_t>(1) << bits) + kThreads) *
                               sizeof(unsigned long long));
   if (!fast) smem = std::max(smem, static_cast<size_t>(cap) * 8);

@@ -32,8 +32,9 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 SOURCES = ("seed_hash.cu", "probe_vote.cu", "classify.cu",
            "insert_sorted.cu", "insert_max.cu", "rank.cu", "minimizers.cu",
-           "kmer_count.cu", "consume.cu")
-HEADERS = ("common.cuh", "probe_vote.cuh", "classify.cuh", "insert.cuh")
+           "kmer_count.cu", "consume.cu", "ntcard.cu")
+HEADERS = ("common.cuh", "probe_vote.cuh", "classify.cuh", "insert.cuh",
+           "seed_hash.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # what an entry returns when its inputs left nothing to launch (common.cuh)
@@ -74,6 +75,8 @@ _SIGNATURES = {
                    _I, _I, _I, _I, _I, _I, _L, _L, _I, _P, _P, _P, _P, _P,
                    _P, _P),
     "gr_recheck_zone": (_P, _I, _I, _I, _I, _P),
+    "gr_ntcard_count": (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P),
 }
 
 
@@ -233,6 +236,10 @@ CONSUME = Kernel(
     "goldrush_tpu/path/engine.py:892-1024 (K9); K18 "
     "goldrush_tpu/path/engine_util.py:10; K10/K19 "
     "goldrush_tpu/mibf/mibf.py:686, goldrush_tpu/mibf/compressed.py:559")
+NTCARD_COUNT = Kernel(
+    "ntcard_count", "gr_ntcard_count", "goldrush_tpu_torch/csrc/ntcard.cu",
+    "goldrush_tpu/utils/ntcard.py:41 (_sample_and_count, with the hashing "
+    "and clamp of :95-116)")
 # the consume kernel's zone predicate (K18) launched alone, to hold it
 # against the plain predicate; not a kernel of the path, so not in ALL
 RECHECK_ZONE = Kernel(
@@ -251,8 +258,11 @@ ROW_CUMMAX = Kernel(
 # are not on the path, so not in ALL
 PATH = (SEED_HASH_GRID, SEED_HASH_RANK_GRID, SEED_HASH_FILL, PRESENCE_MERGE,
         PROBE_VOTE, CLASSIFY, RANK_PACK, RANK_SCAN, RANK_CARRY, CONSUME)
+# ntCard's counters, which size the filter when the engine runs with
+# ntcard=True (before pass 1)
+SIZING = (NTCARD_COUNT,)
 STAGES = (MINIMIZER_KEYS, KMER_COUNT, KMER_QUERY)
-ALL = PATH + STAGES
+ALL = PATH + SIZING + STAGES
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

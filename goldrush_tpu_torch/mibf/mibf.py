@@ -623,9 +623,6 @@ def insert_blocks(table: torch.Tensor, counts: torch.Tensor,
     accepted key's entry becomes ``or_bits | id``.  Direct filter: slots,
     limit = size, or_bits = PRESENT; compressed filter: ranks, limit = the
     sentinel rank, or_bits = 0 (compressed.py:414-476)."""
-    if params.frame_stride != 1:
-        raise NotImplementedError(
-            "insert_stride > 1 is ROADMAP queue 1 item 7 (after 7d)")
     if table.is_cuda:
         _insert_cuda(table, counts, grid, lo, hi, base_id, trimmed, params,
                      num_tiles, limit, or_bits)
@@ -730,9 +727,6 @@ def insert_max(table: torch.Tensor, grid: torch.Tensor, lo: int, hi: int,
     filter: ranks, limit = the sentinel rank, or_bits = 0.  Ids stay below
     2^30 and the table holds no saturation bit, so the int32 max is the
     JAX package's uint32 max."""
-    if params.frame_stride != 1:
-        raise NotImplementedError(
-            "insert_stride > 1 is ROADMAP queue 1 item 7 (after 7d)")
     bs = params.block_size
     blocks = max(0, min(hi, num_tiles - 1) - lo) // bs + 1
     if not 0 < base_id or base_id + blocks > ID_MASK:

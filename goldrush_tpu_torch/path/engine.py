@@ -3,7 +3,11 @@
 The two-pass GoldRush-Path flow (goldrush_path.cpp:1096-1275) of
 ``goldrush_tpu/path/engine.py``, with either filter layout (``mibf_mode``),
 in exact mode or the throughput mode (sampled query grids, optimistic
-staleness, max-id-wins insert, full-resolution trim recheck):
+staleness, max-id-wins insert, full-resolution trim recheck), inserting
+every frame of every seed or a sample of them (``insert_stride``,
+``insert_seeds``), the filter sized by the closed form or by ntCard's
+estimate of the reads (``ntcard``, utils/ntcard.py: kernel K22 on the
+card):
 
   pass 1: host gates (length/phred/ACGT) -> presence fill of every insert
           seed into a bitmap (kernel A); the direct filter then writes its
@@ -15,8 +19,9 @@ staleness, max-id-wins insert, full-resolution trim recheck):
           (kernel A's slot grid, or its rank grid in the compressed
           filter, at the query stride over the probed seeds -> kernel B
           probe/vote -> kernel C classify) against the filter at batch
-          start, and where inserts or rechecks need it the full-resolution
-          grid of every insert seed; then the in-order consume scan of the
+          start, and where inserts or rechecks need it the insert grid of
+          every insert seed (full resolution, or every insert_stride-th
+          frame); then the in-order consume scan of the
           batch (path/consume.py: one launch of the consume kernel on the
           card), which re-probes reads against the live filter once it
           changed inside the batch (under the optimistic policy only
@@ -54,6 +59,7 @@ from ..ops.phred import (MEDIAN_SAMPLES_NEEDED, MINIMUM_PHRED_THRESHOLD,
                          calc_median_phred, sum_phred)
 from ..ops.seeds import make_seed_pattern
 from ..utils import observability as obs
+from ..utils.ntcard import NtCardParams, estimate_genome_size
 from .classify import classify_batch
 from .consume import COUNTS, ConsumeSpec, consume_batch, new_counters
 from .engine_util import tile_min_count
@@ -98,6 +104,7 @@ class EngineStats:
     wall_submit_first_s: float = 0.0  # first batch (includes kernel load)
     wall_replay_s: float = 0.0        # assign: host replay pass
     wall_freeze_s: float = 0.0        # fill: the compressed filter's freeze
+    wall_ntcard_s: float = 0.0        # construction: ntCard's estimate
     num_batches: int = 0
     # the process's peak device memory (torch.cuda.max_memory_allocated)
     # after pass 2; 0 on the CPU.  Not a field of the JAX engine's stats
@@ -111,19 +118,20 @@ def _bucket_for(num_tiles: int, cap: int) -> int:
     return cap
 
 
-def _check_slice(cfg: PathConfig) -> None:
+def _check_slice(cfg: PathConfig, size: int | None = None) -> None:
     """Raise for every configuration the port does not run yet, naming the
-    ROADMAP item that brings it, before anything is allocated."""
-    size = calc_optimal_size(cfg.derived_hash_universe(), 1, cfg.occupancy)
+    ROADMAP item that brings it, before anything is allocated.  ``size`` is
+    the filter's slots: by default the closed-form sizing's; an engine
+    sized by ntCard passes its estimate's, and is checked without it (with
+    no size) before the estimate."""
+    if size is None and not (cfg.ntcard and not cfg.hash_universe):
+        size = calc_optimal_size(cfg.derived_hash_universe(), 1,
+                                 cfg.occupancy)
     later = [
-        (cfg.mibf_mode != "compressed" and size >= 1 << 32,
+        (size is not None and cfg.mibf_mode != "compressed"
+         and size >= 1 << 32,
          f"the direct filter at {size} >= 2^32 slots", "queue 1 item 12"),
-        (cfg.insert_seeds not in (0, cfg.hash_num), "insert_seeds < h",
-         "queue 1 item 7, after 7d"),
-        (cfg.insert_stride != 1, "insert_stride > 1",
-         "queue 1 item 7, after 7d"),
         (cfg.wavefront, "wavefront", "queue 1 item 10"),
-        (cfg.ntcard, "ntcard", "queue 1 item 9"),
         (cfg.devices > 1 or cfg.model_shards > 1,
          "devices > 1 / model_shards > 1", "queue 1 item 11"),
     ]
@@ -156,13 +164,28 @@ class GoldenPathEngine:
         self.seeds = make_seed_pattern(cfg.seed_preset, cfg.kmer_size,
                                        cfg.weight, cfg.hash_num)
         self.fam = build_seed_family(self.seeds)
-        self.universe = cfg.derived_hash_universe()
+        self.stats = EngineStats()
+        if cfg.ntcard and not cfg.hash_universe:
+            # --ntcard: size the universe from a streaming F0 estimate of
+            # the reads on the engine's device (goldrush_path.cpp:1110-1112;
+            # rbits 22 as the JAX engine takes it,
+            # goldrush_tpu/path/engine.py:130-138)
+            t0 = time.time()
+            self.universe = estimate_genome_size(
+                cfg.input, self.seeds, NtCardParams(rbits=22, sbits=7),
+                device=self.device)
+            self.stats.wall_ntcard_s = time.time() - t0
+        else:
+            self.universe = cfg.derived_hash_universe()
         self.size = calc_optimal_size(self.universe, 1, cfg.occupancy)
+        # the size rule again, on the estimate's filter
+        _check_slice(cfg, self.size)
         # the query tier probes every S-th frame of the first probe_seeds
-        # seeds with the gates scaled to S; fill and insert cover the
-        # insert seeds at full resolution, and params_full, the trim
-        # recheck's classifier, probes those with the exact gates
-        # (goldrush_tpu/path/engine.py:141-186)
+        # seeds with the gates scaled to S; the fill covers the insert
+        # seeds at full resolution and recruits insert every
+        # insert_stride-th frame of them (params_ins); params_full, the
+        # trim recheck's classifier, probes them at full resolution with
+        # the exact gates (goldrush_tpu/path/engine.py:141-186)
         S = cfg.frame_stride
         if cfg.tile_length % S:
             raise ValueError("frame_stride must divide tile_length")
@@ -185,6 +208,8 @@ class GoldenPathEngine:
             self.params, h=self.h_ins,
             spans=tuple(len(s) for s in self.seeds[: self.h_ins]),
             frame_stride=1, vote_min=2, threshold=cfg.threshold)
+        if cfg.tile_length % cfg.insert_stride:
+            raise ValueError("insert_stride must divide tile_length")
         self.params_ins = dataclasses.replace(
             self.params_full, frame_stride=cfg.insert_stride)
         # the optimistic policy re-probes only candidates and inserts by
@@ -224,7 +249,6 @@ class GoldenPathEngine:
         self.batch_reads = 1 if cfg.debug else cfg.batch_reads
         self._prefetch = max(1, min(int(cfg.jobs), 16))
         self.phred_min = cfg.phred_min
-        self.stats = EngineStats()
         self.writers: list[fastq.PathWriter] = []
         self.last_rows = np.zeros((0, 8), dtype=np.int64)
         self.spec = ConsumeSpec(

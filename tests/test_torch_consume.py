@@ -70,6 +70,19 @@ CASES = {
                                      [0, 0, 1, 0], 2, None, "recheck"),
     "s5-p1-opt-direct-recheck": (S5, [0, 0, 1, 0], 2, None, "recheck"),
     "s2-exact-direct-recheck": (S2, [0, 0, 1, 0], 2, None, "recheck"),
+    # the sampled inserts: an insert grid of every 2nd (5th) frame (F =
+    # TL / insert_stride, no recheck), or of two insert seeds over one
+    # probed seed (the recheck probes both)
+    "is2-exact-direct": (dict(insert_stride=2), [0, 0, 1, 0], 2, None,
+                         None),
+    "is2-exact-compressed-rotation": (
+        dict(insert_stride=2, mibf_mode="compressed", **ROT), [0, 0, 1, 0],
+        2, ROT_TARGET - 1, "rotation"),
+    "s5-is5-p1-opt-compressed": (dict(S5, insert_stride=5,
+                                      mibf_mode="compressed"),
+                                 [0, 0, 1, 0], 2, None, None),
+    "p1-i2-opt-direct-recheck": (dict(OPT, probe_seeds=1, insert_seeds=2),
+                                 [0, 0, 1, 0], 2, None, "recheck"),
 }
 
 

@@ -172,12 +172,18 @@ def test_debug_dumps_and_filter_file_match_jax(dataset, capsys):
         out_files(str(d / "jdbg"), False)
 
 
+@pytest.mark.parametrize("seeds", ["all", "insert2"])
 @pytest.mark.parametrize("writer", ["jax", "torch"])
 def test_saved_filter_resumes_in_the_other_package(dataset, tmp_path,
-                                                   writer):
+                                                   writer, seeds):
+    """A filter saved by either package resumes in the other, also one
+    filled and inserted with two of the three seeds (its geometry keys on
+    the insert seeds)."""
     d, path = dataset
     ckpt = str(tmp_path / "filter.npz")
     kw = dict(CFG, batch_reads=8)
+    if seeds == "insert2":
+        kw.update(insert_seeds=2, probe_seeds=1)
     straight = str(tmp_path / "straight")
     resumed = str(tmp_path / "resumed")
     if writer == "jax":
@@ -223,9 +229,7 @@ def test_cuda_without_a_card_raises(dataset, monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    dict(insert_stride=2), dict(insert_seeds=2, probe_seeds=1),
-    dict(wavefront=True), dict(ntcard=True), dict(devices=2),
-    dict(model_shards=2)])
+    dict(wavefront=True), dict(devices=2), dict(model_shards=2)])
 def test_out_of_slice_config_raises(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GoldenPathEngine(PathConfig(**{**CFG, **over}), device="cpu")

@@ -637,6 +637,16 @@ CONSUME_CASES = {
                                      [0, 0, 1, 0], 2, None),
     "s5-p1-opt-direct-recheck": (S5, [0, 0, 1, 0], 2, None),
     "s2-exact-direct-recheck": (dict(frame_stride=2), [0, 0, 1, 0], 2, None),
+    # the sampled inserts (tests/test_torch_consume.py's cases)
+    "is2-exact-direct": (dict(insert_stride=2), [0, 0, 1, 0], 2, None),
+    "is2-exact-compressed-rotation": (
+        dict(insert_stride=2, mibf_mode="compressed", **ROT), [0, 0, 1, 0],
+        2, 119_999),
+    "s5-is5-p1-opt-compressed": (dict(S5, insert_stride=5,
+                                      mibf_mode="compressed"),
+                                 [0, 0, 1, 0], 2, None),
+    "p1-i2-opt-direct-recheck": (dict(OPT, probe_seeds=1, insert_seeds=2),
+                                 [0, 0, 1, 0], 2, None),
 }
 
 
@@ -687,6 +697,65 @@ def test_consume_matches_plain(cuda, tmp_path, case):
     with pytest.raises(RuntimeError, match="consume"):
         tcons.consume_batch(spec, state_k, *inputs, scal_k, rows_k, ck, T)
     assert kernels.CONSUME.launches == before + n
+
+
+@pytest.mark.parametrize("rbits,sbits", [(12, 3), (22, 7)])
+def test_ntcard_count_matches_plain(cuda, rbits, sbits):
+    """ntcard_count (K22) against its plain version: reads of 20 kb, of k
+    .. k + 2 bases (shorter than the longer seeds' spans), shorter than k
+    and empty, over two batches; one launch per batch with work."""
+    from goldrush_tpu_torch.utils import ntcard as tnt
+    rng = np.random.default_rng(rbits)
+    lens = [20_000, 5_000, 1_024, 1_025, 24, 23, 22, 21, 0, 3_000]
+    codes = rng.integers(0, 4, sum(lens)).astype(np.uint8)
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    k = torch.zeros((3, 2 << rbits), dtype=torch.int32, device=cuda)
+    p = torch.zeros((3, 2 << rbits), dtype=torch.int32)
+    before = kernels.NTCARD_COUNT.launches
+    for _ in range(2):
+        tnt.ntcard_count(k, tnt.pack_batch(codes, offsets, FAM.k, cuda), FAM,
+                         rbits, sbits)
+        tnt.ntcard_count(p, tnt.pack_batch(codes, offsets, FAM.k, "cpu"),
+                         FAM, rbits, sbits)
+    assert torch.equal(k.cpu(), p) and int(p.sum()) > 100
+    assert kernels.NTCARD_COUNT.launches == before + 2
+    # a batch of reads shorter than k has no work: nothing launches
+    short = tnt.pack_batch(codes[:21], np.array([0, 21]), FAM.k, cuda)
+    tnt.ntcard_count(k, short, FAM, rbits, sbits)
+    assert kernels.NTCARD_COUNT.launches == before + 2
+
+
+def test_engine_with_ntcard_and_sampled_inserts_on_card_matches_cpu(
+        cuda, tmp_path):
+    """The engine sized by ntCard, inserting every 2nd frame of two seeds
+    under one probed seed, on the card and on the CPU: universe, files,
+    counters, rows and the final filter agree."""
+    genome = synth.random_genome(60_000, seed=3)
+    reads = synth.simulate_reads(genome, n_reads=120, read_len=3000, seed=4,
+                                 err_rate=0.01, phred=20)
+    path = str(tmp_path / "reads.fq")
+    synth.write_fastq(path, reads)
+    cfg = dict(CONSUME_CFG, ntcard=True, recheck="optimistic",
+               probe_seeds=1, insert_seeds=2, insert_stride=2,
+               mibf_mode="compressed")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        before = kernels.NTCARD_COUNT.launches
+        prefix = str(tmp_path / dev)
+        eng = GoldenPathEngine(PathConfig(input=path, prefix_file=prefix,
+                                          **cfg), device=dev)
+        st = eng.run()
+        if dev == "cuda":
+            assert kernels.NTCARD_COUNT.launches == before + 1
+        files = [open(f"{prefix}_{i}.fq", "rb").read() for i in (1, 2)
+                 if os.path.exists(f"{prefix}_{i}.fq")]
+        runs[dev] = (eng.universe, files, st.recruits, st.queries,
+                     eng.last_rows.tolist(),
+                     list(tcz.state_to_numpy(eng.cstate).values()))
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu[:5] == cpu[:5] and gpu[2] > 0
+    for a, b in zip(gpu[5], cpu[5]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_recheck_zone_device_predicate(cuda):

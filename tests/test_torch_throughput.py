@@ -106,8 +106,12 @@ def counters(stats):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_throughput_engine_matches_jax(dataset, case):
-    d, path = dataset
-    over = CASES[case]
+    assert_engine_matches_jax(*dataset, case, CASES[case])
+
+
+def assert_engine_matches_jax(d, path, case, over):
+    """Both engines on CFG with ``over``: the same files, counters, rows
+    and final filter, and recruits.  Returns (JAX engine, port engine)."""
     silver = over.get("silver_path", False)
     kw = {**CFG, **(SILVER if silver else {}), **over}
     je = JEngine(JPathConfig(input=path, prefix_file=str(d / f"j{case}"),
@@ -127,9 +131,10 @@ def test_throughput_engine_matches_jax(dataset, case):
             np.testing.assert_array_equal(
                 got[name], np.asarray(getattr(je.cstate, name)),
                 err_msg=name)
-        return
+        return je, te
     words, counts = tdm.state_to_numpy(te.state)
     np.testing.assert_array_equal(words[: te.size],
                                   np.asarray(je.state.words)[: te.size])
     np.testing.assert_array_equal(counts[: te.size],
                                   np.asarray(je.state.counts)[: te.size])
+    return je, te

@@ -35,9 +35,26 @@ the same dataset and requires the same digests, and
 tests/test_torch_host.py checks that the port's synth regenerates the
 dataset byte for byte, so the two cannot drift apart.
 
+Under "ntcard": the JAX engine with ntcard=True (the universe from
+ntCard's F0 estimate of the reads, rbits 22, sbits 7) in exact mode on the
+same dataset and ENGINE settings, for each filter: the silver engine's
+universe and size, the silver paths and the golden path over their
+concatenation (whose engine estimates its own universe from that file).
+The ntCard-sized direct filter of this dataset fits the host: its
+universe, 21,869,816, is about seven times the closed-form one (207,571,328
+slots, 1.7 GB of words and counters).
+
+Under "insert": the sampled inserts on the same dataset and ENGINE
+settings, the silver paths of each case of INSERT_CASES: the throughput
+cell with insert_stride 2 and 8 (both filters), the throughput cell with
+two insert seeds over one probed seed, and the exact policy at
+insert_stride 2.  tests/test_torch_insert_gate.py (on the CPU) and
+chip_smoke.py phase 8 (on the card) hold the port to both keys.
+
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py            # all
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py pipeline   # ~1 min
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py superblocks
+    JAX_PLATFORMS=cpu python tools/torch_port_digests.py ntcard insert
 """
 
 from __future__ import annotations
@@ -71,6 +88,17 @@ SUPER = dict(hash_universe=485_000_000, mibf_mode="compressed")
 SUPER_CASES = {"exact_mod": dict(slot_map="mod"),
                "exact_fastrange": dict(slot_map="fastrange"),
                "throughput_mod": dict(THROUGHPUT, slot_map="mod")}
+# the sampled inserts: insert_stride > 1 and insert_seeds < h
+INSERT_CASES = {
+    "tp_s2_direct": dict(THROUGHPUT, insert_stride=2, mibf_mode="direct"),
+    "tp_s2_compressed": dict(THROUGHPUT, insert_stride=2,
+                             mibf_mode="compressed"),
+    "tp_s8_direct": dict(THROUGHPUT, insert_stride=8, mibf_mode="direct"),
+    "tp_s8_compressed": dict(THROUGHPUT, insert_stride=8,
+                             mibf_mode="compressed"),
+    "tp_i2_direct": dict(THROUGHPUT, insert_seeds=2, mibf_mode="direct"),
+    "exact_s2_direct": dict(insert_stride=2, mibf_mode="direct"),
+}
 
 
 def sha256_file(path: str) -> str:
@@ -116,14 +144,17 @@ def pipeline_entry() -> dict:
                 "files": stage_digests(d, stage_filenames(cfg))}
 
 
-def silver_golden(engine, config, fq: str, prefix: str, extra: dict
-                  ) -> dict:
+def silver_golden(engine, config, fq: str, prefix: str, extra: dict,
+                  sizing: bool = False) -> dict:
     """One package's silver paths on `fq` and the golden path over their
     concatenation, as pipeline.py runs the two stages: the digests of
     every file, the silver run's recruits and paths, the golden run's
-    recruits."""
-    stats = engine(config(input=fq, prefix_file=prefix, **ENGINE,
-                          **extra)).run()
+    recruits; with ``sizing`` also the silver engine's universe and
+    filter size."""
+    eng = engine(config(input=fq, prefix_file=prefix, **ENGINE, **extra))
+    size = {"universe": eng.universe, "size": eng.size} if sizing else {}
+    stats = eng.run()
+    del eng
     silver = {}
     with open(prefix + "_all.fq", "wb") as cat:
         for i in range(1, ENGINE["max_paths"] + 1):
@@ -136,7 +167,7 @@ def silver_golden(engine, config, fq: str, prefix: str, extra: dict
                            prefix_file=prefix + "_golden",
                            **{**ENGINE, "silver_path": False,
                               "min_length": 0}, **extra)).run()
-    return {"recruits": stats.recruits,
+    return {**size, "recruits": stats.recruits,
             "paths_completed": stats.paths_completed, "silver": silver,
             "golden": sha256_file(prefix + "_golden.fa"),
             "golden_recruits": golden.recruits}
@@ -168,6 +199,43 @@ def superblocks_entry(fq: str, workdir: str) -> dict:
     return {"engine": SUPER, "cases": SUPER_CASES, **cases}
 
 
+def silver_run(engine, config, fq: str, prefix: str, extra: dict) -> dict:
+    """One package's silver paths on `fq`: their digests, the recruits and
+    the paths completed."""
+    stats = engine(config(input=fq, prefix_file=prefix, **ENGINE,
+                          **extra)).run()
+    silver = {}
+    for i in range(1, ENGINE["max_paths"] + 1):
+        p = f"{prefix}_{i}.fq"
+        if os.path.exists(p):
+            silver[str(i)] = sha256_file(p)
+    return {"recruits": stats.recruits,
+            "paths_completed": stats.paths_completed, "silver": silver}
+
+
+def ntcard_entry(fq: str, workdir: str) -> dict:
+    """The "ntcard" key: the JAX engine sized by ntCard, exact mode, each
+    filter: its universe and size, silver and golden digests."""
+    from goldrush_tpu.config import PathConfig
+    from goldrush_tpu.path.engine import GoldenPathEngine
+    return {"engine": {"ntcard": True},
+            **{mode: silver_golden(GoldenPathEngine, PathConfig, fq,
+                                   os.path.join(workdir, f"nt_{mode}"),
+                                   {"ntcard": True, "mibf_mode": mode},
+                                   sizing=True)
+               for mode in ("direct", "compressed")}}
+
+
+def insert_entry(fq: str, workdir: str) -> dict:
+    """The "insert" key: silver digests of each case of INSERT_CASES."""
+    from goldrush_tpu.config import PathConfig
+    from goldrush_tpu.path.engine import GoldenPathEngine
+    return {"cases": INSERT_CASES,
+            **{tag: silver_run(GoldenPathEngine, PathConfig, fq,
+                               os.path.join(workdir, f"ins_{tag}"), case)
+               for tag, case in INSERT_CASES.items()}}
+
+
 def write_gate_dataset(path: str) -> None:
     from goldrush_tpu.utils import synth
     genome = synth.random_genome(DATASET["genome"],
@@ -194,6 +262,19 @@ def main() -> None:
             if sha256_file(fq) != out["dataset"]["sha256"]:
                 raise SystemExit("the gate dataset does not regenerate")
             out["superblocks"] = superblocks_entry(fq, d)
+        write(out)
+        return
+    keys = {"ntcard": ntcard_entry, "insert": insert_entry}
+    if sys.argv[1:] and set(sys.argv[1:]) <= set(keys):
+        with open(OUT) as f:
+            out = json.load(f)
+        with tempfile.TemporaryDirectory(prefix="torch_port_ins_") as d:
+            fq = os.path.join(d, "reads.fq")
+            write_gate_dataset(fq)
+            if sha256_file(fq) != out["dataset"]["sha256"]:
+                raise SystemExit("the gate dataset does not regenerate")
+            for key in sys.argv[1:]:
+                out[key] = keys[key](fq, d)
         write(out)
         return
     if sys.argv[1:]:
@@ -227,7 +308,9 @@ def main() -> None:
                               "direct": runs["tp_direct"],
                               "compressed": runs["tp_compressed"]},
                "pipeline": pipeline_entry(),
-               "superblocks": superblocks_entry(fq, d)}
+               "superblocks": superblocks_entry(fq, d),
+               "ntcard": ntcard_entry(fq, d),
+               "insert": insert_entry(fq, d)}
     write(out)
 
 
