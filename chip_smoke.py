@@ -214,6 +214,15 @@ def hash_ops(positions: int, hashes: int, n_care: int) -> int:
     return positions * 4 * n_care + hashes * 16
 
 
+def ntcard_ops(positions: int, hashes: int, n_care: int) -> int:
+    """ntcard_count's 32-bit integer operations, which map no slot: per
+    position hashed, two XORs of 64-bit values per care offset (4); per
+    hash, the seed's two rotates (4 funnel shifts), two XORs (4) and
+    unsigned min (4) of 64-bit values, and the bank test (4: a shift and a
+    compare of the high word, twice)."""
+    return positions * 4 * n_care + hashes * 16
+
+
 def bench_reads(dev):
     """The bench dataset's shape, made on the card from a seed: a 5 Mbp
     random genome and 3,000 reads of 20 kb sampled from it with 5%
@@ -2369,9 +2378,11 @@ def ntcard_kernel_check(dev, reads: str) -> dict:
     beside the plain version and index_add_ of ones into the counters from
     its sampled hashes' bank indices precomputed (the library call, held
     to the kernel's counters).  Bound: the hash's integer operations
-    (hash_ops over the batch's positions and every seed's own frames) or
-    the codes in and one 32-byte sector per sampled hash's atomic.
-    Returns the record at rbits 22 with the rbits 27 times beside it."""
+    (ntcard_ops over the batch's positions and every seed's own frames) or
+    the codes, offsets and work list in and one 32-byte sector per atomic:
+    one per sampled own frame (a seed's stale tail is one weighted atomic
+    at its last own frame).  Returns the record at rbits 22 with the
+    rbits 27 times beside it."""
     import torch
     from goldrush_tpu_torch.ops.nthash import build_seed_family
     from goldrush_tpu_torch.ops.seeds import make_seed_pattern
@@ -2405,12 +2416,18 @@ def ntcard_kernel_check(dev, reads: str) -> dict:
             raise AssertionError(f"ntcard rbits {rbits}: F0 {f0} vs "
                                  f"{f0_plain}")
         del p
-        # the first batch's sampled counters, one per own frame (the stale
-        # tail repeated), as the plain version computes them
-        idx = []
+        # the first batch's sampled counters, one per frame (the stale tail
+        # repeated), as the plain version computes them; the kernel's
+        # atomics, one per sampled own frame
+        idx, atomics = [], 0
         for s, (hs, valid) in enumerate(nt.seed_hashes(codes, offsets, fam)):
             i = nt.bank_index(hs[valid], rbits, sbits)
             idx.append(s * (2 << rbits) + i[i < 2 << rbits])
+            pos = torch.arange(hs.numel() // lens.numel(), device=dev)
+            own = valid & (pos[None, :] < torch.clamp(
+                lens - fam.spans[s] + 1, min=1)[:, None]).reshape(-1)
+            atomics += int((nt.bank_index(hs[own], rbits, sbits)
+                            < 2 << rbits).sum())
         idx = torch.cat(idx)
         ones = torch.ones(idx.shape, dtype=torch.int32, device=dev)
         one_k, lib = zeros(), zeros()
@@ -2424,12 +2441,13 @@ def ntcard_kernel_check(dev, reads: str) -> dict:
         lib_ms = cuda_ms(lambda: lib.view(-1).index_add_(0, idx, ones), 10)
         sampled = idx.numel()
         rec = checked(err, ms, pms, codes.numel() + offsets.numel() * 8
-                      + sampled * 32, hash_ops(positions, hashes, n_care)
-                      + hashes * 4)
+                      + first.item_read.numel() * 12 + atomics * 32,
+                      ntcard_ops(positions, hashes, n_care))
         rec["library_ms"] = lib_ms
         say("ntcard", part="a", rbits=rbits, batches=len(batches),
             batch_bases=codes.numel(), positions=positions, hashes=hashes,
-            sampled=sampled, counters=k.numel(), max_abs_err=err,
+            sampled=sampled, atomics=atomics, counters=k.numel(),
+            max_abs_err=err,
             f0=",".join(str(int(x)) for x in f0), ms=f"{ms:.4f}",
             plain_ms=f"{pms:.4f}", library_ms=f"{lib_ms:.4f}",
             bound_ms=f"{rec['bound_ms']:.4f}", bound_by=rec["bound_by"])

@@ -31,14 +31,14 @@
 // launch's atomics would serialise them on one address (ROADMAP queue 3).
 //
 // Bound.  The hash's integer work: per position the left partials (two
-// XORs of 64-bit values per left care offset), per position its right
-// partials (the same per right care offset), per seed the rotates, XORs
-// and unsigned min and the bank test; chip_smoke.py counts it with
-// hash_ops, as kernel A's rows do, plus 4 per hash for the test.  Bytes:
-// the codes once and one 32-byte sector per sampled hash's atomic; the
-// counters (96 MB at rbits 22, 3 GiB at rbits 27 for h = 3) are touched
-// only there.  A 16.8 Mbp batch of 20 kb reads: 0.031 ms by operations,
-// 0.011 by bytes; the kernel took 0.31 ms at either rbits on an H100.
+// XORs of 64-bit values per left care offset) and its right partials (the
+// same per right care offset), per seed the rotates, XORs and unsigned min
+// and the bank test, with no slot map; chip_smoke.py counts it with
+// ntcard_ops.  Bytes: the codes, offsets and work list once and one 32-byte
+// sector per atomic, one per sampled own frame; the counters (96 MB at
+// rbits 22, 3 GiB at rbits 27 for h = 3) are touched only there.
+// chip_smoke.py phase 8(a) prints the bound and the kernel's time on a
+// bench batch of 16.8 Mbp of 20 kb reads (PERF.md, the K22 row).
 #include "seed_hash.cuh"
 
 namespace gr {

@@ -118,19 +118,11 @@ def _bucket_for(num_tiles: int, cap: int) -> int:
     return cap
 
 
-def _check_slice(cfg: PathConfig, size: int | None = None) -> None:
+def _check_slice(cfg: PathConfig) -> None:
     """Raise for every configuration the port does not run yet, naming the
-    ROADMAP item that brings it, before anything is allocated.  ``size`` is
-    the filter's slots: by default the closed-form sizing's; an engine
-    sized by ntCard passes its estimate's, and is checked without it (with
-    no size) before the estimate."""
-    if size is None and not (cfg.ntcard and not cfg.hash_universe):
-        size = calc_optimal_size(cfg.derived_hash_universe(), 1,
-                                 cfg.occupancy)
+    ROADMAP item that brings it, before anything is allocated.  The
+    filter's size is checked apart (``_check_size``), once it is known."""
     later = [
-        (size is not None and cfg.mibf_mode != "compressed"
-         and size >= 1 << 32,
-         f"the direct filter at {size} >= 2^32 slots", "queue 1 item 12"),
         (cfg.wavefront, "wavefront", "queue 1 item 10"),
         (cfg.devices > 1 or cfg.model_shards > 1,
          "devices > 1 / model_shards > 1", "queue 1 item 11"),
@@ -139,6 +131,15 @@ def _check_slice(cfg: PathConfig, size: int | None = None) -> None:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+def _check_size(cfg: PathConfig, size: int) -> None:
+    """Raise for a direct filter (8 B per slot) of ``size`` >= 2^32 slots,
+    which the port does not run yet, before it is allocated."""
+    if cfg.mibf_mode != "compressed" and size >= 1 << 32:
+        raise NotImplementedError(
+            f"the direct filter at {size} >= 2^32 slots is not ported yet "
+            "(ROADMAP.md queue 1 item 12)")
 
 
 def resolve_device(device) -> torch.device:
@@ -178,8 +179,7 @@ class GoldenPathEngine:
         else:
             self.universe = cfg.derived_hash_universe()
         self.size = calc_optimal_size(self.universe, 1, cfg.occupancy)
-        # the size rule again, on the estimate's filter
-        _check_slice(cfg, self.size)
+        _check_size(cfg, self.size)
         # the query tier probes every S-th frame of the first probe_seeds
         # seeds with the gates scaled to S; the fill covers the insert
         # seeds at full resolution and recruits insert every

@@ -185,27 +185,23 @@ def seed_hashes(codes: torch.Tensor, offsets: torch.Tensor,
         yield torch.gather(hashes[:, s], 1, idx).reshape(-1), valid
 
 
-def _histogram(counter, rbits: int) -> np.ndarray:
+def _histogram(counter: torch.Tensor, rbits: int) -> np.ndarray:
     """float64 [2, CMAX]: the count of each value min(counter, CMAX - 1) in
     either bank (goldrush_tpu/utils/ntcard.py:60-65).  ``counter``: one
-    seed's two banks, a uint32 numpy array or an int32 tensor of uint32
-    bits, bincounted on its device."""
+    seed's two banks, an int32 tensor of uint32 bits, bincounted on its
+    device."""
     rbuck = 1 << rbits
     p = np.zeros((2, CMAX), dtype=np.float64)
     for i in range(2):
         bank = counter[i * rbuck:(i + 1) * rbuck]
-        if isinstance(bank, np.ndarray):
-            vals = np.minimum(bank, CMAX - 1)
-            p[i] = np.bincount(vals.astype(np.int64), minlength=CMAX)
-        else:
-            # int32 bits of uint32 values: the negative ones are >= 2^31
-            vals = torch.where(bank < 0, CMAX - 1,
-                               torch.clamp(bank, max=CMAX - 1))
-            p[i] = torch.bincount(vals, minlength=CMAX).cpu().numpy()
+        # int32 bits of uint32 values: the negative ones are >= 2^31
+        vals = torch.where(bank < 0, CMAX - 1,
+                           torch.clamp(bank, max=CMAX - 1))
+        p[i] = torch.bincount(vals, minlength=CMAX).cpu().numpy()
     return p
 
 
-def _estimate_f0(counter, rbits: int, sbits: int,
+def _estimate_f0(counter: torch.Tensor, rbits: int, sbits: int,
                  cov_max: int) -> tuple[float, np.ndarray]:
     """compEst (ntcard.hpp:114-154): counter histogram -> F0 + spectrum.
     goldrush_tpu/utils/ntcard.py:56-79, its float64 operations in the same

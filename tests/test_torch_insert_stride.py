@@ -4,7 +4,7 @@ the max-id-wins insert at a stride against goldrush_tpu's
 insert_read_sorted / insert_read_max with the insert grid's params, in both
 filters' key spaces; then the engine in every policy and filter, bit for
 bit against goldrush_tpu: files, counters, decision rows and the final
-filter (tests/test_torch_insert_gate.py holds the 1 Mbp gate dataset)."""
+filter (tests/test_torch_throughput_gate.py holds the 1 Mbp gate dataset)."""
 
 import dataclasses
 

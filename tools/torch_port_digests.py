@@ -48,7 +48,7 @@ Under "insert": the sampled inserts on the same dataset and ENGINE
 settings, the silver paths of each case of INSERT_CASES: the throughput
 cell with insert_stride 2 and 8 (both filters), the throughput cell with
 two insert seeds over one probed seed, and the exact policy at
-insert_stride 2.  tests/test_torch_insert_gate.py (on the CPU) and
+insert_stride 2.  tests/test_torch_throughput_gate.py (on the CPU) and
 chip_smoke.py phase 8 (on the card) hold the port to both keys.
 
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py            # all
