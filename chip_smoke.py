@@ -114,7 +114,20 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      the throughput cell, compressed filter, sized by ntCard and by the
      closed form: universe, size, occupancy after the fill, ntCard's and
      the fill's seconds, reads/s, peak memory.  ntcard_count and every
-     kernel of both paths must launch in (b)-(d).
+     kernel of both paths must launch in (b)-(d);
+  9. the wavefront consume (K23): (a) wave_adjacency and wave_rounds
+     against their plain versions on three windows of 256 bench reads
+     per filter (the third with a silver rotation inside it), the counts,
+     rows, scal, counters and both tables exactly, timed beside their
+     bounds, the plain versions and, for the adjacency, torch.sort of the
+     window's keys; then, every launch count zeroed just before and read
+     just after, (b) bench.py's throughput cell with wavefront=True and
+     windows of 256 reads, each filter: assign reads/s, submit and replay
+     seconds, rounds per window, commits per round, recruits, the
+     recruit-set Jaccard against phase 4's sequential pass (printed, not
+     gated), peak memory; the two kernels once per window, the consume
+     kernel and the batched B and C never; (c) the fixture's
+     "wavefront" digests of the gate dataset, both filters.
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -2581,6 +2594,338 @@ def phase_ntcard() -> tuple[dict, dict]:
     return launches, rec
 
 
+WAVE = dict(wavefront=True, wave_window=256)
+
+
+def wave_round_bytes(counts: dict, rows, n_tiles, grids, T: int, table,
+                     side, compressed: bool) -> int:
+    """The bytes of a window's rounds, from its counters and final rows:
+    per classified read its query grid row, frame_ok and two 4-byte words
+    (both tables) per entry, and its row; per rechecked read the same over
+    the insert grid; per committed read (a final decision above 0) its
+    tiles of the insert grid and two 4-byte atomics per entry; per
+    rotation the id table read and written (the direct words keep PRESENT)
+    and the side table written; the adjacency read once."""
+    import torch
+    grid, grid_ins = grids
+    B, Hq, TFq = grid.shape
+    _, Hi, TFi = grid_ins.shape
+
+    def per_probe(H, TF):
+        return H * TF * 8 + TF + 2 * 4 * H * TF + 64
+    nbytes = (counts["classified"] * per_probe(Hq, TFq)
+              + counts["rechecked"] * per_probe(Hi, TFi))
+    dec, ts, te = rows[:, 0], rows[:, 1], rows[:, 2]
+    tiles = torch.where(dec == 1, n_tiles.long(),
+                        torch.where(dec == 2, te - ts + 1, 0))
+    nbytes += int(tiles.sum()) * Hi * (TFi // T) * 16
+    nbytes += counts["rotations"] * (table.numel() * 4 * (1 if compressed
+                                                           else 2)
+                                     + side.numel() * 4)
+    return nbytes + B * B * 4
+
+
+def wave_kernel_check(dev) -> dict:
+    """9(a): wave_adjacency and wave_rounds against their plain versions on
+    the card, at bench.py's throughput cell with wavefront=True and
+    windows of 256 reads (B = 256, 20 tiles, one probed seed at stride 8,
+    h = 3 insert seeds at full resolution), each filter, on a filter filled
+    from the bench dataset's reads: two windows of the bench reads in
+    turn, then a third whose first commit fills the silver path (a
+    rotation inside the window).  The adjacency exactly (max_abs_err 0),
+    the rounds' rows, scal, counters and both tables exactly; each timed
+    with CUDA events (the rounds from the same start, restored outside
+    the timed span), beside the plain version, its bound and, for the
+    adjacency, torch.sort of the window's keys (the library time).
+    Returns {"wave_adjacency": record, "wave_rounds": record}."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.mibf import compressed as cz
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.ops.nthash import fingerprints
+    from goldrush_tpu_torch.path import wavefront as wave
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine
+    _, reads = bench_reads(dev)
+    L = BENCH["read_len"]
+    adj_rec, rnd_rec, err_a, err_r = {}, {}, 0, 0
+    for mode in ("direct", "compressed"):
+        te = GoldenPathEngine(PathConfig(**BENCH_ENGINE, **THROUGHPUT,
+                                         **WAVE, mibf_mode=mode), device=dev)
+        B, T = te.batch_reads, 20
+        bits = dm.presence_bitmap(te.size, dev)
+        for c, n in fill_pass_batches(dev, reads):
+            dm.fill_presence_bits(bits, c, n, te.fam_ins, te.size,
+                                  te.cfg.slot_map)
+        if mode == "direct":
+            dm.merge_presence(te.state.words, bits, te.size, first_write=True)
+        else:
+            te.cstate = cz.with_tables(*cz.build_rank(bits, te.size), te.size)
+        del bits
+        filt = te.cstate if mode == "compressed" else te.state
+        table = filt.ids if mode == "compressed" else filt.words
+        side = torch.zeros_like(table)
+        plain = type(filt)(*(t.clone() for t in filt))
+        side_p = side.clone()
+        _, _, ranked, limit, _ = wave._filter_view(filt, te.size)
+        target = te.cfg.target_bases()
+        scal = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=dev)
+        for w, name in enumerate(("bench_1", "bench_2", "rotation")):
+            if name == "rotation":
+                scal.copy_(torch.tensor([0, target - 1, 1, 0]))
+            scal_p = scal.clone()
+            rd = reads[w * B:(w + 1) * B].cpu().numpy()
+            codes = np.zeros((B, 21 * te.cfg.tile_length), np.uint8)
+            codes[:, :L] = rd
+            lengths = np.full(B, L, np.int32)
+            full = np.full(B, L, np.int64)
+            inputs = te._window_inputs(codes, lengths, full, T)
+            codes_d, grid, ok, gi, oi, nt, fl = inputs
+            # the adjacency
+            a0 = kernels.WAVE_ADJACENCY.launches
+            adj = wave.wave_adjacency(te.wave_spec, gi, codes_d, limit,
+                                      ranked, T)
+            launched = kernels.WAVE_ADJACENCY.launches - a0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fp = fingerprints(codes_d, te.fam_ins, T * te.cfg.tile_length,
+                              te.params_ins.frame_stride, wave.FP_BITS)
+            adj_p = wave.wave_adjacency_plain(gi, fp, limit, ranked)
+            torch.cuda.synchronize()
+            pms = (time.time() - t0) * 1e3
+            e = max_abs_err([(adj, adj_p)])
+            err_a = max(err_a, e)
+            ob = wave.ord_bits(B)
+            conf = gi if ranked else gi & ((1 << 24) - 1)
+            keys = (((conf << wave.FP_BITS | fp) << ob)
+                    | torch.arange(B, device=dev)[:, None, None])[gi < limit]
+            del fp, conf
+            ms = cuda_ms(lambda: wave.wave_adjacency(
+                te.wave_spec, gi, codes_d, limit, ranked, T), 5, hold=4)
+            lib_ms = cuda_ms(lambda: torch.sort(keys), 5, hold=4)
+            n_care = len(te.fam_ins.care_left) + len(te.fam_ins.care_right)
+            positions = B * T * te.params_ins.tile_length \
+                // te.params_ins.frame_stride
+            a_bytes = gi.numel() * 8 + codes_d.numel() + B * B * 4
+            a_ops = ntcard_ops(positions, keys.numel(), n_care)
+            rec = checked(e, ms, pms, a_bytes, a_ops)
+            tag = f"{mode}_{name}"
+            adj_rec.update({f"ms_{tag}": ms, f"plain_ms_{tag}": pms,
+                            f"library_ms_{tag}": lib_ms,
+                            f"bound_ms_{tag}": rec["bound_ms"],
+                            f"bound_by_{tag}": rec["bound_by"]})
+            say("wave", part="a", kernel="wave_adjacency", filter=mode,
+                window=name, B=B, keys=keys.numel(), launches=launched,
+                overlaps=int((adj >= wave.ADJ_MIN).sum()), max_abs_err=e,
+                ms=f"{ms:.4f}", plain_ms=f"{pms:.2f}",
+                library_ms=f"{lib_ms:.4f}",
+                bound_ms=f"{rec['bound_ms']:.4f}", bound_by=rec["bound_by"])
+            del keys
+            if e or launched != 1:
+                raise AssertionError(f"wave_adjacency {tag}: max_abs_err {e},"
+                                     f" {launched} launches")
+            # the rounds
+            saved = [t.clone() for t in filt] + [side.clone(), scal.clone()]
+            rows_k = torch.empty((B, 8), dtype=torch.int64, device=dev)
+            rows_p = torch.empty_like(rows_k)
+            ck, cp = wave.new_counters(dev), wave.new_counters(dev)
+            r0 = kernels.WAVE_ROUNDS.launches
+            wave.wave_window(te.wave_spec, filt, side, grid, ok, gi, oi, nt,
+                             fl, adj, scal, rows_k, ck, T)
+            launched = kernels.WAVE_ROUNDS.launches - r0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            wave.wave_window_plain(te.wave_spec, plain, side_p, grid, ok, gi,
+                                   oi, nt, fl, adj, scal_p, rows_p, cp, T)
+            torch.cuda.synchronize()
+            pms = (time.time() - t0) * 1e3
+            e = max_abs_err([(rows_k, rows_p), (scal, scal_p), (ck, cp),
+                             (side, side_p)] + list(zip(filt, plain)))
+            err_r = max(err_r, e)
+            after = [t.clone() for t in filt] + [side.clone(), scal.clone()]
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            ms, reps = 0.0, 3
+            for _ in range(reps):
+                for t, v in zip(list(filt) + [side, scal], saved):
+                    t.copy_(v)
+                torch.cuda._sleep(1_000_000)
+                start.record()
+                wave.wave_window(te.wave_spec, filt, side, grid, ok, gi, oi,
+                                 nt, fl, adj, scal, rows_k,
+                                 wave.new_counters(dev), T)
+                stop.record()
+                torch.cuda.synchronize()
+                ms += start.elapsed_time(stop) / reps
+            err_r = max(err_r, max_abs_err(zip(list(filt) + [side, scal],
+                                               after)))
+            counts = dict(zip(wave.WAVE_COUNTS, cp.tolist()))
+            nbytes = wave_round_bytes(counts, rows_p.cpu(), nt.cpu(),
+                                      (grid, gi), T, table, side,
+                                      mode == "compressed")
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            rnd_rec.update({f"ms_{tag}": ms, f"plain_ms_{tag}": pms,
+                            f"bound_ms_{tag}": bound,
+                            f"rounds_{tag}": counts["rounds"]})
+            say("wave", part="a", kernel="wave_rounds", filter=mode,
+                window=name, launches=launched, max_abs_err=e,
+                scal=scal.tolist(), **counts, ms=f"{ms:.4f}",
+                plain_ms=f"{pms:.1f}", bound_ms=f"{bound:.5f}")
+            if e or launched != 1 or counts["faults"]:
+                raise AssertionError(f"wave_rounds {tag}: max_abs_err {e}, "
+                                     f"{launched} launches, {counts}")
+            if name == "rotation" and not counts["rotations"]:
+                raise AssertionError(f"wave_rounds {tag}: no rotation")
+            del saved, after, inputs, adj, adj_p
+        del te, filt, plain, side, side_p, table
+        gc_cuda()
+    out = {}
+    for kname, rec, err in (("wave_adjacency", adj_rec, err_a),
+                            ("wave_rounds", rnd_rec, err_r)):
+        tags = [k[3:] for k in rec if k.startswith("ms_")]
+
+        def mean(key):
+            return sum(rec[f"{key}_{t}"] for t in tags) / len(tags)
+        out[kname] = dict(
+            max_abs_err=err, ms=mean("ms"), plain_ms=mean("plain_ms"),
+            bound_ms=mean("bound_ms"),
+            bound_by=(rec.get(f"bound_by_{tags[0]}") or "bytes"),
+            library_ms=mean("library_ms") if kname == "wave_adjacency"
+            else None, **rec)
+    return out
+
+
+def recruit_ids(prefix: str, max_paths: int) -> set:
+    """The read names of a silver run's path files."""
+    from goldrush_tpu_torch.io import fastq
+    ids = set()
+    for i in range(1, max_paths + 1):
+        p = f"{prefix}_{i}.fq"
+        if os.path.exists(p):
+            ids.update(r.id.rsplit("_", 1)[0] for r in fastq.read_records(p))
+    return ids
+
+
+def wave_bench() -> dict:
+    """9(b): bench.py's throughput cell at full width with wavefront=True
+    and windows of 256 reads through GoldenPathEngine, each filter, on the
+    bench reads (written by phase 4): every launch count zeroed just
+    before and read just after.  wave_adjacency and wave_rounds must
+    launch once per window, the consume kernel and the batched kernels B
+    and C never (the wave's first round classifies every read), every
+    other kernel of the filter's path as in phase 4.  Prints assign reads/s,
+    the submit and replay seconds, rounds per window, commits per round,
+    recruits, the recruit-set Jaccard against phase 4's sequential
+    throughput pass of the same filter (not gated) and the peak device
+    memory.  Returns the launch counts."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    reads = os.path.join(WORK, "bench_reads.fq")
+    for k in kernels.ALL + (kernels.INSERT_SORTED, kernels.INSERT_MAX):
+        k.launches = 0
+    for mode in ("compressed", "direct"):
+        before = {k.name: k.launches for k in kernels.ALL}
+        prefix = os.path.join(WORK, f"wave_{mode}")
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        eng = Engine(PathConfig(input=reads, prefix_file=prefix,
+                                mibf_mode=mode, **BENCH_ENGINE, **THROUGHPUT,
+                                **WAVE), device="cuda")
+        st = eng.run()
+        wall = time.time() - t0
+        got = {k.name: k.launches - before[k.name] for k in kernels.ALL}
+        c = eng.consume_counts
+        wave_ids = recruit_ids(prefix, eng.cfg.max_paths)
+        seq_ids = recruit_ids(os.path.join(WORK, f"throughput_{mode}"),
+                              eng.cfg.max_paths)
+        jac = len(wave_ids & seq_ids) / max(len(wave_ids | seq_ids), 1)
+        say("wave", part="b", filter=mode, fill_s=f"{st.wall_fill_s:.3f}",
+            assign_s=f"{st.wall_assign_s:.3f}",
+            submit_s=f"{st.wall_submit_s:.3f}",
+            replay_s=f"{st.wall_replay_s:.3f}", reads=st.num_reads,
+            recruits=st.recruits,
+            reads_per_s=f"{st.num_reads / max(st.wall_assign_s, 1e-9):.2f}",
+            windows=st.num_batches,
+            rounds_per_window=f"{c['rounds'] / max(st.num_batches, 1):.2f}",
+            commits_per_round=f"{c['commits'] / max(c['rounds'], 1):.3f}",
+            **c, jaccard_vs_scan=f"{jac:.4f}",
+            recruits_scan=len(seq_ids), paths_completed=st.paths_completed,
+            wave_adjacency=got["wave_adjacency"],
+            wave_rounds=got["wave_rounds"], wall_s=f"{wall:.2f}",
+            device_peak_bytes=st.device_peak_bytes)
+        grid = "seed_hash_rank_grid" if mode == "compressed" \
+            else "seed_hash_grid"
+        need = ("seed_hash_fill", grid, "wave_adjacency", "wave_rounds")
+        if (got["wave_adjacency"] != st.num_batches
+                or got["wave_rounds"] != st.num_batches
+                or any(got[k] for k in ("consume", "probe_vote", "classify"))
+                or any(got[k] <= 0 for k in need) or st.recruits <= 0
+                or c["commits"] < st.recruits or c["faults"]):
+            raise AssertionError(f"wave bench {mode}: launches {got}, "
+                                 f"counts {c}, {st.recruits} recruits over "
+                                 f"{st.num_batches} windows")
+        del eng
+    launches = {k.name: k.launches for k in kernels.ALL}
+    say("wave", launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
+def wave_digests(fx: dict) -> None:
+    """9(c): the wavefront's silver digests of the 1 Mbp gate dataset
+    (written by phase 5), each filter, against the fixture's "wavefront"
+    key (the JAX wavefront engine on the CPU)."""
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    wv = fx["wavefront"]
+    fq = os.path.join(WORK, "qgate.fq")
+    for mode in ("direct", "compressed"):
+        prefix = os.path.join(WORK, f"qgate_wave_{mode}")
+        t0 = time.time()
+        eng = Engine(PathConfig(input=fq, prefix_file=prefix, mibf_mode=mode,
+                                **fx["engine"], **wv["engine"]),
+                     device="cuda")
+        st = eng.run()
+        silver = {str(i): sha256_file(f"{prefix}_{i}.fq")
+                  for i in range(1, fx["engine"]["max_paths"] + 1)
+                  if os.path.exists(f"{prefix}_{i}.fq")}
+        got = {"recruits": st.recruits,
+               "paths_completed": st.paths_completed, "silver": silver}
+        say("wave", part="c", filter=mode, files=len(silver),
+            recruits=st.recruits, windows=st.num_batches,
+            rounds=eng.consume_counts["rounds"],
+            seconds=f"{time.time() - t0:.1f}", match=got == wv[mode])
+        if got != wv[mode] or not eng.wave:
+            raise AssertionError(f"wavefront {mode}: {got} vs {wv[mode]}")
+
+
+def phase_wave() -> tuple[dict, dict]:
+    """Phase 9, the wavefront consume (K23): (a) both kernels against
+    their plain versions; then, every launch count zeroed just before and
+    read just after, (b) the bench reads' throughput cell with
+    wavefront=True, each filter, and (c) the "wavefront" digests.
+    Returns the launch counts and the two kernels' records."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    gc_cuda()
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "torch_port_digests.json")) as f:
+        fx = json.load(f)
+    recs = wave_kernel_check(dev)
+    launches = wave_bench()
+    before = {k.name: k.launches for k in kernels.WAVE}
+    wave_digests(fx)
+    for k in kernels.WAVE:
+        launches[k.name] = k.launches
+        if k.launches <= before[k.name]:
+            raise AssertionError(f"wave digests: {k.name} never launched")
+    return launches, recs
+
+
 def phase_ab(earlier: str) -> None:
     """Phase 3 of the tree `earlier` and of this checkout in turns (earlier,
     this, this, earlier), each in a process of its own; prints every
@@ -2645,10 +2990,12 @@ def main(argv: list[str]) -> int:
         pipeline = phase_pipeline()
         genome, freeze = phase_genome()
         ntcard, checks["ntcard_count"] = phase_ntcard()
+        wave, wave_checks = phase_wave()
+        checks.update(wave_checks)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     runs = {"exact": exact, "throughput": throughput, "pipeline": pipeline,
-            "genome": genome, "ntcard": ntcard}
+            "genome": genome, "ntcard": ntcard, "wave": wave}
     for name, rec in freeze.items():
         checks[name].update(rec)
     # kernel D's and insert_max's code runs inside the consume kernel: their

@@ -44,6 +44,8 @@ namespace gr {
 
 // reads (one warp each) per CTA
 constexpr int kWarps = 4;
+// tile_min of a read without in-read tiles (engine_util.NO_TILE)
+constexpr int64_t kNoTile = 1 << 30;
 // the most dynamic shared memory one block may use on Hopper
 constexpr size_t kMaxSmem = 232448;
 
@@ -486,6 +488,70 @@ __device__ Decision classify_read(const int32_t* curr_id,
   const bool whole = n - na >= u_min && na <= a_max;
   const bool trimmed = !whole && na != n && good;
   return Decision{whole ? 1 : (trimmed ? 2 : 0), ts, te, na};
+}
+
+// A read's row: decision, trim start and end, tiles assigned, queries,
+// hits, misses, overflow; and its minimum in-read top count.
+struct Outcome {
+  int64_t dec, ts, te, na, q, h, m, ov, tmin;
+};
+
+// Kernel C on one read's vote buffer, written by kernel B's tiles in the
+// fused kernels (consume.cu, wavefront.cu) and read through L2, run by one
+// warp: `sums` [3, T] per-tile queries, hits and misses; `vals` [3T + 2TK]
+// curr_id, top_count, overflow [T] each, then the candidates' ids and
+// counts [T, K].  Every lane gets the outcome.
+__device__ inline Outcome read_outcome(const unsigned long long* sums,
+                                       const int32_t* vals, int n_t, int T,
+                                       int K, int threshold, int u_min,
+                                       int a_max, int cbuf,
+                                       unsigned char* base, int lane) {
+  const int32_t* top = vals + T;
+  const int32_t* over = top + T;
+  const int32_t* cid = over + T;
+  const int32_t* ccnt = cid + T * K;
+  const Decision d =
+      classify_read<true>(vals, cid, ccnt, n_t, T, K, threshold, u_min, a_max,
+                          cbuf, base, lane, nullptr, nullptr, nullptr, nullptr);
+  unsigned long long sq = 0, sh = 0, sm = 0;
+  long long so = 0, tmin = kNoTile;
+  for (int t = lane; t < T; t += 32) {
+    sq += __ldcg(sums + t);
+    sh += __ldcg(sums + T + t);
+    sm += __ldcg(sums + 2 * T + t);
+    so += __ldcg(over + t);
+    if (t < n_t) tmin = min(tmin, static_cast<long long>(__ldcg(top + t)));
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    sq += __shfl_xor_sync(kFull, sq, o);
+    sh += __shfl_xor_sync(kFull, sh, o);
+    sm += __shfl_xor_sync(kFull, sm, o);
+    so += __shfl_xor_sync(kFull, so, o);
+    tmin = min(tmin, __shfl_xor_sync(kFull, tmin, o));
+  }
+  return Outcome{d.decision, d.trim_start, d.trim_end, d.num_assigned,
+                 static_cast<int64_t>(sq), static_cast<int64_t>(sh),
+                 static_cast<int64_t>(sm), so, tmin};
+}
+
+// The trim recheck's boundary-zone predicate (K18, the port's
+// engine_util.recheck_zone), shared by the consume and wavefront kernels:
+// every trim; a partial assignment with an unassigned stretch of at least
+// 3 tiles or near the whole-read boundary; a full assignment whose weakest
+// tile, in full-vote units, is within 2x of the assignment gate.
+// tile_min * stride wraps in int32, as the JAX package computes it.
+__host__ __device__ inline bool recheck_zone(int64_t dec, int64_t na,
+                                             int64_t n_tiles, int64_t ts,
+                                             int64_t te, int64_t tile_min,
+                                             int stride, int threshold,
+                                             int a_max) {
+  const int32_t scaled = static_cast<int32_t>(
+      static_cast<uint32_t>(tile_min) * static_cast<uint32_t>(stride));
+  const bool weak = scaled < 2 * threshold;
+  const int64_t stretch = te - ts - 1;
+  const bool partial =
+      na > 0 && na < n_tiles && (stretch >= 3 || na <= a_max + 2);
+  return partial || dec == 2 || (na >= n_tiles && weak);
 }
 
 }  // namespace gr

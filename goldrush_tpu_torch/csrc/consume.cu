@@ -64,29 +64,7 @@ namespace cg = cooperative_groups;
 
 namespace gr {
 
-// tile_min of a read without in-read tiles (engine_util.NO_TILE)
-constexpr int64_t kNoTile = 1 << 30;
-
-// The trim recheck's boundary-zone predicate (K18, the port's
-// engine_util.recheck_zone): every trim; a partial assignment with an
-// unassigned stretch of at least 3 tiles or near the whole-read boundary;
-// a full assignment whose weakest tile, in full-vote units, is within 2x
-// of the assignment gate.  tile_min * stride wraps in int32, as the JAX
-// package computes it.
-__host__ __device__ inline bool recheck_zone(int64_t dec, int64_t na,
-                                             int64_t n_tiles, int64_t ts,
-                                             int64_t te, int64_t tile_min,
-                                             int stride, int threshold,
-                                             int a_max) {
-  const int32_t scaled = static_cast<int32_t>(
-      static_cast<uint32_t>(tile_min) * static_cast<uint32_t>(stride));
-  const bool weak = scaled < 2 * threshold;
-  const int64_t stretch = te - ts - 1;
-  const bool partial =
-      na > 0 && na < n_tiles && (stretch >= 3 || na <= a_max + 2);
-  return partial || dec == 2 || (na >= n_tiles && weak);
-}
-
+// The zone predicate (K18) is recheck_zone in classify.cuh.
 struct ConsumeArgs {
   // the filter: the direct words or the rank-indexed ids, and counters,
   // `alloc` entries each
@@ -131,12 +109,6 @@ struct Tier {
   int H, F, vote_min, threshold, bits;
 };
 
-// A read's row: decision, trim start and end, tiles assigned, queries,
-// hits, misses, overflow; and its minimum in-read top count.
-struct Outcome {
-  int64_t dec, ts, te, na, q, h, m, ov, tmin;
-};
-
 // Probe read i against the live filter with `tier` and classify it; the
 // k-th probe of the launch uses vote buffer k & 1.  Every thread of every
 // CTA calls it and gets the outcome.
@@ -162,30 +134,10 @@ __device__ Outcome probe_read(const ConsumeArgs& a, const Tier& tier, int i,
   }
   grid.sync();
   if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const Decision d = classify_read<true>(
-        curr, cid, ccnt, n_t, T, K, tier.threshold, a.u_min, a.a_max, a.cbuf,
-        gr_smem, lane, nullptr, nullptr, nullptr, nullptr);
-    unsigned long long sq = 0, sh_ = 0, sm = 0;
-    long long so = 0, tmin = kNoTile;
-    for (int t = lane; t < T; t += 32) {
-      sq += __ldcg(q + t);
-      sh_ += __ldcg(q + T + t);
-      sm += __ldcg(q + 2 * T + t);
-      so += __ldcg(over + t);
-      if (t < n_t) tmin = min(tmin, static_cast<long long>(__ldcg(top + t)));
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      sq += __shfl_xor_sync(kFull, sq, o);
-      sh_ += __shfl_xor_sync(kFull, sh_, o);
-      sm += __shfl_xor_sync(kFull, sm, o);
-      so += __shfl_xor_sync(kFull, so, o);
-      tmin = min(tmin, __shfl_xor_sync(kFull, tmin, o));
-    }
-    if (lane == 0)
-      *sh = Outcome{d.decision, d.trim_start, d.trim_end, d.num_assigned,
-                    static_cast<int64_t>(sq), static_cast<int64_t>(sh_),
-                    static_cast<int64_t>(sm), so, tmin};
+    const Outcome o = read_outcome(q, curr, n_t, T, K, tier.threshold,
+                                   a.u_min, a.a_max, a.cbuf, gr_smem,
+                                   threadIdx.x);
+    if (threadIdx.x == 0) *sh = o;
   }
   __syncthreads();
   return *sh;
@@ -358,13 +310,6 @@ __global__ void recheck_zone_kernel(const int64_t* __restrict__ rows, int n,
   const int64_t* r = rows + static_cast<int64_t>(i) * 6;
   out[i] = recheck_zone(r[0], r[1], r[2], r[3], r[4], r[5], stride,
                         threshold, a_max);
-}
-
-// least power of two >= n entries, as kernel B's vote table takes it
-inline int table_bits(int n) {
-  int bits = 1;
-  while ((1 << bits) < n) ++bits;
-  return bits;
 }
 
 }  // namespace gr

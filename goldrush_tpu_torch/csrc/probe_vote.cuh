@@ -50,6 +50,28 @@ constexpr int kMaxH = 8;
 // CTAs (36 KB of shared memory each at H*F = 3,000) on an SM
 constexpr int kThreads = 512;
 
+// least power of two >= n entries (at least 2): the vote table of a tile
+// of n votes
+inline int table_bits(int n) {
+  int bits = 1;
+  while ((1 << bits) < n) ++bits;
+  return bits;
+}
+
+// The word a frame reads at grid entry x: the filter's own (direct: the
+// slot's word; compressed: PRESENT | ids[rank] for a real rank, 0 for the
+// sentinel).  probe_vote_tile's View; the wavefront's bracket view
+// (wavefront.cu) is the other.
+struct TableWord {
+  template <bool kFused>
+  __device__ __forceinline__ uint32_t get(const uint32_t* words, int ranked,
+                                          int64_t limit, int64_t x) const {
+    return !ranked ? load<kFused>(words + x)
+           : x < limit ? kPresent | load<kFused>(words + x)
+                       : 0u;
+  }
+};
+
 // Add `add` votes for `id` (nonzero) to the table of 2^bits entries.  An
 // entry's id never changes once claimed, so a stale read is either 0
 // (settled by the CAS) or the right id with a stale count.
@@ -116,11 +138,12 @@ __device__ __forceinline__ void emit(unsigned long long key, int FH,
 // `frame_ok` are the grid's arrays; the outputs are indexed by b * T + t.
 // In the standalone kernel (kFused false) the filter is read-only and the
 // read's queries/hits/misses are summed over its tiles with atomics; in
-// the fused consume kernel (kFused) the filter is read through L2, since
-// other CTAs of the launch insert into it, and each tile stores its own
-// sums at b * T + t, so that nothing needs zeroing between probes.  The
-// caller separates two calls in one CTA with a __syncthreads.
-template <bool kFused>
+// the fused kernels (kFused) the filter is read through L2, since other
+// CTAs of the launch insert into it, and each tile stores its own sums at
+// b * T + t, so that nothing needs zeroing between probes.  `view` gives
+// the word of a grid entry (TableWord, or the wavefront's bracket view).
+// The caller separates two calls in one CTA with a __syncthreads.
+template <bool kFused, typename View = TableWord>
 __device__ void probe_vote_tile(
     const uint32_t* words, const int64_t* __restrict__ slots, int ranked,
     int64_t limit, const bool* __restrict__ frame_ok, int H, int T, int F,
@@ -128,7 +151,7 @@ __device__ void probe_vote_tile(
     int32_t* curr_id, int32_t* top_count, int32_t* cand_ids,
     int32_t* cand_counts, bool* bool_init, int32_t* overflow,
     unsigned long long* queries, unsigned long long* hits,
-    unsigned long long* misses) {
+    unsigned long long* misses, const View view = View{}) {
   __shared__ unsigned long long red[5 * 32];
   __shared__ unsigned fill;
   const int S = 1 << bits;
@@ -160,9 +183,7 @@ __device__ void probe_vote_tile(
 #pragma unroll
       for (int s = 0; s < kMaxH; ++s)
         if (s < H)
-          id[s] = !ranked ? load<kFused>(words + x[s])
-                  : x[s] < limit ? kPresent | load<kFused>(words + x[s])
-                                 : 0u;
+          id[s] = view.template get<kFused>(words, ranked, limit, x[s]);
     }
     // every loop over the seeds is unrolled to kMaxH so that x and id stay
     // in registers

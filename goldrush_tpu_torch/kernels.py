@@ -32,7 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 SOURCES = ("seed_hash.cu", "probe_vote.cu", "classify.cu",
            "insert_sorted.cu", "insert_max.cu", "rank.cu", "minimizers.cu",
-           "kmer_count.cu", "consume.cu", "ntcard.cu")
+           "kmer_count.cu", "consume.cu", "ntcard.cu", "wavefront.cu")
 HEADERS = ("common.cuh", "probe_vote.cuh", "classify.cuh", "insert.cuh",
            "seed_hash.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -77,6 +77,13 @@ _SIGNATURES = {
     "gr_recheck_zone": (_P, _I, _I, _I, _I, _P),
     "gr_ntcard_count": (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P),
+    "gr_wave_adjacency": (_P, _I, _I, _I, _I, _I, _I, _P, _L, _P, _I, _I,
+                          _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P,
+                          _P, _P),
+    "gr_wave_rounds": (_P, _P, _L, _I, _L, _U, _P, _P, _I, _I, _P, _P, _I,
+                       _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P,
+                       _P, _P),
 }
 
 
@@ -240,6 +247,14 @@ NTCARD_COUNT = Kernel(
     "ntcard_count", "gr_ntcard_count", "goldrush_tpu_torch/csrc/ntcard.cu",
     "goldrush_tpu/utils/ntcard.py:41 (_sample_and_count, with the hashing "
     "and clamp of :95-116)")
+WAVE_ADJACENCY = Kernel(
+    "wave_adjacency", "gr_wave_adjacency",
+    "goldrush_tpu_torch/csrc/wavefront.cu",
+    "goldrush_tpu/path/wavefront.py:159 (K23a: the window's overlap "
+    "adjacency, :281-345)")
+WAVE_ROUNDS = Kernel(
+    "wave_rounds", "gr_wave_rounds", "goldrush_tpu_torch/csrc/wavefront.cu",
+    "goldrush_tpu/path/wavefront.py:159 (K23b: the round loop, :491-726)")
 # the consume kernel's zone predicate (K18) launched alone, to hold it
 # against the plain predicate; not a kernel of the path, so not in ALL
 RECHECK_ZONE = Kernel(
@@ -261,8 +276,11 @@ PATH = (SEED_HASH_GRID, SEED_HASH_RANK_GRID, SEED_HASH_FILL, PRESENCE_MERGE,
 # ntCard's counters, which size the filter when the engine runs with
 # ntcard=True (before pass 1)
 SIZING = (NTCARD_COUNT,)
+# the wavefront consume, which replaces the consume kernel on the path
+# when the engine runs with wavefront=True under the optimistic policy
+WAVE = (WAVE_ADJACENCY, WAVE_ROUNDS)
 STAGES = (MINIMIZER_KEYS, KMER_COUNT, KMER_QUERY)
-ALL = PATH + SIZING + STAGES
+ALL = PATH + SIZING + WAVE + STAGES
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

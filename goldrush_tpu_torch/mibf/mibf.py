@@ -94,6 +94,14 @@ def state_from_numpy(words: np.ndarray, counts: np.ndarray,
     return MibfState(words=conv(words), counts=conv(counts))
 
 
+def side_from_numpy(side: np.ndarray, device="cpu") -> torch.Tensor:
+    """The JAX wavefront's side table (uint32, the id table's shape:
+    goldrush_tpu/path/wavefront.py) as the port's, an int32 bit view on
+    ``device``."""
+    a = np.ascontiguousarray(side, dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(a.copy()).to(device)
+
+
 def state_to_numpy(state: MibfState) -> tuple[np.ndarray, np.ndarray]:
     """Inverse of ``state_from_numpy``: uint32 numpy arrays on the host."""
     return (state.words.cpu().numpy().view(np.uint32).copy(),
@@ -525,16 +533,58 @@ def _probe_and_vote_cuda(words, slots, frame_ok, params, num_tiles,
 
 def _probe_and_vote_plain(words, slots, frame_ok, params, num_tiles,
                           ranked=False):
-    B, H, TF = slots.shape
-    T = num_tiles
-    F = TF // T
-    K = params.vote_topk
-    FH = F * H
+    H = slots.shape[1]
     ws = [words[slots[:, s, :]] for s in range(H)]       # H gathers [B, TF]
     if ranked:
         sent = words.shape[0] - 1
         ws = [torch.where(slots[:, s, :] < sent, w | PRESENT_BIT, 0)
               for s, w in enumerate(ws)]
+    return _vote_from_words(ws, frame_ok, params, num_tiles)
+
+
+def bracket_words(table: torch.Tensor, side: torch.Tensor,
+                  grid: torch.Tensor, ceil: torch.Tensor, limit: int,
+                  ranked: bool) -> list:
+    """The words a wavefront read sees at its grid entries (the two-table
+    bracket of goldrush_tpu/path/wavefront.py:213-231 compressed,
+    :252-270 direct): ``table`` holds the latest (largest) id written at
+    each entry, ``side`` the earliest as INV_BASE - id (wavefront.py).
+    Under the read's ceiling c the latest id p is visible when 0 < p <= c;
+    otherwise the earliest, INV_BASE - side, when side >= INV_BASE - c;
+    otherwise none.  The direct word keeps its PRESENT and saturation bits
+    beside the visible id; a rank below ``limit`` (the sentinel) reads
+    PRESENT | id, the sentinel 0.  grid int64 [B, H, TF], ceil int64 [B]
+    (below INV_BASE) -> H int32 tensors [B, TF], the words
+    ``_vote_from_words`` takes."""
+    from ..path.wavefront import INV_BASE
+    c = ceil[:, None]
+    ws = []
+    for s in range(grid.shape[1]):
+        g = grid[:, s, :]
+        w, side_w = table[g], side[g]
+        p = w if ranked else w & ID_MASK
+        early = torch.where((side_w > 0) & (side_w >= INV_BASE - c),
+                            INV_BASE - side_w, 0)
+        idv = torch.where((p > 0) & (p <= c), p, early)
+        if ranked:
+            ws.append(torch.where(g < limit, PRESENT_BIT | idv,
+                                  0).to(torch.int32))
+        else:
+            ws.append(((w & ~ID_MASK) | idv).to(torch.int32))
+    return ws
+
+
+def _vote_from_words(ws: list, frame_ok: torch.Tensor, params: MibfParams,
+                     num_tiles: int) -> VoteResult:
+    """The vote of ``probe_and_vote`` after its gathers, on each probed
+    seed's words ``ws`` (int32 [B, TF] each; goldrush_tpu/mibf/
+    compressed.py:268 ``_vote_from_words``)."""
+    H = len(ws)
+    B, TF = frame_ok.shape
+    T = num_tiles
+    F = TF // T
+    K = params.vote_topk
+    FH = F * H
     present = ws[0] & PRESENT_BIT
     for s in range(1, H):
         present = present & ws[s]

@@ -182,6 +182,18 @@ def hash_positions(codes: torch.Tensor, fam: SeedFamily,
     return out
 
 
+def fingerprints(codes: torch.Tensor, fam: SeedFamily, num_frames: int,
+                 stride: int, bits: int) -> torch.Tensor:
+    """The wavefront's k-mer fingerprints (goldrush_tpu/path/wavefront.py:
+    293-296): the low ``bits`` bits of every seed's hash at every
+    stride-th position, int64 [B, h, num_frames // stride].  The position
+    is the plain one, f * stride, also where the insert grid clamps a
+    frame at a tile's tail; past a read's end the k-mer reads the zero
+    padding, as ``hash_positions`` does.  The plain version; on the card
+    the wave_adjacency kernel hashes its own (csrc/wavefront.cu)."""
+    return hash_positions(codes, fam, num_frames, stride) & ((1 << bits) - 1)
+
+
 def _hash_at_padded(c: torch.Tensor, fam: SeedFamily, pos: torch.Tensor,
                     L_valid: int) -> torch.Tensor:
     """Hashes at per-seed positions of padded codes ``c``, each position

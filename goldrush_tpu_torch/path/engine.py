@@ -38,6 +38,12 @@ The "exact" staleness policy makes the result bit-identical to sequential
 processing at any batch size; both policies are bit-identical to the JAX
 engine under the same config.  Configurations of later slices raise
 ``NotImplementedError`` at construction (see ``_check_slice``).
+
+With ``wavefront=True`` under the optimistic policy (and not ``debug``),
+as in the JAX engine, pass 2 runs windows of ``wave_window`` reads
+through the wavefront consume instead of the scan (path/wavefront.py:
+the window's overlap adjacency, then its rounds, one launch each on the
+card); elsewhere ``wavefront`` is ignored.
 """
 
 from __future__ import annotations
@@ -61,7 +67,9 @@ from ..ops.seeds import make_seed_pattern
 from ..utils import observability as obs
 from ..utils.ntcard import NtCardParams, estimate_genome_size
 from .classify import classify_batch
-from .consume import COUNTS, ConsumeSpec, consume_batch, new_counters
+from . import wavefront as wave
+from .consume import (COUNTS, ConsumeSpec, _filter_view, consume_batch,
+                      new_counters)
 from .engine_util import tile_min_count
 
 # tile-bucket sizes and the per-batch tile budget of the JAX engine
@@ -70,6 +78,9 @@ from .engine_util import tile_min_count
 BUCKETS = (1, 2, 4, 8, 12, 16, 20, 24, 32, 48, 64, 96, 128, 192, 256,
            384, 512, 768, 1024, 1536, 2048)
 TILE_BUDGET = 4096
+# the wavefront's windows take a larger budget (goldrush_tpu/path/
+# engine.py:53-56)
+WAVE_TILE_BUDGET = 8192
 FILL_BATCH = 64
 # replay-record cache cap in retained allocation bytes: past it the replay
 # pass re-streams the input instead of holding every record
@@ -123,7 +134,6 @@ def _check_slice(cfg: PathConfig) -> None:
     ROADMAP item that brings it, before anything is allocated.  The
     filter's size is checked apart (``_check_size``), once it is known."""
     later = [
-        (cfg.wavefront, "wavefront", "queue 1 item 10"),
         (cfg.devices > 1 or cfg.model_shards > 1,
          "devices > 1 / model_shards > 1", "queue 1 item 11"),
     ]
@@ -133,13 +143,28 @@ def _check_slice(cfg: PathConfig) -> None:
                 f"{what} is not ported yet (ROADMAP.md {item})")
 
 
+def _wave_on(cfg: PathConfig) -> bool:
+    """Whether pass 2 runs the wavefront: the JAX engine's gate
+    (goldrush_tpu/path/engine.py:244-247) without its environment
+    toggles."""
+    return cfg.recheck == "optimistic" and cfg.wavefront and not cfg.debug
+
+
 def _check_size(cfg: PathConfig, size: int) -> None:
     """Raise for a direct filter (8 B per slot) of ``size`` >= 2^32 slots,
-    which the port does not run yet, before it is allocated."""
+    which the port does not run yet, and for the wavefront at 2^31 slots
+    or more, before the filter is allocated.  The JAX wavefront casts
+    slots and ranks to int32 (goldrush_tpu/path/wavefront.py:205-207,
+    :243-244), so past 2^31 its gathers and scatters wrap to other entries
+    (ROADMAP queue 3); a compressed filter's ranks stay below its slots."""
     if cfg.mibf_mode != "compressed" and size >= 1 << 32:
         raise NotImplementedError(
             f"the direct filter at {size} >= 2^32 slots is not ported yet "
             "(ROADMAP.md queue 1 item 12)")
+    if _wave_on(cfg) and size >= 1 << 31:
+        raise NotImplementedError(
+            f"the wavefront at {size} >= 2^31 slots: the JAX wavefront's "
+            "int32 slots and ranks wrap there (ROADMAP.md queue 3)")
 
 
 def resolve_device(device) -> torch.device:
@@ -247,6 +272,12 @@ class GoldenPathEngine:
         # --debug dumps per-pass tile states of every read against the live
         # filter, so batches are single reads (goldrush_path.cpp:1229)
         self.batch_reads = 1 if cfg.debug else cfg.batch_reads
+        # the wavefront's windows are batches of at least wave_window reads
+        # under their own tile budget
+        self.wave = _wave_on(cfg)
+        if self.wave:
+            self.batch_reads = max(self.batch_reads, cfg.wave_window)
+        self.tile_budget = WAVE_TILE_BUDGET if self.wave else TILE_BUDGET
         self._prefetch = max(1, min(int(cfg.jobs), 16))
         self.phred_min = cfg.phred_min
         self.writers: list[fastq.PathWriter] = []
@@ -258,9 +289,14 @@ class GoldenPathEngine:
             assigned_max=cfg.assigned_max, fast=self.fast,
             rech_on=self.rech_on, silver=bool(cfg.silver_path),
             target=int(cfg.target_bases()), max_paths=int(cfg.max_paths))
+        self.wave_spec = wave.WaveSpec(self.spec, self.fam_ins)
+        # the wavefront's earliest-wins side table: zeroed at the start of
+        # each pass, threaded through its windows, kept with the filter
+        self.wave_side: torch.Tensor | None = None
         # the consume scan's counts over the last pass (consume.COUNTS:
-        # live re-probes, trim rechecks, inserts, silver resets); kept out
-        # of EngineStats, whose fields are the JAX engine's
+        # live re-probes, trim rechecks, inserts, silver resets; under the
+        # wavefront wave.WAVE_COUNTS); kept out of EngineStats, whose
+        # fields are the JAX engine's
         self.consume_counts: dict[str, int] = {}
 
     # ------------------------------------------------------------------
@@ -436,12 +472,11 @@ class GoldenPathEngine:
             for p in range(ids_tr.shape[1]):
                 obs.log_tile_states(ids_tr[i, p, :n], bools_tr[i, p, :n])
 
-    def _batch_inputs(self, codes, lengths, full_lengths, T) -> tuple:
-        """One padded batch on the device: its query grid and frame_ok,
-        the full-resolution grid of every insert seed (what recruits insert
-        and the trim recheck probes) and its frame_ok, n_tiles, the full
-        lengths, and the batched verdicts against the filter at batch start
-        (``_probe_classify``)."""
+    def _window_inputs(self, codes, lengths, full_lengths, T) -> tuple:
+        """One padded batch on the device: its codes, its query grid and
+        frame_ok, the full-resolution grid of every insert seed (what
+        recruits insert and the trim recheck probes) and its frame_ok,
+        n_tiles and the full lengths."""
         TL = self.params.tile_length
         codes_d, lengths_d = self._upload(codes), self._upload(lengths)
         n_tiles_d = self._upload((lengths // TL).astype(np.int32))
@@ -453,6 +488,15 @@ class GoldenPathEngine:
         else:
             grid_ins, ok_ins = self._grid(codes_d, lengths_d, T, self.fam_ins,
                                           self.params_ins)
+        return codes_d, grid, frame_ok, grid_ins, ok_ins, n_tiles_d, full_d
+
+    def _batch_inputs(self, codes, lengths, full_lengths, T) -> tuple:
+        """The consume scan's inputs of one padded batch: the grids,
+        n_tiles and full lengths of ``_window_inputs``, and the batched
+        verdicts against the filter at batch start
+        (``_probe_classify``)."""
+        _, grid, frame_ok, grid_ins, ok_ins, n_tiles_d, full_d = \
+            self._window_inputs(codes, lengths, full_lengths, T)
         rows0 = self._probe_classify(grid, frame_ok, n_tiles_d, T)
         return grid, frame_ok, grid_ins, ok_ins, n_tiles_d, full_d, rows0
 
@@ -463,12 +507,23 @@ class GoldenPathEngine:
         (path/consume.py; goldrush_tpu/path/engine.py:865-1024), which
         updates the filter, ``scal`` = [ids_inserted, inserted_bases,
         path_idx, done] (carried across batches) and ``counters`` in place
-        and writes one row per read into ``rows_out``, all on the
-        device."""
+        and writes one row per read into ``rows_out``, all on the device.
+        Under the wavefront the batch is a window: its adjacency, then its
+        rounds (path/wavefront.py), which also update the side table, and
+        ``scal[0]`` counts id reservations."""
         state = self.cstate if self.compressed else self.state
-        consume_batch(self.spec, state,
-                      *self._batch_inputs(codes, lengths, full_lengths, T),
-                      scal, rows_out, counters, T)
+        if not self.wave:
+            consume_batch(self.spec, state,
+                          *self._batch_inputs(codes, lengths, full_lengths, T),
+                          scal, rows_out, counters, T)
+            return
+        # the wave's first round classifies every read: no batched verdicts
+        codes_d, *inputs = self._window_inputs(codes, lengths, full_lengths, T)
+        _, _, ranked, limit, _ = _filter_view(state, self.size)
+        adj = wave.wave_adjacency(self.wave_spec, inputs[2], codes_d, limit,
+                                  ranked, T)
+        wave.wave_window(self.wave_spec, state, self.wave_side, *inputs, adj,
+                         scal, rows_out, counters, T)
 
     # ------------------------------------------------------------------
     def _eligible(self, path: str):
@@ -484,7 +539,7 @@ class GoldenPathEngine:
 
     def _pad_batch(self, B: int, T: int) -> int:
         Bpad = max(B, self.batch_reads)
-        if Bpad * T > TILE_BUDGET:
+        if Bpad * T > self.tile_budget:
             Bpad = 1 << max(0, (B - 1)).bit_length()
         return Bpad
 
@@ -526,7 +581,12 @@ class GoldenPathEngine:
         cache_bufs: set = set()
         dev = self.device
         scal_d = torch.tensor([0, 0, 1, 0], dtype=torch.int64).to(dev)
-        counters = new_counters(dev)
+        counters = (wave.new_counters(dev) if self.wave
+                    else new_counters(dev))
+        if self.wave:
+            table = self.cstate.ids if self.compressed else self.state.words
+            self.wave_side = None     # the last pass's goes before this one
+            self.wave_side = torch.zeros_like(table)
         rows_d = torch.empty((4096, 8), dtype=torch.int64, device=dev)
         n_rows = 0
 
@@ -568,7 +628,7 @@ class GoldenPathEngine:
                     cache_bufs.clear()
             T_r = _bucket_for(rec.length // TL, cap)
             T_new = max(pend_T, T_r)
-            if pending and (len(pending) + 1) * T_new > TILE_BUDGET:
+            if pending and (len(pending) + 1) * T_new > self.tile_budget:
                 submit(pending)
                 pending = []
                 T_new = T_r
@@ -583,7 +643,12 @@ class GoldenPathEngine:
         # the pass's one fetch
         rows = rows_d[:n_rows].cpu().numpy()
         scal = scal_d.tolist()
-        self.consume_counts = dict(zip(COUNTS, counters.tolist()))
+        self.consume_counts = dict(zip(
+            wave.WAVE_COUNTS if self.wave else COUNTS, counters.tolist()))
+        if self.consume_counts.get("faults"):
+            raise RuntimeError(f"wavefront: {self.consume_counts['faults']} "
+                               "windows faulted (past the round cap, or ids "
+                               f"at INV_BASE): {self.consume_counts}")
         st.wall_submit_s += time.time() - t0
         self.last_rows = rows
 

@@ -34,11 +34,13 @@ def recheck_zone(dec: int, na: int, n_tiles: int, trim_start: int,
     (tile_min * stride, wrapped to int32 as the JAX package's int32
     product is: a read without tiles, tile_min NO_TILE, is weak at the
     strides where it wraps below the gate), is within 2x of the assignment
-    gate.  Pinned by tests/test_recheck_zone.py."""
+    gate.  Pinned by tests/test_recheck_zone.py.  Elementwise: Python
+    ints give a bool, the wavefront's [B] tensors a bool tensor."""
     weak = _wrap32(tile_min * frame_stride) < 2 * threshold
     stretch = trim_end - trim_start - 1
-    partial = 0 < na < n_tiles and (stretch >= 3 or na <= assigned_max + 2)
-    return partial or dec == 2 or (na >= n_tiles and weak)
+    partial = (na > 0) & (na < n_tiles) & ((stretch >= 3)
+                                           | (na <= assigned_max + 2))
+    return partial | (dec == 2) | ((na >= n_tiles) & weak)
 
 
 def zone_batch(rows: torch.Tensor, frame_stride: int, threshold: int,

@@ -228,8 +228,7 @@ def test_cuda_without_a_card_raises(dataset, monkeypatch):
                   "G=60000", f"prefix={d / 'nocard'}"])
 
 
-@pytest.mark.parametrize("over", [
-    dict(wavefront=True), dict(devices=2), dict(model_shards=2)])
+@pytest.mark.parametrize("over", [dict(devices=2), dict(model_shards=2)])
 def test_out_of_slice_config_raises(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GoldenPathEngine(PathConfig(**{**CFG, **over}), device="cpu")

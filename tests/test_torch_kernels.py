@@ -880,3 +880,100 @@ def test_pipeline_on_card_matches_fixture(cuda, tmp_path):
     got["gaps"] = hashlib.sha256(open(
         tmp_path / (files["ntlink"] + ".gaps.json"), "rb").read()).hexdigest()
     assert got == fx["files"]
+
+
+# tests/test_wavefront.py's settings with the wavefront on
+WAVE_CFG = dict(genome_size=60_000, kmer_size=22, weight=16, hash_num=3,
+                seed_preset="1011011110110111101101", silver_path=True,
+                max_paths=2, min_length=4_000, ratio=0.5,
+                hash_universe=3_000_000, batch_reads=16, frame_stride=8,
+                probe_seeds=1, recheck="optimistic", wavefront=True)
+
+
+def wave_reads(tmp_path):
+    genome = synth.random_genome(60_000, seed=7)
+    path = str(tmp_path / "wave.fq")
+    synth.write_fastq(path, synth.simulate_reads(genome, 80, 6_000, seed=8,
+                                                 err_rate=0.02))
+    return path
+
+
+@pytest.mark.parametrize("mode", ["direct", "compressed"])
+def test_wave_kernels_match_plain(cuda, tmp_path, mode):
+    """wave_adjacency and wave_rounds against their plain versions on the
+    two windows of 64 reads of a filter the card filled, the first
+    window's first commit filling the silver path (a rotation inside it):
+    the counts, rows, scal, counters and both tables bit for bit, one
+    launch of each kernel per window."""
+    from goldrush_tpu_torch.ops.nthash import fingerprints
+    from goldrush_tpu_torch.path import wavefront as wave
+    path = wave_reads(tmp_path)
+    te = GoldenPathEngine(PathConfig(input=path, mibf_mode=mode,
+                                     wave_window=64, **WAVE_CFG),
+                          device=cuda)
+    te.calc_phred_threshold(path)
+    te.fill(path)
+    state_k = te.cstate if te.compressed else te.state
+    state_p = type(state_k)(*(t.clone() for t in state_k))
+    side_k = torch.zeros_like(state_k.ids if te.compressed
+                              else state_k.words)
+    side_p = side_k.clone()
+    _, _, ranked, limit, _ = wave._filter_view(state_k, te.size)
+    scal_k = torch.tensor([0, 29_999, 1, 0], dtype=torch.int64, device=cuda)
+    scal_p = scal_k.clone()
+    ck, cp = wave.new_counters(cuda), wave.new_counters(cuda)
+    before = [k.launches for k in kernels.WAVE]
+    recs = list(te._eligible(path))
+    n = 0
+    for i in range(0, len(recs), 64):
+        codes, lengths, full, T = te._pack_batch(recs[i: i + 64])
+        codes_d, grid, ok, gi, oi, nt, fl = te._window_inputs(codes, lengths,
+                                                              full, T)
+        adj = wave.wave_adjacency(te.wave_spec, gi, codes_d, limit, ranked, T)
+        fp = fingerprints(codes_d, te.fam_ins, T * te.cfg.tile_length,
+                          te.params_ins.frame_stride, wave.FP_BITS)
+        assert torch.equal(adj, wave.wave_adjacency_plain(gi, fp, limit,
+                                                          ranked))
+        rows_k = torch.empty((64, 8), dtype=torch.int64, device=cuda)
+        rows_p = torch.empty_like(rows_k)
+        wave.wave_window(te.wave_spec, state_k, side_k, grid, ok, gi, oi, nt,
+                         fl, adj, scal_k, rows_k, ck, T)
+        wave.wave_window_plain(te.wave_spec, state_p, side_p, grid, ok, gi,
+                               oi, nt, fl, adj, scal_p, rows_p, cp, T)
+        assert_same([rows_k, scal_k, ck, side_k, *state_k],
+                    [rows_p, scal_p, cp, side_p, *state_p])
+        n += 1
+    assert [k.launches for k in kernels.WAVE] == [b + n for b in before]
+    assert ck[4] > 0 and ck[3] > 0 and ck[5] == 0
+
+
+@pytest.mark.parametrize("mode", ["direct", "compressed"])
+def test_wave_engine_on_card_matches_cpu(cuda, tmp_path, mode):
+    """The wavefront engine (windows of 256 reads) on the card and on the
+    CPU: files, counters, rows, the final filter and the side table agree;
+    the consume kernel and the batched B and C never launch."""
+    path = wave_reads(tmp_path)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        before = {k.name: k.launches for k in kernels.ALL}
+        prefix = str(tmp_path / f"{mode}-{dev}")
+        eng = GoldenPathEngine(PathConfig(input=path, prefix_file=prefix,
+                                          mibf_mode=mode, **WAVE_CFG),
+                               device=dev)
+        st = eng.run()
+        if dev == "cuda":
+            got = {k.name: k.launches - before[k.name] for k in kernels.ALL}
+            assert got["wave_rounds"] == got["wave_adjacency"] == \
+                st.num_batches
+            assert got["consume"] == got["probe_vote"] == \
+                got["classify"] == 0
+        files = [open(f"{prefix}_{i}.fq", "rb").read() for i in (1, 2)
+                 if os.path.exists(f"{prefix}_{i}.fq")]
+        table = eng.cstate.ids if mode == "compressed" else eng.state.words
+        runs[dev] = (files, st, eng.last_rows.tolist(),
+                     dict(eng.consume_counts), table.cpu(),
+                     eng.wave_side.cpu())
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu[0] == cpu[0] and len(gpu[0]) == 2
+    assert gpu[2:4] == cpu[2:4] and gpu[1].recruits == cpu[1].recruits
+    assert_same(gpu[4:], cpu[4:])

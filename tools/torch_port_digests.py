@@ -51,10 +51,16 @@ two insert seeds over one probed seed, and the exact policy at
 insert_stride 2.  tests/test_torch_throughput_gate.py (on the CPU) and
 chip_smoke.py phase 8 (on the card) hold the port to both keys.
 
+Under "wavefront": the wavefront consume (path/wavefront.py) on the same
+dataset and ENGINE settings in the throughput cell with wavefront=True and
+windows of 256 reads (WAVE), the silver paths of each filter.
+chip_smoke.py phase 9 holds the port on the card to them.
+
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py            # all
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py pipeline   # ~1 min
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py superblocks
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py ntcard insert
+    JAX_PLATFORMS=cpu python tools/torch_port_digests.py wavefront
 """
 
 from __future__ import annotations
@@ -99,6 +105,8 @@ INSERT_CASES = {
     "tp_i2_direct": dict(THROUGHPUT, insert_seeds=2, mibf_mode="direct"),
     "exact_s2_direct": dict(insert_stride=2, mibf_mode="direct"),
 }
+# the wavefront consume over the throughput cell
+WAVE = dict(THROUGHPUT, wavefront=True, wave_window=256)
 
 
 def sha256_file(path: str) -> str:
@@ -236,6 +244,18 @@ def insert_entry(fq: str, workdir: str) -> dict:
                for tag, case in INSERT_CASES.items()}}
 
 
+def wavefront_entry(fq: str, workdir: str) -> dict:
+    """The "wavefront" key: silver digests of the wavefront consume over
+    the throughput cell, each filter."""
+    from goldrush_tpu.config import PathConfig
+    from goldrush_tpu.path.engine import GoldenPathEngine
+    return {"engine": WAVE,
+            **{mode: silver_run(GoldenPathEngine, PathConfig, fq,
+                                os.path.join(workdir, f"wave_{mode}"),
+                                {**WAVE, "mibf_mode": mode})
+               for mode in ("direct", "compressed")}}
+
+
 def write_gate_dataset(path: str) -> None:
     from goldrush_tpu.utils import synth
     genome = synth.random_genome(DATASET["genome"],
@@ -264,7 +284,8 @@ def main() -> None:
             out["superblocks"] = superblocks_entry(fq, d)
         write(out)
         return
-    keys = {"ntcard": ntcard_entry, "insert": insert_entry}
+    keys = {"ntcard": ntcard_entry, "insert": insert_entry,
+            "wavefront": wavefront_entry}
     if sys.argv[1:] and set(sys.argv[1:]) <= set(keys):
         with open(OUT) as f:
             out = json.load(f)
@@ -310,7 +331,8 @@ def main() -> None:
                "pipeline": pipeline_entry(),
                "superblocks": superblocks_entry(fq, d),
                "ntcard": ntcard_entry(fq, d),
-               "insert": insert_entry(fq, d)}
+               "insert": insert_entry(fq, d),
+               "wavefront": wavefront_entry(fq, d)}
     write(out)
 
 
