@@ -45,14 +45,23 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      width 2k + 2, beside advanced indexing (each library call on
      precomputed slots and held to the kernel);
      the consume scan (K9, `consume_check`) in exact mode (B=32) and in
-     the throughput cell (B=64) with either filter, on batches of the
-     bench dataset's shape that rotate a silver path and reach `done`,
-     that insert reads and then re-probe reads overlapping them, and
-     whose homopolymer recruit overflows a CTA's shared memory: rows,
+     the throughput cell (B=64) with either filter, and exact mode at
+     insert stride 8, on batches of the bench dataset's shape that
+     rotate a silver path and reach `done`, that insert reads and then
+     re-probe reads overlapping them, in which every read after the first
+     re-probes, whose homopolymer recruit overflows its key owner's bucket
+     and shared memory, of one read (B=1), and of 140 kb reads (T=140: a
+     probe's tile jobs wrap past the key owners onto every CTA): rows,
      scal, counters and filter against the plain version, each batch
-     timed beside the plain version and its bound, and one whole-read
-     insert timed inside the kernel (a batch with one recruit and no
-     live read, less the same batch with none);
+     timed beside the plain version and its bound, with its live
+     re-probes, rechecks, inserts, resets and grid barriers (counted from
+     the plain version's steps, for this kernel and the design it
+     replaced); inside the kernel one whole-read insert (a batch with one
+     recruit and no live read, less the same batch with none) and one
+     probe (a batch with one live re-probe, less the same batch with an
+     insert instead; and one trim recheck, less a batch of drops); and
+     the first 16 (exact) or 8 (throughput) batches of a silver pass over
+     the bench reads, in order, timed per batch;
   4. end to end, two paths, each with every launch count zeroed just
      before it and read just after:
      exact: goldrush-path (silver M=5, then golden) through the CLI
@@ -99,7 +108,8 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      launch count zeroed before (a) and read after (b); (c) ranks at or
      above 2^32: an all-ones bitmap of 2^32 + 2^26 slots frozen, its rank
      grid, one exact insert and one insert_max against their plain
-     versions;
+     versions, and a consume batch of four reads on those ranks in both
+     policies against consume_batch_plain;
   8. ntCard's sizing and the sampled inserts: (a) ntcard_count (K22)
      against its plain version on the bench reads' batches (2^24 bases a
      launch) at rbits 22 and 27 (3 GiB of counters), counters and each
@@ -131,13 +141,13 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
-With --ab DIR it runs phase 3 alone, four times, each in a process of its
-own that imports the port from its tree: DIR (for example a `git archive`
-of the parent commit, whose kernels' entry points may differ: only the
-Python wrappers are called), this checkout, this checkout, DIR; then it
-prints each kernel's times side by side.  Every run checks its tree's
-kernels against their plain versions.  An earlier tree skips the consume
-kernel, which it lacks.
+With --ab DIR it runs phase 3 and 9(a) alone, four times, each in a
+process of its own that imports the port from its tree: DIR (for example
+a `git archive` of the parent commit, whose kernels' entry points may
+differ: only the Python wrappers are called), this checkout, this
+checkout, DIR; then it prints each kernel's times side by side (each
+run's whole output goes to smoke_work/ab_runs.log).  Every run checks
+its tree's kernels against their plain versions.
 """
 
 from __future__ import annotations
@@ -866,7 +876,7 @@ def plain_steps(spec, grid, grid_ins, limit):
         dm.reset_ids, cz.reset_ids = orig["dm"], orig["cz"]
 
 
-def consume_bytes(te, inputs, steps, filt) -> int:
+def consume_bytes(te, inputs, steps, filt, T: int) -> int:
     """The bytes a consume batch must move, from the plain version's steps
     on this run's batch (`plain_steps`): the batched rows in and the rows
     out; per probe (live or recheck) its grid row, frame_ok and one 4-byte
@@ -882,8 +892,7 @@ def consume_bytes(te, inputs, steps, filt) -> int:
     table = filt.ids if compressed else filt.words
     limit = filt.sentinel if compressed else te.size
     exact = not te.fast
-    F = te.params_ins.tile_length          # frames per tile at stride 1
-    T = grid_ins.shape[2] // F
+    F = grid_ins.shape[2] // T             # the insert grid's frames a tile
     nbytes = rows0.numel() * 8 + rows0.shape[0] * 64 + 64
     for step in steps:
         kind = step[0]
@@ -904,49 +913,203 @@ def consume_bytes(te, inputs, steps, filt) -> int:
     return nbytes
 
 
-def insert_in_kernel_ms(te, filt, inputs, T, dev, reps=21) -> tuple:
-    """One whole-read insert (T tiles) inside the consume kernel: the
-    median time of a batch whose last read recruits and whose other reads
-    are batch-time drops, so that no read re-probes, less the median of
-    the same batch with no recruit; the filter restored before each launch,
-    outside the timed span.  Returns (insert ms, the batch's ms without
-    the recruit)."""
+def barrier_counts(steps, fast: bool) -> tuple[int, int]:
+    """Grid barriers of one batch, from the plain version's steps
+    (`plain_steps`), under this tree's consume kernel and under the design
+    it replaced.  This one: a probe round (a live probe, with a recheck
+    beside it, or a recheck alone) crosses one barrier after its gathers,
+    and one before them if the filter was written since the last barrier;
+    an exact insert that was not probed crosses one after its scatter;
+    insert_max needs one only after a reset; a reset one after any write;
+    one at the end.  The replaced design: each probe one, plus one before
+    it, before an insert and before a reset after a write; one at the
+    end."""
+    new, old = 1, 1
+    dirty = 0                     # 0 clean, 1 insert_max only, 2 written
+    old_dirty = False
+    probed = set()
+    for step in steps:
+        kind = step[0]
+        if kind in ("live", "recheck"):
+            old += 1 + old_dirty
+            old_dirty = False
+            if step[1] not in probed:
+                probed.add(step[1])
+                new += 1 + (dirty != 0)
+                dirty = 0
+        elif kind == "insert":
+            old += old_dirty
+            old_dirty = True
+            if fast:
+                new += dirty == 2
+                dirty = 1
+            else:
+                new += step[1] not in probed
+                dirty = 2
+        else:
+            old += old_dirty
+            old_dirty = True
+            new += dirty != 0
+            dirty = 2
+    return new, old
+
+
+def timed_consume(te, filt, inputs, rows0, T, dev, want, reps=21,
+                  spec=None) -> float:
+    """The median device time of one consume launch on `inputs` with
+    `rows0`, the filter restored before each launch outside the timed
+    span, from scal [0, 0, 1, 0]; its counters must equal `want`."""
     import torch
     from goldrush_tpu_torch.path import consume as tcons
-    rows0 = inputs[-1]
-    none = torch.zeros_like(rows0)
-    if none.shape[1] > 8:
-        none[:, 8] = 1_000        # far from the recheck zone's weak gate
-    one = none.clone()
-    one[-1, :4] = torch.tensor([1, 0, T - 1, T])
     saved = [t.clone() for t in filt]
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    med = {}
-    for name, r0 in (("none", none), ("one", one)):
-        times = []
-        for _ in range(reps):
-            for t, v in zip(filt, saved):
-                t.copy_(v)
-            scal = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=dev)
-            ck = tcons.new_counters(dev)
-            rows = torch.empty((rows0.shape[0], 8), dtype=torch.int64,
-                               device=dev)
-            torch.cuda._sleep(1_000_000)
-            start.record()
-            tcons.consume_batch(te.spec, filt, *inputs[:-1], r0, scal, rows,
-                                ck, T)
-            stop.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(stop))
-        want = [0, 0, int(name == "one"), 0]
-        if ck.tolist() != want:
-            raise AssertionError(f"insert timing batch {name}: counters "
-                                 f"{ck.tolist()}, expected {want}")
-        med[name] = sorted(times)[reps // 2]
+    times = []
+    for _ in range(reps):
+        for t, v in zip(filt, saved):
+            t.copy_(v)
+        scal = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=dev)
+        ck = tcons.new_counters(dev)
+        rows = torch.empty((rows0.shape[0], 8), dtype=torch.int64,
+                           device=dev)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        tcons.consume_batch(spec or te.spec, filt, *inputs[:-1], rows0, scal,
+                            rows, ck, T)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
     for t, v in zip(filt, saved):
         t.copy_(v)
-    return med["one"] - med["none"], med["none"]
+    if ck.tolist() != want:
+        raise AssertionError(f"consume timing batch: counters "
+                             f"{ck.tolist()}, expected {want}")
+    return sorted(times)[reps // 2]
+
+
+def quiet_rows(rows0):
+    """Batch-time rows that neither probe nor insert: drops, far from the
+    recheck zone's weak gate."""
+    import torch
+    none = torch.zeros_like(rows0)
+    if none.shape[1] > 8:
+        none[:, 8] = 1_000
+    return none
+
+
+def insert_in_kernel_ms(te, filt, inputs, T, dev) -> tuple:
+    """One whole-read insert (T tiles) inside the consume kernel: the
+    median time of a batch whose last read recruits and whose other reads
+    are batch-time drops, so that no read re-probes, less the median of
+    the same batch with no recruit.  Returns (insert ms, the batch's ms
+    without the recruit)."""
+    import torch
+    none = quiet_rows(inputs[-1])
+    one = none.clone()
+    one[-1, :4] = torch.tensor([1, 0, T - 1, T])
+    base = timed_consume(te, filt, inputs, none, T, dev, [0, 0, 0, 0])
+    ins = timed_consume(te, filt, inputs, one, T, dev, [0, 0, 1, 0])
+    return ins - base, base
+
+
+def probe_in_kernel_ms(te, filt, inputs, T, dev) -> dict:
+    """One probe inside the consume kernel, on the 'overlap' batch (reads
+    500 bases apart) after its read 0 was inserted: a batch whose reads
+    B-2 and B-1 are reads 2 and 1, read B-2 recruits at batch time and read
+    B-1 is a stale recruit, so read B-1 alone re-probes (and, sitting
+    between two inserted reads, is assigned: no insert follows), less the
+    same batch in which read B-1 recruits instead (one insert each, no
+    probe); under the trim recheck also a batch whose read B-1 alone is a
+    batch-time trim (in the zone, re-classified at full resolution, then
+    assigned), less the batch of drops.  Returns {"live": ms, "recheck":
+    ms or None}."""
+    import torch
+    from goldrush_tpu_torch.path import consume as tcons
+    B = inputs[-1].shape[0]
+    whole = torch.tensor([1, 0, T - 1, T])
+    # read 0 into the filter (not timed)
+    first = quiet_rows(inputs[-1])
+    first[0, :4] = whole
+    saved = [t.clone() for t in filt]
+    tcons.consume_batch(te.spec, filt, *inputs[:-1], first,
+                        torch.tensor([0, 0, 1, 0], dtype=torch.int64,
+                                     device=dev),
+                        torch.empty((B, 8), dtype=torch.int64, device=dev),
+                        tcons.new_counters(dev), T)
+    perm = torch.cat([torch.arange(3, B), torch.tensor([0, 2, 1])]).to(dev)
+    moved = [t[perm] for t in inputs]
+    none = quiet_rows(moved[-1])
+    one = none.clone()
+    one[B - 2, :4] = whole
+    one[B - 1, :4] = whole
+    other = none.clone()
+    other[B - 1, :4] = whole
+    out = {"live": timed_consume(te, filt, moved, one, T, dev, [1, 0, 1, 0])
+           - timed_consume(te, filt, moved, other, T, dev, [0, 0, 1, 0]),
+           "recheck": None}
+    if te.rech_on:
+        trim = none.clone()
+        trim[B - 1, :4] = torch.tensor([2, 0, T - 1, T])
+        out["recheck"] = (
+            timed_consume(te, filt, moved, trim, T, dev, [0, 1, 0, 0])
+            - timed_consume(te, filt, moved, none, T, dev, [0, 0, 0, 0]))
+    for t, v in zip(filt, saved):
+        t.copy_(v)
+    return out
+
+
+def bench_batches_ms(te, filt, reads, T, dev, n) -> dict:
+    """The first `n` batches of a silver pass over the bench reads, in
+    order, at bench.py's silver target (M=5, r=0.9 of 5 Mbp): each
+    batch's inputs (its grids and the batched B and C against the filter
+    as the batch starts), then its consume launch timed alone between
+    events.  Returns the mean ms per batch and the scan's counters per
+    batch (the kernel's own: this sequence has no plain run)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch.path import consume as tcons
+    spec = dataclasses.replace(te.spec, target=int(0.9 * BENCH["genome"]),
+                               max_paths=5)
+    B, L = te.batch_reads, BENCH["read_len"]
+    scal = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=dev)
+    ck = tcons.new_counters(dev)
+    scratch = tcons.ConsumeScratch() if hasattr(tcons, "ConsumeScratch") \
+        else None
+    kw = {"scratch": scratch} if scratch is not None else {}
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for b in range(n):
+        codes = np.zeros((B, (T + 1) * te.cfg.tile_length), np.uint8)
+        codes[:, :L] = reads[b * B:(b + 1) * B].cpu().numpy()
+        inputs = te._batch_inputs(codes, np.full(B, L, np.int32),
+                                  np.full(B, L, np.int64), T)
+        rows = torch.empty((B, 8), dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        tcons.consume_batch(spec, filt, *inputs, scal, rows, ck, T, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    per = {k: v / n for k, v in zip(tcons.COUNTS, ck.tolist())}
+    return dict(ms=total / n, batches=n, **per)
+
+
+def long_reads(genome, n: int, length: int, g):
+    """`n` reads of `length` bases from the start of `genome`, 10 kb apart,
+    with 5% substitutions."""
+    import torch
+    dev = genome.device
+    starts = 10_000 * torch.arange(n, device=dev)[:, None]
+    reads = genome[starts + torch.arange(length, device=dev)]
+    subst = torch.rand(reads.shape, device=dev, generator=g) < \
+        BENCH["err_rate"]
+    return torch.where(subst, torch.randint(0, 4, reads.shape,
+                                            dtype=torch.uint8, device=dev,
+                                            generator=g), reads)
 
 
 def consume_check(dev) -> dict:
@@ -954,18 +1117,32 @@ def consume_check(dev) -> dict:
     the counters and the filter), at the main path's shapes: bench.py's
     engine (5 Mbp, h=3, 20-tile reads) in exact mode (B=32) and in the
     throughput cell (B=64, stride 8, one probed seed, trim recheck), each
-    with either filter, on a filter filled from the bench dataset's reads
-    and three batches in turn: one whose recruits (the silver target cut
-    to 100 kb, M=2) rotate a silver path and then reach `done`; one of 20
-    kb reads 500 bases apart, so that every insert is followed by live
-    re-probes of overlapping reads (the check that a CTA reads what
-    another CTA wrote, through L2); one that starts with a homopolymer
-    read, whose three keys each take 20,000 entries in one CTA, past its
-    shared memory.  Each batch is timed (the filter restored before each
-    launch, outside the timed span) beside the plain version and its bound
-    (`consume_bytes`), and one whole-read insert inside the kernel on the
-    last batch's reads (`insert_in_kernel_ms`).  Returns the record of the exact and the throughput
-    shape, keyed `_throughput`, with the per-case times."""
+    with either filter, and exact mode at insert stride 8 (F = 125 frames
+    a tile in the insert grid), compressed filter, on a filter filled from
+    the bench dataset's reads, and these batches in turn:
+      rotate_done: recruits (the silver target cut to 100 kb, M=2) that
+        rotate a silver path and then reach `done`;
+      overlap: 20 kb reads 500 bases apart, so that every insert is
+        followed by live re-probes of overlapping reads (the check that a
+        CTA reads what another CTA wrote, through L2);
+      all_live: the same reads, each a batch-time recruit, so that every
+        read after the first re-probes;
+      overflow: a homopolymer read first, whose three keys each take
+        20,000 entries in one owner, past its bucket and shared memory;
+      single: one read (B = 1);
+      long: four 140 kb reads (T = 140), each a batch-time recruit: a
+        probe's tile jobs outnumber the owner CTAs and wrap onto the
+        runners (T is no multiple of the CTAs).
+    Each batch is timed (the filter restored before each launch, outside
+    the timed span) beside the plain version and its bound
+    (`consume_bytes`); its live re-probes, rechecks, inserts, resets and
+    grid barriers (`barrier_counts`) are printed.  Per cell and filter,
+    one whole-read insert and one probe (live, and recheck under the trim
+    recheck) are timed inside the kernel (`insert_in_kernel_ms`,
+    `probe_in_kernel_ms`), and the first batches of a silver pass over the
+    bench reads in order (`bench_batches_ms`: 16 exact, 8 throughput).
+    Returns the record of the exact and the throughput shape, keyed
+    `_throughput`, with the per-case times."""
     import numpy as np
     import torch
     from goldrush_tpu_torch import kernels
@@ -981,123 +1158,169 @@ def consume_check(dev) -> dict:
     overlap = sample_reads(genome, (1_000_000 + 500 * torch.arange(
         64, device=dev))[:, None], g)
     homo = torch.zeros((1, L), dtype=torch.uint8, device=dev)
+    longs = long_reads(genome, 4, 140_000, g)
     special = torch.cat([overlap, homo])
-    batch_reads = {"rotate_done": reads[:64], "overlap": overlap,
-                   "overflow": torch.cat([homo, reads[64:127]])}
+    # name: (reads, T, batch-time rows forged as recruits)
+    batch_reads = {"rotate_done": (reads[:64], 20, False),
+                   "overlap": (overlap, 20, False),
+                   "all_live": (overlap, 20, True),
+                   "overflow": (torch.cat([homo, reads[64:127]]), 20, False),
+                   "single": (reads[127:128], 20, False),
+                   "long": (longs, 140, True)}
+    cells = (("exact", "direct", {}), ("exact", "compressed", {}),
+             ("throughput", "direct", THROUGHPUT),
+             ("throughput", "compressed", THROUGHPUT),
+             ("exact_is8", "compressed", dict(insert_stride=8)))
     rec, err = {}, 0
-    for cell in ("exact", "throughput"):
-        for mode in ("direct", "compressed"):
-            extra = THROUGHPUT if cell == "throughput" else {}
-            te = GoldenPathEngine(PathConfig(
-                **{**BENCH_ENGINE, "max_paths": 2, "ratio": 0.02},
-                mibf_mode=mode, **extra), device=dev)
-            B = te.batch_reads
-            bits = dm.presence_bitmap(te.size, dev)
-            for c, n in fill_pass_batches(dev, torch.cat([reads, special])):
-                dm.fill_presence_bits(bits, c, n, te.fam_ins, te.size,
-                                      te.cfg.slot_map)
-            if mode == "direct":
-                dm.merge_presence(te.state.words, bits, te.size,
-                                  first_write=True)
-            else:
-                te.cstate = cz.with_tables(*cz.build_rank(bits, te.size),
-                                           te.size)
-            del bits
-            filt = te.cstate if mode == "compressed" else te.state
-            plain = type(filt)(*(t.clone() for t in filt))
-            scal = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=dev)
-            scal_p = scal.clone()
-            ck, cp = tcons.new_counters(dev), tcons.new_counters(dev)
-            for name, rd in batch_reads.items():
-                rd = rd[:B].cpu().numpy()
-                codes = np.zeros((B, 21 * te.cfg.tile_length), np.uint8)
-                codes[:, :L] = rd
-                lengths = np.full(B, L, np.int32)
-                full = np.full(B, L, np.int64)
-                T = 20
-                inputs = te._batch_inputs(codes, lengths, full, T)
-                saved = [t.clone() for t in filt] + [scal.clone(), ck.clone()]
-                rows_k = torch.empty((B, 8), dtype=torch.int64, device=dev)
-                rows_p = torch.empty_like(rows_k)
-                before = kernels.CONSUME.launches
-                tcons.consume_batch(te.spec, filt, *inputs, scal, rows_k, ck,
-                                    T)
-                launched = kernels.CONSUME.launches - before
+    for cell, mode, extra in cells:
+        te = GoldenPathEngine(PathConfig(
+            **{**BENCH_ENGINE, "max_paths": 2, "ratio": 0.02},
+            mibf_mode=mode, **extra), device=dev)
+        B = te.batch_reads
+        bits = dm.presence_bitmap(te.size, dev)
+        for c, n in fill_pass_batches(dev, torch.cat([reads, special])):
+            dm.fill_presence_bits(bits, c, n, te.fam_ins, te.size,
+                                  te.cfg.slot_map)
+        # the long reads as 20 kb pieces (the k-mers across a cut stay out)
+        for c, n in fill_pass_batches(dev, longs.reshape(-1, L)):
+            dm.fill_presence_bits(bits, c, n, te.fam_ins, te.size,
+                                  te.cfg.slot_map)
+        if mode == "direct":
+            dm.merge_presence(te.state.words, bits, te.size,
+                              first_write=True)
+        else:
+            te.cstate = cz.with_tables(*cz.build_rank(bits, te.size),
+                                       te.size)
+        del bits
+        filt = te.cstate if mode == "compressed" else te.state
+        fresh = type(filt)(*(t.clone() for t in filt))
+        plain = type(filt)(*(t.clone() for t in filt))
+        scal = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=dev)
+        scal_p = scal.clone()
+        ck, cp = tcons.new_counters(dev), tcons.new_counters(dev)
+        names = list(batch_reads) if cell != "exact_is8" else ["rotate_done"]
+        for name in names:
+            rd, T, forged = batch_reads[name]
+            n_r, Lr = rd.shape
+            Bb = min(B, n_r)
+            codes = np.zeros((Bb, (T + 1) * te.cfg.tile_length), np.uint8)
+            codes[:, :Lr] = rd[:Bb].cpu().numpy()
+            lengths = np.full(Bb, Lr, np.int32)
+            full = np.full(Bb, Lr, np.int64)
+            inputs = list(te._batch_inputs(codes, lengths, full, T))
+            if forged:
+                rows0 = quiet_rows(inputs[-1])
+                rows0[:, :4] = torch.tensor([1, 0, T - 1, T])
+                inputs[-1] = rows0
+            # every batch starts a fresh silver path
+            scal.copy_(torch.tensor([0, 0, 1, 0]))
+            scal_p.copy_(scal)
+            saved = [t.clone() for t in filt] + [scal.clone(), ck.clone()]
+            rows_k = torch.empty((Bb, 8), dtype=torch.int64, device=dev)
+            rows_p = torch.empty_like(rows_k)
+            before = kernels.CONSUME.launches
+            tcons.consume_batch(te.spec, filt, *inputs, scal, rows_k, ck,
+                                T)
+            launched = kernels.CONSUME.launches - before
+            torch.cuda.synchronize()
+            t0 = time.time()
+            tcons.consume_batch_plain(te.spec, plain, *inputs, scal_p,
+                                      rows_p, cp, T)
+            torch.cuda.synchronize()
+            pms = (time.time() - t0) * 1e3
+            # the plain version again, on a copy of the same start, its
+            # steps recorded for the bound and the barriers (not timed)
+            log_filt = type(filt)(*(t.clone() for t in saved[:-2]))
+            with plain_steps(te.spec, inputs[0], inputs[2],
+                             filt.sentinel if mode == "compressed"
+                             else te.size) as log:
+                tcons.consume_batch_plain(
+                    te.spec, log_filt, *inputs, saved[-2].clone(),
+                    torch.empty_like(rows_p), tcons.new_counters(dev), T)
+            del log_filt
+            e = max_abs_err([(rows_k, rows_p), (scal, scal_p), (ck, cp)]
+                            + list(zip(filt, plain)))
+            err = max(err, e)
+            steps = {k: sum(1 for x in log if x[0] == k)
+                     for k in ("live", "recheck", "insert", "reset")}
+            barriers, barriers_before = barrier_counts(log, te.fast)
+            # the kernel again from the saved state, each launch timed
+            # alone between events
+            after = [t.clone() for t in filt] + [scal.clone(), ck.clone()]
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            ms = 0.0
+            reps = 3
+            for _ in range(reps):
+                for t, v in zip(list(filt) + [scal, ck], saved):
+                    t.copy_(v)
+                torch.cuda._sleep(1_000_000)
+                start.record()
+                tcons.consume_batch(te.spec, filt, *inputs, scal, rows_k,
+                                    ck, T)
+                stop.record()
                 torch.cuda.synchronize()
-                t0 = time.time()
-                tcons.consume_batch_plain(te.spec, plain, *inputs, scal_p,
-                                          rows_p, cp, T)
-                torch.cuda.synchronize()
-                pms = (time.time() - t0) * 1e3
-                # the plain version again, on a copy of the same start,
-                # its steps recorded for the bound (not timed)
-                log_filt = type(filt)(*(t.clone() for t in saved[:-2]))
-                with plain_steps(te.spec, inputs[0], inputs[2],
-                                 filt.sentinel if mode == "compressed"
-                                 else te.size) as log:
-                    tcons.consume_batch_plain(
-                        te.spec, log_filt, *inputs, saved[-2].clone(),
-                        torch.empty_like(rows_p), tcons.new_counters(dev), T)
-                del log_filt
-                e = max_abs_err([(rows_k, rows_p), (scal, scal_p), (ck, cp)]
-                                + list(zip(filt, plain)))
-                err = max(err, e)
-                steps = {k: sum(1 for x in log if x[0] == k)
-                         for k in ("live", "recheck", "insert", "reset")}
-                # the kernel again from the saved state, each launch timed
-                # alone between events
-                after = [t.clone() for t in filt] + [scal.clone(), ck.clone()]
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                ms = 0.0
-                reps = 3
-                for _ in range(reps):
-                    for t, v in zip(list(filt) + [scal, ck], saved):
-                        t.copy_(v)
-                    torch.cuda._sleep(1_000_000)
-                    start.record()
-                    tcons.consume_batch(te.spec, filt, *inputs, scal, rows_k,
-                                        ck, T)
-                    stop.record()
-                    torch.cuda.synchronize()
-                    ms += start.elapsed_time(stop) / reps
-                err = max(err, max_abs_err(zip(list(filt) + [scal, ck],
-                                               after)))
-                nbytes = consume_bytes(te, inputs, log, filt)
-                bound = nbytes / HBM_BYTES_PER_S * 1e3
-                tag = f"{cell}_{mode}_{name}"
-                rec.update({f"ms_{tag}": ms, f"plain_ms_{tag}": pms,
-                            f"bound_ms_{tag}": bound})
-                say("kernels", kernel="consume", cell=cell, filter=mode,
-                    batch=name, B=B, launches=launched, max_abs_err=e,
-                    live=steps["live"], recheck=steps["recheck"],
-                    insert=steps["insert"], reset=steps["reset"],
-                    scal=scal.tolist(), ms=f"{ms:.4f}", plain_ms=f"{pms:.1f}",
-                    bound_ms=f"{bound:.5f}")
-                if launched != 1:
-                    raise AssertionError(f"consume launched {launched} times "
-                                         "for one batch")
-                want = {"rotate_done": steps["reset"] and scal[3] == 1,
-                        "overlap": steps["live"] > 0 and steps["insert"] > 0,
-                        "overflow": any(x[:4] == ("insert", 0, 0, 19)
-                                        for x in log)}[name]
-                if not want:
-                    raise AssertionError(f"consume {tag}: the batch did not "
-                                         f"make its case: {steps}, "
-                                         f"scal {scal.tolist()}")
-                if name == "rotate_done":
-                    # the later batches start a fresh path
-                    scal.copy_(torch.tensor([0, 0, 1, 0]))
-                    scal_p.copy_(scal)
-            # one whole-read insert inside the kernel, on the last batch
-            ins, idle = insert_in_kernel_ms(te, filt, inputs, T, dev)
+                ms += start.elapsed_time(stop) / reps
+            err = max(err, max_abs_err(zip(list(filt) + [scal, ck],
+                                           after)))
+            nbytes = consume_bytes(te, inputs, log, filt, T)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            tag = f"{cell}_{mode}_{name}"
+            rec.update({f"ms_{tag}": ms, f"plain_ms_{tag}": pms,
+                        f"bound_ms_{tag}": bound})
+            say("kernels", kernel="consume", cell=cell, filter=mode,
+                batch=name, B=Bb, T=T, launches=launched, max_abs_err=e,
+                live=steps["live"], recheck=steps["recheck"],
+                insert=steps["insert"], reset=steps["reset"],
+                barriers=barriers, barriers_replaced_design=barriers_before,
+                scal=scal.tolist(), ms=f"{ms:.4f}", plain_ms=f"{pms:.1f}",
+                bound_ms=f"{bound:.5f}")
+            if launched != 1:
+                raise AssertionError(f"consume launched {launched} times "
+                                     "for one batch")
+            want = {"rotate_done": steps["reset"] and scal[3] == 1,
+                    "overlap": steps["live"] > 0 and steps["insert"] > 0,
+                    "all_live": steps["live"] == Bb - 1,
+                    "overflow": any(x[:4] == ("insert", 0, 0, 19)
+                                    for x in log),
+                    "single": Bb == 1,
+                    "long": steps["live"] > 0 and steps["insert"] > 0}[name]
+            if not want:
+                raise AssertionError(f"consume {tag}: the batch did not "
+                                     f"make its case: {steps}, "
+                                     f"scal {scal.tolist()}")
+            if name == "overlap":
+                overlap_inputs = inputs
+        if cell != "exact_is8":
+            # one whole-read insert and one probe inside the kernel, on the
+            # overlap batch's reads, from the fresh filter
+            for t, v in zip(filt, fresh):
+                t.copy_(v)
+            ins, idle = insert_in_kernel_ms(te, filt, overlap_inputs, 20,
+                                            dev)
+            probe = probe_in_kernel_ms(te, filt, overlap_inputs, 20, dev)
+            bench = bench_batches_ms(te, filt, reads[200:], 20, dev,
+                                     16 if cell == "exact" else 8)
             rec.update({f"ms_insert_{cell}_{mode}": ins,
-                        f"ms_no_recruit_{cell}_{mode}": idle})
+                        f"ms_no_recruit_{cell}_{mode}": idle,
+                        f"ms_probe_{cell}_{mode}": probe["live"],
+                        f"ms_bench_{cell}_{mode}": bench["ms"]})
+            if probe["recheck"] is not None:
+                rec[f"ms_recheck_{cell}_{mode}"] = probe["recheck"]
             say("kernels", kernel="consume", cell=cell, filter=mode,
                 insert_in_kernel_ms=f"{ins:.4f}",
-                batch_without_recruit_ms=f"{idle:.4f}")
-            del te, filt, plain
-            torch.cuda.empty_cache()
+                batch_without_recruit_ms=f"{idle:.4f}",
+                probe_in_kernel_ms=f"{probe['live']:.4f}",
+                recheck_in_kernel_ms=(f"{probe['recheck']:.4f}"
+                                      if probe["recheck"] is not None
+                                      else "none"))
+            say("kernels", kernel="consume", cell=cell, filter=mode,
+                bench_batches=bench["batches"],
+                bench_ms_per_batch=f"{bench['ms']:.4f}",
+                **{f"{k}_per_batch": f"{bench[k]:.2f}"
+                   for k in tcons.COUNTS})
+        del te, filt, plain, fresh
+        torch.cuda.empty_cache()
     for cell in ("exact", "throughput"):
         tags = [k[3:] for k in rec if k.startswith(f"ms_{cell}_")]
         sfx = "" if cell == "exact" else "_throughput"
@@ -1168,10 +1391,9 @@ def freeze_steps(bk, tk, bp, tp, size: int) -> dict:
     return out
 
 
-def phase_kernels(own: bool = True) -> dict:
-    """Each kernel vs its plain version at the slice's shapes; with `own`
-    also the consume kernel, which an earlier tree of the port (timed by
-    --ab) lacks."""
+def phase_kernels() -> dict:
+    """Each kernel vs its plain version at the slice's shapes, the consume
+    kernel included."""
     import dataclasses
 
     import numpy as np
@@ -1492,8 +1714,7 @@ def phase_kernels(own: bool = True) -> dict:
     out["kmer_count"], out["kmer_query"] = kmer_check(dev)
     del cs_k, cs_p, st_k, st_p
     torch.cuda.empty_cache()
-    if own:
-        out["consume"] = consume_check(dev)
+    out["consume"] = consume_check(dev)
     err_cummax = out["classify"].get("cummax_max_abs_err", 0)
     out["insert_sorted"]["max_abs_err"] = max(
         out["insert_sorted"]["max_abs_err"], err)
@@ -2026,12 +2247,12 @@ class ConsumeProbe:
         self.batches, self.check_s, self.host = 0, 0.0, None
         self.plain_s = self.compare_s = 0.0
 
-    def call(self, spec, state, *args):
+    def call(self, spec, state, *args, **kw):
         import torch
         from goldrush_tpu_torch.mibf import compressed as cz
         from goldrush_tpu_torch.path import consume as tcons
         if self.batches >= self.n:
-            return self.real(spec, state, *args)
+            return self.real(spec, state, *args, **kw)
         t0 = time.time()
         *inputs, scal, rows, counters, T = args
         if self.host is None:
@@ -2044,7 +2265,7 @@ class ConsumeProbe:
         host_in = [t.cpu() for t in inputs]
         rows_p = torch.empty(rows.shape, dtype=torch.int64)
         self.check_s += time.time() - t0
-        self.real(spec, state, *args)
+        self.real(spec, state, *args, **kw)
         t0 = time.time()
         tcons.consume_batch_plain(spec, self.host, *host_in, self.scal,
                                   rows_p, self.counters, T)
@@ -2253,7 +2474,8 @@ def genome_high_ranks() -> None:
     against its plain version (every slot present: rank = slot); kernel D
     and insert_max on a recruit grid of ranks above 2^32, with pairs of
     keys 2^32 apart (equal low 32 bits), against their plain versions on
-    host tables."""
+    host tables; then the consume kernel on four of the rank grid's reads
+    (`high_rank_consume`)."""
     import numpy as np
     import torch
     from goldrush_tpu_torch.mibf import compressed as cz
@@ -2346,8 +2568,60 @@ def genome_high_ranks() -> None:
     if not (same and same_max and accepted > 0):
         raise AssertionError("inserts at ranks >= 2^32 differ from their "
                              "plain versions")
-    del cs, bitrank, supers, host_ids, host_counts
+    del host_ids, host_counts
+    high_rank_consume(cs, params, ranks[:4], ok[:4], T, dev)
+    del cs, bitrank, supers
     gc_cuda()
+
+
+def high_rank_consume(cs, params, ranks, ok, T: int, dev) -> None:
+    """7(c) through the consume kernel: a batch of four reads on rank grids
+    above 2^32 (the all-ones filter: rank = slot), each a batch-time
+    recruit, so that read 0 inserts and reads 1-3 re-probe and insert, in
+    both policies, against consume_batch_plain on host tables: rows,
+    scal, counters and both tables."""
+    import torch
+    from goldrush_tpu_torch.path import consume as tcons
+    B = ranks.shape[0]
+    rows0 = torch.zeros((B, 8), dtype=torch.int64, device=dev)
+    rows0[:, :4] = torch.tensor([1, 0, T - 1, T])
+    n_tiles = torch.full((B,), T, dtype=torch.int32, device=dev)
+    full = torch.full((B,), T * params.tile_length, dtype=torch.int64,
+                      device=dev)
+    inputs = (ranks, ok, ranks, ok, n_tiles, full, rows0)
+    for fast in (False, True):
+        spec = tcons.ConsumeSpec(
+            params=params, params_full=params, params_ins=params,
+            unassigned_min=5, assigned_max=1, fast=fast, rech_on=False,
+            silver=False, target=0, max_paths=0)
+        cs.ids.zero_()
+        cs.counts.zero_()
+        host = type(cs)(torch.empty(0, dtype=torch.int64),
+                        torch.empty(0, dtype=torch.int64),
+                        torch.zeros(cs.ids.shape, dtype=torch.int32),
+                        torch.zeros(cs.counts.shape, dtype=torch.int32))
+        scal = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=dev)
+        scal_p = scal.cpu()
+        ck, cp = tcons.new_counters(dev), tcons.new_counters("cpu")
+        rows = torch.empty((B, 8), dtype=torch.int64, device=dev)
+        rows_p = torch.empty((B, 8), dtype=torch.int64)
+        tcons.consume_batch(spec, cs, *inputs, scal, rows, ck, T)
+        torch.cuda.synchronize()
+        tcons.consume_batch_plain(spec, host, *(t.cpu() for t in inputs),
+                                  scal_p, rows_p, cp, T)
+        same = (torch.equal(rows.cpu(), rows_p)
+                and torch.equal(scal.cpu(), scal_p)
+                and torch.equal(ck.cpu(), cp)
+                and tables_equal(cs.ids, host.ids)
+                and tables_equal(cs.counts, host.counts))
+        say("genome", part="c", kernel="consume", fast=int(fast),
+            counters=ck.tolist(), rows_dec=rows[:, 0].tolist(), same=same)
+        if not same or ck[0] == 0 or ck[2] < 2:
+            raise AssertionError(f"consume at ranks >= 2^32 (fast={fast}): "
+                                 f"same={same}, counters {ck.tolist()}")
+        del host
+    cs.ids.zero_()
+    cs.counts.zero_()
 
 
 def phase_genome() -> dict:
@@ -2927,24 +3201,24 @@ def phase_wave() -> tuple[dict, dict]:
 
 
 def phase_ab(earlier: str) -> None:
-    """Phase 3 of the tree `earlier` and of this checkout in turns (earlier,
-    this, this, earlier), each in a process of its own; prints every
-    kernel's times from the four runs side by side."""
+    """Phase 3 and 9(a) of the tree `earlier` and of this checkout in turns
+    (earlier, this, this, earlier), each in a process of its own; prints
+    every time (each record key starting with "ms") that both trees
+    measured, from the four runs side by side."""
     runs = []
     for tree in (earlier, REPO, REPO, earlier):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--kernels-of", tree], capture_output=True,
-                           text=True, timeout=900)
+                           text=True, timeout=1200)
+        os.makedirs(WORK, exist_ok=True)
+        with open(os.path.join(WORK, "ab_runs.log"), "a") as f:
+            f.write(f"=== {tree}\n{r.stdout}{r.stderr[-5000:]}\n")
         if r.returncode != 0:
             raise AssertionError(f"phase 3 of {tree} failed:\n"
                                  f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
         runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
     for name, rec in runs[1].items():
-        for key in ("ms", "ms_b1", "ms_compressed", "ms_b1_compressed",
-                    "ms_fill_pass", "ms_or", "ms_words_merge", "ms_2tile",
-                    "ms_s8", "ms_s2", "ms_ins_b64", "ms_k40_w250",
-                    "ms_k32_w1000", "ms_chunk", "ms_homopolymer",
-                    "ms_contig"):
+        for key in sorted(k for k in rec if k.startswith("ms")):
             if key in rec and key in runs[0].get(name, {}):
                 say("ab", kernel=name, time=key,
                     earlier=",".join(f"{runs[i][name][key]:.4f}"
@@ -2971,7 +3245,9 @@ def main(argv: list[str]) -> int:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda is not available")
         phase_build()
-        print(json.dumps(phase_kernels(own=tree == REPO)))
+        out = phase_kernels()
+        out.update(wave_kernel_check(torch.device("cuda", 0)))
+        print(json.dumps(out))
         return 0
     from goldrush_tpu_torch import kernels
     device_name = phase_device()

@@ -25,6 +25,11 @@
 //     lane of each closing edge then fills or clears its run;
 //   - flank_top2 counts each window position's id with one lane each;
 //   - the other passes are sequential scans run by lane 0.
+// The consume kernel's runner (kStaged, with its CTA's candidate masks)
+// runs passes 1-4, the longest stretch and the flank top-2 of a read of up
+// to 32 tiles across the lanes instead, a tile a lane (reconcile_runs,
+// neighbor_fill_scan, flank_top2_lanes); C's own kernel and the wavefront
+// keep the walks.
 // Several reads share a CTA (one warp each), a single read runs one warp.
 // gr_row_cummax launches the warp cummax alone on [R, T] rows, so that it
 // can be held against torch.cummax.
@@ -57,6 +62,11 @@ struct Read {
   int32_t* sci;        // [CH, K] staged candidate ids (shared memory)
   int32_t* scc;        // [CH, K] staged candidate counts
   int n, T, K, CH, lane;
+  // the CTA's candidate masks (kStaged, or null): bit x of mcol[i] says
+  // tile i's candidates hold tile x's initial id, of scol[i] that one of
+  // them with a count over the threshold does
+  const uint32_t* mcol;
+  const uint32_t* scol;
 };
 
 __device__ __forceinline__ bool adj(int32_t a, int32_t b) {
@@ -77,10 +87,12 @@ __device__ inline void trace(const Read& r, int32_t* ids_tr, int32_t* bools_tr,
   __syncwarp();
 }
 
-// stage the candidates of tiles [lo, hi) into shared memory
-template <bool kFused>
+// stage the candidates of tiles [lo, hi) into shared memory; a read whose
+// whole table its CTA staged already (kStaged) has nothing to stage
+template <bool kFused, bool kStaged = false>
 __device__ void stage(const Read& r, int lo, int hi) {
   __syncwarp();
+  if constexpr (kStaged) return;
   const int m = (hi - lo) * r.K;
   const int64_t off = static_cast<int64_t>(lo) * r.K;
   for (int j = r.lane; j < m; j += 32) {
@@ -116,7 +128,7 @@ __device__ inline int32_t reconcile(const Read& r, int i, int lo, int32_t prev,
 
 // pass 1 (forward, :646-661) or pass 2 (backward, :667-682), staging the
 // candidates chunk by chunk in the pass's direction
-template <bool kFused>
+template <bool kFused, bool kStaged = false>
 __device__ void reconcile_pass(const Read& r, bool backward, int threshold,
                                int& lo, int& hi) {
   const int n = r.n;
@@ -127,10 +139,160 @@ __device__ void reconcile_pass(const Read& r, bool backward, int threshold,
     if (i < lo || i >= hi) {
       lo = backward ? max(0, i + 1 - r.CH) : i;
       hi = backward ? i + 1 : min(n, i + r.CH);
-      stage<kFused>(r, lo, hi);
+      stage<kFused, kStaged>(r, lo, hi);
     }
     prev = reconcile(r, i, lo, prev, threshold);
   }
+}
+
+// pass 3/4 step on tile c's id and bool, between neighbours p and n
+// (goldrush_path.cpp:688-734; neighbor_fill's branches as selects: the
+// first three set the bool, the last, taken only when they are not, copies
+// the left neighbour)
+__device__ __forceinline__ void fill_step(int32_t pi, int32_t pa,
+                                          int32_t& ci, int32_t& ca,
+                                          int32_t ni, int32_t na) {
+  const bool l = pa != 0, r = na != 0;
+  const bool set = ((ci == pi) & l) | ((ci == ni) & r) |
+                   ((ci == pi + 1) & l) | ((ci == ni + 1) & r) |
+                   ((pi != 0) & (ci == pi - 1) & l) |
+                   ((ni != 0) & (ci == ni - 1) & r);
+  const bool copy = !ca & !set & (pi == ni) & l & r;
+  ci = copy ? pi : ci;
+  ca = ca ? ca : set ? 1 : copy ? pa : ca;
+}
+
+// The masks of reconcile_runs for a read of at most 32 tiles, built by
+// every thread of its CTA from the staged initial ids `curr_id` [T] and
+// candidates [T, K]; the caller orders them before C with a CTA barrier.
+// A tile's candidates hold distinct ids, so at most one matches.
+__device__ inline void candidate_masks(const int32_t* curr_id,
+                                       const int32_t* ci, const int32_t* cc,
+                                       int n, int K, int threshold,
+                                       uint32_t* mcol, uint32_t* scol) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) mcol[i] = scol[i] = 0;
+  __syncthreads();
+  for (int j = threadIdx.x; j < n * K; j += blockDim.x) {
+    const int32_t c = cc[j];
+    if (c <= 0) continue;
+    const int32_t v = ci[j];
+    uint32_t m = 0;
+    for (int x = 0; x < n; ++x) m |= static_cast<uint32_t>(curr_id[x] == v) << x;
+    if (m == 0) continue;
+    atomicOr(&mcol[j / K], m);
+    if (c > threshold) atomicOr(&scol[j / K], m);
+  }
+}
+
+// Pass 1 (forward) or 2 (backward) of a read of at most 32 tiles, lane t
+// holding tile t.  The sequential scan keeps a value `prev` (always some
+// tile's initial id) until a tile neither holds it nor has it among its
+// candidates: that tile starts a new run with its own value.  So each
+// tile's "next break" (the nearest tile past it, in the scan's direction,
+// that would end a run of its value) is a bit scan of two masks (equal
+// values, __match_any_sync; candidate holders, the source's row of the
+// candidate masks), the chain of run starts follows the breaks from the
+// scan's first tile, and every tile of a run that does not hold the run's
+// value takes it, and the bool of its matching candidate.  `src[t]` (a
+// register) is the tile whose initial id tile t holds.  Every lane calls
+// it; the rows are read from and written to shared memory.
+__device__ inline void reconcile_runs(const Read& r, bool backward,
+                                      int& src) {
+  const int n = r.n, t = r.lane;
+  const bool in = t < n;
+  const unsigned valid = n >= 32 ? kFull : (1u << n) - 1u;
+  __syncwarp();
+  const int32_t v = in ? r.id[t] : 0;
+  const int32_t b = in ? r.bv[t] : 0;
+  const uint32_t mc = in ? r.mcol[t] : 0u, sc = in ? r.scol[t] : 0u;
+  // row[x] bit j = tile j's candidates hold tile x's initial id
+  uint32_t row = 0;
+  for (int x = 0; x < n; ++x) {
+    const unsigned m = __ballot_sync(kFull, (mc >> x) & 1u);
+    if (t == x) row = m;
+  }
+  const uint32_t cont = (__match_any_sync(kFull, v) |
+                         __shfl_sync(kFull, row, src)) & valid;
+  const unsigned beyond = backward ? (1u << t) - 1u
+                          : t >= 31 ? 0u : ~0u << (t + 1);
+  const unsigned brk = ~cont & beyond & valid;
+  const int next = brk ? (backward ? 31 - __clz(brk) : __ffs(brk) - 1)
+                       : (backward ? -1 : n);
+  unsigned starts = 0;
+  for (int s = backward ? n - 1 : 0; s >= 0 && s < n;
+       s = __shfl_sync(kFull, next, s))
+    starts |= 1u << s;
+  // the start of my run: the nearest start at or before me in the scan
+  const int rs = backward
+      ? __ffs(starts & ~((1u << t) - 1u)) - 1
+      : 31 - __clz(starts & (t >= 31 ? kFull : (2u << t) - 1u));
+  const int32_t vr = __shfl_sync(kFull, v, rs & 31);
+  const int sr = __shfl_sync(kFull, src, rs & 31);
+  __syncwarp();
+  if (in && rs != t && v != vr) {
+    r.id[t] = vr;
+    r.bv[t] = (sc >> sr) & 1u;
+    src = sr;
+  } else if (in) {
+    r.bv[t] = b;
+  }
+  __syncwarp();
+}
+
+// Passes 3-4 of a read of at most 32 tiles, lane t holding tile t.  A
+// tile whose bool is set keeps it; one whose bool is clear sees its
+// visited neighbour's updated bool (0 or 1) and its other neighbour and its
+// own id as they were: a neighbour's id changes only in fill_step's last
+// branch, which needs this tile's bool set.  So each tile is a map of
+// that one bit to its new bool, and a scan composes the maps (the forward
+// scan from tile 0's bool, the backward one from tile n-1's).  Every lane
+// calls it.
+__device__ inline void neighbor_fill_scan(const Read& r) {
+  const int n = r.n, t = r.lane;
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool back = pass == 1;
+    __syncwarp();
+    const bool in = t < n;
+    const int32_t ci = in ? r.id[t] : 0, ca = in ? r.bv[t] : 0;
+    const int32_t li = __shfl_up_sync(kFull, ci, 1);
+    const int32_t la = __shfl_up_sync(kFull, ca, 1);
+    const int32_t ri = __shfl_down_sync(kFull, ci, 1);
+    const int32_t ra = __shfl_down_sync(kFull, ca, 1);
+    const bool work = t >= 1 && t <= n - 2;
+    // my bool as a map of the visited neighbour's: bit x = bool after x
+    unsigned map = 2u;    // identity
+    if (work) {
+      unsigned m = 0;
+      for (int x = 0; x < 2; ++x) {
+        int32_t id = ci, bv = ca;
+        if (back) fill_step(li, la, id, bv, ri, x);
+        else fill_step(li, x, id, bv, ri, ra);
+        m |= static_cast<unsigned>(bv != 0) << x;
+      }
+      map = m;
+    } else if (t == (back ? n - 1 : 0)) {
+      map = ca ? 3u : 0u;   // the scan's first tile: a constant
+    }
+    // compose from the scan's first tile: mine after the ones before
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned g = back ? __shfl_down_sync(kFull, map, o)
+                              : __shfl_up_sync(kFull, map, o);
+      const bool has = back ? t + o < 32 : t >= o;
+      if (has) map = (map >> (g & 1u) & 1u) | ((map >> (g >> 1 & 1u) & 1u) << 1);
+    }
+    // the visited neighbour's bool: its composed map, a constant
+    const unsigned seen = back ? __shfl_down_sync(kFull, map, 1)
+                               : __shfl_up_sync(kFull, map, 1);
+    __syncwarp();
+    if (work) {
+      int32_t id = ci, bv = ca;
+      if (back) fill_step(li, la, id, bv, ri, static_cast<int32_t>(seen & 1u));
+      else fill_step(li, static_cast<int32_t>(seen & 1u), id, bv, ri, ra);
+      r.id[t] = id;
+      r.bv[t] = bv;
+    }
+  }
+  __syncwarp();
 }
 
 // Running max of one value per lane, lane 0 first, seeded by `carry`;
@@ -174,18 +336,10 @@ __device__ void close_runs(const Read& r, bool val, Run run) {
 // pass 3/4 step (goldrush_path.cpp:688-734)
 __device__ inline void neighbor_fill(const Read& r, int i) {
   if (r.bv[i]) return;
-  const int32_t ci = r.id[i], pi = r.id[i - 1], ni = r.id[i + 1];
-  const int32_t pa = r.bv[i - 1], na = r.bv[i + 1];
-  if ((ci == pi && pa) || (ci == ni && na)) {
-    r.bv[i] = 1;
-  } else if ((ci == pi + 1 && pa) || (ci == ni + 1 && na)) {
-    r.bv[i] = 1;
-  } else if ((pi && ci == pi - 1 && pa) || (ni && ci == ni - 1 && na)) {
-    r.bv[i] = 1;
-  } else if (pi == ni && pa && na) {
-    r.bv[i] = pa;
-    r.id[i] = pi;
-  }
+  int32_t ci = r.id[i], ca = 0;
+  fill_step(r.id[i - 1], r.bv[i - 1], ci, ca, r.id[i + 1], r.bv[i + 1]);
+  r.id[i] = ci;
+  r.bv[i] = ca;
 }
 
 // ascending bitonic sort of a[0, m) by one warp, padded to a power of two:
@@ -227,7 +381,7 @@ __device__ inline void warp_bitonic_sort(long long* a, int m, int lane) {
   }
 }
 
-template <bool kFused>
+template <bool kFused, bool kStaged = false>
 __device__ void smooth(const Read& r, int threshold, long long* keys,
                        int32_t* ids_tr, int32_t* bools_tr) {
   const int n = r.n;
@@ -238,16 +392,28 @@ __device__ void smooth(const Read& r, int threshold, long long* keys,
   // passes 1-2: ID reconciliation forward, then backward; a read whose
   // table fits one chunk is staged once for both
   int lo = 0, hi = 0;
-  if (on) {
+  // a read of at most 32 tiles whose CTA built the candidate masks runs
+  // passes 1-4 across the lanes (kStaged)
+  const bool lanes = kStaged && r.mcol != nullptr && n <= 32;
+  int src = r.lane;
+  if (on && lanes) {
+    reconcile_runs(r, false, src);
+  } else if (on) {
     hi = min(n, r.CH);
-    stage<kFused>(r, lo, hi);
-    reconcile_pass<kFused>(r, false, threshold, lo, hi);
+    stage<kFused, kStaged>(r, lo, hi);
+    reconcile_pass<kFused, kStaged>(r, false, threshold, lo, hi);
   }
   trace(r, ids_tr, bools_tr, 1);
-  if (on) reconcile_pass<kFused>(r, true, threshold, lo, hi);
+  if (on && lanes) {
+    reconcile_runs(r, true, src);
+  } else if (on) {
+    reconcile_pass<kFused, kStaged>(r, true, threshold, lo, hi);
+  }
   trace(r, ids_tr, bools_tr, 2);
   // pass 3/4: neighbour fill forward then backward (:688-734)
-  if (on && lead) {
+  if (on && lanes) {
+    neighbor_fill_scan(r);
+  } else if (on && lead) {
     for (int i = 1; i < n - 1; ++i) neighbor_fill(r, i);
     for (int i = n - 2; i > 0; --i) neighbor_fill(r, i);
   }
@@ -379,6 +545,34 @@ __device__ inline Top2 flank_top2(const int32_t* id, int lo, int hi, int lane) {
               k2 ? key_id(k2) : 0};
 }
 
+// flank_top2 of a window of at most 32 tiles, a position a lane: each
+// position's count is its __match_any_sync group's size, and the top two
+// (count desc, then id asc as int32) come from a max and a min reduction
+// each.  Every lane calls it.
+__device__ inline Top2 flank_top2_lanes(const int32_t* id, int lo, int hi,
+                                        int lane) {
+  const int p = lo + lane;
+  const bool has = p < hi;
+  const int32_t v = has ? id[p] : 0;
+  // a lane outside the window matches no other lane
+  const unsigned long long key =
+      has ? static_cast<unsigned long long>(static_cast<uint32_t>(v))
+          : (1ull << 40) | static_cast<unsigned>(lane);
+  const unsigned peers = __match_any_sync(kFull, key);
+  const unsigned c = has ? __popc(peers) : 0u;
+  const unsigned ord = static_cast<uint32_t>(v) ^ 0x80000000u;
+  const unsigned c1 = __reduce_max_sync(kFull, c);
+  const unsigned o1 =
+      __reduce_min_sync(kFull, has && c == c1 ? ord : 0xFFFFFFFFu);
+  const int32_t i1 = c1 ? static_cast<int32_t>(o1 ^ 0x80000000u) : 0;
+  const unsigned c_2 = has && v != i1 ? c : 0u;
+  const unsigned c2 = __reduce_max_sync(kFull, c_2);
+  const unsigned o2 =
+      __reduce_min_sync(kFull, c_2 && c_2 == c2 ? ord : 0xFFFFFFFFu);
+  return Top2{static_cast<int>(c1), i1, static_cast<int>(c2),
+              c2 ? static_cast<int32_t>(o2 ^ 0x80000000u) : 0};
+}
+
 __device__ __forceinline__ bool good_pair(const Top2& f) {
   // MIN_IDS_IN_FLANK = 2: one id twice, or two adjacent ids > 3 together
   return f.c1 >= 2 ||
@@ -398,44 +592,56 @@ struct Decision {
 // The smoothed rows go to `ids`/`bools` [T] and the traces to
 // `ids_tr`/`bools_tr` [9, T] where given.  In the fused consume kernel
 // (kFused) the vote table, written by other CTAs of the launch, is read
-// through L2.
-template <bool kFused>
+// through L2; or its CTA has staged the whole table into shared memory
+// first (kStaged: `curr_id` and the candidates point there, and the
+// passes read them in place; with candidate_masks' `mcol` and `scol`, a
+// read of at most 32 tiles runs passes 1-4 across the lanes).
+template <bool kFused, bool kStaged = false>
 __device__ Decision classify_read(const int32_t* curr_id,
                                   const int32_t* cand_ids,
                                   const int32_t* cand_counts, int n_tiles,
                                   int T, int K, int threshold, int u_min,
                                   int a_max, int buf, unsigned char* base,
                                   int lane, int32_t* ids, int32_t* bools,
-                                  int32_t* ids_tr, int32_t* bools_tr) {
+                                  int32_t* ids_tr, int32_t* bools_tr,
+                                  const uint32_t* mcol = nullptr,
+                                  const uint32_t* scol = nullptr) {
   const int Tp = (T + 1) & ~1;
   int32_t* id = reinterpret_cast<int32_t*>(base);
   int32_t* bv = id + Tp;
   long long* keys = reinterpret_cast<long long*>(bv + Tp);
-  const int CH = buf / K;
+  const int CH = kStaged ? T : buf / K;
+  int32_t* sci = kStaged ? const_cast<int32_t*>(cand_ids)
+                         : reinterpret_cast<int32_t*>(keys);
+  int32_t* scc = kStaged ? const_cast<int32_t*>(cand_counts) : sci + CH * K;
   // tile counts past the grid cannot occur on the engine's path (reads are
   // capped at the bucket); clamping keeps every access inside the rows
-  const Read r{id, bv, cand_ids, cand_counts,
-               reinterpret_cast<int32_t*>(keys),
-               reinterpret_cast<int32_t*>(keys) + CH * K,
-               min(max(n_tiles, 0), T), T, K, CH, lane};
+  const Read r{id, bv, cand_ids, cand_counts, sci, scc,
+               min(max(n_tiles, 0), T), T, K, CH, lane, mcol, scol};
   const int n = r.n;
   // initial assignment: top candidate count over the threshold (:637)
   for (int t = lane; t < T; t += 32) {
     const bool in = t < n;
-    const int32_t c0 = load_ro<kFused>(r.cc + static_cast<int64_t>(t) * K);
-    id[t] = in ? load_ro<kFused>(curr_id + t) : 0;
+    const int32_t c0 =
+        load_src<kFused, kStaged>(r.cc + static_cast<int64_t>(t) * K);
+    id[t] = in ? load_src<kFused, kStaged>(curr_id + t) : 0;
     bv[t] = in && c0 > 0 && c0 > threshold;
   }
   trace(r, ids_tr, bools_tr, 0);
-  smooth<kFused>(r, threshold, keys, ids_tr, bools_tr);
+  smooth<kFused, kStaged>(r, threshold, keys, ids_tr, bools_tr);
   int na = 0;
   for (int t = lane; t < n; t += 32) na += bv[t];
   for (int o = 16; o > 0; o >>= 1) na += __shfl_xor_sync(kFull, na, o);
 
-  // find_longest_stretch (:195-233), read-only, so every lane runs it
+  // find_longest_stretch (:195-233), read-only, so every lane runs it;
+  // the lanes' read (kStaged, at most 32 tiles) reads the bools from one
+  // ballot's bits rather than shared memory
+  const bool lanes = kStaged && mcol != nullptr && n <= 32;
+  const unsigned bits = __ballot_sync(kFull, lanes && lane < n && bv[lane]);
   int start = 0, end = 0, ls = 0, le = 0, cur = 0, longest = 0;
   for (int i = 1; i < n - 1; ++i) {
-    const int bi = bv[i], bp = bv[i - 1];
+    const int bi = lanes ? static_cast<int>(bits >> i & 1u) : bv[i];
+    const int bp = lanes ? static_cast<int>(bits >> (i - 1) & 1u) : bv[i - 1];
     if (!bi && bp) {
       start = i;
       cur = 1;
@@ -451,27 +657,30 @@ __device__ Decision classify_read(const int32_t* curr_id,
     }
   }
 
-  // eval_flanks (:341-527); the branches are warp-uniform
+  // eval_flanks (:341-527); the branches are warp-uniform.  A window
+  // holds at most 14 tiles: the lanes' read takes flank_top2_lanes
+  auto top2 = [&](int lo, int hi) {
+    return lanes ? flank_top2_lanes(id, lo, hi, lane)
+                 : flank_top2(id, lo, hi, lane);
+  };
   int ts = ls != 0 ? ls - 1 : ls;
   int te = le + 1;
   bool good;
   if (n < 15) {
-    const bool gl =
-        ts == 0 || (ls > 0 && good_pair(flank_top2(id, 0, ls, lane)));
+    const bool gl = ts == 0 || (ls > 0 && good_pair(top2(0, ls)));
     const bool gr_ =
-        te == n - 1 ||
-        (n > le + 1 && good_pair(flank_top2(id, le + 1, n, lane)));
+        te == n - 1 || (n > le + 1 && good_pair(top2(le + 1, n)));
     good = gl && gr_;
   } else {
     good = false;
     if (ls - 5 >= 1) {
-      good = good_pair(flank_top2(id, ls - 5, ls, lane));
+      good = good_pair(top2(ls - 5, ls));
     } else {
       good = true;
       ts = 0;
     }
     if (le + 5 < n - 1) {
-      good = good_pair(flank_top2(id, le + 1, le + 6, lane)) || good;
+      good = good_pair(top2(le + 1, le + 6)) || good;
     } else {
       good = true;
       te = n - 1;
@@ -497,30 +706,36 @@ struct Outcome {
 };
 
 // Kernel C on one read's vote buffer, written by kernel B's tiles in the
-// fused kernels (consume.cu, wavefront.cu) and read through L2, run by one
-// warp: `sums` [3, T] per-tile queries, hits and misses; `vals` [3T + 2TK]
-// curr_id, top_count, overflow [T] each, then the candidates' ids and
-// counts [T, K].  Every lane gets the outcome.
+// fused kernels (consume.cu, wavefront.cu) and read through L2, or staged
+// by the CTA into shared memory first (kStaged), run by one warp: `sums`
+// [3, T] per-tile queries, hits and misses; `vals` [3T + 2TK] curr_id,
+// top_count, overflow [T] each, then the candidates' ids and counts
+// [T, K].  Every lane gets the outcome.  `mcol`, `scol`: classify_read's.
+template <bool kStaged = false>
 __device__ inline Outcome read_outcome(const unsigned long long* sums,
                                        const int32_t* vals, int n_t, int T,
                                        int K, int threshold, int u_min,
                                        int a_max, int cbuf,
-                                       unsigned char* base, int lane) {
+                                       unsigned char* base, int lane,
+                                       const uint32_t* mcol = nullptr,
+                                       const uint32_t* scol = nullptr) {
   const int32_t* top = vals + T;
   const int32_t* over = top + T;
   const int32_t* cid = over + T;
   const int32_t* ccnt = cid + T * K;
-  const Decision d =
-      classify_read<true>(vals, cid, ccnt, n_t, T, K, threshold, u_min, a_max,
-                          cbuf, base, lane, nullptr, nullptr, nullptr, nullptr);
+  const Decision d = classify_read<true, kStaged>(
+      vals, cid, ccnt, n_t, T, K, threshold, u_min, a_max, cbuf, base, lane,
+      nullptr, nullptr, nullptr, nullptr, mcol, scol);
   unsigned long long sq = 0, sh = 0, sm = 0;
   long long so = 0, tmin = kNoTile;
   for (int t = lane; t < T; t += 32) {
-    sq += __ldcg(sums + t);
-    sh += __ldcg(sums + T + t);
-    sm += __ldcg(sums + 2 * T + t);
-    so += __ldcg(over + t);
-    if (t < n_t) tmin = min(tmin, static_cast<long long>(__ldcg(top + t)));
+    sq += load_src<true, kStaged>(sums + t);
+    sh += load_src<true, kStaged>(sums + T + t);
+    sm += load_src<true, kStaged>(sums + 2 * T + t);
+    so += load_src<true, kStaged>(over + t);
+    if (t < n_t)
+      tmin = min(tmin,
+                 static_cast<long long>(load_src<true, kStaged>(top + t)));
   }
   for (int o = 16; o > 0; o >>= 1) {
     sq += __shfl_xor_sync(kFull, sq, o);

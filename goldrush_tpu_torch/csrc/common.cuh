@@ -51,6 +51,17 @@ __device__ __forceinline__ V load_ro(const V* p) {
   }
 }
 
+// `load_ro`, or a plain load of `p` in shared memory (kShared: a table
+// its CTA staged there).
+template <bool kCoherent, bool kShared, typename V>
+__device__ __forceinline__ V load_src(const V* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return load_ro<kCoherent>(p);
+  }
+}
+
 struct AddOp {
   __device__ unsigned long long operator()(unsigned long long a,
                                            unsigned long long b) const {
@@ -154,6 +165,35 @@ __device__ void block_bitonic_sort(K* a, int n) {
       __syncthreads();
     }
   }
+}
+
+// block_bitonic_sort of n (a power of two) <= blockDim.x keys, one per
+// thread in a register: the exchanges within a warp are shuffles, only the
+// wider ones go through `a`, so a sort of 512 keys crosses 10 barriers, not
+// 45.  Every thread of the block calls it; it ends with a barrier.
+template <typename K>
+__device__ void block_bitonic_sort_small(K* a, int n) {
+  const int t = threadIdx.x;
+  K x = t < n ? a[t] : a[0];
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      K y;
+      if (j >= 32) {
+        __syncthreads();
+        if (t < n) a[t] = x;
+        __syncthreads();
+        y = t < n ? a[t ^ j] : x;
+      } else {
+        y = __shfl_xor_sync(kFull, x, j);
+      }
+      // the lower of a pair keeps the min in an ascending run
+      const bool keep_min = ((t & j) == 0) == ((t & k) == 0);
+      x = keep_min ? (y < x ? y : x) : (y < x ? x : y);
+    }
+  }
+  __syncthreads();
+  if (t < n) a[t] = x;
+  __syncthreads();
 }
 
 // Raise a kernel's dynamic shared memory cap when it needs more than the

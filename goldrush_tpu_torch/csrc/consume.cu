@@ -17,40 +17,63 @@
 // the filter forgets its ids (and, under the exact policy, its counters).
 //
 // Design.  A persistent grid of one CTA per SM, launched cooperatively so
-// that every CTA is resident and grid barriers are legal:
-//   - every CTA walks reads 0..B-1 and keeps the scan's scalars (ids
-//     inserted, bases inserted, path index, done, changed, reset seen)
-//     itself, computed identically from the same global inputs, so a read
-//     that neither probes nor inserts costs no barrier;
-//   - a probe (live or recheck) runs kernel B's tile code on tiles
-//     blockIdx.x, blockIdx.x + gridDim.x, ... into one of two vote buffers
-//     in global memory, then crosses a grid barrier; warp 0 of every CTA
-//     then runs kernel C's read code on the buffer, so every CTA has the
-//     decision without a second barrier.  Successive probes alternate
-//     buffers: a probe's readers have all passed the next probe's barrier
-//     before the probe after it writes the same buffer;
-//   - an insert under the exact policy is kernel D with its key partition
-//     over the CTAs of this grid and no thread-block clusters: each CTA
-//     streams the recruit's whole window from L2 and keeps the keys it
-//     owns (an overflowing CTA spills into global scratch, whose two
-//     allocation counters alternate between inserts so that one can be
-//     cleared while the other is in use); under the optimistic policy it
-//     is insert_max's atomicMax over a grid-stride loop;
-//   - a rotation clears the table (and the counters) in a grid-stride loop;
-//   - an insert or a reset leaves the filter dirty: the next probe, insert
-//     or reset first crosses a grid barrier;
-//   - L1 is not coherent across SMs, so all memory that another CTA of the
-//     launch may write (the filter, the vote buffers) is read through L2.
-// One CTA per SM, not as many as occupancy allows: each CTA of an exact
-// insert streams the whole window, so more CTAs read more, and a grid
-// barrier costs more with more CTAs.
+// that every CTA is resident and grid barriers (~1.1 us each on an H100)
+// are legal.  Every CTA walks reads 0..B-1 and keeps the scan's scalars
+// itself, computed identically from the same global inputs, so a read that
+// neither probes nor inserts costs no barrier.  CTAs 0 and 1 are the
+// runners: they classify (kernel C); CTAs 2.. own the insert keys.  It
+// replaces a design in which a probe gathered its T tiles on T CTAs while
+// the rest waited, all CTAs then ran C on one warp each, and an exact
+// insert had every CTA stream the recruit's whole window from L2.  Against
+// the four costs that design measured:
+//   1. the exact insert reads its window once (insert.cuh): each CTA reads
+//      a 1/gridDim slice and sends each key's entry to its owner's bucket,
+//      a grid barrier, then each owner sorts its bucket and applies the
+//      reservoir rule.  A probed read's scatter runs with its probe's
+//      gathers, and its owners sort and read their keys' counters while
+//      the runner classifies, so after the decision an insert is the
+//      owners' writes;
+//   2. a probe uses the card: its tiles go to CTAs 2, 3, ... (kernel B's
+//      tile code), the exact policy's scatter to the CTAs without a tile
+//      (to all of them for a recruit that is not probed, or when tiles
+//      take more than half the owners), and under the trim recheck a live
+//      read's full-resolution tiles are gathered beside its query tiles
+//      against the same filter (the recheck reads it before any write),
+//      so a read in the boundary zone costs one round, not two;
+//   3. C once per probe, on a runner only, from shared memory: the runner's
+//      512 threads stage the read's vote table from L2 in one round and
+//      mark, for every tile, which tiles' initial ids its candidates hold
+//      (candidate_masks); then one warp runs C's passes in place
+//      (classify.cuh kStaged), passes 1-4, the longest stretch and the
+//      flank top-2, which C's own kernel runs as single-lane walks, across
+//      the lanes, a tile a lane (reconcile_runs, neighbor_fill_scan,
+//      flank_top2_lanes).  C on one warp took ~17 us, about two thirds of
+//      it in those walks.  A read of more than 32 tiles walks as C's own
+//      kernel does, and a vote table larger than shared memory is read
+//      from L2 as there;
+//   4. cheaper barriers: the runner publishes its outcome with a release
+//      store of the probe's number beside it, which the other CTAs await
+//      with acquire loads (0.40 us, against a grid barrier's 1.1); grid
+//      barriers remain only where another CTA reads what was written: the
+//      probe's tiles and buckets, and the filter after an insert or reset.
+//      Thread-block clusters do not help here: a cooperative launch takes
+//      them (CUDA 12.9 on an H100), but a cluster barrier costs 0.64-0.71
+//      us, and no step's work lives in one cluster.
+// More: the reset is a grid-stride loop; insert_max is atomicMax over a
+// grid-stride loop, and two of them need no barrier between them (max
+// commutes); L1 is not coherent across SMs, so all memory that another CTA
+// of the launch writes (the filter, the vote buffers, the buckets, the
+// outcomes) is read through L2.  Scratch lives across launches: the
+// bucket counters, the spill counters and the outcomes' sequence numbers
+// are zero between launches (the kernel clears what it set).
 //
 // Bound.  The bytes a batch must move: per probe its grid row (H * T * F
 // int64 entries), frame_ok and one 4-byte word per present frame and seed;
 // per insert its window and each distinct key's word and counter; per
 // reset the table (and counters) read and written.  At the exact shape a
 // live probe is ~0.7 MB, ~0.2 us at 3.35 TB/s; its cost is latency: B's
-// gather, a grid barrier and C's sequential passes, one after another.
+// gather (two dependent rounds of loads), a grid barrier and C's
+// sequential passes, one after another.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -63,6 +86,12 @@
 namespace cg = cooperative_groups;
 
 namespace gr {
+
+// CTAs 0 and 1 classify the query tier's and the recheck tier's probes
+// (consume.py RUNNERS)
+constexpr int kRunners = 2;
+// int64 words per runner's outcome slot: the probe's number, the Outcome
+constexpr int kSlot = 16;
 
 // The zone predicate (K18) is recheck_zone in classify.cuh.
 struct ConsumeArgs {
@@ -90,16 +119,23 @@ struct ConsumeArgs {
   int vote_min_f, x_f, bits_f;  // the recheck's (x_f = cfg.threshold)
   int u_min, a_max, TL, bs, S, cbuf, cap;
   int fast, rech_on, silver;
+  int staged;                   // C reads a vote table staged in smem
+  int64_t stage_off;            // its byte offset in dynamic smem
   int64_t target, max_paths;
   // carried across batches; outputs
   int64_t* scal;       // [4] ids inserted, bases inserted, path index, done
   int64_t* rows;       // [B, 8]
   int64_t* counters;   // [4] live probes, rechecks, inserts, resets
-  // scratch: two vote buffers, kernel D's spill (two counters, then data)
+  // scratch: a vote buffer per tier (0 query, 1 recheck)
   unsigned long long* sums;   // [2, 3, T] per-tile queries, hits, misses
   int32_t* vals;              // [2, 3T + 2TK] curr, top, overflow, cands
   bool* binit;                // [2, T]
-  unsigned long long* spill;  // [2 + 2 * Hi * T * Fi] or null
+  int64_t* outcome;           // [2, kSlot] the runners' outcomes, zeroed
+  // the exact policy's insert: buckets of `parts` owners, two in turn
+  uint32_t parts;
+  unsigned* bucket_count;     // [2, parts], zeroed
+  unsigned long long* bucket;  // [2, parts, cap]
+  unsigned long long* spill;  // [2 + 2 * Hi * T * Fi]: two counters, zeroed
 };
 
 // A probe tier: its grid, frame_ok and gates.
@@ -109,69 +145,102 @@ struct Tier {
   int H, F, vote_min, threshold, bits;
 };
 
-// Probe read i against the live filter with `tier` and classify it; the
-// k-th probe of the launch uses vote buffer k & 1.  Every thread of every
-// CTA calls it and gets the outcome.
-__device__ Outcome probe_read(const ConsumeArgs& a, const Tier& tier, int i,
-                              int k, int n_t, cg::grid_group& grid,
-                              Outcome* sh) {
-  const int T = a.T, K = a.K;
-  const int64_t TF = static_cast<int64_t>(T) * tier.F;
-  unsigned long long* q = a.sums + (k & 1) * 3 * T;
-  int32_t* curr = a.vals + (k & 1) * (3 * T + 2 * T * K);
-  int32_t* top = curr + T;
-  int32_t* over = top + T;
-  int32_t* cid = over + T;
-  int32_t* ccnt = cid + T * K;
-  const int64_t* g = tier.grid + static_cast<int64_t>(i) * tier.H * TF;
-  const bool* ok = tier.ok + static_cast<int64_t>(i) * TF;
-  for (int t = blockIdx.x; t < T; t += gridDim.x) {
-    probe_vote_tile<true>(a.table, g, a.ranked, a.probe_limit, ok, tier.H, T,
-                          tier.F, K, tier.vote_min, tier.threshold, tier.bits,
-                          t, 0, curr, top, cid, ccnt, a.binit + (k & 1) * T,
-                          over, q, q + T, q + 2 * T);
-    __syncthreads();
-  }
-  grid.sync();
-  if (threadIdx.x < 32) {
-    const Outcome o = read_outcome(q, curr, n_t, T, K, tier.threshold,
-                                   a.u_min, a.a_max, a.cbuf, gr_smem,
-                                   threadIdx.x);
-    if (threadIdx.x == 0) *sh = o;
-  }
-  __syncthreads();
-  return *sh;
+// Tier k's vote buffer.
+__device__ __forceinline__ unsigned long long* tier_sums(const ConsumeArgs& a,
+                                                         int k) {
+  return a.sums + static_cast<int64_t>(k) * 3 * a.T;
+}
+__device__ __forceinline__ int32_t* tier_vals(const ConsumeArgs& a, int k) {
+  return a.vals + static_cast<int64_t>(k) * (3 * a.T + 2 * a.T * a.K);
 }
 
-// Insert read i's tiles lo..hi (ids from `base`) from its full-resolution
-// grid row; the k-th insert of the launch spills through counter k & 1.
-// Every thread of every CTA calls it.
-__device__ void insert_read(const ConsumeArgs& a, int i, int lo, int hi,
-                            uint32_t base, bool trimmed, int k) {
-  __shared__ int fill;
-  const int T = a.T, F = a.Fi, H = a.Hi;
-  const int64_t TF = static_cast<int64_t>(T) * F;
-  const int64_t* g = a.grid_i + static_cast<int64_t>(i) * H * TF;
-  const int last = min(hi, T - 1);
-  if (a.fast) {
-    if (last < lo) return;
-    const int64_t window = static_cast<int64_t>(last - lo + 1) * F;
-    const int64_t total = window * H;
-    for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-         e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x)
-      insert_max_entry(reinterpret_cast<int*>(a.table), g, TF, F,
-                       a.ins_limit, a.or_bits, lo, window, e, base, trimmed,
-                       a.bs);
-    return;
+// Kernel B's tiles of read i for the tiers in use (tier 0 if `q`, tier 1
+// if `f`): job j (tier-major, T tiles each) runs on CTA (j + kRunners) %
+// gridDim.x (consume.py gather_ctas).  Every thread of every CTA calls it.
+__device__ void gather(const ConsumeArgs& a, const Tier* tiers, bool q,
+                       bool f, int i) {
+  const int T = a.T, K = a.K, G = gridDim.x;
+  const int first = q ? 0 : 1;
+  const int jobs = (static_cast<int>(q) + static_cast<int>(f)) * T;
+  for (int j = (static_cast<int>(blockIdx.x) - kRunners + G) % G; j < jobs;
+       j += G) {
+    const int k = first + j / T, t = j % T;
+    const Tier& tr = tiers[k];
+    const int64_t TF = static_cast<int64_t>(T) * tr.F;
+    unsigned long long* s = tier_sums(a, k);
+    int32_t* curr = tier_vals(a, k);
+    probe_vote_tile<true>(
+        a.table, tr.grid + static_cast<int64_t>(i) * tr.H * TF, a.ranked,
+        a.probe_limit, tr.ok + static_cast<int64_t>(i) * TF, tr.H, T, tr.F,
+        K, tr.vote_min, tr.threshold, tr.bits, t, 0, curr, curr + T,
+        curr + 3 * T, curr + 3 * T + T * K, a.binit + k * T, curr + 2 * T, s,
+        s + T, s + 2 * T);
+    __syncthreads();
   }
-  // the other counter's insert is over (a grid barrier lies between)
-  if (threadIdx.x == 0 && blockIdx.x == 0) a.spill[(k + 1) & 1] = 0;
-  insert_window<true>(a.table, a.counts, g, H, TF, F, a.ins_limit, a.or_bits,
-                      lo, max(0, last - lo + 1) * F, base, trimmed, a.bs,
-                      reinterpret_cast<uint64_t*>(gr_smem), a.cap, &fill,
-                      a.spill + (k & 1),
-                      reinterpret_cast<uint64_t*>(a.spill + 2));
+}
+
+// Runner k classifies tier k's vote buffer (every thread of the CTA calls
+// it) and publishes the outcome under the probe's number `seq`.
+__device__ void classify_tier(const ConsumeArgs& a, const Tier& tr, int k,
+                              int n_t, int64_t seq, Outcome* sh) {
+  const int T = a.T, K = a.K;
+  const unsigned long long* s = tier_sums(a, k);
+  const int32_t* v = tier_vals(a, k);
+  Outcome o;
+  if (a.staged) {
+    // the sums, the vote values and the candidate masks, after C's rows
+    unsigned long long* ss =
+        reinterpret_cast<unsigned long long*>(gr_smem + a.stage_off);
+    int32_t* sv = reinterpret_cast<int32_t*>(ss + 3 * T);
+    uint32_t* mcol = reinterpret_cast<uint32_t*>(sv + 3 * T + 2 * T * K);
+    uint32_t* scol = mcol + T;
+    const int n = min(max(n_t, 0), T);
+    for (int j = threadIdx.x; j < 3 * T; j += blockDim.x) ss[j] = __ldcg(s + j);
+    for (int j = threadIdx.x; j < 3 * T + 2 * T * K; j += blockDim.x)
+      sv[j] = __ldcg(v + j);
+    __syncthreads();
+    if (n <= 32) {
+      candidate_masks(sv, sv + 3 * T, sv + 3 * T + T * K, n, K, tr.threshold,
+                      mcol, scol);
+      __syncthreads();
+    }
+    if (threadIdx.x < 32)
+      o = read_outcome<true>(ss, sv, n_t, T, K, tr.threshold, a.u_min,
+                             a.a_max, a.cbuf, gr_smem, threadIdx.x,
+                             n <= 32 ? mcol : nullptr, scol);
+  } else if (threadIdx.x < 32) {
+    o = read_outcome<false>(s, v, n_t, T, K, tr.threshold, a.u_min, a.a_max,
+                            a.cbuf, gr_smem, threadIdx.x);
+  }
+  if (threadIdx.x == 0) {
+    *sh = o;
+    int64_t* slot = a.outcome + k * kSlot;
+    const int64_t f[9] = {o.dec, o.ts, o.te, o.na, o.q, o.h, o.m, o.ov,
+                          o.tmin};
+    for (int j = 0; j < 9; ++j) slot[1 + j] = f[j];
+    asm volatile("st.release.gpu.global.s64 [%0], %1;" ::"l"(slot),
+                 "l"(seq)
+                 : "memory");
+  }
+}
+
+// Runner k's outcome of the probe numbered `seq`, awaited by one thread.
+// A runner publishes within one classification of its barrier: a wait of
+// seconds means a fault, and traps rather than hangs the card.
+__device__ Outcome await_tier(const ConsumeArgs& a, int k, int64_t seq) {
+  const int64_t* slot = a.outcome + k * kSlot;
+  int64_t v;
+  for (unsigned spins = 0;; ++spins) {
+    asm volatile("ld.acquire.gpu.global.s64 %0, [%1];"
+                 : "=l"(v)
+                 : "l"(slot)
+                 : "memory");
+    if (v >= seq) break;
+    if (spins > (1u << 24)) __trap();
+  }
+  int64_t f[9];
+  for (int j = 0; j < 9; ++j) f[j] = __ldcg(slot + 1 + j);
+  return Outcome{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
 }
 
 // The silver rotation's reset, over the whole grid: forget every id, keep
@@ -194,45 +263,135 @@ __device__ void reset_filter(const ConsumeArgs& a) {
   }
 }
 
+// insert_max of read i's tiles lo..last (ids from `base`) over the grid.
+__device__ void insert_max_read(const ConsumeArgs& a, int i, int lo,
+                                int last, uint32_t base, bool trimmed) {
+  if (last < lo) return;
+  const int64_t TF = static_cast<int64_t>(a.T) * a.Fi;
+  const int64_t* g = a.grid_i + static_cast<int64_t>(i) * a.Hi * TF;
+  const int64_t window = static_cast<int64_t>(last - lo + 1) * a.Fi;
+  const int64_t total = window * a.Hi;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    insert_max_entry(reinterpret_cast<int*>(a.table), g, TF, a.Fi,
+                     a.ins_limit, a.or_bits, lo, window, e, base, trimmed,
+                     a.bs);
+}
+
+// what the filter saw since the last grid barrier
+enum Dirty { kClean = 0, kMaxOnly = 1, kWritten = 2 };
+
 __global__ void __launch_bounds__(kThreads, 1)
 consume_kernel(const ConsumeArgs a) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ Outcome sh;
-  const Tier tq{a.grid_q, a.ok_q, a.Hq, a.Fq, a.vote_min_q, a.x_q, a.bits_q};
-  const Tier tf{a.grid_i, a.ok_i, a.Hi, a.Fi, a.vote_min_f, a.x_f, a.bits_f};
+  __shared__ Outcome sh[2];
+  const Tier tiers[2] = {
+      {a.grid_q, a.ok_q, a.Hq, a.Fq, a.vote_min_q, a.x_q, a.bits_q},
+      {a.grid_i, a.ok_i, a.Hi, a.Fi, a.vote_min_f, a.x_f, a.bits_f}};
+  const int rank = blockIdx.x;
+  const bool owner = rank >= kRunners;
+  const int64_t TFi = static_cast<int64_t>(a.T) * a.Fi;
+  uint64_t* sbuf = reinterpret_cast<uint64_t*>(gr_smem);
+  uint32_t* before = reinterpret_cast<uint32_t*>(sbuf + a.cap);
   int64_t ids_ins = a.scal[0], ins_bases = a.scal[1];
   int64_t path_idx = a.scal[2], done = a.scal[3];
-  bool changed = false, reset_seen = false, dirty = false;
-  int probes = 0, inserts = 0;
+  bool changed = false, reset_seen = false;
+  int dirty = kClean;
+  int64_t probes = 0, scatters = 0;
   int64_t n_live = 0, n_rech = 0, n_ins = 0, n_reset = 0;
-  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  const bool lead = rank == 0 && threadIdx.x == 0;
   for (int i = 0; i < a.B; ++i) {
     const int64_t* r0 = a.rows0 + static_cast<int64_t>(i) * a.rows0_cols;
     Outcome o{r0[0], r0[1], r0[2], r0[3], r0[4], r0[5], r0[6], r0[7],
               a.rech_on ? r0[8] : 0};
     const int n_t = a.n_tiles[i];
+    const int nt = min(max(n_t, 0), a.T);
     const int64_t L = a.full_len[i];
     // exact: every read after an in-batch change re-probes; optimistic: a
     // batch-time drop stays dropped, and after an in-batch silver reset
     // every later read re-probes
     const bool live =
         (a.fast ? (changed && o.dec != 0) || reset_seen : changed) && !done;
-    if (live) {
-      if (dirty) grid.sync();
-      o = probe_read(a, tq, i, probes++, n_t, grid, &sh);
-      dirty = false;
-      ++n_live;
+    // the recheck tier: beside a live probe (its zone is decided after),
+    // or alone for a read whose batch-time row is in the zone
+    const bool rech =
+        a.rech_on && !done &&
+        (live || recheck_zone(o.dec, o.na, n_t, o.ts, o.te, o.tmin, a.S,
+                              a.x_f, a.a_max));
+    const bool probe = live || rech;
+    // the exact policy scatters a recruit's window to the key owners: a
+    // probed read's whole read (its decision is not made yet), another
+    // recruit's tiles
+    const bool known = !probe && o.dec > 0 && !done;
+    const bool scatter = !a.fast && (probe || known);
+    int t0 = 0, t1 = nt;
+    if (known) {
+      t0 = o.dec == 1 ? 0 : static_cast<int>(o.ts);
+      t1 = o.dec == 1 ? nt : min(static_cast<int>(o.te) + 1, a.T);
     }
-    if (a.rech_on && !done &&
-        recheck_zone(o.dec, o.na, n_t, o.ts, o.te, o.tmin, a.S, a.x_f,
-                     a.a_max)) {
-      // boundary zone: re-classify at full resolution, every insert
-      // seed, the exact gates
-      if (dirty) grid.sync();
-      o = probe_read(a, tf, i, probes++, n_t, grid, &sh);
-      dirty = false;
-      ++n_rech;
+    const Window w{a.grid_i + static_cast<int64_t>(i) * a.Hi * TFi, a.Hi,
+                   TFi, a.Fi, t0, t1, a.ins_limit};
+    const int b = static_cast<int>(scatters & 1);
+    if (probe) {
+      if (dirty != kClean) grid.sync();
+      gather(a, tiers, live, rech, i);
     }
+    if (scatter) {
+      // the CTAs without a tile job scatter, while they are at least half
+      // the grid (consume.py scatter_sources)
+      const int jobs =
+          probe ? (static_cast<int>(live) + static_cast<int>(rech)) * a.T : 0;
+      const int busy =
+          2 * jobs <= static_cast<int>(gridDim.x) - kRunners ? jobs : 0;
+      const int src = rank < kRunners ? rank
+                      : rank < kRunners + busy ? -1
+                                               : rank - busy;
+      if (src >= 0)
+        scatter_window(w, src, gridDim.x - busy, a.parts, a.cap,
+                       a.bucket_count + b * a.parts,
+                       a.bucket + static_cast<int64_t>(b) * a.parts * a.cap);
+    }
+    if (probe || scatter) {
+      grid.sync();
+      dirty = kClean;
+    }
+    if (scatter && rank == 0 && threadIdx.x == 0)
+      a.spill[(b + 1) & 1] = 0;   // its last user is past this barrier
+    const int64_t seq = probe ? ++probes : 0;
+    if (probe && rank < kRunners && (rank == 0 ? live : rech))
+      classify_tier(a, tiers[rank], rank, n_t, seq, &sh[rank]);
+    int n_own = 0;
+    const uint64_t* buf = sbuf;
+    if (scatter && owner) {
+      buf = owner_sort(w, rank - kRunners, a.parts, a.cap,
+                       a.bucket_count + b * a.parts,
+                       a.bucket + static_cast<int64_t>(b) * a.parts * a.cap,
+                       sbuf, reinterpret_cast<uint64_t*>(before), a.spill + b,
+                       reinterpret_cast<uint64_t*>(a.spill + 2), &n_own);
+      if (n_own <= a.cap) owner_prefetch(buf, n_own, a.counts, before);
+    }
+    if (probe) {
+      if (threadIdx.x == 0) {
+        if (live && rank != 0) sh[0] = await_tier(a, 0, seq);
+        if (rech && rank != 1) sh[1] = await_tier(a, 1, seq);
+      }
+      __syncthreads();
+      if (live) {
+        o = sh[0];
+        ++n_live;
+      }
+      if (rech && recheck_zone(o.dec, o.na, n_t, o.ts, o.te, o.tmin, a.S,
+                               a.x_f, a.a_max)) {
+        // boundary zone: re-classified at full resolution, every insert
+        // seed, the exact gates
+        o = sh[1];
+        ++n_rech;
+      }
+      // every thread has read sh before a later probe writes it
+      __syncthreads();
+    }
+    if (scatter) ++scatters;
     if (done) o.dec = 0;
     int64_t rec_len = 0, blocks = 0;
     int lo = 1, hi = 0;
@@ -249,10 +408,19 @@ consume_kernel(const ConsumeArgs a) {
       blocks = 1 + (d >= 0 ? d / a.bs : -((-d + a.bs - 1) / a.bs));
     }
     if (o.dec > 0 && !done) {
-      if (dirty) grid.sync();
-      insert_read(a, i, lo, hi, static_cast<uint32_t>(ids_ins + 1),
-                  o.dec == 2, inserts++);
-      dirty = true;
+      const int last = min(hi, a.T - 1);
+      const uint32_t base = static_cast<uint32_t>(ids_ins + 1);
+      if (a.fast) {
+        if (dirty == kWritten) grid.sync();   // a reset's stores
+        insert_max_read(a, i, lo, last, base, o.dec == 2);
+        dirty = kMaxOnly;
+      } else {
+        if (owner)
+          owner_apply(a.table, a.counts, buf, n_own,
+                      n_own <= a.cap ? before : nullptr, lo, last, base,
+                      o.dec == 2, a.bs, a.or_bits);
+        dirty = kWritten;
+      }
       ++n_ins;
     }
     if (!done) {
@@ -265,9 +433,9 @@ consume_kernel(const ConsumeArgs a) {
       if (a.max_paths < path_idx) {
         done = 1;
       } else {
-        if (dirty) grid.sync();
+        if (dirty != kClean) grid.sync();
         reset_filter(a);
-        dirty = true;
+        dirty = kWritten;
         ids_ins = ins_bases = 0;
         reset_seen = true;
         ++n_reset;
@@ -286,7 +454,7 @@ consume_kernel(const ConsumeArgs a) {
       row[7] = o.ov;
     }
   }
-  // every CTA read scal before it is overwritten
+  // every CTA read scal and the scratch before they are overwritten
   grid.sync();
   if (lead) {
     a.scal[0] = ids_ins;
@@ -297,6 +465,8 @@ consume_kernel(const ConsumeArgs a) {
     a.counters[1] += n_rech;
     a.counters[2] += n_ins;
     a.counters[3] += n_reset;
+    a.outcome[0] = a.outcome[kSlot] = 0;
+    if (a.spill) a.spill[0] = a.spill[1] = 0;
   }
 }
 
@@ -316,6 +486,11 @@ __global__ void recheck_zone_kernel(const int64_t* __restrict__ rows, int n,
 
 extern "C" {
 
+// The scratch (consume.py ConsumeScratch): sums/vals/binit a vote buffer
+// per tier at this T; outcome int64 [2 * 16], zeroed; under the exact
+// policy bucket_count uint32 [2 * parts] and spill's two counters zeroed,
+// bucket uint64 [2 * parts * cap], spill's data 2 * Hi * T * Fi entries.
+// `parts` must be the SMs less the two runners.
 int gr_consume(uint32_t* table, uint32_t* counts, int64_t alloc, int ranked,
                int64_t probe_limit, int64_t ins_limit, uint32_t or_bits,
                const int64_t* grid_q, const bool* ok_q, int Hq, int Fq,
@@ -325,42 +500,57 @@ int gr_consume(uint32_t* table, uint32_t* counts, int64_t alloc, int ranked,
                int vote_min_q, int x_q, int vote_min_f, int x_f, int u_min,
                int a_max, int TL, int bs, int S, int fast, int rech_on,
                int silver, int64_t target, int64_t max_paths, int cap,
-               int64_t* scal, int64_t* rows, int64_t* counters,
+               int parts, int64_t* scal, int64_t* rows, int64_t* counters,
                unsigned long long* sums, int32_t* vals, bool* binit,
-               unsigned long long* spill, cudaStream_t stream) {
+               int64_t* outcome, unsigned* bucket_count,
+               unsigned long long* bucket, unsigned long long* spill,
+               cudaStream_t stream) {
   using gr::kThreads;
   const int bits_q = gr::table_bits(Hq * Fq), bits_f = gr::table_bits(Hi * Fi);
   // the insert grid is probed only by the trim recheck: at an insert
   // stride (no recheck) its tiles may hold fewer frames than K
-  if (B < 0 || T < 1 || K < 1 || Hq < 1 || Hi < 1 || Hq > gr::kMaxH ||
-      Hi > gr::kMaxH || K > Hq * Fq || bits_q > 14 ||
+  if (B < 0 || T < 1 || T >= (1 << 16) || K < 1 || Hq < 1 || Hi < 1 ||
+      Hq > gr::kMaxH || Hi > gr::kMaxH || K > Hq * Fq || bits_q > 14 ||
       (rech_on && (K > Hi * Fi || bits_f > 14)) || alloc % 4 || bs < 1 ||
-      TL < 1 || cap < 1 ||
-      (cap & (cap - 1)) || rows0_cols < (rech_on ? 9 : 8) ||
-      (!fast && spill == nullptr) ||
+      TL < 1 || cap < 4 * gr::kThreads || (cap & (cap - 1)) ||
+      rows0_cols < (rech_on ? 9 : 8) || !outcome ||
+      (!fast && (!spill || !bucket || !bucket_count || parts < 1 ||
+                 parts > gr::kMaxParts)) ||
       reinterpret_cast<uintptr_t>(table) % 16 ||
       reinterpret_cast<uintptr_t>(counts) % 16)
     return cudaErrorInvalidValue;
   if (B == 0) return gr::kNoLaunch;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if (sms <= gr::kRunners || (!fast && parts != sms - gr::kRunners))
+    return cudaErrorInvalidValue;
   // kernel C's per-warp buffer: the candidates of up to 32 tiles at a
   // time, or pass 7's sort keys (classify.cu)
   int t2 = 1;
   while (t2 < T) t2 <<= 1;
   const int chunk = (T < 32 ? T : 32) * K;
   const int cbuf = t2 > chunk ? t2 : chunk;
-  size_t smem = 8 * static_cast<size_t>(((T + 1) & ~1) + cbuf);
+  const size_t c_bytes = 8 * static_cast<size_t>(((T + 1) & ~1) + cbuf);
+  // a runner stages the vote table and two candidate masks a tile beside
+  // C's rows when all fit
+  const size_t staged_bytes =
+      c_bytes + 8 * static_cast<size_t>(3 * T) +
+      4 * static_cast<size_t>(3 * T + 2 * T * K + 2 * T);
+  const int staged = staged_bytes <= gr::kMaxSmem;
+  size_t smem = staged ? staged_bytes : c_bytes;
   for (int bits : {bits_q, rech_on ? bits_f : 1})
     smem = std::max(smem, ((static_cast<size_t>(1) << bits) + kThreads) *
                               sizeof(unsigned long long));
-  if (!fast) smem = std::max(smem, static_cast<size_t>(cap) * 8);
+  // an owner's sorted entries and its keys' counters (or half as many
+  // entries again while it keeps the distinct ones of an overflow)
+  if (!fast) smem = std::max(smem, static_cast<size_t>(cap) * 12);
   if (smem > gr::kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = gr::allow_smem(gr::consume_kernel, smem);
+  err = gr::allow_smem(gr::consume_kernel, smem);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
   if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
                                     dev)) != cudaSuccess)
     return err;
@@ -373,8 +563,11 @@ int gr_consume(uint32_t* table, uint32_t* counts, int64_t alloc, int ranked,
                     or_bits, grid_q, ok_q, grid_i, ok_i, n_tiles, full_len,
                     rows0, rows0_cols, B, T, K, Hq, Fq, Hi, Fi, vote_min_q,
                     x_q, bits_q, vote_min_f, x_f, bits_f, u_min, a_max, TL,
-                    bs, S, cbuf, cap, fast, rech_on, silver, target,
-                    max_paths, scal, rows, counters, sums, vals, binit,
+                    bs, S, cbuf, cap, fast, rech_on, silver, staged,
+                    static_cast<int64_t>(c_bytes), target, max_paths,
+                    scal,
+                    rows, counters, sums, vals, binit, outcome,
+                    static_cast<uint32_t>(parts), bucket_count, bucket,
                     spill};
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(

@@ -2,11 +2,25 @@
 // launched alone by insert_sorted.cu, whose note gives its design and
 // bound) and insert_max (the throughput mode's max-id-wins insert,
 // insert_max.cu), run as they are by the fused consume kernel (consume.cu).
+//
+// Kernel D in three steps, every CTA of a cooperative grid taking part:
+//   1. scatter_window: each CTA reads its own slice of the recruit's window
+//      once and sends every real key's entry (key << 16 | tile) to the
+//      bucket of the CTA that owns the key (part_of), through global memory
+//      that stays in L2;
+//   2. (a grid barrier)
+//   3. owner_sort: each owner sorts its bucket in shared memory (an owner
+//      past `cap` entries re-reads the window and keeps its distinct
+//      entries, or, past cap / 2 of those, all of them in a slice of the
+//      spill buffer, and sorts there); owner_apply walks each key's run.
 #pragma once
 
 #include "common.cuh"
 
 namespace gr {
+
+// the most owners (CTAs) a key partition has: one shared counter each
+constexpr int kMaxParts = 512;
 
 // The CTA (of `parts`) that owns key k (mibf.py insert_part): a hash of
 // its low 32 bits, so keys that differ only at or above bit 32 (ranks of a
@@ -16,100 +30,245 @@ __device__ __forceinline__ uint32_t part_of(int64_t k, uint32_t parts) {
   return __umulhi(static_cast<uint32_t>(k) * 0x9E3779B1u, parts);
 }
 
-// Call sink(key, column) for the window entries q = first, first + step,
-// ... of every seed row, with 16-byte loads when the rows allow them.
-template <typename Sink>
-__device__ void stream_window(const int64_t* __restrict__ slots, int H,
-                              int64_t TF, int c0, int nf, int first, int step,
-                              Sink sink) {
-  const bool pairs =
-      ((TF | c0 | nf) & 1) == 0 &&
-      (reinterpret_cast<uintptr_t>(slots) & 15) == 0;
-  for (int s = 0; s < H; ++s) {
-    const int64_t* row = slots + s * TF + c0;
-    if (pairs) {
-      const longlong2* row2 = reinterpret_cast<const longlong2*>(row);
-#pragma unroll 4
-      for (int q = first; q < nf / 2; q += step) {
-        const longlong2 v = row2[q];
-        sink(v.x, c0 + 2 * q);
-        sink(v.y, c0 + 2 * q + 1);
+// A recruit's window for kernel D: the entries of tiles t0..t1-1 of every
+// seed row of its insert grid [H, TF] (F frames a tile), keys below `limit`
+// real.
+struct Window {
+  const int64_t* slots;
+  int H;
+  int64_t TF;
+  int F, t0, t1;
+  int64_t limit;
+
+  __device__ int64_t size() const {
+    return t1 > t0 ? static_cast<int64_t>(H) * (t1 - t0) * F : 0;
+  }
+  // window entry e: seed e / cols, column t0 * F + e % cols
+  __device__ int64_t column(int64_t e) const {
+    const int64_t cols = static_cast<int64_t>(t1 - t0) * F;
+    return static_cast<int64_t>(t0) * F + e % cols;
+  }
+  __device__ int64_t key(int64_t e) const {
+    const int64_t cols = static_cast<int64_t>(t1 - t0) * F;
+    return slots[(e / cols) * TF + column(e)];
+  }
+  __device__ bool real(int64_t key) const { return key >= 0 && key < limit; }
+};
+
+// Kernel D's sort entry of a real key (below 2^48, which the wrappers
+// check) at tile t: key << 16 | t.  A key's entries sort by tile, so by its
+// block m = (t - lo) / bs, whatever lo the decision picks later.
+__device__ __forceinline__ uint64_t insert_entry(int64_t key, int64_t col,
+                                                 int F) {
+  return (static_cast<uint64_t>(key) << 16) | static_cast<uint64_t>(col / F);
+}
+
+// The slice of a window's W entries that CTA `rank` of `n` reads:
+// [rank * per, (rank + 1) * per) clipped to W, per = ceil(W / n)
+// (consume.py scatter_slices).
+__device__ __forceinline__ void slice_of(int64_t W, int rank, int n,
+                                         int64_t& lo, int64_t& hi) {
+  const int64_t per = (W + n - 1) / n;
+  lo = min64(W, rank * per);
+  hi = min64(W, lo + per);
+}
+
+// Step 1 for CTA `rank` of `n`, every thread calling it: the real entries
+// of its slice go to their owners' buckets, owner p's entries at
+// bucket[p * cap + j] for j < cap, count[p] counting all of them (a bucket
+// that overflows is re-read by its owner).  The CTA counts its entries per
+// owner in shared memory, then reserves each owner's run with one global
+// atomic.  The window's grid is read-only for the launch.
+__device__ inline void scatter_window(const Window& w, int rank, int n,
+                                      uint32_t parts, int cap,
+                                      unsigned* __restrict__ count,
+                                      unsigned long long* __restrict__ bucket) {
+  __shared__ unsigned s_cnt[kMaxParts];
+  __shared__ unsigned s_base[kMaxParts];
+  int64_t lo, hi;
+  slice_of(w.size(), rank, n, lo, hi);
+  for (int p = threadIdx.x; p < static_cast<int>(parts); p += blockDim.x)
+    s_cnt[p] = 0;
+  __syncthreads();
+  // the same trip count in every thread: the barriers below are uniform
+  for (int64_t base = lo; base < hi; base += blockDim.x) {
+    const int64_t e = base + threadIdx.x;
+    bool own = false;
+    uint32_t p = 0, r = 0;
+    uint64_t entry = 0;
+    if (e < hi) {
+      const int64_t key = w.key(e);
+      if (w.real(key)) {
+        own = true;
+        p = part_of(key, parts);
+        entry = insert_entry(key, w.column(e), w.F);
+        r = atomicAdd(&s_cnt[p], 1u);
       }
-    } else {
-      for (int q = first; q < nf; q += step) sink(row[q], c0 + q);
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < static_cast<int>(parts); q += blockDim.x) {
+      const unsigned c = s_cnt[q];
+      if (c) {
+        s_base[q] = atomicAdd(count + q, c);
+        s_cnt[q] = 0;
+      }
+    }
+    __syncthreads();
+    if (own) {
+      const unsigned j = s_base[p] + r;
+      if (j < static_cast<unsigned>(cap))
+        bucket[static_cast<int64_t>(p) * cap + j] = entry;
     }
   }
 }
 
-// Kernel D's sort entry of the window entry `key` (below 2^48, which the
-// wrappers check) at grid column c: key << 16 | m, m = (c / F - lo) / bs
-// the tile's block.
-__device__ __forceinline__ uint64_t insert_entry(int64_t key, int c, int F,
-                                                 int lo, int bs) {
-  return (static_cast<uint64_t>(key) << 16) |
-         static_cast<uint64_t>((c / F - lo) / bs);
+// An owner past its bucket re-reads the window and keeps each distinct
+// entry once in a hash set in sbuf (`cap` entries): repeated k-mers make
+// many entries of few (key, tile) pairs, and a repeated pair changes
+// nothing (the reservoir rule skips a repeated block).  Up to cap / 2
+// distinct entries it compacts them into `out` (cap / 2 entries), copies
+// them back to sbuf's front and returns their number; past that, -1.
+// Every thread calls it.
+__device__ inline int owner_distinct(const Window& w, uint32_t part,
+                                     uint32_t parts, int cap, uint64_t* sbuf,
+                                     uint64_t* out) {
+  __shared__ int s_distinct, s_packed;
+  for (int i = threadIdx.x; i < cap; i += blockDim.x) sbuf[i] = kSentinel64;
+  if (threadIdx.x == 0) s_distinct = s_packed = 0;
+  __syncthreads();
+  const int64_t W = w.size();
+  const unsigned mask = static_cast<unsigned>(cap) - 1u;
+  for (int64_t e = threadIdx.x; e < W; e += blockDim.x) {
+    if (*static_cast<volatile int*>(&s_distinct) > cap / 2) break;
+    const int64_t key = w.key(e);
+    if (!w.real(key) || part_of(key, parts) != part) continue;
+    const uint64_t ent = insert_entry(key, w.column(e), w.F);
+    unsigned h = static_cast<unsigned>((ent * 0x9E3779B97F4A7C15ull) >> 40);
+    for (;; h = (h + 1u) & mask) {
+      const unsigned long long was = atomicCAS(
+          reinterpret_cast<unsigned long long*>(sbuf + (h & mask)),
+          kSentinel64, static_cast<unsigned long long>(ent));
+      if (was == kSentinel64) {
+        atomicAdd(&s_distinct, 1);
+        break;
+      }
+      if (was == ent) break;
+    }
+  }
+  __syncthreads();
+  const int d = s_distinct;
+  if (d > cap / 2) return -1;
+  for (int i = threadIdx.x; i < cap; i += blockDim.x)
+    if (sbuf[i] != kSentinel64) out[atomicAdd(&s_packed, 1)] = sbuf[i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < d; i += blockDim.x) sbuf[i] = out[i];
+  __syncthreads();
+  return d;
 }
 
-// Kernel D's second half in one CTA, every thread calling it: the CTA owns
-// part `part` of `parts` and has appended its first min(n, cap) entries to
-// `buf` (`cap` shared-memory entries, a power of two).  A CTA owning more
-// takes a power-of-two slice of `spill_data` (allocated by `spill_count`)
-// and streams the window again into it, counting in the shared `fill`.
-// The entries are sorted, and one thread per distinct key walks its run
-// and writes counts[key] once and the word at most once.  In the fused
-// consume kernel (kFused) the counters, which its reset writes from other
-// CTAs, are read through L2.
-template <bool kFused>
-__device__ void insert_owned(uint32_t* words, uint32_t* counts,
-                             const int64_t* __restrict__ slots, int H,
-                             int64_t TF, int F, int64_t limit,
-                             uint32_t or_bits, int lo, int c0, int nf,
-                             uint32_t base, int trimmed, int bs,
-                             uint32_t part, uint32_t parts, uint64_t* buf,
-                             int n, int cap, int* fill,
-                             unsigned long long* spill_count,
-                             uint64_t* spill_data) {
-  __shared__ uint64_t* spill;
-  if (n == 0) return;
+// Step 3's sort for owner `part` of `parts`, every thread calling it after
+// the grid barrier that follows step 1: its count (which it clears for the
+// next use of the bucket) and its entries, sorted, in `sbuf` (`cap`
+// shared-memory entries, a power of two, with `out` cap / 2 more); past
+// `cap`, owner_distinct's distinct entries there, or past cap / 2 distinct
+// ones, all entries in a power-of-two slice of `spill_data` allocated
+// through `spill_count`, into which it re-reads the window.  Returns the
+// entries; *n_out their number.  Bucket and count were written by other
+// CTAs: read through L2.
+__device__ inline uint64_t* owner_sort(const Window& w, uint32_t part,
+                                       uint32_t parts, int cap,
+                                       unsigned* count,
+                                       const unsigned long long* bucket,
+                                       uint64_t* sbuf, uint64_t* out,
+                                       unsigned long long* spill_count,
+                                       uint64_t* spill_data, int* n_out) {
+  __shared__ int s_n, s_fill;
+  __shared__ uint64_t* s_spill;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_n = static_cast<int>(__ldcg(count + part));
+    count[part] = 0;
+  }
+  __syncthreads();
+  int n = s_n;
+  if (n > cap) {
+    const int d = owner_distinct(w, part, parts, cap, sbuf, out);
+    if (d >= 0) n = d;
+  }
+  *n_out = n;
   int n2 = 1;
   while (n2 < n) n2 <<= 1;
+  uint64_t* buf = sbuf;
   if (n2 > cap) {
-    // overflow: a power-of-two slice of the global scratch buffer
-    __syncthreads();
     if (threadIdx.x == 0) {
-      *fill = 0;
-      spill = spill_data +
-              atomicAdd(spill_count, static_cast<unsigned long long>(n2));
+      s_fill = 0;
+      s_spill = spill_data +
+                atomicAdd(spill_count, static_cast<unsigned long long>(n2));
     }
     __syncthreads();
-    buf = spill;
-    stream_window(slots, H, TF, c0, nf, threadIdx.x, blockDim.x,
-                  [&](int64_t key, int c) {
-                    if (key < 0 || key >= limit || part_of(key, parts) != part)
-                      return;
-                    buf[atomicAdd(fill, 1)] = insert_entry(key, c, F, lo, bs);
-                  });
+    buf = s_spill;
+    const int64_t W = w.size();
+    for (int64_t e = threadIdx.x; e < W; e += blockDim.x) {
+      const int64_t key = w.key(e);
+      if (w.real(key) && part_of(key, parts) == part)
+        buf[atomicAdd(&s_fill, 1)] = insert_entry(key, w.column(e), w.F);
+    }
+  } else if (s_n <= cap) {
+    const unsigned long long* src = bucket + static_cast<int64_t>(part) * cap;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = __ldcg(src + i);
   }
   for (int i = n + threadIdx.x; i < n2; i += blockDim.x) buf[i] = kSentinel64;
   __syncthreads();
-  block_bitonic_sort(buf, n2);
+  if (n2 <= static_cast<int>(blockDim.x)) {
+    block_bitonic_sort_small(buf, n2);
+  } else {
+    block_bitonic_sort(buf, n2);
+  }
+  return buf;
+}
+
+// Whether sorted entry i opens its key's run.
+__device__ __forceinline__ bool run_start(const uint64_t* buf, int i) {
+  return i == 0 || (buf[i - 1] >> 16) != (buf[i] >> 16);
+}
+
+// The counter of each run's key, read ahead into before[i] at the run's
+// first entry (the fused kernel does it while the read's decision is being
+// made; no other CTA writes an owner's keys).  Every thread calls it.
+__device__ inline void owner_prefetch(const uint64_t* buf, int n,
+                                      const uint32_t* counts,
+                                      uint32_t* before) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    if (run_start(buf, i)) before[i] = __ldcg(counts + (buf[i] >> 16));
+}
+
+// Step 3's reservoir rule over the sorted entries: one thread per distinct
+// key walks its run, keeps the tiles lo..last, skips a repeated block m =
+// (t - lo) / bs, and writes counts[key] once and the word at most once: the
+// j-th distinct block (j from 1) sees cnt = counts[key] + j (u32) and
+// accepts iff (u32(key) ^ id_m) % max(cnt, 1) == cnt - 1; the last
+// accepting block's id wins.  `before` holds owner_prefetch's counters, or
+// is null (then read here, through L2).  Every thread calls it.
+__device__ inline void owner_apply(uint32_t* words, uint32_t* counts,
+                                   const uint64_t* buf, int n,
+                                   const uint32_t* before, int lo, int last,
+                                   uint32_t base, int trimmed, int bs,
+                                   uint32_t or_bits) {
+  const uint32_t b = static_cast<uint32_t>(bs);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (!run_start(buf, i)) continue;
     const uint64_t key = buf[i] >> 16;
-    if (i > 0 && buf[i - 1] >> 16 == key) continue;
-    uint32_t before;
-    if constexpr (kFused) {
-      before = __ldcg(counts + key);
-    } else {
-      before = counts[key];
-    }
-    uint32_t j = 0, id_won = 0;
+    uint32_t cnt0 = 0, j = 0, id_won = 0, prev_m = 0xFFFFFFFFu;
     bool won = false;
     for (int k = i; k < n && buf[k] >> 16 == key; ++k) {
-      if (k > i && buf[k] == buf[k - 1]) continue;
-      const uint32_t m = static_cast<uint32_t>(buf[k] & 0xFFFFu);
-      const uint32_t b = static_cast<uint32_t>(bs);
+      const int t = static_cast<int>(buf[k] & 0xFFFFu);
+      if (t < lo || t > last) continue;
+      const uint32_t m = static_cast<uint32_t>(t - lo) / b;
+      if (m == prev_m) continue;
+      if (j == 0) cnt0 = before ? before[i] : __ldcg(counts + key);
+      prev_m = m;
       const uint32_t id = base + (trimmed ? (m * b + 1u) / b : m);
-      const uint32_t cnt = before + ++j;
+      const uint32_t cnt = cnt0 + ++j;
       // the accept rule keys on the key's low 32 bits, as the JAX
       // package's u32(rank) ^ id does
       if ((static_cast<uint32_t>(key) ^ id) % (cnt ? cnt : 1u) == cnt - 1u) {
@@ -117,41 +276,10 @@ __device__ void insert_owned(uint32_t* words, uint32_t* counts,
         id_won = id;
       }
     }
-    counts[key] = before + j;
+    if (j == 0) continue;
+    counts[key] = cnt0 + j;
     if (won) words[key] = or_bits | id_won;
   }
-}
-
-// Kernel D over the CTAs of a grid, every thread of every CTA calling it:
-// CTA blockIdx.x owns the keys part_of gives it among gridDim.x.  It
-// streams the recruit's whole window (the columns of tiles lo.. of every
-// seed row, nf of them) from L2, appends the entries it owns to `buf`
-// (`cap` shared-memory entries; the count in the shared `fill`) and hands
-// them to insert_owned, which spills past `cap` through `spill_count`.
-template <bool kFused>
-__device__ void insert_window(uint32_t* words, uint32_t* counts,
-                              const int64_t* __restrict__ slots, int H,
-                              int64_t TF, int F, int64_t limit,
-                              uint32_t or_bits, int lo, int nf,
-                              uint32_t base, int trimmed, int bs,
-                              uint64_t* buf, int cap, int* fill,
-                              unsigned long long* spill_count,
-                              uint64_t* spill_data) {
-  const int c0 = lo * F;
-  if (threadIdx.x == 0) *fill = 0;
-  __syncthreads();
-  stream_window(slots, H, TF, c0, nf, threadIdx.x, blockDim.x,
-                [&](int64_t key, int c) {
-                  if (key < 0 || key >= limit ||
-                      part_of(key, gridDim.x) != blockIdx.x)
-                    return;
-                  const int j = atomicAdd(fill, 1);
-                  if (j < cap) buf[j] = insert_entry(key, c, F, lo, bs);
-                });
-  __syncthreads();
-  insert_owned<kFused>(words, counts, slots, H, TF, F, limit, or_bits, lo,
-                       c0, nf, base, trimmed, bs, blockIdx.x, gridDim.x, buf,
-                       *fill, cap, fill, spill_count, spill_data);
 }
 
 // insert_max for the window entry e of a recruit: e / window is its seed

@@ -16,41 +16,50 @@
 // (u32(key) ^ id_m) % max(cnt, 1) == cnt - 1, and the last accepting
 // block's id wins.  The JAX version recovers j and the last accepting block
 // with segmented scans over the read's sorted (key << 16 | tile) list.
-// Here every key belongs to one of gridDim.x CTAs, part(key) = a
-// multiplicative hash of the key scaled to [0, gridDim.x) (a hash, since
+// Here every key belongs to one of `parts` CTAs, part(key) = a
+// multiplicative hash of the key scaled to [0, parts) (a hash, since
 // present ranks may fill only the low end of [0, limit)), so CTAs share no
-// key and need no order between them, and one launch covers every block of
-// the recruit:
-//   1. every CTA streams the whole window grid[:, lo*F : (hi+1)*F] from L2
-//      (16-byte loads where aligned) and appends each entry it owns to its
-//      shared memory as (key << 16 | m), m = (t - lo) / bs, in 64 bits: a
-//      rank at or above 2^32 (a filter of more than 2^32 present slots)
-//      keeps its high bits;
-//   2. each CTA sorts its entries (bitonic, in shared memory): a key's
-//      entries become one run in ascending m, repeated (key, m) side by
-//      side;
-//   3. one thread per distinct key walks its run, skips repeated (key, m),
+// key and need no order between them.  One cooperative launch covers every
+// block of the recruit (insert.cuh):
+//   1. every CTA reads its own 1/parts slice of the window
+//      grid[:, lo*F : (hi+1)*F] once, counts its real entries per owner in
+//      shared memory, reserves each owner's run in that owner's bucket with
+//      one global atomic, and writes the entries (key << 16 | tile, 64 bits:
+//      a rank at or above 2^32 keeps its high bits) there; the buckets
+//      (`cap` entries each, 8.6 MB at 132 x 8,192) stay in L2;
+//   2. a grid barrier;
+//   3. each CTA sorts its bucket (bitonic, in shared memory): a key's
+//      entries become one run in ascending tile, so in ascending block m;
+//      one thread per distinct key walks its run, skips repeated (key, m),
 //      and writes counts[key] once and the word at most once.
-// Exact for any input: a CTA owning more entries than its shared memory
-// holds (a read whose repeated k-mers pile onto few keys) takes a slice of
-// the wrapper's global scratch buffer, streams the whole window again into
-// it and sorts there.  Slices are power-of-two sized, so all of them
-// together take less than twice the window.
+// Exact for any input: a CTA owning more entries than its bucket holds (a
+// read whose repeated k-mers pile onto few keys) re-reads the whole window
+// and keeps each distinct (key, tile) entry once, in a hash set in shared
+// memory (a repeated entry changes nothing); past half its bucket of
+// distinct entries it takes a slice of the global spill buffer, re-reads
+// the window into it and sorts there.  Slices are power-of-two sized, so
+// all of them together take less than twice the window.
 //
-// This is the insert the consume kernel runs (insert.cuh insert_window),
-// launched alone at the consume kernel's shape on an H100 (one CTA of 512
-// threads per SM, mibf.py INSERT_PARTS), so that it can be held against
-// its plain version and timed.  It has no thread-block clusters: the
-// consume kernel's cooperative launch takes none.
+// This is the insert the consume kernel runs (consume.cu: there the
+// scatter of a probed read overlaps its classification, and the sort its
+// wait for the decision), launched alone at the consume kernel's shape on
+// an H100 (one CTA of 512 threads per SM, mibf.py INSERT_PARTS), so that
+// it can be held against its plain version and timed.  It replaces a
+// design in which every CTA streamed the whole window from L2 (~63 MB of L2
+// reads for a 20-tile recruit at 132 CTAs) and kept what it owned.
 //
-// Bound.  Each CTA reads the whole window from L2: H * nf * 8 bytes, 480
-// KB for a 20-tile recruit at the defaults, ~63 MB in all at 132 CTAs.
-// From memory it must move the window once, and each distinct key's
+// Bound.  From memory it must move the window once (H * nf * 8 bytes, 480
+// KB for a 20-tile recruit at the defaults), and each distinct key's
 // counter read and written and the words it accepts written, random
-// accesses into the 570 MB words/counts (or the 251 MB rank tables).
+// accesses into the 570 MB words/counts (or the 251 MB rank tables).  The
+// buckets add one write and one read of the window's real entries in L2.
+#include <cooperative_groups.h>
+
 #include <algorithm>
 
 #include "insert.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace gr {
 
@@ -58,45 +67,75 @@ __global__ void __launch_bounds__(1024)
 insert_sorted_kernel(uint32_t* __restrict__ words,
                      uint32_t* __restrict__ counts,
                      const int64_t* __restrict__ slots, int H, int64_t TF,
-                     int F, int64_t limit, uint32_t or_bits, int lo, int hi,
+                     int F, int64_t limit, uint32_t or_bits, int lo, int last,
                      uint32_t base, int trimmed, int bs, int cap,
-                     unsigned long long* scratch) {
-  __shared__ int fill;
-  const int nf = max(0, min(hi, static_cast<int>(TF / F) - 1) - lo + 1) * F;
-  insert_window<false>(words, counts, slots, H, TF, F, limit, or_bits, lo,
-                       nf, base, trimmed, bs,
-                       reinterpret_cast<uint64_t*>(gr_smem), cap, &fill,
-                       scratch, reinterpret_cast<uint64_t*>(scratch + 1));
+                     unsigned* bucket_count, unsigned long long* bucket,
+                     unsigned long long* spill) {
+  const Window w{slots, H, TF, F, lo, last + 1, limit};
+  scatter_window(w, blockIdx.x, gridDim.x, gridDim.x, cap, bucket_count,
+                 bucket);
+  cg::this_grid().sync();
+  int n = 0;
+  uint64_t* sbuf = reinterpret_cast<uint64_t*>(gr_smem);
+  const uint64_t* buf =
+      owner_sort(w, blockIdx.x, gridDim.x, cap, bucket_count, bucket, sbuf,
+                 sbuf + cap, spill, reinterpret_cast<uint64_t*>(spill + 1),
+                 &n);
+  owner_apply(words, counts, buf, n, nullptr, lo, last, base, trimmed, bs,
+              or_bits);
 }
 
 }  // namespace gr
 
+// bucket_count: uint32 [parts]; bucket: uint64 [parts * cap]; spill: its
+// allocation counter, then less than twice the window (or null when the
+// window fits one bucket).  The entry zeroes the counters.
 extern "C" int gr_insert_sorted(uint32_t* words, uint32_t* counts,
                                 const int64_t* slots, int H, int64_t TF, int F,
                                 int64_t limit, uint32_t or_bits, int lo, int hi,
                                 uint32_t base, int trimmed, int bs, int parts,
-                                int threads, int cap,
-                                unsigned long long* scratch,
+                                int threads, int cap, unsigned* bucket_count,
+                                unsigned long long* bucket,
+                                unsigned long long* spill,
                                 cudaStream_t stream) {
-  if (F <= 0 || bs <= 0 || TF % F || lo < 0 || limit < 0 || parts <= 0 ||
-      threads <= 0 || threads > 1024 || cap <= 0 || (cap & (cap - 1)))
+  if (F <= 0 || bs <= 0 || TF % F || TF / F >= (1 << 16) || lo < 0 ||
+      limit < 0 || parts <= 0 || parts > gr::kMaxParts || threads <= 0 ||
+      threads > 1024 || cap < 4 * threads || (cap & (cap - 1)) ||
+      !bucket_count || !bucket)
     return cudaErrorInvalidValue;
-  if (hi < lo) return gr::kNoLaunch;
-  const int64_t window =
-      static_cast<int64_t>(H) *
-      std::max<int64_t>(0, std::min<int64_t>(hi, TF / F - 1) - lo + 1) * F;
-  // without scratch no CTA may own more than `cap` entries
-  if (!scratch && window > cap) return cudaErrorInvalidValue;
-  cudaError_t err;
-  if (scratch) {
-    err = cudaMemsetAsync(scratch, 0, sizeof(*scratch), stream);
+  int last = static_cast<int>(std::min<int64_t>(hi, TF / F - 1));
+  if (last < lo) return gr::kNoLaunch;
+  const int64_t window = static_cast<int64_t>(H) * (last - lo + 1) * F;
+  // without a spill buffer no CTA may own more than `cap` entries
+  if (!spill && window > cap) return cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(bucket_count, 0, sizeof(unsigned) * parts,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  if (spill) {
+    err = cudaMemsetAsync(spill, 0, sizeof(*spill), stream);
     if (err != cudaSuccess) return err;
   }
-  const size_t smem = static_cast<size_t>(cap) * sizeof(uint64_t);
+  // the bucket's entries, and half as many for owner_distinct
+  const size_t smem = static_cast<size_t>(cap) * sizeof(uint64_t) * 3 / 2;
   err = gr::allow_smem(gr::insert_sorted_kernel, smem);
   if (err != cudaSuccess) return err;
-  gr::insert_sorted_kernel<<<parts, threads, smem, stream>>>(
-      words, counts, slots, H, TF, F, limit, or_bits, lo, hi, base, trimmed,
-      bs, cap, scratch);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, gr::insert_sorted_kernel, threads, smem)) != cudaSuccess)
+    return err;
+  // a cooperative grid must be resident at once
+  if (static_cast<int64_t>(per_sm) * sms < parts)
+    return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&words, &counts, &slots, &H, &TF, &F, &limit, &or_bits,
+                  &lo, &last, &base, &trimmed, &bs, &cap,
+                  &bucket_count, &bucket, &spill};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(gr::insert_sorted_kernel), dim3(parts),
+      dim3(threads), args, smem, stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

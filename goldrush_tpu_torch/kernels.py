@@ -62,7 +62,7 @@ _SIGNATURES = {
                     _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "gr_row_cummax": (_P, _I, _I, _P, _P),
     "gr_insert_sorted": (_P, _P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I,
-                         _I, _I, _I, _I, _P, _P),
+                         _I, _I, _I, _I, _P, _P, _P, _P),
     "gr_insert_max": (_P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I, _I, _P),
     "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
     "gr_rank_scan": (_P, _L, _P, _P, _P),
@@ -72,8 +72,8 @@ _SIGNATURES = {
     "gr_kmer_query": (_P, _I, _L, _I, _Q, _P, _P),
     "gr_consume": (_P, _P, _L, _I, _L, _L, _U, _P, _P, _I, _I, _P, _P, _I,
                    _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _I, _I, _I, _I, _I, _L, _L, _I, _P, _P, _P, _P, _P,
-                   _P, _P),
+                   _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P, _P, _P, _P,
+                   _P, _P, _P, _P, _P, _P),
     "gr_recheck_zone": (_P, _I, _I, _I, _I, _P),
     "gr_ntcard_count": (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P),

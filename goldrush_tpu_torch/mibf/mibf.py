@@ -687,19 +687,21 @@ def _block_id(base_id: int, m: int, bs: int, trimmed: bool) -> int:
 
 # Kernel D's launch shape, the consume kernel's on an H100 (132 SMs, one
 # CTA of 512 threads each, csrc/consume.cu): CTAs (each owns the keys
-# insert_part gives it), threads per CTA, and the entries a CTA holds in
-# shared memory (a power of two; a CTA owning more sorts in global scratch)
+# insert_part gives it), threads per CTA, and the entries a CTA's bucket
+# and shared memory hold (a power of two; a CTA owning more sorts in global
+# scratch)
 INSERT_PARTS = 132
 INSERT_THREADS = 512
 INSERT_CAP = 8_192
 
 
-def insert_part(keys: torch.Tensor) -> torch.Tensor:
-    """The CTA of kernel D that owns each key: a multiplicative hash of the
-    key's low 32 bits scaled to [0, INSERT_PARTS) (csrc/insert.cuh
-    part_of).  The products wrap in int64 as uint64 does; only their low
-    32 bits, which depend only on the key's, are kept."""
-    return (((keys * 0x9E3779B1) & _MASK32) * INSERT_PARTS) >> 32
+def insert_part(keys: torch.Tensor, parts: int = INSERT_PARTS
+                ) -> torch.Tensor:
+    """The CTA of kernel D (of `parts`) that owns each key: a
+    multiplicative hash of the key's low 32 bits scaled to [0, parts)
+    (csrc/insert.cuh part_of).  The products wrap in int64 as uint64 does;
+    only their low 32 bits, which depend only on the key's, are kept."""
+    return (((keys * 0x9E3779B1) & _MASK32) * parts) >> 32
 
 
 def _insert_cuda(words, counts, slots, lo, hi, base_id, trimmed, params, T,
@@ -717,15 +719,20 @@ def _insert_cuda(words, counts, slots, lo, hi, base_id, trimmed, params, T,
         raise ValueError(f"unsupported insert grid {tuple(slots.shape)}, "
                          f"tiles from {lo} or key limit {limit}")
     window = H * max(0, min(hi, T - 1) - lo + 1) * F
-    # a CTA owning more than INSERT_CAP entries takes a power-of-two slice
-    # of this buffer (after its allocation counter): less than 2x the window
-    scratch = (torch.empty(1 + 2 * window, dtype=torch.int64, device=dev)
-               if window > INSERT_CAP else None)
+    # each owner's bucket and its counter (zeroed by the entry); a CTA
+    # owning more than INSERT_CAP entries takes a power-of-two slice of the
+    # spill buffer (after its allocation counter): less than 2x the window
+    count = torch.empty(INSERT_PARTS, dtype=torch.int32, device=dev)
+    bucket = torch.empty(INSERT_PARTS * INSERT_CAP, dtype=torch.int64,
+                         device=dev)
+    spill = (torch.empty(1 + 2 * window, dtype=torch.int64, device=dev)
+             if window > INSERT_CAP else None)
     kernels.INSERT_SORTED(
         dev, kernels.ptr(words), kernels.ptr(counts), kernels.ptr(slots),
         H, TF, F, int(limit), int(or_bits), int(lo), int(hi),
         int(base_id) & _MASK32, int(bool(trimmed)), bs, INSERT_PARTS,
-        INSERT_THREADS, INSERT_CAP, kernels.ptr(scratch))
+        INSERT_THREADS, INSERT_CAP, kernels.ptr(count), kernels.ptr(bucket),
+        kernels.ptr(spill))
 
 
 def _as_int32(v: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,15 @@ under the optimistic policy) and a silver path that fills up rotates.
 cooperative kernel per batch, for CUDA tensors, and runs
 ``consume_batch_plain`` for CPU tensors; mixed devices raise.  The kernel
 never returns to the host inside a batch: ``scal`` and the rows stay on the
-card until the caller fetches them.  The plain version is a host loop over
-the plain PyTorch versions of kernels B, C, D and insert_max.
+card until the caller fetches them.  Its scratch (``ConsumeScratch``) is
+made once per engine pass and grows only when a batch needs more.  The
+plain version is a host loop over the plain PyTorch versions of kernels B,
+C, D and insert_max.
+
+The launch's host-side arithmetic is here, where the CPU tests reach it
+(``launch_shape``, ``gather_ctas``, ``scatter_sources``,
+``scatter_slices``, ``ConsumeScratch.sizes``; the key owners are
+``mibf.insert_part``): the kernel computes the same maps.
 """
 
 from __future__ import annotations
@@ -33,6 +40,96 @@ from .engine_util import recheck_zone
 
 # the counters' order
 COUNTS = ("live", "recheck", "insert", "reset")
+# CTAs 0 and 1 of the consume kernel's grid classify (kernel C) the query
+# tier's and the recheck tier's probes; the others own the insert keys
+RUNNERS = 2
+# int64 words of a runner's outcome slot (csrc/consume.cu kSlot)
+OUTCOME_SLOT = 16
+
+
+def launch_shape(sms: int) -> tuple[int, int]:
+    """(CTAs, key owners) of the consume kernel on a card of ``sms`` SMs:
+    one CTA per SM, all but the runners owning keys."""
+    if sms <= RUNNERS:
+        raise ValueError(f"the consume kernel needs more than {RUNNERS} "
+                         f"SMs, not {sms}")
+    return sms, sms - RUNNERS
+
+
+def gather_ctas(ctas: int, jobs: int) -> list[int]:
+    """The CTA that runs each tile job of a probe (csrc/consume.cu gather):
+    jobs are tier-major (the query tier's T tiles, then the recheck tier's),
+    job j on CTA (j + RUNNERS) % ctas, so the owners take the first jobs
+    and the runners the last, if any."""
+    return [(j + RUNNERS) % ctas for j in range(jobs)]
+
+
+def scatter_slices(ctas: int, entries: int) -> list[tuple[int, int]]:
+    """The slice [lo, hi) of a window's ``entries`` that each CTA scatters
+    to the key owners (csrc/insert.cuh slice_of): ceil(entries / ctas)
+    each, in CTA order, clipped to the window."""
+    per = -(-entries // ctas)
+    return [(min(entries, c * per), min(entries, c * per + per))
+            for c in range(ctas)]
+
+
+def scatter_sources(ctas: int, jobs: int) -> list[int]:
+    """The CTAs that scatter a window to the key owners, in slice order
+    (csrc/consume.cu): beside a probe of ``jobs`` tile jobs that take at
+    most half the owners, every CTA without a job (the runners, then the
+    CTAs after the busy ones); otherwise, and for a recruit that is not
+    probed (0 jobs), every CTA."""
+    busy = jobs if 2 * jobs <= ctas - RUNNERS else 0
+    return list(range(RUNNERS)) + list(range(RUNNERS + busy, ctas))
+
+
+@dataclasses.dataclass
+class ConsumeScratch:
+    """The consume kernel's scratch on one device, kept across the batches
+    of a pass: a vote buffer per tier, the runners' outcome slots, and
+    under the exact policy two rounds of key buckets (``cap`` entries per
+    owner) with their counters and the spill for an owner past its bucket.
+    The counters and the outcomes' sequence numbers are zero between
+    launches (the kernel clears what it set)."""
+    sums: torch.Tensor | None = None
+    vals: torch.Tensor | None = None
+    binit: torch.Tensor | None = None
+    outcome: torch.Tensor | None = None
+    bucket_count: torch.Tensor | None = None
+    bucket: torch.Tensor | None = None
+    spill: torch.Tensor | None = None
+
+    @staticmethod
+    def sizes(T: int, K: int, window: int, parts: int, cap: int,
+              exact: bool) -> dict:
+        """Elements of each buffer for a batch of T tiles, K candidates a
+        tile and insert windows of at most ``window`` entries (Hi * T * Fi):
+        sums uint64 [2, 3, T], vals int32 [2, 3T + 2TK], binit bool [2, T],
+        outcome int64 [2, OUTCOME_SLOT]; exact only: bucket_count uint32
+        [2, parts], bucket uint64 [2, parts, cap], spill uint64 [2 +
+        2 * window] (two counters, then power-of-two slices that together
+        take less than twice a window)."""
+        out = dict(sums=2 * 3 * T, vals=2 * (3 * T + 2 * T * K),
+                   binit=2 * T, outcome=2 * OUTCOME_SLOT)
+        if exact:
+            out.update(bucket_count=2 * parts, bucket=2 * parts * cap,
+                       spill=2 + 2 * window)
+        return out
+
+    def ensure(self, sizes: dict, device) -> None:
+        """Grow each buffer that is smaller than ``sizes`` asks; a new
+        counter buffer starts at zero."""
+        dtypes = dict(sums=torch.int64, vals=torch.int32, binit=torch.bool,
+                      outcome=torch.int64, bucket_count=torch.int32,
+                      bucket=torch.int64, spill=torch.int64)
+        for name, n in sizes.items():
+            have = getattr(self, name)
+            if have is not None and have.numel() >= n \
+                    and have.device == torch.device(device):
+                continue
+            zeroed = name in ("outcome", "bucket_count", "spill")
+            make = torch.zeros if zeroed else torch.empty
+            setattr(self, name, make(n, dtype=dtypes[name], device=device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +163,8 @@ def _filter_view(state, size: int):
 
 def consume_batch(spec: ConsumeSpec, state, grid, frame_ok, grid_ins, ok_ins,
                   n_tiles, full_lengths, rows0, scal, rows_out, counters,
-                  num_tiles: int) -> None:
+                  num_tiles: int, scratch: ConsumeScratch | None = None
+                  ) -> None:
     """Consume one padded batch in order, in place: the filter ``state``
     (dm.MibfState or cz.CompressedState), ``scal`` (int64 [4]: ids
     inserted, bases inserted, path index, done; carried across batches),
@@ -80,7 +178,8 @@ def consume_batch(spec: ConsumeSpec, state, grid, frame_ok, grid_ins, ok_ins,
     full-resolution grid of every insert seed; n_tiles int32 [B];
     full_lengths int64 [B]; rows0 int64 [B, 8] (or [B, 9] with the trim
     recheck, the ninth column each read's ``tile_min_count``): the batched
-    verdicts against the filter at batch start."""
+    verdicts against the filter at batch start.  ``scratch``: the kernel's,
+    kept by the caller across a pass (a fresh one when not given)."""
     tensors = (state[0], grid, frame_ok, grid_ins, ok_ins, n_tiles,
                full_lengths, rows0, scal, rows_out, counters)
     devices = {t.device for t in tensors}
@@ -90,7 +189,7 @@ def consume_batch(spec: ConsumeSpec, state, grid, frame_ok, grid_ins, ok_ins,
     if grid.is_cuda:
         _consume_cuda(spec, state, grid, frame_ok, grid_ins, ok_ins, n_tiles,
                       full_lengths, rows0, scal, rows_out, counters,
-                      num_tiles)
+                      num_tiles, scratch or ConsumeScratch())
     else:
         consume_batch_plain(spec, state, grid, frame_ok, grid_ins, ok_ins,
                             n_tiles, full_lengths, rows0, scal, rows_out,
@@ -98,7 +197,7 @@ def consume_batch(spec: ConsumeSpec, state, grid, frame_ok, grid_ins, ok_ins,
 
 
 def _consume_cuda(spec, state, grid, frame_ok, grid_ins, ok_ins, n_tiles,
-                  full_lengths, rows0, scal, rows_out, counters, T):
+                  full_lengths, rows0, scal, rows_out, counters, T, scratch):
     p, pf = spec.params, spec.params_full
     table, counts, ranked, limit, or_bits = _filter_view(state, p.size)
     B, Hq, TFq = grid.shape
@@ -121,16 +220,12 @@ def _consume_cuda(spec, state, grid, frame_ok, grid_ins, ok_ins, n_tiles,
     if TFq % T or TFi % T or pf.vote_topk != K:
         raise ValueError(f"unsupported grids {tuple(grid.shape)}, "
                          f"{tuple(grid_ins.shape)} for T={T}")
-    # two vote buffers; under the exact policy kernel D's spill for a CTA
-    # that owns more of a recruit's keys than its shared memory holds (two
-    # allocation counters, zeroed, then less than twice a window)
-    sums = torch.empty((2, 3, T), dtype=torch.int64, device=dev)
-    vals = torch.empty((2, 3 * T + 2 * T * K), dtype=torch.int32, device=dev)
-    binit = torch.empty((2, T), dtype=torch.bool, device=dev)
-    spill = None
-    if not spec.fast:
-        spill = torch.empty(2 + 2 * Hi * TFi, dtype=torch.int64, device=dev)
-        spill[:2].zero_()
+    _, parts = launch_shape(
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    scratch.ensure(ConsumeScratch.sizes(T, K, Hi * TFi, parts,
+                                        dm.INSERT_CAP, not spec.fast), dev)
+    sc = scratch
+    exact = not spec.fast
     kernels.CONSUME(
         dev, kernels.ptr(table), kernels.ptr(counts), table.shape[0],
         int(ranked), table.shape[0] - 1, int(limit), int(or_bits),
@@ -141,10 +236,13 @@ def _consume_cuda(spec, state, grid, frame_ok, grid_ins, ok_ins, n_tiles,
         spec.unassigned_min, spec.assigned_max, p.tile_length,
         p.block_size, p.frame_stride, int(spec.fast), int(spec.rech_on),
         int(spec.silver), int(spec.target), int(spec.max_paths),
-        dm.INSERT_CAP,
+        dm.INSERT_CAP, parts,
         kernels.ptr(scal), kernels.ptr(rows_out), kernels.ptr(counters),
-        kernels.ptr(sums), kernels.ptr(vals), kernels.ptr(binit),
-        kernels.ptr(spill))
+        kernels.ptr(sc.sums), kernels.ptr(sc.vals), kernels.ptr(sc.binit),
+        kernels.ptr(sc.outcome),
+        kernels.ptr(sc.bucket_count if exact else None),
+        kernels.ptr(sc.bucket if exact else None),
+        kernels.ptr(sc.spill if exact else None))
 
 
 def _probe_plain(table, ranked, grid, frame_ok, n_tiles, params, T,

@@ -68,8 +68,8 @@ from ..utils import observability as obs
 from ..utils.ntcard import NtCardParams, estimate_genome_size
 from .classify import classify_batch
 from . import wavefront as wave
-from .consume import (COUNTS, ConsumeSpec, _filter_view, consume_batch,
-                      new_counters)
+from .consume import (COUNTS, ConsumeScratch, ConsumeSpec, _filter_view,
+                      consume_batch, new_counters)
 from .engine_util import tile_min_count
 
 # tile-bucket sizes and the per-batch tile budget of the JAX engine
@@ -515,7 +515,8 @@ class GoldenPathEngine:
         if not self.wave:
             consume_batch(self.spec, state,
                           *self._batch_inputs(codes, lengths, full_lengths, T),
-                          scal, rows_out, counters, T)
+                          scal, rows_out, counters, T,
+                          scratch=self.consume_scratch)
             return
         # the wave's first round classifies every read: no batched verdicts
         codes_d, *inputs = self._window_inputs(codes, lengths, full_lengths, T)
@@ -583,6 +584,8 @@ class GoldenPathEngine:
         scal_d = torch.tensor([0, 0, 1, 0], dtype=torch.int64).to(dev)
         counters = (wave.new_counters(dev) if self.wave
                     else new_counters(dev))
+        # the consume kernel's scratch, made once for the pass
+        self.consume_scratch = ConsumeScratch()
         if self.wave:
             table = self.cstate.ids if self.compressed else self.state.words
             self.wave_side = None     # the last pass's goes before this one
