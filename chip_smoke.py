@@ -13,8 +13,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      142,368,384-slot filter filled from seeded reads, then frozen into
      the rank-compressed filter; B=1 for the live re-probe), bit for bit
      (every output is an integer), with both times and each kernel's bound (the
-     bytes it must move over the card's 3.35 TB/s, or for kernel A its
-     integer operations, whichever takes longer); kernel A's fill, merge
+     bytes it must move over the card's 3.35 TB/s, or, where counted, its
+     32-bit integer operations over the card's integer rate, whichever
+     takes longer); kernel A's fill, merge
      and both grids in both slot maps, the fill per 64-read batch and over
      a whole fill pass of the bench's shape (47 batches and the direct
      filter's merge), the merge on the bench filter as the words' first
@@ -43,7 +44,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      2^22+1-slot table and of a homopolymer batch, beside index_add_;
      kmer_query on one 1 Mbp contig row and 40,000 candidate windows of
      width 2k + 2, beside advanced indexing (each library call on
-     precomputed slots and held to the kernel);
+     precomputed slots and held to the kernel), its launch timed alone
+     and with the wrapper's valid mask; both also on rows of one k-mer
+     and on codes 5 bytes past an aligned address;
      the consume scan (K9, `consume_check`) in exact mode (B=32) and in
      the throughput cell (B=64) with either filter, and exact mode at
      insert stride 8, on batches of the bench dataset's shape that
@@ -166,11 +169,10 @@ WORK = os.path.join(REPO, "smoke_work")
 PRESET = "1011011110110111101101"
 BENCH = dict(genome=5_000_000, genome_seed=11, n_reads=3_000,
              read_len=20_000, reads_seed=12, err_rate=0.05)
-# NVIDIA H100 SXM device memory rate and 32-bit rate outside the tensor
-# cores (data sheet), for each kernel's bound; an integer operation counts
-# as one operation at the float32 rate
+# NVIDIA H100 SXM device memory rate (data sheet) and 32-bit integer rate
+# (`checked`), for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
+INT_OPS_PER_S = 64 * 132 * 1.98e9
 FILL_BATCH, FILL_WIDTH = 64, 32_768     # the engine's pass-1 batches here
 # bench.py's engine_cfg (bench.py:80-84) and its throughput cell (:173-180)
 BENCH_ENGINE = dict(genome_size=5_000_000, kmer_size=22, weight=16,
@@ -218,11 +220,14 @@ def checked(err: int, ms: float, plain_ms: float, nbytes: int,
             ops: int = 0, **extra) -> dict:
     """A kernel's record: its exactness, times, and its bound, the larger
     of the bytes it must move (each input read once, each output written
-    once) over the device memory rate and its integer operations, where
-    counted, over OPS_PER_S; the other kernels do a few integer operations
-    per byte.  No single PyTorch call computes any of these functions, so
-    there is no library time."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    once) over the device memory rate and its 32-bit integer operations,
+    where counted, over INT_OPS_PER_S: an H100 SM retires 64 integer adds,
+    shifts or bitwise operations a clock (CUDA C++ Programming Guide,
+    arithmetic instruction throughput, compute capability 9.0), times 132
+    SMs and the 1,980 MHz boost clock, 16.7e12 a second.  The other
+    kernels do a few integer operations per byte.  No single PyTorch call
+    computes any of these functions, so there is no library time."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(by_bytes, by_ops) * 1e3,
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
@@ -732,11 +737,14 @@ def kmer_check(dev) -> tuple[dict, dict]:
     homopolymer batch (every position adds to one slot), at k = 32 (the
     polish schedule's largest) and at 13 and 24 (targeted polish); the
     query of one 1 Mbp contig row and of 40,000 candidate windows of width
-    2k + 2 on the filled table.  Timed at k = 32 beside the plain versions
-    and the library calls on the slots precomputed: index_add_ for the
-    count, advanced indexing for the query (both held to the kernels).
-    Returns the count's and the query's records (the candidate batch; the
-    contig row under `_contig`)."""
+    2k + 2 on the filled table; both also on rows of one k-mer (P = 1) and
+    on the candidate windows 5 bytes past a 16-byte-aligned address.
+    Timed at k = 32 beside the plain versions and the library calls on
+    the slots precomputed: index_add_ for the count, advanced indexing for
+    the query (both held to the kernels); the query's launch alone (`ms`,
+    as its plain version is timed) and with the wrapper's valid mask
+    (`ms_wrapper`).  Returns the count's and the query's records (the
+    candidate batch; the contig row under `_contig`)."""
     import numpy as np
     import torch
     from goldrush_tpu_torch import hard_cases as hard
@@ -760,7 +768,21 @@ def kmer_check(dev) -> tuple[dict, dict]:
         cand = [torch.from_numpy(x).to(dev) for x in
                 hard.candidate_windows(contig[0], 40_000, k, seed=k)]
         rows = torch.from_numpy(contig).to(dev)
-        for c, n in ((rows, one), cand):
+        buf = torch.zeros(cand[0].numel() + 16, dtype=torch.uint8,
+                          device=dev)
+        shifted = buf[5: 5 + cand[0].numel()].view(cand[0].shape)
+        shifted.copy_(cand[0])
+        ones = torch.from_numpy(hard.stage_codes(
+            np.random.default_rng(k).integers(k - 1, k + 1, 5_000), k,
+            seed=k)[0]).to(dev)
+        edges = ((shifted, cand[1]),
+                 (ones, torch.full((5_000,), k, device=dev)))
+        for c, n in edges:
+            cp = ck.clone()
+            tpol.count_kmers(cp, c, n, k, size)
+            tpol._count_kmers_plain(ck, c, n, k, size)
+            err_c = max(err_c, max_abs_err([(ck, cp)]))
+        for c, n in ((rows, one), cand) + edges:
             err_q = max(err_q, max_abs_err(zip(
                 tpol.query_kmers(ck, c, n, k, size),
                 (tpol._query_kmers_plain(ck, c, k, size),
@@ -791,26 +813,31 @@ def kmer_check(dev) -> tuple[dict, dict]:
     say("kernels", kernel="kmer_count", shape=f"64x{W}", k=k, table=size,
         distinct_slots=distinct, max_abs_err=err_c, ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}", library_ms=f"{lib:.4f}",
-        ms_homopolymer=f"{homo_ms:.4f}", bound_ms=f"{count['bound_ms']:.4f}")
+        ms_homopolymer=f"{homo_ms:.4f}", bound_ms=f"{count['bound_ms']:.4f}",
+        bound_by=count["bound_by"])
     query = {}
     for tag, (c, n) in (("", cand32), ("_contig", (rows, one))):
         sl = tpol._slots_plain(c, k, size)
         got = tpol.query_kmers(table, c, n, k, size)[0]
         err_q = max(err_q, max_abs_err([(got, table[sl])]))
-        ms = cuda_ms(lambda: tpol.query_kmers(table, c, n, k, size), 20)
+        ms = cuda_ms(lambda: tpol._query_kmers_cuda(table, c, k, size), 20)
+        ms_wrapper = cuda_ms(lambda: tpol.query_kmers(table, c, n, k, size),
+                             20)
         pms = cuda_ms(lambda: tpol._query_kmers_plain(table, c, k, size), 3)
         lib = cuda_ms(lambda: table[sl], 20)
         distinct = torch.unique(sl).numel()
         # codes in, counts out, each distinct slot read once
         r = checked(0, ms, pms, c.numel() + got.numel() * 4 + distinct * 4,
-                    sl.numel() * 50)
+                    sl.numel() * 50, ms_wrapper=ms_wrapper)
         r["library_ms"] = lib
         query.update({f"{key}{tag}": r[key] for key in
-                      ("ms", "plain_ms", "bound_ms", "bound_by",
-                       "library_ms")})
+                      ("ms", "ms_wrapper", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms")})
         say("kernels", kernel="kmer_query", shape="x".join(
-            map(str, c.shape)), k=k, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
-            library_ms=f"{lib:.4f}", bound_ms=f"{r['bound_ms']:.4f}")
+            map(str, c.shape)), k=k, ms=f"{ms:.4f}",
+            ms_wrapper=f"{ms_wrapper:.4f}", plain_ms=f"{pms:.4f}",
+            library_ms=f"{lib:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+            bound_by=r["bound_by"])
     query["max_abs_err"] = err_q
     say("kernels", kernel="kmer_count+kmer_query", ks="32,13,24",
         max_abs_err=max(err_c, err_q))

@@ -834,6 +834,69 @@ def test_kmer_count_and_query(cuda, k):
         assert_same(got, want)
 
 
+def kmer_edge_batch(case, k, rng):
+    """Batches on whose tiles K21's kernels branch (csrc/kmer_count.cu):
+    short rows packed into one tile (the candidate windows), rows split
+    over tiles whose P is not a multiple of 32 or of the tile, one k-mer a
+    row (P = 1), homopolymer rows, and codes above 3."""
+    if case == "windows":
+        return hard.candidate_windows(
+            hard.stage_codes([100_000], 100_000, seed=k)[0][0], 3_000, k,
+            seed=k + 1)
+    if case == "split_rows":
+        return hard.stage_codes([5_003, 4_000, 0, k - 1, k, 2_500], 5_003,
+                                seed=k)
+    if case == "one_kmer_rows":
+        return hard.stage_codes(rng.integers(k - 1, k + 1, 700), k, seed=k)
+    if case == "homopolymer":
+        return (np.full((5, 3_001), 1, np.uint8),
+                np.array([3_001, 3_001, 2_000, k, 3_001], np.int64))
+    codes, lens = hard.stage_codes(rng.integers(0, 1_500, 40), 1_500, seed=k)
+    return (codes | (rng.integers(0, 64, codes.shape) << 2)).astype(
+        np.uint8), lens
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("case", ["windows", "split_rows", "one_kmer_rows",
+                                  "homopolymer", "high_codes"])
+@pytest.mark.parametrize("k", [13, 32, 40])
+def test_kmer_tile_edges(cuda, k, case, offset):
+    """K21 against its plain version on the tile edges of its design, with
+    the codes at a 16-byte-aligned address and 5 bytes past one (the
+    staging's unaligned start and its guarded ends)."""
+    from goldrush_tpu_torch.stages import polish as tpol
+    rng = np.random.default_rng(k)
+    codes, lens = kmer_edge_batch(case, k, rng)
+    size = 1_000_003
+    buf = torch.zeros(codes.size + 16, dtype=torch.uint8, device=cuda)
+    c = buf[offset: offset + codes.size].view(codes.shape)
+    c.copy_(torch.from_numpy(codes))
+    n = torch.from_numpy(lens).to(cuda)
+    start = torch.from_numpy(rng.integers(0, 1 << 31, size + 1).astype(
+        np.int32))
+    start[::7] = -1                           # uint32 adds wrap
+    counts = {cuda: start.to(cuda), "cpu": start.clone()}
+    for d in (cuda, "cpu"):
+        tpol.count_kmers(counts[d], c.to(d), n.to(d), k, size)
+    assert_same([counts[cuda]], [counts["cpu"]])
+    assert_same(tpol.query_kmers(counts[cuda], c, n, k, size),
+                tpol.query_kmers(counts["cpu"], c.cpu(), n.cpu(), k, size))
+
+
+def test_kmer_kernels_refuse_a_k_past_their_tile(cuda):
+    """A k-mer whose codes do not fit a CTA's tile (k > 1,009) raises on
+    the card; the plain version takes it."""
+    from goldrush_tpu_torch.stages import polish as tpol
+    codes = torch.zeros((2, 2_100), dtype=torch.uint8, device=cuda)
+    n = torch.full((2,), 2_100, dtype=torch.int64, device=cuda)
+    counts = torch.zeros(65_538, dtype=torch.int32, device=cuda)
+    tpol.count_kmers(counts, codes, n, 1_009, 65_537)
+    with pytest.raises(RuntimeError):
+        tpol.count_kmers(counts, codes, n, 1_010, 65_537)
+    with pytest.raises(RuntimeError):
+        tpol.query_kmers(counts, codes, n, 1_010, 65_537)
+
+
 def test_stage_wrappers_check_their_inputs(cuda):
     from goldrush_tpu_torch.ops import minimizers as tmin
     from goldrush_tpu_torch.stages import polish as tpol
