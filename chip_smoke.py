@@ -19,7 +19,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      and both grids in both slot maps, the fill per 64-read batch and over
      a whole fill pass of the bench's shape (47 batches and the direct
      filter's merge), the merge on the bench filter as the words' first
-     write (dirty memory) and as an OR, rank_pack on the pass's bitmap;
+     write (dirty memory) and as an OR, rank_pack on the pass's bitmap,
+     rank_scan on its totals and on synthetic block totals of 1, 2, 14
+     and 100 superblocks (no bitmap) beside torch.cumsum;
      both grids also at a frame stride: the throughput mode's query grid
      (B=64, h=1, S=8), S=2 with h=3 and its full-resolution insert grid
      (B=64, h=3), timed, and the grid cases of hard_cases.grid_lengths;
@@ -38,8 +40,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      (goldrush_tpu_torch/hard_cases.py) at B=32 and B=1, B in both
      filters, and C's warp cummax (row_cummax) against torch.cummax;
      the stages' kernels: minimizer_keys (K20) on 32 x 32,768 codes at
-     (k, w) = (15, 10), (40, 250), (32, 1,000), one 2^20-wide chunk and
-     rows narrower than k + w - 1, beside unfold(1, w, 1).amin(-1) on
+     (k, w) = (15, 10), (40, 250), (32, 1,000), on batches whose windows
+     end on its tile edges, one 2^20-wide chunk and rows narrower than
+     k + w - 1, beside unfold(1, w, 1).amin(-1) on
      precomputed keys; kmer_count (K21) of 64 x 32,768 reads into a
      2^22+1-slot table and of a homopolymer batch, beside index_add_;
      kmer_query on one 1 Mbp contig row and 40,000 candidate windows of
@@ -662,17 +665,49 @@ def strided_grids(codes, lengths, params, cs, n_care) -> tuple:
     return slot_rec, rank_rec, err_s, err_r
 
 
+def minimizer_edges(dev, k: int, w: int) -> int:
+    """K20 against its plain version on batches whose windows end on the
+    kernel's tile edges (hard_cases.minimizer_tile: two tiles exactly, and
+    one window more, the edge rows of minimizer_lengths among them), with
+    the codes at a 16-byte-aligned address and 5 bytes past one; the
+    largest difference.  An earlier tree without minimizer_tile takes its
+    own tile of 2,048 windows."""
+    import torch
+    from goldrush_tpu_torch import hard_cases as hard
+    from goldrush_tpu_torch.ops import minimizers as tmin
+    tw = hard.minimizer_tile(k, w)[1] if hasattr(hard, "minimizer_tile") \
+        else 2048
+    err = 0
+    for n_win in (2 * tw, 2 * tw + 1):
+        L = n_win + w - 1 + k - 1
+        lengths = hard.minimizer_lengths(k, w, L, 12)
+        codes, _ = hard.stage_codes(lengths, L, seed=n_win, n_frac=0.01)
+        for offset in (0, 5):
+            buf = torch.zeros(codes.size + 16, dtype=torch.uint8,
+                              device=dev)
+            c = buf[offset: offset + codes.size].view(codes.shape)
+            c.copy_(torch.from_numpy(codes))
+            P = L - k + 1
+            err = max(err, max_abs_err(zip(
+                tmin.minimizer_keys(c, k, w, P),
+                tmin._minimizer_keys_plain(c, k, w, P))))
+    return err
+
+
 def minimizer_check(dev) -> dict:
     """K20 against its plain version at the slice's shapes, bit for bit:
     32 x 32,768 codes (1% N) at (k, w) = (15, 10), (40, 250) and (32,
     1,000), the first rows of each batch as long as the windows branch on
     (shorter than k + w - 1, one window, one tile of 2,048 windows and one
-    more); one 2^20-wide chunk (the mapper's position-packing limit) at
-    (15, 10) and (32, 1,000); and rows narrower than k + w - 1.  Each
-    32-row shape is timed beside the plain version and the library call,
-    unfold(1, w, 1).amin(-1) on its keys precomputed with the sign bit
-    flipped (held to the kernel's keys).  Returns the (15, 10) record, the
-    others under suffixed keys."""
+    more, one and two of the kernel's tiles and one more:
+    hard_cases.minimizer_lengths); batches whose windows end on the
+    kernel's tile edges (2 tiles exactly, and one window more) with codes
+    at a 16-byte-aligned address and 5 bytes past one; one 2^20-wide chunk
+    (the mapper's position-packing limit) at (15, 10) and (32, 1,000); and
+    rows narrower than k + w - 1.  Each 32-row shape is timed beside the
+    plain version and the library call, unfold(1, w, 1).amin(-1) on its
+    keys precomputed with the sign bit flipped (held to the kernel's
+    keys).  Returns the (15, 10) record, the others under suffixed keys."""
     import torch
     from goldrush_tpu_torch import hard_cases as hard
     from goldrush_tpu_torch.ops import minimizers as tmin
@@ -695,12 +730,13 @@ def minimizer_check(dev) -> dict:
         ms = cuda_ms(lambda: tmin.minimizer_keys(c, k, w, P), 20)
         pms = cuda_ms(lambda: tmin._minimizer_keys_plain(c, k, w, P), 3)
         lib = cuda_ms(lambda: flipped.unfold(1, w, 1).amin(-1), 3)
-        # codes in, keys and hashes out; per position the rolling hash of
-        # both strands, the canonical min and the key (~40 operations), per
-        # window one 64-bit min (~5) per doubling pass
+        # codes in, keys and hashes out; per position both strands' hash,
+        # the canonical min and the key (~40 operations), per window the
+        # function's least work, about three 64-bit mins (~5 each: a
+        # van Herk/Gil-Werman prefix, suffix and their min)
         nw = keys.shape[1]
         r = checked(0, ms, pms, c.numel() + (keys.numel() + hashes.numel())
-                    * 8, 32 * (P * 40 + nw * 5 * (w.bit_length())))
+                    * 8, 32 * (P * 40 + nw * 3 * 5))
         r["library_ms"] = lib
         tag = "" if (k, w) == (15, 10) else f"_k{k}_w{w}"
         rec.update({f"{key}{tag}": r[key] for key in
@@ -709,6 +745,8 @@ def minimizer_check(dev) -> dict:
         say("kernels", kernel="minimizer_keys", shape=f"32x{W}", k=k, w=w,
             ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", library_ms=f"{lib:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"])
+    for k, w in ((15, 10), (40, 250), (32, 1000)):
+        err = max(err, minimizer_edges(dev, k, w))
     L = tmap.MAX_SEQ - 2
     codes, _ = hard.stage_codes([L], L, seed=5)
     c = torch.from_numpy(codes).to(dev)
@@ -1360,6 +1398,54 @@ def consume_check(dev) -> dict:
     return rec
 
 
+def rank_scan_check(dev) -> dict:
+    """rank_scan against its plain version on synthetic block totals, with
+    no bitmap: 1 superblock (2,173 totals, the 5 Mbp filter's count), 2 (a
+    partial second), 14 (868,948 totals, the genome cell's count) and 100
+    (a partial last one); totals drawn in [0, 65,536] after a run of full
+    blocks (65,536 each: sums past 2^32).  Carries, supers and pop bit for
+    bit; each timed beside its bound, the plain version and torch.cumsum
+    of the totals (the library call: it leaves out the restart per
+    superblock and the exclusive shift); and an empty launch, the floor of
+    the one-superblock scan's two launches.  Returns the times under
+    suffixed keys and the largest difference."""
+    import torch
+    from goldrush_tpu_torch.mibf import compressed as cz
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    sb = cz.SUPER_BLOCKS
+    rec, err = {}, 0
+    for n_super, nblk in ((1, 2_173), (2, sb + 4_097), (14, 868_948),
+                          (100, 99 * sb + 12_345)):
+        totals = torch.randint(0, 65_537, (nblk,), dtype=torch.int64,
+                               device=dev, generator=g)
+        totals[:6_144] = 65_536
+        size = (nblk - 1) * cz.RANK_BLOCK_SLOTS + 12_345
+        tk, tp = totals.clone(), totals.clone()
+        sk, pop = cz.rank_scan(tk, size)
+        sp, pop_p = cz._rank_scan_plain(tp, size)
+        e = max(max_abs_err([(tk, tp), (sk, sp)]), abs(pop - pop_p))
+        if sk.numel() != n_super:
+            e = max(e, 1)
+        err = max(err, e)
+        scratch = totals.clone()
+        ms = cuda_ms(lambda: cz._rank_scan_cuda(scratch, size), 20)
+        pms = cuda_ms(lambda: cz._rank_scan_plain(scratch, size), 3)
+        lib = cuda_ms(lambda: torch.cumsum(totals, 0), 20)
+        bound = scan_bytes(nblk, n_super) / HBM_BYTES_PER_S * 1e3
+        rec.update({f"ms_s{n_super}": ms, f"plain_ms_s{n_super}": pms,
+                    f"library_ms_s{n_super}": lib,
+                    f"bound_ms_s{n_super}": bound})
+        say("kernels", kernel="rank_scan", synthetic=True, blocks=nblk,
+            superblocks=n_super, present=pop, max_abs_err=e, ms=f"{ms:.4f}",
+            plain_ms=f"{pms:.4f}", library_ms=f"{lib:.4f}",
+            bound_ms=f"{bound:.6f}")
+    rec["ms_empty_launch"] = cuda_ms(lambda: torch.cuda._sleep(0), 20)
+    say("kernels", kernel="empty_launch",
+        ms=f"{rec['ms_empty_launch']:.4f}")
+    return rec, err
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -1387,7 +1473,10 @@ def phase_build():
 def freeze_steps(bk, tk, bp, tp, size: int) -> dict:
     """rank_scan and rank_carry after rank_pack (bitrank and totals from
     the kernel, bk/tk, and from the plain version, bp/tp), each against
-    its plain version and timed: their records."""
+    its plain version and timed: their records.  rank_scan's library call
+    is torch.cumsum of the totals, which computes part of its function:
+    the restart per superblock and the exclusive shift are left out."""
+    import torch
     from goldrush_tpu_torch.mibf import compressed as cz
     out = {}
     nw = -(-size // 32)
@@ -1398,11 +1487,13 @@ def freeze_steps(bk, tk, bp, tp, size: int) -> dict:
     err = max(max_abs_err([(tk, tp), (sk, sp)]), abs(pop - pop_p))
     ms = cuda_ms(lambda: cz._rank_scan_cuda(scratch, size), 20)
     pms = cuda_ms(lambda: cz._rank_scan_plain(scratch, size), 3)
+    lib = cuda_ms(lambda: torch.cumsum(tp, 0), 20)
     out["rank_scan"] = checked(err, ms, pms, scan_bytes(tk.numel(),
                                                         sk.numel()))
+    out["rank_scan"]["library_ms"] = lib
     say("kernels", kernel="rank_scan", blocks=tk.numel(),
         superblocks=sk.numel(), present=pop, max_abs_err=err,
-        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", library_ms=f"{lib:.4f}",
         bound_ms=f"{out['rank_scan']['bound_ms']:.6f}")
     # timed on a scratch copy: each call adds its carries again
     scratch = bk.clone()
@@ -1664,6 +1755,10 @@ def phase_kernels() -> dict:
     # carried without superblocks: it has neither)
     if hasattr(cz, "rank_scan"):
         out.update(freeze_steps(bk, tk, bp, tp, size))
+        rec, err = rank_scan_check(dev)
+        out["rank_scan"].update(rec)
+        out["rank_scan"]["max_abs_err"] = max(
+            out["rank_scan"]["max_abs_err"], err)
     del bp, tp, bk, tk
     # the filter of the grid's batch, frozen (freeze: its words' bits packed
     # by plain torch ops, then rank_pack and rank_carry); the plain rank map

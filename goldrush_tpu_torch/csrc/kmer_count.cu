@@ -23,13 +23,9 @@
 // ~10-30 MB in the pipeline) stays in L2, so the gathers and atomics are
 // L2 sector traffic; what the design attacks is the work per position.
 //
-// Design.  The unspaced ntHash is a difference of two prefix XORs.  Over
-// the codes c_i from an origin t0 (i counted from t0),
-//   S(n) = XOR_{i<n} ror64(TAB[c_i], i),  R(n) = XOR_{i<n} rol64(TAB[c_i^3], i)
-//   fwd(p) = rol64(S(p+k) ^ S(p), p+k-1),  rev(p) = ror64(R(p+k) ^ R(p), p)
-// (rotations mod 64; tests/test_torch_kmer_scan.py holds this and the
-// kernel's arithmetic to the JAX functions).  So one scan of a CTA's codes
-// gives every k-mer's hash: no serial roll, no hash rebuilt from nothing.
+// Design.  Every k-mer's hash comes from one prefix-XOR scan of the CTA's
+// codes (nthash_scan.cuh, shared with minimizers.cu): no serial roll, no
+// hash rebuilt from nothing.
 //  1. A CTA of 128 threads takes W consecutive outputs o = b * P + p (W <=
 //     1,024, fewer when short rows would not fit; `kmer_tile`).  A k-mer
 //     never crosses its row, so the codes they read form one range of the
@@ -37,14 +33,11 @@
 //     aligned start t0.  Short rows (the polisher's candidate windows, P =
 //     k + 3) pack side by side; a long row (a 1 Mbp contig) splits over
 //     many CTAs.  Each thread loads its run of 8 codes with one 8-byte load.
-//  2. A run starts at a multiple of 8 from t0, so its terms are the
-//     constants rotated by q < 8 (immediates picked by the code's two bits)
-//     XORed in registers, then rotated by a multiple of 8 bits, a byte
-//     permutation; a warp scan (__shfl_up_sync) and the warp totals give
-//     each run its carry; S and R land in shared memory, 16 B per code, at
-//     i ^ ((i >> 3) & 7), so the runs' strided 16-byte stores hit distinct
-//     banks.  (A table of the 256 rotated constants in shared memory cost
-//     more: a 16-byte read per code.)
+//  2. The scan (`nt_prefix_scan`, runs of 8): the rotated constants as
+//     immediates, a byte permutation, a warp scan and the warps' carries
+//     put S and R in shared memory, 16 B per code.  (A table of the 256
+//     rotated constants in shared memory cost more: a 16-byte read per
+//     code.)
 //  3. One lane per output, up to 8 a thread, 4 at a time, at a stride of
 //     the CTA's width: the row from a multiply-high by a reciprocal of P,
 //     two reads of (S, R), two rotations and a min.  The query's gathers
@@ -54,7 +47,7 @@
 //     hit one slot make one atomic (__match_any_sync), and a leader keeps
 //     its (slot, count) across its outputs while the slot repeats, so a
 //     homopolymer batch makes one atomic per warp per 4-8 outputs a lane.
-#include "common.cuh"
+#include "nthash_scan.cuh"
 
 namespace gr {
 
@@ -78,55 +71,6 @@ struct KmerArgs {
   unsigned* out;           // query
 };
 
-// where entry i of S and R lives in shared memory: a run's 8 stores, 128 B
-// apart across the lanes, then hit distinct banks
-__device__ __forceinline__ int kmer_swz(int i) { return i ^ ((i >> 3) & 7); }
-
-// a rotation by r < 64 as a swap and two funnel shifts (common.cuh's rol64
-// shifts 64-bit values and tests r = 0)
-__device__ __forceinline__ uint64_t rotl_var(uint64_t x, unsigned r) {
-  unsigned lo = static_cast<unsigned>(x), hi = static_cast<unsigned>(x >> 32);
-  if (r & 32u) {
-    const unsigned t = lo;
-    lo = hi;
-    hi = t;
-  }
-  const unsigned nh = __funnelshift_l(lo, hi, r);
-  const unsigned nl = __funnelshift_l(hi, lo, r);
-  return (static_cast<uint64_t>(nh) << 32) | nl;
-}
-
-__device__ __forceinline__ uint64_t rotr_var(uint64_t x, unsigned r) {
-  return rotl_var(x, (64u - r) & 63u);
-}
-
-// ntHash's per-base constant of base c (nt_tab's) rotated left by r, for
-// the compiler to fold into immediates
-__host__ __device__ constexpr uint64_t nt_rotl(int c, unsigned r) {
-  const uint64_t x = c == 0   ? 0x3C8BFBB395C60474ull
-                     : c == 1 ? 0x3193C18562A02B4Cull
-                     : c == 2 ? 0x20323ED082572324ull
-                              : 0x295549F54BE24456ull;
-  return r % 64 ? (x << (r % 64)) | (x >> (64 - r % 64)) : x;
-}
-
-// one of four values by the low two bits of c
-__device__ __forceinline__ uint64_t sel4(unsigned c, uint64_t v0, uint64_t v1,
-                                         uint64_t v2, uint64_t v3) {
-  const uint64_t x = c & 1u ? v1 : v0, y = c & 1u ? v3 : v2;
-  return c & 2u ? y : x;
-}
-
-// x with its bytes permuted by two __byte_perm selectors (a rotation by a
-// multiple of 8 bits)
-__device__ __forceinline__ uint64_t perm64(uint64_t x, unsigned lo,
-                                           unsigned hi) {
-  const unsigned a = static_cast<unsigned>(x);
-  const unsigned b = static_cast<unsigned>(x >> 32);
-  return (static_cast<uint64_t>(__byte_perm(a, b, hi)) << 32) |
-         __byte_perm(a, b, lo);
-}
-
 // floor(x * m / 2^64) for m < 2^32: the slot map, and the row of a
 // position (x the reciprocal, m the position within 2^32)
 __device__ __forceinline__ uint64_t mulhi_u32(uint64_t x, uint32_t m) {
@@ -137,7 +81,7 @@ template <bool kCount>
 __global__ void __launch_bounds__(kKmerThreads) kmer_kernel(KmerArgs a) {
   __shared__ ulonglong2 sr[kKmerCap + 1];
   __shared__ ulonglong2 wsum[kKmerWarps];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int64_t o0 = static_cast<int64_t>(blockIdx.x) * a.W;
   const int n_out = static_cast<int>(min64(a.W, a.total - o0));
   // the tile's first row and position: a double reciprocal of P, then one
@@ -156,74 +100,26 @@ __global__ void __launch_bounds__(kKmerThreads) kmer_kernel(KmerArgs a) {
       (reinterpret_cast<uintptr_t>(a.codes) + first) & 15u);
 
   // the scan: this thread's run of codes (8 bytes from t0's 16-byte-
-  // aligned address, zero outside the batch), its inclusive XORs, then its
-  // carry.  Codes past the tile's last k-mer only make entries of S and R
-  // that no output reads.
-  uint2 cw;
+  // aligned address, zero outside the batch), then S and R of the tile.
+  // Codes past the tile's last k-mer only make entries of S and R that no
+  // output reads.
+  unsigned cw[kKmerRun / 4];
   {
     const int64_t g = t0 + kKmerRun * tid;
     if (g >= 0 && g + kKmerRun <= a.BL) {
-      cw = *reinterpret_cast<const uint2*>(a.codes + g);
+      const uint2 v = *reinterpret_cast<const uint2*>(a.codes + g);
+      cw[0] = v.x;
+      cw[1] = v.y;
     } else {
       unsigned char b[kKmerRun];
 #pragma unroll
       for (int q = 0; q < kKmerRun; ++q)
         b[q] = g + q >= 0 && g + q < a.BL ? a.codes[g + q] : 0;
-      cw = make_uint2(b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24,
-                      b[4] | b[5] << 8 | b[6] << 16 | b[7] << 24);
+      cw[0] = b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24;
+      cw[1] = b[4] | b[5] << 8 | b[6] << 16 | b[7] << 24;
     }
   }
-  // a run starts at a multiple of 8 from t0, so its terms' rotations are
-  // 8m + q: the constants rotated by q, then the run's XORs rotated by 8m,
-  // a byte permutation (m = tid & 7)
-  const unsigned m8 = (tid & 7) * 0x1111u;
-  const unsigned ror_lo = (0x3210u + m8) & 0x7777u;
-  const unsigned ror_hi = (0x7654u + m8) & 0x7777u;
-  const unsigned rol_lo = (0xBA98u - m8) & 0x7777u;
-  const unsigned rol_hi = (0xFEDCu - m8) & 0x7777u;
-  uint64_t inc_s[kKmerRun], inc_r[kKmerRun];
-  uint64_t acc_s = 0, acc_r = 0;
-#pragma unroll
-  for (int q = 0; q < kKmerRun; ++q) {
-    const unsigned c = ((q < 4 ? cw.x : cw.y) >> (8 * (q & 3))) & 3u;
-    acc_s ^= sel4(c, nt_rotl(0, 64 - q), nt_rotl(1, 64 - q),
-                  nt_rotl(2, 64 - q), nt_rotl(3, 64 - q));
-    acc_r ^= sel4(c, nt_rotl(3, q), nt_rotl(2, q), nt_rotl(1, q),
-                  nt_rotl(0, q));
-    inc_s[q] = acc_s;
-    inc_r[q] = acc_r;
-  }
-  const uint64_t tot_s = perm64(acc_s, ror_lo, ror_hi);
-  const uint64_t tot_r = perm64(acc_r, rol_lo, rol_hi);
-  uint64_t w_s = tot_s, w_r = tot_r;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint64_t x_s = __shfl_up_sync(kFull, w_s, d);
-    const uint64_t x_r = __shfl_up_sync(kFull, w_r, d);
-    if (lane >= d) {
-      w_s ^= x_s;
-      w_r ^= x_r;
-    }
-  }
-  if (lane == 31) wsum[warp] = make_ulonglong2(w_s, w_r);
-  __syncthreads();
-  uint64_t c_s = w_s ^ tot_s, c_r = w_r ^ tot_r;
-#pragma unroll
-  for (int w = 0; w < kKmerWarps - 1; ++w) {
-    if (w < warp) {
-      c_s ^= wsum[w].x;
-      c_r ^= wsum[w].y;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kKmerRun; ++q)
-    sr[kmer_swz(kKmerRun * tid + q)] = q == 0
-        ? make_ulonglong2(c_s, c_r)
-        : make_ulonglong2(c_s ^ perm64(inc_s[q - 1], ror_lo, ror_hi),
-                          c_r ^ perm64(inc_r[q - 1], rol_lo, rol_hi));
-  if (tid == kKmerThreads - 1)
-    sr[kmer_swz(kKmerCap)] = make_ulonglong2(c_s ^ tot_s, c_r ^ tot_r);
-  __syncthreads();
+  nt_prefix_scan<kKmerRun, kKmerThreads>(cw, sr, wsum);
 
   // one lane per output, a chunk of kKmerChunk a thread at a time: its
   // row, then the identity's hash and slot
@@ -245,11 +141,10 @@ __global__ void __launch_bounds__(kKmerThreads) kmer_kernel(KmerArgs a) {
           ? static_cast<int64_t>(mulhi_u32(a.recip, static_cast<uint32_t>(u)))
           : u / a.P;
       const int j = base + i + static_cast<int>(row) * (a.k - 1);
-      const ulonglong2 x = sr[kmer_swz(j)], y = sr[kmer_swz(j + a.k)];
-      const uint64_t fwd = rotl_var(x.x ^ y.x, (j + a.k - 1) & 63);
-      const uint64_t rev = rotr_var(x.y ^ y.y, j & 63);
-      slot[q] = static_cast<unsigned>(
-          mulhi_u32(fwd < rev ? fwd : rev, a.size));
+      slot[q] = static_cast<unsigned>(mulhi_u32(
+          nt_scan_hash(sr[nt_swz<kKmerRun>(j)], sr[nt_swz<kKmerRun>(j + a.k)],
+                       j, a.k),
+          a.size));
       if constexpr (kCount)
         valid[q] = u - row * a.P < a.lengths[b0 + row] - a.k + 1;
     }

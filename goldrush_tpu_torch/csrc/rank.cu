@@ -24,13 +24,20 @@
 //               superblock is exactly 65,536 blocks, so no block straddles
 //               two.
 //   rank_scan   the carried block sum of pallas_sweep (:126), restarted at
-//               every superblock.  One CTA per superblock turns its 65,536
-//               block totals, in place, into each block's carry (the totals
-//               of the blocks before it in its superblock) and writes the
-//               superblock's total to supers[s]; a second one-CTA launch
-//               turns supers into the exclusive prefix of those totals (the
-//               JAX package's super_base) and writes pop.  Linear in the
-//               blocks: 868,948 at 56,947,329,536 slots.
+//               every superblock: a segmented exclusive scan of the block
+//               totals, in place, each becoming its block's carry (the
+//               totals of the blocks before it in its superblock), with
+//               supers (the present slots before each superblock, the JAX
+//               package's super_base) and pop.  Two launches spread it over
+//               the card: tiles of kScanTile = 2,048 totals (a superblock
+//               is 32 of them, so no tile straddles two) are summed, one
+//               CTA each; then each CTA takes its carry from the sums of
+//               the tiles before it in its superblock (at most 31), scans
+//               its tile in registers and shared memory (coalesced 16-byte
+//               loads and stores), and the first tile of each superblock
+//               writes supers[s] and the last tile pop from the tile sums.
+//               Linear in the blocks: 868,948 at 56,947,329,536 slots, 425
+//               CTAs.
 //   rank_carry  the add of pallas_sweep: each word's high half gains its
 //               block's carry; the appended word is zeroed.
 //
@@ -49,7 +56,6 @@ namespace gr {
 constexpr int kRankBlockWords = 2048;       // 65,536 slots per block
 constexpr int kRankThreads = 1024;          // two words per thread
 constexpr int64_t kSuperBlocks = 65536;     // blocks per 2^32 slots
-constexpr int kScanPerThread = kSuperBlocks / kRankThreads;
 
 __global__ void rank_pack_kernel(const uint32_t* __restrict__ bitmap,
                                  int64_t size, int64_t nw,
@@ -78,45 +84,139 @@ __global__ void rank_pack_kernel(const uint32_t* __restrict__ bitmap,
   if (threadIdx.x == blockDim.x - 1) totals[blockIdx.x] = pre + p0 + p1;
 }
 
-// grid n_super: CTA s owns blocks [s * 65,536, min(nblk, (s + 1) * 65,536))
-// and thread t of it the 64 consecutive blocks from s * 65,536 + 64 t.
-__global__ void rank_scan_kernel(unsigned long long* __restrict__ totals,
-                                 int64_t nblk,
-                                 unsigned long long* __restrict__ supers) {
-  __shared__ unsigned long long scan[kRankThreads];
-  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kSuperBlocks +
-                     static_cast<int64_t>(threadIdx.x) * kScanPerThread;
-  const int64_t b1 = min64(b0 + kScanPerThread, nblk);
-  unsigned long long part = 0;
-  for (int64_t b = b0; b < b1; ++b) part += totals[b];
-  unsigned long long carry = block_exclusive_scan(part, 0ull, scan, AddOp());
-  if (threadIdx.x == blockDim.x - 1) supers[blockIdx.x] = carry + part;
-  for (int64_t b = b0; b < b1; ++b) {
-    const unsigned long long t = totals[b];
-    totals[b] = carry;
-    carry += t;
-  }
+constexpr int kScanThreads = 256;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kScanPairs = 4;                         // 16-byte pairs a thread
+constexpr int kScanTile = 2 * kScanPairs * kScanThreads;   // totals a CTA
+constexpr int kScanTilesPerSuper = kSuperBlocks / kScanTile;
+
+// pair r of this thread in its tile (lane-strided, so a warp's 16-byte
+// loads and stores are contiguous): totals 2u and 2u + 1 of the tile, u =
+// tid + r * kScanThreads; zero past nblk
+__device__ __forceinline__ longlong2 scan_pair(
+    const unsigned long long* totals, int64_t t0, int64_t nblk, int r) {
+  const int64_t i = t0 + 2 * (threadIdx.x + r * kScanThreads);
+  if (i + 1 < nblk) return *reinterpret_cast<const longlong2*>(totals + i);
+  return make_longlong2(i < nblk ? static_cast<long long>(totals[i]) : 0, 0);
 }
 
-// one CTA: supers (each superblock's total) -> the exclusive prefix of the
-// totals, and their sum into pop.
-__global__ void rank_supers_kernel(unsigned long long* __restrict__ supers,
-                                   int64_t n_super,
-                                   unsigned long long* __restrict__ pop) {
-  __shared__ unsigned long long scan[kRankThreads];
-  unsigned long long base = 0;
-  for (int64_t s0 = 0; s0 < n_super; s0 += blockDim.x) {
-    const int64_t s = s0 + threadIdx.x;
-    const unsigned long long v = s < n_super ? supers[s] : 0ull;
-    const unsigned long long pre = block_exclusive_scan(v, 0ull, scan,
-                                                        AddOp());
-    if (s < n_super) supers[s] = base + pre;
-    // the last thread's inclusive sum is the chunk's total: broadcast it
-    if (threadIdx.x == blockDim.x - 1) scan[0] = pre + v;
-    __syncthreads();
-    base += scan[0];
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+  return v;
+}
+
+// the sum of v over the block, to every thread; `red` holds kScanWarps
+// values; starts and ends with a barrier
+__device__ unsigned long long block_sum(unsigned long long v,
+                                        unsigned long long* red) {
+  v = warp_sum(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  unsigned long long s = 0;
+#pragma unroll
+  for (int w = 0; w < kScanWarps; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+// grid ceil(nblk / kScanTile): each tile's sum
+__global__ void __launch_bounds__(kScanThreads) rank_tile_sums_kernel(
+    const unsigned long long* __restrict__ totals, int64_t nblk,
+    unsigned long long* __restrict__ sums) {
+  __shared__ unsigned long long red[kScanWarps];
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kScanTile;
+  unsigned long long v = 0;
+#pragma unroll
+  for (int r = 0; r < kScanPairs; ++r) {
+    const longlong2 p = scan_pair(totals, t0, nblk, r);
+    v += static_cast<unsigned long long>(p.x) +
+         static_cast<unsigned long long>(p.y);
   }
-  if (threadIdx.x == 0) *pop = base;
+  const unsigned long long s = block_sum(v, red);
+  if (threadIdx.x == 0) sums[blockIdx.x] = s;
+}
+
+// grid ceil(nblk / kScanTile): the tile's totals become their carries
+__global__ void __launch_bounds__(kScanThreads) rank_scan_kernel(
+    unsigned long long* __restrict__ totals, int64_t nblk,
+    const unsigned long long* __restrict__ sums, int n_tiles,
+    unsigned long long* __restrict__ supers,
+    unsigned long long* __restrict__ pop) {
+  __shared__ unsigned long long red[kScanWarps];
+  __shared__ unsigned long long wtot[kScanPairs][kScanWarps];
+  __shared__ unsigned long long tile_carry;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x;
+  const int first = tile - tile % kScanTilesPerSuper;  // its superblock's
+  const int64_t t0 = static_cast<int64_t>(tile) * kScanTile;
+  // the superblock's base and pop, from the tile sums: the first tile of
+  // each superblock and the last tile (every thread of the CTA takes part)
+  if (tile == first) {
+    unsigned long long v = 0;
+    for (int i = tid; i < first; i += kScanThreads) v += sums[i];
+    v = block_sum(v, red);
+    if (tid == 0) supers[tile / kScanTilesPerSuper] = v;
+  }
+  if (tile == n_tiles - 1) {
+    unsigned long long v = 0;
+    for (int i = tid; i < n_tiles; i += kScanThreads) v += sums[i];
+    v = block_sum(v, red);
+    if (tid == 0) *pop = v;
+  }
+  // this tile's pairs, each pair's sum scanned across the warp
+  longlong2 p[kScanPairs];
+  unsigned long long inc[kScanPairs];
+#pragma unroll
+  for (int r = 0; r < kScanPairs; ++r) {
+    p[r] = scan_pair(totals, t0, nblk, r);
+    inc[r] = static_cast<unsigned long long>(p[r].x) +
+             static_cast<unsigned long long>(p[r].y);
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int r = 0; r < kScanPairs; ++r) {
+      const unsigned long long x = __shfl_up_sync(kFull, inc[r], d);
+      if (lane >= d) inc[r] += x;
+    }
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int r = 0; r < kScanPairs; ++r) wtot[r][warp] = inc[r];
+  }
+  // the carry from the tiles before this one in its superblock
+  if (warp == 0) {
+    const unsigned long long v =
+        first + lane < tile ? sums[first + lane] : 0ull;
+    const unsigned long long c = warp_sum(v);
+    if (lane == 0) tile_carry = c;
+  }
+  __syncthreads();
+  unsigned long long base = tile_carry;
+#pragma unroll
+  for (int r = 0; r < kScanPairs; ++r) {
+    unsigned long long before = base;     // rows before r, warps before
+#pragma unroll
+    for (int w = 0; w < kScanWarps; ++w) {
+      const unsigned long long t = wtot[r][w];
+      if (w < warp) before += t;
+      base += t;
+    }
+    const unsigned long long x = before + inc[r] -
+        static_cast<unsigned long long>(p[r].x) -
+        static_cast<unsigned long long>(p[r].y);
+    const int64_t i = t0 + 2 * (tid + r * kScanThreads);
+    const longlong2 out = make_longlong2(
+        static_cast<long long>(x),
+        static_cast<long long>(x + static_cast<unsigned long long>(p[r].x)));
+    if (i + 1 < nblk) {
+      *reinterpret_cast<longlong2*>(totals + i) = out;
+    } else if (i < nblk) {
+      totals[i] = static_cast<unsigned long long>(out.x);
+    }
+  }
 }
 
 __global__ void rank_carry_kernel(
@@ -150,20 +250,24 @@ int gr_rank_pack(const uint32_t* bitmap, int64_t size, int64_t nw,
   return cudaGetLastError();
 }
 
-// totals: the rank_pack totals of nw words, made each block's carry in
-// place; supers: ceil(nw / 2^27) entries; pop: one.
+// totals: the rank_pack totals of nw words (16-byte aligned), made each
+// block's carry in place; sums: ceil(blocks / 2,048) entries of scratch;
+// supers: ceil(nw / 2^27) entries; pop: one.
 int gr_rank_scan(unsigned long long* totals, int64_t nw,
-                 unsigned long long* supers, unsigned long long* pop,
-                 cudaStream_t stream) {
+                 unsigned long long* sums, unsigned long long* supers,
+                 unsigned long long* pop, cudaStream_t stream) {
   if (nw <= 0) return cudaErrorInvalidValue;
   const int64_t nblk = gr::rank_blocks(nw);
-  const int64_t n_super = (nblk + gr::kSuperBlocks - 1) / gr::kSuperBlocks;
-  gr::rank_scan_kernel<<<static_cast<unsigned>(n_super), gr::kRankThreads, 0,
-                         stream>>>(totals, nblk, supers);
-  cudaError_t err = cudaGetLastError();
+  const int64_t n_tiles = (nblk + gr::kScanTile - 1) / gr::kScanTile;
+  if (n_tiles > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  gr::rank_tile_sums_kernel<<<static_cast<unsigned>(n_tiles),
+                              gr::kScanThreads, 0, stream>>>(totals, nblk,
+                                                             sums);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gr::rank_supers_kernel<<<1, gr::kRankThreads, 0, stream>>>(supers, n_super,
-                                                             pop);
+  gr::rank_scan_kernel<<<static_cast<unsigned>(n_tiles), gr::kScanThreads, 0,
+                         stream>>>(totals, nblk, sums,
+                                   static_cast<int>(n_tiles), supers, pop);
   return cudaGetLastError();
 }
 

@@ -168,13 +168,26 @@ def stage_codes(lengths, width: int, seed: int, n_frac: float = 0.0
     return codes, np.asarray(lengths, np.int64)
 
 
+def minimizer_tile(k: int, w: int) -> tuple[int, int]:
+    """(threads, windows) of a K20 CTA at (k, w), as csrc/minimizers.cu's
+    min_threads and min_tile choose them: 16 codes a thread, and as many
+    windows as fit those codes from any 16-byte offset, a multiple of 16
+    (0 where not even 16 fit)."""
+    threads = 128 if k + w <= 512 else 256
+    tw = (16 * threads - k - w - 13) // 16 * 16
+    return threads, tw if tw >= 16 else 0
+
+
 def minimizer_lengths(k: int, w: int, width: int, rows: int) -> list:
     """`rows` sequence lengths up to `width` for K20, the first of them the
     edges its windows branch on: shorter than k, shorter than k + w - 1,
-    exactly k + w - 1 (one window), one tile of 2,048 windows and one more,
-    and the full width."""
+    exactly k + w - 1 (one window), one tile of 2,048 windows and one more
+    (the first design's tile), one and two of the kernel's tiles and one
+    window more, and the full width."""
+    tw = minimizer_tile(k, w)[1]
     edges = [k - 1, k + w - 2, k + w - 1, 2048 + k + w - 2, 2049 + k + w - 2,
-             width]
+             tw + k + w - 2, tw + k + w - 1, 2 * tw + k + w - 2,
+             2 * tw + k + w - 1, width]
     rng = np.random.default_rng(k * 1000 + w)
     rest = rng.integers(width // 2, width + 1, max(rows - len(edges), 0))
     return [min(n, width) for n in edges][:rows] + rest.tolist()

@@ -34,7 +34,7 @@ SOURCES = ("seed_hash.cu", "probe_vote.cu", "classify.cu",
            "insert_sorted.cu", "insert_max.cu", "rank.cu", "minimizers.cu",
            "kmer_count.cu", "consume.cu", "ntcard.cu", "wavefront.cu")
 HEADERS = ("common.cuh", "probe_vote.cuh", "classify.cuh", "insert.cuh",
-           "seed_hash.cuh")
+           "seed_hash.cuh", "nthash_scan.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # what an entry returns when its inputs left nothing to launch (common.cuh)
@@ -65,7 +65,7 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _P, _P, _P, _P),
     "gr_insert_max": (_P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I, _I, _P),
     "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
-    "gr_rank_scan": (_P, _L, _P, _P, _P),
+    "gr_rank_scan": (_P, _L, _P, _P, _P, _P),
     "gr_rank_carry": (_P, _P, _L, _P),
     "gr_minimizer_keys": (_P, _I, _L, _L, _I, _I, _P, _P),
     "gr_kmer_count": (_P, _I, _L, _P, _I, _Q, _P),

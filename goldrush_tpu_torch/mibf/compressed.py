@@ -52,6 +52,9 @@ SUPER_BITS = 32          # slots per superblock = 2^32
 RANK_BLOCK_SLOTS = 65_536   # slots per rank_pack block (csrc/rank.cu)
 # rank_pack blocks per superblock: a block never straddles two
 SUPER_BLOCKS = (1 << SUPER_BITS) // RANK_BLOCK_SLOTS
+# block totals rank_scan's kernels take a CTA (csrc/rank.cu kScanTile): a
+# superblock is 32 tiles
+SCAN_TILE = 2_048
 _MASK32 = 0xFFFFFFFF
 
 
@@ -196,12 +199,16 @@ def rank_scan(totals: torch.Tensor, size: int
 def _rank_scan_cuda(totals, size):
     nw = -(-size // 32)
     dev = totals.device
-    kernels.check(totals, "totals", torch.int64,
-                  (-(-nw * 32 // RANK_BLOCK_SLOTS),), dev)
+    blocks = -(-nw * 32 // RANK_BLOCK_SLOTS)
+    kernels.check(totals, "totals", torch.int64, (blocks,), dev)
+    if totals.data_ptr() % 16:
+        raise ValueError("totals must be 16-byte aligned")
+    sums = torch.empty(-(-blocks // SCAN_TILE), dtype=torch.int64,
+                       device=dev)
     supers = torch.empty(n_supers(size), dtype=torch.int64, device=dev)
     pop = torch.empty(1, dtype=torch.int64, device=dev)
-    kernels.RANK_SCAN(dev, kernels.ptr(totals), nw, kernels.ptr(supers),
-                      kernels.ptr(pop))
+    kernels.RANK_SCAN(dev, kernels.ptr(totals), nw, kernels.ptr(sums),
+                      kernels.ptr(supers), kernels.ptr(pop))
     return supers, pop
 
 

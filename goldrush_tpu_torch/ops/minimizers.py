@@ -25,6 +25,9 @@ from .nthash import hash_positions, umin64, unspaced_family
 
 POS_BITS = 20
 POS_MASK = (1 << POS_BITS) - 1
+# the kernel's tile holds the k + w - 1 codes of a window among the 4,096 of
+# its CTA (csrc/minimizers.cu min_tile); the stages use k <= 40, w <= 1,000
+MAX_K_PLUS_W = 4_067
 
 
 def _sliding_min_plain(keys: torch.Tensor, w: int) -> torch.Tensor:
@@ -75,6 +78,9 @@ def _minimizer_keys_cuda(codes, k, w, P):
     kernels.check(codes, "codes", torch.uint8, device=dev)
     if B >= 1 << 16:
         raise ValueError(f"minimizer_keys: {B} rows exceed one launch")
+    if k + w > MAX_K_PLUS_W:
+        raise ValueError(f"minimizer_keys: k + w = {k + w} exceeds the "
+                         f"kernel's {MAX_K_PLUS_W}")
     keys = torch.empty((B, P - w + 1), dtype=torch.int64, device=dev)
     hashes = torch.empty((B, P), dtype=torch.int64, device=dev)
     kernels.MINIMIZER_KEYS(dev, kernels.ptr(codes), B, L, P, k, w,

@@ -805,6 +805,65 @@ def test_minimizer_keys_one_chunk_and_short_rows(cuda):
         tmin.minimizer_keys(c[:, :10], 15, 10, (1 << 20) + 1)
 
 
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("k,w", [(15, 1), (15, 10), (24, 100), (40, 250),
+                                 (32, 1000)])
+def test_minimizer_keys_tile_edges(cuda, k, w, offset):
+    """K20 against its plain version where its windows end on the kernel's
+    tile edges (two tiles exactly, and one window more; rows that end on
+    them), with the codes at a 16-byte-aligned address and 5 bytes past
+    one."""
+    from goldrush_tpu_torch.ops import minimizers as tmin
+    tw = hard.minimizer_tile(k, w)[1]
+    for n_win in (2 * tw, 2 * tw + 1):
+        L = n_win + w - 1 + k - 1
+        codes, _ = hard.stage_codes(hard.minimizer_lengths(k, w, L, 12), L,
+                                    seed=n_win, n_frac=0.01)
+        buf = torch.zeros(codes.size + 16, dtype=torch.uint8, device=cuda)
+        c = buf[offset: offset + codes.size].view(codes.shape)
+        c.copy_(torch.from_numpy(codes))
+        P = L - k + 1
+        assert_same(tmin.minimizer_keys(c, k, w, P),
+                    tmin._minimizer_keys_plain(c, k, w, P))
+
+
+def test_minimizer_keys_refuse_a_window_past_their_tile(cuda):
+    """k + w past the kernel's tile (MAX_K_PLUS_W) raises before a launch;
+    at the limit it runs; the plain version takes any."""
+    from goldrush_tpu_torch.ops import minimizers as tmin
+    k = 40
+    w = tmin.MAX_K_PLUS_W - k
+    codes, _ = hard.stage_codes([5_000, 4_200], 5_000, seed=3)
+    c = torch.from_numpy(codes).to(cuda)
+    P = 5_000 - k + 1
+    assert_same(tmin.minimizer_keys(c, k, w, P),
+                tmin._minimizer_keys_plain(c, k, w, P))
+    before = kernels.MINIMIZER_KEYS.launches
+    with pytest.raises(ValueError):
+        tmin.minimizer_keys(c, k, w + 1, P)
+    assert kernels.MINIMIZER_KEYS.launches == before
+
+
+@pytest.mark.parametrize("n_super,last", [(1, 2_173), (1, 65_536),
+                                          (2, 1), (3, 4_097), (14, 17_748)])
+def test_rank_scan_synthetic_totals(cuda, n_super, last):
+    """rank_scan against its plain version on block totals made on the
+    card (no bitmap): superblocks with a partial last one (a last tile of
+    one block among them), full blocks (65,536: sums past 2^32)."""
+    nblk = (n_super - 1) * tcz.SUPER_BLOCKS + last
+    g = torch.Generator(device=cuda)
+    g.manual_seed(nblk)
+    totals = torch.randint(0, 65_537, (nblk,), dtype=torch.int64,
+                           device=cuda, generator=g)
+    totals[: nblk // 3] = 65_536
+    size = (nblk - 1) * tcz.RANK_BLOCK_SLOTS + 1
+    tk, tp = totals.clone(), totals.clone()
+    sk, pop = tcz.rank_scan(tk, size)
+    sp, pop_p = tcz._rank_scan_plain(tp, size)
+    assert_same((tk, sk), (tp, sp))
+    assert pop == pop_p == int(totals.sum()) and sk.shape == (n_super,)
+
+
 @pytest.mark.parametrize("k", [13, 16, 24, 32])
 def test_kmer_count_and_query(cuda, k):
     """K21 against its plain version at chip_smoke.py's shapes: 64 x 32,768

@@ -22,7 +22,7 @@ from goldrush_tpu.stages import polish as jpol
 from goldrush_tpu_torch.ops.nthash import NT_TAB
 from goldrush_tpu_torch.stages import polish as tpol
 
-THREADS, PER, RUN = 256, 8, 8
+THREADS, PER, RUN = 128, 8, 8
 TILE, CAP = THREADS * PER, THREADS * RUN
 M64 = (1 << 64) - 1
 U64 = np.uint64

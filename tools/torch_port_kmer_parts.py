@@ -14,10 +14,11 @@ that it stores only if it equals a constant no input gives.
 
     python3 tools/torch_port_kmer_parts.py [--tree DIR]
 
-The variants are those of the source's design: the prefix-XOR scan, or
-the rolling hash with one thread per run of 16 positions that the scan
-replaced, whichever design's edits all match the source once; otherwise
-the tool stops with the text of the scan design it missed.  The scan
+The variants are those of the source's design: the prefix-XOR scan (its
+scan in nthash_scan.cuh, or, as first written, inline), or the rolling
+hash with one thread per run of 16 positions that the scan replaced,
+whichever design's edits all match the source once; otherwise the tool
+stops with the text of the scan design it missed.  The scan
 design:
   full      the kernel as shipped;
   stage     the tile's geometry and its threads' codes loaded, then the
@@ -137,7 +138,12 @@ ROLL_VARIANTS = {
                         "    const unsigned peers = __match_any_sync(kFull, "
                         "slot);\n    acc ^= peers;\n" + R_FOLD)],
 }
-DESIGNS = ((VARIANTS, QUERY_VARIANTS, COUNT_VARIANTS),
+# the same design with its scan in nthash_scan.cuh (shared with K20)
+SHARED_VARIANTS = dict(VARIANTS, stage=[stop_before(
+    "  nt_prefix_scan<kKmerRun, kKmerThreads>(cw, sr, wsum);\n",
+    "(cw[0] ^ cw[1]) == 0x9E3779B9u")])
+DESIGNS = ((SHARED_VARIANTS, QUERY_VARIANTS, COUNT_VARIANTS),
+           (VARIANTS, QUERY_VARIANTS, COUNT_VARIANTS),
            (ROLL_VARIANTS, ("full", "hash", "gather", "store"),
             ("full", "hash", "match")))
 
@@ -161,7 +167,8 @@ def design(src: str) -> tuple:
     for variants, query, count in DESIGNS:
         if all(missing(src, e) is None for e in variants.values()):
             return variants, query, count
-    old = missing(src, [e for edits in VARIANTS.values() for e in edits])
+    old = missing(src, [e for edits in SHARED_VARIANTS.values()
+                        for e in edits])
     raise SystemExit(f"kmer_count.cu: the source moved; no single match for "
                      f"{old!r}")
 
@@ -177,7 +184,9 @@ def build(csrc: str, variants: dict) -> dict:
     for name, edits in variants.items():
         d = os.path.join(OUT, name)
         os.makedirs(d)
-        shutil.copy(os.path.join(csrc, "common.cuh"), d)
+        for h in os.listdir(csrc):
+            if h.endswith(".cuh"):
+                shutil.copy(os.path.join(csrc, h), d)
         with open(os.path.join(d, "kmer_count.cu"), "w") as f:
             f.write(patched(src, edits))
         libs[name] = os.path.join(d, "libkmer.so")
