@@ -132,11 +132,14 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      the fill's seconds, reads/s, peak memory.  ntcard_count and every
      kernel of both paths must launch in (b)-(d);
   9. the wavefront consume (K23): (a) wave_adjacency and wave_rounds
-     against their plain versions on three windows of 256 bench reads
-     per filter (the third with a silver rotation inside it), the counts,
-     rows, scal, counters and both tables exactly, timed beside their
-     bounds, the plain versions and, for the adjacency, torch.sort of the
-     window's keys; then, every launch count zeroed just before and read
+     against their plain versions on five windows of 256 reads per filter
+     (two of bench reads, a third with a silver rotation inside it, one
+     of homopolymer reads, one bench read repeated 256 times), the
+     counts, rows, scal, counters and both tables exactly and no fault,
+     each timed beside its bound, the plain version and, for the
+     adjacency, torch.sort of the window's keys (the record's times: the
+     mean over the three windows of bench reads); then, every launch
+     count zeroed just before and read
      just after, (b) bench.py's throughput cell with wavefront=True and
      windows of 256 reads, each filter: assign reads/s, submit and replay
      seconds, rounds per window, commits per round, recruits, the
@@ -3021,35 +3024,25 @@ def wave_round_bytes(counts: dict, rows, n_tiles, grids, T: int, table,
     return nbytes + B * B * 4
 
 
-def wave_kernel_check(dev) -> dict:
-    """9(a): wave_adjacency and wave_rounds against their plain versions on
-    the card, at bench.py's throughput cell with wavefront=True and
-    windows of 256 reads (B = 256, 20 tiles, one probed seed at stride 8,
-    h = 3 insert seeds at full resolution), each filter, on a filter filled
-    from the bench dataset's reads: two windows of the bench reads in
-    turn, then a third whose first commit fills the silver path (a
-    rotation inside the window).  The adjacency exactly (max_abs_err 0),
-    the rounds' rows, scal, counters and both tables exactly; each timed
-    with CUDA events (the rounds from the same start, restored outside
-    the timed span), beside the plain version, its bound and, for the
-    adjacency, torch.sort of the window's keys (the library time).
-    Returns {"wave_adjacency": record, "wave_rounds": record}."""
-    import numpy as np
-    import torch
-    from goldrush_tpu_torch import kernels
+# 9(a)'s windows of 256 reads, in turn on one filter: two of the bench
+# reads, a third whose first commit fills the silver path (a rotation
+# inside the window), one of homopolymer reads (read i all base i % 4: a
+# conflict key per seed and strand holds 20,000 frames of each of 128
+# reads) and one bench read repeated 256 times (every key in 256 reads)
+WAVE_WINDOWS = ("bench_1", "bench_2", "rotation", "homopolymer", "repeated")
+
+
+def wave_filters(dev, reads):
+    """9(a)'s engines: bench.py's throughput cell with wavefront=True and
+    windows of 256 reads, each filter (direct, then compressed), its
+    filter filled from the bench reads.  Yields (mode, engine, filter)."""
     from goldrush_tpu_torch.config import PathConfig
     from goldrush_tpu_torch.mibf import compressed as cz
     from goldrush_tpu_torch.mibf import mibf as dm
-    from goldrush_tpu_torch.ops.nthash import fingerprints
-    from goldrush_tpu_torch.path import wavefront as wave
     from goldrush_tpu_torch.path.engine import GoldenPathEngine
-    _, reads = bench_reads(dev)
-    L = BENCH["read_len"]
-    adj_rec, rnd_rec, err_a, err_r = {}, {}, 0, 0
     for mode in ("direct", "compressed"):
         te = GoldenPathEngine(PathConfig(**BENCH_ENGINE, **THROUGHPUT,
                                          **WAVE, mibf_mode=mode), device=dev)
-        B, T = te.batch_reads, 20
         bits = dm.presence_bitmap(te.size, dev)
         for c, n in fill_pass_batches(dev, reads):
             dm.fill_presence_bits(bits, c, n, te.fam_ins, te.size,
@@ -3059,7 +3052,48 @@ def wave_kernel_check(dev) -> dict:
         else:
             te.cstate = cz.with_tables(*cz.build_rank(bits, te.size), te.size)
         del bits
-        filt = te.cstate if mode == "compressed" else te.state
+        yield mode, te, te.cstate if mode == "compressed" else te.state
+        del te
+        gc_cuda()
+
+
+def wave_inputs(te, reads, w: int, name: str) -> tuple:
+    """The engine's inputs (`_window_inputs`) of WAVE_WINDOWS[w], `name`,
+    from the bench reads."""
+    import numpy as np
+    B, T, L = te.batch_reads, 20, BENCH["read_len"]
+    codes = np.zeros((B, 21 * te.cfg.tile_length), np.uint8)
+    if name == "homopolymer":
+        codes[:, :L] = (np.arange(B) % 4)[:, None]
+    elif name == "repeated":
+        codes[:, :L] = reads[w * B].cpu().numpy()
+    else:
+        codes[:, :L] = reads[w * B:(w + 1) * B].cpu().numpy()
+    lengths = np.full(B, L, np.int32)
+    return te._window_inputs(codes, lengths, np.full(B, L, np.int64), T)
+
+
+def wave_kernel_check(dev) -> dict:
+    """9(a): wave_adjacency and wave_rounds against their plain versions on
+    the card, at bench.py's throughput cell with wavefront=True and
+    windows of 256 reads (B = 256, 20 tiles, one probed seed at stride 8,
+    h = 3 insert seeds at full resolution), each filter, on a filter filled
+    from the bench dataset's reads: the WAVE_WINDOWS in turn (two of the
+    bench reads, a rotation inside the third, homopolymer reads, one read
+    repeated).  The adjacency exactly (max_abs_err 0), the rounds' rows,
+    scal, counters and both tables exactly and no fault; each timed
+    with CUDA events (the rounds from the same start, restored outside
+    the timed span), beside the plain version, its bound and, for the
+    adjacency, torch.sort of the window's keys (the library time).
+    Returns {"wave_adjacency": record, "wave_rounds": record}."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.ops.nthash import fingerprints
+    from goldrush_tpu_torch.path import wavefront as wave
+    _, reads = bench_reads(dev)
+    adj_rec, rnd_rec, err_a, err_r = {}, {}, 0, 0
+    for mode, te, filt in wave_filters(dev, reads):
+        B, T = te.batch_reads, 20
         table = filt.ids if mode == "compressed" else filt.words
         side = torch.zeros_like(table)
         plain = type(filt)(*(t.clone() for t in filt))
@@ -3067,16 +3101,11 @@ def wave_kernel_check(dev) -> dict:
         _, _, ranked, limit, _ = wave._filter_view(filt, te.size)
         target = te.cfg.target_bases()
         scal = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=dev)
-        for w, name in enumerate(("bench_1", "bench_2", "rotation")):
+        for w, name in enumerate(WAVE_WINDOWS):
             if name == "rotation":
                 scal.copy_(torch.tensor([0, target - 1, 1, 0]))
             scal_p = scal.clone()
-            rd = reads[w * B:(w + 1) * B].cpu().numpy()
-            codes = np.zeros((B, 21 * te.cfg.tile_length), np.uint8)
-            codes[:, :L] = rd
-            lengths = np.full(B, L, np.int32)
-            full = np.full(B, L, np.int64)
-            inputs = te._window_inputs(codes, lengths, full, T)
+            inputs = wave_inputs(te, reads, w, name)
             codes_d, grid, ok, gi, oi, nt, fl = inputs
             # the adjacency
             a0 = kernels.WAVE_ADJACENCY.launches
@@ -3175,11 +3204,12 @@ def wave_kernel_check(dev) -> dict:
                 raise AssertionError(f"wave_rounds {tag}: no rotation")
             del saved, after, inputs, adj, adj_p
         del te, filt, plain, side, side_p, table
-        gc_cuda()
     out = {}
     for kname, rec, err in (("wave_adjacency", adj_rec, err_a),
                             ("wave_rounds", rnd_rec, err_r)):
-        tags = [k[3:] for k in rec if k.startswith("ms_")]
+        # the record's times: the mean over the windows of bench reads
+        tags = [k[3:] for k in rec if k.startswith("ms_")
+                and k.split("_", 2)[2] in WAVE_WINDOWS[:3]]
 
         def mean(key):
             return sum(rec[f"{key}_{t}"] for t in tags) / len(tags)

@@ -276,4 +276,135 @@ __device__ void probe_vote_tile(
   }
 }
 
+// One tile of kernel B run by one warp, for a tile of at most 2^kWarpBits
+// votes (the wavefront's query tier: one probed seed at a frame stride):
+// the outputs of probe_vote_tile<true, View> from the warp's own vote
+// table `tab` (2 x 2^bits entries of its shared memory: the table, then
+// its candidates), so that a CTA probes one tile per warp.  The gather,
+// gate, dedupe and count are probe_vote_tile's loop, 32 frames a round (a
+// copy: sharing one function made kernel B 4-8% and the consume kernel ~2%
+// slower on an H100, chip_smoke.py --ab); the candidates are compacted by
+// ballots and each takes its rank by counting the smaller keys (keys are
+// distinct), so the top K are probe_vote_tile's.  Every lane of the warp
+// calls it.
+constexpr int kWarpBits = 8;
+
+template <typename View>
+__device__ void probe_vote_warp(
+    const uint32_t* words, const int64_t* __restrict__ slots, int ranked,
+    int64_t limit, const bool* __restrict__ frame_ok, int H, int T, int F,
+    int K, int vote_min, int threshold, int bits, int t, int b,
+    int32_t* curr_id, int32_t* top_count, int32_t* cand_ids,
+    int32_t* cand_counts, bool* bool_init, int32_t* overflow,
+    unsigned long long* queries, unsigned long long* hits,
+    unsigned long long* misses, unsigned long long* tab, const View view) {
+  const int S = 1 << bits;
+  unsigned long long* cand = tab + S;
+  const int lane = threadIdx.x & 31;
+  const int64_t TF = static_cast<int64_t>(T) * F;
+  const int FH = H * F;
+  for (int i = lane; i < S; i += 32) tab[i] = 0;
+  __syncwarp();
+  unsigned long long q = 0, nh = 0, nm = 0;
+  for (int f0 = 0; f0 < F; f0 += 32) {
+    const int fr = f0 + lane;
+    const int64_t col = static_cast<int64_t>(t) * F + fr;
+    bool ok = false;
+    int64_t x[kMaxH] = {};
+    uint32_t id[kMaxH] = {};
+    if (fr < F) {
+      ok = frame_ok[b * TF + col];
+#pragma unroll
+      for (int s = 0; s < kMaxH; ++s)
+        if (s < H)
+          x[s] = slots[(static_cast<int64_t>(b) * H + s) * TF + col];
+    }
+    if (ok) {
+#pragma unroll
+      for (int s = 0; s < kMaxH; ++s)
+        if (s < H)
+          id[s] = view.template get<true>(words, ranked, limit, x[s]);
+    }
+    // every loop over the seeds is unrolled to kMaxH so that x and id stay
+    // in registers
+    uint32_t all = ok ? kPresent : 0u;
+#pragma unroll
+    for (int s = 0; s < kMaxH; ++s) {
+      if (s < H) all &= id[s];
+      id[s] &= kIdMask;
+    }
+    const bool present = all != 0;
+    q += ok;
+#pragma unroll
+    for (int s = 0; s < kMaxH; ++s) {
+      if (s >= H) continue;
+      if (!present) id[s] = 0;
+      else if (id[s]) ++nh;
+      else ++nm;
+    }
+#pragma unroll
+    for (int j = 1; j < kMaxH; ++j)
+#pragma unroll
+      for (int i = 0; i < j; ++i)
+        if (id[j] == id[i]) id[j] = 0;
+#pragma unroll
+    for (int s = 0; s < kMaxH; ++s) {
+      if (s >= H) break;
+      const unsigned peers = __match_any_sync(kFull, id[s]);
+      if (id[s] && lane == __ffs(peers) - 1)
+        table_add(tab, bits, id[s], __popc(peers));
+    }
+  }
+  __syncwarp();
+  unsigned long long v[5] = {kSentinel64, 0, q, nh, nm};
+  for (int i = lane; i < S; i += 32) {
+    const unsigned long long e = tab[i];
+    unsigned long long key = kSentinel64;
+    if (e) {
+      const int c = static_cast<int>(e & 0xFFFFFFFFull);
+      key = (static_cast<unsigned long long>(FH + 1 - c) << 32) | (e >> 32);
+      v[1] += c > vote_min;
+      v[0] = key < v[0] ? key : v[0];
+    }
+    tab[i] = key;
+  }
+  warp_reduce5(v);
+  const int M = static_cast<int>(v[1]);
+  __syncwarp();
+  int fill = 0;
+  for (int i0 = 0; i0 < S; i0 += 32) {
+    const int i = i0 + lane;
+    const unsigned long long key = i < S ? tab[i] : kSentinel64;
+    const bool c = key != kSentinel64 &&
+                   FH + 1 - static_cast<int>(key >> 32) > vote_min;
+    const unsigned bm = __ballot_sync(kFull, c);
+    if (c) cand[fill + __popc(bm & ((1u << lane) - 1u))] = key;
+    fill += __popc(bm);
+  }
+  __syncwarp();
+  const int64_t bt = static_cast<int64_t>(b) * T + t;
+  int32_t* ci = cand_ids + bt * K;
+  int32_t* cc = cand_counts + bt * K;
+  for (int i = lane; i < M; i += 32) {
+    const unsigned long long key = cand[i];
+    int r = 0;
+    for (int j = 0; j < M; ++j) r += cand[j] < key;
+    if (r < K) emit(key, FH, vote_min, ci + r, cc + r);
+  }
+  for (int j = M + lane; j < K; j += 32) ci[j] = cc[j] = 0;
+  if (lane == 0) {
+    const unsigned long long best = v[0];
+    const int c =
+        best == kSentinel64 ? 0 : FH + 1 - static_cast<int>(best >> 32);
+    curr_id[bt] = c > 0 ? static_cast<int32_t>(best & 0xFFFFFFFFull) : 0;
+    top_count[bt] = c;
+    bool_init[bt] = c > vote_min && c > threshold;
+    overflow[bt] = max(M - K, 0);
+    queries[bt] = v[2];
+    hits[bt] = v[3];
+    misses[bt] = v[4];
+  }
+  __syncwarp();
+}
+
 }  // namespace gr

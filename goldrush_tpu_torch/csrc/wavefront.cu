@@ -9,45 +9,72 @@
 // position f * insert_stride) and its read's order; a pair of reads counts
 // once per (key, fingerprint) group in which the two are consecutive
 // distinct orders.  The JAX function sorts all keys of the window; any
-// grouping by (key, fingerprint) gives the same counts, so here:
-//   1. adj_keys: one CTA per (read, tile) stages the read's codes as kernel
-//      A does (seed_hash.cuh), hashes each frame's fingerprint, writes the
-//      frame's 64-bit key (or kSentinel64 for an invalid frame) and counts
-//      it into its partition, a hash of (key, fingerprint) over `parts`;
-//   2. adj_offsets: one CTA turns the counts into each partition's slice of
-//      the bucket array: its keys, or the next power of two of them when
-//      they are more than a CTA sorts in shared memory (`cap`);
-//   3. adj_scatter: every key goes to a free place of its slice;
-//   4. adj_pairs: one CTA per partition sorts its slice (bitonic, in shared
-//      memory, or in place in the slice) and adds each adjacent pair of a
-//      group with distinct orders to counts[hi * B + lo], one atomic per
-//      distinct pair of a warp.
+// grouping by (key, fingerprint) gives the same counts.  It replaces a
+// design that wrote every frame's key to a 123 MB array with a global
+// atomic each, scattered the keys with another, and bitonic-sorted each of
+// 8,192 partitions (2.42-2.48 ms a bench window on an H100, 64x its bound,
+// 1.31 ms of it the sorts; a homopolymer window's partitions of millions of
+// keys sorted in global memory, ~1.5 s).  Here, with no global atomic per
+// key and no key array between the hashing passes:
+//   1. count: each CTA (about two an SM) hashes its tiles' frames as kernel
+//      A does (seed_hash.cuh) and counts their keys per bucket (256 ranges
+//      of consecutive partitions, a partition a hash of the group) in
+//      shared memory, then writes one row of counts;
+//   2. scan: the (bucket, CTA) offsets: each CTA's run in every bucket;
+//   3. scatter: the CTAs hash again and write each round of keys (a tile's
+//      frames and seeds, up to kRoundKeys) bucket by bucket
+//      (staged_write), so that a bucket's keys of a round leave as one
+//      run; written a key at a time, the keys cost twice as much;
+//   4. split: a CTA per bucket splits its slice into its partitions'
+//      (about ADJ_KEYS_PER_PART keys each), the same way;
+//   5. group: a CTA per partition groups its keys by (key, fingerprint) in
+//      a shared-memory table with each group's least and greatest orders,
+//      the first order found between them and whether another is.  In a
+//      bench window 87% of groups hold one order and pair with nothing; a
+//      group of two orders is one pair and one of three two, counted by
+//      the key that claimed the group; only the keys of groups of four or
+//      more orders (~3% of the keys) are sorted, and each adjacent pair of
+//      distinct orders counts.  A partition past the shared-memory
+//      capacity (a heavy group: homopolymers, a repeated read) takes its
+//      distinct keys; one with more than half the capacity of distinct keys
+//      sorts its slice in global memory: any partition, exactly.
+//   Pairs add to counts[hi * B + lo], one atomic per distinct pair of a
+//   warp.
 // Bound: the grid (B * H * T * F int64) and the codes read once, the
 // [B, B] counts written; its hashes' integer operations are fewer
-// (chip_smoke.py counts both).  At the bench window (B = 256, T = 20, h =
-// 3, F = 1,000: 15.4 M keys) the keys and buckets cross memory four times,
-// ~0.5 GB.
+// (chip_smoke.py counts both): 0.0384 ms at a bench window (B = 256, T =
+// 20, h = 3, F = 1,000: 15.3 M keys).  The design hashes twice and moves
+// the keys through memory twice (~0.5 GB in all); its time is those
+// passes and the partitions' latency (tools/torch_port_wave_parts.py
+// splits it).
 //
 // wave_rounds replaces the round loop (wavefront.py:491-726) as one
-// cooperative launch per window: a persistent grid of one CTA per SM, as
-// the consume kernel (consume.cu), every CTA keeping the round's per-read
+// cooperative launch per window: a persistent grid of as many CTAs as the
+// card holds at once (CTAs an SM by the occupancy, times the SMs), as the
+// consume kernel (consume.cu), every CTA keeping the round's per-read
 // bookkeeping over the window itself, computed identically from the same
 // global inputs: pending and stale flags and committed lengths in shared
-// memory, the reservations' prefix sums, the rotation horizon, the
-// conflict test against the adjacency (as bits, built once per launch)
-// and the silver rotation.  Each round:
-//   1. the pending stale reads are probed: kernel B's tile code on (read,
-//      tile) pairs over the CTAs, through the bracket view of both tables
-//      under each read's id ceiling (BracketWord, the template parameter of
-//      probe_vote_tile), a grid barrier, then kernel C on each read by one
-//      warp of the grid (read_outcome), which writes the read's row, and a
-//      grid barrier;
+// memory, the reservations' prefix sums (warp scans: three barriers for
+// each blockDim.x reads), the rotation horizon, the conflict test against
+// the adjacency (as bits, built once per launch) and the silver rotation.
+// Each round:
+//   1. the pending stale reads are probed through the bracket view of both
+//      tables under each read's id ceiling (BracketWord, the view parameter
+//      of kernel B's tile code): a tile of at most 2^kWarpBits votes (the
+//      query tier: one probed seed at a frame stride) is a warp's
+//      (probe_vote_warp, its vote table in the warp's shared memory), a
+//      larger one (the recheck tier: every seed at full resolution) a
+//      CTA's (probe_vote_tile); a grid barrier, then kernel C on each read
+//      by every warp of the grid (read_outcome), which writes the read's
+//      row, and a grid barrier;
 //   2-4. the zone, drops, candidates and conflicts, per CTA;
 //   5. phase A's commits under the horizon insert (insert_max's rule into
 //      both tables: or_bits | id into the id table and INV_BASE - id into
-//      the side table, atomicMax); the zone's committable reads are
-//      rechecked at full resolution (as in 1, on the insert grid), then
-//      phase B's commits insert;
+//      the side table, atomicMax): the commits' entries (read of the list,
+//      seed, entry of its window) are one range of 32-bit indices that
+//      every thread of the grid takes in turn; the zone's committable
+//      reads are rechecked at full resolution (as in 1, on the insert
+//      grid), then phase B's commits insert;
 //   6. stale marking, the rotation (a grid-stride reset of both tables)
 //      and the reopening of drops past it.
 // The tables are read through L2 (other CTAs write them); a probe, insert
@@ -57,8 +84,10 @@
 // and counts a fault, which the engine raises on.
 // Bound: the bytes of every round's work (each probed tile's grid entries
 // and words of both tables, each insert's window and two atomics per
-// entry, each reset's tables); its cost is latency: a round is a chain of
-// grid barriers, block scans and kernel C's sequential passes.
+// entry, each reset's tables).  The words and the atomics are random 4-byte
+// accesses to tables of hundreds of MB, each a 32-byte sector: at a bench
+// window ~25 M sector reads for the recheck tier's probes and ~24 M
+// atomics for the inserts, which set most of the launch's time.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -74,11 +103,16 @@ namespace gr {
 constexpr int kFpBits = 15;              // wavefront.FP_BITS
 constexpr uint32_t kInvBase = 1u << 28;  // wavefront.INV_BASE
 constexpr int kAdjMin = 6;               // wavefront.ADJ_MIN
-constexpr int kAdjThreads = 256;
-// warps of each CTA that run kernel C on the probed reads
-constexpr int kWaveWarps = 4;
 
 // ---------------------------------------------------------------- K23a
+
+constexpr int kAdjThreads = 512;    // the count's and the scatter's CTAs
+constexpr int kGroupThreads = 512;  // a partition's CTA
+constexpr int kGroupPer = 8;        // keys a group thread holds (cap)
+constexpr int kMaxParts = 1 << 12;  // a CTA's counters (count, split)
+// keys of a staged round: up to this many of a tile's frames and seeds in
+// the scatter (rounds of blockDim.x frames), this many in the split
+constexpr int kRoundKeys = 4096;
 
 // The partition of a (conflict key, fingerprint) group among `parts`.
 __device__ __forceinline__ uint32_t group_part(uint64_t group,
@@ -87,111 +121,325 @@ __device__ __forceinline__ uint32_t group_part(uint64_t group,
       static_cast<uint32_t>((group * 0x9E3779B97F4A7C15ull) >> 32), parts);
 }
 
-// The slice a partition of n keys takes: n, or the next power of two of
-// them where it sorts in global memory (more than `cap`).
-__host__ __device__ inline long long slice_size(int n, int cap) {
-  int n2 = 1;
-  while (n2 < n) n2 <<= 1;
-  return n2 > cap ? n2 : n;
+// A slot of a table of 2^bits entries inside a partition.
+__device__ __forceinline__ uint32_t slot_hash(uint64_t x, int bits) {
+  return static_cast<uint32_t>((x * 0xD6E8FEB86659FD93ull) >> (64 - bits));
 }
 
-// grid (B * T): CTA b * T + t keys tile t of read b.
-__global__ void __launch_bounds__(kAdjThreads) adj_keys_kernel(
-    const int64_t* __restrict__ grid, int H, int T, int F, int S, int TL,
-    const uint8_t* __restrict__ codes, int64_t L, const Family f,
-    int64_t limit, int direct, int ob, uint32_t parts,
-    unsigned long long* __restrict__ keys, int* __restrict__ part_count) {
-  extern __shared__ ulonglong2 smem[];
-  const int b = blockIdx.x / T, t = blockIdx.x % T;
-  // frame j of the tile reads right partials up to j * S + h - 1
-  const int m = TL + f.h - 1;
-  const Stage st(smem, f, m);
-  stage(f, codes + static_cast<int64_t>(b) * L, L,
-        static_cast<int64_t>(t) * TL, m, S, st);
-  const int64_t TF = static_cast<int64_t>(T) * F;
-  for (int j = threadIdx.x; j < F; j += blockDim.x) {
-    const int p = j * S;
-    const ulonglong2 left = left_at(f, st, p);
-    for (int s = 0; s < H; ++s) {
-      const int64_t e =
-          (static_cast<int64_t>(b) * H + s) * TF + static_cast<int64_t>(t) * F +
-          j;
-      const int64_t g = grid[e];
-      unsigned long long key = kSentinel64;
-      if (g < limit) {
-        const uint64_t fp = canon(st, left, p, s) & ((1u << kFpBits) - 1u);
-        const uint64_t conf = direct ? static_cast<uint64_t>(g) & 0xFFFFFFull
-                                     : static_cast<uint64_t>(g);
-        const uint64_t group = (conf << kFpBits) | fp;
-        key = (group << ob) | static_cast<uint64_t>(b);
-        atomicAdd(part_count + group_part(group, parts), 1);
-      }
-      keys[e] = key;
+struct AdjArgs {
+  const int64_t* grid;  // [B, H, T * F]
+  const uint8_t* codes;
+  int64_t L, limit;
+  Family f;
+  int B, H, T, F, S, TL, direct, ob, units;
+  uint32_t parts;  // partitions; 2^shift of them make a bucket
+  int shift;
+};
+
+// A partition's index, and its bucket's, from its group's key.
+__device__ __forceinline__ uint32_t key_part(unsigned long long key, int ob,
+                                             uint32_t parts) {
+  return group_part(key >> ob, parts);
+}
+
+// Add one key to counters[i] (kPlace false) or place it at the position
+// that cursor counters[i] hands out (kPlace true), with shared-memory
+// atomics: a warp whose valid keys share one counter (a homopolymer's)
+// takes their places with one.  Every lane of the warp calls it.
+template <bool kPlace>
+__device__ __forceinline__ void count_or_place(
+    int* counters, bool valid, uint32_t i, unsigned long long key,
+    unsigned long long* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const unsigned vm = __ballot_sync(kFull, valid);
+  if (vm == 0u) return;
+  const int lead = __ffs(vm) - 1;
+  const uint32_t li = __shfl_sync(kFull, i, lead);
+  if (__all_sync(kFull, !valid || i == li)) {
+    int at = 0;
+    if (lane == lead) at = atomicAdd(counters + i, __popc(vm));
+    if constexpr (kPlace) {
+      at = __shfl_sync(kFull, at, lead);
+      if (valid) out[at + __popc(vm & ((1u << lane) - 1u))] = key;
     }
+  } else if (valid) {
+    const int at = atomicAdd(counters + i, 1);
+    if constexpr (kPlace) out[at] = key;
   }
 }
 
-// one CTA: each partition's slice offset (part_off [parts + 1]) and its
-// fill cursor.
-__global__ void __launch_bounds__(1024) adj_offsets_kernel(
-    const int* __restrict__ part_count, uint32_t parts, int cap,
-    long long* __restrict__ part_off, unsigned long long* __restrict__ cursor) {
-  __shared__ unsigned long long scratch[1024];
-  unsigned long long carry = 0;
-  for (uint32_t base = 0; base < parts; base += blockDim.x) {
-    const uint32_t p = base + threadIdx.x;
-    const unsigned long long size =
-        p < parts ? static_cast<unsigned long long>(
-                        slice_size(part_count[p], cap))
-                  : 0ull;
-    const unsigned long long ex =
-        block_exclusive_scan(size, 0ull, scratch, AddOp{});
-    if (p < parts) {
-      part_off[p] = static_cast<long long>(carry + ex);
-      cursor[p] = carry + ex;
+// Exclusive prefix sums of the nc counters c[0..nc) into ls and tc (either
+// may be c: each thread reads its run before it writes it), each thread a
+// run of consecutive counters, the runs' sums by a warp scan and one over
+// the warps (wsum, 32 ints); returns the total.  Every thread of the CTA
+// calls it; it ends with a barrier.
+__device__ int counters_scan(const int* c, int nc, int* ls, int* tc,
+                             int* wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = static_cast<int>(blockDim.x >> 5);
+  const int per = (nc + blockDim.x - 1) / blockDim.x;
+  const int i0 = min(nc, static_cast<int>(threadIdx.x) * per);
+  const int i1 = min(nc, i0 + per);
+  int sum = 0;
+  for (int i = i0; i < i1; ++i) sum += c[i];
+  int inc = sum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += v;
+  }
+  if (lane == 31) wsum[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nw ? wsum[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += v;
     }
-    carry += scratch[blockDim.x - 1];
-  }
-  if (threadIdx.x == 0) part_off[parts] = static_cast<long long>(carry);
-}
-
-__global__ void adj_scatter_kernel(const unsigned long long* __restrict__ keys,
-                                   int64_t n, int ob, uint32_t parts,
-                                   unsigned long long* __restrict__ cursor,
-                                   unsigned long long* __restrict__ buckets) {
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < n; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const unsigned long long k = keys[e];
-    if (k == kSentinel64) continue;
-    buckets[atomicAdd(cursor + group_part(k >> ob, parts), 1ull)] = k;
-  }
-}
-
-// grid (parts): CTA p sorts partition p and counts its pairs.
-__global__ void __launch_bounds__(kAdjThreads) adj_pairs_kernel(
-    const int* __restrict__ part_count, const long long* __restrict__ part_off,
-    int cap, int ob, int B, unsigned long long* buckets,
-    int* __restrict__ cnt) {
-  unsigned long long* sk = reinterpret_cast<unsigned long long*>(gr_smem);
-  const int n = part_count[blockIdx.x];
-  if (n < 2) return;
-  int n2 = 1;
-  while (n2 < n) n2 <<= 1;
-  unsigned long long* a = buckets + part_off[blockIdx.x];
-  if (n2 <= cap) {
-    for (int i = threadIdx.x; i < n2; i += blockDim.x)
-      sk[i] = i < n ? a[i] : kSentinel64;
-    a = sk;
-  } else {
-    for (int i = n + threadIdx.x; i < n2; i += blockDim.x) a[i] = kSentinel64;
+    wsum[lane] = w;
   }
   __syncthreads();
-  block_bitonic_sort(a, n2);
+  int pre = inc - sum + (warp ? wsum[warp - 1] : 0);
+  for (int i = i0; i < i1; ++i) {
+    const int v = c[i];
+    ls[i] = tc[i] = pre;
+    pre += v;
+  }
+  const int total = wsum[nw - 1];
+  __syncthreads();
+  return total;
+}
+
+// A CTA's round of keys written to their counters' runs: kbuf holds `per`
+// keys a thread (kbuf[r * blockDim.x + tid], kSentinel64 where none), and
+// which(key) is a key's counter, < nc.  The round's keys are counted by
+// counter (th: zero on entry and on exit), placed counter by counter in
+// `sorted` (per * blockDim.x keys) through the counters' starts (ls, tc),
+// then written to out from each counter's cursor cur[c] on, which
+// advances: consecutive threads write consecutive keys of a run, so that
+// a counter's keys of the round go out together, not one sector each.
+// Every thread of the CTA calls it; it starts and ends with a barrier.
+template <typename Which>
+__device__ void staged_write(const unsigned long long* kbuf, int per,
+                             Which which, int nc, int* th, int* ls, int* tc,
+                             int* cur, unsigned long long* sorted, int* wsum,
+                             unsigned long long* __restrict__ out) {
+  const int tid = threadIdx.x;
+  __syncthreads();
+  for (int r = 0; r < per; ++r) {
+    const unsigned long long k = kbuf[r * blockDim.x + tid];
+    const bool valid = k != kSentinel64;
+    count_or_place<false>(th, valid, valid ? which(k) : 0u, k, nullptr);
+  }
+  __syncthreads();
+  const int total = counters_scan(th, nc, ls, tc, wsum);
+  for (int r = 0; r < per; ++r) {
+    const unsigned long long k = kbuf[r * blockDim.x + tid];
+    const bool valid = k != kSentinel64;
+    count_or_place<true>(tc, valid, valid ? which(k) : 0u, k, sorted);
+  }
+  __syncthreads();
+  for (int i = tid; i < total; i += blockDim.x) {
+    const unsigned long long k = sorted[i];
+    const uint32_t c = which(k);
+    out[cur[c] + i - ls[c]] = k;
+  }
+  __syncthreads();
+  for (int i = tid; i < nc; i += blockDim.x) {
+    cur[i] += th[i];
+    th[i] = 0;
+  }
+  __syncthreads();
+}
+
+// The key of frame j (< F when `in`) of a staged tile of read b under seed
+// s, from the frame's left partials and the tile's grid row g_t, or
+// kSentinel64 for an invalid frame.
+__device__ __forceinline__ unsigned long long frame_key(
+    const AdjArgs& a, const Stage& st, const int64_t* g_t, int64_t TF,
+    ulonglong2 left, int j, int s, int b, bool in) {
+  const int64_t g = in ? g_t[s * TF + j] : a.limit;
+  if (g >= a.limit) return kSentinel64;
+  const uint64_t fp = canon(st, left, j * a.S, s) & ((1u << kFpBits) - 1u);
+  const uint64_t conf = a.direct ? static_cast<uint64_t>(g) & 0xFFFFFFull
+                                 : static_cast<uint64_t>(g);
+  return (((conf << kFpBits) | fp) << a.ob) | static_cast<uint64_t>(b);
+}
+
+// grid (C): CTA c keys the window's tiles u in [c * units, (c + 1) *
+// units) (read u / T, tile u % T), staged and hashed as kernel A does
+// (seed_hash.cuh).  The count (kScatter false) counts each valid frame's
+// key into its bucket (its partition >> shift) in shared memory and writes
+// its row of counts pcount[c * nb + b]; the scatter (kScatter true), once
+// the scan has turned that row into its offsets inside each bucket's
+// slice, writes each round of its keys (a tile's frames and seeds, up to
+// kRoundKeys) to `keys` a bucket's run at a time (staged_write).
+template <bool kScatter>
+__global__ void __launch_bounds__(kAdjThreads) adj_keys_kernel(
+    const AdjArgs a, int* __restrict__ pcount, const int* __restrict__ boff,
+    unsigned long long* __restrict__ keys) {
+  __shared__ int wsum[32];
+  const int m = a.TL + a.f.h - 1;
+  const Stage st(reinterpret_cast<ulonglong2*>(gr_smem), a.f, m);
+  const int nb = static_cast<int>(a.parts >> a.shift);
+  // the bucket counters (th, and for the scatter ls, tc, cur), then the
+  // scatter's round of keys and their placement
+  int* th = reinterpret_cast<int*>(gr_smem + ((stage_bytes(a.f, m) + 15) &
+                                              ~static_cast<size_t>(15)));
+  int* ls = th + nb;
+  int* tc = ls + nb;
+  int* cur = tc + nb;
+  unsigned long long* kbuf = reinterpret_cast<unsigned long long*>(
+      cur + ((nb + 1) & ~1));
+  // frame rounds a staged round holds (a tile's, if they fit)
+  const int fr = max(1, kRoundKeys / (a.H * static_cast<int>(blockDim.x)));
+  unsigned long long* sorted = kbuf + fr * a.H * blockDim.x;
+  int* row = pcount + static_cast<int64_t>(blockIdx.x) * nb;
+  for (int p = threadIdx.x; p < nb; p += blockDim.x) {
+    th[p] = 0;
+    if constexpr (kScatter) cur[p] = boff[p] + row[p];
+  }
+  const auto bucket = [&](unsigned long long k) {
+    return key_part(k, a.ob, a.parts) >> a.shift;
+  };
+  const int64_t TF = static_cast<int64_t>(a.T) * a.F;
+  const int u1 = min(a.B * a.T, static_cast<int>(blockIdx.x + 1) * a.units);
+  for (int u = blockIdx.x * a.units; u < u1; ++u) {
+    const int b = u / a.T, t = u % a.T;
+    stage(a.f, a.codes + static_cast<int64_t>(b) * a.L, a.L,
+          static_cast<int64_t>(t) * a.TL, m, a.S, st);
+    const int64_t* g_t = a.grid + static_cast<int64_t>(b) * a.H * TF +
+                         static_cast<int64_t>(t) * a.F;
+    // every lane of a warp runs every round (the warp collectives)
+    int held = 0;  // frame rounds in kbuf
+    for (int j0 = 0; j0 < a.F; j0 += blockDim.x) {
+      const int j = j0 + threadIdx.x;
+      const bool in = j < a.F;
+      const ulonglong2 left =
+          in ? left_at(a.f, st, j * a.S) : make_ulonglong2(0ull, 0ull);
+      for (int s = 0; s < a.H; ++s) {
+        const unsigned long long key =
+            frame_key(a, st, g_t, TF, left, j, s, b, in);
+        if constexpr (kScatter) {
+          kbuf[(held * a.H + s) * blockDim.x + threadIdx.x] = key;
+        } else {
+          const bool valid = key != kSentinel64;
+          count_or_place<false>(th, valid, valid ? bucket(key) : 0u, key,
+                                nullptr);
+        }
+      }
+      if constexpr (kScatter) {
+        if (++held == fr || j0 + static_cast<int>(blockDim.x) >= a.F) {
+          staged_write(kbuf, held * a.H, bucket, nb, th, ls, tc, cur, sorted,
+                       wsum, keys);
+          held = 0;
+        }
+      }
+    }
+    __syncthreads();  // the next tile restages
+  }
+  if constexpr (!kScatter) {
+    for (int p = threadIdx.x; p < nb; p += blockDim.x) row[p] = th[p];
+  }
+}
+
+// grid (nb): CTA b splits bucket b's slice of `keys` into its 2^shift
+// partitions' slices of `buckets`: a count of each partition's keys and
+// their offsets (part_off, from the bucket's offset boff[b]), then a round
+// of kRoundKeys keys at a time, a partition's run at a time
+// (staged_write); part_off[parts] is the window's valid keys.
+__global__ void __launch_bounds__(kAdjThreads) adj_split_kernel(
+    const int* __restrict__ boff, uint32_t parts, int shift, int ob,
+    const unsigned long long* __restrict__ keys,
+    int* __restrict__ part_off, unsigned long long* __restrict__ buckets) {
+  __shared__ int wsum[32];
+  const int np = 1 << shift, off = boff[blockIdx.x];
+  const int n = boff[blockIdx.x + 1] - off;
+  int* th = reinterpret_cast<int*>(gr_smem);
+  int* ls = th + np;
+  int* tc = ls + np;
+  int* cur = tc + np;
+  unsigned long long* kbuf =
+      reinterpret_cast<unsigned long long*>(cur + ((np + 1) & ~1));
+  const int per = max(1, kRoundKeys / static_cast<int>(blockDim.x));
+  unsigned long long* sorted = kbuf + per * blockDim.x;
+  const unsigned long long* slice = keys + off;
+  const uint32_t low = static_cast<uint32_t>(np - 1);
+  const auto part = [&](unsigned long long k) {
+    return key_part(k, ob, parts) & low;
+  };
+  for (int i = threadIdx.x; i < np; i += blockDim.x) th[i] = 0;
+  __syncthreads();
+  // every lane of a warp runs every round (the warp collectives)
+  for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    const unsigned long long k = i < n ? slice[i] : 0ull;
+    count_or_place<false>(th, i < n, part(k), k, nullptr);
+  }
+  __syncthreads();
+  counters_scan(th, np, ls, cur, wsum);
+  for (int i = threadIdx.x; i < np; i += blockDim.x) {
+    cur[i] += off;
+    part_off[blockIdx.x * np + i] = cur[i];
+    th[i] = 0;
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0)
+    part_off[parts] = off + n;
+  for (int i0 = 0; i0 < n; i0 += per * blockDim.x) {
+    for (int r = 0; r < per; ++r) {
+      const int i = i0 + r * blockDim.x + threadIdx.x;
+      kbuf[r * blockDim.x + threadIdx.x] = i < n ? slice[i] : kSentinel64;
+    }
+    staged_write(kbuf, per, part, np, th, ls, tc, cur, sorted, wsum,
+                 buckets);
+  }
+}
+
+// grid (ceil(nb / 32)) x 1,024 threads: column b of pcount (its CTAs'
+// counts) becomes each CTA's offset inside bucket b, boff[b] the bucket's
+// keys.  Thread (x, y) = (tid % 32, tid / 32) takes column 32 * blockIdx.x
+// + x over the y-th of 32 runs of CTAs.
+__global__ void __launch_bounds__(1024) adj_scan_cols_kernel(
+    int* __restrict__ pcount, int C, uint32_t nb, int* __restrict__ boff) {
+  __shared__ int run[32][33];
+  const int x = threadIdx.x & 31, y = threadIdx.x >> 5;
+  const uint32_t p = blockIdx.x * 32 + x;
+  const int per = (C + 31) / 32, c0 = min(C, y * per), c1 = min(C, c0 + per);
+  int* col = pcount + p;
+  int sum = 0;
+  if (p < nb)
+    for (int c = c0; c < c1; ++c) sum += col[static_cast<int64_t>(c) * nb];
+  run[y][x] = sum;
+  __syncthreads();
+  int pre = 0;
+  for (int i = 0; i < y; ++i) pre += run[i][x];
+  if (p >= nb) return;
+  if (y == 31) boff[p] = pre + sum;
+  for (int c = c0; c < c1; ++c) {
+    const int v = col[static_cast<int64_t>(c) * nb];
+    col[static_cast<int64_t>(c) * nb] = pre;
+    pre += v;
+  }
+}
+
+// One CTA of 1,024 threads: boff [nb + 1] from the buckets' keys to their
+// slices' offsets, in place; boff[nb] the window's valid keys.
+__global__ void __launch_bounds__(1024) adj_scan_parts_kernel(
+    int* __restrict__ boff, int nb) {
+  __shared__ int wsum[32];
+  const int total = counters_scan(boff, nb, boff, boff, wsum);
+  if (threadIdx.x == 0) boff[nb] = total;
+}
+
+// Each adjacent pair of the sorted keys a[0..n) in one group with distinct
+// orders adds one to cnt[hi * B + lo], one atomic per distinct pair of a
+// warp.  Every thread of the CTA calls it.
+__device__ void adjacent_pairs(const unsigned long long* a, int64_t n,
+                               int ob, int B, int* __restrict__ cnt) {
   const unsigned long long mask = (1ull << ob) - 1ull;
   const int lane = threadIdx.x & 31;
   // every lane of a warp runs every round (the match below)
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int i = base + threadIdx.x;
+  for (int64_t base = 0; base < n; base += blockDim.x) {
+    const int64_t i = base + threadIdx.x;
     int idx = -1;
     if (i >= 1 && i < n) {
       const unsigned long long k0 = a[i - 1], k1 = a[i];
@@ -204,6 +452,230 @@ __global__ void __launch_bounds__(kAdjThreads) adj_pairs_kernel(
     if (idx >= 0 && lane == __ffs(peers) - 1)
       atomicAdd(cnt + idx, __popc(peers));
   }
+}
+
+// Ascending sort of a[0..n) in place by one CTA: a bitonic network over the
+// next power of two whose first comparator of every merge mirrors its
+// block, so that every comparator keeps the smaller key at the lower index
+// and the virtual keys past n (the largest) never move.  Ends with a
+// barrier.
+__device__ void block_sort_global(unsigned long long* a, int64_t n) {
+  int64_t n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int64_t k = 2; k <= n2; k <<= 1) {
+    for (int64_t j = k >> 1; j > 0; j >>= 1) {
+      for (int64_t q = threadIdx.x; q < n2 / 2; q += blockDim.x) {
+        const int64_t lo = ((q & ~(j - 1)) << 1) | (q & (j - 1));
+        const int64_t hi =
+            j == k >> 1 ? (lo | (k - 1)) - (lo & (k - 1)) : lo + j;
+        if (hi < n) {
+          const unsigned long long x = a[lo], y = a[hi];
+          if (y < x) {
+            a[lo] = y;
+            a[hi] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The distinct keys of a slice of n keys into A, through an open-addressing
+// set D of 2^bits entries; returns their number, or -1 past half of D (the
+// set is then abandoned).  Every thread of the CTA calls it; it ends with a
+// barrier.
+__device__ int distinct_keys(const unsigned long long* slice, int n,
+                             int bits, unsigned long long* A,
+                             unsigned long long* D, int* fill, int* over) {
+  const int size = 1 << bits, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < size; i += blockDim.x) D[i] = kSentinel64;
+  if (threadIdx.x == 0) *fill = *over = 0;
+  __syncthreads();
+  volatile int* stop = over;
+  for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    const unsigned long long k = i < n ? slice[i] : kSentinel64;
+    // a warp's repeats of one key insert once
+    const unsigned peers = __match_any_sync(kFull, k);
+    if (k != kSentinel64 && lane == __ffs(peers) - 1) {
+      for (uint32_t h = slot_hash(k, bits); !*stop;
+           h = (h + 1u) & static_cast<uint32_t>(size - 1)) {
+        unsigned long long cur =
+            reinterpret_cast<volatile unsigned long long*>(D)[h];
+        if (cur == kSentinel64) {
+          cur = atomicCAS(D + h, kSentinel64, k);
+          if (cur == kSentinel64) {
+            if (atomicAdd(fill, 1) >= size / 2) *stop = 1;
+            break;
+          }
+        }
+        if (cur == k) break;
+      }
+    }
+  }
+  __syncthreads();
+  if (*over) return -1;
+  __syncthreads();
+  if (threadIdx.x == 0) *fill = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < size; i += blockDim.x)
+    if (D[i] != kSentinel64) A[atomicAdd(fill, 1)] = D[i];
+  __syncthreads();
+  return *fill;
+}
+
+// grid (parts): CTA p counts the pairs of partition p's groups.  Its keys
+// (at most cap; past cap, its distinct keys, at most cap / 2) go into
+// shared memory, where a table of their (conflict key, fingerprint)
+// groups, keyed by the first key that claims each, marks the groups that
+// hold two or more read orders.  Only those groups' keys are sorted, and
+// each adjacent pair of distinct orders in one group is a pair.  A
+// partition with more distinct keys sorts its slice in global memory.
+__global__ void __launch_bounds__(kGroupThreads) adj_group_kernel(
+    const int* __restrict__ part_off, int cap, int ob, int B,
+    unsigned long long* buckets, int* __restrict__ cnt) {
+  __shared__ int fill, over;
+  unsigned long long* A = reinterpret_cast<unsigned long long*>(gr_smem);
+  // the group table and the orders' range, 2n <= 2^gb <= 2 cap entries
+  // each; then the sorted keys
+  uint32_t* G = reinterpret_cast<uint32_t*>(A + cap);
+  uint32_t* mm = G + 2 * cap;
+  unsigned long long* M = A + cap;
+  const int off = part_off[blockIdx.x];
+  const int np = part_off[blockIdx.x + 1] - off;
+  if (np < 2) return;
+  unsigned long long* slice = buckets + off;
+  const int tid = threadIdx.x;
+  // 1. the keys
+  int n = np;
+  if (np <= cap) {
+    for (int i = tid; i < np; i += blockDim.x) A[i] = slice[i];
+  } else {
+    int bits = 1;
+    while ((1 << bits) < cap) ++bits;
+    n = distinct_keys(slice, np, bits, A, M, &fill, &over);
+    if (n < 0) {
+      block_sort_global(slice, np);
+      adjacent_pairs(slice, np, ob, B, cnt);
+      return;
+    }
+  }
+  __syncthreads();
+  // 2. the group table: a group's entry holds the key that claimed it
+  // (its index + 1, bits 0-15), the first order found strictly between the
+  // group's least and greatest (bits 16-29: B <= 2^13), whether one is
+  // (bit 31) and whether another is (bit 30); mm the least and greatest
+  // orders (16 bits each)
+  const unsigned long long omask = (1ull << ob) - 1ull;
+  const int lane = tid & 31;
+  int gb = 1;
+  while ((1 << gb) < 2 * n) ++gb;
+  const uint32_t gmask = (1u << gb) - 1u;
+  for (int i = tid; i <= static_cast<int>(gmask); i += blockDim.x) {
+    G[i] = 0u;
+    mm[i] = 0xFFFF0000u;
+  }
+  __syncthreads();
+  uint32_t slot[kGroupPer];
+#pragma unroll
+  for (int r = 0; r < kGroupPer; ++r) {
+    const int i = tid + r * kGroupThreads;
+    slot[r] = 0u;
+    if (i >= n) continue;
+    const unsigned long long grp = A[i] >> ob;
+    uint32_t h = slot_hash(grp, gb);
+    for (;; h = (h + 1u) & gmask) {
+      uint32_t e = reinterpret_cast<volatile uint32_t*>(G)[h];
+      if (e == 0u) {
+        e = atomicCAS(G + h, 0u, static_cast<uint32_t>(i) + 1u);
+        if (e == 0u) break;
+      }
+      if ((A[(e & 0xFFFFu) - 1u] >> ob) == grp) break;
+    }
+    slot[r] = h;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kGroupPer; ++r) {
+    if (tid + r * kGroupThreads >= n) continue;
+    const uint32_t o = static_cast<uint32_t>(A[tid + r * kGroupThreads] & omask);
+    uint32_t cur = reinterpret_cast<volatile uint32_t*>(mm)[slot[r]];
+    for (;;) {
+      const uint32_t want =
+          (min(cur >> 16, o) << 16) | max(cur & 0xFFFFu, o);
+      if (want == cur) break;
+      const uint32_t seen = atomicCAS(mm + slot[r], cur, want);
+      if (seen == cur) break;
+      cur = seen;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kGroupPer; ++r) {
+    if (tid + r * kGroupThreads >= n) continue;
+    const uint32_t o = static_cast<uint32_t>(A[tid + r * kGroupThreads] & omask);
+    const uint32_t v = mm[slot[r]];
+    if ((v >> 16) >= o || o >= (v & 0xFFFFu)) continue;
+    uint32_t cur = reinterpret_cast<volatile uint32_t*>(G)[slot[r]];
+    for (;;) {
+      const uint32_t want = !(cur >> 31) ? cur | 0x80000000u | (o << 16)
+                            : ((cur >> 16) & 0x3FFFu) != o ? cur | 0x40000000u
+                                                           : cur;
+      if (want == cur) break;
+      const uint32_t seen = atomicCAS(G + slot[r], cur, want);
+      if (seen == cur) break;
+      cur = seen;
+    }
+  }
+  __syncthreads();
+  // a group of two orders is one pair and one of three two pairs, which
+  // the key that claimed it counts; the keys of a group of four or more
+  // orders are sorted
+  unsigned many = 0u;
+  int pair[kGroupPer], pair2[kGroupPer];
+#pragma unroll
+  for (int r = 0; r < kGroupPer; ++r) {
+    const int i = tid + r * kGroupThreads;
+    pair[r] = pair2[r] = -1;
+    if (i >= n) continue;
+    const uint32_t v = mm[slot[r]], lo = v >> 16, hi = v & 0xFFFFu;
+    if (lo == hi) continue;
+    const uint32_t e = G[slot[r]], mid = (e >> 16) & 0x3FFFu;
+    if ((e >> 30) & 1u) {
+      many |= 1u << r;
+    } else if ((e & 0xFFFFu) - 1u == static_cast<uint32_t>(i)) {
+      pair[r] = static_cast<int>((e >> 31) ? mid : hi) * B +
+                static_cast<int>(lo);
+      if (e >> 31) pair2[r] = static_cast<int>(hi) * B + static_cast<int>(mid);
+    }
+  }
+  if (tid == 0) fill = 0;
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kGroupPer; ++r) {
+    for (const int p : {pair[r], pair2[r]}) {
+      const unsigned peers = __match_any_sync(kFull, p);
+      if (p >= 0 && lane == __ffs(peers) - 1) atomicAdd(cnt + p, __popc(peers));
+    }
+  }
+  // 3. the keys of groups of four or more orders, sorted
+#pragma unroll
+  for (int r = 0; r < kGroupPer; ++r)
+    if ((many >> r) & 1u) M[atomicAdd(&fill, 1)] = A[tid + r * kGroupThreads];
+  __syncthreads();
+  const int m = fill;
+  if (m < 2) return;
+  int m2 = 1;
+  while (m2 < m) m2 <<= 1;
+  for (int i = m + tid; i < m2; i += blockDim.x) M[i] = kSentinel64;
+  __syncthreads();
+  if (m2 <= static_cast<int>(blockDim.x))
+    block_bitonic_sort_small(M, m2);
+  else
+    block_bitonic_sort(M, m2);
+  // 4. their pairs
+  adjacent_pairs(M, m, ob, B, cnt);
 }
 
 // ---------------------------------------------------------------- K23b
@@ -229,6 +701,10 @@ struct BracketWord {
   }
 };
 
+// a CTA of the rounds, and CTAs an SM (its registers: C's passes)
+constexpr int kWaveThreads = 512;
+constexpr int kWaveBlocks = 1;
+
 struct WaveArgs {
   uint32_t* table;  // the id table: direct words or rank-indexed ids
   uint32_t* side;   // the side table, the same shape
@@ -247,7 +723,9 @@ struct WaveArgs {
   const int32_t* adj;       // [B, B] wave_adjacency's counts
   int B, T, K;
   int vote_min_q, x_q, bits_q, vote_min_f, x_f, bits_f;
-  int u_min, a_max, TL, bs, S, rech_on, silver, cbuf, warp_bytes;
+  int u_min, a_max, TL, bs, S, rech_on, silver, cbuf;
+  int warp_q, warp_f;  // the tier's tiles probed one per warp
+  int warp_bytes;      // each warp's region: C's buffer, a warp tile's table
   int64_t target, max_paths;
   int64_t* scal;      // [4] id reservations, bases, path index, done
   int64_t* rows;      // [B, 8]
@@ -265,7 +743,7 @@ struct WaveArgs {
 struct Tier {
   const int64_t* grid;
   const bool* ok;
-  int H, F, vote_min, threshold, bits;
+  int H, F, vote_min, threshold, bits, warp;
 };
 
 // per-read flags: kept across rounds (pending, stale) and per round
@@ -282,23 +760,39 @@ enum : uint8_t {
 
 // Inclusive prefix sums over i < B of v(i), handed to out(i, sum) by the
 // thread that owns i (i = threadIdx.x + k * blockDim.x, as in every loop
-// over reads here); returns the total.  Every thread of the CTA calls it;
-// it ends with a barrier.
+// over reads here); returns the total.  A warp scan by shuffles, then one
+// over the warps' totals (`scratch`, 32 values): three barriers for each
+// blockDim.x reads.  Every thread of the CTA calls it; it ends with a
+// barrier.
 template <typename V, typename O>
-__device__ long long block_cumsum(int B, V v, O out,
-                                  unsigned long long* scratch) {
-  unsigned long long carry = 0;
+__device__ long long block_cumsum(int B, V v, O out, long long* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = static_cast<int>(blockDim.x >> 5);
+  long long carry = 0;
   for (int base = 0; base < B; base += blockDim.x) {
     const int i = base + threadIdx.x;
-    const unsigned long long x =
-        i < B ? static_cast<unsigned long long>(v(i)) : 0ull;
-    const unsigned long long ex =
-        block_exclusive_scan(x, 0ull, scratch, AddOp{});
-    if (i < B) out(i, static_cast<long long>(carry + ex + x));
-    carry += scratch[blockDim.x - 1];
+    const long long x = i < B ? static_cast<long long>(v(i)) : 0ll;
+    long long inc = x;
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (lane == 31) scratch[warp] = inc;
+    __syncthreads();
+    if (warp == 0) {
+      long long w = lane < nw ? scratch[lane] : 0ll;
+      for (int o = 1; o < 32; o <<= 1) {
+        const long long y = __shfl_up_sync(kFull, w, o);
+        if (lane >= o) w += y;
+      }
+      scratch[lane] = w;
+    }
+    __syncthreads();
+    if (i < B) out(i, carry + (warp ? scratch[warp - 1] : 0ll) + inc);
+    carry += scratch[nw - 1];
+    __syncthreads();
   }
-  __syncthreads();
-  return static_cast<long long>(carry);
+  return carry;
 }
 
 // How many i < B satisfy pred; every thread calls it.
@@ -329,7 +823,7 @@ __device__ int block_first(int B, P pred, int* slot) {
 // The reads satisfying pred, in order, into list; returns their number.
 template <typename P>
 __device__ int block_compact(int B, P pred, int32_t* list,
-                             unsigned long long* scratch) {
+                             long long* scratch) {
   return static_cast<int>(block_cumsum(
       B, [&](int i) { return pred(i) ? 1 : 0; },
       [&](int i, long long incl) {
@@ -340,50 +834,66 @@ __device__ int block_compact(int B, P pred, int32_t* list,
 
 // Probe the n reads of `list` with `tier` through the bracket view under
 // their ceilings and classify them: their rows (and, for the query tier,
-// tile_min) are written.  Every thread of every CTA calls it; it ends with
-// a grid barrier.
+// tile_min) are written.  A tile is a warp's (tier.warp: probe_vote_warp
+// in the warp's region) or a CTA's (probe_vote_tile); kernel C then runs
+// on every warp of the grid, a read each.  Every thread of every CTA calls
+// it; it ends with a grid barrier.
 __device__ void probe_rows(const WaveArgs& a, const Tier& tier,
                            const int32_t* list, int n, const uint32_t* ceil,
                            bool query, cg::grid_group& grid) {
   const int T = a.T, K = a.K;
   const int64_t TF = static_cast<int64_t>(T) * tier.F;
   const int64_t vb = 3 * T + 2 * T * K;
-  for (int64_t u = blockIdx.x; u < static_cast<int64_t>(n) * T;
-       u += gridDim.x) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = static_cast<int>(blockDim.x >> 5);
+  const int64_t units = static_cast<int64_t>(n) * T;
+  unsigned char* own = gr_smem + static_cast<size_t>(warp) * a.warp_bytes;
+  const bool by_warp = tier.warp != 0;
+  const int64_t step = by_warp ? static_cast<int64_t>(gridDim.x) * warps
+                               : static_cast<int64_t>(gridDim.x);
+  for (int64_t u = by_warp ? static_cast<int64_t>(blockIdx.x) * warps + warp
+                           : static_cast<int64_t>(blockIdx.x);
+       u < units; u += step) {
     const int r = list[u / T], t = static_cast<int>(u % T);
     int32_t* curr = a.vals + r * vb;
     unsigned long long* q = a.sums + static_cast<int64_t>(r) * 3 * T;
-    probe_vote_tile<true>(
-        a.table, tier.grid + static_cast<int64_t>(r) * tier.H * TF, a.ranked,
-        a.limit, tier.ok + static_cast<int64_t>(r) * TF, tier.H, T, tier.F,
-        K, tier.vote_min, tier.threshold, tier.bits, t, 0, curr, curr + T,
-        curr + 3 * T, curr + 3 * T + T * K,
-        a.binit + static_cast<int64_t>(r) * T, curr + 2 * T, q, q + T,
-        q + 2 * T, BracketWord{a.side, ceil[r]});
-    __syncthreads();
+    const int64_t* g = tier.grid + static_cast<int64_t>(r) * tier.H * TF;
+    const bool* ok = tier.ok + static_cast<int64_t>(r) * TF;
+    bool* bi = a.binit + static_cast<int64_t>(r) * T;
+    const BracketWord view{a.side, ceil[r]};
+    if (by_warp) {
+      probe_vote_warp(a.table, g, a.ranked, a.limit, ok, tier.H, T, tier.F,
+                      K, tier.vote_min, tier.threshold, tier.bits, t, 0, curr,
+                      curr + T, curr + 3 * T, curr + 3 * T + T * K, bi,
+                      curr + 2 * T, q, q + T, q + 2 * T,
+                      reinterpret_cast<unsigned long long*>(own), view);
+    } else {
+      probe_vote_tile<true>(a.table, g, a.ranked, a.limit, ok, tier.H, T,
+                            tier.F, K, tier.vote_min, tier.threshold,
+                            tier.bits, t, 0, curr, curr + T, curr + 3 * T,
+                            curr + 3 * T + T * K, bi, curr + 2 * T, q, q + T,
+                            q + 2 * T, view);
+      __syncthreads();
+    }
   }
   grid.sync();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int warps = min(kWaveWarps, static_cast<int>(blockDim.x >> 5));
-  if (warp < warps) {
-    for (int j = blockIdx.x * warps + warp; j < n; j += gridDim.x * warps) {
-      const int r = list[j];
-      const Outcome o = read_outcome(
-          a.sums + static_cast<int64_t>(r) * 3 * T, a.vals + r * vb,
-          a.n_tiles[r], T, K, tier.threshold, a.u_min, a.a_max, a.cbuf,
-          gr_smem + warp * a.warp_bytes, lane);
-      if (lane == 0) {
-        int64_t* row = a.rows + static_cast<int64_t>(r) * 8;
-        row[0] = o.dec;
-        row[1] = o.ts;
-        row[2] = o.te;
-        row[3] = o.na;
-        row[4] = o.q;
-        row[5] = o.h;
-        row[6] = o.m;
-        row[7] = o.ov;
-        if (query) a.tmin[r] = o.tmin;
-      }
+  for (int j = blockIdx.x * warps + warp; j < n; j += gridDim.x * warps) {
+    const int r = list[j];
+    const Outcome o = read_outcome(
+        a.sums + static_cast<int64_t>(r) * 3 * T, a.vals + r * vb,
+        a.n_tiles[r], T, K, tier.threshold, a.u_min, a.a_max, a.cbuf, own,
+        lane);
+    if (lane == 0) {
+      int64_t* row = a.rows + static_cast<int64_t>(r) * 8;
+      row[0] = o.dec;
+      row[1] = o.ts;
+      row[2] = o.te;
+      row[3] = o.na;
+      row[4] = o.q;
+      row[5] = o.h;
+      row[6] = o.m;
+      row[7] = o.ov;
+      if (query) a.tmin[r] = o.tmin;
     }
   }
   grid.sync();
@@ -412,35 +922,61 @@ __device__ __forceinline__ Geo geometry(const WaveArgs& a, int i) {
 // The scatter-max insert of the n reads of `list` (wavefront.py:456-489):
 // every real entry of tiles lo..hi of each read's insert grid raises the id
 // table to or_bits | id and the side table to INV_BASE - id, ids from
-// ceil + 1.  Every thread of every CTA calls it.
+// ceil + 1.  The reads' entries are one range of 32-bit indices, read j's
+// from ends[j - 1]: its seeds' windows one after another.  Every CTA puts
+// the prefix of the windows' sizes and each read's first tile, trim flag
+// and window in its shared memory (`meta`, 3n words), so that every thread
+// of the grid takes indices of every read.  Every thread of every CTA
+// calls it; it ends with a barrier.
 __device__ void insert_rows(const WaveArgs& a, const int32_t* list, int n,
-                            const uint32_t* ceil) {
-  const int64_t TF = static_cast<int64_t>(a.T) * a.Fi;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                        threadIdx.x,
-                step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int j = 0; j < n; ++j) {
-    const int r = list[j];
-    const Geo g = geometry(a, r);
-    const int last = min(g.hi, a.T - 1);
-    if (last < g.lo) continue;
-    const int64_t window = static_cast<int64_t>(last - g.lo + 1) * a.Fi;
-    const uint32_t base = ceil[r] + 1u;
-    const bool trimmed = row_at(a, r, 0) == 2;
-    const int64_t* grid = a.grid_i + static_cast<int64_t>(r) * a.Hi * TF;
-    for (int64_t e = start; e < window * a.Hi; e += step) {
-      const int64_t col = static_cast<int64_t>(g.lo) * a.Fi + e % window;
-      const int64_t key = grid[(e / window) * TF + col];
-      if (key < 0 || key >= a.limit) continue;
-      const uint32_t m = static_cast<uint32_t>(col / a.Fi - g.lo) / a.bs;
-      const uint32_t b = static_cast<uint32_t>(a.bs);
-      const uint32_t id = base + (trimmed ? (m * b + 1u) / b : m);
-      atomicMax(reinterpret_cast<int*>(a.table) + key,
-                static_cast<int>(a.or_bits | id));
-      atomicMax(reinterpret_cast<int*>(a.side) + key,
-                static_cast<int>(kInvBase - id));
+                            const uint32_t* ceil, uint32_t* meta,
+                            long long* scan) {
+  uint32_t* ends = meta;
+  uint32_t* lo_tr = meta + n;  // first tile, bit 31 the trim flag
+  uint32_t* win = meta + 2 * n;
+  const uint32_t Fi = static_cast<uint32_t>(a.Fi);
+  const uint32_t total = static_cast<uint32_t>(block_cumsum(
+      n,
+      [&](int j) -> long long {
+        const int r = list[j];
+        const Geo g = geometry(a, r);
+        const int last = min(g.hi, a.T - 1);
+        const uint32_t w =
+            last < g.lo ? 0u : static_cast<uint32_t>(last - g.lo + 1) * Fi;
+        lo_tr[j] = static_cast<uint32_t>(max(g.lo, 0)) |
+                   (row_at(a, r, 0) == 2 ? 0x80000000u : 0u);
+        win[j] = w;
+        return static_cast<long long>(w) * a.Hi;
+      },
+      [&](int j, long long incl) { ends[j] = static_cast<uint32_t>(incl); },
+      scan));
+  const uint32_t TF = static_cast<uint32_t>(a.T) * Fi;
+  const uint32_t b = static_cast<uint32_t>(a.bs);
+  const uint32_t step = gridDim.x * blockDim.x;
+  for (uint32_t e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += step) {
+    int j = 0;
+    for (int hi = n - 1; j < hi;) {
+      const int mid = (j + hi) >> 1;
+      if (ends[mid] > e) hi = mid;
+      else j = mid + 1;
     }
+    const uint32_t rem = e - (j ? ends[j - 1] : 0u), w = win[j];
+    const uint32_t s = rem / w, col = rem - s * w;
+    const uint32_t lo = lo_tr[j] & 0x7FFFFFFFu;
+    const int r = list[j];
+    const int64_t key =
+        a.grid_i[(static_cast<int64_t>(r) * a.Hi + s) * TF + lo * Fi + col];
+    if (key < 0 || key >= a.limit) continue;
+    const uint32_t m = col / Fi / b;
+    const uint32_t id =
+        ceil[r] + 1u + ((lo_tr[j] >> 31) ? (m * b + 1u) / b : m);
+    atomicMax(reinterpret_cast<int*>(a.table) + key,
+              static_cast<int>(a.or_bits | id));
+    atomicMax(reinterpret_cast<int*>(a.side) + key,
+              static_cast<int>(kInvBase - id));
   }
+  __syncthreads();
 }
 
 // The silver rotation's reset over the grid: the id table forgets its ids
@@ -463,9 +999,10 @@ __device__ void reset_tables(const WaveArgs& a) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) wave_kernel(const WaveArgs a) {
+__global__ void __launch_bounds__(kWaveThreads, kWaveBlocks)
+    wave_kernel(const WaveArgs a) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ unsigned long long scan[kThreads];
+  __shared__ long long scan[32];
   __shared__ int slot;
   __shared__ long long cum_at[2];
   const int B = a.B, W = (B + 31) >> 5, tid = threadIdx.x;
@@ -478,8 +1015,10 @@ __global__ void __launch_bounds__(kThreads, 1) wave_kernel(const WaveArgs a) {
   uint32_t* ceil = reinterpret_cast<uint32_t*>(clen + B);
   int32_t* list = reinterpret_cast<int32_t*>(ceil + B);
   uint32_t* unres = reinterpret_cast<uint32_t*>(list + B);
-  const Tier tq{a.grid_q, a.ok_q, a.Hq, a.Fq, a.vote_min_q, a.x_q, a.bits_q};
-  const Tier tf{a.grid_i, a.ok_i, a.Hi, a.Fi, a.vote_min_f, a.x_f, a.bits_f};
+  const Tier tq{a.grid_q, a.ok_q,  a.Hq,     a.Fq,
+                a.vote_min_q, a.x_q, a.bits_q, a.warp_q};
+  const Tier tf{a.grid_i, a.ok_i,  a.Hi,     a.Fi,
+                a.vote_min_f, a.x_f, a.bits_f, a.warp_f};
   const int64_t ids0 = a.scal[0], bases0 = a.scal[1];
   int64_t path_idx = a.scal[2], done = a.scal[3];
   const int64_t target_eff = a.silver ? a.target : (1ll << 62);
@@ -608,7 +1147,8 @@ __global__ void __launch_bounds__(kThreads, 1) wave_kernel(const WaveArgs a) {
           B, [&](int i) { return (fl[i] & bit) != 0; }, list, scan);
       if (n > 0) {
         if (dirty == 2) grid.sync();
-        insert_rows(a, list, n, ceil);
+        insert_rows(a, list, n, ceil, reinterpret_cast<uint32_t*>(gr_smem),
+                    scan);
         dirty = 1;
       }
       for (int i = tid; i < B; i += blockDim.x)
@@ -723,6 +1263,15 @@ __global__ void __launch_bounds__(kThreads, 1) wave_kernel(const WaveArgs a) {
   }
 }
 
+// Let a kernel take `bytes` of dynamic shared memory beside its static
+// (allow_smem's 48 KB leaves no room for the static).
+template <typename Kern>
+cudaError_t opt_in_smem(Kern kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 inline int bit_length(int v) {
   int b = 0;
   while (v >> b) ++b;
@@ -733,51 +1282,74 @@ inline int bit_length(int v) {
 
 extern "C" {
 
-// grid [B, H, T * F] int64 (F * S == TL); codes uint8 [B, L]; cnt int32
-// [B, B], zeroed; part_count int32 [parts], zeroed; part_off int64
-// [parts + 1]; cursor [parts]; keys [B * H * T * F]; buckets [2 * B * H *
-// T * F].
+// grid [B, H, T * F] int64 (F * S == TL); codes uint8 [B, L]; `parts`
+// partitions in nb = parts >> shift buckets; the count's and the scatter's
+// CTAs take `units` tiles each (C = ceil(B * T / units)); pcount int32 [C,
+// nb]; boff int32 [nb + 1]; part_off int32 [parts + 1]; keys and buckets
+// int64 [B * H * T * F] (< 2^31); cnt int32 [B, B], zeroed.
 int gr_wave_adjacency(const int64_t* grid, int B, int H, int T, int F, int S,
                       int TL, const uint8_t* codes, int64_t L,
                       const uint64_t* fam_table, int h, int k, int half,
                       int nl, int nr, int pad, int64_t limit, int direct,
-                      int parts, int cap, unsigned long long* keys,
-                      int* part_count, long long* part_off,
-                      unsigned long long* cursor,
+                      int parts, int shift, int units, int cap, int* pcount,
+                      int* boff, int* part_off, unsigned long long* keys,
                       unsigned long long* buckets, int* cnt,
                       cudaStream_t stream) {
-  using gr::kAdjThreads;
   if (B < 0 || B > (1 << 13) || H != h || H < 1 || T < 1 || S < 1 ||
       F * S != TL || TL < k + h - 1 || L < 1 || limit <= 0 ||
-      limit >= (1ll << 31) || parts < 1 || (parts & (parts - 1)) ||
-      cap < 2 || (cap & (cap - 1)) ||
-      static_cast<size_t>(cap) * 8 > gr::kMaxSmem)
+      limit >= (1ll << 31) || parts < 1 || parts > (1 << 20) ||
+      (parts & (parts - 1)) || shift < 0 || (1 << shift) > parts ||
+      (parts >> shift) > gr::kMaxParts || (1 << shift) > gr::kMaxParts ||
+      units < 1 || cap < 64 || cap > gr::kGroupPer * gr::kGroupThreads ||
+      (cap & (cap - 1)) ||
+      static_cast<int64_t>(B) * H * T * F >= (1ll << 31))
     return cudaErrorInvalidValue;
   if (B == 0) return gr::kNoLaunch;
   const int ob = std::max(gr::bit_length(B - 1), 1);
   const gr::Family f{h, k, half, nl, nr, pad, fam_table};
-  const size_t smem = gr::stage_bytes(f, TL + h - 1);
-  cudaError_t err = gr::allow_smem(gr::adj_keys_kernel, smem);
-  if (err != cudaSuccess) return err;
-  gr::adj_keys_kernel<<<B * T, kAdjThreads, smem, stream>>>(
-      grid, H, T, F, S, TL, codes, L, f, limit, direct, ob,
-      static_cast<uint32_t>(parts), keys, part_count);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  gr::adj_offsets_kernel<<<1, 1024, 0, stream>>>(
-      part_count, static_cast<uint32_t>(parts), cap, part_off, cursor);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int64_t n = static_cast<int64_t>(B) * H * T * F;
-  gr::adj_scatter_kernel<<<static_cast<unsigned>(
-                               std::min<int64_t>((n + 255) / 256, 1 << 16)),
-                           256, 0, stream>>>(keys, n, ob,
-                                             static_cast<uint32_t>(parts),
-                                             cursor, buckets);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem_pairs = static_cast<size_t>(cap) * 8;
-  if ((err = gr::allow_smem(gr::adj_pairs_kernel, smem_pairs)) != cudaSuccess)
+  const gr::AdjArgs a{grid, codes, L, limit, f, B, H, T, F, S, TL, direct,
+                      ob, units, static_cast<uint32_t>(parts), shift};
+  const int C = (B * T + units - 1) / units, nb = parts >> shift;
+  // the keys kernels: the staged tile, the bucket counters, a round of
+  // keys and their placement; the split: its counters and a round
+  const int fr = std::max(1, gr::kRoundKeys / (H * gr::kAdjThreads));
+  const size_t smem =
+      ((gr::stage_bytes(f, TL + h - 1) + 15) & ~static_cast<size_t>(15)) +
+      sizeof(int) * 4 * static_cast<size_t>((nb + 1) & ~1) +
+      2 * sizeof(unsigned long long) * fr * H * gr::kAdjThreads;
+  const size_t smem_split =
+      sizeof(int) * 4 * static_cast<size_t>(((1 << shift) + 1) & ~1) +
+      2 * sizeof(unsigned long long) *
+          std::max(gr::kRoundKeys, gr::kAdjThreads);
+  const size_t smem_group = 24 * static_cast<size_t>(cap);
+  if (smem > gr::kMaxSmem || smem_split > gr::kMaxSmem)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = gr::opt_in_smem(gr::adj_keys_kernel<false>, smem)) !=
+          cudaSuccess ||
+      (err = gr::opt_in_smem(gr::adj_keys_kernel<true>, smem)) !=
+          cudaSuccess ||
+      (err = gr::opt_in_smem(gr::adj_split_kernel, smem_split)) !=
+          cudaSuccess ||
+      (err = gr::opt_in_smem(gr::adj_group_kernel, smem_group)) !=
+          cudaSuccess)
     return err;
-  gr::adj_pairs_kernel<<<parts, kAdjThreads, smem_pairs, stream>>>(
-      part_count, part_off, cap, ob, B, buckets, cnt);
+  gr::adj_keys_kernel<false><<<C, gr::kAdjThreads, smem, stream>>>(
+      a, pcount, boff, keys);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  gr::adj_scan_cols_kernel<<<(nb + 31) / 32, 1024, 0, stream>>>(
+      pcount, C, static_cast<uint32_t>(nb), boff);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  gr::adj_scan_parts_kernel<<<1, 1024, 0, stream>>>(boff, nb);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  gr::adj_keys_kernel<true><<<C, gr::kAdjThreads, smem, stream>>>(
+      a, pcount, boff, keys);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  gr::adj_split_kernel<<<nb, gr::kAdjThreads, smem_split, stream>>>(
+      boff, static_cast<uint32_t>(parts), shift, ob, keys, part_off, buckets);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  gr::adj_group_kernel<<<parts, gr::kGroupThreads, smem_group, stream>>>(
+      part_off, cap, ob, B, buckets, cnt);
   return cudaGetLastError();
 }
 
@@ -792,32 +1364,43 @@ int gr_wave_rounds(uint32_t* table, uint32_t* side, int64_t alloc, int ranked,
                    int64_t* scal, int64_t* rows, int64_t* counters,
                    unsigned long long* sums, int32_t* vals, bool* binit,
                    int64_t* tmin, uint32_t* adj_bits, cudaStream_t stream) {
-  using gr::kThreads;
+  using gr::kWaveThreads;
   const int bits_q = gr::table_bits(Hq * Fq), bits_f = gr::table_bits(Hi * Fi);
   if (B < 0 || T < 1 || K < 1 || Hq < 1 || Hi < 1 || Hq > gr::kMaxH ||
       Hi > gr::kMaxH || K > Hq * Fq || bits_q > 14 ||
       (rech_on && (K > Hi * Fi || bits_f > 14)) || alloc % 4 || bs < 1 ||
       TL < 1 || limit <= 0 || limit >= (1ll << 31) ||
+      static_cast<int64_t>(B) * Hi * T * Fi >= (1ll << 31) ||
       reinterpret_cast<uintptr_t>(table) % 16 ||
       reinterpret_cast<uintptr_t>(side) % 16)
     return cudaErrorInvalidValue;
   if (B == 0) return gr::kNoLaunch;
-  // kernel C's per-warp buffer, as the consume kernel sizes it
+  // a tier of at most 2^kWarpBits votes a tile probes a tile per warp
+  const int warp_q = bits_q <= gr::kWarpBits;
+  const int warp_f = rech_on && bits_f <= gr::kWarpBits;
+  // each warp's region: kernel C's buffer, as the consume kernel sizes it,
+  // or a warp tile's vote table and candidates
   int t2 = 1;
   while (t2 < T) t2 <<= 1;
   const int chunk = (T < 32 ? T : 32) * K;
   const int cbuf = t2 > chunk ? t2 : chunk;
-  const int warp_bytes = (8 * (((T + 1) & ~1) + cbuf) + 15) & ~15;
-  size_t work = static_cast<size_t>(gr::kWaveWarps) * warp_bytes;
-  for (int bits : {bits_q, rech_on ? bits_f : 1})
-    work = std::max(work, ((static_cast<size_t>(1) << bits) + kThreads) *
+  size_t warp_bytes = 8 * (((T + 1) & ~1) + static_cast<size_t>(cbuf));
+  if (warp_q) warp_bytes = std::max(warp_bytes, static_cast<size_t>(16) << bits_q);
+  if (warp_f) warp_bytes = std::max(warp_bytes, static_cast<size_t>(16) << bits_f);
+  warp_bytes = (warp_bytes + 15) & ~static_cast<size_t>(15);
+  // the work region: the warps' regions, a CTA tile's table and
+  // candidates, or a commit pass's insert index (3 words a read)
+  size_t work = (kWaveThreads / 32) * warp_bytes;
+  for (int bits : {warp_q ? 1 : bits_q, warp_f || !rech_on ? 1 : bits_f})
+    work = std::max(work, ((static_cast<size_t>(1) << bits) + kWaveThreads) *
                               sizeof(unsigned long long));
+  work = std::max(work, 12 * static_cast<size_t>(B));
   work = (work + 15) & ~static_cast<size_t>(15);
   const size_t state = ((B + 15) & ~15) + static_cast<size_t>(B) * 16 +
                        4 * static_cast<size_t>((B + 31) / 32);
   const size_t smem = work + state;
   if (smem > gr::kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = gr::allow_smem(gr::wave_kernel, smem);
+  cudaError_t err = gr::opt_in_smem(gr::wave_kernel, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -829,19 +1412,19 @@ int gr_wave_rounds(uint32_t* table, uint32_t* side, int64_t alloc, int ranked,
     return err;
   if (!coop) return cudaErrorNotSupported;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, gr::wave_kernel, kThreads, smem)) != cudaSuccess)
+           &per_sm, gr::wave_kernel, kWaveThreads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   gr::WaveArgs a{table, side, alloc, ranked, limit, or_bits, grid_q, ok_q,
                  Hq, Fq, grid_i, ok_i, Hi, Fi, n_tiles, full_len, adj, B, T,
                  K, vote_min_q, x_q, bits_q, vote_min_f, x_f, bits_f, u_min,
-                 a_max, TL, bs, S, rech_on, silver, cbuf, warp_bytes, target,
-                 max_paths, scal, rows, counters, sums, vals, binit, tmin,
-                 adj_bits, work};
+                 a_max, TL, bs, S, rech_on, silver, cbuf, warp_q, warp_f,
+                 static_cast<int>(warp_bytes), target, max_paths, scal, rows,
+                 counters, sums, vals, binit, tmin, adj_bits, work};
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gr::wave_kernel),
-                                    dim3(sms), dim3(kThreads), args, smem,
-                                    stream);
+                                    dim3(sms * per_sm), dim3(kWaveThreads), args,
+                                    smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -78,8 +78,8 @@ _SIGNATURES = {
     "gr_ntcard_count": (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P),
     "gr_wave_adjacency": (_P, _I, _I, _I, _I, _I, _I, _P, _L, _P, _I, _I,
-                          _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P,
-                          _P, _P),
+                          _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P,
+                          _P, _P, _P, _P),
     "gr_wave_rounds": (_P, _P, _L, _I, _L, _U, _P, _P, _I, _I, _P, _P, _I,
                        _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P,

@@ -62,11 +62,18 @@ INV_BASE = 1 << 28
 # INV_BASE: the pass raises)
 WAVE_COUNTS = ("rounds", "classified", "rechecked", "commits", "rotations",
                "faults")
-# keys a CTA of wave_adjacency sorts in shared memory; a larger partition
-# sorts in its slice of global scratch
-ADJ_CAP = 8_192
+# keys of a partition that wave_adjacency groups in shared memory; a larger
+# partition takes its distinct keys there (up to ADJ_CAP / 2: a heavy
+# group's repeats), and past that sorts its slice in global memory
+ADJ_CAP = 2_048
 # partitions of wave_adjacency: about this many keys each
-ADJ_KEYS_PER_PART = 2_048
+ADJ_KEYS_PER_PART = 1_024
+ADJ_MAX_PARTS = 1 << 20
+# the partitions are split in two steps: the window's keys into at most
+# ADJ_BUCKETS buckets of consecutive partitions (few enough that each CTA's
+# runs in them fill whole sectors of L2), then each bucket into its
+# partitions
+ADJ_BUCKETS = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,11 +145,18 @@ def wave_adjacency_plain(grid_ins: torch.Tensor, fp: torch.Tensor,
 
 def adjacency_parts(n_keys: int) -> int:
     """wave_adjacency's partitions for a grid of n_keys entries: a power
-    of two near n_keys / ADJ_KEYS_PER_PART."""
-    return 1 << max(0, (max(n_keys // ADJ_KEYS_PER_PART, 1) - 1).bit_length())
+    of two near n_keys / ADJ_KEYS_PER_PART, at most ADJ_MAX_PARTS."""
+    return min(1 << max(0, (max(n_keys // ADJ_KEYS_PER_PART, 1) - 1)
+                        .bit_length()), ADJ_MAX_PARTS)
 
 
-def _adjacency_cuda(spec, grid_ins, codes, limit, ranked, T):
+def adjacency_units(n_tiles: int, sms: int) -> int:
+    """Tiles of the window that each CTA of wave_adjacency's count and
+    scatter keys: about two CTAs per SM."""
+    return max(1, -(-n_tiles // (2 * sms)))
+
+
+def _adjacency_cuda(spec, grid_ins, codes, limit, ranked, T, cap=ADJ_CAP):
     B, H, TF = grid_ins.shape
     dev = grid_ins.device
     fam = spec.fam_ins
@@ -150,27 +164,30 @@ def _adjacency_cuda(spec, grid_ins, codes, limit, ranked, T):
     TL = spec.scan.params.tile_length
     kernels.check(grid_ins, "grid_ins", torch.int64, device=dev)
     kernels.check(codes, "codes", torch.uint8, device=dev)
+    n = B * H * TF
     if (codes.shape[0] != B or TF % T or TF // T * S != TL or fam.h != H
-            or not 0 < limit < 1 << 31 or B > 1 << 13):
+            or not 0 < limit < 1 << 31 or B > 1 << 13 or n >= 1 << 31):
         raise ValueError(f"unsupported adjacency grid {tuple(grid_ins.shape)}"
                          f" for T={T}, stride {S}, limit {limit}")
-    n = B * H * TF
     parts = adjacency_parts(n)
-    i64 = dict(dtype=torch.int64, device=dev)
-    keys = torch.empty(n, **i64)
-    part_count = torch.zeros(parts, dtype=torch.int32, device=dev)
-    part_off = torch.empty(parts + 1, **i64)
-    cursor = torch.empty(parts, **i64)
-    # each partition's slice holds its keys, or the next power of two of
-    # them where it sorts in global memory: less than twice the keys
-    buckets = torch.empty(2 * n, **i64)
-    cnt = torch.zeros((B, B), dtype=torch.int32, device=dev)
+    nb = min(parts, ADJ_BUCKETS)
+    units = adjacency_units(
+        B * T, torch.cuda.get_device_properties(dev).multi_processor_count)
+    i32 = dict(dtype=torch.int32, device=dev)
+    pcount = torch.empty((-(-(B * T) // units), nb), **i32)
+    boff = torch.empty(nb + 1, **i32)
+    part_off = torch.empty(parts + 1, **i32)
+    # the valid keys bucket by bucket, then partition by partition
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    buckets = torch.empty(n, dtype=torch.int64, device=dev)
+    cnt = torch.zeros((B, B), **i32)
     kernels.WAVE_ADJACENCY(
         dev, kernels.ptr(grid_ins), B, H, T, TF // T, S, TL,
         kernels.ptr(codes), codes.shape[1], *dm._family_args(fam, dev),
-        int(limit), int(not ranked), parts, ADJ_CAP, kernels.ptr(keys),
-        kernels.ptr(part_count), kernels.ptr(part_off), kernels.ptr(cursor),
-        kernels.ptr(buckets), kernels.ptr(cnt))
+        int(limit), int(not ranked), parts, (parts // nb).bit_length() - 1,
+        units, cap, kernels.ptr(pcount), kernels.ptr(boff),
+        kernels.ptr(part_off), kernels.ptr(keys), kernels.ptr(buckets),
+        kernels.ptr(cnt))
     return cnt
 
 
@@ -237,7 +254,8 @@ def _window_cuda(spec, state, side, grid, frame_ok, grid_ins, ok_ins,
     kernels.check(rows_out, "rows_out", torch.int64, (B, 8), dev)
     kernels.check(counters, "counters", torch.int64, (len(WAVE_COUNTS),),
                   dev)
-    if TFq % T or TFi % T or pf.vote_topk != K or not 0 < limit < 1 << 31:
+    if (TFq % T or TFi % T or pf.vote_topk != K or not 0 < limit < 1 << 31
+            or B * Hi * TFi >= 1 << 31):
         raise ValueError(f"unsupported grids {tuple(grid.shape)}, "
                          f"{tuple(grid_ins.shape)} for T={T}")
     # per read: its vote buffer (the consume kernel's layout), tile_min,

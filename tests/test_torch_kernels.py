@@ -1024,9 +1024,14 @@ def wave_reads(tmp_path):
 def test_wave_kernels_match_plain(cuda, tmp_path, mode):
     """wave_adjacency and wave_rounds against their plain versions on the
     two windows of 64 reads of a filter the card filled, the first
-    window's first commit filling the silver path (a rotation inside it):
-    the counts, rows, scal, counters and both tables bit for bit, one
-    launch of each kernel per window."""
+    window's first commit filling the silver path (a rotation inside it),
+    then on a window of homopolymer reads (read i all base i % 4), whose
+    groups of one k-mer (32,000 keys each in the direct filter) make
+    partitions past the shared-memory capacity (and past the 8,192 keys
+    that the parent design sorted in shared memory): the counts, rows,
+    scal, counters and both tables bit for bit, one launch of each kernel
+    per window; the adjacency also at a capacity of 64 keys, where every
+    partition takes its distinct keys or sorts its slice."""
     from goldrush_tpu_torch.ops.nthash import fingerprints
     from goldrush_tpu_torch.path import wavefront as wave
     path = wave_reads(tmp_path)
@@ -1046,16 +1051,27 @@ def test_wave_kernels_match_plain(cuda, tmp_path, mode):
     ck, cp = wave.new_counters(cuda), wave.new_counters(cuda)
     before = [k.launches for k in kernels.WAVE]
     recs = list(te._eligible(path))
-    n = 0
-    for i in range(0, len(recs), 64):
-        codes, lengths, full, T = te._pack_batch(recs[i: i + 64])
+    wins = [te._pack_batch(recs[i: i + 64]) for i in range(0, len(recs), 64)]
+    codes, lengths, full, T = wins[0]
+    homo = np.zeros_like(codes) + (np.arange(64) % 4)[:, None]
+    wins.append((homo.astype(np.uint8), lengths, full, T))
+    for w, (codes, lengths, full, T) in enumerate(wins):
+        if w == 2:
+            scal_k.copy_(torch.tensor([0, 0, 1, 0]))
+            scal_p.copy_(scal_k)
         codes_d, grid, ok, gi, oi, nt, fl = te._window_inputs(codes, lengths,
                                                               full, T)
         adj = wave.wave_adjacency(te.wave_spec, gi, codes_d, limit, ranked, T)
         fp = fingerprints(codes_d, te.fam_ins, T * te.cfg.tile_length,
                           te.params_ins.frame_stride, wave.FP_BITS)
-        assert torch.equal(adj, wave.wave_adjacency_plain(gi, fp, limit,
-                                                          ranked))
+        want = wave.wave_adjacency_plain(gi, fp, limit, ranked)
+        assert torch.equal(adj, want)
+        assert torch.equal(wave._adjacency_cuda(te.wave_spec, gi, codes_d,
+                                                limit, ranked, T, cap=64),
+                           want)
+        if w == 2 and mode == "direct":
+            groups = ((gi & ((1 << 24) - 1)) << wave.FP_BITS | fp)[gi < limit]
+            assert torch.unique(groups, return_counts=True)[1].max() > 8_192
         rows_k = torch.empty((64, 8), dtype=torch.int64, device=cuda)
         rows_p = torch.empty_like(rows_k)
         wave.wave_window(te.wave_spec, state_k, side_k, grid, ok, gi, oi, nt,
@@ -1064,8 +1080,9 @@ def test_wave_kernels_match_plain(cuda, tmp_path, mode):
                                oi, nt, fl, adj, scal_p, rows_p, cp, T)
         assert_same([rows_k, scal_k, ck, side_k, *state_k],
                     [rows_p, scal_p, cp, side_p, *state_p])
-        n += 1
-    assert [k.launches for k in kernels.WAVE] == [b + n for b in before]
+    # the capacity-64 calls launch the adjacency once more per window
+    assert [k.launches for k in kernels.WAVE] == [
+        before[0] + 2 * len(wins), before[1] + len(wins)]
     assert ck[4] > 0 and ck[3] > 0 and ck[5] == 0
 
 
