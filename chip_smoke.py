@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (goldrush_tpu_torch) on one GPU.
 
     python3 chip_smoke.py                 # one card
-    python3 chip_smoke.py --ab DIR        # phase 3 of an earlier tree of
-                                          # the port in DIR, then this one's
+    python3 chip_smoke.py --ab DIR        # phases 3, 8(a), 9(a) of an
+                                          # earlier tree of the port in
+                                          # DIR, then this one's
 
 Phases (one line each; any failure raises, so the exit code is non-zero):
   1. device: require CUDA; print the card and its power limit;
@@ -119,8 +120,11 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
   8. ntCard's sizing and the sampled inserts: (a) ntcard_count (K22)
      against its plain version on the bench reads' batches (2^24 bases a
      launch) at rbits 22 and 27 (3 GiB of counters), counters and each
-     seed's F0 equal, timed beside its bound, the plain version and
-     index_add_ on precomputed bank indices; then, every launch count
+     seed's F0 equal, timed beside its bounds (the block-table and the
+     per-care-offset forms), the plain version and index_add_ on
+     precomputed bank indices, and on a homopolymer batch and a batch of
+     short reads (the stale tails), counters equal, timed; then, every
+     launch count
      zeroed just before and read just after, (b) the engine sized by
      ntCard on the gate dataset, each filter: universe, size, silver and
      golden digests against the fixture's "ntcard" key; (c) the
@@ -129,7 +133,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      the consume kernel per recruit; (d) the bench reads' silver pass in
      the throughput cell, compressed filter, sized by ntCard and by the
      closed form: universe, size, occupancy after the fill, ntCard's and
-     the fill's seconds, reads/s, peak memory.  ntcard_count and every
+     the fill's seconds, reads/s, peak memory, and ntCard's pass alone,
+     its wall time split into the read stream and packing, the launches
+     and the F0 histograms.  ntcard_count and every
      kernel of both paths must launch in (b)-(d);
   9. the wavefront consume (K23): (a) wave_adjacency and wave_rounds
      against their plain versions on five windows of 256 reads per filter
@@ -150,7 +156,7 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
-With --ab DIR it runs phase 3 and 9(a) alone, four times, each in a
+With --ab DIR it runs phase 3, 8(a) and 9(a) alone, four times, each in a
 process of its own that imports the port from its tree: DIR (for example
 a `git archive` of the parent commit, whose kernels' entry points may
 differ: only the Python wrappers are called), this checkout, this
@@ -249,12 +255,24 @@ def hash_ops(positions: int, hashes: int, n_care: int) -> int:
 
 
 def ntcard_ops(positions: int, hashes: int, n_care: int) -> int:
-    """ntcard_count's 32-bit integer operations, which map no slot: per
-    position hashed, two XORs of 64-bit values per care offset (4); per
-    hash, the seed's two rotates (4 funnel shifts), two XORs (4) and
-    unsigned min (4) of 64-bit values, and the bank test (4: a shift and a
-    compare of the high word, twice)."""
+    """ntcard_count's 32-bit integer operations in the per-care-offset
+    form, which maps no slot: per position hashed, two XORs of 64-bit
+    values per care offset (4); per hash, the seed's two rotates (4 funnel
+    shifts), two XORs (4) and unsigned min (4) of 64-bit values, and the
+    bank test (4: a shift and a compare of the high word, twice)."""
     return positions * 4 * n_care + hashes * 16
+
+
+def ntcard_block_ops(positions: int, lookups: int, hashes: int,
+                     rotated: int, sampled: int) -> int:
+    """ntcard_count's 32-bit integer operations in the block-table form,
+    its cheapest known: per position, two XORs of 64-bit values per block
+    lookup (4); per hash, the XORs (2) and unsigned min (1) of the two
+    strands' high words and the bank test on the minimum (4), and for the
+    `rotated` hashes of seeds s > 0 the two high words' rotates (2 funnel
+    shifts); per sampled hash, the low words' rotates (2), XORs (2) and the
+    rest of the 64-bit minimum (2)."""
+    return positions * 4 * lookups + hashes * 7 + rotated * 2 + sampled * 6
 
 
 def bench_reads(dev):
@@ -2782,19 +2800,45 @@ def phase_genome() -> dict:
 NTCARD_RBITS = (22, 27)        # the engine's and the reference's
 
 
+def ntcard_edge_batches(fam, reads: list, dev) -> dict:
+    """8(a)'s batches beside the bench reads': the first bench batch's
+    shape with read i all base i % 4 (homopolymer: every lane of a warp
+    reads one table entry), and 4,192,320 bases of short reads cycling
+    through k - 1, k, k + 1, the longest span - 1, it, + 1 (the stale
+    tails), 50, 100, 300 and 1,000 bases (one unit or item each, most of
+    it empty), random from a seed."""
+    import numpy as np
+    from goldrush_tpu_torch.utils import ntcard as nt
+    offsets = reads[0].offsets.cpu().numpy()
+    lens = np.diff(offsets)
+    homo = np.repeat((np.arange(len(lens)) % 4).astype(np.uint8), lens)
+    k, top = fam.k, fam.spans[-1]
+    short = np.tile([k - 1, k, k + 1, top - 1, top, top + 1, 50, 100, 300,
+                     1_000], 2_640)
+    rng = np.random.default_rng(16)
+    codes = rng.integers(0, 4, int(short.sum())).astype(np.uint8)
+    return {"homopolymer": nt.pack_batch(homo, offsets, fam.k, dev),
+            "short": nt.pack_batch(codes, np.concatenate(
+                [[0], np.cumsum(short)]), fam.k, dev)}
+
+
 def ntcard_kernel_check(dev, reads: str) -> dict:
     """8(a): ntcard_count (K22) against its plain version on the card, on
     the bench dataset's batches, at rbits 22 (the engine's: 3 banks of
     2^23 uint32) and 27 (the reference's: 3 banks of 2^28, 3 GiB), sbits
-    7: the counters equal and each seed's F0 too.  The first batch timed
-    beside the plain version and index_add_ of ones into the counters from
-    its sampled hashes' bank indices precomputed (the library call, held
-    to the kernel's counters).  Bound: the hash's integer operations
-    (ntcard_ops over the batch's positions and every seed's own frames) or
-    the codes, offsets and work list in and one 32-byte sector per atomic:
-    one per sampled own frame (a seed's stale tail is one weighted atomic
-    at its last own frame).  Returns the record at rbits 22 with the
-    rbits 27 times beside it."""
+    7: the counters equal and each seed's F0 too; and on a homopolymer
+    batch and a batch of short reads (`ntcard_edge_batches`), each alone,
+    the counters equal.  The first batch timed beside the plain version
+    and index_add_ of ones into the counters from its sampled hashes' bank
+    indices precomputed (the library call, held to the kernel's
+    counters), the other two timed alone.  Bound: the hash's integer
+    operations in the block-table form (ntcard_block_ops, the record's
+    bound_ms) and in the per-care-offset form (ntcard_ops, bound_ms_care)
+    over the batch's positions and every seed's own frames, or the codes,
+    offsets and work list in and one 32-byte sector per atomic: one per
+    sampled own frame (a seed's stale tail is one weighted atomic at its
+    last own frame).  Returns the record at rbits 22 with the rbits 27
+    times beside it."""
     import torch
     from goldrush_tpu_torch.ops.nthash import build_seed_family
     from goldrush_tpu_torch.ops.seeds import make_seed_pattern
@@ -2803,14 +2847,20 @@ def ntcard_kernel_check(dev, reads: str) -> dict:
     sbits = 7
     batches = [nt.pack_batch(c, o, fam.k, dev)
                for c, o in nt.read_batches(reads)]
+    edges = ntcard_edge_batches(fam, batches, dev)
     first = batches[0]
     codes, offsets = first.codes, first.offsets
     lens = offsets[1:] - offsets[:-1]
     frames = torch.clamp(lens - fam.k + 1, min=0)
     positions = int(frames.sum())
-    hashes = sum(int(torch.minimum(frames, torch.clamp(
-        frames - s, min=1)).sum()) for s in range(fam.h))
+    own = [int(torch.minimum(frames, torch.clamp(frames - s, min=1)).sum())
+           for s in range(fam.h)]
+    hashes = sum(own)
     n_care = len(fam.care_left) + len(fam.care_right)
+    # block lookups a position: each half's blocks of 4 positions up to its
+    # last care offset (SeedFamily.block_counts)
+    lookups = sum(-(-(max(c, default=-1) + 1) // 4)
+                  for c in (fam.care_left, fam.care_right))
     out = {}
     for rbits in NTCARD_RBITS:
         zeros = lambda: torch.zeros((fam.h, 2 << rbits),  # noqa: E731
@@ -2827,6 +2877,19 @@ def ntcard_kernel_check(dev, reads: str) -> dict:
         if f0 != f0_plain:
             raise AssertionError(f"ntcard rbits {rbits}: F0 {f0} vs "
                                  f"{f0_plain}")
+        edge = {}
+        for tag, b in edges.items():
+            k.zero_()
+            p.zero_()
+            nt.ntcard_count(k, b, fam, rbits, sbits)
+            nt._ntcard_count_plain(p, b.codes, b.offsets, fam, rbits, sbits)
+            e = max_abs_err([(k, p)])
+            err = max(err, e)
+            edge[tag] = cuda_ms(lambda: nt.ntcard_count(k, b, fam, rbits,
+                                                        sbits), 10)
+            say("ntcard", part="a", rbits=rbits, batch=tag,
+                bases=b.codes.numel(), reads=b.offsets.numel() - 1,
+                counted=int(p.sum()), max_abs_err=e, ms=f"{edge[tag]:.4f}")
         del p
         # the first batch's sampled counters, one per frame (the stale tail
         # repeated), as the plain version computes them; the kernel's
@@ -2836,9 +2899,9 @@ def ntcard_kernel_check(dev, reads: str) -> dict:
             i = nt.bank_index(hs[valid], rbits, sbits)
             idx.append(s * (2 << rbits) + i[i < 2 << rbits])
             pos = torch.arange(hs.numel() // lens.numel(), device=dev)
-            own = valid & (pos[None, :] < torch.clamp(
+            owned = valid & (pos[None, :] < torch.clamp(
                 lens - fam.spans[s] + 1, min=1)[:, None]).reshape(-1)
-            atomics += int((nt.bank_index(hs[own], rbits, sbits)
+            atomics += int((nt.bank_index(hs[owned], rbits, sbits)
                             < 2 << rbits).sum())
         idx = torch.cat(idx)
         ones = torch.ones(idx.shape, dtype=torch.int32, device=dev)
@@ -2852,9 +2915,13 @@ def ntcard_kernel_check(dev, reads: str) -> dict:
             lib, codes, offsets, fam, rbits, sbits), 2)
         lib_ms = cuda_ms(lambda: lib.view(-1).index_add_(0, idx, ones), 10)
         sampled = idx.numel()
-        rec = checked(err, ms, pms, codes.numel() + offsets.numel() * 8
-                      + first.item_read.numel() * 12 + atomics * 32,
-                      ntcard_ops(positions, hashes, n_care))
+        nbytes = (codes.numel() + offsets.numel() * 8
+                  + first.item_read.numel() * 12 + atomics * 32)
+        rec = checked(err, ms, pms, nbytes, ntcard_block_ops(
+            positions, lookups, hashes, hashes - own[0], atomics),
+            ms_homopolymer=edge["homopolymer"], ms_short=edge["short"])
+        rec["bound_ms_care"] = checked(err, ms, pms, nbytes, ntcard_ops(
+            positions, hashes, n_care))["bound_ms"]
         rec["library_ms"] = lib_ms
         say("ntcard", part="a", rbits=rbits, batches=len(batches),
             batch_bases=codes.numel(), positions=positions, hashes=hashes,
@@ -2862,7 +2929,8 @@ def ntcard_kernel_check(dev, reads: str) -> dict:
             max_abs_err=err,
             f0=",".join(str(int(x)) for x in f0), ms=f"{ms:.4f}",
             plain_ms=f"{pms:.4f}", library_ms=f"{lib_ms:.4f}",
-            bound_ms=f"{rec['bound_ms']:.4f}", bound_by=rec["bound_by"])
+            bound_ms=f"{rec['bound_ms']:.4f}", bound_by=rec["bound_by"],
+            bound_ms_care=f"{rec['bound_ms_care']:.4f}")
         if err or sampled == 0:
             raise AssertionError(f"ntcard rbits {rbits}: max_abs_err {err}, "
                                  f"{sampled} sampled")
@@ -2873,7 +2941,8 @@ def ntcard_kernel_check(dev, reads: str) -> dict:
         else:
             out["max_abs_err"] = max(out["max_abs_err"], err)
             out.update({f"{key}_r{rbits}": rec[key] for key in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                "ms", "ms_homopolymer", "ms_short", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "bound_ms_care")})
     return out
 
 
@@ -2934,11 +3003,15 @@ def ntcard_bench(reads: str) -> None:
     compressed filter, sized by ntCard and then by the closed form (G):
     the estimate, size, superblocks, the occupancy after the fill, the
     ntCard pass's wall time, the fill's, assign reads/s and peak device
-    memory."""
+    memory; then ntCard's pass again alone (estimate_genome_size, as the
+    engine calls it), its wall time split into the host's read stream and
+    packing, the launches' device time and the F0 histograms, its
+    estimate equal to the engine's."""
     import torch
     from goldrush_tpu_torch.config import PathConfig
     from goldrush_tpu_torch.mibf import compressed as cz
     from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    from goldrush_tpu_torch.utils import ntcard as nt
     for sizing, extra in (("ntcard", {"ntcard": True}), ("closed_form", {})):
         gc_cuda()
         torch.cuda.reset_peak_memory_stats()
@@ -2959,6 +3032,23 @@ def ntcard_bench(reads: str) -> None:
             device_peak_bytes=st.device_peak_bytes)
         if st.recruits <= 0 or (sizing == "ntcard") != (st.wall_ntcard_s > 0):
             raise AssertionError(f"ntcard bench {sizing}: {st}")
+        if sizing == "ntcard":
+            times = {}
+            t0 = time.perf_counter()
+            universe = nt.estimate_genome_size(
+                reads, eng.seeds, nt.NtCardParams(rbits=22, sbits=7),
+                device="cuda", times=times)
+            wall = time.perf_counter() - t0
+            say("ntcard", part="d", split="estimate_genome_size",
+                universe=universe, wall_s=f"{wall:.3f}",
+                read_pack_s=f"{times['read_s']:.3f}",
+                batches=times["batches"],
+                launches_device_ms=f"{times['count_ms']:.4f}",
+                f0_histogram_s=f"{times['f0_s']:.3f}",
+                other_s=f"{wall - times['read_s'] - times['f0_s']:.3f}")
+            if universe != eng.universe:
+                raise AssertionError(f"ntcard split: {universe} vs "
+                                     f"{eng.universe}")
         del eng
 
 
@@ -2997,27 +3087,29 @@ WAVE = dict(wavefront=True, wave_window=256)
 
 
 def wave_round_bytes(counts: dict, rows, n_tiles, grids, T: int, table,
-                     side, compressed: bool) -> int:
+                     side, compressed: bool, word: int = 32) -> int:
     """The bytes of a window's rounds, from its counters and final rows:
-    per classified read its query grid row, frame_ok and two 4-byte words
+    per classified read its query grid row, frame_ok and two table words
     (both tables) per entry, and its row; per rechecked read the same over
     the insert grid; per committed read (a final decision above 0) its
-    tiles of the insert grid and two 4-byte atomics per entry; per
-    rotation the id table read and written (the direct words keep PRESENT)
-    and the side table written; the adjacency read once."""
+    tiles of the insert grid and two atomics per entry; per rotation the
+    id table read and written (the direct words keep PRESENT) and the side
+    table written; the adjacency read once.  A table word or an atomic is
+    a random address: `word` bytes each, 32 for the card's sector, 4 for
+    the word alone."""
     import torch
     grid, grid_ins = grids
     B, Hq, TFq = grid.shape
     _, Hi, TFi = grid_ins.shape
 
     def per_probe(H, TF):
-        return H * TF * 8 + TF + 2 * 4 * H * TF + 64
+        return H * TF * 8 + TF + 2 * word * H * TF + 64
     nbytes = (counts["classified"] * per_probe(Hq, TFq)
               + counts["rechecked"] * per_probe(Hi, TFi))
     dec, ts, te = rows[:, 0], rows[:, 1], rows[:, 2]
     tiles = torch.where(dec == 1, n_tiles.long(),
                         torch.where(dec == 2, te - ts + 1, 0))
-    nbytes += int(tiles.sum()) * Hi * (TFi // T) * 16
+    nbytes += int(tiles.sum()) * Hi * (TFi // T) * (8 + 2 * word)
     nbytes += counts["rotations"] * (table.numel() * 4 * (1 if compressed
                                                            else 2)
                                      + side.numel() * 4)
@@ -3186,17 +3278,19 @@ def wave_kernel_check(dev) -> dict:
             err_r = max(err_r, max_abs_err(zip(list(filt) + [side, scal],
                                                after)))
             counts = dict(zip(wave.WAVE_COUNTS, cp.tolist()))
-            nbytes = wave_round_bytes(counts, rows_p.cpu(), nt.cpu(),
-                                      (grid, gi), T, table, side,
-                                      mode == "compressed")
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            bound, bound_words = (wave_round_bytes(
+                counts, rows_p.cpu(), nt.cpu(), (grid, gi), T, table, side,
+                mode == "compressed", word) / HBM_BYTES_PER_S * 1e3
+                for word in (32, 4))
             rnd_rec.update({f"ms_{tag}": ms, f"plain_ms_{tag}": pms,
                             f"bound_ms_{tag}": bound,
+                            f"bound_ms_words_{tag}": bound_words,
                             f"rounds_{tag}": counts["rounds"]})
             say("wave", part="a", kernel="wave_rounds", filter=mode,
                 window=name, launches=launched, max_abs_err=e,
                 scal=scal.tolist(), **counts, ms=f"{ms:.4f}",
-                plain_ms=f"{pms:.1f}", bound_ms=f"{bound:.5f}")
+                plain_ms=f"{pms:.1f}", bound_ms=f"{bound:.5f}",
+                bound_ms_words=f"{bound_words:.5f}")
             if e or launched != 1 or counts["faults"]:
                 raise AssertionError(f"wave_rounds {tag}: max_abs_err {e}, "
                                      f"{launched} launches, {counts}")
@@ -3217,6 +3311,8 @@ def wave_kernel_check(dev) -> dict:
             max_abs_err=err, ms=mean("ms"), plain_ms=mean("plain_ms"),
             bound_ms=mean("bound_ms"),
             bound_by=(rec.get(f"bound_by_{tags[0]}") or "bytes"),
+            **({"bound_ms_words": mean("bound_ms_words")}
+               if kname == "wave_rounds" else {}),
             library_ms=mean("library_ms") if kname == "wave_adjacency"
             else None, **rec)
     return out
@@ -3352,11 +3448,23 @@ def phase_wave() -> tuple[dict, dict]:
     return launches, recs
 
 
+def bench_fastq() -> str:
+    """smoke_work/bench_reads.fq, the bench reads (`BENCH`), written once
+    for the runs of --ab that share it."""
+    path = os.path.join(WORK, "bench_reads.fq")
+    if not os.path.exists(path):
+        os.makedirs(WORK, exist_ok=True)
+        make_reads(path + ".tmp", **BENCH)
+        os.replace(path + ".tmp", path)
+    return path
+
+
 def phase_ab(earlier: str) -> None:
-    """Phase 3 and 9(a) of the tree `earlier` and of this checkout in turns
-    (earlier, this, this, earlier), each in a process of its own; prints
-    every time (each record key starting with "ms") that both trees
+    """Phase 3, 8(a) and 9(a) of the tree `earlier` and of this checkout in
+    turns (earlier, this, this, earlier), each in a process of its own;
+    prints every time (each record key starting with "ms") that both trees
     measured, from the four runs side by side."""
+    bench_fastq()
     runs = []
     for tree in (earlier, REPO, REPO, earlier):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -3398,7 +3506,9 @@ def main(argv: list[str]) -> int:
             raise SystemExit("chip_smoke: torch.cuda is not available")
         phase_build()
         out = phase_kernels()
-        out.update(wave_kernel_check(torch.device("cuda", 0)))
+        dev = torch.device("cuda", 0)
+        out.update(wave_kernel_check(dev))
+        out["ntcard_count"] = ntcard_kernel_check(dev, bench_fastq())
         print(json.dumps(out))
         return 0
     from goldrush_tpu_torch import kernels

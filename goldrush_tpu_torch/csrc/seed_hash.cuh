@@ -1,5 +1,4 @@
-// Kernel A's spaced-seed ntHash, shared by the kernels that hash reads:
-// kernel A (seed_hash.cu) and ntCard's counter kernel (ntcard.cu).
+// Kernel A's spaced-seed ntHash (seed_hash.cu).
 //
 // A CTA stages the codes window it needs in shared memory, with the seed
 // family's per-base constants, rotations already applied, and its care

@@ -75,8 +75,8 @@ _SIGNATURES = {
                    _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P, _P, _P, _P,
                    _P, _P, _P, _P, _P, _P),
     "gr_recheck_zone": (_P, _I, _I, _I, _I, _P),
-    "gr_ntcard_count": (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P),
+    "gr_ntcard_count": (_P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I,
+                        _P),
     "gr_wave_adjacency": (_P, _I, _I, _I, _I, _I, _I, _P, _L, _P, _I, _I,
                           _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P,
                           _P, _P, _P, _P),

@@ -48,6 +48,8 @@ NT_TAB = np.array(
 NT_TABC = NT_TAB[::-1].copy()
 
 _SIGN = -(1 << 63)
+# positions of a block table (SeedFamily.block_table): 4 codes, 256 entries
+BLOCK = 4
 
 
 def _rol64_np(x: np.ndarray, r: int) -> np.ndarray:
@@ -102,6 +104,38 @@ class SeedFamily:
         pairs = np.stack([np.stack(t, axis=1) for t in table]).reshape(-1)
         care = np.array(self.care_left + self.care_right, dtype=np.uint64)
         return np.concatenate([care, pairs])
+
+    def block_counts(self) -> tuple[int, int]:
+        """Blocks of BLOCK positions that the left and the right half's
+        windows span, up to each half's last care offset."""
+        return tuple(-(-(max(care, default=-1) + 1) // BLOCK)
+                     for care in (self.care_left, self.care_right))
+
+    def block_table(self, nb: int) -> np.ndarray:
+        """uint64 [2 * nb * 256 * 2] read by ntCard's counter kernel: each
+        half's window (the left half's from the seed's start, the right
+        half's from ``half``) cut into nb blocks of BLOCK positions, the
+        left half's first.  Entry x of block b, x holding the codes of the
+        window's positions 4b .. 4b + 3 two bits each (position 4b + t at
+        bits 2t), is the XOR of the (forward, reverse) constants of
+        ``kernel_table`` of the care offsets in the block, with their codes
+        from x: a half's partials (module docstring) are the XOR of its
+        blocks' entries.  Positions without a care offset add nothing, so
+        blocks past a half's last care offset are all zero."""
+        if nb < max(self.block_counts()):
+            raise ValueError(f"{nb} blocks a half; the family spans "
+                             f"{self.block_counts()}")
+        k, half = self.k, self.half
+        x = np.arange(4 ** BLOCK)
+        out = np.zeros((2, nb, 4 ** BLOCK, 2), dtype=np.uint64)
+        rots = ([(j, (k - 1 - j, j)) for j in self.care_left],
+                [(c, (k - 1 - half - c, half + c)) for c in self.care_right])
+        for side, rows in enumerate(rots):
+            for j, (rf, rr) in rows:
+                code = (x >> (2 * (j % BLOCK))) & 3
+                out[side, j // BLOCK, :, 0] ^= _rol64_np(NT_TAB, rf)[code]
+                out[side, j // BLOCK, :, 1] ^= _rol64_np(NT_TABC, rr)[code]
+        return out.reshape(-1)
 
 
 def build_seed_family(seeds: list[str]) -> SeedFamily:

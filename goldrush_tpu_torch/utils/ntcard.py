@@ -28,6 +28,7 @@ counters are exactly the two banks the estimate reads (ROADMAP queue 3).
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -38,8 +39,16 @@ from .. import kernels
 from ..io import fastq
 from ..ops.nthash import SeedFamily, build_seed_family, hash_positions
 
-# positions per CTA of the kernel (csrc/ntcard.cu kChunk)
+# positions per work item of the kernel: two warp units (csrc/ntcard.cu
+# kNtUnit)
 CHUNK = 1024
+# the kernel's block tables a half (csrc/ntcard.cu gr_ntcard_count): the
+# least of these that holds the family's
+KERNEL_BLOCKS = (3, 4, 8)
+# the kernel's family limits: seeds a family, positions of the left half
+# (the right half's window starts there) and bits of sbits (its bank test
+# reads the hash's high word)
+KERNEL_MAX_H, KERNEL_MAX_HALF, KERNEL_MAX_SBITS = 8, 32, 31
 # bases per launch: a batch closes once its reads hold this many
 BATCH_BASES = 1 << 24
 # the histogram's bins: counters at or above CMAX - 1 share the last
@@ -140,14 +149,53 @@ def _ntcard_count_cuda(counters, batch, fam, rbits, sbits):
     kernels.check(offsets, "offsets", torch.int64, device=dev)
     kernels.check(read, "item_read", torch.int32, (n,), dev)
     kernels.check(p0, "item_p0", torch.int64, (n,), dev)
+    table, nb = _block_args(fam, sbits, dev)
+    kernels.NTCARD_COUNT(dev, kernels.ptr(codes), codes.numel(),
+                         kernels.ptr(offsets),
+                         kernels.ptr(read), kernels.ptr(p0), n,
+                         kernels.ptr(table), nb, fam.h, fam.k, fam.half,
+                         rbits, sbits, kernels.ptr(counters))
+    return counters
+
+
+def kernel_blocks(fam: SeedFamily, sbits: int) -> int:
+    """The kernel's block tables a half for ``fam``; ValueError for a
+    family or an sbits that the kernel does not take (the plain version
+    takes any): seed s must span k + s, h <= 8, the left half <= 32
+    positions, the right half's last care offset < 32 (so k <= 64) and
+    sbits <= 31."""
     if any(sp != fam.k + s for s, sp in enumerate(fam.spans)):
         raise ValueError("seed s of the family must span k + s")
-    from ..mibf.mibf import _family_args
-    kernels.NTCARD_COUNT(dev, kernels.ptr(codes), kernels.ptr(offsets),
-                         kernels.ptr(read), kernels.ptr(p0), n,
-                         *_family_args(fam, dev), rbits, sbits,
-                         kernels.ptr(counters))
-    return counters
+    if fam.h > KERNEL_MAX_H or fam.half > KERNEL_MAX_HALF:
+        raise ValueError(f"ntcard_count takes h <= {KERNEL_MAX_H} and a "
+                         f"left half of <= {KERNEL_MAX_HALF} positions, not "
+                         f"h={fam.h}, half={fam.half}")
+    if not 1 <= sbits <= KERNEL_MAX_SBITS:
+        raise ValueError(f"ntcard_count takes sbits in [1, "
+                         f"{KERNEL_MAX_SBITS}], not {sbits}")
+    need = max(fam.block_counts())
+    for nb in KERNEL_BLOCKS:
+        if need <= nb:
+            return nb
+    raise ValueError(f"ntcard_count takes halves of <= {max(KERNEL_BLOCKS)} "
+                     f"blocks of 4 positions, not {fam.block_counts()}")
+
+
+# the kernel's block tables of each seed family, on each device it was used
+# on
+_BLOCK_TABLES: dict = {}
+
+
+def _block_args(fam: SeedFamily, sbits: int, device) -> tuple:
+    """(the family's ``block_table`` on ``device``, copied there once per
+    family and device, and its blocks a half)."""
+    nb = kernel_blocks(fam, sbits)
+    table = _BLOCK_TABLES.get((fam, device))
+    if table is None:
+        table = torch.from_numpy(fam.block_table(nb).view(np.int64)).to(
+            device)
+        _BLOCK_TABLES[(fam, device)] = table
+    return table, nb
 
 
 def _ntcard_count_plain(counters, codes, offsets, fam, rbits, sbits):
@@ -249,21 +297,41 @@ def read_batches(input_path: str, block_records: int = 64):
 
 def estimate_genome_size(input_path: str, seeds: list[str],
                          p: NtCardParams | None = None,
-                         device="cuda") -> int:
+                         device="cuda", times: dict | None = None) -> int:
     """calc_ntcard_genome_size equivalent: the sum of the per-seed F0
     estimates over every record of ``input_path``, counted on ``device``
-    (goldrush_tpu/utils/ntcard.py:82-121)."""
+    (goldrush_tpu/utils/ntcard.py:82-121).  ``times``, where given,
+    receives the pass's split: ``read_s``, the host's read stream and
+    packing (``pack_batch`` with its uploads); ``batches``; ``count_ms``,
+    the counts' device time on the card (CUDA events around each launch);
+    and ``f0_s``, the histograms and the estimate."""
     from ..path.engine import resolve_device
     p = p or NtCardParams()
     dev = resolve_device(device)
     fam = build_seed_family(seeds)
     counters = torch.zeros((fam.h, 2 << p.rbits), dtype=torch.int32,
                            device=dev)
+    events, read_s, n = [], 0.0, 0
+    t0 = time.perf_counter()
     for codes, offsets in read_batches(input_path, p.batch):
-        ntcard_count(counters, pack_batch(codes, offsets, fam.k, dev), fam,
-                     p.rbits, p.sbits)
+        batch = pack_batch(codes, offsets, fam.k, dev)
+        read_s += time.perf_counter() - t0
+        n += 1
+        if times is not None and dev.type == "cuda":
+            events.append([torch.cuda.Event(enable_timing=True)
+                           for _ in range(2)])
+            events[-1][0].record()
+        ntcard_count(counters, batch, fam, p.rbits, p.sbits)
+        if events:
+            events[-1][1].record()
+        t0 = time.perf_counter()
+    t0 = time.perf_counter()
     total = 0
     for s in range(fam.h):
         f0, _ = _estimate_f0(counters[s], p.rbits, p.sbits, p.cov_max)
         total += int(f0)
+    if times is not None:
+        times.update(read_s=read_s, batches=n,
+                     count_ms=sum(a.elapsed_time(b) for a, b in events),
+                     f0_s=time.perf_counter() - t0)
     return total

@@ -725,6 +725,37 @@ def test_ntcard_count_matches_plain(cuda, rbits, sbits):
     assert kernels.NTCARD_COUNT.launches == before + 2
 
 
+@pytest.mark.parametrize("case", ["homopolymer", "short", "long"])
+def test_ntcard_count_edge_batches(cuda, case):
+    """ntcard_count against its plain version at sbits 7 and 3: a
+    homopolymer batch (read i all base i % 4: every lane of a warp reads
+    one table entry, and a sampled k-mer's frames all add to one counter),
+    reads shorter than k, of k and up to the longest span (the stale
+    tails), and one read of 40 work items beside short ones."""
+    from goldrush_tpu_torch.utils import ntcard as tnt
+    rng = np.random.default_rng(16)
+    k, top = FAM.k, FAM.spans[-1]
+    lens = {"homopolymer": [20_000] * 8 + [3_000] * 4,
+            "short": [k - 1, k, k + 1, top - 1, top, top + 1, 5, 0] * 3,
+            "long": [40 * tnt.CHUNK + k + 16, 100, k, 3_000]}[case]
+    parts = [rng.integers(0, 4, n).astype(np.uint8) for n in lens]
+    if case == "homopolymer":
+        parts = [np.full(n, i % 4, np.uint8) for i, n in enumerate(lens)]
+    codes, offsets = np.concatenate(parts), np.concatenate(
+        [[0], np.cumsum(lens)])
+    for sbits in (7, 3):
+        k_ = torch.zeros((3, 2 << 14), dtype=torch.int32, device=cuda)
+        p = torch.zeros((3, 2 << 14), dtype=torch.int32)
+        before = kernels.NTCARD_COUNT.launches
+        tnt.ntcard_count(k_, tnt.pack_batch(codes, offsets, FAM.k, cuda),
+                         FAM, 14, sbits)
+        tnt.ntcard_count(p, tnt.pack_batch(codes, offsets, FAM.k, "cpu"),
+                         FAM, 14, sbits)
+        assert torch.equal(k_.cpu(), p)
+        assert kernels.NTCARD_COUNT.launches == before + 1
+    assert int(p.sum()) > 0
+
+
 def test_engine_with_ntcard_and_sampled_inserts_on_card_matches_cpu(
         cuda, tmp_path):
     """The engine sized by ntCard, inserting every 2nd frame of two seeds
