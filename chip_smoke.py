@@ -152,7 +152,32 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      recruit-set Jaccard against phase 4's sequential pass (printed, not
      gated), peak memory; the two kernels once per window, the consume
      kernel and the batched B and C never; (c) the fixture's
-     "wavefront" digests of the gate dataset, both filters.
+     "wavefront" digests of the gate dataset, both filters;
+ 10. the mesh (parallel/mesh.py: a (data, model) mesh of devices in one
+     process, the filter replicated over data rows and banked by index
+     range over a row's devices): (a) with 1, 2 and 4 banks on cuda:0, on
+     the first bench batch of a filter filled from the bench reads, the
+     consume kernel (exact, direct filter; throughput cell, compressed)
+     against consume_batch_plain on the unbanked filter (rows, scal,
+     counters, the gathered filter), probe_vote, the standalone
+     insert_sorted and insert_max and the per-bank presence_merge
+     against their plain versions, each bit for bit, with consume's and
+     probe_vote's times at each bank count beside the batch's bound (the
+     records' banked_err, banked_ms_m1/m2/m4); then, every launch count
+     zeroed just before and read just after, (b) the engine on
+     device=["cuda:0"] * 4: data-parallel 4x1 exact direct, banked 2x2
+     exact and throughput with each filter, on the bench reads (exact:
+     silver and golden through the pipeline as phase 4 runs them;
+     throughput: the silver pass): every file's sha256 equal to the
+     single-card run's of phase 4, every row's replica equal, the
+     consume kernel, B and C d times a batch (d data rows), assign
+     reads/s beside the single card's; and on the gate dataset each
+     run's digests against the fixture and its gathered filter against
+     a single-card run's; (c) where the host has two cards or more, the
+     banks across real cards (1x2, and 2x2 with four): peer access and
+     native atomics printed, (a)'s checks and the gate digests; on one
+     card it prints "10(c) not run: 1 card".  `mesh_phase()` runs phase
+     10 alone from a driver that sets WORK.
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -192,6 +217,9 @@ BENCH_ENGINE = dict(genome_size=5_000_000, kmer_size=22, weight=16,
                     max_paths=5, min_length=20_000)
 THROUGHPUT = dict(frame_stride=8, probe_seeds=1, recheck="optimistic",
                   batch_reads=64)
+# the single-card runs' assign reads/s, keyed (cell, filter, stage), from
+# phase 4 (or from phase 10 when it runs alone), printed beside the mesh's
+RATES: dict = {}
 
 
 def say(phase: str, **kv) -> None:
@@ -2023,6 +2051,7 @@ def drive_filter(reads: str, calls: dict, mode: str, per_filter: dict,
     peak = torch.cuda.max_memory_allocated()
     for (stage, st), counts in zip(out["stats"].items(), passes[n_pass:]):
         rate = st.num_reads / max(st.wall_assign_s, 1e-9)
+        RATES[("exact", mode, stage)] = rate
         say("e2e", filter=mode, stage=stage,
             fill_s=f"{st.wall_fill_s:.3f}",
             assign_s=f"{st.wall_assign_s:.3f}",
@@ -2090,6 +2119,8 @@ def phase_throughput() -> dict:
             got = {k.name: k.launches - before[k.name]
                    for k in kernels.PATH}
             c = eng.consume_counts
+            RATES[("throughput", mode, "silver")] = \
+                st.num_reads / max(st.wall_assign_s, 1e-9)
             say("throughput", filter=mode, fill_s=f"{st.wall_fill_s:.3f}",
                 assign_s=f"{st.wall_assign_s:.3f}",
                 submit_s=f"{st.wall_submit_s:.3f}",
@@ -3448,6 +3479,479 @@ def phase_wave() -> tuple[dict, dict]:
     return launches, recs
 
 
+# --------------------------------------------------------------- phase 10
+
+# 10(a)'s bank counts, all banks on the lead card
+MESH_BANKS = (1, 2, 4)
+# 10(b)'s runs on ["cuda:0"] * 4: (tag, devices, model_shards, cell,
+# filter)
+MESH_RUNS = (("dp4x1", 4, 1, "exact", "direct"),
+             ("banked2x2", 4, 2, "exact", "direct"),
+             ("banked2x2", 4, 2, "exact", "compressed"),
+             ("banked2x2", 4, 2, "throughput", "direct"),
+             ("banked2x2", 4, 2, "throughput", "compressed"))
+
+
+def banked_copy(filt, devices):
+    """A copy of the filter `filt` placed on a mesh row of `devices`, its
+    per-slot (or per-rank) tables banked over them (one tensor when there
+    is one): the engine's `shard_state`."""
+    from goldrush_tpu_torch.parallel import mesh as tmesh
+    return tmesh.shard_state(filt, tmesh.Mesh((tuple(devices),)), True)[0]
+
+
+def filter_err(a, b) -> int:
+    """max_abs_err of two filters' tables, banks gathered."""
+    from goldrush_tpu_torch.mibf import mibf as dm
+    pairs = [(dm.whole(x), dm.whole(y)) for x, y in zip(a, b)]
+    return max_abs_err((x, y.to(x.device)) for x, y in pairs)
+
+
+def mesh_kernel_check(layouts: dict, tag: str) -> dict:
+    """10(a): the kernels that read or write the filter, on a banked
+    filter, against their plain versions on the unbanked one, bit for bit,
+    on the first bench batch (bench.py's engine, 3,000 x 20 kb reads of 5
+    Mbp at 5% error, T = 20) of a filter filled from the bench reads, for
+    each bank layout of `layouts` (banks -> the banks' devices, the first
+    the lead): the consume kernel in exact mode with the direct filter
+    (B = 32) and in the throughput cell with the compressed one (B = 64),
+    rows, scal, counters and the gathered filter; probe_vote in both
+    filters; the standalone insert_sorted and insert_max of the batch's
+    first read (every tile), in both filters; the per-bank presence_merge
+    of the direct filter against its unbanked merge.  Times: consume's
+    launch (median of 5, the filter copied afresh before each, outside the
+    timed span) and probe_vote's (cuda_ms) at each layout, beside the
+    consume batch's bound, which banks do not change (the same bytes).
+    Returns {kernel: {"banked_err": e, ...}} with `tag` in each time's
+    key."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.mibf import compressed as cz
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.path import consume as tcons
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine
+    lead = next(iter(layouts.values()))[0]
+    _, reads = bench_reads(lead)
+    out = {k: {"banked_err": 0} for k in ("consume", "probe_vote",
+                                          "insert_sorted", "insert_max",
+                                          "presence_merge")}
+
+    def err_of(name, e):
+        out[name]["banked_err"] = max(out[name]["banked_err"], e)
+        return e
+    T, L = 20, BENCH["read_len"]
+    for cell, mode, extra in (("exact", "direct", {}),
+                              ("throughput", "compressed", THROUGHPUT)):
+        sfx = "" if cell == "exact" else "_throughput"
+        te = GoldenPathEngine(PathConfig(
+            **{**BENCH_ENGINE, "max_paths": 2, "ratio": 0.02},
+            mibf_mode=mode, **extra), device=lead)
+        bits = dm.presence_bitmap(te.size, lead)
+        for c, n in fill_pass_batches(lead, reads):
+            dm.fill_presence_bits(bits, c, n, te.fam_ins, te.size,
+                                  te.cfg.slot_map)
+        if mode == "direct":
+            dm.merge_presence(te.state.words, bits, te.size,
+                              first_write=True)
+            for m, devs in layouts.items():
+                words = dm.new_banks(te.params.alloc, devs, torch.empty)
+                before = kernels.PRESENCE_MERGE.launches
+                dm.merge_presence_banks(words, bits, te.size)
+                launched = kernels.PRESENCE_MERGE.launches - before
+                e = err_of("presence_merge", max_abs_err(
+                    [(dm.whole(words).to(lead), te.state.words)]))
+                say("mesh", part="10a", layout=tag, kernel="presence_merge",
+                    banks=m, launches=launched, max_abs_err=e)
+                if launched != m:
+                    raise AssertionError(f"presence_merge launched "
+                                         f"{launched} times for {m} banks")
+        else:
+            te.cstate = cz.with_tables(*cz.build_rank(bits, te.size),
+                                       te.size)
+        del bits
+        filt = te.cstate if mode == "compressed" else te.state
+        table, counts, ranked, limit, or_bits = tcons._filter_view(
+            filt, te.size)
+        B = te.batch_reads
+        codes = np.zeros((B, (T + 1) * te.cfg.tile_length), np.uint8)
+        codes[:, :L] = reads[:B].cpu().numpy()
+        inputs = te._batch_inputs(codes, np.full(B, L, np.int32),
+                                  np.full(B, L, np.int64), T)
+        grid, ok, grid_ins = inputs[0], inputs[1], inputs[2]
+        # the plain versions on the unbanked filter, each timed once
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want_vote = dm._probe_and_vote_plain(table, grid, ok, te.params, T,
+                                             ranked)
+        torch.cuda.synchronize()
+        out["probe_vote"][f"banked_plain_ms_{mode}"] = \
+            (time.time() - t0) * 1e3
+        ins_p = type(filt)(*(t.clone() for t in filt))
+        tp_, cp_, _, _, _ = tcons._filter_view(ins_p, te.size)
+        dm._insert_plain(tp_, cp_, grid_ins[0], 0, T - 1, 1, False,
+                         te.params_ins, T, limit, or_bits)
+        max_p = type(filt)(*(t.clone() for t in filt))
+        dm._insert_max_plain(tcons._filter_view(max_p, te.size)[0],
+                             grid_ins[0], 0, T - 1, 1, False,
+                             te.params.block_size, T, limit, or_bits)
+        plain = type(filt)(*(t.clone() for t in filt))
+        scal_p = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=lead)
+        rows_p = torch.empty((B, 8), dtype=torch.int64, device=lead)
+        cnt_p = tcons.new_counters(lead)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tcons.consume_batch_plain(te.spec, plain, *inputs, scal_p, rows_p,
+                                  cnt_p, T)
+        torch.cuda.synchronize()
+        out["consume"][f"banked_plain_ms{sfx}"] = (time.time() - t0) * 1e3
+        log_filt = type(filt)(*(t.clone() for t in filt))
+        with plain_steps(te.spec, grid, grid_ins, limit) as log:
+            tcons.consume_batch_plain(
+                te.spec, log_filt, *inputs,
+                torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=lead),
+                torch.empty_like(rows_p), tcons.new_counters(lead), T)
+        del log_filt
+        bound = consume_bytes(te, inputs, log, filt, T) / HBM_BYTES_PER_S \
+            * 1e3
+        out["consume"][f"banked_bound_ms{sfx}"] = bound
+        for m, devs in layouts.items():
+            bk = banked_copy(filt, devs)
+            btab = tcons._filter_view(bk, te.size)[0]
+            got = dm.probe_and_vote(btab, grid, ok, te.params, T, ranked)
+            e = err_of("probe_vote", max_abs_err(zip(got, want_vote)))
+            vms = cuda_ms(lambda: dm.probe_and_vote(btab, grid, ok,
+                                                    te.params, T, ranked),
+                          10)
+            out["probe_vote"][f"banked_ms_{tag}{m}_{mode}"] = vms
+            # the inserts alone, on fresh banked copies
+            bi = banked_copy(filt, devs)
+            bt, bc, _, _, _ = tcons._filter_view(bi, te.size)
+            dm.insert_blocks(bt, bc, grid_ins[0], 0, T - 1, 1, False,
+                             te.params_ins, T, limit, or_bits)
+            e_ins = err_of("insert_sorted", filter_err(bi, ins_p))
+            bm = banked_copy(filt, devs)
+            dm.insert_max(tcons._filter_view(bm, te.size)[0], grid_ins[0],
+                          0, T - 1, 1, False, te.params_ins, T, limit,
+                          or_bits)
+            e_max = err_of("insert_max", filter_err(bm, max_p))
+            del bi, bm
+            # the consume batch, then its launch timed on fresh copies
+            times, e_c = [], 0
+            for rep in range(6):
+                bk = banked_copy(filt, devs)
+                scal = torch.tensor([0, 0, 1, 0], dtype=torch.int64,
+                                    device=lead)
+                rows = torch.empty((B, 8), dtype=torch.int64, device=lead)
+                ck = tcons.new_counters(lead)
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                torch.cuda._sleep(1_000_000)
+                before = kernels.CONSUME.launches
+                start.record()
+                tcons.consume_batch(te.spec, bk, *inputs, scal, rows, ck, T,
+                                    row=devs)
+                stop.record()
+                torch.cuda.synchronize()
+                if kernels.CONSUME.launches - before != 1:
+                    raise AssertionError("consume did not launch once")
+                if rep:
+                    times.append(start.elapsed_time(stop))
+                e_c = max(e_c, max_abs_err([(rows, rows_p), (scal, scal_p),
+                                            (ck, cnt_p)]),
+                          filter_err(bk, plain))
+                del bk
+            err_of("consume", e_c)
+            cms = sorted(times)[len(times) // 2]
+            out["consume"][f"banked_ms_{tag}{m}{sfx}"] = cms
+            say("mesh", part="10a", layout=tag, cell=cell, filter=mode,
+                banks=m, devices=",".join(map(str, devs)),
+                probe_vote_err=e, probe_vote_ms=f"{vms:.4f}",
+                insert_sorted_err=e_ins, insert_max_err=e_max,
+                consume_err=e_c, consume_ms=f"{cms:.4f}",
+                consume_bound_ms=f"{bound:.5f}",
+                counters=cnt_p.tolist(), scal=scal_p.tolist())
+        del te, filt, plain, ins_p, max_p
+        torch.cuda.empty_cache()
+    bad = {k: r["banked_err"] for k, r in out.items() if r["banked_err"]}
+    if bad:
+        raise AssertionError(f"10(a) {tag}: banked kernels differ from "
+                             f"their plain versions: {bad}")
+    return out
+
+
+def mesh_engine_class(devices: list, model: int, engines: list):
+    """A factory standing for GoldenPathEngine in pipeline.py: each engine
+    it makes runs on the mesh of `devices` with `model` banks, and is
+    appended to `engines`."""
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine
+
+    def make(pc, device):
+        pc.devices, pc.model_shards = len(devices), model
+        eng = GoldenPathEngine(pc, device=devices)
+        engines.append(eng)
+        return eng
+    return make
+
+
+def replicas_equal(eng) -> None:
+    """Every data row's filter equals row 0's, banks gathered."""
+    for r, rep in enumerate(eng.replicas[1:], 1):
+        e = filter_err(eng.replicas[0], rep)
+        if e:
+            raise AssertionError(f"mesh: row {r}'s replica differs from "
+                                 f"row 0's by {e}")
+
+
+def mesh_bench_run(tag: str, devices, model: int, cell: str,
+                   mode: str) -> tuple[dict, list]:
+    """One 10(b) run on the bench reads (written by phase 4, or here): the
+    exact cell's silver and golden stages through the pipeline (the CLI's
+    run of phase 4), the throughput cell's silver pass through
+    GoldenPathEngine (phase 4's throughput run), on the mesh of `devices`
+    (None: one card, the phase 4 run itself).  Returns {file name: sha256}
+    and the engines."""
+    from goldrush_tpu_torch import cli, pipeline
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine
+    engines: list = []
+    if cell == "exact":
+        outdir = os.path.join(WORK, f"bench_{mode}" if devices is None
+                              else f"mesh_{tag}_{mode}")
+        argv = ["goldrush-path", f"reads={os.path.join(WORK, 'bench_reads')}",
+                "G=5000000", "device=cuda", f"mibf_mode={mode}",
+                f"prefix={outdir}", "dev=1"]
+        cmd, cfg, extra = cli.parse_args(argv)
+        made = pipeline.GoldenPathEngine
+        if devices is not None:
+            pipeline.GoldenPathEngine = mesh_engine_class(devices, model,
+                                                          engines)
+        try:
+            out = cli.run(cmd, cfg, extra)
+        finally:
+            pipeline.GoldenPathEngine = made
+        stats = out["stats"]
+        files = sorted(f for f in os.listdir(outdir)
+                       if f.endswith((".fq", ".fa")))
+        digests = {f: sha256_file(os.path.join(outdir, f)) for f in files}
+    else:
+        prefix = os.path.join(WORK, f"throughput_{mode}" if devices is None
+                              else f"mesh_{tag}_tp_{mode}")
+        over = {} if devices is None else dict(devices=len(devices),
+                                               model_shards=model)
+        eng = GoldenPathEngine(PathConfig(
+            input=os.path.join(WORK, "bench_reads.fq"), prefix_file=prefix,
+            mibf_mode=mode, **BENCH_ENGINE, **THROUGHPUT, **over),
+            device=devices or "cuda")
+        stats = {"silver": eng.run()}
+        engines.append(eng)
+        digests = {f"_{i}.fq": sha256_file(f"{prefix}_{i}.fq")
+                   for i in range(1, BENCH_ENGINE["max_paths"] + 1)
+                   if os.path.exists(f"{prefix}_{i}.fq")}
+    rates = {stage: st.num_reads / max(st.wall_assign_s, 1e-9)
+             for stage, st in stats.items()}
+    if devices is None:
+        RATES.update({(cell, mode, s): r for s, r in rates.items()})
+    for eng in engines:
+        replicas_equal(eng)
+    say("mesh", part="10b", run=tag if devices else "single", cell=cell,
+        filter=mode, files=len(digests),
+        recruits=sum(st.recruits for st in stats.values()),
+        **{f"{s}_reads_per_s": f"{r:.2f}" for s, r in rates.items()},
+        **{f"{s}_single_reads_per_s": f"{RATES[(cell, mode, s)]:.2f}"
+           for s in rates if (cell, mode, s) in RATES})
+    return digests, engines
+
+
+def mesh_gate_runs(devices, runs, fx: dict) -> None:
+    """10(b) on the 1 Mbp gate dataset (written by phase 5, or here): each
+    run's silver digests against the fixture (the JAX package's), and its
+    filter, gathered from row 0's banks, against a single-card run's of
+    the same configuration; every row's replica equal to row 0's."""
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine
+    fq = os.path.join(WORK, "qgate.fq")
+    if not os.path.exists(fq):
+        ds = {k: v for k, v in fx["dataset"].items() if k != "sha256"}
+        make_reads(fq, **ds)
+    tp = fx["throughput"]
+    want = {("exact", "direct"): (fx, {}),
+            ("exact", "compressed"): (fx["compressed"], {}),
+            ("throughput", "direct"): (tp["direct"], tp["engine"]),
+            ("throughput", "compressed"): (tp["compressed"], tp["engine"])}
+    single = {}
+    for tag, n, model, cell, mode in runs:
+        ref, extra = want[(cell, mode)]
+        over = dict(devices=n, model_shards=model)
+        for who, kw, dev in (("single", {}, "cuda"),
+                             (tag, over, devices[:n])):
+            if who == "single" and (cell, mode) in single:
+                continue
+            prefix = os.path.join(WORK, f"mesh_gate_{who}_{cell}_{mode}")
+            eng = GoldenPathEngine(PathConfig(
+                input=fq, prefix_file=prefix, mibf_mode=mode,
+                **fx["engine"], **extra, **kw), device=dev)
+            st = eng.run()
+            got = {str(i): sha256_file(f"{prefix}_{i}.fq")
+                   for i in range(1, fx["engine"]["max_paths"] + 1)
+                   if os.path.exists(f"{prefix}_{i}.fq")}
+            if got != ref["silver"] or st.recruits != ref["recruits"]:
+                raise AssertionError(f"10(b) gate {who} {cell} {mode}: "
+                                     f"digests {got} ({st.recruits} "
+                                     f"recruits) vs {ref}")
+            if who == "single":
+                single[(cell, mode)] = eng.replicas[0]
+                continue
+            replicas_equal(eng)
+            e = filter_err(eng.replicas[0], single[(cell, mode)])
+            say("mesh", part="10b", dataset="gate", run=tag, cell=cell,
+                filter=mode, digests_match=True, recruits=st.recruits,
+                filter_vs_single_err=e)
+            if e:
+                raise AssertionError(f"10(b) gate {tag} {cell} {mode}: the "
+                                     "gathered filter differs from the "
+                                     "single card's")
+            del eng
+
+
+def mesh_engine_check(devices: list, runs=MESH_RUNS) -> dict:
+    """10(b): the engine on the mesh of `devices` in each of `runs`, every
+    launch count zeroed just before and read just after the bench runs:
+    every silver and golden file's sha256 equal to the single-card run of
+    the same configuration (phase 4's, or run here when absent), every
+    row's replica equal to row 0's; the consume kernel, kernel B and kernel
+    C d times a batch (d data rows, each B and C on its B/d reads), kernel
+    D and insert_max never from the host; then the gate dataset
+    (`mesh_gate_runs`).  Returns the launch counts of the bench runs."""
+    from goldrush_tpu_torch import kernels
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "torch_port_digests.json")) as f:
+        fx = json.load(f)
+    reads = os.path.join(WORK, "bench_reads")
+    if not os.path.exists(reads + ".fq"):
+        make_reads(reads + ".fq", **BENCH)
+    single = {}
+    for _, _, _, cell, mode in runs:
+        key = (cell, mode)
+        if key in single:
+            continue
+        have = os.path.join(WORK, f"bench_{mode}" if cell == "exact"
+                            else f"throughput_{mode}_1.fq")
+        if not os.path.exists(have):
+            single[key] = mesh_bench_run("single", None, 1, cell, mode)[0]
+        elif cell == "exact":
+            single[key] = {f: sha256_file(os.path.join(have, f))
+                           for f in sorted(os.listdir(have))
+                           if f.endswith((".fq", ".fa"))}
+        else:
+            prefix = os.path.join(WORK, f"throughput_{mode}")
+            single[key] = {f"_{i}.fq": sha256_file(f"{prefix}_{i}.fq")
+                           for i in range(1, BENCH_ENGINE["max_paths"] + 1)
+                           if os.path.exists(f"{prefix}_{i}.fq")}
+    inserts = (kernels.INSERT_SORTED, kernels.INSERT_MAX)
+    for k in kernels.ALL + inserts:
+        k.launches = 0
+    passes, undo = consume_counts_of_passes()
+    try:
+        for tag, n, model, cell, mode in runs:
+            before = {k.name: k.launches for k in kernels.PATH}
+            n_pass = len(passes)
+            digests, engines = mesh_bench_run(tag, devices[:n], model, cell,
+                                              mode)
+            got = {k.name: k.launches - before[k.name]
+                   for k in kernels.PATH}
+            d = n // model
+            batches = sum(p["batches"] for p in passes[n_pass:])
+            recruits = sum(e.stats.recruits for e in engines)
+            inserted = sum(p["insert"] for p in passes[n_pass:])
+            say("mesh", part="10b", run=tag, cell=cell, filter=mode,
+                batches=batches, data_rows=d,
+                **{f"launches_{k}": got[k] for k in
+                   ("consume", "probe_vote", "classify")})
+            if (got["consume"] != d * batches
+                    or got["probe_vote"] != d * batches
+                    or got["classify"] != d * batches
+                    or any(k.launches for k in inserts)
+                    or inserted != recruits or recruits <= 0):
+                raise AssertionError(f"10(b) {tag} {cell} {mode}: launches "
+                                     f"{got} for {batches} batches of {d} "
+                                     f"rows, {recruits} recruits, "
+                                     f"{inserted} inserts")
+            if digests != single[(cell, mode)]:
+                raise AssertionError(f"10(b) {tag} {cell} {mode}: files "
+                                     f"{digests} differ from the single "
+                                     f"card's {single[(cell, mode)]}")
+            say("mesh", part="10b", run=tag, cell=cell, filter=mode,
+                files_match_single=len(digests))
+            del engines
+    finally:
+        undo()
+    launches = {k.name: k.launches for k in kernels.PATH}
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"mesh path: kernels never launched {missing}")
+    mesh_gate_runs(devices, runs, fx)
+    return launches
+
+
+def mesh_cross_cards() -> dict:
+    """10(c): where the host has two cards or more, the banked 1x2 across
+    cuda:0 and cuda:1 (and with four the 2x2 across all four): each pair's
+    peer access and native atomics printed, 10(a)'s kernel checks with
+    banks on the real cards, and the gate dataset's digests and filter
+    (`mesh_gate_runs`).  On one card it prints why it did not run."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("10(c) not run: 1 card", flush=True)
+        return {}
+    cards = [torch.device("cuda", i) for i in range(min(n, 4))]
+    for a in cards:
+        for b in cards:
+            if a != b:
+                can, atomics = kernels.peer_attributes(a, b)
+                say("mesh", part="10c", device=a, peer=b, peer_access=can,
+                    native_atomics=atomics)
+    layouts = {2: cards[:2]}
+    if len(cards) == 4:
+        layouts[4] = cards
+    recs = mesh_kernel_check(layouts, "cards")
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "torch_port_digests.json")) as f:
+        fx = json.load(f)
+    runs = [("banked1x2", 2, 2, "exact", "direct"),
+            ("banked1x2", 2, 2, "throughput", "compressed")]
+    mesh_gate_runs(cards[:2], runs, fx)
+    if len(cards) == 4:
+        mesh_gate_runs(cards, [("banked2x2", 4, 2, "exact", "compressed"),
+                               ("banked2x2", 4, 2, "throughput",
+                                "direct")], fx)
+    return recs
+
+
+def mesh_phase() -> tuple[dict, dict]:
+    """Phase 10, the mesh (parallel/mesh.py): (a) `mesh_kernel_check` with
+    1, 2 and 4 banks on cuda:0; (b) `mesh_engine_check` on ["cuda:0"] * 4
+    (phase 4's and 5's files in WORK when they ran, else made here); (c)
+    `mesh_cross_cards`.  Runs alone from a driver that sets WORK.  Returns
+    (launches of (b), the kernels' banked checks and times)."""
+    import torch
+    t0 = time.time()
+    dev = torch.device("cuda", 0)
+    os.makedirs(WORK, exist_ok=True)
+    recs = mesh_kernel_check({m: [dev] * m for m in MESH_BANKS}, "m")
+    launches = mesh_engine_check([dev] * 4)
+    for name, rec in mesh_cross_cards().items():
+        recs[name]["banked_err"] = max(recs[name]["banked_err"],
+                                       rec.pop("banked_err"))
+        recs[name].update(rec)
+    say("mesh", seconds=f"{time.time() - t0:.1f}")
+    return launches, recs
+
+
 def bench_fastq() -> str:
     """smoke_work/bench_reads.fq, the bench reads (`BENCH`), written once
     for the runs of --ab that share it."""
@@ -3530,10 +4034,13 @@ def main(argv: list[str]) -> int:
         ntcard, checks["ntcard_count"] = phase_ntcard()
         wave, wave_checks = phase_wave()
         checks.update(wave_checks)
+        mesh, mesh_checks = mesh_phase()
+        for name, rec in mesh_checks.items():
+            checks[name].update(rec)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     runs = {"exact": exact, "throughput": throughput, "pipeline": pipeline,
-            "genome": genome, "ntcard": ntcard, "wave": wave}
+            "genome": genome, "ntcard": ntcard, "wave": wave, "mesh": mesh}
     for name, rec in freeze.items():
         checks[name].update(rec)
     # kernel D's and insert_max's code runs inside the consume kernel: their

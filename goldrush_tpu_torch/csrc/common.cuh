@@ -12,6 +12,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace gr {
 
 constexpr int kNoLaunch = -1;
@@ -22,6 +24,129 @@ constexpr unsigned kFull = 0xFFFFFFFFu;  // all lanes of a warp
 
 // Every kernel's dynamic shared memory.
 extern __shared__ __align__(16) unsigned char gr_smem[];
+
+// the most banks a filter array splits into (mibf.py MAX_BANKS)
+constexpr int kMaxBanks = 8;
+
+// The filter's id table (the direct words or the rank-indexed ids) and its
+// counters as the kernels that read or write them take them: each split by
+// index range into n banks of bank_len entries, key k in bank k / bank_len
+// at offset k % bank_len (mibf.py Banks, bank_bounds: the banks of the
+// JAX engine's model axis).  A bank is a device pointer: an allocation on
+// the launching card, or peer memory on another card of the host
+// (`remote`: kernels.py has checked peer access and native peer atomics,
+// and the consume kernel fences such stores at system scope).  Passed by
+// value.  The bank is a multiply-shift and a compare (mibf.py bank_of),
+// with no 64-bit division, and the base pointer a select over constant
+// indices.  The kernels take it only for n > 1: a filter of one bank
+// launches them with its FlatTable (`with_view`), whose addressing is the
+// kernels' before banks.
+struct Banks {
+  uint32_t* table[kMaxBanks];
+  uint32_t* counts[kMaxBanks];
+  int64_t bank_len;
+  uint64_t magic;  // floor((2^64 - 1) / bank_len) + 1; 0 when n == 1
+  int n;
+  int remote;      // a bank lies on another card than the launching one
+
+  __device__ __forceinline__ int bank(int64_t k) const {
+    const uint64_t u = static_cast<uint64_t>(k);
+    uint64_t q = __umul64hi(u, magic);
+    q -= q * static_cast<uint64_t>(bank_len) > u ? 1u : 0u;
+    return static_cast<int>(q);
+  }
+  template <bool kCounts>
+  __device__ __forceinline__ uint32_t* at(int64_t k) const {
+    const int b = bank(k);
+    uint32_t* p = kCounts ? counts[0] : table[0];
+#pragma unroll
+    for (int j = 1; j < kMaxBanks; ++j)
+      if (b == j) p = kCounts ? counts[j] : table[j];
+    return p + (k - static_cast<int64_t>(b) * bank_len);
+  }
+  // the table's entry of key k, and its counter
+  __device__ __forceinline__ uint32_t* word(int64_t k) const {
+    return at<false>(k);
+  }
+  __device__ __forceinline__ uint32_t* count(int64_t k) const {
+    return at<true>(k);
+  }
+};
+
+// A filter of one bank: its table and counters, each one allocation.
+struct FlatTable {
+  uint32_t* table;
+  uint32_t* counts;
+
+  __device__ __forceinline__ uint32_t* word(int64_t k) const {
+    return table + k;
+  }
+  __device__ __forceinline__ uint32_t* count(int64_t k) const {
+    return counts + k;
+  }
+};
+
+// The table alone of a filter of one bank: what a probe and insert_max
+// read and write.
+struct FlatWords {
+  uint32_t* table;
+
+  __device__ __forceinline__ uint32_t* word(int64_t k) const {
+    return table + k;
+  }
+};
+
+// The view of the table alone that goes with a filter's view `Filt`.
+template <typename Filt>
+using WordsOf =
+    std::conditional_t<std::is_same<Filt, FlatTable>::value, FlatWords, Filt>;
+
+// The view `Filt` of a filter's Banks, in device code: its first bank's
+// pointers as a FlatTable (or FlatWords), or the Banks.
+template <typename Filt>
+__device__ __forceinline__ Filt view_of(const Banks& b);
+template <>
+__device__ __forceinline__ FlatTable view_of<FlatTable>(const Banks& b) {
+  return FlatTable{b.table[0], b.counts[0]};
+}
+template <>
+__device__ __forceinline__ FlatWords view_of<FlatWords>(const Banks& b) {
+  return FlatWords{b.table[0]};
+}
+template <>
+__device__ __forceinline__ Banks view_of<Banks>(const Banks& b) {
+  return b;
+}
+
+// Call launch(view) with the filter's view: its FlatTable for one bank,
+// else the Banks.  Kernels are templates on the view, so a filter of one
+// bank runs the code it ran before banks.
+template <typename Launch>
+__host__ cudaError_t with_view(const Banks& b, Launch launch) {
+  if (b.n == 1) return launch(FlatTable{b.table[0], b.counts[0]});
+  return launch(b);
+}
+
+// The host side of a launch: the view of n banks from the pointer tables a
+// wrapper passes (kernels.py banks_args; `counts` may be null), or false
+// for one the kernels cannot take.
+inline bool make_banks(void* const* table, void* const* counts, int n,
+                       int64_t bank_len, int remote, Banks* out) {
+  if (!table || n < 1 || n > kMaxBanks || bank_len < (n > 1 ? 2 : 0))
+    return false;
+  Banks b{};
+  for (int j = 0; j < n; ++j) {
+    b.table[j] = static_cast<uint32_t*>(table[j]);
+    b.counts[j] = counts ? static_cast<uint32_t*>(counts[j]) : nullptr;
+    if (!b.table[j]) return false;
+  }
+  b.bank_len = bank_len;
+  b.magic = n > 1 ? ~0ull / static_cast<uint64_t>(bank_len) + 1u : 0u;
+  b.n = n;
+  b.remote = remote;
+  *out = b;
+  return true;
+}
 
 // A load of memory that another CTA of the same launch may have written
 // (`kCoherent`, the fused consume kernel: through L2, never from a stale L1

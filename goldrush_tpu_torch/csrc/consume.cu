@@ -67,6 +67,31 @@
 // bucket counters, the spill counters and the outcomes' sequence numbers
 // are zero between launches (the kernel clears what it set).
 //
+// The filter under a mesh (parallel/mesh.py).  The table and counters
+// come as a bank view (common.cuh Banks): under the engine's model axis
+// each is split by index range into banks, and a bank is a device pointer,
+// on this card or in the peer memory of another card of the host.  The
+// kernel reads and writes the banks itself, with no collective: the scan
+// re-probes the filter after every insert, read by read, inside this one
+// launch, so routing those accesses through collectives outside the kernel
+// (the mapping of TPU remote copies to NCCL that suits bulk transfers)
+// would cost a round trip to the host per probe, thousands a batch.  Every
+// store to the filter is followed, before any CTA reads the filter again,
+// by a grid barrier (the `dirty` state below), and where a bank is remote
+// that barrier starts with a system-scope fence (filter_barrier): a
+// barrier's own fence is gpu-scoped, and the CUDA programming guide orders
+// writes to peer memory before later accesses only under
+// __threadfence_system(); the outcome flags order no filter store (a
+// runner publishes a classification, never an insert).  On one card every
+// bank is local and the fence is skipped.  The reset runs its grid-stride
+// loop once per bank.  The kernel is a template on the view: a filter of
+// one bank runs the FlatTable instantiation, the addressing it had before
+// banks, and probes and raises entries through the table alone
+// (FlatWords).  On an H100 (chip_smoke.py --ab) a uniform one-bank branch
+// and the Banks struct on every access cost 3-15% of a probe, and a view
+// that carried the counters' pointer into the probes left a batch of 140
+// kb reads 20% slower.
+//
 // Bound.  The bytes a batch must move: per probe its grid row (H * T * F
 // int64 entries), frame_ok and one 4-byte word per present frame and seed;
 // per insert its window and each distinct key's word and counter; per
@@ -96,10 +121,8 @@ constexpr int kSlot = 16;
 // The zone predicate (K18) is recheck_zone in classify.cuh.
 struct ConsumeArgs {
   // the filter: the direct words or the rank-indexed ids, and counters,
-  // `alloc` entries each
-  uint32_t* table;
-  uint32_t* counts;
-  int64_t alloc;
+  // through their bank view
+  Banks banks;
   int ranked;            // the table is rank-indexed (compressed filter)
   int64_t probe_limit;   // B's sentinel rank (ranked)
   int64_t ins_limit;     // keys below it are real (inserts)
@@ -157,6 +180,7 @@ __device__ __forceinline__ int32_t* tier_vals(const ConsumeArgs& a, int k) {
 // Kernel B's tiles of read i for the tiers in use (tier 0 if `q`, tier 1
 // if `f`): job j (tier-major, T tiles each) runs on CTA (j + kRunners) %
 // gridDim.x (consume.py gather_ctas).  Every thread of every CTA calls it.
+template <typename Filt>
 __device__ void gather(const ConsumeArgs& a, const Tier* tiers, bool q,
                        bool f, int i) {
   const int T = a.T, K = a.K, G = gridDim.x;
@@ -170,7 +194,8 @@ __device__ void gather(const ConsumeArgs& a, const Tier* tiers, bool q,
     unsigned long long* s = tier_sums(a, k);
     int32_t* curr = tier_vals(a, k);
     probe_vote_tile<true>(
-        a.table, tr.grid + static_cast<int64_t>(i) * tr.H * TF, a.ranked,
+        TableWord<WordsOf<Filt>>{view_of<WordsOf<Filt>>(a.banks)},
+        tr.grid + static_cast<int64_t>(i) * tr.H * TF, a.ranked,
         a.probe_limit, tr.ok + static_cast<int64_t>(i) * TF, tr.H, T, tr.F,
         K, tr.vote_min, tr.threshold, tr.bits, t, 0, curr, curr + T,
         curr + 3 * T, curr + 3 * T + T * K, a.binit + k * T, curr + 2 * T, s,
@@ -243,27 +268,57 @@ __device__ Outcome await_tier(const ConsumeArgs& a, int k, int64_t seq) {
   return Outcome{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
 }
 
-// The silver rotation's reset, over the whole grid: forget every id, keep
-// presence; under the exact policy zero the counters too.
-__device__ void reset_filter(const ConsumeArgs& a) {
-  int4* w = reinterpret_cast<int4*>(a.table);
-  int4* c = reinterpret_cast<int4*>(a.counts);
+// The silver rotation's reset of one bank of `n4` 16-byte groups, over
+// the whole grid: forget every id, keep presence; under the exact policy
+// zero the counters too.
+__device__ void reset_bank(uint32_t* table, uint32_t* counts, int64_t n4,
+                           int ranked, int fast) {
+  int4* w = reinterpret_cast<int4*>(table);
+  int4* c = reinterpret_cast<int4*>(counts);
   const int4 zero = make_int4(0, 0, 0, 0);
   const int p = static_cast<int>(kPresent);
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
-       j < a.alloc / 4; j += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    if (a.ranked) {
+       j < n4; j += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    if (ranked) {
       w[j] = zero;
     } else {
       const int4 v = __ldcg(w + j);
       w[j] = make_int4(v.x & p, v.y & p, v.z & p, v.w & p);
     }
-    if (!a.fast) c[j] = zero;
+    if (!fast) c[j] = zero;
   }
 }
 
+// The reset of the whole filter, bank by bank.
+template <typename Filt>
+__device__ void reset_filter(const ConsumeArgs& a) {
+  if constexpr (std::is_same<Filt, FlatTable>::value) {
+    reset_bank(a.banks.table[0], a.banks.counts[0], a.banks.bank_len / 4,
+               a.ranked, a.fast);
+  } else {
+#pragma unroll
+    for (int b = 0; b < kMaxBanks; ++b)
+      if (b < a.banks.n)
+        reset_bank(a.banks.table[b], a.banks.counts[b], a.banks.bank_len / 4,
+                   a.ranked, a.fast);
+  }
+}
+
+// A grid barrier after stores to the filter, before any CTA reads it
+// again: with a bank in another card's memory, fenced at system scope
+// first (the note at the top of this file).
+template <typename Filt>
+__device__ __forceinline__ void filter_barrier(const ConsumeArgs& a,
+                                               cg::grid_group& grid) {
+  if constexpr (!std::is_same<Filt, FlatTable>::value) {
+    if (a.banks.remote) __threadfence_system();
+  }
+  grid.sync();
+}
+
 // insert_max of read i's tiles lo..last (ids from `base`) over the grid.
+template <typename Filt>
 __device__ void insert_max_read(const ConsumeArgs& a, int i, int lo,
                                 int last, uint32_t base, bool trimmed) {
   if (last < lo) return;
@@ -274,7 +329,7 @@ __device__ void insert_max_read(const ConsumeArgs& a, int i, int lo,
   for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    insert_max_entry(reinterpret_cast<int*>(a.table), g, TF, a.Fi,
+    insert_max_entry(view_of<WordsOf<Filt>>(a.banks), g, TF, a.Fi,
                      a.ins_limit, a.or_bits, lo, window, e, base, trimmed,
                      a.bs);
 }
@@ -282,6 +337,10 @@ __device__ void insert_max_read(const ConsumeArgs& a, int i, int lo,
 // what the filter saw since the last grid barrier
 enum Dirty { kClean = 0, kMaxOnly = 1, kWritten = 2 };
 
+// The kernel, on the filter's view `Filt` (common.cuh with_view: the
+// FlatTable of one bank, or the Banks), taken from the parameters where
+// it is used, as the table's pointer was before banks.
+template <typename Filt>
 __global__ void __launch_bounds__(kThreads, 1)
 consume_kernel(const ConsumeArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -334,8 +393,8 @@ consume_kernel(const ConsumeArgs a) {
                    TFi, a.Fi, t0, t1, a.ins_limit};
     const int b = static_cast<int>(scatters & 1);
     if (probe) {
-      if (dirty != kClean) grid.sync();
-      gather(a, tiers, live, rech, i);
+      if (dirty != kClean) filter_barrier<Filt>(a, grid);
+      gather<Filt>(a, tiers, live, rech, i);
     }
     if (scatter) {
       // the CTAs without a tile job scatter, while they are at least half
@@ -353,7 +412,11 @@ consume_kernel(const ConsumeArgs a) {
                        a.bucket + static_cast<int64_t>(b) * a.parts * a.cap);
     }
     if (probe || scatter) {
-      grid.sync();
+      if (dirty != kClean) {
+        filter_barrier<Filt>(a, grid);
+      } else {
+        grid.sync();
+      }
       dirty = kClean;
     }
     if (scatter && rank == 0 && threadIdx.x == 0)
@@ -369,7 +432,8 @@ consume_kernel(const ConsumeArgs a) {
                        a.bucket + static_cast<int64_t>(b) * a.parts * a.cap,
                        sbuf, reinterpret_cast<uint64_t*>(before), a.spill + b,
                        reinterpret_cast<uint64_t*>(a.spill + 2), &n_own);
-      if (n_own <= a.cap) owner_prefetch(buf, n_own, a.counts, before);
+      if (n_own <= a.cap)
+        owner_prefetch(buf, n_own, view_of<Filt>(a.banks), before);
     }
     if (probe) {
       if (threadIdx.x == 0) {
@@ -411,12 +475,13 @@ consume_kernel(const ConsumeArgs a) {
       const int last = min(hi, a.T - 1);
       const uint32_t base = static_cast<uint32_t>(ids_ins + 1);
       if (a.fast) {
-        if (dirty == kWritten) grid.sync();   // a reset's stores
-        insert_max_read(a, i, lo, last, base, o.dec == 2);
+        // a reset's stores
+        if (dirty == kWritten) filter_barrier<Filt>(a, grid);
+        insert_max_read<Filt>(a, i, lo, last, base, o.dec == 2);
         dirty = kMaxOnly;
       } else {
         if (owner)
-          owner_apply(a.table, a.counts, buf, n_own,
+          owner_apply(view_of<Filt>(a.banks), buf, n_own,
                       n_own <= a.cap ? before : nullptr, lo, last, base,
                       o.dec == 2, a.bs, a.or_bits);
         dirty = kWritten;
@@ -433,8 +498,8 @@ consume_kernel(const ConsumeArgs a) {
       if (a.max_paths < path_idx) {
         done = 1;
       } else {
-        if (dirty != kClean) grid.sync();
-        reset_filter(a);
+        if (dirty != kClean) filter_barrier<Filt>(a, grid);
+        reset_filter<Filt>(a);
         dirty = kWritten;
         ids_ins = ins_bases = 0;
         reset_seen = true;
@@ -486,12 +551,15 @@ __global__ void recheck_zone_kernel(const int64_t* __restrict__ rows, int n,
 
 extern "C" {
 
+// table/counts/n_banks/bank_len/remote: the filter's bank view (common.cuh
+// make_banks), every bank 16-byte aligned and of a multiple of 4 entries.
 // The scratch (consume.py ConsumeScratch): sums/vals/binit a vote buffer
 // per tier at this T; outcome int64 [2 * 16], zeroed; under the exact
 // policy bucket_count uint32 [2 * parts] and spill's two counters zeroed,
 // bucket uint64 [2 * parts * cap], spill's data 2 * Hi * T * Fi entries.
 // `parts` must be the SMs less the two runners.
-int gr_consume(uint32_t* table, uint32_t* counts, int64_t alloc, int ranked,
+int gr_consume(void* const* table, void* const* counts, int n_banks,
+               int64_t bank_len, int remote, int ranked,
                int64_t probe_limit, int64_t ins_limit, uint32_t or_bits,
                const int64_t* grid_q, const bool* ok_q, int Hq, int Fq,
                const int64_t* grid_i, const bool* ok_i, int Hi, int Fi,
@@ -507,20 +575,27 @@ int gr_consume(uint32_t* table, uint32_t* counts, int64_t alloc, int ranked,
                cudaStream_t stream) {
   using gr::kThreads;
   const int bits_q = gr::table_bits(Hq * Fq), bits_f = gr::table_bits(Hi * Fi);
+  gr::Banks banks;
+  if (!counts ||
+      !gr::make_banks(table, counts, n_banks, bank_len, remote, &banks) ||
+      bank_len % 4)
+    return cudaErrorInvalidValue;
+  for (int j = 0; j < n_banks; ++j)
+    if (reinterpret_cast<uintptr_t>(banks.table[j]) % 16 ||
+        reinterpret_cast<uintptr_t>(banks.counts[j]) % 16)
+      return cudaErrorInvalidValue;
   // the insert grid is probed only by the trim recheck: at an insert
   // stride (no recheck) its tiles may hold fewer frames than K
   if (B < 0 || T < 1 || T >= (1 << 16) || K < 1 || Hq < 1 || Hi < 1 ||
       Hq > gr::kMaxH || Hi > gr::kMaxH || K > Hq * Fq || bits_q > 14 ||
-      (rech_on && (K > Hi * Fi || bits_f > 14)) || alloc % 4 || bs < 1 ||
+      (rech_on && (K > Hi * Fi || bits_f > 14)) || bs < 1 ||
       TL < 1 || cap < 4 * gr::kThreads || (cap & (cap - 1)) ||
       rows0_cols < (rech_on ? 9 : 8) || !outcome ||
       (!fast && (!spill || !bucket || !bucket_count || parts < 1 ||
-                 parts > gr::kMaxParts)) ||
-      reinterpret_cast<uintptr_t>(table) % 16 ||
-      reinterpret_cast<uintptr_t>(counts) % 16)
+                 parts > gr::kMaxParts)))
     return cudaErrorInvalidValue;
   if (B == 0) return gr::kNoLaunch;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  int dev = 0, sms = 0, coop = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
@@ -549,17 +624,11 @@ int gr_consume(uint32_t* table, uint32_t* counts, int64_t alloc, int ranked,
   // entries again while it keeps the distinct ones of an overflow)
   if (!fast) smem = std::max(smem, static_cast<size_t>(cap) * 12);
   if (smem > gr::kMaxSmem) return cudaErrorInvalidValue;
-  err = gr::allow_smem(gr::consume_kernel, smem);
-  if (err != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
                                     dev)) != cudaSuccess)
     return err;
   if (!coop) return cudaErrorNotSupported;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, gr::consume_kernel, kThreads, smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  gr::ConsumeArgs a{table, counts, alloc, ranked, probe_limit, ins_limit,
+  gr::ConsumeArgs a{banks, ranked, probe_limit, ins_limit,
                     or_bits, grid_q, ok_q, grid_i, ok_i, n_tiles, full_len,
                     rows0, rows0_cols, B, T, K, Hq, Fq, Hi, Fi, vote_min_q,
                     x_q, bits_q, vote_min_f, x_f, bits_f, u_min, a_max, TL,
@@ -569,12 +638,49 @@ int gr_consume(uint32_t* table, uint32_t* counts, int64_t alloc, int ranked,
                     rows, counters, sums, vals, binit, outcome,
                     static_cast<uint32_t>(parts), bucket_count, bucket,
                     spill};
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(gr::consume_kernel), dim3(sms), dim3(kThreads),
-      args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return gr::with_view(banks, [&](auto filt) {
+    const auto kernel = gr::consume_kernel<decltype(filt)>;
+    cudaError_t e = gr::allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    int per_sm = 0;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+      return e;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {&a};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                    dim3(sms), dim3(kThreads), args, smem,
+                                    stream);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  });
+}
+
+// Whether card `dev` can reach the memory of card `peer` (can) with native
+// atomics (atomics), and if both, peer access from `dev` enabled: what a
+// filter with banks on `peer` needs of a kernel launched on `dev`
+// (kernels.py peer_attributes).  The current device is kept.
+int gr_peer_access(int dev, int peer, int* can, int* atomics) {
+  cudaError_t err;
+  *can = *atomics = 0;
+  if ((err = cudaDeviceCanAccessPeer(can, dev, peer)) != cudaSuccess)
+    return err;
+  if (!*can) return cudaSuccess;
+  if ((err = cudaDeviceGetP2PAttribute(atomics,
+                                       cudaDevP2PAttrNativeAtomicSupported,
+                                       dev, peer)) != cudaSuccess)
+    return err;
+  if (!*atomics) return cudaSuccess;
+  int cur = 0;
+  if ((err = cudaGetDevice(&cur)) != cudaSuccess) return err;
+  if ((err = cudaSetDevice(dev)) != cudaSuccess) return err;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear the error it records
+    err = cudaSuccess;
+  }
+  const cudaError_t back = cudaSetDevice(cur);
+  return err != cudaSuccess ? err : back;
 }
 
 int gr_recheck_zone(const int64_t* rows, int n, int stride, int threshold,

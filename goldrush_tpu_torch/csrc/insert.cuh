@@ -235,11 +235,12 @@ __device__ __forceinline__ bool run_start(const uint64_t* buf, int i) {
 // The counter of each run's key, read ahead into before[i] at the run's
 // first entry (the fused kernel does it while the read's decision is being
 // made; no other CTA writes an owner's keys).  Every thread calls it.
+template <typename Filt>
 __device__ inline void owner_prefetch(const uint64_t* buf, int n,
-                                      const uint32_t* counts,
-                                      uint32_t* before) {
+                                      const Filt filt, uint32_t* before) {
   for (int i = threadIdx.x; i < n; i += blockDim.x)
-    if (run_start(buf, i)) before[i] = __ldcg(counts + (buf[i] >> 16));
+    if (run_start(buf, i))
+      before[i] = __ldcg(filt.count(static_cast<int64_t>(buf[i] >> 16)));
 }
 
 // Step 3's reservoir rule over the sorted entries: one thread per distinct
@@ -248,24 +249,27 @@ __device__ inline void owner_prefetch(const uint64_t* buf, int n,
 // j-th distinct block (j from 1) sees cnt = counts[key] + j (u32) and
 // accepts iff (u32(key) ^ id_m) % max(cnt, 1) == cnt - 1; the last
 // accepting block's id wins.  `before` holds owner_prefetch's counters, or
-// is null (then read here, through L2).  Every thread calls it.
-__device__ inline void owner_apply(uint32_t* words, uint32_t* counts,
-                                   const uint64_t* buf, int n,
-                                   const uint32_t* before, int lo, int last,
-                                   uint32_t base, int trimmed, int bs,
-                                   uint32_t or_bits) {
+// is null (then read here, through L2).  The table and counters are
+// reached through the filter's view (common.cuh FlatTable or Banks).
+// Every thread calls it.
+template <typename Filt>
+__device__ inline void owner_apply(const Filt filt, const uint64_t* buf,
+                                   int n, const uint32_t* before, int lo,
+                                   int last, uint32_t base, int trimmed,
+                                   int bs, uint32_t or_bits) {
   const uint32_t b = static_cast<uint32_t>(bs);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     if (!run_start(buf, i)) continue;
-    const uint64_t key = buf[i] >> 16;
+    const int64_t key = static_cast<int64_t>(buf[i] >> 16);
     uint32_t cnt0 = 0, j = 0, id_won = 0, prev_m = 0xFFFFFFFFu;
     bool won = false;
-    for (int k = i; k < n && buf[k] >> 16 == key; ++k) {
+    for (int k = i; k < n && buf[k] >> 16 == static_cast<uint64_t>(key);
+         ++k) {
       const int t = static_cast<int>(buf[k] & 0xFFFFu);
       if (t < lo || t > last) continue;
       const uint32_t m = static_cast<uint32_t>(t - lo) / b;
       if (m == prev_m) continue;
-      if (j == 0) cnt0 = before ? before[i] : __ldcg(counts + key);
+      if (j == 0) cnt0 = before ? before[i] : __ldcg(filt.count(key));
       prev_m = m;
       const uint32_t id = base + (trimmed ? (m * b + 1u) / b : m);
       const uint32_t cnt = cnt0 + ++j;
@@ -277,16 +281,20 @@ __device__ inline void owner_apply(uint32_t* words, uint32_t* counts,
       }
     }
     if (j == 0) continue;
-    counts[key] = cnt0 + j;
-    if (won) words[key] = or_bits | id_won;
+    *filt.count(key) = cnt0 + j;
+    if (won) *filt.word(key) = or_bits | id_won;
   }
 }
 
 // insert_max for the window entry e of a recruit: e / window is its seed
 // row of the grid [H, TF], e % window its column from tile lo.  A key below
-// `limit` raises table[key] to or_bits | its block id.
+// `limit` raises its table entry (through the filter's view) to or_bits |
+// its block id.  The atomic is device-scoped: only the launching card's
+// threads write the banks during a launch, also a bank in peer memory,
+// where it needs native peer atomics (kernels.py require_peer).
+template <typename Filt>
 __device__ __forceinline__ void insert_max_entry(
-    int* table, const int64_t* __restrict__ grid, int64_t TF, int F,
+    const Filt filt, const int64_t* __restrict__ grid, int64_t TF, int F,
     int64_t limit, uint32_t or_bits, int lo, int64_t window, int64_t e,
     uint32_t base_id, bool trimmed, int bs) {
   const int64_t s = e / window;
@@ -295,7 +303,8 @@ __device__ __forceinline__ void insert_max_entry(
   if (key < 0 || key >= limit) return;
   const uint32_t m = static_cast<uint32_t>(col / F - lo) / bs;
   const uint32_t id = base_id + (trimmed ? (m * bs + 1) / bs : m);
-  atomicMax(table + key, static_cast<int>(or_bits | id));
+  atomicMax(reinterpret_cast<int*>(filt.word(key)),
+            static_cast<int>(or_bits | id));
 }
 
 }  // namespace gr

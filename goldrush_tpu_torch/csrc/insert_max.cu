@@ -28,14 +28,15 @@ namespace gr {
 
 constexpr int kMaxThreads = 256;
 
+template <typename Filt>
 __global__ void __launch_bounds__(kMaxThreads) insert_max_kernel(
-    int* __restrict__ table, const int64_t* __restrict__ grid, int64_t TF,
+    const Filt filt, const int64_t* __restrict__ grid, int64_t TF,
     int F, int64_t limit, uint32_t or_bits, int lo, int64_t window,
     int64_t total, uint32_t base_id, bool trimmed, int bs) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (e >= total) return;
-  insert_max_entry(table, grid, TF, F, limit, or_bits, lo, window, e,
+  insert_max_entry(filt, grid, TF, F, limit, or_bits, lo, window, e,
                    base_id, trimmed, bs);
 }
 
@@ -43,13 +44,18 @@ __global__ void __launch_bounds__(kMaxThreads) insert_max_kernel(
 
 extern "C" {
 
-// table: int32 [>= limit]; grid: int64 [H, TF], TF = T * F.  Launches
-// nothing (kNoLaunch) for an empty tile range.
-int gr_insert_max(int* table, const int64_t* grid, int H, int64_t TF, int F,
-                  int64_t limit, uint32_t or_bits, int lo, int hi,
-                  uint32_t base_id, int trimmed, int bs,
+// table/counts/n_banks/bank_len/remote: the bank view of the int32 table
+// of >= limit entries (common.cuh make_banks; counts unused); grid: int64
+// [H, TF], TF = T * F.  Launches nothing (kNoLaunch) for an empty tile
+// range.
+int gr_insert_max(void* const* table, void* const* counts, int n_banks,
+                  int64_t bank_len, int remote, const int64_t* grid, int H,
+                  int64_t TF, int F, int64_t limit, uint32_t or_bits, int lo,
+                  int hi, uint32_t base_id, int trimmed, int bs,
                   cudaStream_t stream) {
-  if (H <= 0 || F <= 0 || TF % F || lo < 0 || bs <= 0)
+  gr::Banks banks;
+  if (H <= 0 || F <= 0 || TF % F || lo < 0 || bs <= 0 ||
+      !gr::make_banks(table, counts, n_banks, bank_len, remote, &banks))
     return cudaErrorInvalidValue;
   const int64_t T = TF / F;
   const int64_t last = hi < T - 1 ? hi : T - 1;
@@ -58,10 +64,13 @@ int gr_insert_max(int* table, const int64_t* grid, int H, int64_t TF, int F,
   const int64_t total = window * H;
   const unsigned blocks = static_cast<unsigned>(
       (total + gr::kMaxThreads - 1) / gr::kMaxThreads);
-  gr::insert_max_kernel<<<blocks, gr::kMaxThreads, 0, stream>>>(
-      table, grid, TF, F, limit, or_bits, lo, window, total, base_id,
-      trimmed != 0, bs);
-  return cudaGetLastError();
+  return gr::with_view(banks, [&](auto filt) {
+    gr::insert_max_kernel<decltype(filt)>
+        <<<blocks, gr::kMaxThreads, 0, stream>>>(
+            filt, grid, TF, F, limit, or_bits, lo, window, total, base_id,
+            trimmed != 0, bs);
+    return cudaGetLastError();
+  });
 }
 
 }  // extern "C"

@@ -63,10 +63,10 @@ namespace cg = cooperative_groups;
 
 namespace gr {
 
+template <typename Filt>
 __global__ void __launch_bounds__(1024)
-insert_sorted_kernel(uint32_t* __restrict__ words,
-                     uint32_t* __restrict__ counts,
-                     const int64_t* __restrict__ slots, int H, int64_t TF,
+insert_sorted_kernel(const Filt filt, const int64_t* __restrict__ slots,
+                     int H, int64_t TF,
                      int F, int64_t limit, uint32_t or_bits, int lo, int last,
                      uint32_t base, int trimmed, int bs, int cap,
                      unsigned* bucket_count, unsigned long long* bucket,
@@ -81,16 +81,18 @@ insert_sorted_kernel(uint32_t* __restrict__ words,
       owner_sort(w, blockIdx.x, gridDim.x, cap, bucket_count, bucket, sbuf,
                  sbuf + cap, spill, reinterpret_cast<uint64_t*>(spill + 1),
                  &n);
-  owner_apply(words, counts, buf, n, nullptr, lo, last, base, trimmed, bs,
-              or_bits);
+  owner_apply(filt, buf, n, nullptr, lo, last, base, trimmed, bs, or_bits);
 }
 
 }  // namespace gr
 
-// bucket_count: uint32 [parts]; bucket: uint64 [parts * cap]; spill: its
-// allocation counter, then less than twice the window (or null when the
-// window fits one bucket).  The entry zeroes the counters.
-extern "C" int gr_insert_sorted(uint32_t* words, uint32_t* counts,
+// table/counts/n_banks/bank_len/remote: the bank view of the words (or
+// ids) and counters (common.cuh make_banks); bucket_count: uint32 [parts];
+// bucket: uint64 [parts * cap]; spill: its allocation counter, then less
+// than twice the window (or null when the window fits one bucket).  The
+// entry zeroes the counters.
+extern "C" int gr_insert_sorted(void* const* table, void* const* counts,
+                                int n_banks, int64_t bank_len, int remote,
                                 const int64_t* slots, int H, int64_t TF, int F,
                                 int64_t limit, uint32_t or_bits, int lo, int hi,
                                 uint32_t base, int trimmed, int bs, int parts,
@@ -98,7 +100,10 @@ extern "C" int gr_insert_sorted(uint32_t* words, uint32_t* counts,
                                 unsigned long long* bucket,
                                 unsigned long long* spill,
                                 cudaStream_t stream) {
-  if (F <= 0 || bs <= 0 || TF % F || TF / F >= (1 << 16) || lo < 0 ||
+  gr::Banks banks;
+  if (!counts ||
+      !gr::make_banks(table, counts, n_banks, bank_len, remote, &banks) ||
+      F <= 0 || bs <= 0 || TF % F || TF / F >= (1 << 16) || lo < 0 ||
       limit < 0 || parts <= 0 || parts > gr::kMaxParts || threads <= 0 ||
       threads > 1024 || cap < 4 * threads || (cap & (cap - 1)) ||
       !bucket_count || !bucket)
@@ -117,25 +122,29 @@ extern "C" int gr_insert_sorted(uint32_t* words, uint32_t* counts,
   }
   // the bucket's entries, and half as many for owner_distinct
   const size_t smem = static_cast<size_t>(cap) * sizeof(uint64_t) * 3 / 2;
-  err = gr::allow_smem(gr::insert_sorted_kernel, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, gr::insert_sorted_kernel, threads, smem)) != cudaSuccess)
-    return err;
-  // a cooperative grid must be resident at once
-  if (static_cast<int64_t>(per_sm) * sms < parts)
-    return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&words, &counts, &slots, &H, &TF, &F, &limit, &or_bits,
-                  &lo, &last, &base, &trimmed, &bs, &cap,
-                  &bucket_count, &bucket, &spill};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(gr::insert_sorted_kernel), dim3(parts),
-      dim3(threads), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return gr::with_view(banks, [&](auto filt) {
+    const auto kernel = gr::insert_sorted_kernel<decltype(filt)>;
+    cudaError_t e = gr::allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    int per_sm = 0;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, threads, smem)) != cudaSuccess)
+      return e;
+    // a cooperative grid must be resident at once
+    if (static_cast<int64_t>(per_sm) * sms < parts)
+      return cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {&filt, &slots, &H, &TF, &F, &limit, &or_bits,
+                    &lo, &last, &base, &trimmed, &bs, &cap,
+                    &bucket_count, &bucket, &spill};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                    dim3(parts), dim3(threads), args, smem,
+                                    stream);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  });
 }

@@ -4,8 +4,9 @@
 
 namespace gr {
 
+template <typename Filt>
 __global__ void probe_vote_kernel(
-    const uint32_t* __restrict__ words, const int64_t* __restrict__ slots,
+    const Filt filt, const int64_t* __restrict__ slots,
     int ranked, int64_t limit, const bool* __restrict__ frame_ok, int H,
     int T, int F, int K, int vote_min, int threshold, int bits,
     int32_t* __restrict__ curr_id, int32_t* __restrict__ top_count,
@@ -14,16 +15,21 @@ __global__ void probe_vote_kernel(
     unsigned long long* __restrict__ queries,
     unsigned long long* __restrict__ hits,
     unsigned long long* __restrict__ misses) {
-  probe_vote_tile<false>(words, slots, ranked, limit, frame_ok, H, T, F, K,
-                         vote_min, threshold, bits, blockIdx.x, blockIdx.y,
-                         curr_id, top_count, cand_ids, cand_counts,
-                         bool_init, overflow, queries, hits, misses);
+  probe_vote_tile<false>(TableWord<Filt>{filt}, slots, ranked, limit,
+                         frame_ok, H, T, F, K, vote_min, threshold, bits,
+                         blockIdx.x,
+                         blockIdx.y, curr_id, top_count, cand_ids,
+                         cand_counts, bool_init, overflow, queries, hits,
+                         misses);
 }
 
 }  // namespace gr
 
+// table/counts/n_banks/bank_len/remote: the filter's bank view
+// (common.cuh make_banks; counts unused).
 extern "C" int gr_probe_vote(
-    const uint32_t* words, const int64_t* slots, int ranked, int64_t limit,
+    void* const* table, void* const* counts, int n_banks, int64_t bank_len,
+    int remote, const int64_t* slots, int ranked, int64_t limit,
     const bool* frame_ok, int B, int H, int T, int F, int K, int vote_min,
     int threshold, int32_t* curr_id, int32_t* top_count, int32_t* cand_ids,
     int32_t* cand_counts, bool* bool_init, int32_t* overflow,
@@ -33,17 +39,22 @@ extern "C" int gr_probe_vote(
   // at H*F = 3,000), beside the candidate list of kThreads entries
   int bits = 1;
   while ((1 << bits) < H * F) ++bits;
-  if (H > gr::kMaxH || K < 1 || K > H * F || bits > 14)
+  gr::Banks banks;
+  if (H > gr::kMaxH || K < 1 || K > H * F || bits > 14 ||
+      !gr::make_banks(table, counts, n_banks, bank_len, remote, &banks))
     return cudaErrorInvalidValue;
   if (B == 0 || T == 0) return gr::kNoLaunch;
   const size_t smem = ((static_cast<size_t>(1) << bits) + gr::kThreads) *
                       sizeof(unsigned long long);
-  cudaError_t err = gr::allow_smem(gr::probe_vote_kernel, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(T), static_cast<unsigned>(B));
-  gr::probe_vote_kernel<<<grid, gr::kThreads, smem, stream>>>(
-      words, slots, ranked, limit, frame_ok, H, T, F, K, vote_min, threshold,
-      bits, curr_id, top_count, cand_ids, cand_counts, bool_init, overflow,
-      queries, hits, misses);
-  return cudaGetLastError();
+  return gr::with_view(banks, [&](auto filt) {
+    const auto kernel = gr::probe_vote_kernel<decltype(filt)>;
+    cudaError_t err = gr::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, gr::kThreads, smem, stream>>>(
+        filt, slots, ranked, limit, frame_ok, H, T, F, K, vote_min,
+        threshold, bits, curr_id, top_count, cand_ids, cand_counts,
+        bool_init, overflow, queries, hits, misses);
+    return cudaGetLastError();
+  });
 }

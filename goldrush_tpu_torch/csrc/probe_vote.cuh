@@ -60,14 +60,18 @@ inline int table_bits(int n) {
 
 // The word a frame reads at grid entry x: the filter's own (direct: the
 // slot's word; compressed: PRESENT | ids[rank] for a real rank, 0 for the
-// sentinel).  probe_vote_tile's View; the wavefront's bracket view
+// sentinel), through its view `Filt` (common.cuh FlatTable or Banks).  The
+// View of kernel B and the consume kernel; the wavefront's bracket view
 // (wavefront.cu) is the other.
+template <typename Filt>
 struct TableWord {
+  Filt filt;
+
   template <bool kFused>
-  __device__ __forceinline__ uint32_t get(const uint32_t* words, int ranked,
-                                          int64_t limit, int64_t x) const {
-    return !ranked ? load<kFused>(words + x)
-           : x < limit ? kPresent | load<kFused>(words + x)
+  __device__ __forceinline__ uint32_t get(int ranked, int64_t limit,
+                                          int64_t x) const {
+    return !ranked ? load<kFused>(filt.word(x))
+           : x < limit ? kPresent | load<kFused>(filt.word(x))
                        : 0u;
   }
 };
@@ -134,8 +138,9 @@ __device__ __forceinline__ void emit(unsigned long long key, int FH,
 }
 
 // One tile of kernel B: tile t of read b, run by every thread of the CTA
-// that calls it (any blockDim.x up to kThreads).  `words`, `slots` and
-// `frame_ok` are the grid's arrays; the outputs are indexed by b * T + t.
+// that calls it (any blockDim.x up to kThreads).  `slots` and `frame_ok`
+// are the grid's arrays, `view` reads the filter; the outputs are indexed
+// by b * T + t.
 // In the standalone kernel (kFused false) the filter is read-only and the
 // read's queries/hits/misses are summed over its tiles with atomics; in
 // the fused kernels (kFused) the filter is read through L2, since other
@@ -143,15 +148,15 @@ __device__ __forceinline__ void emit(unsigned long long key, int FH,
 // b * T + t, so that nothing needs zeroing between probes.  `view` gives
 // the word of a grid entry (TableWord, or the wavefront's bracket view).
 // The caller separates two calls in one CTA with a __syncthreads.
-template <bool kFused, typename View = TableWord>
+template <bool kFused, typename View>
 __device__ void probe_vote_tile(
-    const uint32_t* words, const int64_t* __restrict__ slots, int ranked,
+    const View view, const int64_t* __restrict__ slots, int ranked,
     int64_t limit, const bool* __restrict__ frame_ok, int H, int T, int F,
     int K, int vote_min, int threshold, int bits, int t, int b,
     int32_t* curr_id, int32_t* top_count, int32_t* cand_ids,
     int32_t* cand_counts, bool* bool_init, int32_t* overflow,
     unsigned long long* queries, unsigned long long* hits,
-    unsigned long long* misses, const View view = View{}) {
+    unsigned long long* misses) {
   __shared__ unsigned long long red[5 * 32];
   __shared__ unsigned fill;
   const int S = 1 << bits;
@@ -183,7 +188,7 @@ __device__ void probe_vote_tile(
 #pragma unroll
       for (int s = 0; s < kMaxH; ++s)
         if (s < H)
-          id[s] = view.template get<kFused>(words, ranked, limit, x[s]);
+          id[s] = view.template get<kFused>(ranked, limit, x[s]);
     }
     // every loop over the seeds is unrolled to kMaxH so that x and id stay
     // in registers
@@ -291,13 +296,13 @@ constexpr int kWarpBits = 8;
 
 template <typename View>
 __device__ void probe_vote_warp(
-    const uint32_t* words, const int64_t* __restrict__ slots, int ranked,
+    const View view, const int64_t* __restrict__ slots, int ranked,
     int64_t limit, const bool* __restrict__ frame_ok, int H, int T, int F,
     int K, int vote_min, int threshold, int bits, int t, int b,
     int32_t* curr_id, int32_t* top_count, int32_t* cand_ids,
     int32_t* cand_counts, bool* bool_init, int32_t* overflow,
     unsigned long long* queries, unsigned long long* hits,
-    unsigned long long* misses, unsigned long long* tab, const View view) {
+    unsigned long long* misses, unsigned long long* tab) {
   const int S = 1 << bits;
   unsigned long long* cand = tab + S;
   const int lane = threadIdx.x & 31;
@@ -323,7 +328,7 @@ __device__ void probe_vote_warp(
 #pragma unroll
       for (int s = 0; s < kMaxH; ++s)
         if (s < H)
-          id[s] = view.template get<true>(words, ranked, limit, x[s]);
+          id[s] = view.template get<true>(ranked, limit, x[s]);
     }
     // every loop over the seeds is unrolled to kMaxH so that x and id stay
     // in registers

@@ -353,9 +353,12 @@ int gr_seed_hash_fill(const uint8_t* codes, int64_t B, int64_t L,
 // first_write n is a multiple of 4 and every entry is written.
 int gr_presence_merge(const uint32_t* bits, int64_t size, uint32_t* words,
                       int64_t n, int first_write, cudaStream_t stream) {
-  if (size <= 0 || n < 4 * ((size + 3) / 4) || (first_write && n % 4))
+  // a bank of the words past the filter's last slot holds none (size 0):
+  // its first write is all zeros
+  if (size < 0 || n < 4 * ((size + 3) / 4) || (first_write && n % 4))
     return cudaErrorInvalidValue;
   const int64_t groups = first_write ? n / 4 : (size + 3) / 4;
+  if (groups == 0) return gr::kNoLaunch;
   const unsigned grid =
       static_cast<unsigned>((groups + gr::kThreads - 1) / gr::kThreads);
   gr::presence_merge_kernel<<<grid, gr::kThreads, 0, stream>>>(

@@ -686,14 +686,15 @@ __global__ void __launch_bounds__(kGroupThreads) adj_group_kernel(
 // ceil; the direct word keeps its high bits beside the visible id, a real
 // rank reads PRESENT | id.  Unsigned 32-bit arithmetic, as the JAX view's.
 struct BracketWord {
+  const uint32_t* table;
   const uint32_t* side;
   uint32_t ceil;
 
   template <bool kFused>
-  __device__ __forceinline__ uint32_t get(const uint32_t* words, int ranked,
-                                          int64_t limit, int64_t x) const {
+  __device__ __forceinline__ uint32_t get(int ranked, int64_t limit,
+                                          int64_t x) const {
     if (ranked && x >= limit) return 0u;
-    const uint32_t w = load<kFused>(words + x), c = load<kFused>(side + x);
+    const uint32_t w = load<kFused>(table + x), c = load<kFused>(side + x);
     const uint32_t p = ranked ? w : w & kIdMask;
     const uint32_t early = c > 0u && c >= kInvBase - ceil ? kInvBase - c : 0u;
     const uint32_t idv = p > 0u && p <= ceil ? p : early;
@@ -860,19 +861,19 @@ __device__ void probe_rows(const WaveArgs& a, const Tier& tier,
     const int64_t* g = tier.grid + static_cast<int64_t>(r) * tier.H * TF;
     const bool* ok = tier.ok + static_cast<int64_t>(r) * TF;
     bool* bi = a.binit + static_cast<int64_t>(r) * T;
-    const BracketWord view{a.side, ceil[r]};
+    const BracketWord view{a.table, a.side, ceil[r]};
     if (by_warp) {
-      probe_vote_warp(a.table, g, a.ranked, a.limit, ok, tier.H, T, tier.F,
-                      K, tier.vote_min, tier.threshold, tier.bits, t, 0, curr,
+      probe_vote_warp(view, g, a.ranked, a.limit, ok, tier.H, T, tier.F, K,
+                      tier.vote_min, tier.threshold, tier.bits, t, 0, curr,
                       curr + T, curr + 3 * T, curr + 3 * T + T * K, bi,
                       curr + 2 * T, q, q + T, q + 2 * T,
-                      reinterpret_cast<unsigned long long*>(own), view);
+                      reinterpret_cast<unsigned long long*>(own));
     } else {
-      probe_vote_tile<true>(a.table, g, a.ranked, a.limit, ok, tier.H, T,
+      probe_vote_tile<true>(view, g, a.ranked, a.limit, ok, tier.H, T,
                             tier.F, K, tier.vote_min, tier.threshold,
                             tier.bits, t, 0, curr, curr + T, curr + 3 * T,
                             curr + 3 * T + T * K, bi, curr + 2 * T, q, q + T,
-                            q + 2 * T, view);
+                            q + 2 * T);
       __syncthreads();
     }
   }

@@ -45,6 +45,11 @@ _lib = None
 
 _P, _I, _U, _L, _Q = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                       ctypes.c_int64, ctypes.c_uint64)
+_PP = ctypes.POINTER(ctypes.c_void_p)
+# a filter's bank view (csrc/common.cuh make_banks, ``banks_args``): the
+# table's and the counters' bank pointers, their number, the entries of a
+# bank, and whether a bank lies on another card
+_BANKS = (_PP, _PP, _I, _L, _I)
 # C signatures: every entry returns the cudaError_t of its launch, or
 # NO_LAUNCH
 _SIGNATURES = {
@@ -56,21 +61,22 @@ _SIGNATURES = {
                                _I, _I, _I, _L, _I, _P, _P, _L, _L, _P, _P,
                                _P),
     "gr_presence_merge": (_P, _L, _P, _L, _I, _P),
-    "gr_probe_vote": (_P, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I,
+    "gr_probe_vote": (*_BANKS, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "gr_classify": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "gr_row_cummax": (_P, _I, _I, _P, _P),
-    "gr_insert_sorted": (_P, _P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I,
+    "gr_insert_sorted": (*_BANKS, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I,
                          _I, _I, _I, _I, _P, _P, _P, _P),
-    "gr_insert_max": (_P, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I, _I, _P),
+    "gr_insert_max": (*_BANKS, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I, _I,
+                      _P),
     "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
     "gr_rank_scan": (_P, _L, _P, _P, _P, _P),
     "gr_rank_carry": (_P, _P, _L, _P),
     "gr_minimizer_keys": (_P, _I, _L, _L, _I, _I, _P, _P),
     "gr_kmer_count": (_P, _I, _L, _P, _I, _Q, _P),
     "gr_kmer_query": (_P, _I, _L, _I, _Q, _P, _P),
-    "gr_consume": (_P, _P, _L, _I, _L, _L, _U, _P, _P, _I, _I, _P, _P, _I,
+    "gr_consume": (*_BANKS, _I, _L, _L, _U, _P, _P, _I, _I, _P, _P, _I,
                    _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                    _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P, _P, _P, _P,
                    _P, _P, _P, _P, _P, _P),
@@ -154,6 +160,9 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             dll.gr_error_string.argtypes = [ctypes.c_int]
             dll.gr_error_string.restype = ctypes.c_char_p
+            dll.gr_peer_access.argtypes = [_I, _I, ctypes.POINTER(_I),
+                                           ctypes.POINTER(_I)]
+            dll.gr_peer_access.restype = ctypes.c_int
             _lib = dll
         return _lib
 
@@ -285,6 +294,75 @@ ALL = PATH + SIZING + WAVE + STAGES
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return _P(0 if t is None else t.data_ptr())
+
+
+# the (launching card, bank card) pairs whose peer access is checked and
+# enabled
+_PEERS: set = set()
+
+
+def peer_attributes(device: torch.device, peer: torch.device
+                    ) -> tuple[bool, bool]:
+    """Whether a kernel on ``device`` can reach ``peer``'s memory
+    (``cudaDeviceCanAccessPeer``) and with native atomics
+    (``cudaDevP2PAttrNativeAtomicSupported``); when both hold, the access
+    is enabled (csrc/consume.cu gr_peer_access)."""
+    can, atomics = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib().gr_peer_access(device.index, peer.index, ctypes.byref(can),
+                               ctypes.byref(atomics))
+    if err != 0:
+        raise RuntimeError(f"peer access {device} -> {peer}: "
+                           f"{lib().gr_error_string(err).decode()}")
+    return bool(can.value), bool(atomics.value)
+
+
+def require_peer(device: torch.device, peer: torch.device) -> None:
+    """Let a kernel launched on ``device`` reach memory on ``peer``: raise
+    unless the card can access the peer's memory with native atomics (the
+    scatter-max's), then enable the access (``peer_attributes``).  Banks
+    are never copied to the launching card instead."""
+    key = (device.index, peer.index)
+    if device == peer or key in _PEERS:
+        return
+    can, atomics = peer_attributes(device, peer)
+    if not can:
+        raise RuntimeError(f"{device} cannot access the memory of {peer} "
+                           "(cudaDeviceCanAccessPeer): a filter banked "
+                           "across them cannot run")
+    if not atomics:
+        raise RuntimeError(f"{device} has no native atomics on {peer}'s "
+                           "memory (cudaDevP2PAttrNativeAtomicSupported): a "
+                           "filter banked across them cannot run")
+    _PEERS.add(key)
+
+
+def banks_args(table, counts, device: torch.device) -> tuple:
+    """The bank view of a filter array and its counters as a launch's
+    leading arguments (csrc/common.cuh make_banks): the banks' pointer
+    tables, their number, the entries of a bank, and whether a bank lies
+    on another card than ``device``.  ``table`` and ``counts`` are int32
+    tensors (one bank each) or ``mibf.Banks`` split alike; ``counts`` may
+    be None.  Each bank must be a contiguous int32 CUDA tensor; a bank on
+    another card needs ``require_peer``."""
+    tparts = getattr(table, "parts", (table,))
+    cparts = None if counts is None else getattr(counts, "parts", (counts,))
+    n, bank_len = len(tparts), tparts[0].shape[0]
+    for name, parts in (("table", tparts), ("counts", cparts)):
+        if parts is None:
+            continue
+        if len(parts) != n:
+            raise ValueError(f"{name}: {len(parts)} banks, expected {n}")
+        for j, p in enumerate(parts):
+            check(p, f"{name} bank {j}", torch.int32, (bank_len,))
+    remote = False
+    for p in tparts + (cparts or ()):
+        if p.device != device:
+            require_peer(device, p.device)
+            remote = True
+    arr = ctypes.c_void_p * n
+    return (arr(*(p.data_ptr() for p in tparts)),
+            None if cparts is None else arr(*(p.data_ptr() for p in cparts)),
+            n, bank_len, int(remote))
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,

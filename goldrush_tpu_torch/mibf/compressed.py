@@ -67,8 +67,10 @@ def n_supers(size: int) -> int:
 class CompressedState(NamedTuple):
     bitrank: torch.Tensor    # int64 [nw + 1] (uint64 bits)
     supers: torch.Tensor     # int64 [n_super]
-    ids: torch.Tensor        # int32 [alloc] (uint32 bits), rank-indexed
-    counts: torch.Tensor     # int32 [alloc] (uint32 bits), rank-indexed
+    ids: torch.Tensor        # int32 [alloc] (uint32 bits), rank-indexed,
+                             # or dm.Banks (the mesh's model axis)
+    counts: torch.Tensor     # int32 [alloc] (uint32 bits), rank-indexed,
+                             # or dm.Banks
 
     @property
     def sentinel(self) -> int:
@@ -125,17 +127,17 @@ def build_rank(bits: torch.Tensor, size: int
 
 
 def with_tables(bitrank: torch.Tensor, supers: torch.Tensor, pop: int,
-                size: int) -> CompressedState:
+                size: int, banks=None) -> CompressedState:
     """The compressed state over a frozen ``bitrank`` and ``supers``:
     zeroed rank-indexed id/counter tables of ``max(rank_alloc(size), pop +
     1)`` entries rounded up to 1024, the JAX package's allocation
-    (compressed.py:172-182)."""
+    (compressed.py:172-182), on bitrank's device, or banked over the
+    devices ``banks`` (a mesh row: ``dm.new_banks``)."""
     alloc = max(rank_alloc(size), -(-(pop + 1) // 1024) * 1024)
-    dev = bitrank.device
-    return CompressedState(
-        bitrank=bitrank, supers=supers,
-        ids=torch.zeros(alloc, dtype=torch.int32, device=dev),
-        counts=torch.zeros(alloc, dtype=torch.int32, device=dev))
+    devices = banks or [bitrank.device]
+    return CompressedState(bitrank=bitrank, supers=supers,
+                           ids=dm.new_banks(alloc, devices),
+                           counts=dm.new_banks(alloc, devices))
 
 
 def rank_pack(bits: torch.Tensor, size: int
@@ -385,23 +387,30 @@ def state_from_numpy(bitrank, supers, ids, counts, device="cpu"
                      ) -> CompressedState:
     """The JAX package's arrays (uint64 bitrank/supers, uint32 ids/counts)
     as a state on ``device`` (bit views); the inverse of
-    ``state_to_numpy``."""
+    ``state_to_numpy``.  When ``device`` is a sequence of devices (a mesh
+    row), ``ids``/``counts`` are banked over it (``dm.to_banks``) and
+    ``bitrank``/``supers`` lie whole on its first."""
     import numpy as np
+    row = device if isinstance(device, (list, tuple)) else None
 
-    def conv(a, dtype, view):
-        a = np.ascontiguousarray(a, dtype=dtype).view(view)
-        return torch.from_numpy(a.copy()).to(device)
+    def conv(a, dtype, view, banked=False):
+        a = torch.from_numpy(
+            np.ascontiguousarray(a, dtype=dtype).view(view).copy())
+        if row is None:
+            return a.to(device)
+        return dm.to_banks(a, row) if banked else a.to(row[0])
     return CompressedState(
         bitrank=conv(bitrank, np.uint64, np.int64),
         supers=conv(supers, np.uint64, np.int64),
-        ids=conv(ids, np.uint32, np.int32),
-        counts=conv(counts, np.uint32, np.int32))
+        ids=conv(ids, np.uint32, np.int32, True),
+        counts=conv(counts, np.uint32, np.int32, True))
 
 
 def state_to_numpy(state: CompressedState) -> dict:
     """The JAX package's dtypes on the host: uint64 bitrank/supers, uint32
-    ids/counts."""
+    ids/counts, banks gathered."""
     import numpy as np
+    state = dm.gather_state(state)
     return dict(
         bitrank=state.bitrank.cpu().numpy().view(np.uint64).copy(),
         supers=state.supers.cpu().numpy().view(np.uint64).copy(),

@@ -75,8 +75,185 @@ class MibfParams:
 
 
 class MibfState(NamedTuple):
-    words: torch.Tensor        # int32 [alloc] (uint32 bits)
-    counts: torch.Tensor       # int32 [alloc] (uint32 bits)
+    words: torch.Tensor        # int32 [alloc] (uint32 bits), or Banks
+    counts: torch.Tensor       # int32 [alloc] (uint32 bits), or Banks
+
+
+# the most banks a filter array splits into: the kernels' pointer tables
+# (csrc/common.cuh kMaxBanks)
+MAX_BANKS = 8
+
+
+def bank_bounds(length: int, m: int) -> list[tuple[int, int]]:
+    """The index range [start, stop) of each of ``m`` banks of an array of
+    ``length`` entries: JAX's ``NamedSharding(mesh, P("model"))
+    .devices_indices_map((length,))`` for the j-th model device, which
+    refuses an ``m`` that does not divide ``length`` (so does this)."""
+    if not 1 <= m <= MAX_BANKS:
+        raise ValueError(f"{m} banks: the kernels address 1 to {MAX_BANKS}")
+    if length % m:
+        raise ValueError(f"an array of {length} entries does not split "
+                         f"evenly into {m} banks")
+    per = length // m
+    return [(j * per, (j + 1) * per) for j in range(m)]
+
+
+class Banks:
+    """One filter array (the direct words or counters, or the compressed
+    filter's rank-indexed ids or counters) split by index range into banks
+    of ``bank_len`` entries, bank j holding entries [j * bank_len, (j + 1)
+    * bank_len) (``bank_bounds``), each a tensor on its own device.
+
+    The kernels take the banks' device pointers (csrc/common.cuh
+    ``Banks``); the plain versions route every key to (bank, key - bank
+    start) with the same arithmetic (``route``) and never join the banks.
+    ``shape``, ``dtype``, ``device`` (the first bank's), ``bitwise_and_``
+    and ``zero_`` read as a tensor's, so the code that takes a whole array
+    takes banks."""
+
+    def __init__(self, parts):
+        parts = tuple(parts)
+        if not 1 <= len(parts) <= MAX_BANKS:
+            raise ValueError(f"{len(parts)} banks: the kernels address 1 "
+                             f"to {MAX_BANKS}")
+        first = parts[0]
+        for p in parts:
+            if p.dim() != 1 or p.shape != first.shape \
+                    or p.dtype != first.dtype:
+                raise ValueError("banks must be 1-D tensors of one shape "
+                                 "and dtype")
+        self.parts = parts
+        self.bank_len = first.shape[0]
+
+    @property
+    def n(self) -> int:
+        return len(self.parts)
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size([self.n * self.bank_len])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.parts[0].device
+
+    @property
+    def is_cuda(self) -> bool:
+        return self.parts[0].is_cuda
+
+    def route(self, keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(bank, offset in the bank) of every key: keys // bank_len, the
+        quotient the kernels take by a multiply-shift (``bank_of``)."""
+        b = torch.div(keys, self.bank_len, rounding_mode="floor")
+        return b, keys - b * self.bank_len
+
+    def take(self, keys: torch.Tensor) -> torch.Tensor:
+        """``array[keys]`` (any shape), gathered bank by bank, on the
+        keys' device."""
+        b, off = self.route(keys)
+        out = torch.empty(keys.shape, dtype=self.dtype, device=keys.device)
+        for j, p in enumerate(self.parts):
+            sel = b == j
+            out[sel] = p[off[sel].to(p.device)].to(keys.device)
+        return out
+
+    def put_(self, keys: torch.Tensor, vals) -> None:
+        """``array[keys] = vals`` (distinct keys; ``vals`` a tensor of the
+        keys' shape or a number), bank by bank."""
+        b, off = self.route(keys)
+        for j, p in enumerate(self.parts):
+            sel = b == j
+            v = vals[sel].to(p.device) if torch.is_tensor(vals) else vals
+            p[off[sel].to(p.device)] = v
+
+    def amax_(self, keys: torch.Tensor, vals: torch.Tensor) -> None:
+        """``array.scatter_reduce_(0, keys, vals, "amax")``, bank by bank."""
+        b, off = self.route(keys)
+        for j, p in enumerate(self.parts):
+            sel = b == j
+            p.scatter_reduce_(0, off[sel].to(p.device),
+                              vals[sel].to(p.device), "amax")
+
+    def bitwise_and_(self, v) -> "Banks":
+        for p in self.parts:
+            p.bitwise_and_(v)
+        return self
+
+    def zero_(self) -> "Banks":
+        for p in self.parts:
+            p.zero_()
+        return self
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole array as one tensor on ``device`` (the first bank's by
+        default): for tests, saving and handing the filter across."""
+        device = self.device if device is None else device
+        return torch.cat([p.to(device) for p in self.parts])
+
+
+def bank_magic(bank_len: int) -> int:
+    """The kernels' divisor for banks of ``bank_len`` >= 2 entries
+    (csrc/common.cuh ``Banks``): floor((2^64 - 1) / bank_len) + 1."""
+    return (2 ** 64 - 1) // bank_len + 1
+
+
+def bank_of(key: int, bank_len: int) -> int:
+    """The bank of a key below 2^63 as the kernels take it, with no
+    division: q, the high word of key * magic, is key // bank_len or one
+    more (magic exceeds 2^64 / bank_len by at most one, so the product
+    overshoots by less than key / 2^64 < 1/2), and one compare corrects
+    it."""
+    q = (key * bank_magic(bank_len)) >> 64
+    return q - int(q * bank_len > key)
+
+
+def to_banks(t: torch.Tensor, devices):
+    """A copy of ``t`` split over ``devices`` by ``bank_bounds``: a
+    ``Banks`` (one bank per device), or one tensor on the one device of a
+    row of one.  Always a copy, so that rows on one card never share
+    memory."""
+    if len(devices) == 1:
+        return t.to(devices[0], copy=True)
+    return Banks([t[a:b].to(d, copy=True) for (a, b), d in
+                  zip(bank_bounds(t.shape[0], len(devices)), devices)])
+
+
+def new_banks(length: int, devices, make=torch.zeros):
+    """An int32 array of ``length`` entries made by ``make``
+    (``torch.zeros`` or ``torch.empty``) bank by bank over ``devices``
+    (``bank_bounds``): a ``Banks``, or one tensor for one device."""
+    parts = [make(b - a, dtype=torch.int32, device=d) for (a, b), d in
+             zip(bank_bounds(length, len(devices)), devices)]
+    return parts[0] if len(parts) == 1 else Banks(parts)
+
+
+def take(table, keys: torch.Tensor) -> torch.Tensor:
+    """``table[keys]`` of a tensor or ``Banks``."""
+    return table.take(keys) if isinstance(table, Banks) else table[keys]
+
+
+def put_(table, keys: torch.Tensor, vals) -> None:
+    """``table[keys] = vals`` of a tensor or ``Banks`` (distinct keys)."""
+    if isinstance(table, Banks):
+        table.put_(keys, vals)
+    else:
+        table[keys] = vals
+
+
+def whole(t) -> torch.Tensor:
+    """A filter array as one tensor: banks gathered, a tensor as it is."""
+    return t.gather() if isinstance(t, Banks) else t
+
+
+def gather_state(state):
+    """A filter state (``MibfState`` or ``compressed.CompressedState``)
+    with every banked array gathered into one tensor on its first bank's
+    device; a state without banks is returned as it is."""
+    return type(state)(*(whole(t) for t in state))
 
 
 def init_state(params: MibfParams, device="cpu") -> MibfState:
@@ -87,10 +264,15 @@ def init_state(params: MibfParams, device="cpu") -> MibfState:
 
 def state_from_numpy(words: np.ndarray, counts: np.ndarray,
                      device="cpu") -> MibfState:
-    """The JAX package's uint32 arrays as a state on ``device`` (bit view)."""
+    """The JAX package's uint32 arrays as a state on ``device`` (bit view),
+    or banked over ``device`` when it is a sequence of devices (a mesh
+    row: ``to_banks``)."""
     def conv(a):
-        a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
-        return torch.from_numpy(a.copy()).to(device)
+        a = torch.from_numpy(
+            np.ascontiguousarray(a, dtype=np.uint32).view(np.int32).copy())
+        if isinstance(device, (list, tuple)):
+            return to_banks(a, device)
+        return a.to(device)
     return MibfState(words=conv(words), counts=conv(counts))
 
 
@@ -103,9 +285,10 @@ def side_from_numpy(side: np.ndarray, device="cpu") -> torch.Tensor:
 
 
 def state_to_numpy(state: MibfState) -> tuple[np.ndarray, np.ndarray]:
-    """Inverse of ``state_from_numpy``: uint32 numpy arrays on the host."""
-    return (state.words.cpu().numpy().view(np.uint32).copy(),
-            state.counts.cpu().numpy().view(np.uint32).copy())
+    """Inverse of ``state_from_numpy``: uint32 numpy arrays on the host,
+    banks gathered."""
+    return (whole(state.words).cpu().numpy().view(np.uint32).copy(),
+            whole(state.counts).cpu().numpy().view(np.uint32).copy())
 
 
 def fastrange(h: torch.Tensor, size: int) -> torch.Tensor:
@@ -233,6 +416,27 @@ def merge_presence(words: torch.Tensor, bits: torch.Tensor, size: int,
     if words.is_cuda or bits.is_cuda:
         return _merge_cuda(words, bits, size, first_write)
     return _merge_plain(words, bits, size, first_write)
+
+
+def merge_presence_banks(words, bits: torch.Tensor, size: int) -> None:
+    """``merge_presence(words, bits, size, first_write=True)`` into words
+    that may be banked (``Banks``): one merge per bank, on the bank's
+    device, over its slice of the bitmap and its share of the ``size``
+    real slots (none, for a bank past the last: its words become 0).  A
+    bank's first slot must open a bitmap word, so that its slice starts at
+    a word; every bank of ``bank_bounds`` of an ``alloc`` (a multiple of
+    1024) split into up to 32 banks does."""
+    if not isinstance(words, Banks):
+        merge_presence(words, bits, size, first_write=True)
+        return
+    for j, w in enumerate(words.parts):
+        start = j * words.bank_len
+        if start % 32:
+            raise ValueError(f"bank {j} starts at slot {start}, inside a "
+                             "32-slot word of the bitmap")
+        n = min(max(size - start, 0), words.bank_len)
+        piece = bits[start // 32: start // 32 + -(-n // 32)]
+        merge_presence(w, piece.to(w.device), n, first_write=True)
 
 
 def _merge_cuda(words, bits, size, first_write=False):
@@ -502,7 +706,6 @@ def _probe_and_vote_cuda(words, slots, frame_ok, params, num_tiles,
     T, K = num_tiles, params.vote_topk
     F = TF // T
     dev = words.device
-    kernels.check(words, "words", torch.int32, device=dev)
     kernels.check(slots, "slots", torch.int64, device=dev)
     kernels.check(frame_ok, "frame_ok", torch.bool, (B, TF), dev)
     if F * T != TF or H > 8 or K > H * F:
@@ -525,16 +728,17 @@ def _probe_and_vote_cuda(words, slots, frame_ok, params, num_tiles,
         overflow=torch.empty((B, T), **i32),
         queries=counters[0], hits=counters[1], misses=counters[2])
     kernels.PROBE_VOTE(
-        dev, kernels.ptr(words), kernels.ptr(slots), int(ranked),
-        words.shape[0] - 1, kernels.ptr(frame_ok), B, H, T, F, K,
-        params.vote_min, params.threshold, *(kernels.ptr(t) for t in out))
+        dev, *kernels.banks_args(words, None, dev), kernels.ptr(slots),
+        int(ranked), words.shape[0] - 1, kernels.ptr(frame_ok), B, H, T, F,
+        K, params.vote_min, params.threshold,
+        *(kernels.ptr(t) for t in out))
     return out
 
 
 def _probe_and_vote_plain(words, slots, frame_ok, params, num_tiles,
                           ranked=False):
     H = slots.shape[1]
-    ws = [words[slots[:, s, :]] for s in range(H)]       # H gathers [B, TF]
+    ws = [take(words, slots[:, s, :]) for s in range(H)]  # H gathers [B, TF]
     if ranked:
         sent = words.shape[0] - 1
         ws = [torch.where(slots[:, s, :] < sent, w | PRESENT_BIT, 0)
@@ -710,8 +914,7 @@ def _insert_cuda(words, counts, slots, lo, hi, base_id, trimmed, params, T,
     H, TF = slots.shape
     F = TF // T
     bs = params.block_size
-    kernels.check(words, "words", torch.int32, device=dev)
-    kernels.check(counts, "counts", torch.int32, words.shape, dev)
+    banks = kernels.banks_args(words, counts, dev)
     kernels.check(slots, "slots", torch.int64, device=dev)
     # a key is sorted as key << 16 | block (csrc/insert.cuh): below 2^48
     if (F * T != TF or T >= 1 << 16 or TF >= 1 << 31 or lo < 0
@@ -728,7 +931,7 @@ def _insert_cuda(words, counts, slots, lo, hi, base_id, trimmed, params, T,
     spill = (torch.empty(1 + 2 * window, dtype=torch.int64, device=dev)
              if window > INSERT_CAP else None)
     kernels.INSERT_SORTED(
-        dev, kernels.ptr(words), kernels.ptr(counts), kernels.ptr(slots),
+        dev, *banks, kernels.ptr(slots),
         H, TF, F, int(limit), int(or_bits), int(lo), int(hi),
         int(base_id) & _MASK32, int(bool(trimmed)), bs, INSERT_PARTS,
         INSERT_THREADS, INSERT_CAP, kernels.ptr(count), kernels.ptr(bucket),
@@ -753,12 +956,13 @@ def _insert_plain(words, counts, slots, lo, hi, base_id, trimmed, params, T,
         blk = slots[:, t0 * F: (t1 + 1) * F].reshape(-1)
         u = torch.unique(blk[blk < limit])                # sorted, distinct
         # uint32 counter; a wrap to 0 never accepts (the JAX max(cnt, 1))
-        cnt = ((counts[u].to(torch.int64) & _MASK32) + 1) & _MASK32
-        counts[u] = _as_int32(cnt)
+        cnt = ((take(counts, u).to(torch.int64) & _MASK32) + 1) & _MASK32
+        put_(counts, u, _as_int32(cnt))
         accept = ((((u & _MASK32) ^ bid) % torch.clamp(cnt, min=1))
                   == (cnt - 1) & _MASK32)
         word = or_bits | bid
-        words[u[accept]] = word - (1 << 32) if word > 0x7FFFFFFF else word
+        put_(words, u[accept],
+             word - (1 << 32) if word > 0x7FFFFFFF else word)
         m += 1
 
 
@@ -800,13 +1004,13 @@ def _insert_max_cuda(table, grid, lo, hi, base_id, trimmed, bs, T, limit,
                      or_bits):
     dev = table.device
     H, TF = grid.shape
-    kernels.check(table, "table", torch.int32, device=dev)
+    banks = kernels.banks_args(table, None, dev)
     kernels.check(grid, "grid", torch.int64, device=dev)
     if (TF % T or TF >= 1 << 31 or lo < 0
             or not 0 <= limit <= table.shape[0]):
         raise ValueError(f"unsupported insert grid {tuple(grid.shape)}, "
                          f"tiles from {lo} or key limit {limit}")
-    kernels.INSERT_MAX(dev, kernels.ptr(table), kernels.ptr(grid), H, TF,
+    kernels.INSERT_MAX(dev, *banks, kernels.ptr(grid), H, TF,
                        TF // T, int(limit), int(or_bits), int(lo), int(hi),
                        int(base_id), int(bool(trimmed)), bs)
 
@@ -824,7 +1028,10 @@ def _insert_max_plain(table, grid, lo, hi, base_id, trimmed, bs, T, limit,
     ids = base_id + ((m * bs + 1) // bs if trimmed else m)
     vals = (or_bits | ids).to(torch.int32).expand(H, -1)
     real = keys < limit
-    table.scatter_reduce_(0, keys[real], vals[real], "amax")
+    if isinstance(table, Banks):
+        table.amax_(keys[real], vals[real])
+    else:
+        table.scatter_reduce_(0, keys[real], vals[real], "amax")
 
 
 def reset_ids(state: MibfState, counts: bool = True) -> MibfState:
@@ -842,7 +1049,8 @@ def reset_ids(state: MibfState, counts: bool = True) -> MibfState:
 
 def save_state(state: MibfState, params: MibfParams, path: str) -> None:
     """Persist the filter in the JAX package's .npz format
-    (goldrush_tpu/mibf/mibf.py:693-700): either package loads it."""
+    (goldrush_tpu/mibf/mibf.py:693-700), banks gathered: either package
+    loads it."""
     words, counts = state_to_numpy(state)
     np.savez_compressed(
         path, words=words, counts=counts, size=params.size, h=params.h,
@@ -851,6 +1059,9 @@ def save_state(state: MibfState, params: MibfParams, path: str) -> None:
 
 
 def load_state(path: str, device="cpu") -> tuple[MibfState, dict]:
+    """A saved filter (either package's .npz) on ``device``, or banked over
+    it when it is a sequence of devices (``state_from_numpy``), and its
+    geometry."""
     z = np.load(path)
     state = state_from_numpy(z["words"], z["counts"], device)
     meta = {k: (int(z[k]) if z[k].ndim == 0 else tuple(int(x) for x in z[k]))

@@ -13,7 +13,10 @@ under the optimistic policy) and a silver path that fills up rotates.
 
 ``consume_batch`` launches ``gr_consume`` (csrc/consume.cu), one
 cooperative kernel per batch, for CUDA tensors, and runs
-``consume_batch_plain`` for CPU tensors; mixed devices raise.  The kernel
+``consume_batch_plain`` for CPU tensors; mixed devices raise.  The filter
+may be banked (``mibf.Banks``, a mesh row's model axis,
+parallel/mesh.py): the kernel reaches every bank through its device
+pointer, the plain version routes every key to its bank.  The kernel
 never returns to the host inside a batch: ``scal`` and the rows stay on the
 card until the caller fetches them.  Its scratch (``ConsumeScratch``) is
 made once per engine pass and grows only when a batch needs more.  The
@@ -155,7 +158,8 @@ def new_counters(device) -> torch.Tensor:
 def _filter_view(state, size: int):
     """(table, counts, ranked, insert key limit, or_bits) of either filter:
     the direct words keyed by slot (``size`` real slots), or the compressed
-    filter's rank-indexed ids keyed by rank."""
+    filter's rank-indexed ids keyed by rank; table and counts each a tensor
+    or its banks (``mibf.Banks``)."""
     if isinstance(state, cz.CompressedState):
         return state.ids, state.counts, True, state.sentinel, 0
     return state.words, state.counts, False, size, dm.PRESENT_BIT
@@ -163,8 +167,8 @@ def _filter_view(state, size: int):
 
 def consume_batch(spec: ConsumeSpec, state, grid, frame_ok, grid_ins, ok_ins,
                   n_tiles, full_lengths, rows0, scal, rows_out, counters,
-                  num_tiles: int, scratch: ConsumeScratch | None = None
-                  ) -> None:
+                  num_tiles: int, scratch: ConsumeScratch | None = None,
+                  row=None) -> None:
     """Consume one padded batch in order, in place: the filter ``state``
     (dm.MibfState or cz.CompressedState), ``scal`` (int64 [4]: ids
     inserted, bases inserted, path index, done; carried across batches),
@@ -179,13 +183,30 @@ def consume_batch(spec: ConsumeSpec, state, grid, frame_ok, grid_ins, ok_ins,
     full_lengths int64 [B]; rows0 int64 [B, 8] (or [B, 9] with the trim
     recheck, the ninth column each read's ``tile_min_count``): the batched
     verdicts against the filter at batch start.  ``scratch``: the kernel's,
-    kept by the caller across a pass (a fresh one when not given)."""
+    kept by the caller across a pass (a fresh one when not given).
+
+    The batch's tensors and the filter's first bank (or whole tables) lie
+    on one device, the lead of the filter's mesh row; with ``row`` (that
+    row's devices) bank j of a banked filter must lie on ``row[j]``, and
+    without it every bank on a device of the lead's type."""
     tensors = (state[0], grid, frame_ok, grid_ins, ok_ins, n_tiles,
                full_lengths, rows0, scal, rows_out, counters)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"consume_batch: tensors on several devices "
                          f"{sorted(map(str, devices))}")
+    for arr in _filter_view(state, spec.params.size)[:2]:
+        parts = getattr(arr, "parts", (arr,))
+        want = (tuple(torch.device(d) for d in row[:len(parts)])
+                if row is not None and len(parts) > 1 else None)
+        got = tuple(p.device for p in parts)
+        if (want is not None and got != want) or any(
+                d.type != grid.device.type for d in got):
+            raise ValueError(f"consume_batch: filter banks on "
+                             f"{[str(d) for d in got]}, batch on "
+                             f"{grid.device}"
+                             + (f", row {[str(d) for d in want]}"
+                                if want else ""))
     if grid.is_cuda:
         _consume_cuda(spec, state, grid, frame_ok, grid_ins, ok_ins, n_tiles,
                       full_lengths, rows0, scal, rows_out, counters,
@@ -205,8 +226,7 @@ def _consume_cuda(spec, state, grid, frame_ok, grid_ins, ok_ins, n_tiles,
     dev = grid.device
     K = p.vote_topk
     cols = 9 if spec.rech_on else 8
-    kernels.check(table, "table", torch.int32, device=dev)
-    kernels.check(counts, "counts", torch.int32, table.shape, dev)
+    banks = kernels.banks_args(table, counts, dev)
     kernels.check(grid, "grid", torch.int64, device=dev)
     kernels.check(frame_ok, "frame_ok", torch.bool, (B, TFq), dev)
     kernels.check(grid_ins, "grid_ins", torch.int64, (B, Hi, TFi), dev)
@@ -227,8 +247,8 @@ def _consume_cuda(spec, state, grid, frame_ok, grid_ins, ok_ins, n_tiles,
     sc = scratch
     exact = not spec.fast
     kernels.CONSUME(
-        dev, kernels.ptr(table), kernels.ptr(counts), table.shape[0],
-        int(ranked), table.shape[0] - 1, int(limit), int(or_bits),
+        dev, *banks, int(ranked), table.shape[0] - 1, int(limit),
+        int(or_bits),
         kernels.ptr(grid), kernels.ptr(frame_ok), Hq, TFq // T,
         kernels.ptr(grid_ins), kernels.ptr(ok_ins), Hi, TFi // T,
         kernels.ptr(n_tiles), kernels.ptr(full_lengths), kernels.ptr(rows0),

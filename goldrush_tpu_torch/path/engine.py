@@ -39,6 +39,17 @@ processing at any batch size; both policies are bit-identical to the JAX
 engine under the same config.  Configurations of later slices raise
 ``NotImplementedError`` at construction (see ``_check_slice``).
 
+With ``devices > 1`` or ``model_shards > 1`` the engine runs on a
+``(data, model)`` mesh of explicit devices in one process
+(parallel/mesh.py), as the JAX engine runs on its device mesh: data row i
+keeps its own replica of the filter, banked by index range over the row's
+devices when ``model_shards > 1``; it fills its share of each fill batch
+into its own bitmap (the rows' bitmaps are ORed once a pass), classifies
+its share of each pass-2 batch, and, once the grids and verdicts of the
+whole batch are copied to every row, runs the consume scan of the whole
+batch against its replica, so the replicas stay identical.  Rows, ``scal``
+and the counters are read from row 0.
+
 With ``wavefront=True`` under the optimistic policy (and not ``debug``),
 as in the JAX engine, pass 2 runs windows of ``wave_window`` reads
 through the wavefront consume instead of the scan (path/wavefront.py:
@@ -64,6 +75,7 @@ from ..ops.nthash import build_seed_family
 from ..ops.phred import (MEDIAN_SAMPLES_NEEDED, MINIMUM_PHRED_THRESHOLD,
                          calc_median_phred, sum_phred)
 from ..ops.seeds import make_seed_pattern
+from ..parallel.mesh import make_mesh, resolve_device, shard_state
 from ..utils import observability as obs
 from ..utils.ntcard import NtCardParams, estimate_genome_size
 from .classify import classify_batch
@@ -118,7 +130,8 @@ class EngineStats:
     wall_ntcard_s: float = 0.0        # construction: ntCard's estimate
     num_batches: int = 0
     # the process's peak device memory (torch.cuda.max_memory_allocated)
-    # after pass 2; 0 on the CPU.  Not a field of the JAX engine's stats
+    # after pass 2, the largest over the mesh's cards; 0 on the CPU.  Not a
+    # field of the JAX engine's stats
     device_peak_bytes: int = 0
 
 
@@ -134,8 +147,9 @@ def _check_slice(cfg: PathConfig) -> None:
     ROADMAP item that brings it, before anything is allocated.  The
     filter's size is checked apart (``_check_size``), once it is known."""
     later = [
-        (cfg.devices > 1 or cfg.model_shards > 1,
-         "devices > 1 / model_shards > 1", "queue 1 item 11"),
+        (_wave_on(cfg) and (cfg.devices > 1 or cfg.model_shards > 1),
+         "the wavefront (wavefront=True) under a mesh (devices > 1 / "
+         "model_shards > 1)", "queue 1 item 13"),
     ]
     for bad, what, item in later:
         if bad:
@@ -167,26 +181,28 @@ def _check_size(cfg: PathConfig, size: int) -> None:
             "int32 slots and ranks wrap there (ROADMAP.md queue 3)")
 
 
-def resolve_device(device) -> torch.device:
-    """An explicit device; 'cuda' without a usable card raises (no silent
-    CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but torch.cuda is not "
-                           "available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
-
-
 class GoldenPathEngine:
-    """goldrush-path equivalent.  Construct, then call run()."""
+    """goldrush-path equivalent.  Construct, then call run().
+
+    ``device``: one device, or under a mesh (``devices > 1`` or
+    ``model_shards > 1``: n = devices if devices > 1 else model_shards, as
+    the JAX engine counts them) a sequence of n devices in mesh order
+    (row-major ``[data, model]``; a card may repeat), ``"cpu"`` for n
+    logical CPU devices or ``"cuda"`` for ``cuda:0 .. cuda:n-1``."""
 
     def __init__(self, cfg: PathConfig, device="cuda"):
         cfg.validate()
         _check_slice(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        n = cfg.devices if cfg.devices > 1 else cfg.model_shards
+        if n % cfg.model_shards:
+            raise ValueError(f"devices ({n}) must be divisible by "
+                             f"model_shards ({cfg.model_shards})")
+        self.data_shards = n // cfg.model_shards
+        self.banked = cfg.model_shards > 1
+        self.mesh = make_mesh(n, data=self.data_shards,
+                              model=cfg.model_shards, devices=device)
+        self.device = self.mesh.lead(0)
         self.seeds = make_seed_pattern(cfg.seed_preset, cfg.kmer_size,
                                        cfg.weight, cfg.hash_num)
         self.fam = build_seed_family(self.seeds)
@@ -247,20 +263,20 @@ class GoldenPathEngine:
                         and (S > 1 or self.h_active < self.h_ins))
         self.reuse_q = (S == 1 and cfg.insert_stride == 1
                         and self.h_active == self.h_ins)
-        # the compressed filter freezes pass 1's bitmap into ``cstate``
+        # one filter per data row of the mesh (``state`` / ``cstate`` are
+        # row 0's): the compressed filter freezes pass 1's bitmap into it
         # (fill) and never holds the direct words; the direct filter's
         # words need no zero-fill, since the merge that closes pass 1
         # writes every one of them
         self.compressed = cfg.mibf_mode == "compressed"
-        self.cstate: cz.CompressedState | None = None
-        self.state: dm.MibfState | None = None
+        self.replicas: list = [None] * self.mesh.data
         if not self.compressed:
             alloc = self.params.alloc
-            self.state = dm.MibfState(
-                words=torch.empty(alloc, dtype=torch.int32,
-                                  device=self.device),
-                counts=torch.zeros(alloc, dtype=torch.int32,
-                                   device=self.device))
+            self.replicas = [
+                dm.MibfState(words=dm.new_banks(alloc, self._row(r),
+                                                torch.empty),
+                             counts=dm.new_banks(alloc, self._row(r)))
+                for r in range(self.mesh.data)]
         # -f: read names to exclude from pass 2 (pass 1 still inserts their
         # presence bits — goldrush_path.cpp:1163-1170)
         self.filter_out: set[str] = set()
@@ -299,6 +315,32 @@ class GoldenPathEngine:
         # fields are the JAX engine's
         self.consume_counts: dict[str, int] = {}
 
+    @property
+    def state(self) -> dm.MibfState | None:
+        """Row 0's direct filter, or None."""
+        r = self.replicas[0]
+        return r if isinstance(r, dm.MibfState) else None
+
+    @state.setter
+    def state(self, value) -> None:
+        self.replicas[0] = value
+
+    @property
+    def cstate(self) -> cz.CompressedState | None:
+        """Row 0's compressed filter, or None."""
+        r = self.replicas[0]
+        return r if isinstance(r, cz.CompressedState) else None
+
+    @cstate.setter
+    def cstate(self, value) -> None:
+        self.replicas[0] = value
+
+    def _row(self, r: int) -> tuple:
+        """The devices that hold row r's filter tables: the whole row when
+        the filter is banked, else its lead."""
+        row = self.mesh.rows[r]
+        return row if self.banked else row[:1]
+
     # ------------------------------------------------------------------
     def calc_phred_threshold(self, path: str) -> None:
         """Auto threshold = max(10, median of first 50k passing reads)
@@ -320,17 +362,17 @@ class GoldenPathEngine:
         self.phred_min = max(MINIMUM_PHRED_THRESHOLD,
                              calc_median_phred(scores, count))
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def _to_device(self, a: np.ndarray, r: int = 0) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.mesh.lead(r))
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A batch array on the device without waiting for it: on the card
-        through pinned memory, asynchronously (a pageable copy would wait
-        for the stream)."""
-        if self.device.type == "cpu":
+    def _upload(self, a: np.ndarray, r: int = 0) -> torch.Tensor:
+        """A batch array on row r's lead device without waiting for it: on
+        the card through pinned memory, asynchronously (a pageable copy
+        would wait for the stream)."""
+        dev = self.mesh.lead(r)
+        if dev.type == "cpu":
             return torch.from_numpy(a)
-        return torch.from_numpy(a).pin_memory().to(self.device,
-                                                   non_blocking=True)
+        return torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
 
     # ------------------------------------------------------------------
     def fill(self, path: str) -> None:
@@ -340,7 +382,7 @@ class GoldenPathEngine:
         if self.cfg.load_mibf:
             # resume from a saved filter (either package's .npz): skip
             # pass 1; its gate bookkeeping is not reconstructed
-            state, meta = dm.load_state(self.cfg.load_mibf, self.device)
+            state, meta = dm.load_state(self.cfg.load_mibf)
             # the fill's geometry: every insert seed (a probed prefix of
             # them loads the same filter)
             p = self.params_full
@@ -349,14 +391,21 @@ class GoldenPathEngine:
             if meta != want:
                 raise ValueError(
                     f"saved miBF geometry {meta} != engine {want}")
-            self.state = state
+            # a replica per row, banked as the engine banks its filter
+            self.replicas = shard_state(state, self.mesh, self.banked)
             st.num_passed_reads = -1     # unknown; loaded
             st.wall_fill_s += time.time() - t0
             return
         # pass 1 sets bits in a presence bitmap, batch by batch; the
         # direct filter writes its words from it once at the end: the
-        # filter that ORing every batch into zeroed words would give
-        bits = dm.presence_bitmap(self.size, self.device)
+        # filter that ORing every batch into zeroed words would give.  Each
+        # data row fills its share of every batch (reads split in order,
+        # as the JAX engine's in_shardings split its padded batch) into a
+        # bitmap of its own
+        d = self.mesh.data
+        share = -(-FILL_BATCH // d)
+        bits_rows = [dm.presence_bitmap(self.size, self.mesh.lead(r))
+                     for r in range(d)]
         with ingest.ReadStream(path, prefetch=self._prefetch) as rs:
             for block in rs:
                 st.num_reads += len(block)
@@ -389,31 +438,49 @@ class GoldenPathEngine:
                     for j, r in enumerate(batch):
                         codes[j, : r.length] = r.codes
                         lengths[j] = r.length
-                    dm.fill_presence_bits(bits, self._to_device(codes),
-                                          self._to_device(lengths),
-                                          self.fam_ins, self.size,
-                                          self.cfg.slot_map)
+                    for q in range(d):
+                        a, b = q * share, (q + 1) * share
+                        if a >= len(batch):
+                            break
+                        dm.fill_presence_bits(
+                            bits_rows[q], self._to_device(codes[a:b], q),
+                            self._to_device(lengths[a:b], q), self.fam_ins,
+                            self.size, self.cfg.slot_map)
         if st.num_passed_reads == 0:
             raise RuntimeError(
                 "no reads passed the Phred score and min length requirements")
+        if d > 1:
+            # the rows' bitmaps ORed, and the union copied back to each row
+            union = bits_rows[0]
+            for q in range(1, d):
+                union |= bits_rows[q].to(union.device)
+            bits_rows = [union] + [union.to(self.mesh.lead(q), copy=True)
+                                   for q in range(1, d)]
+            del union
         if not self.compressed:
-            dm.merge_presence(self.state.words, bits, self.size,
-                              first_write=True)
+            # one first-write merge per bank of each row's words
+            for q in range(d):
+                dm.merge_presence_banks(self.replicas[q].words, bits_rows[q],
+                                        self.size)
         self._sync()
         st.wall_fill_stream_s = time.time() - t0
         if self.compressed:
-            # the bitmap goes before the rank-indexed tables come
+            # each row freezes its bitmap; it goes before the rank-indexed
+            # tables (banked, zeroed) come
             t1 = time.time()
-            bitrank, supers, pop = cz.build_rank(bits, self.size)
-            del bits
-            self.cstate = cz.with_tables(bitrank, supers, pop, self.size)
+            for q in range(d):
+                bitrank, supers, pop = cz.build_rank(bits_rows[q], self.size)
+                bits_rows[q] = None
+                self.replicas[q] = cz.with_tables(bitrank, supers, pop,
+                                                  self.size, self._row(q))
             self._sync()
             st.wall_freeze_s += time.time() - t1
         st.wall_fill_s += time.time() - t0
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self.mesh.cards():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------------
     def _open_writer(self, curr_path: int) -> None:
@@ -424,28 +491,30 @@ class GoldenPathEngine:
             w = fastq.PathWriter(f"{cfg.prefix_file}.fa", False)
         self.writers.append(w)
 
-    def _grid(self, codes, lengths, T, fam, params):
+    def _grid(self, codes, lengths, T, fam, params, r=0):
         """A batch's probe grid for ``fam``/``params``: slots (direct
-        filter) or their ranks (compressed filter), with frame_ok."""
+        filter) or their ranks (compressed filter: row r's rank tables),
+        with frame_ok."""
         if self.compressed:
-            return cz.build_rank_grid(self.cstate, codes, lengths, fam,
+            return cz.build_rank_grid(self.replicas[r], codes, lengths, fam,
                                       params, T)
         return dm.build_slot_grid(codes, lengths, fam, params, T)
 
-    def _vote(self, grid, frame_ok, T, params):
+    def _vote(self, grid, frame_ok, T, params, r=0):
+        """Kernel B against row r's filter."""
         if self.compressed:
-            return cz.probe_and_vote(self.cstate, grid, frame_ok, params,
-                                     num_tiles=T)
-        return dm.probe_and_vote(self.state.words, grid, frame_ok, params,
-                                 num_tiles=T)
+            return cz.probe_and_vote(self.replicas[r], grid, frame_ok,
+                                     params, num_tiles=T)
+        return dm.probe_and_vote(self.replicas[r].words, grid, frame_ok,
+                                 params, num_tiles=T)
 
-    def _probe_classify(self, grid, frame_ok, n_tiles, T):
-        """The batched verdicts against the filter at batch start, on the
-        device: rows int64 [B, 8] = (decision, trim_start, trim_end,
-        num_assigned, queries, hits, misses, overflow), with the trim
-        recheck on a ninth column, each read's minimum in-read top count
-        (``tile_min_count``)."""
-        votes = self._vote(grid, frame_ok, T, self.params)
+    def _probe_classify(self, grid, frame_ok, n_tiles, T, r=0):
+        """The batched verdicts against row r's filter at batch start, on
+        its lead device: rows int64 [B, 8] = (decision, trim_start,
+        trim_end, num_assigned, queries, hits, misses, overflow), with the
+        trim recheck on a ninth column, each read's minimum in-read top
+        count (``tile_min_count``)."""
+        votes = self._vote(grid, frame_ok, T, self.params, r)
         res = classify_batch(votes.curr_id, votes.top_count, votes.cand_ids,
                              votes.cand_counts, n_tiles, self.x_eff,
                              self.cfg.unassigned_min, self.cfg.assigned_max)
@@ -472,33 +541,51 @@ class GoldenPathEngine:
             for p in range(ids_tr.shape[1]):
                 obs.log_tile_states(ids_tr[i, p, :n], bools_tr[i, p, :n])
 
-    def _window_inputs(self, codes, lengths, full_lengths, T) -> tuple:
-        """One padded batch on the device: its codes, its query grid and
-        frame_ok, the full-resolution grid of every insert seed (what
-        recruits insert and the trim recheck probes) and its frame_ok,
-        n_tiles and the full lengths."""
+    def _window_inputs(self, codes, lengths, full_lengths, T, r=0) -> tuple:
+        """One padded batch on row r's lead device: its codes, its query
+        grid and frame_ok, the full-resolution grid of every insert seed
+        (what recruits insert and the trim recheck probes) and its
+        frame_ok, n_tiles and the full lengths."""
         TL = self.params.tile_length
-        codes_d, lengths_d = self._upload(codes), self._upload(lengths)
-        n_tiles_d = self._upload((lengths // TL).astype(np.int32))
-        full_d = self._upload(full_lengths)
+        codes_d, lengths_d = self._upload(codes, r), self._upload(lengths, r)
+        n_tiles_d = self._upload((lengths // TL).astype(np.int32), r)
+        full_d = self._upload(full_lengths, r)
         grid, frame_ok = self._grid(codes_d, lengths_d, T, self.fam_q,
-                                    self.params)
+                                    self.params, r)
         if self.reuse_q:
             grid_ins, ok_ins = grid, frame_ok
         else:
             grid_ins, ok_ins = self._grid(codes_d, lengths_d, T, self.fam_ins,
-                                          self.params_ins)
+                                          self.params_ins, r)
         return codes_d, grid, frame_ok, grid_ins, ok_ins, n_tiles_d, full_d
 
-    def _batch_inputs(self, codes, lengths, full_lengths, T) -> tuple:
-        """The consume scan's inputs of one padded batch: the grids,
-        n_tiles and full lengths of ``_window_inputs``, and the batched
-        verdicts against the filter at batch start
+    def _batch_inputs(self, codes, lengths, full_lengths, T, r=0) -> tuple:
+        """The consume scan's inputs of one padded batch on row r's lead
+        device: the grids, n_tiles and full lengths of ``_window_inputs``,
+        and the batched verdicts against row r's filter at batch start
         (``_probe_classify``)."""
         _, grid, frame_ok, grid_ins, ok_ins, n_tiles_d, full_d = \
-            self._window_inputs(codes, lengths, full_lengths, T)
-        rows0 = self._probe_classify(grid, frame_ok, n_tiles_d, T)
+            self._window_inputs(codes, lengths, full_lengths, T, r)
+        rows0 = self._probe_classify(grid, frame_ok, n_tiles_d, T, r)
         return grid, frame_ok, grid_ins, ok_ins, n_tiles_d, full_d, rows0
+
+    def _mesh_inputs(self, codes, lengths, full_lengths, T) -> list:
+        """``_batch_inputs`` of one padded batch for every data row: row i
+        computes those of reads [i B/d, (i+1) B/d) against its replica
+        (the batched classify split by read, as the JAX engine's
+        ``P("data")``), then every row gets the whole batch's, on its lead
+        device."""
+        d = self.mesh.data
+        if d == 1:
+            return [self._batch_inputs(codes, lengths, full_lengths, T)]
+        per = codes.shape[0] // d
+        parts = [self._batch_inputs(codes[i * per: (i + 1) * per],
+                                    lengths[i * per: (i + 1) * per],
+                                    full_lengths[i * per: (i + 1) * per],
+                                    T, i) for i in range(d)]
+        return [tuple(torch.cat([p[k].to(self.mesh.lead(r)) for p in parts])
+                      for k in range(len(parts[0])))
+                for r in range(d)]
 
     def _consume(self, codes, lengths, full_lengths, T, scal, rows_out,
                  counters):
@@ -508,16 +595,21 @@ class GoldenPathEngine:
         updates the filter, ``scal`` = [ids_inserted, inserted_bases,
         path_idx, done] (carried across batches) and ``counters`` in place
         and writes one row per read into ``rows_out``, all on the device.
-        Under the wavefront the batch is a window: its adjacency, then its
-        rounds (path/wavefront.py), which also update the side table, and
-        ``scal[0]`` counts id reservations."""
-        state = self.cstate if self.compressed else self.state
+        Under a mesh ``scal``, ``rows_out`` and ``counters`` are lists, one
+        per data row, and every row scans the whole batch against its own
+        replica.  Under the wavefront the batch is a window: its adjacency,
+        then its rounds (path/wavefront.py), which also update the side
+        table, and ``scal[0]`` counts id reservations."""
         if not self.wave:
-            consume_batch(self.spec, state,
-                          *self._batch_inputs(codes, lengths, full_lengths, T),
-                          scal, rows_out, counters, T,
-                          scratch=self.consume_scratch)
+            for r, inputs in enumerate(self._mesh_inputs(
+                    codes, lengths, full_lengths, T)):
+                consume_batch(self.spec, self.replicas[r], *inputs, scal[r],
+                              rows_out[r], counters[r], T,
+                              scratch=self.consume_scratch[r],
+                              row=self._row(r))
             return
+        state = self.cstate if self.compressed else self.state
+        scal, rows_out, counters = scal[0], rows_out[0], counters[0]
         # the wave's first round classifies every read: no batched verdicts
         codes_d, *inputs = self._window_inputs(codes, lengths, full_lengths, T)
         _, _, ranked, limit, _ = _filter_view(state, self.size)
@@ -542,7 +634,9 @@ class GoldenPathEngine:
         Bpad = max(B, self.batch_reads)
         if Bpad * T > self.tile_budget:
             Bpad = 1 << max(0, (B - 1)).bit_length()
-        return Bpad
+        # the data axis splits the batch (goldrush_tpu/path/engine.py:1067)
+        d = self.data_shards
+        return -(-Bpad // d) * d
 
     def _pack_batch(self, batch) -> tuple:
         """A batch of records as the device takes it: codes uint8 [Bpad,
@@ -581,16 +675,21 @@ class GoldenPathEngine:
         cached_bytes = 0
         cache_bufs: set = set()
         dev = self.device
-        scal_d = torch.tensor([0, 0, 1, 0], dtype=torch.int64).to(dev)
-        counters = (wave.new_counters(dev) if self.wave
-                    else new_counters(dev))
-        # the consume kernel's scratch, made once for the pass
-        self.consume_scratch = ConsumeScratch()
+        leads = [self.mesh.lead(r) for r in range(self.mesh.data)]
+        # per data row: the scan's scalars, counters and rows (row 0's are
+        # read after the pass) and the consume kernel's scratch, made once
+        # for the pass
+        scal_d = [torch.tensor([0, 0, 1, 0], dtype=torch.int64).to(ld)
+                  for ld in leads]
+        counters = [wave.new_counters(ld) if self.wave else new_counters(ld)
+                    for ld in leads]
+        self.consume_scratch = [ConsumeScratch() for _ in leads]
         if self.wave:
             table = self.cstate.ids if self.compressed else self.state.words
             self.wave_side = None     # the last pass's goes before this one
             self.wave_side = torch.zeros_like(table)
-        rows_d = torch.empty((4096, 8), dtype=torch.int64, device=dev)
+        rows_d = [torch.empty((4096, 8), dtype=torch.int64, device=ld)
+                  for ld in leads]
         n_rows = 0
 
         def submit(batch):
@@ -604,14 +703,17 @@ class GoldenPathEngine:
                                  self._to_device(lengths),
                                  self._to_device(lengths // TL), T, B)
             tb = time.time()
-            if n_rows + Bpad > rows_d.shape[0]:
-                grown = torch.empty((2 * (n_rows + Bpad), 8),
-                                    dtype=torch.int64, device=dev)
-                grown[:n_rows] = rows_d[:n_rows]
+            if n_rows + Bpad > rows_d[0].shape[0]:
+                grown = [torch.empty((2 * (n_rows + Bpad), 8),
+                                     dtype=torch.int64, device=ld)
+                         for ld in leads]
+                for g, old in zip(grown, rows_d):
+                    g[:n_rows] = old[:n_rows]
                 rows_d = grown
             # the padding's rows are overwritten by the next batch
             self._consume(codes, lengths, full_lengths, T, scal_d,
-                          rows_d[n_rows: n_rows + Bpad], counters)
+                          [rd[n_rows: n_rows + Bpad] for rd in rows_d],
+                          counters)
             n_rows += B
             if st.num_batches == 0:
                 st.wall_submit_first_s += time.time() - tb
@@ -643,11 +745,11 @@ class GoldenPathEngine:
                 pend_T = 1
         if pending:
             submit(pending)
-        # the pass's one fetch
-        rows = rows_d[:n_rows].cpu().numpy()
-        scal = scal_d.tolist()
+        # the pass's one fetch, from row 0
+        rows = rows_d[0][:n_rows].cpu().numpy()
+        scal = scal_d[0].tolist()
         self.consume_counts = dict(zip(
-            wave.WAVE_COUNTS if self.wave else COUNTS, counters.tolist()))
+            wave.WAVE_COUNTS if self.wave else COUNTS, counters[0].tolist()))
         if self.consume_counts.get("faults"):
             raise RuntimeError(f"wavefront: {self.consume_counts['faults']} "
                                "windows faulted (past the round cap, or ids "
@@ -731,8 +833,9 @@ class GoldenPathEngine:
                   f"but only {curr_path} generated.")
         st.wall_replay_s += time.time() - t1
         st.wall_assign_s += time.time() - t0
-        if dev.type == "cuda":
-            st.device_peak_bytes = torch.cuda.max_memory_allocated(dev)
+        st.device_peak_bytes = max(
+            [torch.cuda.max_memory_allocated(c) for c in self.mesh.cards()
+             if c.type == "cuda"] or [0])
 
     # ------------------------------------------------------------------
     def run(self, input_path: str | None = None) -> EngineStats:

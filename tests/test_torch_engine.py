@@ -230,8 +230,13 @@ def test_cuda_without_a_card_raises(dataset, monkeypatch):
 
 @pytest.mark.parametrize("over", [dict(devices=2), dict(model_shards=2)])
 def test_out_of_slice_config_raises(over):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GoldenPathEngine(PathConfig(**{**CFG, **over}), device="cpu")
+    """The mesh runs (tests/test_torch_mesh.py); the wavefront under it is
+    a later slice."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 item 13"):
+        GoldenPathEngine(PathConfig(**{**CFG, **over, "wavefront": True,
+                                       "recheck": "optimistic"}),
+                         device="cpu")
 
 
 @pytest.mark.parametrize("stride", [3, 8])
