@@ -175,9 +175,20 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      run's digests against the fixture and its gathered filter against
      a single-card run's; (c) where the host has two cards or more, the
      banks across real cards (1x2, and 2x2 with four): peer access and
-     native atomics printed, (a)'s checks and the gate digests; on one
-     card it prints "10(c) not run: 1 card".  `mesh_phase()` runs phase
-     10 alone from a driver that sets WORK.
+     native atomics printed, (a)'s and (d)'s kernel checks and the gate
+     digests, the wavefront's too; on one card it prints "10(c) not run: 1
+     card"; (d) the wavefront under the mesh: wave_rounds on the id and
+     side tables banked over 1, 2 and 4 banks on cuda:0 against
+     wave_window_plain on the unbanked tables, bit for bit, on 9(a)'s
+     three windows of bench reads per filter, each timed beside 9(a)'s
+     unbanked time and the window's bound; then, every launch count
+     zeroed just before and read just after, bench.py's throughput cell
+     with wavefront=True on ["cuda:0"] * 4 at 2x2 and 4x1, each filter:
+     every file's sha256 equal to 9(b)'s, every row's replica and side
+     table equal, wave_rounds d times a window and wave_adjacency once,
+     the consume kernel, B and C never, assign reads/s beside 9(b)'s; and
+     the gate dataset's "wavefront" digests at 2x2.  `mesh_phase()` runs
+     phase 10 alone from a driver that sets WORK.
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -218,8 +229,12 @@ BENCH_ENGINE = dict(genome_size=5_000_000, kmer_size=22, weight=16,
 THROUGHPUT = dict(frame_stride=8, probe_seeds=1, recheck="optimistic",
                   batch_reads=64)
 # the single-card runs' assign reads/s, keyed (cell, filter, stage), from
-# phase 4 (or from phase 10 when it runs alone), printed beside the mesh's
+# phase 4 and 9(b) (cell "wave") (or from phase 10 when it runs alone),
+# printed beside the mesh's
 RATES: dict = {}
+# 9(a)'s wave_rounds times (ms) by window ("{filter}_{window}"), printed
+# beside 10(d)'s banked times
+WAVE_MS: dict = {}
 
 
 def say(phase: str, **kv) -> None:
@@ -233,6 +248,14 @@ def sha256_file(path: str) -> str:
         for chunk in iter(lambda: f.read(1 << 20), b""):
             h.update(chunk)
     return h.hexdigest()
+
+
+def silver_digests(prefix: str) -> dict:
+    """{"_i.fq": sha256} of the path files of a silver pass of
+    BENCH_ENGINE's paths."""
+    return {f"_{i}.fq": sha256_file(f"{prefix}_{i}.fq")
+            for i in range(1, BENCH_ENGINE["max_paths"] + 1)
+            if os.path.exists(f"{prefix}_{i}.fq")}
 
 
 def cuda_ms(fn, reps: int, hold: int = 1) -> float:
@@ -3313,6 +3336,7 @@ def wave_kernel_check(dev) -> dict:
                 counts, rows_p.cpu(), nt.cpu(), (grid, gi), T, table, side,
                 mode == "compressed", word) / HBM_BYTES_PER_S * 1e3
                 for word in (32, 4))
+            WAVE_MS[tag] = ms
             rnd_rec.update({f"ms_{tag}": ms, f"plain_ms_{tag}": pms,
                             f"bound_ms_{tag}": bound,
                             f"bound_ms_words_{tag}": bound_words,
@@ -3392,6 +3416,8 @@ def wave_bench() -> dict:
         wall = time.time() - t0
         got = {k.name: k.launches - before[k.name] for k in kernels.ALL}
         c = eng.consume_counts
+        RATES[("wave", mode, "silver")] = \
+            st.num_reads / max(st.wall_assign_s, 1e-9)
         wave_ids = recruit_ids(prefix, eng.cfg.max_paths)
         seq_ids = recruit_ids(os.path.join(WORK, f"throughput_{mode}"),
                               eng.cfg.max_paths)
@@ -3427,28 +3453,46 @@ def wave_bench() -> dict:
     return launches
 
 
-def wave_digests(fx: dict) -> None:
+def gate_fastq(fx: dict) -> str:
+    """WORK/qgate.fq, the 1 Mbp gate dataset of the fixture (written by
+    phase 5, or here)."""
+    fq = os.path.join(WORK, "qgate.fq")
+    if not os.path.exists(fq):
+        make_reads(fq, **{k: v for k, v in fx["dataset"].items()
+                          if k != "sha256"})
+    return fq
+
+
+def wave_digests(fx: dict, devices=None, model: int = 1,
+                 part: str = "c") -> None:
     """9(c): the wavefront's silver digests of the 1 Mbp gate dataset
     (written by phase 5), each filter, against the fixture's "wavefront"
-    key (the JAX wavefront engine on the CPU)."""
+    key (the JAX wavefront engine on the CPU); with `devices` (10(c),
+    10(d)) on their mesh with `model` banks a row, every row's replica and
+    side table equal to row 0's."""
     from goldrush_tpu_torch.config import PathConfig
     from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
     wv = fx["wavefront"]
-    fq = os.path.join(WORK, "qgate.fq")
+    fq = gate_fastq(fx)
+    mesh = {} if devices is None else dict(devices=len(devices),
+                                           model_shards=model)
+    layout = f"{len(devices) // model}x{model}" if devices else "single"
     for mode in ("direct", "compressed"):
-        prefix = os.path.join(WORK, f"qgate_wave_{mode}")
+        prefix = os.path.join(WORK, f"qgate_wave_{layout}_{mode}")
         t0 = time.time()
         eng = Engine(PathConfig(input=fq, prefix_file=prefix, mibf_mode=mode,
-                                **fx["engine"], **wv["engine"]),
-                     device="cuda")
+                                **fx["engine"], **wv["engine"], **mesh),
+                     device=devices or "cuda")
         st = eng.run()
+        if devices:
+            replicas_equal(eng)
         silver = {str(i): sha256_file(f"{prefix}_{i}.fq")
                   for i in range(1, fx["engine"]["max_paths"] + 1)
                   if os.path.exists(f"{prefix}_{i}.fq")}
         got = {"recruits": st.recruits,
                "paths_completed": st.paths_completed, "silver": silver}
-        say("wave", part="c", filter=mode, files=len(silver),
-            recruits=st.recruits, windows=st.num_batches,
+        say("wave", part=part, layout=layout, filter=mode,
+            files=len(silver), recruits=st.recruits, windows=st.num_batches,
             rounds=eng.consume_counts["rounds"],
             seconds=f"{time.time() - t0:.1f}", match=got == wv[mode])
         if got != wv[mode] or not eng.wave:
@@ -3697,9 +3741,13 @@ def mesh_engine_class(devices: list, model: int, engines: list):
 
 
 def replicas_equal(eng) -> None:
-    """Every data row's filter equals row 0's, banks gathered."""
+    """Every data row's filter, and under the wavefront its side table,
+    equals row 0's, banks gathered."""
+    sides = eng.wave_sides
     for r, rep in enumerate(eng.replicas[1:], 1):
         e = filter_err(eng.replicas[0], rep)
+        if sides:
+            e = max(e, filter_err(sides[:1], sides[r: r + 1]))
         if e:
             raise AssertionError(f"mesh: row {r}'s replica differs from "
                                  f"row 0's by {e}")
@@ -3747,9 +3795,7 @@ def mesh_bench_run(tag: str, devices, model: int, cell: str,
             device=devices or "cuda")
         stats = {"silver": eng.run()}
         engines.append(eng)
-        digests = {f"_{i}.fq": sha256_file(f"{prefix}_{i}.fq")
-                   for i in range(1, BENCH_ENGINE["max_paths"] + 1)
-                   if os.path.exists(f"{prefix}_{i}.fq")}
+        digests = silver_digests(prefix)
     rates = {stage: st.num_reads / max(st.wall_assign_s, 1e-9)
              for stage, st in stats.items()}
     if devices is None:
@@ -3772,10 +3818,7 @@ def mesh_gate_runs(devices, runs, fx: dict) -> None:
     the same configuration; every row's replica equal to row 0's."""
     from goldrush_tpu_torch.config import PathConfig
     from goldrush_tpu_torch.path.engine import GoldenPathEngine
-    fq = os.path.join(WORK, "qgate.fq")
-    if not os.path.exists(fq):
-        ds = {k: v for k, v in fx["dataset"].items() if k != "sha256"}
-        make_reads(fq, **ds)
+    fq = gate_fastq(fx)
     tp = fx["throughput"]
     want = {("exact", "direct"): (fx, {}),
             ("exact", "compressed"): (fx["compressed"], {}),
@@ -3846,10 +3889,8 @@ def mesh_engine_check(devices: list, runs=MESH_RUNS) -> dict:
                            for f in sorted(os.listdir(have))
                            if f.endswith((".fq", ".fa"))}
         else:
-            prefix = os.path.join(WORK, f"throughput_{mode}")
-            single[key] = {f"_{i}.fq": sha256_file(f"{prefix}_{i}.fq")
-                           for i in range(1, BENCH_ENGINE["max_paths"] + 1)
-                           if os.path.exists(f"{prefix}_{i}.fq")}
+            single[key] = silver_digests(os.path.join(WORK,
+                                                      f"throughput_{mode}"))
     inserts = (kernels.INSERT_SORTED, kernels.INSERT_MAX)
     for k in kernels.ALL + inserts:
         k.launches = 0
@@ -3919,36 +3960,223 @@ def mesh_cross_cards() -> dict:
     if len(cards) == 4:
         layouts[4] = cards
     recs = mesh_kernel_check(layouts, "cards")
+    recs.update(mesh_wave_kernel_check(layouts, "cards"))
     with open(os.path.join(REPO, "tests", "fixtures",
                            "torch_port_digests.json")) as f:
         fx = json.load(f)
     runs = [("banked1x2", 2, 2, "exact", "direct"),
             ("banked1x2", 2, 2, "throughput", "compressed")]
     mesh_gate_runs(cards[:2], runs, fx)
+    wave_digests(fx, cards[:2], 2, part="10c")
     if len(cards) == 4:
         mesh_gate_runs(cards, [("banked2x2", 4, 2, "exact", "compressed"),
                                ("banked2x2", 4, 2, "throughput",
                                 "direct")], fx)
+        wave_digests(fx, cards, 2, part="10c")
     return recs
+
+
+# 10(d)'s engine runs of the wavefront on ["cuda:0"] * 4: (tag, devices,
+# model_shards)
+MESH_WAVE_RUNS = (("banked2x2", 4, 2), ("dp4x1", 4, 1))
+
+
+def mesh_wave_kernel_check(layouts: dict, tag: str) -> dict:
+    """10(d), the kernel: wave_rounds on the id table and the side table
+    banked over each layout of `layouts` (banks -> the banks' devices, the
+    first the lead) against wave_window_plain on the unbanked tables, bit
+    for bit (rows, scal, counters, both tables gathered), on 9(a)'s three
+    windows of bench reads per filter (the third with a silver rotation
+    inside it), the tables carried window to window as in 9(a).  Each
+    banked launch is timed with CUDA events (the median of 3, the tables
+    banked afresh before each, outside the timed span) beside 9(a)'s
+    unbanked time of the window, when phase 9 ran, and the window's
+    `wave_round_bytes` bound.  Returns {"wave_rounds": {"banked_err": e,
+    "banked_ms_{tag}{banks}_{filter}_{window}": ms, ...}}."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.path import wavefront as wave
+    lead = next(iter(layouts.values()))[0]
+    _, reads = bench_reads(lead)
+    rec, err, T = {}, 0, 20
+    for mode, te, filt in wave_filters(lead, reads):
+        table, _, ranked, limit, _ = wave._filter_view(filt, te.size)
+        side = torch.zeros_like(table)
+        scal = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=lead)
+        for w, name in enumerate(WAVE_WINDOWS[:3]):
+            if name == "rotation":
+                scal.copy_(torch.tensor([0, te.cfg.target_bases() - 1, 1,
+                                         0]))
+            codes_d, *inputs = wave_inputs(te, reads, w, name)
+            adj = wave.wave_adjacency(te.wave_spec, inputs[2], codes_d,
+                                      limit, ranked, T)
+            start = (type(filt)(*(t.clone() for t in filt)), side.clone(),
+                     scal.clone())
+            rows_p = torch.empty((codes_d.shape[0], 8), dtype=torch.int64,
+                                 device=lead)
+            cp = wave.new_counters(lead)
+            # the plain version carries the unbanked tables to the next
+            # window
+            wave.wave_window_plain(te.wave_spec, filt, side, *inputs, adj,
+                                   scal, rows_p, cp, T)
+            counts = dict(zip(wave.WAVE_COUNTS, cp.tolist()))
+            bound = wave_round_bytes(
+                counts, rows_p.cpu(), inputs[4].cpu(), (inputs[0], inputs[2]),
+                T, table, side, mode == "compressed") / HBM_BYTES_PER_S * 1e3
+            wtag = f"{mode}_{name}"
+            for m, devs in layouts.items():
+                times, e = [], 0
+                for rep in range(4):
+                    bk = banked_copy(start[0], devs)
+                    bside = dm.to_banks(start[1], devs)
+                    bscal = start[2].clone()
+                    rows = torch.empty_like(rows_p)
+                    ck = wave.new_counters(lead)
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(1_000_000)
+                    before = kernels.WAVE_ROUNDS.launches
+                    ev[0].record()
+                    wave.wave_window(te.wave_spec, bk, bside, *inputs, adj,
+                                     bscal, rows, ck, T, row=devs)
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    if kernels.WAVE_ROUNDS.launches - before != 1:
+                        raise AssertionError("wave_rounds did not launch "
+                                             "once")
+                    if rep:
+                        times.append(ev[0].elapsed_time(ev[1]))
+                    e = max(e, max_abs_err([(rows, rows_p), (bscal, scal),
+                                            (ck, cp)]),
+                            filter_err(bk, filt),
+                            filter_err((bside,), (side,)))
+                    del bk, bside
+                err = max(err, e)
+                ms = sorted(times)[len(times) // 2]
+                rec[f"banked_ms_{tag}{m}_{wtag}"] = ms
+                say("mesh", part="10d", layout=tag, kernel="wave_rounds",
+                    filter=mode, window=name, banks=m,
+                    devices=",".join(map(str, devs)), max_abs_err=e,
+                    ms=f"{ms:.4f}",
+                    unbanked_ms_9a=(f"{WAVE_MS[wtag]:.4f}" if wtag in WAVE_MS
+                                    else "not run"),
+                    bound_ms=f"{bound:.5f}", **counts)
+            del start, adj, inputs, codes_d
+        del te, filt, side, table
+        gc_cuda()
+    if err:
+        raise AssertionError(f"10(d) {tag}: banked wave_rounds differs from "
+                             f"its plain version by {err}")
+    return {"wave_rounds": {"banked_err": err, **rec}}
+
+
+def mesh_wave_engine_check(devices: list, runs=MESH_WAVE_RUNS) -> dict:
+    """10(d), the engine: bench.py's throughput cell with wavefront=True
+    and windows of 256 reads on the mesh of `devices` in each of `runs`,
+    each filter, the silver pass of the bench reads (written by phase 4,
+    or here), every launch count zeroed just before and read just after:
+    every file's sha256 equal to 9(b)'s single-card wave run (run here
+    when absent), every row's replica and side table equal to row 0's,
+    wave_rounds d times a window (d data rows) and wave_adjacency once,
+    the consume kernel and the batched B and C never; assign reads/s
+    beside 9(b)'s.  Then the gate dataset's "wavefront" digests under 2x2.
+    Returns the launch counts of the bench runs."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    reads = os.path.join(WORK, "bench_reads.fq")
+    if not os.path.exists(reads):
+        make_reads(reads, **BENCH)
+    cfg = dict(input=reads, **BENCH_ENGINE, **THROUGHPUT, **WAVE)
+    single = {}
+    for mode in ("compressed", "direct"):
+        prefix = os.path.join(WORK, f"wave_{mode}")
+        if not os.path.exists(f"{prefix}_1.fq"):
+            st = Engine(PathConfig(prefix_file=prefix, mibf_mode=mode, **cfg),
+                        device=devices[0]).run()
+            RATES[("wave", mode, "silver")] = \
+                st.num_reads / max(st.wall_assign_s, 1e-9)
+        single[mode] = silver_digests(prefix)
+    for k in kernels.ALL + (kernels.INSERT_SORTED, kernels.INSERT_MAX):
+        k.launches = 0
+    for tag, n, model in runs:
+        d = n // model
+        for mode in ("compressed", "direct"):
+            before = {k.name: k.launches for k in kernels.ALL}
+            prefix = os.path.join(WORK, f"mesh_wave_{tag}_{mode}")
+            gc_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            eng = Engine(PathConfig(prefix_file=prefix, mibf_mode=mode,
+                                    devices=n, model_shards=model, **cfg),
+                         device=devices[:n])
+            st = eng.run()
+            got = {k.name: k.launches - before[k.name] for k in kernels.ALL}
+            replicas_equal(eng)
+            digests = silver_digests(prefix)
+            rate = st.num_reads / max(st.wall_assign_s, 1e-9)
+            say("mesh", part="10d", run=tag, filter=mode,
+                windows=st.num_batches, data_rows=d,
+                recruits=st.recruits, **eng.consume_counts,
+                **{f"launches_{k}": got[k] for k in (
+                    "wave_adjacency", "wave_rounds", "consume", "probe_vote",
+                    "classify")},
+                files_match_single=digests == single[mode],
+                reads_per_s=f"{rate:.2f}",
+                single_reads_per_s=(
+                    f"{RATES[('wave', mode, 'silver')]:.2f}"
+                    if ("wave", mode, "silver") in RATES else "not run"),
+                device_peak_bytes=st.device_peak_bytes)
+            if (digests != single[mode] or not digests
+                    or got["wave_rounds"] != d * st.num_batches
+                    or got["wave_adjacency"] != st.num_batches
+                    or any(got[k] for k in ("consume", "probe_vote",
+                                            "classify"))
+                    or eng.consume_counts["faults"] or st.recruits <= 0):
+                raise AssertionError(
+                    f"10(d) {tag} {mode}: files {digests} vs the single "
+                    f"card's {single[mode]}, launches {got} over "
+                    f"{st.num_batches} windows of {d} rows, "
+                    f"{eng.consume_counts}")
+            del eng
+    launches = {k.name: k.launches for k in kernels.ALL}
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "torch_port_digests.json")) as f:
+        wave_digests(json.load(f), devices[:4], 2, part="10d")
+    return launches
+
 
 
 def mesh_phase() -> tuple[dict, dict]:
     """Phase 10, the mesh (parallel/mesh.py): (a) `mesh_kernel_check` with
     1, 2 and 4 banks on cuda:0; (b) `mesh_engine_check` on ["cuda:0"] * 4
     (phase 4's and 5's files in WORK when they ran, else made here); (c)
-    `mesh_cross_cards`.  Runs alone from a driver that sets WORK.  Returns
-    (launches of (b), the kernels' banked checks and times)."""
+    `mesh_cross_cards`; (d) the wavefront under the mesh,
+    `mesh_wave_kernel_check` with 1, 2 and 4 banks on cuda:0 and
+    `mesh_wave_engine_check` on ["cuda:0"] * 4 (phase 9's files and times
+    when it ran).  Runs alone from a driver that sets WORK.  Returns
+    (launches of (b) and (d), the kernels' banked checks and times)."""
     import torch
     t0 = time.time()
     dev = torch.device("cuda", 0)
     os.makedirs(WORK, exist_ok=True)
-    recs = mesh_kernel_check({m: [dev] * m for m in MESH_BANKS}, "m")
+    layouts = {m: [dev] * m for m in MESH_BANKS}
+    recs = mesh_kernel_check(layouts, "m")
     launches = mesh_engine_check([dev] * 4)
-    for name, rec in mesh_cross_cards().items():
-        recs[name]["banked_err"] = max(recs[name]["banked_err"],
-                                       rec.pop("banked_err"))
-        recs[name].update(rec)
-    say("mesh", seconds=f"{time.time() - t0:.1f}")
+    t1 = time.time()
+    more = [mesh_cross_cards()]
+    t2 = time.time()
+    more.append(mesh_wave_kernel_check(layouts, "m"))
+    for name, n in mesh_wave_engine_check([dev] * 4).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, rec in ((k, v) for r in more for k, v in r.items()):
+        have = recs.setdefault(name, {"banked_err": 0})
+        have["banked_err"] = max(have["banked_err"], rec.pop("banked_err"))
+        have.update(rec)
+    say("mesh", seconds=f"{time.time() - t0:.1f}",
+        seconds_10c=f"{t2 - t1:.1f}", seconds_10d=f"{time.time() - t2:.1f}")
     return launches, recs
 
 

@@ -96,6 +96,71 @@ struct FlatWords {
   }
 };
 
+// The wavefront's id table and its side table (wavefront.cu: INV_BASE less
+// the earliest id written at each entry), banked alike: the side table has
+// the id table's shape and bounds, so key k lies in the same bank of both,
+// at the same offset.  `ids` is the id table's view (its counters unused);
+// `side` the side table's bank pointers.  wave_rounds takes it only for
+// n > 1: a filter of one bank launches it with its FlatSide
+// (`with_side_view`).
+struct SideBanks {
+  Banks ids;
+  uint32_t* side[kMaxBanks];
+
+  // key k's entry of the id table and of the side table: one bank
+  // computation for both
+  __device__ __forceinline__ void entries(int64_t k, uint32_t** word,
+                                          uint32_t** side_word) const {
+    const int b = ids.bank(k);
+    uint32_t* p = ids.table[0];
+    uint32_t* s = side[0];
+#pragma unroll
+    for (int j = 1; j < kMaxBanks; ++j)
+      if (b == j) {
+        p = ids.table[j];
+        s = side[j];
+      }
+    const int64_t off = k - static_cast<int64_t>(b) * ids.bank_len;
+    *word = p + off;
+    *side_word = s + off;
+  }
+};
+
+// The id table and the side table of a filter of one bank, one allocation
+// each: the addressing wave_rounds had before banks.
+struct FlatSide {
+  uint32_t* table;
+  uint32_t* side;
+
+  __device__ __forceinline__ void entries(int64_t k, uint32_t** word,
+                                          uint32_t** side_word) const {
+    *word = table + k;
+    *side_word = side + k;
+  }
+};
+
+// The view `Tab` of the two tables, in device code.
+template <typename Tab>
+__device__ __forceinline__ Tab side_view_of(const SideBanks& b);
+template <>
+__device__ __forceinline__ FlatSide side_view_of<FlatSide>(
+    const SideBanks& b) {
+  return FlatSide{b.ids.table[0], b.side[0]};
+}
+template <>
+__device__ __forceinline__ SideBanks side_view_of<SideBanks>(
+    const SideBanks& b) {
+  return b;
+}
+
+// Call launch(view) with the two tables' view: their FlatSide for one
+// bank, else the SideBanks.
+template <typename Launch>
+__host__ cudaError_t with_side_view(const SideBanks& b, Launch launch) {
+  if (b.ids.n == 1) return launch(FlatSide{b.ids.table[0], b.side[0]});
+  return launch(b);
+}
+
 // The view of the table alone that goes with a filter's view `Filt`.
 template <typename Filt>
 using WordsOf =
@@ -145,6 +210,22 @@ inline bool make_banks(void* const* table, void* const* counts, int n,
   b.n = n;
   b.remote = remote;
   *out = b;
+  return true;
+}
+
+// The host side of the wavefront's view: the id table's banks (make_banks)
+// and the side table's bank pointers, banked alike; false for a view the
+// kernel cannot take.
+inline bool make_side_banks(void* const* table, void* const* side, int n,
+                            int64_t bank_len, int remote, SideBanks* out) {
+  SideBanks s{};
+  if (!side || !make_banks(table, nullptr, n, bank_len, remote, &s.ids))
+    return false;
+  for (int j = 0; j < n; ++j) {
+    s.side[j] = static_cast<uint32_t*>(side[j]);
+    if (!s.side[j]) return false;
+  }
+  *out = s;
   return true;
 }
 

@@ -79,9 +79,15 @@
 //      and the reopening of drops past it.
 // The tables are read through L2 (other CTAs write them); a probe, insert
 // or reset that follows a write of the tables first crosses a grid barrier
-// (two inserts need none: atomicMax commutes).  A window that needs more
-// than B * (max_paths + 2) rounds, or whose ids would reach INV_BASE, stops
-// and counts a fault, which the engine raises on.
+// (two inserts need none: atomicMax commutes).  Both tables come as one
+// bank view (common.cuh SideBanks: under the engine's model axis a data
+// row's id table and side table, banked alike over its devices; a bank on
+// another card is peer memory, and the barriers after a table store then
+// start with a system-scope fence, tables_barrier, as consume.cu's do).
+// The kernel is a template on the view: tables of one bank run the
+// FlatSide instantiation, the addressing they had before banks.  A window
+// that needs more than B * (max_paths + 2) rounds, or whose ids would reach
+// INV_BASE, stops and counts a fault, which the engine raises on.
 // Bound: the bytes of every round's work (each probed tile's grid entries
 // and words of both tables, each insert's window and two atomics per
 // entry, each reset's tables).  The words and the atomics are random 4-byte
@@ -685,16 +691,20 @@ __global__ void __launch_bounds__(kGroupThreads) adj_group_kernel(
 // <= ceil, else the earliest, INV_BASE - side, when side >= INV_BASE -
 // ceil; the direct word keeps its high bits beside the visible id, a real
 // rank reads PRESENT | id.  Unsigned 32-bit arithmetic, as the JAX view's.
+// Both tables are read through their view `Tab` (common.cuh FlatSide, or
+// SideBanks).
+template <typename Tab>
 struct BracketWord {
-  const uint32_t* table;
-  const uint32_t* side;
+  Tab tab;
   uint32_t ceil;
 
   template <bool kFused>
   __device__ __forceinline__ uint32_t get(int ranked, int64_t limit,
                                           int64_t x) const {
     if (ranked && x >= limit) return 0u;
-    const uint32_t w = load<kFused>(table + x), c = load<kFused>(side + x);
+    uint32_t *pw, *ps;
+    tab.entries(x, &pw, &ps);
+    const uint32_t w = load<kFused>(pw), c = load<kFused>(ps);
     const uint32_t p = ranked ? w : w & kIdMask;
     const uint32_t early = c > 0u && c >= kInvBase - ceil ? kInvBase - c : 0u;
     const uint32_t idv = p > 0u && p <= ceil ? p : early;
@@ -707,9 +717,9 @@ constexpr int kWaveThreads = 512;
 constexpr int kWaveBlocks = 1;
 
 struct WaveArgs {
-  uint32_t* table;  // the id table: direct words or rank-indexed ids
-  uint32_t* side;   // the side table, the same shape
-  int64_t alloc;
+  // the id table (direct words or rank-indexed ids) and the side table,
+  // banked alike
+  SideBanks tabs;
   int ranked;
   int64_t limit;     // entries below it are real (the sentinel)
   uint32_t or_bits;  // an inserted entry's bits beside its id
@@ -839,6 +849,7 @@ __device__ int block_compact(int B, P pred, int32_t* list,
 // in the warp's region) or a CTA's (probe_vote_tile); kernel C then runs
 // on every warp of the grid, a read each.  Every thread of every CTA calls
 // it; it ends with a grid barrier.
+template <typename Tab>
 __device__ void probe_rows(const WaveArgs& a, const Tier& tier,
                            const int32_t* list, int n, const uint32_t* ceil,
                            bool query, cg::grid_group& grid) {
@@ -861,7 +872,7 @@ __device__ void probe_rows(const WaveArgs& a, const Tier& tier,
     const int64_t* g = tier.grid + static_cast<int64_t>(r) * tier.H * TF;
     const bool* ok = tier.ok + static_cast<int64_t>(r) * TF;
     bool* bi = a.binit + static_cast<int64_t>(r) * T;
-    const BracketWord view{a.table, a.side, ceil[r]};
+    const BracketWord<Tab> view{side_view_of<Tab>(a.tabs), ceil[r]};
     if (by_warp) {
       probe_vote_warp(view, g, a.ranked, a.limit, ok, tier.H, T, tier.F, K,
                       tier.vote_min, tier.threshold, tier.bits, t, 0, curr,
@@ -929,6 +940,7 @@ __device__ __forceinline__ Geo geometry(const WaveArgs& a, int i) {
 // and window in its shared memory (`meta`, 3n words), so that every thread
 // of the grid takes indices of every read.  Every thread of every CTA
 // calls it; it ends with a barrier.
+template <typename Tab>
 __device__ void insert_rows(const WaveArgs& a, const int32_t* list, int n,
                             const uint32_t* ceil, uint32_t* meta,
                             long long* scan) {
@@ -953,6 +965,7 @@ __device__ void insert_rows(const WaveArgs& a, const int32_t* list, int n,
       scan));
   const uint32_t TF = static_cast<uint32_t>(a.T) * Fi;
   const uint32_t b = static_cast<uint32_t>(a.bs);
+  const Tab tab = side_view_of<Tab>(a.tabs);
   const uint32_t step = gridDim.x * blockDim.x;
   for (uint32_t e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += step) {
@@ -972,25 +985,29 @@ __device__ void insert_rows(const WaveArgs& a, const int32_t* list, int n,
     const uint32_t m = col / Fi / b;
     const uint32_t id =
         ceil[r] + 1u + ((lo_tr[j] >> 31) ? (m * b + 1u) / b : m);
-    atomicMax(reinterpret_cast<int*>(a.table) + key,
-              static_cast<int>(a.or_bits | id));
-    atomicMax(reinterpret_cast<int*>(a.side) + key,
-              static_cast<int>(kInvBase - id));
+    uint32_t *pw, *ps;
+    tab.entries(key, &pw, &ps);
+    atomicMax(reinterpret_cast<int*>(pw), static_cast<int>(a.or_bits | id));
+    atomicMax(reinterpret_cast<int*>(ps), static_cast<int>(kInvBase - id));
   }
   __syncthreads();
 }
 
-// The silver rotation's reset over the grid: the id table forgets its ids
-// (the direct words keep PRESENT), the side table empties.
-__device__ void reset_tables(const WaveArgs& a) {
-  int4* w = reinterpret_cast<int4*>(a.table);
-  int4* c = reinterpret_cast<int4*>(a.side);
+// The silver rotation's reset of one bank of `len` entries of both tables
+// over the grid: the id table forgets its ids (the direct words keep
+// PRESENT), the side table empties.  16-byte stores, then the bank's last
+// len % 4 entries one by one.
+__device__ void reset_bank(uint32_t* table, uint32_t* side, int64_t len,
+                           int ranked) {
+  int4* w = reinterpret_cast<int4*>(table);
+  int4* c = reinterpret_cast<int4*>(side);
   const int4 zero = make_int4(0, 0, 0, 0);
   const int p = static_cast<int>(kPresent);
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       j < a.alloc / 4; j += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    if (a.ranked) {
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t j = start; j < len / 4; j += step) {
+    if (ranked) {
       w[j] = zero;
     } else {
       const int4 v = __ldcg(w + j);
@@ -998,8 +1015,41 @@ __device__ void reset_tables(const WaveArgs& a) {
     }
     c[j] = zero;
   }
+  for (int64_t j = len / 4 * 4 + start; j < len; j += step) {
+    table[j] = ranked ? 0u : __ldcg(table + j) & kPresent;
+    side[j] = 0u;
+  }
 }
 
+// The reset of every bank of both tables.
+template <typename Tab>
+__device__ void reset_tables(const WaveArgs& a) {
+  const SideBanks& t = a.tabs;
+  if constexpr (std::is_same<Tab, FlatSide>::value) {
+    reset_bank(t.ids.table[0], t.side[0], t.ids.bank_len, a.ranked);
+  } else {
+#pragma unroll
+    for (int b = 0; b < kMaxBanks; ++b)
+      if (b < t.ids.n)
+        reset_bank(t.ids.table[b], t.side[b], t.ids.bank_len, a.ranked);
+  }
+}
+
+// A grid barrier after stores to the tables, before any CTA reads or
+// writes them again: with a bank in another card's memory, fenced at
+// system scope first (consume.cu's filter_barrier).
+template <typename Tab>
+__device__ __forceinline__ void tables_barrier(const WaveArgs& a,
+                                               cg::grid_group& grid) {
+  if constexpr (!std::is_same<Tab, FlatSide>::value) {
+    if (a.tabs.ids.remote) __threadfence_system();
+  }
+  grid.sync();
+}
+
+// The kernel, on the tables' view `Tab` (common.cuh with_side_view: the
+// FlatSide of one bank, or the SideBanks).
+template <typename Tab>
 __global__ void __launch_bounds__(kWaveThreads, kWaveBlocks)
     wave_kernel(const WaveArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -1081,9 +1131,9 @@ __global__ void __launch_bounds__(kWaveThreads, kWaveBlocks)
         [&](int i) { return (fl[i] & (kPend | kStale)) == (kPend | kStale); },
         list, scan);
     if (nw > 0) {
-      if (dirty) grid.sync();
+      if (dirty) tables_barrier<Tab>(a, grid);
       dirty = 0;
-      probe_rows(a, tq, list, nw, ceil, true, grid);
+      probe_rows<Tab>(a, tq, list, nw, ceil, true, grid);
       n_class += nw;
     }
     // 2-4. zone, drops, candidates
@@ -1147,9 +1197,9 @@ __global__ void __launch_bounds__(kWaveThreads, kWaveBlocks)
       const int n = block_compact(
           B, [&](int i) { return (fl[i] & bit) != 0; }, list, scan);
       if (n > 0) {
-        if (dirty == 2) grid.sync();
-        insert_rows(a, list, n, ceil, reinterpret_cast<uint32_t*>(gr_smem),
-                    scan);
+        if (dirty == 2) tables_barrier<Tab>(a, grid);
+        insert_rows<Tab>(a, list, n, ceil,
+                         reinterpret_cast<uint32_t*>(gr_smem), scan);
         dirty = 1;
       }
       for (int i = tid; i < B; i += blockDim.x)
@@ -1173,9 +1223,9 @@ __global__ void __launch_bounds__(kWaveThreads, kWaveBlocks)
           },
           list, scan);
       if (nrc > 0) {
-        if (dirty) grid.sync();
+        if (dirty) tables_barrier<Tab>(a, grid);
         dirty = 0;
-        probe_rows(a, tf, list, nrc, ceil, false, grid);
+        probe_rows<Tab>(a, tf, list, nrc, ceil, false, grid);
         n_rech += nrc;
       }
     }
@@ -1226,8 +1276,8 @@ __global__ void __launch_bounds__(kWaveThreads, kWaveBlocks)
       }
     }
     if (do_reset) {
-      if (dirty) grid.sync();
-      reset_tables(a);
+      if (dirty) tables_barrier<Tab>(a, grid);
+      reset_tables<Tab>(a);
       dirty = 2;
       ++n_rot;
     }
@@ -1248,8 +1298,9 @@ __global__ void __launch_bounds__(kWaveThreads, kWaveBlocks)
   const long long sum_clen = block_cumsum(
       B, [&](int i) -> long long { return i > rot_pos ? clen[i] : 0; },
       [](int, long long) {}, scan);
-  // every CTA read scal before it is overwritten
-  grid.sync();
+  // every CTA read scal before it is overwritten (and the tables' last
+  // stores are fenced)
+  tables_barrier<Tab>(a, grid);
   if (blockIdx.x == 0 && tid == 0) {
     a.scal[0] = (rot_pos < 0 ? ids0 : 0) + sum_maxb;
     a.scal[1] = (rot_pos < 0 ? bases0 : 0) + sum_clen;
@@ -1354,7 +1405,11 @@ int gr_wave_adjacency(const int64_t* grid, int B, int H, int T, int F, int S,
   return cudaGetLastError();
 }
 
-int gr_wave_rounds(uint32_t* table, uint32_t* side, int64_t alloc, int ranked,
+// table/side/n_banks/bank_len/remote: the id table's and the side table's
+// bank view (common.cuh make_side_banks), every bank 16-byte aligned; a
+// bank of any length (its last len % 4 entries reset one by one).
+int gr_wave_rounds(void* const* table, void* const* side, int n_banks,
+                   int64_t bank_len, int remote, int ranked,
                    int64_t limit, uint32_t or_bits, const int64_t* grid_q,
                    const bool* ok_q, int Hq, int Fq, const int64_t* grid_i,
                    const bool* ok_i, int Hi, int Fi, const int32_t* n_tiles,
@@ -1367,13 +1422,18 @@ int gr_wave_rounds(uint32_t* table, uint32_t* side, int64_t alloc, int ranked,
                    int64_t* tmin, uint32_t* adj_bits, cudaStream_t stream) {
   using gr::kWaveThreads;
   const int bits_q = gr::table_bits(Hq * Fq), bits_f = gr::table_bits(Hi * Fi);
+  gr::SideBanks tabs;
+  if (!gr::make_side_banks(table, side, n_banks, bank_len, remote, &tabs))
+    return cudaErrorInvalidValue;
+  for (int j = 0; j < n_banks; ++j)
+    if (reinterpret_cast<uintptr_t>(tabs.ids.table[j]) % 16 ||
+        reinterpret_cast<uintptr_t>(tabs.side[j]) % 16)
+      return cudaErrorInvalidValue;
   if (B < 0 || T < 1 || K < 1 || Hq < 1 || Hi < 1 || Hq > gr::kMaxH ||
       Hi > gr::kMaxH || K > Hq * Fq || bits_q > 14 ||
-      (rech_on && (K > Hi * Fi || bits_f > 14)) || alloc % 4 || bs < 1 ||
-      TL < 1 || limit <= 0 || limit >= (1ll << 31) ||
-      static_cast<int64_t>(B) * Hi * T * Fi >= (1ll << 31) ||
-      reinterpret_cast<uintptr_t>(table) % 16 ||
-      reinterpret_cast<uintptr_t>(side) % 16)
+      (rech_on && (K > Hi * Fi || bits_f > 14)) || bs < 1 || TL < 1 ||
+      limit <= 0 || limit >= (1ll << 31) ||
+      static_cast<int64_t>(B) * Hi * T * Fi >= (1ll << 31))
     return cudaErrorInvalidValue;
   if (B == 0) return gr::kNoLaunch;
   // a tier of at most 2^kWarpBits votes a tile probes a tile per warp
@@ -1401,9 +1461,8 @@ int gr_wave_rounds(uint32_t* table, uint32_t* side, int64_t alloc, int ranked,
                        4 * static_cast<size_t>((B + 31) / 32);
   const size_t smem = work + state;
   if (smem > gr::kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = gr::opt_in_smem(gr::wave_kernel, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err;
+  int dev = 0, sms = 0, coop = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
@@ -1412,22 +1471,28 @@ int gr_wave_rounds(uint32_t* table, uint32_t* side, int64_t alloc, int ranked,
                                     dev)) != cudaSuccess)
     return err;
   if (!coop) return cudaErrorNotSupported;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, gr::wave_kernel, kWaveThreads, smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  gr::WaveArgs a{table, side, alloc, ranked, limit, or_bits, grid_q, ok_q,
+  gr::WaveArgs a{tabs, ranked, limit, or_bits, grid_q, ok_q,
                  Hq, Fq, grid_i, ok_i, Hi, Fi, n_tiles, full_len, adj, B, T,
                  K, vote_min_q, x_q, bits_q, vote_min_f, x_f, bits_f, u_min,
                  a_max, TL, bs, S, rech_on, silver, cbuf, warp_q, warp_f,
                  static_cast<int>(warp_bytes), target, max_paths, scal, rows,
                  counters, sums, vals, binit, tmin, adj_bits, work};
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gr::wave_kernel),
-                                    dim3(sms * per_sm), dim3(kWaveThreads), args,
-                                    smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return gr::with_side_view(tabs, [&](auto tab) {
+    const auto kernel = gr::wave_kernel<decltype(tab)>;
+    cudaError_t e = gr::opt_in_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    int per_sm = 0;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kWaveThreads, smem)) != cudaSuccess)
+      return e;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {&a};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                    dim3(sms * per_sm), dim3(kWaveThreads),
+                                    args, smem, stream);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  });
 }
 
 }  // extern "C"

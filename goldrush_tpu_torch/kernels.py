@@ -47,8 +47,9 @@ _P, _I, _U, _L, _Q = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                       ctypes.c_int64, ctypes.c_uint64)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 # a filter's bank view (csrc/common.cuh make_banks, ``banks_args``): the
-# table's and the counters' bank pointers, their number, the entries of a
-# bank, and whether a bank lies on another card
+# table's and the counters' bank pointers (or the wavefront's id table's
+# and side table's), their number, the entries of a bank, and whether a
+# bank lies on another card
 _BANKS = (_PP, _PP, _I, _L, _I)
 # C signatures: every entry returns the cudaError_t of its launch, or
 # NO_LAUNCH
@@ -86,7 +87,7 @@ _SIGNATURES = {
     "gr_wave_adjacency": (_P, _I, _I, _I, _I, _I, _I, _P, _L, _P, _I, _I,
                           _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P,
                           _P, _P, _P, _P),
-    "gr_wave_rounds": (_P, _P, _L, _I, _L, _U, _P, _P, _I, _I, _P, _P, _I,
+    "gr_wave_rounds": (*_BANKS, _I, _L, _U, _P, _P, _I, _I, _P, _P, _I,
                        _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P,
                        _P, _P),
@@ -342,8 +343,9 @@ def banks_args(table, counts, device: torch.device) -> tuple:
     tables, their number, the entries of a bank, and whether a bank lies
     on another card than ``device``.  ``table`` and ``counts`` are int32
     tensors (one bank each) or ``mibf.Banks`` split alike; ``counts`` may
-    be None.  Each bank must be a contiguous int32 CUDA tensor; a bank on
-    another card needs ``require_peer``."""
+    be None, or another array banked as ``table`` is (the wavefront's side
+    table: make_side_banks).  Each bank must be a contiguous int32 CUDA
+    tensor; a bank on another card needs ``require_peer``."""
     tparts = getattr(table, "parts", (table,))
     cparts = None if counts is None else getattr(counts, "parts", (counts,))
     n, bank_len = len(tparts), tparts[0].shape[0]

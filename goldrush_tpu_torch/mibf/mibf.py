@@ -244,6 +244,15 @@ def put_(table, keys: torch.Tensor, vals) -> None:
         table[keys] = vals
 
 
+def amax_(table, keys: torch.Tensor, vals: torch.Tensor) -> None:
+    """``table.scatter_reduce_(0, keys, vals, "amax")`` of a tensor or
+    ``Banks``."""
+    if isinstance(table, Banks):
+        table.amax_(keys, vals)
+    else:
+        table.scatter_reduce_(0, keys, vals, "amax")
+
+
 def whole(t) -> torch.Tensor:
     """A filter array as one tensor: banks gathered, a tensor as it is."""
     return t.gather() if isinstance(t, Banks) else t
@@ -759,13 +768,13 @@ def bracket_words(table: torch.Tensor, side: torch.Tensor,
     beside the visible id; a rank below ``limit`` (the sentinel) reads
     PRESENT | id, the sentinel 0.  grid int64 [B, H, TF], ceil int64 [B]
     (below INV_BASE) -> H int32 tensors [B, TF], the words
-    ``_vote_from_words`` takes."""
+    ``_vote_from_words`` takes.  Either table may be a ``Banks``."""
     from ..path.wavefront import INV_BASE
     c = ceil[:, None]
     ws = []
     for s in range(grid.shape[1]):
         g = grid[:, s, :]
-        w, side_w = table[g], side[g]
+        w, side_w = take(table, g), take(side, g)
         p = w if ranked else w & ID_MASK
         early = torch.where((side_w > 0) & (side_w >= INV_BASE - c),
                             INV_BASE - side_w, 0)
@@ -1028,10 +1037,7 @@ def _insert_max_plain(table, grid, lo, hi, base_id, trimmed, bs, T, limit,
     ids = base_id + ((m * bs + 1) // bs if trimmed else m)
     vals = (or_bits | ids).to(torch.int32).expand(H, -1)
     real = keys < limit
-    if isinstance(table, Banks):
-        table.amax_(keys[real], vals[real])
-    else:
-        table.scatter_reduce_(0, keys[real], vals[real], "amax")
+    amax_(table, keys[real], vals[real])
 
 
 def reset_ids(state: MibfState, counts: bool = True) -> MibfState:

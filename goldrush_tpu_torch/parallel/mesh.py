@@ -32,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..mibf import compressed as cz
@@ -146,6 +147,19 @@ def shard_state(state, mesh: Mesh, banked: bool) -> list:
             out.append(dm.MibfState(words=to_banks(state.words, devs),
                                     counts=to_banks(state.counts, devs)))
     return out
+
+
+def shard_side(side, mesh: Mesh, banked: bool) -> list:
+    """The wavefront's side table placed on the mesh as ``shard_state``
+    places the filter: one copy per data row, banked over the row's
+    devices (``banked``) or whole on its lead.  ``side`` is a tensor, a
+    ``Banks``, or the JAX engine's side table as a uint32 numpy array
+    (``_wave_side``; JAX's ``NamedSharding(mesh, P("model"))`` when its
+    filter is banked)."""
+    if isinstance(side, np.ndarray):
+        side = dm.side_from_numpy(side)
+    side = dm.whole(side)
+    return [to_banks(side, row if banked else row[:1]) for row in mesh.rows]
 
 
 def classify_step(words, codes: torch.Tensor, lengths: torch.Tensor,

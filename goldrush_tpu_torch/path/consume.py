@@ -165,6 +165,31 @@ def _filter_view(state, size: int):
     return state.words, state.counts, False, size, dm.PRESENT_BIT
 
 
+def check_row(who: str, arrays, tensors, row=None) -> None:
+    """The device rule of a launch on a data row of the mesh: the batch's
+    ``tensors`` and the first bank of each filter array of ``arrays``
+    (tensors or ``mibf.Banks``) lie on one device, the row's lead; with
+    ``row`` (that row's devices) bank j of a banked array lies on
+    ``row[j]``, and without it every bank on a device of the lead's
+    type."""
+    devices = {t.device for t in (*arrays, *tensors)}
+    if len(devices) != 1:
+        raise ValueError(f"{who}: tensors on several devices "
+                         f"{sorted(map(str, devices))}")
+    lead = devices.pop()
+    for arr in arrays:
+        parts = getattr(arr, "parts", (arr,))
+        want = (tuple(torch.device(d) for d in row[:len(parts)])
+                if row is not None and len(parts) > 1 else None)
+        got = tuple(p.device for p in parts)
+        if (want is not None and got != want) or any(
+                d.type != lead.type for d in got):
+            raise ValueError(f"{who}: filter banks on "
+                             f"{[str(d) for d in got]}, batch on {lead}"
+                             + (f", row {[str(d) for d in want]}"
+                                if want else ""))
+
+
 def consume_batch(spec: ConsumeSpec, state, grid, frame_ok, grid_ins, ok_ins,
                   n_tiles, full_lengths, rows0, scal, rows_out, counters,
                   num_tiles: int, scratch: ConsumeScratch | None = None,
@@ -189,24 +214,9 @@ def consume_batch(spec: ConsumeSpec, state, grid, frame_ok, grid_ins, ok_ins,
     on one device, the lead of the filter's mesh row; with ``row`` (that
     row's devices) bank j of a banked filter must lie on ``row[j]``, and
     without it every bank on a device of the lead's type."""
-    tensors = (state[0], grid, frame_ok, grid_ins, ok_ins, n_tiles,
-               full_lengths, rows0, scal, rows_out, counters)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"consume_batch: tensors on several devices "
-                         f"{sorted(map(str, devices))}")
-    for arr in _filter_view(state, spec.params.size)[:2]:
-        parts = getattr(arr, "parts", (arr,))
-        want = (tuple(torch.device(d) for d in row[:len(parts)])
-                if row is not None and len(parts) > 1 else None)
-        got = tuple(p.device for p in parts)
-        if (want is not None and got != want) or any(
-                d.type != grid.device.type for d in got):
-            raise ValueError(f"consume_batch: filter banks on "
-                             f"{[str(d) for d in got]}, batch on "
-                             f"{grid.device}"
-                             + (f", row {[str(d) for d in want]}"
-                                if want else ""))
+    check_row("consume_batch", _filter_view(state, spec.params.size)[:2],
+              (grid, frame_ok, grid_ins, ok_ins, n_tiles, full_lengths,
+               rows0, scal, rows_out, counters), row)
     if grid.is_cuda:
         _consume_cuda(spec, state, grid, frame_ok, grid_ins, ok_ins, n_tiles,
                       full_lengths, rows0, scal, rows_out, counters,

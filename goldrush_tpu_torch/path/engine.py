@@ -36,8 +36,8 @@ card):
 
 The "exact" staleness policy makes the result bit-identical to sequential
 processing at any batch size; both policies are bit-identical to the JAX
-engine under the same config.  Configurations of later slices raise
-``NotImplementedError`` at construction (see ``_check_slice``).
+engine under the same config.  Filters of sizes that later slices bring
+raise ``NotImplementedError`` at construction (see ``_check_size``).
 
 With ``devices > 1`` or ``model_shards > 1`` the engine runs on a
 ``(data, model)`` mesh of explicit devices in one process
@@ -54,7 +54,13 @@ With ``wavefront=True`` under the optimistic policy (and not ``debug``),
 as in the JAX engine, pass 2 runs windows of ``wave_window`` reads
 through the wavefront consume instead of the scan (path/wavefront.py:
 the window's overlap adjacency, then its rounds, one launch each on the
-card); elsewhere ``wavefront`` is ignored.
+card); elsewhere ``wavefront`` is ignored.  Under a mesh each data row
+computes the grids of its share of a window against its replica, the
+whole window's grids go to every row, the adjacency of the whole window
+is computed once, on row 0's lead, and copied to the other rows' leads,
+and each row runs the window's rounds against its replica and its own
+side table (banked as its filter), so the replicas and the side tables
+stay identical.
 """
 
 from __future__ import annotations
@@ -142,21 +148,6 @@ def _bucket_for(num_tiles: int, cap: int) -> int:
     return cap
 
 
-def _check_slice(cfg: PathConfig) -> None:
-    """Raise for every configuration the port does not run yet, naming the
-    ROADMAP item that brings it, before anything is allocated.  The
-    filter's size is checked apart (``_check_size``), once it is known."""
-    later = [
-        (_wave_on(cfg) and (cfg.devices > 1 or cfg.model_shards > 1),
-         "the wavefront (wavefront=True) under a mesh (devices > 1 / "
-         "model_shards > 1)", "queue 1 item 13"),
-    ]
-    for bad, what, item in later:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 def _wave_on(cfg: PathConfig) -> bool:
     """Whether pass 2 runs the wavefront: the JAX engine's gate
     (goldrush_tpu/path/engine.py:244-247) without its environment
@@ -192,7 +183,6 @@ class GoldenPathEngine:
 
     def __init__(self, cfg: PathConfig, device="cuda"):
         cfg.validate()
-        _check_slice(cfg)
         self.cfg = cfg
         n = cfg.devices if cfg.devices > 1 else cfg.model_shards
         if n % cfg.model_shards:
@@ -306,9 +296,10 @@ class GoldenPathEngine:
             rech_on=self.rech_on, silver=bool(cfg.silver_path),
             target=int(cfg.target_bases()), max_paths=int(cfg.max_paths))
         self.wave_spec = wave.WaveSpec(self.spec, self.fam_ins)
-        # the wavefront's earliest-wins side table: zeroed at the start of
-        # each pass, threaded through its windows, kept with the filter
-        self.wave_side: torch.Tensor | None = None
+        # the wavefront's earliest-wins side table of each data row, banked
+        # as the row's filter: zeroed at the start of each pass, threaded
+        # through its windows, kept with the filter
+        self.wave_sides: list = []
         # the consume scan's counts over the last pass (consume.COUNTS:
         # live re-probes, trim rechecks, inserts, silver resets; under the
         # wavefront wave.WAVE_COUNTS); kept out of EngineStats, whose
@@ -324,6 +315,12 @@ class GoldenPathEngine:
     @state.setter
     def state(self, value) -> None:
         self.replicas[0] = value
+
+    @property
+    def wave_side(self):
+        """Row 0's side table (a tensor or ``mibf.Banks``), or None before
+        a wavefront pass."""
+        return self.wave_sides[0] if self.wave_sides else None
 
     @property
     def cstate(self) -> cz.CompressedState | None:
@@ -569,20 +566,21 @@ class GoldenPathEngine:
         rows0 = self._probe_classify(grid, frame_ok, n_tiles_d, T, r)
         return grid, frame_ok, grid_ins, ok_ins, n_tiles_d, full_d, rows0
 
-    def _mesh_inputs(self, codes, lengths, full_lengths, T) -> list:
-        """``_batch_inputs`` of one padded batch for every data row: row i
-        computes those of reads [i B/d, (i+1) B/d) against its replica
-        (the batched classify split by read, as the JAX engine's
+    def _mesh_inputs(self, inputs, codes, lengths, full_lengths, T) -> list:
+        """``inputs`` (``_batch_inputs`` or ``_window_inputs``) of one
+        padded batch for every data row: row i computes those of reads
+        [i B/d, (i+1) B/d) against its replica (the batched classify, or
+        the window's grids, split by read, as the JAX engine's
         ``P("data")``), then every row gets the whole batch's, on its lead
         device."""
         d = self.mesh.data
         if d == 1:
-            return [self._batch_inputs(codes, lengths, full_lengths, T)]
+            return [inputs(codes, lengths, full_lengths, T)]
         per = codes.shape[0] // d
-        parts = [self._batch_inputs(codes[i * per: (i + 1) * per],
-                                    lengths[i * per: (i + 1) * per],
-                                    full_lengths[i * per: (i + 1) * per],
-                                    T, i) for i in range(d)]
+        parts = [inputs(codes[i * per: (i + 1) * per],
+                        lengths[i * per: (i + 1) * per],
+                        full_lengths[i * per: (i + 1) * per], T, i)
+                 for i in range(d)]
         return [tuple(torch.cat([p[k].to(self.mesh.lead(r)) for p in parts])
                       for k in range(len(parts[0])))
                 for r in range(d)]
@@ -598,25 +596,31 @@ class GoldenPathEngine:
         Under a mesh ``scal``, ``rows_out`` and ``counters`` are lists, one
         per data row, and every row scans the whole batch against its own
         replica.  Under the wavefront the batch is a window: its adjacency,
-        then its rounds (path/wavefront.py), which also update the side
-        table, and ``scal[0]`` counts id reservations."""
+        then its rounds (path/wavefront.py), which also update each row's
+        side table, and ``scal[0]`` counts id reservations."""
         if not self.wave:
             for r, inputs in enumerate(self._mesh_inputs(
-                    codes, lengths, full_lengths, T)):
+                    self._batch_inputs, codes, lengths, full_lengths, T)):
                 consume_batch(self.spec, self.replicas[r], *inputs, scal[r],
                               rows_out[r], counters[r], T,
                               scratch=self.consume_scratch[r],
                               row=self._row(r))
             return
-        state = self.cstate if self.compressed else self.state
-        scal, rows_out, counters = scal[0], rows_out[0], counters[0]
         # the wave's first round classifies every read: no batched verdicts
-        codes_d, *inputs = self._window_inputs(codes, lengths, full_lengths, T)
-        _, _, ranked, limit, _ = _filter_view(state, self.size)
-        adj = wave.wave_adjacency(self.wave_spec, inputs[2], codes_d, limit,
+        per_row = self._mesh_inputs(self._window_inputs, codes, lengths,
+                                    full_lengths, T)
+        # the adjacency pairs reads of the whole window, whichever rows
+        # computed their grids: once, on row 0's lead, then copied to the
+        # other rows' leads (the same tensor where a lead repeats)
+        codes_d, _, _, grid_ins, *_ = per_row[0]
+        _, _, ranked, limit, _ = _filter_view(self.replicas[0], self.size)
+        adj = wave.wave_adjacency(self.wave_spec, grid_ins, codes_d, limit,
                                   ranked, T)
-        wave.wave_window(self.wave_spec, state, self.wave_side, *inputs, adj,
-                         scal, rows_out, counters, T)
+        for r, (_, *inputs) in enumerate(per_row):
+            wave.wave_window(self.wave_spec, self.replicas[r],
+                             self.wave_sides[r], *inputs,
+                             adj.to(self.mesh.lead(r)), scal[r], rows_out[r],
+                             counters[r], T, row=self._row(r))
 
     # ------------------------------------------------------------------
     def _eligible(self, path: str):
@@ -685,9 +689,12 @@ class GoldenPathEngine:
                     for ld in leads]
         self.consume_scratch = [ConsumeScratch() for _ in leads]
         if self.wave:
-            table = self.cstate.ids if self.compressed else self.state.words
-            self.wave_side = None     # the last pass's goes before this one
-            self.wave_side = torch.zeros_like(table)
+            # the last pass's side tables go before this pass's come
+            self.wave_sides = []
+            self.wave_sides = [
+                dm.new_banks(_filter_view(rep, self.size)[0].shape[0],
+                             self._row(r))
+                for r, rep in enumerate(self.replicas)]
         rows_d = [torch.empty((4096, 8), dtype=torch.int64, device=ld)
                   for ld in leads]
         n_rows = 0

@@ -11,7 +11,9 @@ table: ``INV_BASE`` - id by scatter-max) lets each read see the filter as
 the sequential scan would (``mibf.bracket_words``).
 
 Two kernels, each with its plain PyTorch version here (CPU tensors) and its
-CUDA kernel in csrc/wavefront.cu (CUDA tensors; mixed devices raise):
+CUDA kernel in csrc/wavefront.cu (CUDA tensors; mixed devices raise; the
+round loop takes the tables banked over a mesh row's devices, as the
+consume scan does):
 
   wave_adjacency  the [B, B] counts of k-mers that pairs of reads share
                   (wavefront.py:298-345): every valid insert-grid frame
@@ -43,7 +45,7 @@ from .. import kernels
 from ..mibf import mibf as dm
 from ..ops.nthash import SeedFamily, fingerprints
 from .classify import _classify_plain
-from .consume import ConsumeSpec, _filter_view
+from .consume import ConsumeSpec, _filter_view, check_row
 from .engine_util import recheck_zone, tile_min_count
 
 # a pair of window reads overlaps at this many shared k-mers (wavefront.py:
@@ -201,11 +203,12 @@ def wave_window(spec: WaveSpec, state, side: torch.Tensor,
                 n_tiles: torch.Tensor, full_lengths: torch.Tensor,
                 adj: torch.Tensor, scal: torch.Tensor,
                 rows_out: torch.Tensor, counters: torch.Tensor,
-                num_tiles: int) -> None:
+                num_tiles: int, row=None) -> None:
     """Resolve one padded window, in place: the filter ``state``
     (dm.MibfState or cz.CompressedState: its ids), the side table ``side``
-    (int32, the id table's shape), ``scal`` (int64 [4]: id reservations,
-    bases inserted, path index, done; carried across windows),
+    (int32, the id table's shape, banked as it is), ``scal`` (int64 [4]:
+    id reservations, bases inserted, path index, done; carried across
+    windows),
     ``rows_out`` (int64 [B, 8], the consume scan's rows) and ``counters``
     (``WAVE_COUNTS``).
 
@@ -215,13 +218,16 @@ def wave_window(spec: WaveSpec, state, side: torch.Tensor,
     int64 [B]; adj int32 [B, B], ``wave_adjacency``'s counts.  On the card
     one cooperative launch of wave_rounds (csrc/wavefront.cu) runs every
     round; a window that faults there (``WAVE_COUNTS``) is reported by
-    the counters, which the engine reads once per pass and raises on."""
-    tensors = (state[0], side, grid, frame_ok, grid_ins, ok_ins, n_tiles,
-               full_lengths, adj, scal, rows_out, counters)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"wave_window: tensors on several devices "
-                         f"{sorted(map(str, devices))}")
+    the counters, which the engine reads once per pass and raises on.
+
+    The window's tensors and the first bank of each table lie on one
+    device, the lead of the filter's mesh row; with ``row`` (that row's
+    devices) bank j of banked tables must lie on ``row[j]``
+    (``consume.check_row``)."""
+    table = _filter_view(state, spec.scan.params.size)[0]
+    check_row("wave_window", (table, side),
+              (grid, frame_ok, grid_ins, ok_ins, n_tiles, full_lengths, adj,
+               scal, rows_out, counters), row)
     if grid.is_cuda:
         _window_cuda(spec, state, side, grid, frame_ok, grid_ins, ok_ins,
                      n_tiles, full_lengths, adj, scal, rows_out, counters,
@@ -237,12 +243,12 @@ def _window_cuda(spec, state, side, grid, frame_ok, grid_ins, ok_ins,
     sc = spec.scan
     p, pf = sc.params, sc.params_full
     table, _, ranked, limit, or_bits = _filter_view(state, p.size)
+    dev = grid.device
+    # a remote bank without peer access and native atomics raises here
+    banks = kernels.banks_args(table, side, dev)
     B, Hq, TFq = grid.shape
     _, Hi, TFi = grid_ins.shape
-    dev = grid.device
     K = p.vote_topk
-    kernels.check(table, "table", torch.int32, device=dev)
-    kernels.check(side, "side", torch.int32, table.shape, dev)
     kernels.check(grid, "grid", torch.int64, device=dev)
     kernels.check(frame_ok, "frame_ok", torch.bool, (B, TFq), dev)
     kernels.check(grid_ins, "grid_ins", torch.int64, (B, Hi, TFi), dev)
@@ -267,8 +273,7 @@ def _window_cuda(spec, state, side, grid, frame_ok, grid_ins, ok_ins,
     tmin = torch.empty(B, dtype=torch.int64, device=dev)
     adj_bits = torch.empty((B, -(-B // 32)), dtype=torch.int32, device=dev)
     kernels.WAVE_ROUNDS(
-        dev, kernels.ptr(table), kernels.ptr(side), table.shape[0],
-        int(ranked), int(limit), int(or_bits),
+        dev, *banks, int(ranked), int(limit), int(or_bits),
         kernels.ptr(grid), kernels.ptr(frame_ok), Hq, TFq // T,
         kernels.ptr(grid_ins), kernels.ptr(ok_ins), Hi, TFi // T,
         kernels.ptr(n_tiles), kernels.ptr(full_lengths), kernels.ptr(adj),
@@ -300,8 +305,9 @@ def _classify_rows(sc, table, side, ranked, limit, grid, ok, n_tiles, ceil,
 def _insert_rows(table, side, grid_ins, rows, lo, hi, base, trimmed, bs,
                  limit, or_bits, T):
     """The scatter-max insert of the given reads' tiles lo..hi (block ids
-    from ``base``) into both tables: or_bits | id into ``table``,
-    INV_BASE - id into ``side`` (wavefront.py:456-489)."""
+    from ``base``) into both tables (each a tensor or ``mibf.Banks``):
+    or_bits | id into ``table``, INV_BASE - id into ``side``
+    (wavefront.py:456-489)."""
     if rows.numel() == 0:
         return
     TF = grid_ins.shape[2]
@@ -316,8 +322,8 @@ def _insert_rows(table, side, grid_ins, rows, lo, hi, base, trimmed, bs,
     ok = in_rng[:, None, :] & (g < limit)
     keys = g[ok]
     ids = bid[:, None, :].expand(g.shape)[ok]
-    table.scatter_reduce_(0, keys, (or_bits | ids).to(torch.int32), "amax")
-    side.scatter_reduce_(0, keys, (INV_BASE - ids).to(torch.int32), "amax")
+    dm.amax_(table, keys, (or_bits | ids).to(torch.int32))
+    dm.amax_(side, keys, (INV_BASE - ids).to(torch.int32))
 
 
 def wave_window_plain(spec: WaveSpec, state, side, grid, frame_ok, grid_ins,
@@ -325,7 +331,8 @@ def wave_window_plain(spec: WaveSpec, state, side, grid, frame_ok, grid_ins,
                       counters, num_tiles: int) -> None:
     """``wave_window`` as a host loop of plain PyTorch over [B] vectors,
     the rounds of wavefront.py:491-697 one for one; the tensors may lie on
-    any one device.  Raises where the kernel reports a fault."""
+    any one device, the tables' banks (``mibf.Banks``) on any devices.
+    Raises where the kernel reports a fault."""
     sc = spec.scan
     T = num_tiles
     p, pf = sc.params, sc.params_full

@@ -229,14 +229,27 @@ def test_cuda_without_a_card_raises(dataset, monkeypatch):
 
 
 @pytest.mark.parametrize("over", [dict(devices=2), dict(model_shards=2)])
-def test_out_of_slice_config_raises(over):
-    """The mesh runs (tests/test_torch_mesh.py); the wavefront under it is
-    a later slice."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 13"):
-        GoldenPathEngine(PathConfig(**{**CFG, **over, "wavefront": True,
-                                       "recheck": "optimistic"}),
-                         device="cpu")
+def test_out_of_slice_config_raises(dataset, over):
+    """The wavefront under a mesh, which the port refused before it ran
+    there (ROADMAP queue 1 item 13), now constructs and runs a silver
+    pass on logical CPU devices, and writes the single-device wavefront's
+    files and rows (tests/test_torch_wave_mesh.py holds it to the JAX
+    package)."""
+    d, path = dataset
+    tag = "_".join(f"{k}{v}" for k, v in over.items())
+    kw = {**CFG, **SILVER, "silver_path": True, "wavefront": True,
+          "recheck": "optimistic"}
+    runs = []
+    for who, mesh in (("single", {}), ("mesh", over)):
+        prefix = str(d / f"wave_{who}_{tag}")
+        te = GoldenPathEngine(PathConfig(input=path, prefix_file=prefix,
+                                         **kw, **mesh), device="cpu")
+        st = te.run()
+        assert te.wave and st.recruits > 0
+        runs.append((out_files(prefix, True), te.last_rows))
+    assert te.mesh.data * te.mesh.model == 2
+    assert runs[0][0] == runs[1][0] and runs[0][0]
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
 
 
 @pytest.mark.parametrize("stride", [3, 8])

@@ -1147,3 +1147,68 @@ def test_wave_engine_on_card_matches_cpu(cuda, tmp_path, mode):
     assert gpu[0] == cpu[0] and len(gpu[0]) == 2
     assert gpu[2:4] == cpu[2:4] and gpu[1].recruits == cpu[1].recruits
     assert_same(gpu[4:], cpu[4:])
+
+
+@pytest.mark.parametrize("mode", ["direct", "compressed"])
+def test_wave_rounds_on_banks(cuda, tmp_path, mode):
+    """wave_rounds on the id table and the side table banked over 1, 2 and
+    4 banks on the card (a mesh row of one card repeated) against
+    wave_window_plain on the unbanked tables, over the two windows of 64
+    reads, the first with a silver rotation inside it: rows, scal,
+    counters and both tables gathered, bit for bit, one launch a window.
+    The tables are 4 entries longer than the engine's, so that banks of 2
+    and 4 end in lengths that are not multiples of 4 (the reset's tails)."""
+    from goldrush_tpu_torch.parallel import mesh as tmesh
+    from goldrush_tpu_torch.path import wavefront as wave
+    path = wave_reads(tmp_path)
+    te = GoldenPathEngine(PathConfig(input=path, mibf_mode=mode,
+                                     wave_window=64, **WAVE_CFG),
+                          device=cuda)
+    te.calc_phred_threshold(path)
+    te.fill(path)
+    filt = te.cstate if te.compressed else te.state
+    pad = [torch.cat([t, t.new_zeros(4)])
+           for t in (filt.ids if te.compressed else filt.words, filt.counts)]
+    if te.compressed:
+        te.cstate = filt = tcz.CompressedState(filt.bitrank, filt.supers,
+                                               *pad)
+    else:
+        te.state = filt = tdm.MibfState(*pad)
+    n = pad[0].shape[0]
+    _, _, ranked, limit, _ = wave._filter_view(filt, te.size)
+    recs = list(te._eligible(path))
+    wins = []
+    for i in range(0, len(recs), 64):
+        codes, lengths, full, T = te._pack_batch(recs[i: i + 64])
+        codes_d, *inputs = te._window_inputs(codes, lengths, full, T)
+        adj = wave.wave_adjacency(te.wave_spec, inputs[2], codes_d, limit,
+                                  ranked, T)
+        wins.append((inputs, adj, T))
+    target = te.cfg.target_bases()
+
+    def run(f, side, row):
+        scal = torch.tensor([0, target - 1, 1, 0], dtype=torch.int64,
+                            device=cuda)
+        counters = wave.new_counters(cuda)
+        rows = []
+        for inputs, adj, T in wins:
+            r = torch.empty((64, 8), dtype=torch.int64, device=cuda)
+            if row is None:
+                wave.wave_window_plain(te.wave_spec, f, side, *inputs, adj,
+                                       scal, r, counters, T)
+            else:
+                wave.wave_window(te.wave_spec, f, side, *inputs, adj, scal,
+                                 r, counters, T, row=row)
+            rows.append(r)
+        return rows + [scal, counters, *(tdm.whole(t) for t in f),
+                       tdm.whole(side)]
+    want = run(type(filt)(*(t.clone() for t in filt)),
+               torch.zeros(n, dtype=torch.int32, device=cuda), None)
+    assert want[len(wins) + 1][4] > 0          # a rotation
+    for m in (1, 2, 4):
+        row = [cuda] * m
+        bk = tmesh.shard_state(filt, tmesh.Mesh((tuple(row),)), True)[0]
+        before = kernels.WAVE_ROUNDS.launches
+        got = run(bk, tdm.new_banks(n, row), row)
+        assert kernels.WAVE_ROUNDS.launches - before == len(wins)
+        assert_same(got, want)

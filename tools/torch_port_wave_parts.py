@@ -194,6 +194,35 @@ GROUP_STAMPS = [
      f"        {s('insert')}\n"),
 ] + [e for e in SORT_STAMPS[3:] if "insert_rows" not in e[0]]
 
+# the group design on banked tables (PR 18): the barriers after a table
+# store are tables_barrier, the steps templates on the tables' view
+BANKED_STAMPS = GROUP_STAMPS[:3] + [
+    ("        if (dirty == 2) tables_barrier<Tab>(a, grid);\n        "
+     "insert_rows<Tab>(",
+     f"        {s('other')}\n        if (dirty == 2) tables_barrier<Tab>(a, "
+     f"grid);\n        {s('write_wait')}\n        insert_rows<Tab>("),
+    ("                         reinterpret_cast<uint32_t*>(gr_smem), scan);"
+     "\n        dirty = 1;\n",
+     "                         reinterpret_cast<uint32_t*>(gr_smem), scan);"
+     f"\n        {s('insert')}\n        dirty = 1;\n"),
+    SORT_STAMPS[3],
+    ("      if (dirty) tables_barrier<Tab>(a, grid);\n      dirty = 0;\n      "
+     "probe_rows<Tab>(a, tq,",
+     f"      {s('other')}\n      if (dirty) tables_barrier<Tab>(a, grid);"
+     f"\n      {s('write_wait')}\n      dirty = 0;\n      "
+     "probe_rows<Tab>(a, tq,"),
+    ("        if (dirty) tables_barrier<Tab>(a, grid);\n        dirty = 0;\n"
+     "        probe_rows<Tab>(a, tf,",
+     f"        {s('other')}\n        if (dirty) tables_barrier<Tab>(a, "
+     f"grid);\n        {s('write_wait')}\n        dirty = 0;\n        "
+     "probe_rows<Tab>(a, tf,"),
+    ("      if (dirty) tables_barrier<Tab>(a, grid);\n      "
+     "reset_tables<Tab>(a);\n",
+     f"      {s('other')}\n      if (dirty) tables_barrier<Tab>(a, grid);\n"
+     f"      {s('write_wait')}\n      reset_tables<Tab>(a);\n      "
+     f"{s('reset')}\n"),
+] + SORT_STAMPS[-2:]
+
 # the rounds as shipped, and variants of them (timed beside it, held to
 # its outputs)
 GROUP_ROUNDS = {
@@ -202,7 +231,8 @@ GROUP_ROUNDS = {
                 "constexpr int kWaveBlocks = 2;\n")],
 }
 
-DESIGNS = (("group", GROUP_ADJ, GROUP_STAMPS, GROUP_ROUNDS),
+DESIGNS = (("banked", GROUP_ADJ, BANKED_STAMPS, GROUP_ROUNDS),
+           ("group", GROUP_ADJ, GROUP_STAMPS, GROUP_ROUNDS),
            ("sort", SORT_ADJ, SORT_STAMPS, {}))
 
 
