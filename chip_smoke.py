@@ -116,7 +116,23 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      above 2^32: an all-ones bitmap of 2^32 + 2^26 slots frozen, its rank
      grid, one exact insert and one insert_max against their plain
      versions, and a consume batch of four reads on those ranks in both
-     policies against consume_batch_plain;
+     policies against consume_batch_plain; (d) the direct filter at 2^32
+     slots and more: (i) the fixture's "direct_2_32" digests (silver and
+     golden paths of the gate dataset at 4,603,242,496 slots, 36.8 GB of
+     tables: exact with slot_map "fastrange" and "mod", the throughput
+     cell with "mod", and that cell banked 1x2 on ["cuda:0"] * 2), every
+     launch count zeroed just before and read just after, the direct
+     path's kernels launched and the rank kernels not; (ii) at that size
+     and at 142,368,384 slots, in each of those three cases, kernel A's
+     fill (the bench reads' fill pass into the kernel's and the plain
+     version's bitmaps), the merge (the words' first write against the
+     chunked plain merge, chunk by chunk), A's query grid, the consume
+     kernel (the first bench batch: the entries at its keys snapshotted,
+     kernel, snapshot restored, plain version; whole-table checksums) and
+     B against their plain versions, each timed beside its bound; (iii)
+     goldrush-path through the CLI at G=3e8 (8,542,099,456 slots, 68.3 GB
+     of tables), counted on its own: each stage's size, construction and
+     fill seconds, reads/s and the peak device memory;
   8. ntCard's sizing and the sampled inserts: (a) ntcard_count (K22)
      against its plain version on the bench reads' batches (2^24 bases a
      launch) at rbits 22 and 27 (3 GiB of counters), counters and each
@@ -2341,14 +2357,15 @@ def host_ranks(slots, words, supers, size: int, sentinel: int):
 
 
 def silver_golden(fq: str, prefix: str, engine: dict, extra: dict,
-                  sizing: bool = False) -> dict:
+                  sizing: bool = False, device="cuda") -> dict:
     """The port's silver paths on `fq` and its golden path over their
     concatenation, as tools/torch_port_digests.py's silver_golden records
-    them (with `sizing`, also the silver engine's universe and size)."""
+    them (with `sizing`, also the silver engine's universe and size), on
+    `device` (a mesh's devices when `extra` asks for one)."""
     from goldrush_tpu_torch.config import PathConfig
     from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
     eng = Engine(PathConfig(input=fq, prefix_file=prefix, **engine, **extra),
-                 device="cuda")
+                 device=device)
     size = {"universe": eng.universe, "size": eng.size} if sizing else {}
     st = eng.run()
     del eng
@@ -2363,7 +2380,7 @@ def silver_golden(fq: str, prefix: str, engine: dict, extra: dict,
     gold = Engine(PathConfig(
         input=prefix + "_all.fq", prefix_file=prefix + "_golden",
         **{**engine, "silver_path": False, "min_length": 0}, **extra),
-        device="cuda").run()
+        device=device).run()
     return {**size, "recruits": st.recruits,
             "paths_completed": st.paths_completed, "silver": silver,
             "golden": sha256_file(prefix + "_golden.fa"),
@@ -2849,6 +2866,359 @@ def phase_genome() -> dict:
         raise AssertionError(f"genome path: launches {launches}")
     genome_high_ranks()
     return launches, freeze
+
+
+# phase 7(d): the direct filter at the fixture's "direct_2_32" size
+# (4,603,242,496 slots) beside the bench sizing's 142,368,384, in these
+# cells, and the largest closed-form sizing one card holds: goldrush-path
+# at G = 3e8, 8,542,099,456 slots, 68.3 GB of tables
+D232_CASES = (("exact_fastrange", dict(slot_map="fastrange")),
+              ("exact_mod", dict(slot_map="mod")),
+              ("throughput_mod", dict(THROUGHPUT, slot_map="mod")))
+D232_KERNELS = ("seed_hash_fill", "presence_merge", "seed_hash_grid",
+                "probe_vote", "consume")
+CAPACITY_G = 300_000_000
+
+
+def chunked_err(a, b, step: int = 1 << 24) -> int:
+    """max_abs_err of two equal-length 1-D tensors, `step` entries at a
+    time (a filter-sized difference in int64 would not fit the card)."""
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes {a.shape} vs {b.shape}")
+    return max((max_abs_err([(a[i: i + step], b[i: i + step])])
+                for i in range(0, a.shape[0], step)), default=0)
+
+
+def direct_2_32_digests(fx: dict) -> None:
+    """7(d)(i): the port's silver and golden paths on the 1 Mbp gate
+    dataset (written by phase 5) with the direct filter at 4,603,242,496
+    slots, in the fixture's three "direct_2_32" cases on one card and the
+    throughput case banked 1x2 on ["cuda:0"] * 2, against the JAX
+    package's digests, universes and sizes."""
+    import torch
+    d = fx["direct_2_32"]
+    fq = gate_fastq(fx)
+    runs = [(tag, case, "single", "cuda", {})
+            for tag, case in d["cases"].items()]
+    runs.append(("throughput_mod", d["cases"]["throughput_mod"], "1x2",
+                 ["cuda:0"] * 2, dict(devices=2, model_shards=2)))
+    for tag, case, layout, device, mesh in runs:
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got = silver_golden(fq, os.path.join(WORK, f"d232_{layout}_{tag}"),
+                            fx["engine"], {**d["engine"], **case, **mesh},
+                            sizing=True, device=device)
+        say("genome", part="d(i)", case=tag, layout=layout, size=got["size"],
+            files=len(got["silver"]) + 1, recruits=got["recruits"],
+            golden_recruits=got["golden_recruits"],
+            seconds=f"{time.time() - t0:.1f}",
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            match=got == d[tag])
+        if got != d[tag]:
+            raise AssertionError(f"direct_2_32 {tag} {layout}: {got} vs "
+                                 f"{d[tag]}")
+
+
+def merge_chunks_err(words, bits, size: int, step: int = 1 << 28):
+    """The first-write merge in `words` (the whole allocation) against the
+    chunked plain merge, one chunk of `step` slots at a time into a buffer
+    of its own (no second table): the largest difference, and the plain
+    merge's seconds over the whole table."""
+    import torch
+    from goldrush_tpu_torch.mibf import mibf as dm
+    buf = torch.empty(step, dtype=torch.int32, device=words.device)
+    err, plain_s = 0, 0.0
+    for a in range(0, words.shape[0], step):
+        b = min(a + step, words.shape[0])
+        n = max(0, min(size, b) - a)
+        out = buf[: b - a]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dm._merge_plain(out, bits[a // 32: a // 32 + -(-n // 32)], n,
+                        first_write=True)
+        torch.cuda.synchronize()
+        plain_s += time.time() - t0
+        err = max(err, chunked_err(words[a:b], out))
+    return err, plain_s
+
+
+def consume_at_size(te, inputs, T: int, dev, reps: int = 5) -> dict:
+    """The consume kernel on one batch against consume_batch_plain on the
+    same table, with no second table: the entries at the batch's grid keys
+    snapshotted, the kernel run (and timed, the entries restored before
+    each launch), its entries read, the snapshot restored, the plain
+    version run and its entries read; rows, scal, counters and entries
+    must equal, and whole-table checksums show that neither changed any
+    other entry.  The batch must not rotate a silver path (a reset writes
+    every entry).  Returns the record's numbers."""
+    import torch
+    from goldrush_tpu_torch.path import consume as tcons
+    filt, size = te.state, te.size
+    grid, _, grid_ins = inputs[:3]
+    keys = torch.unique(torch.cat([grid.flatten(), grid_ins.flatten()]))
+    keys = keys[keys < size]
+    snap = [t[keys] for t in filt]
+    sums0 = [table_sum(t) for t in filt]
+
+    def launch():
+        scal = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=dev)
+        ck = tcons.new_counters(dev)
+        rows = torch.empty((grid.shape[0], 8), dtype=torch.int64, device=dev)
+        return scal, ck, rows
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        for t, v in zip(filt, snap):
+            t[keys] = v
+        scal, ck, rows = launch()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        tcons.consume_batch(te.spec, filt, *inputs, scal, rows, ck, T)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    got = [t[keys] for t in filt]
+    sums_k = [table_sum(t) for t in filt]
+    for t, v in zip(filt, snap):
+        t[keys] = v
+    scal_p, cp, rows_p = launch()
+    with plain_steps(te.spec, grid, grid_ins, size) as log:
+        t0 = time.time()
+        tcons.consume_batch_plain(te.spec, filt, *inputs, scal_p, rows_p, cp,
+                                  T)
+        torch.cuda.synchronize()
+        pms = (time.time() - t0) * 1e3
+    want = [t[keys] for t in filt]
+    sums_p = [table_sum(t) for t in filt]
+    err = max_abs_err([(rows, rows_p), (scal, scal_p), (ck, cp)]
+                      + list(zip(got, want)))
+    moved = [int(g.long().sum() - v.long().sum()) for g, v in zip(got, snap)]
+    steps = {k: sum(1 for x in log if x[0] == k)
+             for k in ("live", "recheck", "insert", "reset")}
+    if (err or sums_k != sums_p
+            or [a - b for a, b in zip(sums_k, sums0)] != moved
+            or steps["reset"] or not steps["insert"]):
+        raise AssertionError(f"consume at {size} slots: err {err}, sums "
+                             f"{sums0} -> {sums_k} / {sums_p}, moved {moved}"
+                             f", steps {steps}")
+    nbytes = consume_bytes(te, inputs, log, filt, T)
+    return dict(err=err, ms=sorted(times)[reps // 2], plain_ms=pms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, keys=keys.numel(),
+                **steps)
+
+
+def direct_size_check(dev, reads, universe, tag: str) -> dict:
+    """7(d)(ii) at one size (`universe`: None for bench.py's engine,
+    142,368,384 slots): per case of D232_CASES an engine's direct filter,
+    and on it each kernel of the path against its plain version, timed:
+    A's fill of the bench reads' fill pass (47 batches) into two bitmaps
+    (the kernel's, the plain version's; the first batch timed), the
+    first-write merge of the kernel's bitmap into the engine's words
+    against the chunked plain merge (`merge_chunks_err`), A's query grid
+    of the first bench batch (T=20), the consume kernel on that batch
+    (`consume_at_size`) and B on its grid against the table the batch's
+    inserts left.  Returns {kernel: {key: value}} with keys suffixed
+    `{tag}_{case}`."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    rec = {k: {} for k in D232_KERNELS}
+    batches = fill_pass_batches(dev, reads)
+    T, L = 20, BENCH["read_len"]
+    for case, extra in D232_CASES:
+        gc_cuda()
+        te = Engine(PathConfig(**BENCH_ENGINE, mibf_mode="direct",
+                               hash_universe=universe, **extra), device=dev)
+        size, mode, fam = te.size, te.cfg.slot_map, te.fam_ins
+        sfx = f"{tag}_{case}"
+        out = {}
+        # A's fill: the kernel's bitmap and the plain version's
+        bk = dm.presence_bitmap(size, dev)
+        bp = dm.presence_bitmap(size, dev)
+        for c, n in batches:
+            dm.fill_presence_bits(bk, c, n, fam, size, mode)
+            dm._fill_bits_plain(bp, c, n, fam, size, mode)
+        err = chunked_err(bk, bp)
+        c0, n0 = batches[0]
+        bp.zero_()
+        dm.fill_presence_bits(bp, c0, n0, fam, size, mode)
+        written = int(torch.count_nonzero(bp))
+        ms = cuda_ms(lambda: dm.fill_presence_bits(bp, c0, n0, fam, size,
+                                                   mode), 20)
+        pms = cuda_ms(lambda: dm._fill_bits_plain(bp, c0, n0, fam, size,
+                                                  mode), 3)
+        del bp
+        ln = n0.long()
+        frames = [int(torch.clamp(ln - span + 1, min=0).sum())
+                  for span in fam.spans]
+        n_care = len(fam.care_left) + len(fam.care_right)
+        out["seed_hash_fill"] = checked(
+            err, ms, pms, c0.numel() + n0.numel() * 4 + written * 4,
+            hash_ops(frames[0], sum(frames), n_care))
+        # the merge: the first write of the engine's words, every entry
+        words = te.state.words
+        dm.merge_presence(words, bk, size, first_write=True)
+        err, plain_s = merge_chunks_err(words, bk, size)
+        ms = cuda_ms(lambda: dm.merge_presence(words, bk, size,
+                                               first_write=True), 5)
+        out["presence_merge"] = checked(
+            err, ms, plain_s * 1e3, bk.numel() * 4 + words.numel() * 4)
+        del bk
+        # A's query grid of the first bench batch
+        B = te.batch_reads
+        codes = np.zeros((B, (T + 1) * te.cfg.tile_length), np.uint8)
+        codes[:, :L] = reads[:B].cpu().numpy()
+        qc = torch.from_numpy(codes).to(dev)
+        ql = torch.full((B,), L, dtype=torch.int32, device=dev)
+        p = te.params
+        slots, ok = dm.build_slot_grid(qc, ql, te.fam_q, p, T)
+        ps, pok = dm._build_slot_grid_plain(qc, ql, te.fam_q, p, T)
+        err = max_abs_err([(slots, ps), (ok, pok)])
+        ms = cuda_ms(lambda: dm.build_slot_grid(qc, ql, te.fam_q, p, T), 20)
+        pms = cuda_ms(lambda: dm._build_slot_grid_plain(qc, ql, te.fam_q, p,
+                                                        T), 3)
+        n_ok = int(ok.sum())
+        care_q = len(te.fam_q.care_left) + len(te.fam_q.care_right)
+        out["seed_hash_grid"] = checked(
+            err, ms, pms, qc.numel() + ql.numel() * 4 + slots.numel() * 8
+            + ok.numel(), hash_ops(n_ok, n_ok * te.fam_q.h, care_q))
+        del ps, pok
+        # the consume kernel on the first bench batch
+        inputs = te._batch_inputs(codes, np.full(B, L, np.int32),
+                                  np.full(B, L, np.int64), T)
+        c = consume_at_size(te, inputs, T, dev)
+        out["consume"] = checked(c["err"], c["ms"], c["plain_ms"], 0)
+        out["consume"]["bound_ms"] = c["bound_ms"]
+        # B on the table the batch's inserts left
+        vk = dm.probe_and_vote(words, slots, ok, p, T)
+        vp = dm._probe_and_vote_plain(words, slots, ok, p, T)
+        err = max_abs_err(zip(vk, vp))
+        ms = cuda_ms(lambda: dm.probe_and_vote(words, slots, ok, p, T), 20)
+        pms = cuda_ms(lambda: dm._probe_and_vote_plain(words, slots, ok, p,
+                                                       T), 3)
+        out["probe_vote"] = checked(
+            err, ms, pms, vote_bytes(slots, ok, T, p.vote_topk, size,
+                                     False))
+        hits = int(vk.hits.sum())
+        say("genome", part="d(ii)", case=case, size=size,
+            alloc=words.numel(), batch=f"{B}x{T}", keys=c["keys"],
+            live=c["live"], insert=c["insert"], recheck=c["recheck"],
+            hits=hits, **{f"{k}_{f}": (f"{v[f]:.4f}" if f != "max_abs_err"
+                                       else v[f])
+                          for k, v in out.items()
+                          for f in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms")})
+        bad = {k: v["max_abs_err"] for k, v in out.items()
+               if v["max_abs_err"]}
+        if bad or hits == 0:
+            raise AssertionError(f"7(d)(ii) {case} at {size} slots: "
+                                 f"errors {bad}, {hits} hits")
+        for k, v in out.items():
+            rec[k].update({f"{f}_{sfx}": v[f] for f in
+                           ("ms", "plain_ms", "bound_ms")})
+        del te, words, slots, ok, vk, vp, inputs
+    gc_cuda()
+    return rec
+
+
+def direct_capacity() -> dict:
+    """7(d)(iii): goldrush-path through the CLI on the bench reads (written
+    by phase 4) at G = 3e8 with the default direct filter in exact mode
+    and no hash_universe: 8,542,099,456 slots, 68.3 GB of tables, the
+    largest closed-form sizing one card holds.  Prints each stage's size,
+    construction and fill seconds, the silver assign's reads/s and the
+    peak device memory; returns the launch counts of the run (zeroed just
+    before it)."""
+    import torch
+    from goldrush_tpu_torch import kernels, pipeline
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    made = []
+
+    def make(pc, device):
+        # the engine's size and construction time only: holding the engine
+        # would keep the silver stage's tables while the golden stage's come
+        t0 = time.time()
+        eng = GoldenPathEngine(pc, device=device)
+        made.append((eng.size, time.time() - t0))
+        return eng
+    for k in kernels.ALL + (kernels.INSERT_SORTED, kernels.INSERT_MAX):
+        k.launches = 0
+    pipeline.GoldenPathEngine = make
+    try:
+        out = run_cli(["goldrush-path",
+                       f"reads={os.path.join(WORK, 'bench_reads')}",
+                       f"G={CAPACITY_G}", "device=cuda",
+                       f"prefix={os.path.join(WORK, 'capacity')}", "dev=1"])
+    finally:
+        pipeline.GoldenPathEngine = GoldenPathEngine
+    launches = {k.name: k.launches for k in kernels.ALL}
+    peak = torch.cuda.max_memory_allocated()
+    for (stage, st), (size, init_s) in zip(out["stats"].items(), made):
+        say("genome", part="d(iii)", stage=stage, size=size,
+            alloc_bytes=8 * (-(-(size + 1) // 1024) * 1024),
+            init_s=f"{init_s:.3f}", fill_s=f"{st.wall_fill_s:.3f}",
+            assign_s=f"{st.wall_assign_s:.3f}", reads=st.num_reads,
+            recruits=st.recruits,
+            reads_per_s=f"{st.num_reads / max(st.wall_assign_s, 1e-9):.2f}")
+    say("genome", part="d(iii)", wall_s=f"{out['wall_s']:.2f}",
+        max_memory_allocated=peak,
+        launches=json.dumps(launches).replace(" ", ""))
+    silver = out["stats"]["silver"]
+    card = torch.cuda.get_device_properties(0).total_memory
+    if (made[0][0] < 8_000_000_000 or silver.recruits <= 0
+            or not 68e9 < peak < card or launches["consume"] <= 0
+            or launches["presence_merge"] != len(made)):
+        raise AssertionError(f"7(d)(iii): sizes {made}, {silver.recruits} "
+                             f"recruits, peak {peak}, launches {launches}")
+    return launches
+
+
+def phase_direct(fx: dict) -> tuple[dict, dict, dict]:
+    """Phase 7(d), the direct filter at 2^32 slots and more, after 7(c):
+    (i) the "direct_2_32" digests, every launch count zeroed just before
+    and read just after; (ii) its kernels against their plain versions at
+    4,603,242,496 slots and at 142,368,384 (not counted); (iii) the
+    capacity run at G = 3e8, counted on its own.  Returns (i)'s launches,
+    (iii)'s and (ii)'s records by kernel."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    gc_cuda()
+    say("genome", part="d", allocated_before=torch.cuda.memory_allocated())
+    for k in kernels.ALL + (kernels.INSERT_SORTED, kernels.INSERT_MAX):
+        k.launches = 0
+    direct_2_32_digests(fx)
+    launches = {k.name: k.launches for k in kernels.ALL}
+    say("genome", part="d(i)", launches=json.dumps(launches).replace(" ", ""))
+    direct = ("seed_hash_fill", "presence_merge", "seed_hash_grid",
+              "probe_vote", "classify", "consume")
+    ranks = ("seed_hash_rank_grid", "rank_pack", "rank_scan", "rank_carry")
+    if (any(launches[k] <= 0 for k in direct)
+            or any(launches[k] for k in ranks)
+            or kernels.INSERT_SORTED.launches or kernels.INSERT_MAX.launches):
+        raise AssertionError(f"7(d)(i): launches {launches}")
+    dev = torch.device("cuda", 0)
+    reads = bench_reads(dev)[1]
+    checks = {k: {} for k in D232_KERNELS}
+    for universe, tag in ((None, "d142m"),
+                          (fx["direct_2_32"]["engine"]["hash_universe"],
+                           "d232")):
+        for k, v in direct_size_check(dev, reads, universe, tag).items():
+            checks[k].update(v)
+    for k, v in checks.items():
+        for f in ("ms", "plain_ms", "bound_ms"):
+            for tag in ("d142m", "d232"):
+                vals = [v[f"{f}_{tag}_{c}"] for c, _ in D232_CASES]
+                v[f"{f}_{tag}"] = sum(vals) / len(vals)
+    del reads
+    capacity = direct_capacity()
+    return launches, capacity, checks
 
 
 NTCARD_RBITS = (22, 27)        # the engine's and the reference's
@@ -4259,6 +4629,9 @@ def main(argv: list[str]) -> int:
         phase_digests()
         pipeline = phase_pipeline()
         genome, freeze = phase_genome()
+        with open(os.path.join(REPO, "tests", "fixtures",
+                               "torch_port_digests.json")) as f:
+            direct, capacity, direct_checks = phase_direct(json.load(f))
         ntcard, checks["ntcard_count"] = phase_ntcard()
         wave, wave_checks = phase_wave()
         checks.update(wave_checks)
@@ -4268,8 +4641,9 @@ def main(argv: list[str]) -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     runs = {"exact": exact, "throughput": throughput, "pipeline": pipeline,
-            "genome": genome, "ntcard": ntcard, "wave": wave, "mesh": mesh}
-    for name, rec in freeze.items():
+            "genome": genome, "direct_2_32": direct, "capacity": capacity,
+            "ntcard": ntcard, "wave": wave, "mesh": mesh}
+    for name, rec in list(freeze.items()) + list(direct_checks.items()):
         checks[name].update(rec)
     # kernel D's and insert_max's code runs inside the consume kernel: their
     # standalone launches' checks and times go with its record

@@ -272,13 +272,17 @@ def init_state(params: MibfParams, device="cpu") -> MibfState:
 
 
 def state_from_numpy(words: np.ndarray, counts: np.ndarray,
-                     device="cpu") -> MibfState:
+                     device="cpu", copy: bool = True) -> MibfState:
     """The JAX package's uint32 arrays as a state on ``device`` (bit view),
     or banked over ``device`` when it is a sequence of devices (a mesh
-    row: ``to_banks``)."""
+    row: ``to_banks``, always a copy).  On the CPU the state is one copy
+    of the arrays, or with ``copy=False`` the arrays themselves (uint32
+    and contiguous: a filter of 2^32 slots is 34 GB of host memory)."""
     def conv(a):
-        a = torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np.uint32).view(np.int32).copy())
+        a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
+        # torch takes no read-only memory (a JAX array's numpy view)
+        a = torch.from_numpy(a.copy() if copy or not a.flags.writeable
+                             else a)
         if isinstance(device, (list, tuple)):
             return to_banks(a, device)
         return a.to(device)
@@ -293,11 +297,17 @@ def side_from_numpy(side: np.ndarray, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def state_to_numpy(state: MibfState) -> tuple[np.ndarray, np.ndarray]:
+def state_to_numpy(state: MibfState, copy: bool = True
+                   ) -> tuple[np.ndarray, np.ndarray]:
     """Inverse of ``state_from_numpy``: uint32 numpy arrays on the host,
-    banks gathered."""
-    return (whole(state.words).cpu().numpy().view(np.uint32).copy(),
-            whole(state.counts).cpu().numpy().view(np.uint32).copy())
+    banks gathered.  Arrays of a state on the CPU are a copy, or with
+    ``copy=False`` views of its tables; a state on the card is copied once,
+    by its move to the host."""
+    def conv(t):
+        host = whole(t).cpu()         # ``t`` itself only for a CPU tensor
+        return (host.clone() if copy and host is t else host
+                ).numpy().view(np.uint32)
+    return conv(state.words), conv(state.counts)
 
 
 def fastrange(h: torch.Tensor, size: int) -> torch.Tensor:
@@ -463,12 +473,24 @@ def _merge_cuda(words, bits, size, first_write=False):
     return words
 
 
-def _merge_plain(words, bits, size, first_write=False):
+# the slots the plain merge expands from the bitmap at a time: its
+# temporaries stay near 0.1 GB at any filter size
+MERGE_CHUNK = 1 << 23
+
+
+def _merge_plain(words, bits, size, first_write=False, chunk=MERGE_CHUNK):
     shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
-    present = ((bits[:, None] >> shifts) & 1).reshape(-1)[:size]
+    for s0 in range(0, size, chunk):
+        s1 = min(size, s0 + chunk)
+        w0 = s0 >> 5
+        expanded = (bits[w0: (s1 + 31) >> 5, None] >> shifts) & 1
+        present = expanded.reshape(-1)[s0 - 32 * w0: s1 - 32 * w0] << 30
+        if first_write:
+            words[s0:s1] = present                          # PRESENT_BIT
+        else:
+            words[s0:s1].bitwise_or_(present)
     if first_write:
-        words.zero_()
-    words[:size].bitwise_or_(present << 30)                 # PRESENT_BIT
+        words[size:] = 0
     return words
 
 
@@ -1057,7 +1079,7 @@ def save_state(state: MibfState, params: MibfParams, path: str) -> None:
     """Persist the filter in the JAX package's .npz format
     (goldrush_tpu/mibf/mibf.py:693-700), banks gathered: either package
     loads it."""
-    words, counts = state_to_numpy(state)
+    words, counts = state_to_numpy(state, copy=False)
     np.savez_compressed(
         path, words=words, counts=counts, size=params.size, h=params.h,
         k=params.k, spans=np.asarray(params.spans),
@@ -1069,7 +1091,7 @@ def load_state(path: str, device="cpu") -> tuple[MibfState, dict]:
     it when it is a sequence of devices (``state_from_numpy``), and its
     geometry."""
     z = np.load(path)
-    state = state_from_numpy(z["words"], z["counts"], device)
+    state = state_from_numpy(z["words"], z["counts"], device, copy=False)
     meta = {k: (int(z[k]) if z[k].ndim == 0 else tuple(int(x) for x in z[k]))
             for k in ("size", "h", "k", "spans", "tile_length")}
     return state, meta

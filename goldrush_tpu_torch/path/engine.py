@@ -36,8 +36,10 @@ card):
 
 The "exact" staleness policy makes the result bit-identical to sequential
 processing at any batch size; both policies are bit-identical to the JAX
-engine under the same config.  Filters of sizes that later slices bring
-raise ``NotImplementedError`` at construction (see ``_check_size``).
+engine under the same config.  Either filter takes any size (slots and
+ranks are 64-bit on the card; the direct filter holds 8 B a slot); the
+wavefront at 2^31 slots or more raises ``NotImplementedError`` at
+construction (see ``_check_size``).
 
 With ``devices > 1`` or ``model_shards > 1`` the engine runs on a
 ``(data, model)`` mesh of explicit devices in one process
@@ -156,16 +158,12 @@ def _wave_on(cfg: PathConfig) -> bool:
 
 
 def _check_size(cfg: PathConfig, size: int) -> None:
-    """Raise for a direct filter (8 B per slot) of ``size`` >= 2^32 slots,
-    which the port does not run yet, and for the wavefront at 2^31 slots
-    or more, before the filter is allocated.  The JAX wavefront casts
-    slots and ranks to int32 (goldrush_tpu/path/wavefront.py:205-207,
-    :243-244), so past 2^31 its gathers and scatters wrap to other entries
-    (ROADMAP queue 3); a compressed filter's ranks stay below its slots."""
-    if cfg.mibf_mode != "compressed" and size >= 1 << 32:
-        raise NotImplementedError(
-            f"the direct filter at {size} >= 2^32 slots is not ported yet "
-            "(ROADMAP.md queue 1 item 12)")
+    """Raise for the wavefront at ``size`` >= 2^31 slots, before the filter
+    is allocated.  The JAX wavefront casts slots and ranks to int32
+    (goldrush_tpu/path/wavefront.py:205-207, :243-244), so past 2^31 its
+    gathers and scatters wrap to other entries (ROADMAP queue 3); a
+    compressed filter's ranks stay below its slots.  Either filter takes
+    any size otherwise."""
     if _wave_on(cfg) and size >= 1 << 31:
         raise NotImplementedError(
             f"the wavefront at {size} >= 2^31 slots: the JAX wavefront's "

@@ -14,14 +14,18 @@ import torch
 
 import tests.conftest  # noqa: F401
 from tests.test_torch_throughput import assert_engine_matches_jax
+from goldrush_tpu.config import calc_optimal_size as jcalc
+from goldrush_tpu.mibf import mibf as jdm
 from goldrush_tpu.ops.seeds import make_seed_pattern as jseeds
 from goldrush_tpu.utils import ntcard as jnt
 from goldrush_tpu.utils import synth
 
-from goldrush_tpu_torch.config import PathConfig, calc_optimal_size
+from goldrush_tpu_torch.config import PathConfig
 from goldrush_tpu_torch.ops.seeds import make_seed_pattern
 from goldrush_tpu_torch.path import engine as tengine
 from goldrush_tpu_torch.utils import ntcard as tnt
+from tests.test_torch_direct_2_32 import (first_filter_allocation,
+                                          least_universe_of_2_32)
 
 PRESET = "1011011110110111101101"
 SEEDS = make_seed_pattern(PRESET, 22, 16, 3)
@@ -248,25 +252,17 @@ def test_explicit_universe_wins_over_ntcard(dataset, monkeypatch):
     assert te.universe == 123_457 and te.stats.wall_ntcard_s == 0
 
 
-def least_universe_of_2_32(occupancy):
-    lo, hi = 1, 1 << 40
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if calc_optimal_size(mid, 1, occupancy) >= 1 << 32:
-            hi = mid
-        else:
-            lo = mid + 1
-    return lo
-
-
 @pytest.mark.parametrize("how", ["estimate", "occupancy"])
 def test_ntcard_sized_direct_filter_past_2_32_raises(dataset, monkeypatch,
                                                       how):
     """An ntCard estimate that sizes the direct filter at 2^32 slots or
-    more raises NotImplementedError (queue 1 item 12) before the filter is
-    allocated: the estimator stubbed to a universe just past it, or the
-    real estimate at a tiny occupancy.  Nothing of 2^27 entries or more is
-    allocated (ntCard's counters are 3 x 2^23)."""
+    more is taken: the estimator stubbed to the least universe that
+    reaches 2^32 slots, or the real estimate at a tiny occupancy.  The
+    engine goes on to allocate its tables at the JAX package's
+    ``MibfParams(size).alloc`` for the size both packages' closed form
+    gives; a spy raises there, before anything of 2^27 entries or more is
+    allocated (ntCard's counters are 3 x 2^23).  The wavefront at that
+    size is still refused."""
     d, path = dataset
     kw = dict(CFG, ntcard=True)
     if how == "estimate":
@@ -275,22 +271,29 @@ def test_ntcard_sized_direct_filter_past_2_32_raises(dataset, monkeypatch,
                             lambda *a, **k: u)
     else:
         kw["occupancy"] = 1e-5
-    sizes = []
-    for name in ("empty", "zeros"):
-        real = getattr(torch, name)
+    sized = []
+    real_size = tengine.calc_optimal_size
 
-        def spy(*args, _real=real, **kwargs):
-            t = _real(*args, **kwargs)
-            sizes.append(t.numel())
-            if t.numel() >= 1 << 27:
-                raise AssertionError(f"allocated {t.numel()} entries")
-            return t
-        monkeypatch.setattr(torch, name, spy)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tengine.GoldenPathEngine(PathConfig(input=path, **kw), device="cpu")
+    def calc(universe, h, occupancy):
+        sized.append((universe, real_size(universe, h, occupancy)))
+        return sized[-1][1]
+    monkeypatch.setattr(tengine, "calc_optimal_size", calc)
+    alloc, sizes = first_filter_allocation(
+        monkeypatch,
+        lambda: tengine.GoldenPathEngine(PathConfig(input=path, **kw),
+                                         device="cpu"))
+    (universe, size), = sized
+    assert size >= 1 << 32
+    assert size == jcalc(universe, 1, kw.get("occupancy", 0.1))
+    assert alloc == jdm.MibfParams(size=size, h=3, k=22,
+                                   spans=(22, 23, 24)).alloc
     if how == "occupancy":
-        # ntCard's counters are the largest allocation
-        assert sizes[0] == max(sizes) == 3 << 23
-    # the compressed filter of that size is accepted by the rule
+        # ntCard's counters are the largest allocation before the filter's
+        assert sizes[0] == 3 << 23
+    # the wavefront at that size is refused; the compressed filter is not
+    with pytest.raises(NotImplementedError, match="2\\^31"):
+        tengine._check_size(dataclasses.replace(
+            PathConfig(input=path, **kw), recheck="optimistic",
+            wavefront=True), size)
     tengine._check_size(dataclasses.replace(
         PathConfig(input=path, **kw), mibf_mode="compressed"), 1 << 33)

@@ -1,13 +1,14 @@
 """PyTorch port, the compressed filter at 2^32 slots and more: the slot
 maps, the freeze with several superblocks, the slot -> rank map and both
 engines end to end at 4,603,242,496 slots (two superblocks) equal the JAX
-package exactly, and the direct filter at 2^32 slots is refused before
-anything is allocated.
+package exactly, and the engine takes a filter of 2^32 slots or more of
+either layout (the direct one at the JAX package's allocation).
 
 The JAX package's fastrange wraps its uint64 products past 2^32 slots, so
 its slots stay below 2^32 there; the port mirrors the wrap (ROADMAP queue
 3).  ``slot_map="mod"`` spreads slots over every superblock."""
 
+import dataclasses
 import hashlib
 import os
 
@@ -27,6 +28,8 @@ from goldrush_tpu_torch.config import PathConfig, calc_optimal_size
 from goldrush_tpu_torch.mibf import compressed as tcz
 from goldrush_tpu_torch.mibf import mibf as tdm
 from goldrush_tpu_torch.path import engine as tengine
+from tests.test_torch_direct_2_32 import (first_filter_allocation,
+                                          least_universe_of_2_32)
 
 # hash_universe=485,000,000 sizes the filter at 4,603,242,496 slots
 UNIVERSE = 485_000_000
@@ -142,35 +145,32 @@ class TestTwoSuperblocks:
 
 @pytest.mark.parametrize("mode", ["direct", "compressed"])
 def test_check_slice_refuses_direct_filter_at_2_32_slots(monkeypatch, mode):
-    """The direct filter (8 B per slot) of 2^32 slots or more raises
-    NotImplementedError, naming its ROADMAP item, before the engine
-    allocates anything; the compressed filter of that size is accepted,
-    and the direct one just below 2^32 slots too."""
-    lo, hi = 1, 1 << 33          # the least universe with 2^32 slots
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if calc_optimal_size(mid, 1, 0.1) >= 1 << 32:
-            hi = mid
-        else:
-            lo = mid + 1
+    """Nothing refuses a filter of 2^32 slots or more of either layout any
+    more: ``_check_size`` takes the size of the least universe that reaches
+    2^32 slots and 3 << 32 slots, the direct engine goes on to allocate its
+    tables at the JAX package's ``MibfParams(size).alloc`` (a spy raises
+    before anything of 2^27 entries or more is allocated), and the
+    compressed engine allocates nothing at construction.  The wavefront is
+    still refused from 2^31 slots on."""
+    lo = least_universe_of_2_32(0.1)
     cfg = PathConfig(input="reads.fq", **{**CFG, "mibf_mode": mode,
                                           "hash_universe": lo})
     size = calc_optimal_size(lo, 1, 0.1)
-    tengine._check_size(cfg, calc_optimal_size(lo - 1, 1, 0.1))
+    assert calc_optimal_size(lo - 1, 1, 0.1) < 1 << 32 <= size
+    for s in (size, 3 << 32):
+        tengine._check_size(cfg, s)
+    wave = dataclasses.replace(cfg, recheck="optimistic", wavefront=True)
+    for s in (1 << 31, size):
+        with pytest.raises(NotImplementedError, match="2\\^31"):
+            tengine._check_size(wave, s)
     if mode == "compressed":
-        tengine._check_size(cfg, size)
+        te = tengine.GoldenPathEngine(cfg, device="cpu")
+        assert te.size == size and te.state is None
         return
-    sizes = []
-    for name in ("empty", "zeros"):
-        real = getattr(torch, name)
-
-        def spy(*args, _real=real, **kwargs):
-            sizes.append(args)
-            return _real(*args, **kwargs)
-        monkeypatch.setattr(torch, name, spy)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tengine.GoldenPathEngine(cfg, device="cpu")
-    assert sizes == []
+    alloc, _ = first_filter_allocation(
+        monkeypatch, lambda: tengine.GoldenPathEngine(cfg, device="cpu"))
+    assert alloc == jdm.MibfParams(size=size, h=3, k=22,
+                                   spans=(22, 23, 24)).alloc
 
 
 @pytest.fixture(scope="module")

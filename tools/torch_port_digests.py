@@ -27,6 +27,19 @@ to them.  The JAX engine allocates a direct-layout state at construction
 this size never reads and drops at its freeze; this tool gives it empty
 arrays instead, which changes no output.
 
+Under "direct_2_32": the JAX package's DIRECT filter at the same size
+(hash_universe=485,000,000: 4,603,242,496 slots, words and counters of
+18.4 GB each), on the same dataset and ENGINE settings: the silver paths
+and the golden path over their concatenation, with each engine's universe
+and size, in three cases, exact with slot_map "fastrange" (its slots wrap
+below 2^32, the sentinel slot lies above), exact with "mod" (slots span
+past 2^32) and the throughput cell with "mod".  The JAX engine runs in
+place on its donated tables, so one engine holds ~37 GB of host memory;
+the engines run one at a time, and the tool prints its peak resident set
+after each case.  ``chip_smoke.py`` phase 7(d) holds the port on the card
+to them, and a ``slow``-marked test of tests/test_torch_direct_2_32.py the
+port's CPU engine.
+
 The dataset and engine settings are those of the exact run in
 tests/test_quality_gate.py (600 x 20 kb reads at 5% error, 40% indels,
 seeds 51/52; exact defaults, max_paths=3, ratio=0.75, min_length=15000,
@@ -59,6 +72,7 @@ chip_smoke.py phase 9 holds the port on the card to them.
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py            # all
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py pipeline   # ~1 min
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py superblocks
+    JAX_PLATFORMS=cpu python tools/torch_port_digests.py direct_2_32  # ~37 GB
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py ntcard insert
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py wavefront
 """
@@ -94,6 +108,8 @@ SUPER = dict(hash_universe=485_000_000, mibf_mode="compressed")
 SUPER_CASES = {"exact_mod": dict(slot_map="mod"),
                "exact_fastrange": dict(slot_map="fastrange"),
                "throughput_mod": dict(THROUGHPUT, slot_map="mod")}
+# the direct filter at the same size, in the same three cases
+DIRECT_2_32 = dict(SUPER, mibf_mode="direct")
 # the sampled inserts: insert_stride > 1 and insert_seeds < h
 INSERT_CASES = {
     "tp_s2_direct": dict(THROUGHPUT, insert_stride=2, mibf_mode="direct"),
@@ -207,6 +223,32 @@ def superblocks_entry(fq: str, workdir: str) -> dict:
     return {"engine": SUPER, "cases": SUPER_CASES, **cases}
 
 
+def peak_rss_bytes() -> int:
+    """This process's peak resident set so far (Linux reports KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def direct_2_32_entry(fq: str, workdir: str) -> dict:
+    """The "direct_2_32" key: the JAX package's silver and golden paths
+    with the direct filter at 4,603,242,496 slots, each case of
+    SUPER_CASES, one engine at a time."""
+    import gc
+    import time
+    from goldrush_tpu.config import PathConfig
+    from goldrush_tpu.path.engine import GoldenPathEngine
+    cases = {}
+    for tag, case in SUPER_CASES.items():
+        t0 = time.time()
+        cases[tag] = silver_golden(GoldenPathEngine, PathConfig, fq,
+                                   os.path.join(workdir, f"d232_{tag}"),
+                                   {**DIRECT_2_32, **case}, sizing=True)
+        gc.collect()
+        print(f"direct_2_32 {tag}: {time.time() - t0:.1f} s, peak RSS "
+              f"{peak_rss_bytes()} B", file=sys.stderr, flush=True)
+    return {"engine": DIRECT_2_32, "cases": SUPER_CASES, **cases}
+
+
 def silver_run(engine, config, fq: str, prefix: str, extra: dict) -> dict:
     """One package's silver paths on `fq`: their digests, the recruits and
     the paths completed."""
@@ -285,7 +327,7 @@ def main() -> None:
         write(out)
         return
     keys = {"ntcard": ntcard_entry, "insert": insert_entry,
-            "wavefront": wavefront_entry}
+            "wavefront": wavefront_entry, "direct_2_32": direct_2_32_entry}
     if sys.argv[1:] and set(sys.argv[1:]) <= set(keys):
         with open(OUT) as f:
             out = json.load(f)
@@ -332,7 +374,8 @@ def main() -> None:
                "superblocks": superblocks_entry(fq, d),
                "ntcard": ntcard_entry(fq, d),
                "insert": insert_entry(fq, d),
-               "wavefront": wavefront_entry(fq, d)}
+               "wavefront": wavefront_entry(fq, d),
+               "direct_2_32": direct_2_32_entry(fq, d)}
     write(out)
 
 
