@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (goldrush_tpu_torch) on one GPU.
 
     python3 chip_smoke.py                 # one card
-    python3 chip_smoke.py --ab DIR        # phases 3, 8(a), 9(a) of an
-                                          # earlier tree of the port in
-                                          # DIR, then this one's
+    python3 chip_smoke.py --ab DIR        # phases 3, 8(a), 9(a) and the
+                                          # freeze at scale of an earlier
+                                          # tree of the port in DIR, then
+                                          # this one's
 
 Phases (one line each; any failure raises, so the exit code is non-zero):
   1. device: require CUDA; print the card and its power limit;
@@ -20,9 +21,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      and both grids in both slot maps, the fill per 64-read batch and over
      a whole fill pass of the bench's shape (47 batches and the direct
      filter's merge), the merge on the bench filter as the words' first
-     write (dirty memory) and as an OR, rank_pack on the pass's bitmap,
-     rank_scan on its totals and on synthetic block totals of 1, 2, 14
-     and 100 superblocks (no bitmap) beside torch.cumsum;
+     write (dirty memory) and as an OR, the freeze (rank_build, one
+     launch) of the pass's bitmap against the plain freeze, beside
+     torch.cumsum of the words' precomputed popcounts;
      both grids also at a frame stride: the throughput mode's query grid
      (B=64, h=1, S=8), S=2 with h=3 and its full-resolution insert grid
      (B=64, h=3), timed, and the grid cases of hard_cases.grid_lengths;
@@ -112,7 +113,13 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      against host int64 arithmetic, the first two consume batches against
      consume_batch_plain (on the host), and the sizes, the freeze's kernel
      times against their bounds, reads/s and peak memory printed; every
-     launch count zeroed before (a) and read after (b); (c) ranks at or
+     launch count zeroed before (a) and read after (b), one freeze a
+     run, each timed and its supers and pop held to a plain popcount of
+     its bitmap; then the freeze on synthetic bitmaps of 4,603,242,496
+     (its first superblock fully set; and 7 slots fewer: a ragged last
+     word) and 56,947,329,536 slots (its fourth superblock fully set)
+     against the plain freeze superblock by superblock, timed beside its
+     bound and torch.cumsum of the words' popcounts; (c) ranks at or
      above 2^32: an all-ones bitmap of 2^32 + 2^26 slots frozen, its rank
      grid, one exact insert and one insert_max against their plain
      versions, and a consume batch of four reads on those ranks in both
@@ -160,7 +167,10 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      counts, rows, scal, counters and both tables exactly and no fault,
      each timed beside its bound, the plain version and, for the
      adjacency, torch.sort of the window's keys (the record's times: the
-     mean over the three windows of bench reads); then, every launch
+     mean over the three windows of bench reads); and wave_rounds on
+     windows of 7,981 and 8,192 one-tile reads (the fixture's "wave_8192"
+     dataset: each CTA's per-read state in a global scratch) in the same
+     way, each filter, timed once; then, every launch
      count zeroed just before and read
      just after, (b) bench.py's throughput cell with wavefront=True and
      windows of 256 reads, each filter: assign reads/s, submit and replay
@@ -168,7 +178,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      recruit-set Jaccard against phase 4's sequential pass (printed, not
      gated), peak memory; the two kernels once per window, the consume
      kernel and the batched B and C never; (c) the fixture's
-     "wavefront" digests of the gate dataset, both filters;
+     "wavefront" digests of the gate dataset, both filters; (d) the
+     fixture's "wave_8192" digests: the one-tile reads in windows of
+     8,192, both filters, the two kernels once a window;
  10. the mesh (parallel/mesh.py: a (data, model) mesh of devices in one
      process, the filter replicated over data rows and banked by index
      range over a row's devices): (a) with 1, 2 and 4 banks on cuda:0, on
@@ -208,7 +220,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
-With --ab DIR it runs phase 3, 8(a) and 9(a) alone, four times, each in a
+With --ab DIR it runs phase 3, 8(a) and 9(a) alone (9(a) without its
+widest windows, which an earlier tree refuses) and the freeze at phase
+7's two sizes on synthetic bitmaps, four times, each in a
 process of its own that imports the port from its tree: DIR (for example
 a `git archive` of the parent commit, whose kernels' entry points may
 differ: only the Python wrappers are called), this checkout, this
@@ -397,15 +411,11 @@ def vote_bytes(grid, ok, T: int, K: int, limit: int, ranked: bool) -> int:
             + B * T * 13 + 2 * B * T * K * 4 + 3 * B * 8)
 
 
-def scan_bytes(blocks: int, n_super: int) -> int:
-    """rank_scan: the block totals read and their carries written, each
-    superblock's total written and read back, its base written, pop."""
-    return 16 * blocks + 24 * n_super + 8
-
-
-def carry_bytes(nw: int, blocks: int) -> int:
-    """rank_carry: the words' ranks read and written, the carries read."""
-    return 16 * nw + 8 * blocks + 8
+def freeze_bytes(size: int) -> int:
+    """The freeze (rank_build): the bitmap read once; bitrank (its words
+    and the appended one), supers and pop written once."""
+    nw = -(-size // 32)
+    return 4 * nw + 8 * (nw + 1) + 8 * -(-size // (1 << 32)) + 8
 
 
 def classify_bytes(B: int, T: int, K: int) -> int:
@@ -1486,54 +1496,6 @@ def consume_check(dev) -> dict:
     return rec
 
 
-def rank_scan_check(dev) -> dict:
-    """rank_scan against its plain version on synthetic block totals, with
-    no bitmap: 1 superblock (2,173 totals, the 5 Mbp filter's count), 2 (a
-    partial second), 14 (868,948 totals, the genome cell's count) and 100
-    (a partial last one); totals drawn in [0, 65,536] after a run of full
-    blocks (65,536 each: sums past 2^32).  Carries, supers and pop bit for
-    bit; each timed beside its bound, the plain version and torch.cumsum
-    of the totals (the library call: it leaves out the restart per
-    superblock and the exclusive shift); and an empty launch, the floor of
-    the one-superblock scan's two launches.  Returns the times under
-    suffixed keys and the largest difference."""
-    import torch
-    from goldrush_tpu_torch.mibf import compressed as cz
-    g = torch.Generator(device=dev)
-    g.manual_seed(14)
-    sb = cz.SUPER_BLOCKS
-    rec, err = {}, 0
-    for n_super, nblk in ((1, 2_173), (2, sb + 4_097), (14, 868_948),
-                          (100, 99 * sb + 12_345)):
-        totals = torch.randint(0, 65_537, (nblk,), dtype=torch.int64,
-                               device=dev, generator=g)
-        totals[:6_144] = 65_536
-        size = (nblk - 1) * cz.RANK_BLOCK_SLOTS + 12_345
-        tk, tp = totals.clone(), totals.clone()
-        sk, pop = cz.rank_scan(tk, size)
-        sp, pop_p = cz._rank_scan_plain(tp, size)
-        e = max(max_abs_err([(tk, tp), (sk, sp)]), abs(pop - pop_p))
-        if sk.numel() != n_super:
-            e = max(e, 1)
-        err = max(err, e)
-        scratch = totals.clone()
-        ms = cuda_ms(lambda: cz._rank_scan_cuda(scratch, size), 20)
-        pms = cuda_ms(lambda: cz._rank_scan_plain(scratch, size), 3)
-        lib = cuda_ms(lambda: torch.cumsum(totals, 0), 20)
-        bound = scan_bytes(nblk, n_super) / HBM_BYTES_PER_S * 1e3
-        rec.update({f"ms_s{n_super}": ms, f"plain_ms_s{n_super}": pms,
-                    f"library_ms_s{n_super}": lib,
-                    f"bound_ms_s{n_super}": bound})
-        say("kernels", kernel="rank_scan", synthetic=True, blocks=nblk,
-            superblocks=n_super, present=pop, max_abs_err=e, ms=f"{ms:.4f}",
-            plain_ms=f"{pms:.4f}", library_ms=f"{lib:.4f}",
-            bound_ms=f"{bound:.6f}")
-    rec["ms_empty_launch"] = cuda_ms(lambda: torch.cuda._sleep(0), 20)
-    say("kernels", kernel="empty_launch",
-        ms=f"{rec['ms_empty_launch']:.4f}")
-    return rec, err
-
-
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -1558,43 +1520,121 @@ def phase_build():
         library=os.path.relpath(so, REPO))
 
 
-def freeze_steps(bk, tk, bp, tp, size: int) -> dict:
-    """rank_scan and rank_carry after rank_pack (bitrank and totals from
-    the kernel, bk/tk, and from the plain version, bp/tp), each against
-    its plain version and timed: their records.  rank_scan's library call
-    is torch.cumsum of the totals, which computes part of its function:
-    the restart per superblock and the exclusive shift are left out."""
+def freeze_of(cz):
+    """The port's freeze on the card without the population's fetch, and
+    its plain version: this tree's one launch of rank_build, or, in an
+    earlier tree that --ab runs, the four launches of rank_pack, rank_scan's
+    two and rank_carry.  Returns two functions of (bits, size) and whether
+    the first is this design."""
+    if hasattr(cz, "_build_rank_cuda"):
+        return cz._build_rank_cuda, cz._build_rank_plain, True
+
+    def four(bits, size):
+        bitrank, totals = cz._rank_pack_cuda(bits, size)
+        supers, pop = cz._rank_scan_cuda(totals, size)
+        cz._rank_carry_cuda(bitrank, totals)
+        return bitrank, supers, pop
+
+    def plain(bits, size):
+        bitrank, totals = cz._rank_pack_plain(bits, size)
+        supers, pop = cz._rank_scan_plain(totals, size)
+        cz._rank_carry_plain(bitrank, totals)
+        return bitrank, supers, pop
+    return four, plain, False
+
+
+def plain_freeze_err(plain, bits, size: int, got) -> int:
+    """The largest difference of a freeze (bitrank, supers, pop on the
+    card) from the plain freeze, superblock by superblock (each one's
+    words ranked alone, its count the next base): a bitmap of 14
+    superblocks would not fit the card twice with the plain version's
+    temporaries."""
+    bitrank, supers, pop = got
+    step = 1 << 27
+    nw = bits.numel()
+    err, base = 0, 0
+    for s, w0 in enumerate(range(0, nw, step)):
+        w1 = min(w0 + step, nw)
+        part = min(size - 32 * w0, 32 * step)
+        br, _, n = plain(bits[w0:w1].contiguous(), part)
+        err = max(err, max_abs_err([(bitrank[w0:w1], br[:-1])]),
+                  abs(int(supers[s]) - base))
+        base += n
+        del br
+    return max(err, abs(int(pop) - base), abs(int(bitrank[nw])),
+               abs(supers.numel() - -(-nw // step)))
+
+
+def popcount_cumsum(bits):
+    """The yardstick of the freeze: each word's popcount as int64, made
+    before the timing, for torch.cumsum (no mask, no restart a
+    superblock, no packing)."""
     import torch
     from goldrush_tpu_torch.mibf import compressed as cz
-    out = {}
+    return cz._popcount32_(bits.clone()).to(torch.int64)
+
+
+def freeze_check(dev, bits, size: int, tag: str, reps: int = 20) -> dict:
+    """The freeze of `bits` against the plain freeze, timed (CUDA events,
+    without the population's fetch) beside its bound, in this tree and,
+    under --ab, in the earlier one; and torch.cumsum of precomputed per-word
+    popcounts.  Returns the record's keys, suffixed by `tag`."""
+    import torch
+    from goldrush_tpu_torch.mibf import compressed as cz
+    freeze, plain, this = freeze_of(cz)
+    err = plain_freeze_err(plain, bits, size, freeze(bits, size))
+    ms = cuda_ms(lambda: freeze(bits, size), reps)
+    pops = popcount_cumsum(bits)
+    lib = cuda_ms(lambda: torch.cumsum(pops, 0), reps)
+    del pops
+    bound = freeze_bytes(size) / HBM_BYTES_PER_S * 1e3
+    say("kernels", kernel="rank_build" if this else "freeze_4_launches",
+        slots=size, words=bits.numel(), max_abs_err=err, ms=f"{ms:.4f}",
+        library_ms=f"{lib:.4f}", bound_ms=f"{bound:.4f}",
+        bound_share=f"{bound / ms:.3f}")
+    return {f"ms_freeze{tag}": ms, f"library_ms{tag}": lib,
+            f"bound_ms{tag}": bound, "max_abs_err": err}
+
+
+def synthetic_bitmap(dev, size: int, full_super: int, seed: int):
+    """A bitmap of `size` slots made on the card: a quarter of the bits
+    set, superblock `full_super` fully set, bits dirty past size."""
+    import torch
     nw = -(-size // 32)
-    # the scan turns the totals into carries in place: timed on a copy
-    scratch = tk.clone()
-    sk, pop = cz.rank_scan(tk, size)
-    sp, pop_p = cz._rank_scan_plain(tp, size)
-    err = max(max_abs_err([(tk, tp), (sk, sp)]), abs(pop - pop_p))
-    ms = cuda_ms(lambda: cz._rank_scan_cuda(scratch, size), 20)
-    pms = cuda_ms(lambda: cz._rank_scan_plain(scratch, size), 3)
-    lib = cuda_ms(lambda: torch.cumsum(tp, 0), 20)
-    out["rank_scan"] = checked(err, ms, pms, scan_bytes(tk.numel(),
-                                                        sk.numel()))
-    out["rank_scan"]["library_ms"] = lib
-    say("kernels", kernel="rank_scan", blocks=tk.numel(),
-        superblocks=sk.numel(), present=pop, max_abs_err=err,
-        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", library_ms=f"{lib:.4f}",
-        bound_ms=f"{out['rank_scan']['bound_ms']:.6f}")
-    # timed on a scratch copy: each call adds its carries again
-    scratch = bk.clone()
-    cz.rank_carry(bk, tk)
-    cz._rank_carry_plain(bp, tp)
-    err = max_abs_err([(bk, bp)])
-    ms = cuda_ms(lambda: cz._rank_carry_cuda(scratch, tk), 20)
-    pms = cuda_ms(lambda: cz._rank_carry_plain(scratch, tk), 3)
-    out["rank_carry"] = checked(err, ms, pms, carry_bytes(nw, tk.numel()))
-    say("kernels", kernel="rank_carry", max_abs_err=err,
-        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
-        bound_ms=f"{out['rank_carry']['bound_ms']:.4f}")
-    return out
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    bits = torch.randint(-2**31, 2**31, (nw,), dtype=torch.int32,
+                         device=dev, generator=g)
+    bits &= torch.randint(-2**31, 2**31, (nw,), dtype=torch.int32,
+                          device=dev, generator=g)
+    bits[full_super << 27: (full_super + 1) << 27] = -1
+    return bits
+
+
+# the freeze at the genome scale's sizes: phase 7's gate (two superblocks,
+# the first fully set) and bench sizings (14, the fourth fully set)
+FREEZE_SIZES = ((4_603_242_496, 0), (56_947_329_536, 3))
+
+
+def freeze_scale_check(dev) -> dict:
+    """The freeze on synthetic bitmaps at FREEZE_SIZES (and, for a ragged
+    last word, the first size less 7 slots on the same bitmap), each
+    against the plain freeze superblock by superblock and timed; the
+    records' keys suffixed by the size."""
+    import torch
+    rec, err = {}, 0
+    for size, full in FREEZE_SIZES:
+        bits = synthetic_bitmap(dev, size, full, size % 1000)
+        got = freeze_check(dev, bits, size, f"_{size}", reps=5)
+        if size == FREEZE_SIZES[0][0]:
+            got.update(freeze_check(dev, bits, size - 7, f"_{size - 7}",
+                                    reps=5))
+        err = max(err, got.pop("max_abs_err"))
+        rec.update(got)
+        del bits
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = err
+    return rec
 
 
 def phase_kernels() -> dict:
@@ -1826,30 +1866,24 @@ def phase_kernels() -> dict:
         bound_ms_b1=f"{out['classify']['bound_ms_b1']:.6f}")
     # --- the rank-compressed filter: the freeze from the pass's bitmap,
     # A's rank grid, D and B on ranks ------------------------------------
-    bk, tk = cz.rank_pack(pass_bits, size)
-    bp, tp = cz._rank_pack_plain(pass_bits, size)
-    err = max_abs_err([(bk, bp), (tk, tp)])
-    ms = cuda_ms(lambda: cz.rank_pack(pass_bits, size), 20)
-    pms = cuda_ms(lambda: cz._rank_pack_plain(pass_bits, size), 3)
-    nw = -(-size // 32)
-    # the bitmap in, bitrank + totals out
-    out["rank_pack"] = checked(err, ms, pms, pass_bits.numel() * 4
-                               + bk.numel() * 8 + tk.numel() * 8)
-    say("kernels", kernel="rank_pack", slots=size, max_abs_err=err,
-        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
-        bound_ms=f"{out['rank_pack']['bound_ms']:.4f}")
-    del pass_words, pass_bits
-    # the scan and the add (an earlier tree of the port, timed by --ab,
-    # carried without superblocks: it has neither)
-    if hasattr(cz, "rank_scan"):
-        out.update(freeze_steps(bk, tk, bp, tp, size))
-        rec, err = rank_scan_check(dev)
-        out["rank_scan"].update(rec)
-        out["rank_scan"]["max_abs_err"] = max(
-            out["rank_scan"]["max_abs_err"], err)
-    del bp, tp, bk, tk
+    freeze, plain, this = freeze_of(cz)
+    got = freeze(pass_bits, size)
+    want = plain(pass_bits, size)
+    err = max(max_abs_err([(got[0], want[0]), (got[1], want[1])]),
+              abs(int(got[2]) - want[2]))
+    ms = cuda_ms(lambda: freeze(pass_bits, size), 20)
+    pms = cuda_ms(lambda: plain(pass_bits, size), 3)
+    pops = popcount_cumsum(pass_bits)
+    lib = cuda_ms(lambda: torch.cumsum(pops, 0), 20)
+    out["rank_build"] = checked(err, ms, pms, freeze_bytes(size))
+    out["rank_build"]["library_ms"] = lib
+    say("kernels", kernel="rank_build" if this else "freeze_4_launches",
+        slots=size, present=int(got[2]), max_abs_err=err, ms=f"{ms:.4f}",
+        plain_ms=f"{pms:.4f}", library_ms=f"{lib:.4f}",
+        bound_ms=f"{out['rank_build']['bound_ms']:.4f}")
+    del pass_words, pass_bits, got, want, pops
     # the filter of the grid's batch, frozen (freeze: its words' bits packed
-    # by plain torch ops, then rank_pack and rank_carry); the plain rank map
+    # by plain torch ops, then rank_build); the plain rank map
     cs_k = cz.freeze(st_k.words, size)
     err = 0
     for mode in ("mod", "fastrange"):     # the fastrange grid stays for D, B
@@ -1994,8 +2028,7 @@ def phase_e2e() -> dict:
             want.update(presence_merge=passes, seed_hash_rank_grid=0)
         else:
             want.update(presence_merge=0, seed_hash_grid=0,
-                        rank_pack=passes, rank_scan=passes,
-                        rank_carry=passes)
+                        rank_build=passes)
         if any(got[k] != n or called.get(k, n) != n
                for k, n in want.items()):
             raise AssertionError(f"{mode}: launches {got} for wrapper calls "
@@ -2387,65 +2420,69 @@ def silver_golden(fq: str, prefix: str, engine: dict, extra: dict,
             "golden_recruits": gold.recruits}
 
 
-def genome_digests(fx: dict) -> None:
+def genome_digests(fx: dict) -> dict:
     """7(a): the port's silver and golden paths on the 1 Mbp gate dataset
     (written by phase 5) at 4,603,242,496 slots, in the fixture's three
-    "superblocks" cases, against the JAX package's digests."""
+    "superblocks" cases, against the JAX package's digests; each freeze's
+    supers and pop against a plain popcount of its bitmap.  Returns the
+    freeze's least time in each case."""
     sb = fx["superblocks"]
     fq = os.path.join(WORK, "qgate.fq")
+    rec = {}
     for tag, case in sb["cases"].items():
         t0 = time.time()
-        got = silver_golden(fq, os.path.join(WORK, f"super_{tag}"),
-                            fx["engine"], {**sb["engine"], **case})
+        with FreezeProbe() as fp:
+            got = silver_golden(fq, os.path.join(WORK, f"super_{tag}"),
+                                fx["engine"], {**sb["engine"], **case})
         say("genome", part="a", case=tag, files=len(got["silver"]) + 1,
             recruits=got["recruits"], golden_recruits=got["golden_recruits"],
-            seconds=f"{time.time() - t0:.1f}", match=got == sb[tag])
-        if got != sb[tag]:
-            raise AssertionError(f"superblocks {tag}: {got} vs {sb[tag]}")
+            seconds=f"{time.time() - t0:.1f}", match=got == sb[tag],
+            supers=fp.got[0], pop=fp.got[1],
+            rank_build_ms=",".join(f"{v:.4f}" for v in fp.ms))
+        if got != sb[tag] or len(fp.ms) != 2:
+            raise AssertionError(f"superblocks {tag}: {got} vs {sb[tag]}, "
+                                 f"{len(fp.ms)} freezes")
+        rec[f"ms_gate_{tag}"] = min(fp.ms)
+    return rec
 
 
 class FreezeProbe:
-    """Wraps the freeze's three steps while one engine fills: the plain
-    per-superblock popcount of the bitmap before rank_pack reads it, the
-    supers and pop rank_scan returns, and each step's time between CUDA
-    events."""
+    """Wraps the freeze (rank_build's launch) while engines fill: the
+    plain per-superblock popcount of the bitmap before the kernel reads
+    it, the supers and pop the launch returns, and its time between CUDA
+    events (the launch and its scratch's zero-fill; not the population's
+    fetch), for each call; any difference raises when the probe closes."""
 
-    def __init__(self, size: int):
+    def __init__(self):
         from goldrush_tpu_torch.mibf import compressed as cz
-        self.cz, self.size = cz, size
-        self.real = {n: getattr(cz, n) for n in
-                     ("rank_pack", "rank_scan", "rank_carry")}
-        self.ms, self.plain, self.got = {}, None, None
+        self.cz, self.real = cz, cz._build_rank_cuda
+        self.ms, self.got, self.plain = [], None, None
         self.check_s = 0.0
 
-    def timed(self, name):
+    def __call__(self, bits, size):
         import torch
-
-        def call(*args):
-            if name == "rank_pack":
-                t0 = time.time()
-                self.plain = plain_popcount_supers(args[0], self.size)
-                self.check_s = time.time() - t0
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = self.real[name](*args)
-            stop.record()
-            torch.cuda.synchronize()
-            self.ms[name] = start.elapsed_time(stop)
-            if name == "rank_scan":
-                self.got = (out[0].tolist(), out[1])
-            return out
-        return call
+        t0 = time.time()
+        self.plain = plain_popcount_supers(bits, size)
+        self.check_s += time.time() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.real(bits, size)
+        stop.record()
+        torch.cuda.synchronize()
+        self.ms.append(start.elapsed_time(stop))
+        self.got = (out[1].tolist(), int(out[2]))
+        if self.got != tuple(self.plain):
+            raise AssertionError(f"freeze at {size} slots: supers/pop "
+                                 f"{self.got} vs the bitmap's {self.plain}")
+        return out
 
     def __enter__(self):
-        for n in self.real:
-            setattr(self.cz, n, self.timed(n))
+        self.cz._build_rank_cuda = self
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self.real.items():
-            setattr(self.cz, n, fn)
+        self.cz._build_rank_cuda = self.real
 
 
 class ConsumeProbe:
@@ -2593,24 +2630,18 @@ def genome_bench() -> dict:
                                 hash_universe=GENOME_UNIVERSE,
                                 **BENCH_ENGINE, **extra), device="cuda")
         init_s = time.time() - t0
-        with FreezeProbe(eng.size) as fp, ConsumeProbe(2) as cp:
+        with FreezeProbe() as fp, ConsumeProbe(2) as cp:
             st = eng.run()
         cs = eng.cstate
         supers = cs.supers.tolist()
-        if (fp.got != (fp.plain[0], fp.plain[1]) or supers != fp.plain[0]
-                or len(supers) != 14 or cp.batches != 2):
+        if (len(fp.ms) != 1 or supers != fp.plain[0] or len(supers) != 14
+                or cp.batches != 2):
             raise AssertionError(f"{cell}: supers/pop {fp.got} vs the "
                                  f"bitmap's {fp.plain}, {cp.batches} "
                                  "batches checked")
         lookups, grid_ms, grid_bound = rank_lookup_check(eng, reads)
         net = st.wall_assign_s - cp.check_s
-        # the bitmap in, bitrank and the block totals out
-        blocks = -(-eng.size // cz.RANK_BLOCK_SLOTS)
-        pack_bytes = ((-(-eng.size // 32)) * 4 + cs.bitrank.numel() * 8
-                      + blocks * 8)
-        bound = {"rank_pack": pack_bytes,
-                 "rank_scan": scan_bytes(blocks, len(supers)),
-                 "rank_carry": carry_bytes(cs.bitrank.numel() - 1, blocks)}
+        bound = freeze_bytes(eng.size) / HBM_BYTES_PER_S * 1e3
         say("genome", part="b", cell=cell, size=eng.size,
             n_super=len(supers), pop=fp.got[1], alloc=cs.ids.numel(),
             init_s=f"{init_s:.3f}",
@@ -2618,9 +2649,7 @@ def genome_bench() -> dict:
             fill_stream_s=f"{st.wall_fill_stream_s:.3f}",
             freeze_s=f"{st.wall_freeze_s - fp.check_s:.3f}",
             freeze_check_s=f"{fp.check_s:.3f}",
-            **{f"{k}_ms": f"{v:.4f}" for k, v in fp.ms.items()},
-            **{f"{k}_bound_ms": f"{v / HBM_BYTES_PER_S * 1e3:.4f}"
-               for k, v in bound.items()},
+            rank_build_ms=f"{fp.ms[0]:.4f}", rank_build_bound_ms=f"{bound:.4f}",
             assign_s=f"{st.wall_assign_s:.3f}",
             consume_check_s=f"{cp.check_s:.3f}",
             consume_plain_s=f"{cp.plain_s:.3f}",
@@ -2634,10 +2663,8 @@ def genome_bench() -> dict:
         if st.recruits <= 0 or not 0 < st.device_peak_bytes < 80e9:
             raise AssertionError(f"{cell}: {st.recruits} recruits, peak "
                                  f"{st.device_peak_bytes}")
-        for k, v in fp.ms.items():
-            rec.setdefault(k, {}).update({
-                f"ms_genome_{cell}": v,
-                f"bound_ms_genome_{cell}": bound[k] / HBM_BYTES_PER_S * 1e3})
+        rec.setdefault("rank_build", {}).update({
+            f"ms_genome_{cell}": fp.ms[0], f"bound_ms_genome_{cell}": bound})
         rec.setdefault("seed_hash_rank_grid", {}).update({
             f"ms_genome_{cell}": grid_ms,
             f"bound_ms_genome_{cell}": grid_bound})
@@ -2701,14 +2728,12 @@ def genome_high_ranks() -> None:
     size = HIGH_SLOTS
     bits = torch.full((size // 32,), -1, dtype=torch.int32, device=dev)
     bitrank, supers, pop = cz.build_rank(bits, size)
-    bp, tp = cz._rank_pack_plain(bits, size)
-    sp, pop_p = cz._rank_scan_plain(tp, size)
-    cz._rank_carry_plain(bp, tp)
+    bp, sp, pop_p = cz._build_rank_plain(bits, size)
     if (not torch.equal(bitrank, bp) or not torch.equal(supers, sp)
             or pop != pop_p or pop != size or supers.tolist() != [0, 1 << 32]):
         raise AssertionError(f"all-ones freeze: pop {pop} / {pop_p}, supers "
                              f"{supers.tolist()} / {sp.tolist()}")
-    del bits, bp, tp, sp
+    del bits, bp, sp
     cs = cz.with_tables(bitrank, supers, pop, size)
     fam = build_seed_family(make_seed_pattern(PRESET, 22, 16, 3))
     T, TL = 20, 1000
@@ -2843,8 +2868,9 @@ def phase_genome() -> dict:
     bench reads at 56,947,329,536 slots in both cells, every launch count
     zeroed just before (a) and read just after (b), (c) ranks at or above
     2^32.  Every kernel of the compressed path must launch in (a) and
-    (b).  Returns the launch counts and the freeze kernels' times at 14
-    superblocks."""
+    (b), the freeze once an engine run (one data row); then the freeze on
+    synthetic bitmaps at both sizes (`freeze_scale_check`).  Returns the
+    launch counts and the freeze's records."""
     import torch
     from goldrush_tpu_torch import kernels
     gc_cuda()
@@ -2854,16 +2880,23 @@ def phase_genome() -> dict:
     say("genome", allocated_before=torch.cuda.memory_allocated())
     for k in kernels.ALL + (kernels.INSERT_SORTED, kernels.INSERT_MAX):
         k.launches = 0
-    genome_digests(fx)
+    gate = genome_digests(fx)
     freeze = genome_bench()
+    freeze["rank_build"].update(gate)
     launches = {k.name: k.launches for k in kernels.ALL}
     say("genome", launches=json.dumps(launches).replace(" ", ""))
-    compressed = ("seed_hash_fill", "seed_hash_rank_grid", "rank_pack",
-                  "rank_scan", "rank_carry", "probe_vote", "classify",
-                  "consume")
+    compressed = ("seed_hash_fill", "seed_hash_rank_grid", "rank_build",
+                  "probe_vote", "classify", "consume")
     missing = [k for k in compressed if launches[k] <= 0]
-    if missing or launches["presence_merge"] or launches["seed_hash_grid"]:
+    # three cases of silver and golden runs, then two silver runs
+    if (missing or launches["presence_merge"] or launches["seed_hash_grid"]
+            or launches["rank_build"] != 8):
         raise AssertionError(f"genome path: launches {launches}")
+    rec = freeze_scale_check(torch.device("cuda", 0))
+    err = rec.pop("max_abs_err")
+    freeze["rank_build"].update(rec)
+    if err:
+        raise AssertionError(f"the freeze at scale: max_abs_err {err}")
     genome_high_ranks()
     return launches, freeze
 
@@ -3198,7 +3231,7 @@ def phase_direct(fx: dict) -> tuple[dict, dict, dict]:
     say("genome", part="d(i)", launches=json.dumps(launches).replace(" ", ""))
     direct = ("seed_hash_fill", "presence_merge", "seed_hash_grid",
               "probe_vote", "classify", "consume")
-    ranks = ("seed_hash_rank_grid", "rank_pack", "rank_scan", "rank_carry")
+    ranks = ("seed_hash_rank_grid", "rank_build")
     if (any(launches[k] <= 0 for k in direct)
             or any(launches[k] for k in ranks)
             or kernels.INSERT_SORTED.launches or kernels.INSERT_MAX.launches):
@@ -3743,6 +3776,149 @@ def wave_kernel_check(dev) -> dict:
     return out
 
 
+# 9(a)'s widest windows: one-tile reads of the fixture's "wave_8192"
+# dataset, whose per-read state leaves wave_rounds' shared memory
+WIDE_WINDOWS = (7_981, 8_192)
+
+
+def wave_8192_fastq(fx: dict) -> str:
+    """WORK/one_tile.fq, the fixture's "wave_8192" dataset (9,000 reads of
+    1,500 bases: one tile each)."""
+    fq = os.path.join(WORK, "one_tile.fq")
+    ds = fx["wave_8192"]["dataset"]
+    if not os.path.exists(fq):
+        os.makedirs(WORK, exist_ok=True)
+        make_reads(fq, **{k: v for k, v in ds.items() if k != "sha256"})
+    if sha256_file(fq) != ds["sha256"]:
+        raise AssertionError("the wave_8192 dataset does not regenerate")
+    return fq
+
+
+def wave_wide_check(dev, fx: dict) -> dict:
+    """9(a) at the widest windows: wave_rounds on windows of 7,981 and 8,192
+    one-tile reads (the first that `rounds_smem` moves out of shared
+    memory, and the tile budget's largest), each filter filled from the
+    "wave_8192" reads, in its throughput cell (windows of 8,192), against
+    wave_window_plain: rows, scal, counters and both tables bit for bit,
+    no fault, one launch a window; each launch timed once (CUDA events)
+    beside the plain version and its bound.  Returns the record's keys
+    and the largest difference."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.path import wavefront as wave
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine
+    fq = wave_8192_fastq(fx)
+    rec, err = {}, 0
+    for mode in ("direct", "compressed"):
+        te = GoldenPathEngine(PathConfig(
+            input=fq, mibf_mode=mode,
+            **{**fx["engine"], **fx["wave_8192"]["engine"]}), device=dev)
+        te.calc_phred_threshold(fq)
+        te.fill(fq)
+        filt = te.cstate if te.compressed else te.state
+        table = filt.ids if te.compressed else filt.words
+        _, _, ranked, limit, _ = wave._filter_view(filt, te.size)
+        recs = list(te._eligible(fq))
+        for B in WIDE_WINDOWS:
+            te.batch_reads = B
+            codes, lengths, full, T = te._pack_batch(recs[:B])
+            codes_d, grid, ok, gi, oi, nt, fl = te._window_inputs(
+                codes, lengths, full, T)
+            adj = wave.wave_adjacency(te.wave_spec, gi, codes_d, limit,
+                                      ranked, T)
+            smem, spill = wave.rounds_smem(B, T, te.params.vote_topk,
+                                           grid.shape[1] * grid.shape[2] // T,
+                                           gi.shape[1] * gi.shape[2] // T,
+                                           te.spec.rech_on)
+            fk = type(filt)(*(t.clone() for t in filt))
+            fp = type(filt)(*(t.clone() for t in filt))
+            side_k = torch.zeros_like(table)
+            side_p = torch.zeros_like(table)
+            scal_k = torch.tensor([0, 0, 1, 0], dtype=torch.int64,
+                                  device=dev)
+            scal_p = scal_k.clone()
+            ck, cp = wave.new_counters(dev), wave.new_counters(dev)
+            rows_k = torch.empty((B, 8), dtype=torch.int64, device=dev)
+            rows_p = torch.empty_like(rows_k)
+            r0 = kernels.WAVE_ROUNDS.launches
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            wave.wave_window(te.wave_spec, fk, side_k, grid, ok, gi, oi, nt,
+                             fl, adj, scal_k, rows_k, ck, T)
+            stop.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(stop)
+            launched = kernels.WAVE_ROUNDS.launches - r0
+            t0 = time.time()
+            wave.wave_window_plain(te.wave_spec, fp, side_p, grid, ok, gi,
+                                   oi, nt, fl, adj, scal_p, rows_p, cp, T)
+            torch.cuda.synchronize()
+            pms = (time.time() - t0) * 1e3
+            e = max_abs_err([(rows_k, rows_p), (scal_k, scal_p), (ck, cp),
+                             (side_k, side_p)] + list(zip(fk, fp)))
+            err = max(err, e)
+            counts = dict(zip(wave.WAVE_COUNTS, cp.tolist()))
+            bound = wave_round_bytes(
+                counts, rows_p.cpu(), nt.cpu(), (grid, gi), T, table,
+                side_k, te.compressed) / HBM_BYTES_PER_S * 1e3
+            tag = f"{mode}_w{B}"
+            rec.update({f"ms_{tag}": ms, f"plain_ms_{tag}": pms,
+                        f"bound_ms_{tag}": bound})
+            say("wave", part="a", kernel="wave_rounds", filter=mode,
+                window=f"one_tile_{B}", B=B, T=T, smem=smem,
+                spill_bytes_a_cta=spill, launches=launched, max_abs_err=e,
+                scal=scal_k.tolist(), **counts, ms=f"{ms:.4f}",
+                plain_ms=f"{pms:.1f}", bound_ms=f"{bound:.5f}")
+            if (e or launched != 1 or counts["faults"] or not spill
+                    or not counts["commits"]):
+                raise AssertionError(f"wave_rounds {tag}: max_abs_err {e},"
+                                     f" {launched} launches, {counts}, "
+                                     f"spill {spill}")
+            del fk, fp, side_k, side_p, adj, codes_d, grid, ok, gi, oi
+        del te, filt, table
+        gc_cuda()
+    return rec, err
+
+
+def wave_8192_digests(fx: dict) -> None:
+    """9(d): the fixture's "wave_8192" case on the card, each filter: the
+    wavefront engine over the one-tile reads in windows of 8,192 reads,
+    its silver digests, recruits and paths against the JAX wavefront
+    engine's; wave_adjacency and wave_rounds once a window."""
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    w8k = fx["wave_8192"]
+    fq = wave_8192_fastq(fx)
+    for mode in ("direct", "compressed"):
+        prefix = os.path.join(WORK, f"w8k_{mode}")
+        before = {k.name: k.launches for k in kernels.WAVE}
+        t0 = time.time()
+        eng = Engine(PathConfig(input=fq, prefix_file=prefix,
+                                mibf_mode=mode,
+                                **{**fx["engine"], **w8k["engine"]}),
+                     device="cuda")
+        st = eng.run()
+        got_launches = {k.name: k.launches - before[k.name]
+                        for k in kernels.WAVE}
+        silver = {str(i): sha256_file(f"{prefix}_{i}.fq")
+                  for i in range(1, fx["engine"]["max_paths"] + 1)
+                  if os.path.exists(f"{prefix}_{i}.fq")}
+        got = {"recruits": st.recruits,
+               "paths_completed": st.paths_completed, "silver": silver}
+        say("wave", part="d", filter=mode, window=eng.batch_reads,
+            windows=st.num_batches, **eng.consume_counts, **got_launches,
+            recruits=st.recruits, seconds=f"{time.time() - t0:.1f}",
+            match=got == w8k[mode])
+        if (got != w8k[mode] or eng.batch_reads != 8_192
+                or any(n != st.num_batches for n in got_launches.values())):
+            raise AssertionError(f"wave_8192 {mode}: {got} vs {w8k[mode]}, "
+                                 f"launches {got_launches}")
+
+
 def recruit_ids(prefix: str, max_paths: int) -> set:
     """The read names of a silver run's path files."""
     from goldrush_tpu_torch.io import fastq
@@ -3871,9 +4047,10 @@ def wave_digests(fx: dict, devices=None, model: int = 1,
 
 def phase_wave() -> tuple[dict, dict]:
     """Phase 9, the wavefront consume (K23): (a) both kernels against
-    their plain versions; then, every launch count zeroed just before and
-    read just after, (b) the bench reads' throughput cell with
-    wavefront=True, each filter, and (c) the "wavefront" digests.
+    their plain versions, and wave_rounds at 7,981 and 8,192 one-tile
+    reads; then, every launch count zeroed just before and read just
+    after, (b) the bench reads' throughput cell with wavefront=True, each
+    filter, (c) the "wavefront" digests and (d) the "wave_8192" digests.
     Returns the launch counts and the two kernels' records."""
     import torch
     from goldrush_tpu_torch import kernels
@@ -3883,9 +4060,14 @@ def phase_wave() -> tuple[dict, dict]:
                            "torch_port_digests.json")) as f:
         fx = json.load(f)
     recs = wave_kernel_check(dev)
+    wide, err = wave_wide_check(dev, fx)
+    recs["wave_rounds"].update(wide)
+    recs["wave_rounds"]["max_abs_err"] = max(
+        recs["wave_rounds"]["max_abs_err"], err)
     launches = wave_bench()
     before = {k.name: k.launches for k in kernels.WAVE}
     wave_digests(fx)
+    wave_8192_digests(fx)
     for k in kernels.WAVE:
         launches[k.name] = k.launches
         if k.launches <= before[k.name]:
@@ -4236,7 +4418,8 @@ def mesh_engine_check(devices: list, runs=MESH_RUNS) -> dict:
     the same configuration (phase 4's, or run here when absent), every
     row's replica equal to row 0's; the consume kernel, kernel B and kernel
     C d times a batch (d data rows, each B and C on its B/d reads), kernel
-    D and insert_max never from the host; then the gate dataset
+    D and insert_max never from the host, rank_build d times an engine
+    run of the compressed filter; then the gate dataset
     (`mesh_gate_runs`).  Returns the launch counts of the bench runs."""
     from goldrush_tpu_torch import kernels
     with open(os.path.join(REPO, "tests", "fixtures",
@@ -4277,11 +4460,14 @@ def mesh_engine_check(devices: list, runs=MESH_RUNS) -> dict:
             batches = sum(p["batches"] for p in passes[n_pass:])
             recruits = sum(e.stats.recruits for e in engines)
             inserted = sum(p["insert"] for p in passes[n_pass:])
+            # the compressed filter: one freeze a data row an engine run
+            freezes = d * len(engines) if mode == "compressed" else 0
             say("mesh", part="10b", run=tag, cell=cell, filter=mode,
                 batches=batches, data_rows=d,
                 **{f"launches_{k}": got[k] for k in
-                   ("consume", "probe_vote", "classify")})
+                   ("consume", "probe_vote", "classify", "rank_build")})
             if (got["consume"] != d * batches
+                    or got["rank_build"] != freezes
                     or got["probe_vote"] != d * batches
                     or got["classify"] != d * batches
                     or any(k.launches for k in inserts)
@@ -4609,6 +4795,10 @@ def main(argv: list[str]) -> int:
         phase_build()
         out = phase_kernels()
         dev = torch.device("cuda", 0)
+        rec = freeze_scale_check(dev)
+        out["rank_build"]["max_abs_err"] = max(out["rank_build"]["max_abs_err"],
+                                               rec.pop("max_abs_err"))
+        out["rank_build"].update(rec)
         out.update(wave_kernel_check(dev))
         out["ntcard_count"] = ntcard_kernel_check(dev, bench_fastq())
         print(json.dumps(out))

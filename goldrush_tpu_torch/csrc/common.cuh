@@ -268,34 +268,6 @@ __device__ __forceinline__ V load_src(const V* p) {
   }
 }
 
-struct AddOp {
-  __device__ unsigned long long operator()(unsigned long long a,
-                                           unsigned long long b) const {
-    return a + b;
-  }
-};
-
-// Block-wide exclusive scan of one value per thread: thread t gets
-// op(v_0, ..., v_{t-1}), thread 0 the identity.  `scratch` holds blockDim.x
-// values in shared memory.  Every thread of the block calls it; it starts
-// and ends with a barrier.  With AddOp this is the per-block cumsum.
-template <typename V, typename Op>
-__device__ V block_exclusive_scan(V v, V identity, V* scratch, Op op) {
-  const int t = threadIdx.x, n = blockDim.x;
-  __syncthreads();
-  scratch[t] = v;
-  __syncthreads();
-  for (int off = 1; off < n; off <<= 1) {
-    const V x = t >= off ? scratch[t - off] : identity;
-    __syncthreads();
-    scratch[t] = op(scratch[t], x);
-    __syncthreads();
-  }
-  const V out = t > 0 ? scratch[t - 1] : identity;
-  __syncthreads();
-  return out;
-}
-
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }

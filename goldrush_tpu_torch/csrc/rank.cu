@@ -9,95 +9,106 @@
 // bitrank.  A slot's rank is supers[slot >> 32] + the high half of its word
 // + the popcount of the bits below it (_rank_lookup, compressed.py:218).
 //
-// Three kernels, the counterparts of the Pallas probes of
-// tools/probe_pallas.py and of the JAX functions that do that work
+// rank_build computes the whole structure in one pass over the presence
+// bitmap pass 1 filled (bit slot & 31 of word slot >> 5): the counterpart
+// of the Pallas probes pallas_cumsum_blocks and pallas_sweep
+// (tools/probe_pallas.py:80, :126) and of the JAX function they serve,
+// one global cumsum of the words' popcounts less each superblock's base
 // (_rank_from_bits, compressed.py:153-169, on the bits of
 // _freeze_from_bits, :194; the byte transient of fill_bytes/freeze_device,
-// :65/:104, is the fill's bitmap here):
+// :65/:104, is the fill's bitmap here).  The sweep carries its sum in SMEM
+// scratch across a sequential TPU grid; on this card the carry is a
+// single-pass scan with decoupled look-back (Merrill & Garland):
 //
-//   rank_pack   the per-64k-block cumsum (pallas_cumsum_blocks, :80).  One
-//               CTA per 65,536 slots (2,048 words): each thread reads two
-//               words of the presence bitmap pass 1 filled (bit slot & 31
-//               of word slot >> 5) with one 8-byte load, masks the slots at
-//               or past size, popcounts them, and writes each word's
-//               exclusive in-block prefix and the block's total.  A
-//               superblock is exactly 65,536 blocks, so no block straddles
-//               two.
-//   rank_scan   the carried block sum of pallas_sweep (:126), restarted at
-//               every superblock: a segmented exclusive scan of the block
-//               totals, in place, each becoming its block's carry (the
-//               totals of the blocks before it in its superblock), with
-//               supers (the present slots before each superblock, the JAX
-//               package's super_base) and pop.  Two launches spread it over
-//               the card: tiles of kScanTile = 2,048 totals (a superblock
-//               is 32 of them, so no tile straddles two) are summed, one
-//               CTA each; then each CTA takes its carry from the sums of
-//               the tiles before it in its superblock (at most 31), scans
-//               its tile in registers and shared memory (coalesced 16-byte
-//               loads and stores), and the first tile of each superblock
-//               writes supers[s] and the last tile pop from the tile sums.
-//               Linear in the blocks: 868,948 at 56,947,329,536 slots, 425
-//               CTAs.
-//   rank_carry  the add of pallas_sweep: each word's high half gains its
-//               block's carry; the appended word is zeroed.
+//   tiles       a CTA of 128 threads takes a tile of 8,192 words (a
+//               superblock is 16,384 tiles, so no tile straddles two), its
+//               id from an atomic ticket: every tile before it has started,
+//               so the look-back cannot wait on a tile that never runs.
+//               Thread t copies row r's words 4 (128 r + t) .. + 3 of the
+//               tile to shared memory with one 16-byte cp.async (a warp's
+//               copies are 512 contiguous bytes), 16 rows: 256 bytes in
+//               flight a thread and 32 KB a CTA, none of them held in
+//               registers; each word is masked past `size` and
+//               popcounted, each row's sums scanned across the warp by
+//               shuffles, the warps' row totals combined after one
+//               barrier;
+//   look-back   the tile publishes its aggregate in its 64-bit status word
+//               (flag in bits 62-63, value below), then warp 0 reads its
+//               predecessors 32 at a time, nearest first, until an
+//               inclusive value or the first tile of its superblock, which
+//               starts at 0 (super_base restarts there), and publishes its
+//               own inclusive value: the present slots of its superblock
+//               through its last word (at most 2^32, a fully set
+//               superblock);
+//   output      every word is written once, final, (rank within its
+//               superblock) << 32 | bits (at most 2^32 - 32 above), with
+//               16-byte stores; the last tile writes the appended word;
+//   supers/pop  the last tile of each superblock writes its count to
+//               supers[s]; the superblock that finishes last (a counter
+//               after a fence) turns the counts into their exclusive sum
+//               and writes pop.
 //
+// Bound.  The bitmap read once and bitrank written once: 12 bytes a word
+// (4.45e6 words at the 5 Mbp sizing, 1.78e9 at 56,947,329,536 slots), plus
+// 8 bytes of status a tile: bandwidth-bound.  What keeps a CTA from the
+// memory is its ticket, its look-back and its barriers, so the bytes in
+// flight come from six CTAs an SM (shared memory), each with its whole
+// tile's copies in flight at once, none in registers; a tile held in
+// registers left the memory about half idle, and this shape comes within
+// ~15% of a kernel that only widens the words to 8 bytes
+// (tools/torch_port_rank_variants.py times both).
+
 // The lookup of P1 (pallas_gather, :59), slot -> rank through bitrank and
 // supers, is fused into kernel A's rank grid (seed_hash.cu).
-//
-// Bound.  rank_pack reads the 4-byte bitmap words once (17.8 MB at the
-// 5 Mbp sizing, 7.1 GB at 56,947,329,536 slots) and writes the 8-byte
-// bitrank words: bandwidth-bound; rank_scan reads and writes the block
-// totals (8 bytes per 65,536 slots); rank_carry is a read-modify-write of
-// bitrank.
 #include "common.cuh"
 
 namespace gr {
 
-constexpr int kRankBlockWords = 2048;       // 65,536 slots per block
-constexpr int kRankThreads = 1024;          // two words per thread
-constexpr int64_t kSuperBlocks = 65536;     // blocks per 2^32 slots
+constexpr int kBuildThreads = 128;
+constexpr int kBuildWarps = kBuildThreads / 32;
+constexpr int kBuildRows = 16;                    // 16-byte copies a thread
+constexpr int64_t kTileWords = 4 * kBuildRows * kBuildThreads;   // 8,192
+constexpr int64_t kSuperTiles = (int64_t{1} << 27) / kTileWords;
+// a tile's status word: 0 until published, then its aggregate or its
+// inclusive value (within its superblock) under the flag
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kInclusive = 2ull << 62;
+constexpr unsigned long long kValue = (1ull << 62) - 1ull;
+// a look-back that polls this often means a fault: the launch fails
+// instead of hanging the card
+constexpr long long kMaxPolls = 1ll << 26;
 
-__global__ void rank_pack_kernel(const uint32_t* __restrict__ bitmap,
-                                 int64_t size, int64_t nw,
-                                 unsigned long long* __restrict__ bitrank,
-                                 unsigned long long* __restrict__ totals) {
-  __shared__ unsigned long long scan[kRankThreads];
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kRankBlockWords +
-                     2 * static_cast<int64_t>(threadIdx.x);
-  uint32_t bits[2] = {0u, 0u};
-  if (w0 + 1 < nw) {
-    const uint2 v = *reinterpret_cast<const uint2*>(bitmap + w0);
-    bits[0] = v.x;
-    bits[1] = v.y;
-  } else if (w0 < nw) {
-    bits[0] = bitmap[w0];
-  }
-  for (int j = 0; j < 2; ++j) {
-    const int64_t tail = size - (w0 + j) * 32;   // slots >= size are not real
-    if (tail < 32) bits[j] &= tail > 0 ? (1u << tail) - 1u : 0u;
-  }
-  const unsigned long long p0 = __popc(bits[0]), p1 = __popc(bits[1]);
-  const unsigned long long pre =
-      block_exclusive_scan(p0 + p1, 0ull, scan, AddOp());
-  if (w0 < nw) bitrank[w0] = (pre << 32) | bits[0];
-  if (w0 + 1 < nw) bitrank[w0 + 1] = ((pre + p0) << 32) | bits[1];
-  if (threadIdx.x == blockDim.x - 1) totals[blockIdx.x] = pre + p0 + p1;
+__device__ __forceinline__ unsigned long long load_volatile(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
-constexpr int kScanThreads = 256;
-constexpr int kScanWarps = kScanThreads / 32;
-constexpr int kScanPairs = 4;                         // 16-byte pairs a thread
-constexpr int kScanTile = 2 * kScanPairs * kScanThreads;   // totals a CTA
-constexpr int kScanTilesPerSuper = kSuperBlocks / kScanTile;
+__device__ __forceinline__ void store_volatile(unsigned long long* p,
+                                               unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
 
-// pair r of this thread in its tile (lane-strided, so a warp's 16-byte
-// loads and stores are contiguous): totals 2u and 2u + 1 of the tile, u =
-// tid + r * kScanThreads; zero past nblk
-__device__ __forceinline__ longlong2 scan_pair(
-    const unsigned long long* totals, int64_t t0, int64_t nblk, int r) {
-  const int64_t i = t0 + 2 * (threadIdx.x + r * kScanThreads);
-  if (i + 1 < nblk) return *reinterpret_cast<const longlong2*>(totals + i);
-  return make_longlong2(i < nblk ? static_cast<long long>(totals[i]) : 0, 0);
+// 16 bytes from global to shared memory, asynchronously (cp.async: no
+// register holds them in flight); past `bytes` the copy is zero-filled
+__device__ __forceinline__ void copy16_async(uint4* dst, const uint32_t* src,
+                                             int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// word w's bits with the slots at or past size cleared
+__device__ __forceinline__ uint32_t real_bits(uint32_t bits, int64_t w,
+                                              int64_t size) {
+  const int64_t tail = size - w * 32;
+  if (tail >= 32) return bits;
+  return tail > 0 ? bits & ((1u << tail) - 1u) : 0u;
 }
 
 __device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
@@ -106,178 +117,182 @@ __device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
   return v;
 }
 
-// the sum of v over the block, to every thread; `red` holds kScanWarps
-// values; starts and ends with a barrier
-__device__ unsigned long long block_sum(unsigned long long v,
-                                        unsigned long long* red) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  unsigned long long s = 0;
-#pragma unroll
-  for (int w = 0; w < kScanWarps; ++w) s += red[w];
-  __syncthreads();
-  return s;
-}
-
-// grid ceil(nblk / kScanTile): each tile's sum
-__global__ void __launch_bounds__(kScanThreads) rank_tile_sums_kernel(
-    const unsigned long long* __restrict__ totals, int64_t nblk,
-    unsigned long long* __restrict__ sums) {
-  __shared__ unsigned long long red[kScanWarps];
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kScanTile;
-  unsigned long long v = 0;
-#pragma unroll
-  for (int r = 0; r < kScanPairs; ++r) {
-    const longlong2 p = scan_pair(totals, t0, nblk, r);
-    v += static_cast<unsigned long long>(p.x) +
-         static_cast<unsigned long long>(p.y);
-  }
-  const unsigned long long s = block_sum(v, red);
-  if (threadIdx.x == 0) sums[blockIdx.x] = s;
-}
-
-// grid ceil(nblk / kScanTile): the tile's totals become their carries
-__global__ void __launch_bounds__(kScanThreads) rank_scan_kernel(
-    unsigned long long* __restrict__ totals, int64_t nblk,
-    const unsigned long long* __restrict__ sums, int n_tiles,
-    unsigned long long* __restrict__ supers,
-    unsigned long long* __restrict__ pop) {
-  __shared__ unsigned long long red[kScanWarps];
-  __shared__ unsigned long long wtot[kScanPairs][kScanWarps];
-  __shared__ unsigned long long tile_carry;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tile = blockIdx.x;
-  const int first = tile - tile % kScanTilesPerSuper;  // its superblock's
-  const int64_t t0 = static_cast<int64_t>(tile) * kScanTile;
-  // the superblock's base and pop, from the tile sums: the first tile of
-  // each superblock and the last tile (every thread of the CTA takes part)
+// The tile's exclusive prefix within its superblock, by warp 0: its
+// aggregate `agg` published, then the predecessors' status words read 32
+// at a time until an inclusive one; its inclusive value published.  Lane
+// 0's return is the prefix.
+__device__ unsigned long long look_back(unsigned long long* status,
+                                        int64_t tile, uint32_t agg) {
+  const int lane = threadIdx.x & 31;
+  const int64_t first = tile - tile % kSuperTiles;
   if (tile == first) {
-    unsigned long long v = 0;
-    for (int i = tid; i < first; i += kScanThreads) v += sums[i];
-    v = block_sum(v, red);
-    if (tid == 0) supers[tile / kScanTilesPerSuper] = v;
+    if (lane == 0) store_volatile(status + tile, kInclusive | agg);
+    return 0ull;
   }
-  if (tile == n_tiles - 1) {
-    unsigned long long v = 0;
-    for (int i = tid; i < n_tiles; i += kScanThreads) v += sums[i];
-    v = block_sum(v, red);
-    if (tid == 0) *pop = v;
+  if (lane == 0) store_volatile(status + tile, kAggregate | agg);
+  unsigned long long excl = 0ull;
+  for (int64_t j = tile - 1;; j -= 32) {
+    const int64_t p = j - lane;
+    // before the superblock's first tile: an inclusive 0
+    unsigned long long s = kInclusive;
+    if (p >= first) {
+      long long polls = 0;
+      while ((s = load_volatile(status + p)) == 0ull)
+        if (++polls > kMaxPolls) __trap();
+    }
+    const unsigned incl = __ballot_sync(kFull, (s & kInclusive) != 0ull);
+    // the nearest inclusive predecessor ends the sum
+    const int stop = incl ? __ffs(incl) - 1 : 31;
+    excl += warp_sum(lane <= stop ? s & kValue : 0ull);
+    if (incl) break;
   }
-  // this tile's pairs, each pair's sum scanned across the warp
-  longlong2 p[kScanPairs];
-  unsigned long long inc[kScanPairs];
+  if (lane == 0) store_volatile(status + tile, kInclusive | (excl + agg));
+  return excl;
+}
+
+// grid n_tiles, one tile a CTA; scratch: [0] the tile ticket, [1] the
+// superblocks finished, [2 ..] a status word per tile, zeroed.  Thread t's
+// row r is the tile's words 4 (r * kBuildThreads + t) .. + 3, copied to
+// shared memory and read back by t alone.
+__global__ void __launch_bounds__(kBuildThreads) rank_build_kernel(
+    const uint32_t* __restrict__ bitmap, int64_t size, int64_t nw,
+    int64_t n_tiles, int n_super, unsigned long long* __restrict__ bitrank,
+    unsigned long long* __restrict__ supers,
+    unsigned long long* __restrict__ pop,
+    unsigned long long* __restrict__ scratch) {
+  __shared__ uint4 stage[kBuildRows][kBuildThreads];
+  __shared__ int64_t tile_s;
+  __shared__ uint32_t wtot[kBuildRows][kBuildWarps];
+  __shared__ unsigned long long excl_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0)
+    tile_s = static_cast<int64_t>(atomicAdd(scratch, 1ull));
+  __syncthreads();
+  const int64_t tile = tile_s;
+  const int64_t w0 = tile * kTileWords + 4 * tid;
 #pragma unroll
-  for (int r = 0; r < kScanPairs; ++r) {
-    p[r] = scan_pair(totals, t0, nblk, r);
-    inc[r] = static_cast<unsigned long long>(p[r].x) +
-             static_cast<unsigned long long>(p[r].y);
+  for (int r = 0; r < kBuildRows; ++r) {
+    const int64_t w = w0 + 4 * r * kBuildThreads;
+    const int64_t n = nw - w < 4 ? (nw - w > 0 ? nw - w : 0) : 4;
+    copy16_async(&stage[r][tid], n ? bitmap + w : bitmap,
+                 static_cast<int>(4 * n));
+  }
+  copies_wait();
+  // each row's words masked past size (kept for the output) and
+  // popcounted; the rows' sums scanned across the warp
+  uint32_t row[kBuildRows], inc[kBuildRows];
+#pragma unroll
+  for (int r = 0; r < kBuildRows; ++r) {
+    const int64_t w = w0 + 4 * r * kBuildThreads;
+    uint4 v = stage[r][tid];
+    v.x = real_bits(v.x, w, size);
+    v.y = real_bits(v.y, w + 1, size);
+    v.z = real_bits(v.z, w + 2, size);
+    v.w = real_bits(v.w, w + 3, size);
+    stage[r][tid] = v;
+    row[r] = __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+    inc[r] = row[r];
   }
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
 #pragma unroll
-    for (int r = 0; r < kScanPairs; ++r) {
-      const unsigned long long x = __shfl_up_sync(kFull, inc[r], d);
+    for (int r = 0; r < kBuildRows; ++r) {
+      const uint32_t x = __shfl_up_sync(kFull, inc[r], d);
       if (lane >= d) inc[r] += x;
     }
   }
   if (lane == 31) {
 #pragma unroll
-    for (int r = 0; r < kScanPairs; ++r) wtot[r][warp] = inc[r];
-  }
-  // the carry from the tiles before this one in its superblock
-  if (warp == 0) {
-    const unsigned long long v =
-        first + lane < tile ? sums[first + lane] : 0ull;
-    const unsigned long long c = warp_sum(v);
-    if (lane == 0) tile_carry = c;
+    for (int r = 0; r < kBuildRows; ++r) wtot[r][warp] = inc[r];
   }
   __syncthreads();
-  unsigned long long base = tile_carry;
+  // this thread's rows' offsets in the tile, and the tile's aggregate
+  uint32_t agg = 0u;
 #pragma unroll
-  for (int r = 0; r < kScanPairs; ++r) {
-    unsigned long long before = base;     // rows before r, warps before
+  for (int r = 0; r < kBuildRows; ++r) {
+    uint32_t before = agg;
 #pragma unroll
-    for (int w = 0; w < kScanWarps; ++w) {
-      const unsigned long long t = wtot[r][w];
-      if (w < warp) before += t;
-      base += t;
+    for (int v = 0; v < kBuildWarps; ++v) {
+      const uint32_t t = wtot[r][v];
+      if (v < warp) before += t;
+      agg += t;
     }
-    const unsigned long long x = before + inc[r] -
-        static_cast<unsigned long long>(p[r].x) -
-        static_cast<unsigned long long>(p[r].y);
-    const int64_t i = t0 + 2 * (tid + r * kScanThreads);
-    const longlong2 out = make_longlong2(
-        static_cast<long long>(x),
-        static_cast<long long>(x + static_cast<unsigned long long>(p[r].x)));
-    if (i + 1 < nblk) {
-      *reinterpret_cast<longlong2*>(totals + i) = out;
-    } else if (i < nblk) {
-      totals[i] = static_cast<unsigned long long>(out.x);
+    inc[r] = before + inc[r] - row[r];
+  }
+  unsigned long long* status = scratch + 2;
+  if (warp == 0) {
+    const unsigned long long excl = look_back(status, tile, agg);
+    if (lane == 0) excl_s = excl;
+  }
+  __syncthreads();
+  const unsigned long long excl = excl_s;
+#pragma unroll
+  for (int r = 0; r < kBuildRows; ++r) {
+    const int64_t w = w0 + 4 * r * kBuildThreads;
+    const uint4 v = stage[r][tid];
+    const uint32_t b[4] = {v.x, v.y, v.z, v.w};
+    unsigned long long out[4];
+    unsigned long long rank = excl + inc[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      out[j] = rank << 32 | b[j];
+      rank += __popc(b[j]);
+    }
+    if (w + 3 < nw) {
+      reinterpret_cast<ulonglong2*>(bitrank + w)[0] =
+          make_ulonglong2(out[0], out[1]);
+      reinterpret_cast<ulonglong2*>(bitrank + w)[1] =
+          make_ulonglong2(out[2], out[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (w + j < nw) bitrank[w + j] = out[j];
     }
   }
-}
-
-__global__ void rank_carry_kernel(
-    unsigned long long* __restrict__ bitrank,
-    const unsigned long long* __restrict__ carries, int64_t nw) {
-  const unsigned long long carry = carries[blockIdx.x];
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kRankBlockWords +
-                     2 * static_cast<int64_t>(threadIdx.x);
-  for (int j = 0; j < 2; ++j)
-    if (w0 + j < nw) bitrank[w0 + j] += carry << 32;
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) bitrank[nw] = 0;
-}
-
-inline int64_t rank_blocks(int64_t nw) {
-  return (nw + kRankBlockWords - 1) / kRankBlockWords;
+  if (tid != 0) return;
+  if (tile == n_tiles - 1) bitrank[nw] = 0ull;
+  const int64_t s = tile / kSuperTiles;
+  const int64_t last = s * kSuperTiles + kSuperTiles - 1;
+  if (tile != (last < n_tiles ? last : n_tiles - 1)) return;
+  // the superblock's count; the superblock that finishes last turns the
+  // counts into their exclusive sum
+  supers[s] = excl + agg;
+  __threadfence();
+  const unsigned long long done = atomicAdd(scratch + 1, 1ull);
+  if (done != static_cast<unsigned long long>(n_super) - 1ull) return;
+  __threadfence();
+  unsigned long long run = 0ull;
+  for (int i = 0; i < n_super; ++i) {
+    const unsigned long long c = load_volatile(supers + i);
+    supers[i] = run;
+    run += c;
+  }
+  *pop = run;
 }
 
 }  // namespace gr
 
 extern "C" {
 
-// bitmap: ceil(size / 32) = nw words, 8-byte aligned.
-int gr_rank_pack(const uint32_t* bitmap, int64_t size, int64_t nw,
-                 unsigned long long* bitrank, unsigned long long* totals,
-                 cudaStream_t stream) {
-  if (nw <= 0 || size > nw * 32 || size <= (nw - 1) * 32)
-    return cudaErrorInvalidValue;
-  gr::rank_pack_kernel<<<static_cast<unsigned>(gr::rank_blocks(nw)),
-                         gr::kRankThreads, 0, stream>>>(bitmap, size, nw,
-                                                        bitrank, totals);
-  return cudaGetLastError();
-}
-
-// totals: the rank_pack totals of nw words (16-byte aligned), made each
-// block's carry in place; sums: ceil(blocks / 2,048) entries of scratch;
-// supers: ceil(nw / 2^27) entries; pop: one.
-int gr_rank_scan(unsigned long long* totals, int64_t nw,
-                 unsigned long long* sums, unsigned long long* supers,
-                 unsigned long long* pop, cudaStream_t stream) {
-  if (nw <= 0) return cudaErrorInvalidValue;
-  const int64_t nblk = gr::rank_blocks(nw);
-  const int64_t n_tiles = (nblk + gr::kScanTile - 1) / gr::kScanTile;
-  if (n_tiles > 0x7FFFFFFF) return cudaErrorInvalidValue;
-  gr::rank_tile_sums_kernel<<<static_cast<unsigned>(n_tiles),
-                              gr::kScanThreads, 0, stream>>>(totals, nblk,
-                                                             sums);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gr::rank_scan_kernel<<<static_cast<unsigned>(n_tiles), gr::kScanThreads, 0,
-                         stream>>>(totals, nblk, sums,
-                                   static_cast<int>(n_tiles), supers, pop);
-  return cudaGetLastError();
-}
-
-int gr_rank_carry(unsigned long long* bitrank,
-                  const unsigned long long* carries, int64_t nw,
+// bitmap: ceil(size / 32) = nw words, 16-byte aligned; bitrank: nw + 1
+// words, 16-byte aligned; supers: ceil(nw / 2^27) entries; pop: one;
+// scratch: ceil(nw / 8,192) + 2 words, zeroed.
+int gr_rank_build(const uint32_t* bitmap, int64_t size, int64_t nw,
+                  unsigned long long* bitrank, unsigned long long* supers,
+                  unsigned long long* pop, unsigned long long* scratch,
                   cudaStream_t stream) {
-  if (nw <= 0) return cudaErrorInvalidValue;
-  gr::rank_carry_kernel<<<static_cast<unsigned>(gr::rank_blocks(nw)),
-                          gr::kRankThreads, 0, stream>>>(bitrank, carries,
-                                                         nw);
+  if (nw <= 0 || size > nw * 32 || size <= (nw - 1) * 32 ||
+      reinterpret_cast<uintptr_t>(bitmap) % 16 ||
+      reinterpret_cast<uintptr_t>(bitrank) % 16)
+    return cudaErrorInvalidValue;
+  const int64_t n_tiles = (nw + gr::kTileWords - 1) / gr::kTileWords;
+  const int64_t n_super = (n_tiles + gr::kSuperTiles - 1) / gr::kSuperTiles;
+  if (n_tiles > 0x7FFFFFFF || n_super > 0x7FFFFFFF)
+    return cudaErrorInvalidValue;
+  gr::rank_build_kernel<<<static_cast<unsigned>(n_tiles), gr::kBuildThreads,
+                          0, stream>>>(bitmap, size, nw, n_tiles,
+                                       static_cast<int>(n_super), bitrank,
+                                       supers, pop, scratch);
   return cudaGetLastError();
 }
 

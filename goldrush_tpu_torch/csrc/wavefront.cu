@@ -88,6 +88,12 @@
 // FlatSide instantiation, the addressing they had before banks.  A window
 // that needs more than B * (max_paths + 2) rounds, or whose ids would reach
 // INV_BASE, stops and counts a fault, which the engine raises on.
+// Each CTA keeps the per-read state (flags, committed lengths, ceilings, a
+// read list, the unresolved bits: ~16.6 B a read) and the commit pass's
+// insert index (12 B a read) in its dynamic shared memory; a window whose
+// two parts would not fit beside the work region (past ~7,980 reads in the
+// bench's cells) keeps both in a global scratch instead, one slice a CTA
+// (the kSpill instantiation; the grid is then at most the slices).
 // Bound: the bytes of every round's work (each probed tile's grid entries
 // and words of both tables, each insert's window and two atomics per
 // entry, each reset's tables).  The words and the atomics are random 4-byte
@@ -749,6 +755,11 @@ struct WaveArgs {
   int64_t* tmin;             // [B]
   uint32_t* adj_bits;        // [B, ceil(B / 32)]
   size_t state_off;          // the per-read state in dynamic shared memory
+  // kSpill: each CTA's insert index and per-read state in its slice of
+  // spill (spill_stride bytes, the state at spill_state), not in shared
+  // memory
+  unsigned char* spill;
+  size_t spill_stride, spill_state;
 };
 
 struct Tier {
@@ -1049,7 +1060,7 @@ __device__ __forceinline__ void tables_barrier(const WaveArgs& a,
 
 // The kernel, on the tables' view `Tab` (common.cuh with_side_view: the
 // FlatSide of one bank, or the SideBanks).
-template <typename Tab>
+template <typename Tab, bool kSpill>
 __global__ void __launch_bounds__(kWaveThreads, kWaveBlocks)
     wave_kernel(const WaveArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -1060,7 +1071,11 @@ __global__ void __launch_bounds__(kWaveThreads, kWaveBlocks)
   const int lane = tid & 31, warp = tid >> 5;
   // per read: flags, committed length, id ceiling; a list of reads; the
   // unresolved reads' bits
-  unsigned char* st = gr_smem + a.state_off;
+  unsigned char* const spill =
+      kSpill ? a.spill + blockIdx.x * a.spill_stride : nullptr;
+  uint32_t* const meta =
+      reinterpret_cast<uint32_t*>(kSpill ? spill : gr_smem);
+  unsigned char* st = kSpill ? spill + a.spill_state : gr_smem + a.state_off;
   uint8_t* fl = st;
   int64_t* clen = reinterpret_cast<int64_t*>(st + ((B + 15) & ~15));
   uint32_t* ceil = reinterpret_cast<uint32_t*>(clen + B);
@@ -1198,8 +1213,7 @@ __global__ void __launch_bounds__(kWaveThreads, kWaveBlocks)
           B, [&](int i) { return (fl[i] & bit) != 0; }, list, scan);
       if (n > 0) {
         if (dirty == 2) tables_barrier<Tab>(a, grid);
-        insert_rows<Tab>(a, list, n, ceil,
-                         reinterpret_cast<uint32_t*>(gr_smem), scan);
+        insert_rows<Tab>(a, list, n, ceil, meta, scan);
         dirty = 1;
       }
       for (int i = tid; i < B; i += blockDim.x)
@@ -1407,7 +1421,11 @@ int gr_wave_adjacency(const int64_t* grid, int B, int H, int T, int F, int S,
 
 // table/side/n_banks/bank_len/remote: the id table's and the side table's
 // bank view (common.cuh make_side_banks), every bank 16-byte aligned; a
-// bank of any length (its last len % 4 entries reset one by one).
+// bank of any length (its last len % 4 entries reset one by one).  spill:
+// spill_ctas slices of the insert index and the per-read state (16-byte
+// aligned; path/wavefront.py rounds_smem gives a slice's bytes), which a
+// window whose state does not fit in shared memory takes; the grid is
+// then at most spill_ctas CTAs.
 int gr_wave_rounds(void* const* table, void* const* side, int n_banks,
                    int64_t bank_len, int remote, int ranked,
                    int64_t limit, uint32_t or_bits, const int64_t* grid_q,
@@ -1419,7 +1437,8 @@ int gr_wave_rounds(void* const* table, void* const* side, int n_banks,
                    int silver, int64_t target, int64_t max_paths,
                    int64_t* scal, int64_t* rows, int64_t* counters,
                    unsigned long long* sums, int32_t* vals, bool* binit,
-                   int64_t* tmin, uint32_t* adj_bits, cudaStream_t stream) {
+                   int64_t* tmin, uint32_t* adj_bits, unsigned char* spill,
+                   int64_t spill_ctas, cudaStream_t stream) {
   using gr::kWaveThreads;
   const int bits_q = gr::table_bits(Hq * Fq), bits_f = gr::table_bits(Hi * Fi);
   gr::SideBanks tabs;
@@ -1449,18 +1468,25 @@ int gr_wave_rounds(void* const* table, void* const* side, int n_banks,
   if (warp_q) warp_bytes = std::max(warp_bytes, static_cast<size_t>(16) << bits_q);
   if (warp_f) warp_bytes = std::max(warp_bytes, static_cast<size_t>(16) << bits_f);
   warp_bytes = (warp_bytes + 15) & ~static_cast<size_t>(15);
-  // the work region: the warps' regions, a CTA tile's table and
-  // candidates, or a commit pass's insert index (3 words a read)
+  // the work region: the warps' regions, or a CTA tile's table and
+  // candidates; and the commit pass's insert index (3 words a read), which
+  // shares it
   size_t work = (kWaveThreads / 32) * warp_bytes;
   for (int bits : {warp_q ? 1 : bits_q, warp_f || !rech_on ? 1 : bits_f})
     work = std::max(work, ((static_cast<size_t>(1) << bits) + kWaveThreads) *
                               sizeof(unsigned long long));
-  work = std::max(work, 12 * static_cast<size_t>(B));
   work = (work + 15) & ~static_cast<size_t>(15);
+  const size_t index = (12 * static_cast<size_t>(B) + 15) &
+                       ~static_cast<size_t>(15);
   const size_t state = ((B + 15) & ~15) + static_cast<size_t>(B) * 16 +
                        4 * static_cast<size_t>((B + 31) / 32);
-  const size_t smem = work + state;
-  if (smem > gr::kMaxSmem) return cudaErrorInvalidValue;
+  // the index and the state beside the work region while they fit, else
+  // in a slice of spill a CTA
+  const bool spilled = std::max(work, index) + state > gr::kMaxSmem;
+  const size_t smem = spilled ? work : std::max(work, index) + state;
+  if (smem > gr::kMaxSmem || (spilled && (spill == nullptr ||
+                                          spill_ctas < 1)))
+    return cudaErrorInvalidValue;
   cudaError_t err;
   int dev = 0, sms = 0, coop = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -1476,9 +1502,12 @@ int gr_wave_rounds(void* const* table, void* const* side, int n_banks,
                  K, vote_min_q, x_q, bits_q, vote_min_f, x_f, bits_f, u_min,
                  a_max, TL, bs, S, rech_on, silver, cbuf, warp_q, warp_f,
                  static_cast<int>(warp_bytes), target, max_paths, scal, rows,
-                 counters, sums, vals, binit, tmin, adj_bits, work};
+                 counters, sums, vals, binit, tmin, adj_bits,
+                 std::max(work, index), spill,
+                 index + ((state + 15) & ~static_cast<size_t>(15)), index};
   return gr::with_side_view(tabs, [&](auto tab) {
-    const auto kernel = gr::wave_kernel<decltype(tab)>;
+    const auto kernel = spilled ? gr::wave_kernel<decltype(tab), true>
+                                : gr::wave_kernel<decltype(tab), false>;
     cudaError_t e = gr::opt_in_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     int per_sm = 0;
@@ -1486,10 +1515,12 @@ int gr_wave_rounds(void* const* table, void* const* side, int n_banks,
              &per_sm, kernel, kWaveThreads, smem)) != cudaSuccess)
       return e;
     if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    int64_t grid = static_cast<int64_t>(sms) * per_sm;
+    if (spilled) grid = std::min(grid, spill_ctas);
     void* args[] = {&a};
     e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(sms * per_sm), dim3(kWaveThreads),
-                                    args, smem, stream);
+                                    dim3(static_cast<unsigned>(grid)),
+                                    dim3(kWaveThreads), args, smem, stream);
     if (e != cudaSuccess) return e;
     return cudaGetLastError();
   });

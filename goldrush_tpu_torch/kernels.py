@@ -71,9 +71,7 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _P, _P, _P, _P),
     "gr_insert_max": (*_BANKS, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I, _I,
                       _P),
-    "gr_rank_pack": (_P, _L, _L, _P, _P, _P),
-    "gr_rank_scan": (_P, _L, _P, _P, _P, _P),
-    "gr_rank_carry": (_P, _P, _L, _P),
+    "gr_rank_build": (_P, _L, _L, _P, _P, _P, _P),
     "gr_minimizer_keys": (_P, _I, _L, _L, _I, _I, _P, _P),
     "gr_kmer_count": (_P, _I, _L, _P, _I, _Q, _P),
     "gr_kmer_query": (_P, _I, _L, _I, _Q, _P, _P),
@@ -90,7 +88,7 @@ _SIGNATURES = {
     "gr_wave_rounds": (*_BANKS, _I, _L, _U, _P, _P, _I, _I, _P, _P, _I,
                        _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P,
-                       _P, _P),
+                       _P, _P, _P, _L),
 }
 
 
@@ -227,17 +225,10 @@ INSERT_SORTED = Kernel(
 INSERT_MAX = Kernel(
     "insert_max", "gr_insert_max", "goldrush_tpu_torch/csrc/insert_max.cu",
     "goldrush_tpu/mibf/mibf.py:638; goldrush_tpu/mibf/compressed.py:480")
-RANK_PACK = Kernel(
-    "rank_pack", "gr_rank_pack", "goldrush_tpu_torch/csrc/rank.cu",
-    "tools/probe_pallas.py:82; goldrush_tpu/mibf/compressed.py:153; K12 "
-    "goldrush_tpu/mibf/compressed.py:104, :90, :52")
-RANK_SCAN = Kernel(
-    "rank_scan", "gr_rank_scan", "goldrush_tpu_torch/csrc/rank.cu",
-    "tools/probe_pallas.py:128; goldrush_tpu/mibf/compressed.py:153-169 "
-    "(super_base); K12 goldrush_tpu/mibf/compressed.py:104, :90")
-RANK_CARRY = Kernel(
-    "rank_carry", "gr_rank_carry", "goldrush_tpu_torch/csrc/rank.cu",
-    "tools/probe_pallas.py:128; goldrush_tpu/mibf/compressed.py:153")
+RANK_BUILD = Kernel(
+    "rank_build", "gr_rank_build", "goldrush_tpu_torch/csrc/rank.cu",
+    "tools/probe_pallas.py:82, :128; goldrush_tpu/mibf/compressed.py:153-169 "
+    "(super_base); K12 goldrush_tpu/mibf/compressed.py:104, :90, :52")
 MINIMIZER_KEYS = Kernel(
     "minimizer_keys", "gr_minimizer_keys",
     "goldrush_tpu_torch/csrc/minimizers.cu",
@@ -282,7 +273,7 @@ ROW_CUMMAX = Kernel(
 # standalone launches (held to their plain versions and timed on their own)
 # are not on the path, so not in ALL
 PATH = (SEED_HASH_GRID, SEED_HASH_RANK_GRID, SEED_HASH_FILL, PRESENCE_MERGE,
-        PROBE_VOTE, CLASSIFY, RANK_PACK, RANK_SCAN, RANK_CARRY, CONSUME)
+        PROBE_VOTE, CLASSIFY, RANK_BUILD, CONSUME)
 # ntCard's counters, which size the filter when the engine runs with
 # ntcard=True (before pass 1)
 SIZING = (NTCARD_COUNT,)

@@ -23,14 +23,14 @@ D, keyed on the rank exactly like the reference's accept rule
 (MIBFConstructSupport.hpp:274-282).  The direct filter's words are never
 allocated.
 
-Four functions own a kernel; each runs its plain PyTorch version for a CPU
-tensor and its kernel for a CUDA tensor (or raises), and ``build_rank``
-chains the first three:
+Two functions own a kernel; each runs its plain PyTorch version for a CPU
+tensor and its kernel for a CUDA tensor (or raises):
 
-  rank_pack        popcount the bitmap, cumsum within 65,536-slot blocks
-  rank_scan        the block totals -> each block's carry within its
-                   superblock, the superblock bases and the population
-  rank_carry       add each block's carry to its words
+  build_rank       the freeze: popcount the bitmap, each word's rank within
+                   its superblock, the superblock bases and the population
+                   (rank_build, one launch; the plain version in three
+                   steps: rank_pack's block cumsum, rank_scan's carries,
+                   rank_carry's add)
   build_rank_grid  hash a batch to its probe grid of ranks at any stride
                    (kernel A's rank grid entry); ``rank_grid`` is the plain
                    slot -> rank map
@@ -49,12 +49,13 @@ from .. import kernels
 from . import mibf as dm
 
 SUPER_BITS = 32          # slots per superblock = 2^32
-RANK_BLOCK_SLOTS = 65_536   # slots per rank_pack block (csrc/rank.cu)
-# rank_pack blocks per superblock: a block never straddles two
+# slots per block of the plain freeze's int32 cumsum
+RANK_BLOCK_SLOTS = 65_536
+# blocks per superblock: a block never straddles two
 SUPER_BLOCKS = (1 << SUPER_BITS) // RANK_BLOCK_SLOTS
-# block totals rank_scan's kernels take a CTA (csrc/rank.cu kScanTile): a
-# superblock is 32 tiles
-SCAN_TILE = 2_048
+# bitmap words rank_build takes a CTA (csrc/rank.cu kTileWords): a
+# superblock is 16,384 tiles
+RANK_TILE_WORDS = 8_192
 _MASK32 = 0xFFFFFFFF
 
 
@@ -114,15 +115,46 @@ def build_rank(bits: torch.Tensor, size: int
     ``dm.presence_bitmap``; bits at or past ``size`` are ignored): (bitrank,
     supers, number of present slots), at any size.  ``bits`` is only read;
     a caller that owns it drops it before ``with_tables``, so the bitmap and
-    the rank-indexed tables are never on the device together."""
+    the rank-indexed tables are never on the device together.  On the card
+    one launch of rank_build, one zeroed scratch and one fetch of the
+    population."""
     if size <= 0:
         raise ValueError(f"size {size}: a filter has slots")
     if bits.shape != (-(-size // 32),):
         raise ValueError(f"bitmap {tuple(bits.shape)} is not ceil({size} / "
                          "32) words")
-    bitrank, carries = rank_pack(bits, size)
-    supers, pop = rank_scan(carries, size)
-    rank_carry(bitrank, carries)
+    if bits.is_cuda:
+        bitrank, supers, pop = _build_rank_cuda(bits, size)
+        return bitrank, supers, int(pop.item())
+    return _build_rank_plain(bits, size)
+
+
+def _build_rank_cuda(bits, size):
+    """rank_build's launch: bitrank, supers and the population (int64 [1]),
+    not fetched."""
+    nw = -(-size // 32)
+    dev = bits.device
+    kernels.check(bits, "bits", torch.int32, (nw,), dev)
+    if bits.data_ptr() % 16:
+        raise ValueError("bits must be 16-byte aligned")
+    bitrank = torch.empty(nw + 1, dtype=torch.int64, device=dev)
+    supers = torch.empty(n_supers(size), dtype=torch.int64, device=dev)
+    pop = torch.empty(1, dtype=torch.int64, device=dev)
+    # the tile ticket, the superblocks finished, a status word per tile
+    scratch = torch.zeros(-(-nw // RANK_TILE_WORDS) + 2, dtype=torch.int64,
+                          device=dev)
+    kernels.RANK_BUILD(dev, kernels.ptr(bits), size, nw, kernels.ptr(bitrank),
+                       kernels.ptr(supers), kernels.ptr(pop),
+                       kernels.ptr(scratch))
+    return bitrank, supers, pop
+
+
+def _build_rank_plain(bits, size):
+    """The plain freeze: rank_pack's per-block cumsum, rank_scan's
+    carries, rank_carry's add."""
+    bitrank, carries = _rank_pack_plain(bits, size)
+    supers, pop = _rank_scan_plain(carries, size)
+    _rank_carry_plain(bitrank, carries)
     return bitrank, supers, pop
 
 
@@ -140,32 +172,11 @@ def with_tables(bitrank: torch.Tensor, supers: torch.Tensor, pop: int,
                            counts=dm.new_banks(alloc, devices))
 
 
-def rank_pack(bits: torch.Tensor, size: int
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """First step of the freeze: bitrank [nw + 1] with each bitmap word's
-    presence bits (slots at or past ``size`` cleared) and its exclusive
-    in-block rank (blocks of 65,536 slots), and the per-block totals."""
-    if bits.is_cuda:
-        return _rank_pack_cuda(bits, size)
-    return _rank_pack_plain(bits, size)
-
-
-def _rank_pack_cuda(bits, size):
-    nw = -(-size // 32)
-    dev = bits.device
-    kernels.check(bits, "bits", torch.int32, (nw,), dev)
-    if bits.data_ptr() % 8:
-        raise ValueError("bits must be 8-byte aligned")
-    bitrank = torch.empty(nw + 1, dtype=torch.int64, device=dev)
-    bitrank[nw:].zero_()     # the appended word; the kernel writes the rest
-    totals = torch.empty(-(-nw * 32 // RANK_BLOCK_SLOTS), dtype=torch.int64,
-                         device=dev)
-    kernels.RANK_PACK(dev, kernels.ptr(bits), size, nw, kernels.ptr(bitrank),
-                      kernels.ptr(totals))
-    return bitrank, totals
-
-
 def _rank_pack_plain(bits, size):
+    """The plain freeze's first step: bitrank [nw + 1] with each bitmap
+    word's presence bits (slots at or past ``size`` cleared) and its
+    exclusive rank within its block of RANK_BLOCK_SLOTS slots, and the
+    per-block totals."""
     nw = -(-size // 32)
     bw = RANK_BLOCK_SLOTS // 32
     nblk = -(-nw // bw)
@@ -185,36 +196,12 @@ def _rank_pack_plain(bits, size):
     return bitrank, pops.sum(dim=1, dtype=torch.int64)
 
 
-def rank_scan(totals: torch.Tensor, size: int
-              ) -> tuple[torch.Tensor, int]:
-    """Second step of the freeze, in place: rank_pack's per-block totals
-    become each block's carry, the totals of the blocks before it in its
-    superblock of 2^32 slots.  Returns (supers, pop): int64 [n_super], the
-    present slots before each superblock (the JAX package's super_base),
-    and the number of present slots."""
-    if totals.is_cuda:
-        supers, pop = _rank_scan_cuda(totals, size)
-        return supers, int(pop.item())
-    return _rank_scan_plain(totals, size)
-
-
-def _rank_scan_cuda(totals, size):
-    nw = -(-size // 32)
-    dev = totals.device
-    blocks = -(-nw * 32 // RANK_BLOCK_SLOTS)
-    kernels.check(totals, "totals", torch.int64, (blocks,), dev)
-    if totals.data_ptr() % 16:
-        raise ValueError("totals must be 16-byte aligned")
-    sums = torch.empty(-(-blocks // SCAN_TILE), dtype=torch.int64,
-                       device=dev)
-    supers = torch.empty(n_supers(size), dtype=torch.int64, device=dev)
-    pop = torch.empty(1, dtype=torch.int64, device=dev)
-    kernels.RANK_SCAN(dev, kernels.ptr(totals), nw, kernels.ptr(sums),
-                      kernels.ptr(supers), kernels.ptr(pop))
-    return supers, pop
-
-
 def _rank_scan_plain(totals, size):
+    """The second step, in place: the per-block totals become each block's
+    carry, the totals of the blocks before it in its superblock of 2^32
+    slots.  Returns (supers, pop): int64 [n_super], the present slots
+    before each superblock (the JAX package's super_base), and the number
+    of present slots."""
     if totals.shape[0] != -(-size // RANK_BLOCK_SLOTS):
         raise ValueError(f"{totals.shape[0]} block totals for {size} slots")
     cum = torch.cumsum(totals, 0) - totals       # global exclusive prefix
@@ -226,26 +213,10 @@ def _rank_scan_plain(totals, size):
     return supers, pop
 
 
-def rank_carry(bitrank: torch.Tensor, carries: torch.Tensor) -> None:
-    """Last step of the freeze, in place: add to every word's in-block rank
-    its block's carry (``rank_scan``), making it the word's rank within its
-    superblock, and zero the appended word."""
-    if bitrank.is_cuda:
-        _rank_carry_cuda(bitrank, carries)
-    else:
-        _rank_carry_plain(bitrank, carries)
-
-
-def _rank_carry_cuda(bitrank, carries):
-    nw = bitrank.shape[0] - 1
-    dev = bitrank.device
-    kernels.check(bitrank, "bitrank", torch.int64, device=dev)
-    kernels.check(carries, "carries", torch.int64,
-                  (-(-nw * 32 // RANK_BLOCK_SLOTS),), dev)
-    kernels.RANK_CARRY(dev, kernels.ptr(bitrank), kernels.ptr(carries), nw)
-
-
 def _rank_carry_plain(bitrank, carries):
+    """The last step, in place: each word's in-block rank gains its block's
+    carry, making it the word's rank within its superblock; the appended
+    word is zeroed."""
     nw = bitrank.shape[0] - 1
     bitrank[:nw] += torch.repeat_interleave(
         carries << 32, RANK_BLOCK_SLOTS // 32)[:nw]

@@ -110,11 +110,13 @@ def resolve_device(device) -> torch.device:
 
 
 def make_mesh(n_devices: int, data: int | None = None, model: int = 1,
-              devices: Sequence | str = "cpu") -> Mesh:
+              devices: Sequence | str = "cuda") -> Mesh:
     """The ``(data, model)`` mesh of the first ``n_devices`` of
-    ``devices`` (a sequence, or ``"cpu"`` / ``"cuda"`` as
+    ``devices`` (a sequence, or ``"cuda"`` / ``"cpu"`` as
     ``resolve_devices`` reads them), laid out row-major as JAX's
-    ``make_mesh`` lays out ``jax.devices()``, with its asserts."""
+    ``make_mesh`` lays out ``jax.devices()``, with its asserts.  As JAX's
+    takes the accelerator, the default is the cards, and too few of them
+    raise; the CPU is asked for by name."""
     if isinstance(devices, (list, tuple)):
         assert len(devices) >= n_devices, (len(devices), n_devices)
         devs = resolve_devices(list(devices[:n_devices]), n_devices)

@@ -12,9 +12,9 @@ card):
   pass 1: host gates (length/phred/ACGT) -> presence fill of every insert
           seed into a bitmap (kernel A); the direct filter then writes its
           words from the bitmap (presence_merge), the compressed filter
-          freezes the bitmap into its rank structure (rank_pack, rank_scan
-          and rank_carry: superblocks of 2^32 slots, at any size) and
-          never holds direct words;
+          freezes the bitmap into its rank structure (rank_build, one
+          launch: superblocks of 2^32 slots, at any size) and never holds
+          direct words;
   pass 2: reads stream IN ORDER through batches: a batched classify
           (kernel A's slot grid, or its rank grid in the compressed
           filter, at the query stride over the probed seeds -> kernel B

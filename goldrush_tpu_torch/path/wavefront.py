@@ -58,6 +58,15 @@ DIRECT_CONFLICT_BITS = 24
 # the side table holds INV_BASE - id, so that its scatter-max keeps the
 # earliest writer
 INV_BASE = 1 << 28
+# wave_rounds' CTA (csrc/wavefront.cu kWaveThreads), its seeds (probe_vote.cuh
+# kMaxH), the largest vote table a warp probes (kWarpBits) and the vote
+# tables' largest, and the shared memory a CTA may take (classify.cuh
+# kMaxSmem)
+WAVE_THREADS = 512
+MAX_H = 8
+WARP_BITS = 8
+MAX_TABLE_BITS = 14
+MAX_SMEM = 232_448
 # the round loop's counters, per window summed over a pass: rounds, rows
 # classified, rows rechecked at full resolution, commits, silver
 # rotations, and windows that faulted (past the round cap, or ids reaching
@@ -238,6 +247,48 @@ def wave_window(spec: WaveSpec, state, side: torch.Tensor,
                           rows_out, counters, num_tiles)
 
 
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def rounds_smem(B: int, T: int, K: int, votes_q: int, votes_f: int,
+                rech_on: bool) -> tuple[int, int]:
+    """wave_rounds' dynamic shared memory for a window of B reads of T
+    tiles, K candidates a tile and ``votes_q`` / ``votes_f`` votes a tile
+    in the query and recheck tiers, and the bytes of each CTA's spill
+    slice: 0 while the commit pass's insert index (12 B a read) and the
+    per-read state (~16.6 B a read) fit beside the work region, else
+    both (csrc/wavefront.cu gr_wave_rounds, which sizes them alike).
+    Raises ValueError for a tile the work region cannot hold."""
+    bits_q, bits_f = [max(1, (v - 1).bit_length()) for v in (votes_q,
+                                                             votes_f)]
+    if bits_q > MAX_TABLE_BITS or (rech_on and bits_f > MAX_TABLE_BITS):
+        raise ValueError(f"tiles of {votes_q} / {votes_f} votes: wave_rounds"
+                         f" takes at most 2^{MAX_TABLE_BITS}")
+    warp_q = bits_q <= WARP_BITS
+    warp_f = rech_on and bits_f <= WARP_BITS
+    # each warp's region: kernel C's buffer, or a warp tile's vote table
+    cbuf = max(1 << max(0, (T - 1).bit_length()), min(T, 32) * K)
+    warp = 8 * (((T + 1) & ~1) + cbuf)
+    for on, bits in ((warp_q, bits_q), (warp_f, bits_f)):
+        if on:
+            warp = max(warp, 16 << bits)
+    work = WAVE_THREADS // 32 * _align16(warp)
+    for bits in (1 if warp_q else bits_q,
+                 1 if warp_f or not rech_on else bits_f):
+        work = max(work, ((1 << bits) + WAVE_THREADS) * 8)
+    work = _align16(work)
+    if work > MAX_SMEM:
+        raise ValueError(f"reads of {T} tiles at K={K}: wave_rounds' work "
+                         f"region takes {work} bytes of shared memory, past "
+                         f"{MAX_SMEM}")
+    index = _align16(12 * B)
+    state = -(-B // 16) * 16 + 16 * B + 4 * -(-B // 32)
+    if max(work, index) + state <= MAX_SMEM:
+        return max(work, index) + state, 0
+    return work, index + _align16(state)
+
+
 def _window_cuda(spec, state, side, grid, frame_ok, grid_ins, ok_ins,
                  n_tiles, full_lengths, adj, scal, rows_out, counters, T):
     sc = spec.scan
@@ -261,9 +312,13 @@ def _window_cuda(spec, state, side, grid, frame_ok, grid_ins, ok_ins,
     kernels.check(counters, "counters", torch.int64, (len(WAVE_COUNTS),),
                   dev)
     if (TFq % T or TFi % T or pf.vote_topk != K or not 0 < limit < 1 << 31
-            or B * Hi * TFi >= 1 << 31):
+            or B * Hi * TFi >= 1 << 31 or not 0 < Hq <= MAX_H
+            or not 0 < Hi <= MAX_H or K > Hq * (TFq // T)
+            or (sc.rech_on and K > Hi * (TFi // T))):
         raise ValueError(f"unsupported grids {tuple(grid.shape)}, "
-                         f"{tuple(grid_ins.shape)} for T={T}")
+                         f"{tuple(grid_ins.shape)} for T={T}, K={K}")
+    _, slice_bytes = rounds_smem(B, T, K, Hq * (TFq // T), Hi * (TFi // T),
+                                 sc.rech_on)
     # per read: its vote buffer (the consume kernel's layout), tile_min,
     # and its row of adjacency bits
     sums = torch.empty((B, 3, T), dtype=torch.int64, device=dev)
@@ -272,6 +327,12 @@ def _window_cuda(spec, state, side, grid, frame_ok, grid_ins, ok_ins,
     binit = torch.empty((B, T), dtype=torch.bool, device=dev)
     tmin = torch.empty(B, dtype=torch.int64, device=dev)
     adj_bits = torch.empty((B, -(-B // 32)), dtype=torch.int32, device=dev)
+    # a window whose per-read state leaves shared memory: a slice a CTA,
+    # at most one CTA an SM
+    ctas = (torch.cuda.get_device_properties(dev).multi_processor_count
+            if slice_bytes else 0)
+    spill = (torch.empty(ctas * slice_bytes, dtype=torch.uint8, device=dev)
+             if slice_bytes else None)
     kernels.WAVE_ROUNDS(
         dev, *banks, int(ranked), int(limit), int(or_bits),
         kernels.ptr(grid), kernels.ptr(frame_ok), Hq, TFq // T,
@@ -282,7 +343,8 @@ def _window_cuda(spec, state, side, grid, frame_ok, grid_ins, ok_ins,
         p.frame_stride, int(sc.rech_on), int(sc.silver), int(sc.target),
         int(sc.max_paths), kernels.ptr(scal), kernels.ptr(rows_out),
         kernels.ptr(counters), kernels.ptr(sums), kernels.ptr(vals),
-        kernels.ptr(binit), kernels.ptr(tmin), kernels.ptr(adj_bits))
+        kernels.ptr(binit), kernels.ptr(tmin), kernels.ptr(adj_bits),
+        kernels.ptr(spill), ctas)
 
 
 def _classify_rows(sc, table, side, ranked, limit, grid, ok, n_tiles, ceil,

@@ -422,14 +422,18 @@ def test_wrappers_check_their_inputs(cuda):
 
 @pytest.mark.parametrize("size", [31, 1_000_003, 65_536 * 40])
 def test_rank_kernels(cuda, size):
-    """rank_pack from a bitmap (dirty past size) and rank_carry (the
-    freeze), kernel A's rank grid, and kernels B and D on the rank-indexed
-    tables, against the plain versions."""
+    """rank_build from a bitmap (dirty past size: the freeze, one launch),
+    kernel A's rank grid, and kernels B and D on the rank-indexed tables,
+    against the plain versions."""
     rng = np.random.default_rng(size)
     bits = torch.from_numpy(rng.integers(-2**31, 2**31, -(-size // 32),
                                          dtype=np.int64).astype(np.int32))
-    # the first half alone, its appended word included
-    assert_same(tcz.rank_pack(bits.to(cuda), size), tcz.rank_pack(bits, size))
+    # the launch alone, its appended word included and its pop not fetched
+    before = kernels.RANK_BUILD.launches
+    bk, sk, pk = tcz._build_rank_cuda(bits.to(cuda), size)
+    assert kernels.RANK_BUILD.launches == before + 1
+    bp, sp, pop = tcz._build_rank_plain(bits, size)
+    assert_same((bk, sk), (bp, sp)) and int(pk) == pop
     host = tcz.with_tables(*tcz.build_rank(bits, size), size)
     dev = tcz.with_tables(*tcz.build_rank(bits.to(cuda), size), size)
     assert_same(dev, host)
@@ -495,9 +499,9 @@ def test_seed_hash_past_2_32_slots(cuda, mode, size):
 
 
 def test_rank_superblocks(cuda):
-    """The freeze (rank_pack, rank_scan, rank_carry) of a bitmap of three
-    superblocks and a partial fourth, and kernel A's rank grid through it,
-    against the plain versions on the card."""
+    """The freeze (rank_build) of a bitmap of three superblocks, the
+    second fully set, and a partial fourth, and kernel A's rank grid
+    through it, against the plain versions on the card."""
     size = (3 << 32) + 12_345
     rng = np.random.default_rng(11)
     nw = -(-size // 32)
@@ -507,18 +511,15 @@ def test_rank_superblocks(cuda):
                          device=cuda, generator=g)
     bits &= torch.randint(-2**31, 2**31, (nw,), dtype=torch.int32,
                           device=cuda, generator=g)
-    bk, tk = tcz.rank_pack(bits, size)
-    bp, tp = tcz._rank_pack_plain(bits, size)
-    assert_same((bk, tk), (bp, tp))
-    sk, pop = tcz.rank_scan(tk, size)
-    sp, pop_p = tcz._rank_scan_plain(tp, size)
-    assert_same((tk, sk), (tp, sp))
-    # a quarter of the slots set: ~3.2e9 present, ranks past 2^31
-    assert pop == pop_p and sk.shape == (4,) and pop > 3 << 29
-    tcz.rank_carry(bk, tk)
-    tcz._rank_carry_plain(bp, tp)
-    assert torch.equal(bk, bp)
-    del bits, bp, tp
+    bits[1 << 27: 2 << 27] = -1
+    bk, sk, pop = tcz.build_rank(bits, size)
+    bp, sp, pop_p = tcz._build_rank_plain(bits, size)
+    assert_same((bk, sk), (bp, sp))
+    # a quarter of the other slots set: ~6.5e9 present, ranks past 2^32
+    assert pop == pop_p and sk.shape == (4,) and pop > 5 << 30
+    assert int(sk[2] - sk[1]) == 1 << 32
+    assert (int(bk[(2 << 27) - 1]) >> 32) & 0xFFFFFFFF == (1 << 32) - 32
+    del bits, bp, sp
     # the rank grid reads the tables' length only: the sentinel rank
     table = torch.empty(1, dtype=torch.int32, device=cuda).expand(pop + 1)
     state = tcz.CompressedState(bk, sk, table, table)
@@ -875,24 +876,33 @@ def test_minimizer_keys_refuse_a_window_past_their_tile(cuda):
     assert kernels.MINIMIZER_KEYS.launches == before
 
 
-@pytest.mark.parametrize("n_super,last", [(1, 2_173), (1, 65_536),
-                                          (2, 1), (3, 4_097), (14, 17_748)])
-def test_rank_scan_synthetic_totals(cuda, n_super, last):
-    """rank_scan against its plain version on block totals made on the
-    card (no bitmap): superblocks with a partial last one (a last tile of
-    one block among them), full blocks (65,536: sums past 2^32)."""
-    nblk = (n_super - 1) * tcz.SUPER_BLOCKS + last
+@pytest.mark.parametrize("nw,short,kind", [
+    (1, 31, "dense"), (4_096, 0, "dense"), (4_097, 7, "sparse"),
+    (1 << 27, 0, "full"), ((1 << 27) + 4_096 * 37 + 5, 1, "full")])
+def test_rank_build_tiles(cuda, nw, short, kind):
+    """rank_build against the plain freeze on bitmaps made on the card: one
+    word, one tile, a tile and a ragged word (bits dirty past size), a
+    whole superblock fully set (its inclusive count exactly 2^32) and one
+    more superblock's ragged start; one launch each."""
+    size = nw * 32 - short
     g = torch.Generator(device=cuda)
-    g.manual_seed(nblk)
-    totals = torch.randint(0, 65_537, (nblk,), dtype=torch.int64,
-                           device=cuda, generator=g)
-    totals[: nblk // 3] = 65_536
-    size = (nblk - 1) * tcz.RANK_BLOCK_SLOTS + 1
-    tk, tp = totals.clone(), totals.clone()
-    sk, pop = tcz.rank_scan(tk, size)
-    sp, pop_p = tcz._rank_scan_plain(tp, size)
-    assert_same((tk, sk), (tp, sp))
-    assert pop == pop_p == int(totals.sum()) and sk.shape == (n_super,)
+    g.manual_seed(nw)
+    bits = torch.randint(-2**31, 2**31, (nw,), dtype=torch.int32,
+                         device=cuda, generator=g)
+    if kind == "sparse":
+        bits &= torch.randint(-2**31, 2**31, (nw,), dtype=torch.int32,
+                              device=cuda, generator=g)
+    elif kind == "full":
+        bits[: 1 << 27] = -1
+    before = kernels.RANK_BUILD.launches
+    got = tcz.build_rank(bits, size)
+    assert kernels.RANK_BUILD.launches == before + 1
+    want = tcz._build_rank_plain(bits, size)
+    assert_same(got[:2], want[:2]) and got[2] == want[2]
+    if kind == "full":
+        assert (int(got[0][(1 << 27) - 1]) >> 32) & 0xFFFFFFFF == \
+            (1 << 32) - 32
+        assert got[2] >= 1 << 32
 
 
 @pytest.mark.parametrize("k", [13, 16, 24, 32])
@@ -1115,6 +1125,62 @@ def test_wave_kernels_match_plain(cuda, tmp_path, mode):
     assert [k.launches for k in kernels.WAVE] == [
         before[0] + 2 * len(wins), before[1] + len(wins)]
     assert ck[4] > 0 and ck[3] > 0 and ck[5] == 0
+
+
+# one-tile reads (tools/torch_port_digests.py WAVE_8192): windows of up to
+# 8,192 reads under the wavefront's tile budget
+ONE_TILE_CFG = dict(genome_size=1_000_000, kmer_size=22, weight=16,
+                    hash_num=3, seed_preset="1011011110110111101101",
+                    silver_path=True, max_paths=3, ratio=0.75,
+                    min_length=1_000, batch_reads=64, frame_stride=8,
+                    probe_seeds=1, recheck="optimistic", unassigned_min=1,
+                    assigned_max=0, wavefront=True, wave_window=8_192)
+
+
+@pytest.mark.parametrize("mode", ["direct", "compressed"])
+def test_wave_rounds_past_7980_reads(cuda, tmp_path, mode):
+    """wave_rounds on windows of 7,981 and 8,192 one-tile reads, whose
+    insert index and per-read state leave shared memory for a global
+    scratch, against wave_window_plain: rows, scal, counters and both
+    tables bit for bit, one launch a window."""
+    from goldrush_tpu_torch.path import wavefront as wave
+    genome = synth.random_genome(1_000_000, seed=51)
+    path = str(tmp_path / "one_tile.fq")
+    synth.write_fastq(path, synth.simulate_reads(
+        genome, 8_192, 1_500, seed=53, err_rate=0.05, indel_frac=0.4))
+    te = GoldenPathEngine(PathConfig(input=path, mibf_mode=mode,
+                                     **ONE_TILE_CFG), device=cuda)
+    te.calc_phred_threshold(path)
+    te.fill(path)
+    state_k = te.cstate if te.compressed else te.state
+    _, _, ranked, limit, _ = wave._filter_view(state_k, te.size)
+    recs = list(te._eligible(path))
+    for B in (7_981, 8_192):
+        assert wave.rounds_smem(B, 1, 32, 125, 3_000, True)[1] > 0
+        te.batch_reads = B
+        codes, lengths, full, T = te._pack_batch(recs[:B])
+        assert codes.shape[0] == B and T == 1
+        codes_d, *inputs = te._window_inputs(codes, lengths, full, T)
+        adj = wave.wave_adjacency(te.wave_spec, inputs[2], codes_d, limit,
+                                  ranked, T)
+        f_k = type(state_k)(*(t.clone() for t in state_k))
+        f_p = type(state_k)(*(t.clone() for t in state_k))
+        side_k = torch.zeros_like(f_k.ids if te.compressed else f_k.words)
+        side_p = side_k.clone()
+        scal_k = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=cuda)
+        scal_p = scal_k.clone()
+        ck, cp = wave.new_counters(cuda), wave.new_counters(cuda)
+        rows_k = torch.empty((B, 8), dtype=torch.int64, device=cuda)
+        rows_p = torch.empty_like(rows_k)
+        before = kernels.WAVE_ROUNDS.launches
+        wave.wave_window(te.wave_spec, f_k, side_k, *inputs, adj, scal_k,
+                         rows_k, ck, T)
+        assert kernels.WAVE_ROUNDS.launches == before + 1
+        wave.wave_window_plain(te.wave_spec, f_p, side_p, *inputs, adj,
+                               scal_p, rows_p, cp, T)
+        assert_same([rows_k, scal_k, ck, side_k, *f_k],
+                    [rows_p, scal_p, cp, side_p, *f_p])
+        assert ck[3] > 0 and ck[5] == 0
 
 
 @pytest.mark.parametrize("mode", ["direct", "compressed"])

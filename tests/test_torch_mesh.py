@@ -152,6 +152,23 @@ def test_make_mesh_order_matches_jax(data, model, monkeypatch):
         tmesh.make_mesh(8, data=3, model=model, devices=CPU8)
 
 
+def test_make_mesh_defaults_to_the_cards(monkeypatch):
+    """make_mesh without devices takes the cards, as JAX's make_mesh takes
+    jax.devices(): with no card it raises, and it never falls back to the
+    CPU; the CPU is asked for by name."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tmesh.make_mesh(2)
+    m = tmesh.make_mesh(2, devices="cpu")
+    assert [d.type for row in m.rows for d in row] == ["cpu", "cpu"]
+    assert (m.data, m.model) == (2, 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert [str(d) for row in tmesh.make_mesh(2, model=2).rows
+            for d in row] == ["cuda:0", "cuda:1"]
+
+
 @pytest.mark.parametrize("m", [1, 2])
 def test_classify_step_matches_jax(m):
     """mesh.classify_step (A's grid, B, C) on a filter banked over m

@@ -69,12 +69,22 @@ dataset and ENGINE settings in the throughput cell with wavefront=True and
 windows of 256 reads (WAVE), the silver paths of each filter.
 chip_smoke.py phase 9 holds the port on the card to them.
 
+Under "wave_8192": the wavefront at the largest windows its tile budget
+makes, 8,192 one-tile reads: a dataset of its own (WAVE_8192_DATASET,
+1,500-base reads at tiles of 1,000) and the throughput cell with
+wavefront=True, windows of 8,192 reads and a recruit whenever a read's one
+tile is unassigned (WAVE_8192), the silver paths of each filter.
+tests/test_torch_wave_8192.py (on the CPU) and chip_smoke.py phase 9 (on
+the card, where such a window's per-read state leaves shared memory) hold
+the port to them.
+
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py            # all
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py pipeline   # ~1 min
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py superblocks
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py direct_2_32  # ~37 GB
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py ntcard insert
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py wavefront
+    JAX_PLATFORMS=cpu python tools/torch_port_digests.py wave_8192  # ~40 s
 """
 
 from __future__ import annotations
@@ -123,6 +133,14 @@ INSERT_CASES = {
 }
 # the wavefront consume over the throughput cell
 WAVE = dict(THROUGHPUT, wavefront=True, wave_window=256)
+# the wavefront's windows of 8,192 one-tile reads: the gate genome, 9,000
+# reads of 1,500 bases (a window of 8,192 reads, then one of 808 padded to
+# 8,192), over ENGINE
+WAVE_8192_DATASET = dict(genome=1_000_000, genome_seed=51, n_reads=9_000,
+                         read_len=1_500, reads_seed=53, err_rate=0.05,
+                         indel_frac=0.4)
+WAVE_8192 = dict(THROUGHPUT, min_length=1_000, unassigned_min=1,
+                 assigned_max=0, wavefront=True, wave_window=8_192)
 
 
 def sha256_file(path: str) -> str:
@@ -252,8 +270,8 @@ def direct_2_32_entry(fq: str, workdir: str) -> dict:
 def silver_run(engine, config, fq: str, prefix: str, extra: dict) -> dict:
     """One package's silver paths on `fq`: their digests, the recruits and
     the paths completed."""
-    stats = engine(config(input=fq, prefix_file=prefix, **ENGINE,
-                          **extra)).run()
+    stats = engine(config(input=fq, prefix_file=prefix,
+                          **{**ENGINE, **extra})).run()
     silver = {}
     for i in range(1, ENGINE["max_paths"] + 1):
         p = f"{prefix}_{i}.fq"
@@ -298,6 +316,26 @@ def wavefront_entry(fq: str, workdir: str) -> dict:
                for mode in ("direct", "compressed")}}
 
 
+def wave_8192_entry(fq: str, workdir: str) -> dict:
+    """The "wave_8192" key: its dataset (written here, beside `fq`) and the
+    silver digests of the wavefront over it in windows of 8,192 reads,
+    each filter."""
+    from goldrush_tpu.config import PathConfig
+    from goldrush_tpu.path.engine import GoldenPathEngine
+    from goldrush_tpu.utils import synth
+    d = WAVE_8192_DATASET
+    fq = os.path.join(workdir, "one_tile.fq")
+    synth.write_fastq(fq, synth.simulate_reads(
+        synth.random_genome(d["genome"], seed=d["genome_seed"]),
+        d["n_reads"], d["read_len"], seed=d["reads_seed"],
+        err_rate=d["err_rate"], indel_frac=d["indel_frac"]))
+    return {"dataset": {**d, "sha256": sha256_file(fq)}, "engine": WAVE_8192,
+            **{mode: silver_run(GoldenPathEngine, PathConfig, fq,
+                                os.path.join(workdir, f"w8k_{mode}"),
+                                {**WAVE_8192, "mibf_mode": mode})
+               for mode in ("direct", "compressed")}}
+
+
 def write_gate_dataset(path: str) -> None:
     from goldrush_tpu.utils import synth
     genome = synth.random_genome(DATASET["genome"],
@@ -327,7 +365,8 @@ def main() -> None:
         write(out)
         return
     keys = {"ntcard": ntcard_entry, "insert": insert_entry,
-            "wavefront": wavefront_entry, "direct_2_32": direct_2_32_entry}
+            "wavefront": wavefront_entry, "direct_2_32": direct_2_32_entry,
+            "wave_8192": wave_8192_entry}
     if sys.argv[1:] and set(sys.argv[1:]) <= set(keys):
         with open(OUT) as f:
             out = json.load(f)
@@ -375,7 +414,8 @@ def main() -> None:
                "ntcard": ntcard_entry(fq, d),
                "insert": insert_entry(fq, d),
                "wavefront": wavefront_entry(fq, d),
-               "direct_2_32": direct_2_32_entry(fq, d)}
+               "direct_2_32": direct_2_32_entry(fq, d),
+               "wave_8192": wave_8192_entry(fq, d)}
     write(out)
 
 
