@@ -168,9 +168,16 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      each timed beside its bound, the plain version and, for the
      adjacency, torch.sort of the window's keys (the record's times: the
      mean over the three windows of bench reads); and wave_rounds on
-     windows of 7,981 and 8,192 one-tile reads (the fixture's "wave_8192"
-     dataset: each CTA's per-read state in a global scratch) in the same
-     way, each filter, timed once; then, every launch
+     windows of 7,910, 7,981 and 8,192 one-tile reads (the fixture's
+     "wave_8192" dataset: past 7,910 each CTA's per-read state in a
+     global scratch) in the same way, each filter, timed once;
+     wave_adjacency on windows of 8,193 and 8,199 of those reads (the
+     mesh's padding at 3 and 7 data rows) against its plain version,
+     timed; and wave_rounds on a window of each of the largest tile
+     buckets (two reads of 1,024, 1,536 and 2,048 tiles of 1,000 at the
+     bench cell's tiers, K = 32: kernel C on fewer warps of a CTA), each
+     filter, and on the first window of the fixture's "wave_long" dataset
+     (direct filter), timed once; then, every launch
      count zeroed just before and read
      just after, (b) bench.py's throughput cell with wavefront=True and
      windows of 256 reads, each filter: assign reads/s, submit and replay
@@ -180,7 +187,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      kernel and the batched B and C never; (c) the fixture's
      "wavefront" digests of the gate dataset, both filters; (d) the
      fixture's "wave_8192" digests: the one-tile reads in windows of
-     8,192, both filters, the two kernels once a window;
+     8,192, both filters, the two kernels once a window; (e) the
+     fixture's "wave_long" digests: reads of the 1,024-tile bucket
+     (tiles of 256), both filters;
  10. the mesh (parallel/mesh.py: a (data, model) mesh of devices in one
      process, the filter replicated over data rows and banked by index
      range over a row's devices): (a) with 1, 2 and 4 banks on cuda:0, on
@@ -215,8 +224,28 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      every file's sha256 equal to 9(b)'s, every row's replica and side
      table equal, wave_rounds d times a window and wave_adjacency once,
      the consume kernel, B and C never, assign reads/s beside 9(b)'s; and
-     the gate dataset's "wavefront" digests at 2x2.  `mesh_phase()` runs
-     phase 10 alone from a driver that sets WORK.
+     the gate dataset's "wavefront" digests at 2x2; (e) the fixture's
+     "wave_8192_d3" digests on ["cuda:0"] * 3 (windows of 8,192 one-tile
+     reads padded to 8,193: the adjacency past 8,192 reads), both
+     filters.  `mesh_phase()` runs phase 10 alone from a driver that sets
+     WORK.
+ 11. the state-mutating step (parallel/mesh.py train_step and
+     sharded_train_step, the blockwise insert_read of both filters): the
+     bench reads filled into the bench-width direct filter by the port's
+     pass-1 fill (its words held to the JAX fill's digest); (a) kernel D
+     as insert_read runs it (keep = SAT | PRESENT; the compressed filter's
+     slot grid mapped to ranks in the launch, keep = SAT) against its
+     plain version on 16 recruits, 12 of them over words or ids with SAT
+     set beforehand, and a whole recruit timed beside the plain version
+     and its bound; then, every launch count zeroed just before and read
+     just after, (b) four train_steps of 64 reads at max_blocks 2 and 1
+     against the fixture's "train_step" digests (words, counters,
+     decisions after each step), each step's ms and launches (A's grid,
+     B and C once, D once a recruit), and the same steps through
+     sharded_train_step at 1x2 and 2x2 (banked) and 2x1 (replicated) on
+     ["cuda:0"] * n, every replica and the decisions equal to the single
+     card's after each step.  `train_phase()` runs phase 11 alone from a
+     driver that sets WORK.
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -3778,7 +3807,7 @@ def wave_kernel_check(dev) -> dict:
 
 # 9(a)'s widest windows: one-tile reads of the fixture's "wave_8192"
 # dataset, whose per-read state leaves wave_rounds' shared memory
-WIDE_WINDOWS = (7_981, 8_192)
+WIDE_WINDOWS = (7_910, 7_981, 8_192)
 
 
 def wave_8192_fastq(fx: dict) -> str:
@@ -3794,19 +3823,74 @@ def wave_8192_fastq(fx: dict) -> str:
     return fq
 
 
+def window_vs_plain(te, filt, batch, dev) -> dict:
+    """One window of engine `te` (its filter `filt`): the padded batch
+    `batch` (`_pack_batch`) through wave_adjacency, then wave_rounds and
+    wave_window_plain on copies of the filter and zeroed side tables: the
+    launch timed once (CUDA events) beside the plain version (host clock)
+    and its bound; rows, scal, counters and both tables compared.  Returns
+    the window's B, T, plan (`rounds_smem`), times, counters, launches and
+    largest difference."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.path import wavefront as wave
+    table = filt.ids if te.compressed else filt.words
+    _, _, ranked, limit, _ = wave._filter_view(filt, te.size)
+    codes, lengths, full, T = batch
+    B = codes.shape[0]
+    codes_d, grid, ok, gi, oi, nt, fl = te._window_inputs(codes, lengths,
+                                                          full, T)
+    adj = wave.wave_adjacency(te.wave_spec, gi, codes_d, limit, ranked, T)
+    plan = wave.rounds_smem(B, T, te.params.vote_topk,
+                            grid.shape[1] * grid.shape[2] // T,
+                            gi.shape[1] * gi.shape[2] // T, te.spec.rech_on)
+    fk = type(filt)(*(t.clone() for t in filt))
+    fp = type(filt)(*(t.clone() for t in filt))
+    side_k = torch.zeros_like(table)
+    side_p = torch.zeros_like(table)
+    scal_k = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=dev)
+    scal_p = scal_k.clone()
+    ck, cp = wave.new_counters(dev), wave.new_counters(dev)
+    rows_k = torch.empty((B, 8), dtype=torch.int64, device=dev)
+    rows_p = torch.empty_like(rows_k)
+    r0 = kernels.WAVE_ROUNDS.launches
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    wave.wave_window(te.wave_spec, fk, side_k, grid, ok, gi, oi, nt, fl, adj,
+                     scal_k, rows_k, ck, T)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop)
+    launched = kernels.WAVE_ROUNDS.launches - r0
+    t0 = time.time()
+    wave.wave_window_plain(te.wave_spec, fp, side_p, grid, ok, gi, oi, nt,
+                           fl, adj, scal_p, rows_p, cp, T)
+    torch.cuda.synchronize()
+    pms = (time.time() - t0) * 1e3
+    e = max_abs_err([(rows_k, rows_p), (scal_k, scal_p), (ck, cp),
+                     (side_k, side_p)] + list(zip(fk, fp)))
+    counts = dict(zip(wave.WAVE_COUNTS, cp.tolist()))
+    bound = wave_round_bytes(counts, rows_p.cpu(), nt.cpu(), (grid, gi), T,
+                             table, side_k, te.compressed) \
+        / HBM_BYTES_PER_S * 1e3
+    return dict(B=B, T=T, plan=plan, ms=ms, pms=pms, bound=bound,
+                counts=counts, launched=launched, err=e,
+                scal=scal_k.tolist())
+
+
 def wave_wide_check(dev, fx: dict) -> dict:
-    """9(a) at the widest windows: wave_rounds on windows of 7,981 and 8,192
-    one-tile reads (the first that `rounds_smem` moves out of shared
-    memory, and the tile budget's largest), each filter filled from the
+    """9(a) at the widest windows: wave_rounds on windows of 7,910, 7,981
+    and 8,192 one-tile reads (the largest that `rounds_smem` keeps in
+    shared memory beside the kernel's static arrays, the first it moves
+    out, and the tile budget's largest), each filter filled from the
     "wave_8192" reads, in its throughput cell (windows of 8,192), against
     wave_window_plain: rows, scal, counters and both tables bit for bit,
     no fault, one launch a window; each launch timed once (CUDA events)
     beside the plain version and its bound.  Returns the record's keys
     and the largest difference."""
-    import torch
-    from goldrush_tpu_torch import kernels
     from goldrush_tpu_torch.config import PathConfig
-    from goldrush_tpu_torch.path import wavefront as wave
     from goldrush_tpu_torch.path.engine import GoldenPathEngine
     fq = wave_8192_fastq(fx)
     rec, err = {}, 0
@@ -3817,70 +3901,225 @@ def wave_wide_check(dev, fx: dict) -> dict:
         te.calc_phred_threshold(fq)
         te.fill(fq)
         filt = te.cstate if te.compressed else te.state
-        table = filt.ids if te.compressed else filt.words
-        _, _, ranked, limit, _ = wave._filter_view(filt, te.size)
         recs = list(te._eligible(fq))
         for B in WIDE_WINDOWS:
             te.batch_reads = B
-            codes, lengths, full, T = te._pack_batch(recs[:B])
-            codes_d, grid, ok, gi, oi, nt, fl = te._window_inputs(
-                codes, lengths, full, T)
-            adj = wave.wave_adjacency(te.wave_spec, gi, codes_d, limit,
-                                      ranked, T)
-            smem, spill = wave.rounds_smem(B, T, te.params.vote_topk,
-                                           grid.shape[1] * grid.shape[2] // T,
-                                           gi.shape[1] * gi.shape[2] // T,
-                                           te.spec.rech_on)
-            fk = type(filt)(*(t.clone() for t in filt))
-            fp = type(filt)(*(t.clone() for t in filt))
-            side_k = torch.zeros_like(table)
-            side_p = torch.zeros_like(table)
-            scal_k = torch.tensor([0, 0, 1, 0], dtype=torch.int64,
-                                  device=dev)
-            scal_p = scal_k.clone()
-            ck, cp = wave.new_counters(dev), wave.new_counters(dev)
-            rows_k = torch.empty((B, 8), dtype=torch.int64, device=dev)
-            rows_p = torch.empty_like(rows_k)
-            r0 = kernels.WAVE_ROUNDS.launches
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            wave.wave_window(te.wave_spec, fk, side_k, grid, ok, gi, oi, nt,
-                             fl, adj, scal_k, rows_k, ck, T)
-            stop.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(stop)
-            launched = kernels.WAVE_ROUNDS.launches - r0
-            t0 = time.time()
-            wave.wave_window_plain(te.wave_spec, fp, side_p, grid, ok, gi,
-                                   oi, nt, fl, adj, scal_p, rows_p, cp, T)
-            torch.cuda.synchronize()
-            pms = (time.time() - t0) * 1e3
-            e = max_abs_err([(rows_k, rows_p), (scal_k, scal_p), (ck, cp),
-                             (side_k, side_p)] + list(zip(fk, fp)))
-            err = max(err, e)
-            counts = dict(zip(wave.WAVE_COUNTS, cp.tolist()))
-            bound = wave_round_bytes(
-                counts, rows_p.cpu(), nt.cpu(), (grid, gi), T, table,
-                side_k, te.compressed) / HBM_BYTES_PER_S * 1e3
+            w = window_vs_plain(te, filt, te._pack_batch(recs[:B]), dev)
+            err = max(err, w["err"])
             tag = f"{mode}_w{B}"
-            rec.update({f"ms_{tag}": ms, f"plain_ms_{tag}": pms,
-                        f"bound_ms_{tag}": bound})
+            rec.update({f"ms_{tag}": w["ms"], f"plain_ms_{tag}": w["pms"],
+                        f"bound_ms_{tag}": w["bound"]})
             say("wave", part="a", kernel="wave_rounds", filter=mode,
-                window=f"one_tile_{B}", B=B, T=T, smem=smem,
-                spill_bytes_a_cta=spill, launches=launched, max_abs_err=e,
-                scal=scal_k.tolist(), **counts, ms=f"{ms:.4f}",
-                plain_ms=f"{pms:.1f}", bound_ms=f"{bound:.5f}")
-            if (e or launched != 1 or counts["faults"] or not spill
-                    or not counts["commits"]):
-                raise AssertionError(f"wave_rounds {tag}: max_abs_err {e},"
-                                     f" {launched} launches, {counts}, "
-                                     f"spill {spill}")
-            del fk, fp, side_k, side_p, adj, codes_d, grid, ok, gi, oi
-        del te, filt, table
+                window=f"one_tile_{B}", B=B, T=w["T"], smem=w["plan"].smem,
+                spill_bytes_a_cta=w["plan"].slice_bytes,
+                launches=w["launched"], max_abs_err=w["err"], scal=w["scal"],
+                **w["counts"], ms=f"{w['ms']:.4f}",
+                plain_ms=f"{w['pms']:.1f}", bound_ms=f"{w['bound']:.5f}")
+            if (w["err"] or w["launched"] != 1 or w["counts"]["faults"]
+                    or (w["plan"].slice_bytes > 0) != (B > 7_910)
+                    or not w["counts"]["commits"]):
+                raise AssertionError(f"wave_rounds {tag}: {w}")
+        for B in PADDED_WINDOWS:
+            e, ms, pms = adjacency_vs_plain(te, filt, recs[:8_192], B, dev)
+            err = max(err, e)
+            tag = f"{mode}_w{B}"
+            rec.update({f"wave_adjacency:ms_{tag}": ms,
+                        f"wave_adjacency:plain_ms_{tag}": pms})
+        del te, filt
         gc_cuda()
     return rec, err
+
+
+# windows of one-tile reads that the mesh's padding makes of a full window
+# of 8,192 (3 and 7 data rows)
+PADDED_WINDOWS = (8_193, 8_199)
+
+
+def adjacency_vs_plain(te, filt, recs, B: int, dev
+                       ) -> tuple[int, float, float]:
+    """wave_adjacency on the window of `recs` padded to B reads with empty
+    rows, as a mesh of d data rows pads a full window to a multiple of d
+    (the engine's _pad_batch), against its plain version: (largest
+    difference, ms (CUDA events, mean of 5), plain ms)."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch.ops.nthash import fingerprints
+    from goldrush_tpu_torch.path import wavefront as wave
+    _, _, ranked, limit, _ = wave._filter_view(filt, te.size)
+    te.batch_reads = len(recs)
+    codes, lengths, full, T = te._pack_batch(recs)
+    pad = B - codes.shape[0]
+    codes = np.pad(codes, ((0, pad), (0, 0)))
+    lengths, full = np.pad(lengths, (0, pad)), np.pad(full, (0, pad))
+    codes_d, _, _, gi, *_ = te._window_inputs(codes, lengths, full, T)
+    adj = wave.wave_adjacency(te.wave_spec, gi, codes_d, limit, ranked, T)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fp = fingerprints(codes_d, te.fam_ins, T * te.cfg.tile_length,
+                      te.params_ins.frame_stride, wave.FP_BITS)
+    want = wave.wave_adjacency_plain(gi, fp, limit, ranked)
+    torch.cuda.synchronize()
+    pms = (time.time() - t0) * 1e3
+    e = max_abs_err([(adj, want)])
+    ms = cuda_ms(lambda: wave.wave_adjacency(te.wave_spec, gi, codes_d,
+                                             limit, ranked, T), 5, hold=4)
+    say("wave", part="a", kernel="wave_adjacency", window=f"one_tile_{B}",
+        B=B, ord_bits=wave.ord_bits(B),
+        overlaps=int((adj >= wave.ADJ_MIN).sum()), max_abs_err=e,
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.2f}")
+    if e or B <= 8_192 or not (adj >= wave.ADJ_MIN).any():
+        raise AssertionError(f"wave_adjacency at {B} reads: max_abs_err {e}")
+    return e, ms, pms
+
+
+# 9(a)'s windows of long reads at the bench tiers: (tile bucket, reads a
+# window, tiles a read); two reads a window, as the plain version takes
+# ~3 s a read classified at these widths (tests/test_torch_kernels.py
+# test_wave_rounds_long_reads runs windows of the whole tile budget)
+LONG_WINDOWS = ((1_024, 2, 1_000), (1_536, 2, 1_400), (2_048, 2, 2_000))
+
+
+def wave_long_check(dev, fx: dict) -> tuple[dict, int]:
+    """9(a) at the largest tile buckets: wave_rounds on a window of each of
+    LONG_WINDOWS (reads of 1.0-2.0 Mbp sampled from the bench genome with
+    5% substitutions, made on the card from a seed; bench.py's throughput
+    cell, tiles of 1,000, K = 32: kernel C on 7-14 warps of a CTA), each
+    filter filled from the window's reads, and on the first window of the
+    fixture's "wave_long" dataset (8 reads of 937 tiles of 256, its own
+    cell; the direct filter, the compressed one in 9(e)'s digests),
+    against wave_window_plain: rows, scal, counters and both tables bit
+    for bit, no fault, one launch a window, each timed once beside the
+    plain version and its bound.  Returns the record's keys and the
+    largest difference."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.mibf import compressed as cz
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine
+    genome, _ = bench_reads(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(71)
+    rec, err = {}, 0
+    for mode in ("direct", "compressed"):
+        for T, n, tiles in LONG_WINDOWS:
+            L = tiles * 1_000 + 500
+            starts = torch.randint(0, genome.shape[0] - L, (n, 1),
+                                   device=dev, generator=g)
+            reads = genome[starts + torch.arange(L, device=dev)]
+            subst = torch.rand((n, L), device=dev, generator=g) < 0.05
+            reads = torch.where(subst, torch.randint(
+                0, 4, (n, L), dtype=torch.uint8, device=dev, generator=g),
+                reads)
+            te = GoldenPathEngine(PathConfig(**BENCH_ENGINE, **THROUGHPUT,
+                                             **WAVE, mibf_mode=mode),
+                                  device=dev)
+            lengths = torch.full((n,), L, dtype=torch.int32, device=dev)
+            bits = dm.presence_bitmap(te.size, dev)
+            dm.fill_presence_bits(bits, reads, lengths, te.fam_ins, te.size,
+                                  te.cfg.slot_map)
+            if mode == "direct":
+                dm.merge_presence(te.state.words, bits, te.size,
+                                  first_write=True)
+            else:
+                te.cstate = cz.with_tables(*cz.build_rank(bits, te.size),
+                                           te.size)
+            del bits
+            filt = te.cstate if te.compressed else te.state
+            codes = np.zeros((n, (T + 1) * 1_000), np.uint8)
+            codes[:, :L] = reads.cpu().numpy()
+            w = window_vs_plain(te, filt, (codes, np.full(n, L, np.int32),
+                                           np.full(n, L, np.int64), T), dev)
+            err = max(err, w["err"])
+            tag = f"{mode}_t{T}"
+            rec.update({f"ms_{tag}": w["ms"], f"plain_ms_{tag}": w["pms"],
+                        f"bound_ms_{tag}": w["bound"]})
+            say("wave", part="a", kernel="wave_rounds", filter=mode,
+                window=f"long_{T}", B=n, T=T, smem=w["plan"].smem,
+                c_warps=w["plan"].c_warps, launches=w["launched"],
+                max_abs_err=w["err"], **w["counts"], ms=f"{w['ms']:.4f}",
+                plain_ms=f"{w['pms']:.1f}", bound_ms=f"{w['bound']:.5f}")
+            if (w["err"] or w["launched"] != 1 or w["counts"]["faults"]
+                    or w["T"] != T or w["plan"].c_warps == 16):
+                raise AssertionError(f"wave_rounds {tag}: {w}")
+            del te, filt, reads
+            gc_cuda()
+    wl = fx["wave_long"]
+    fq = wave_long_fastq(fx)
+    for mode in ("direct",):
+        te = GoldenPathEngine(PathConfig(
+            input=fq, mibf_mode=mode, **{**fx["engine"], **wl["engine"]}),
+            device=dev)
+        te.calc_phred_threshold(fq)
+        te.fill(fq)
+        filt = te.cstate if te.compressed else te.state
+        recs = list(te._eligible(fq))
+        # the engine's first window: the reads that fill the tile budget
+        w = window_vs_plain(te, filt, te._pack_batch(recs[:8_192 // 1_024]),
+                            dev)
+        err = max(err, w["err"])
+        say("wave", part="a", kernel="wave_rounds", filter=mode,
+            window="wave_long", B=w["B"], T=w["T"], c_warps=w["plan"].c_warps,
+            launches=w["launched"], max_abs_err=w["err"], **w["counts"],
+            ms=f"{w['ms']:.4f}", plain_ms=f"{w['pms']:.1f}",
+            bound_ms=f"{w['bound']:.5f}")
+        if w["err"] or w["launched"] != 1 or w["T"] != 1_024:
+            raise AssertionError(f"wave_rounds wave_long {mode}: {w}")
+        del te, filt
+        gc_cuda()
+    return rec, err
+
+
+def wave_long_fastq(fx: dict) -> str:
+    """WORK/long_reads.fq, the fixture's "wave_long" dataset."""
+    fq = os.path.join(WORK, "long_reads.fq")
+    ds = fx["wave_long"]["dataset"]
+    if not os.path.exists(fq):
+        os.makedirs(WORK, exist_ok=True)
+        make_reads(fq, **{k: v for k, v in ds.items() if k != "sha256"})
+    if sha256_file(fq) != ds["sha256"]:
+        raise AssertionError("the wave_long dataset does not regenerate")
+    return fq
+
+
+def engine_digests(fq: str, case: dict, want: dict, tag: str, part: str,
+                   devices=None) -> None:
+    """A wavefront case of the fixture on the card, each filter: the
+    engine over `fq` with `case` over the fixture's ENGINE settings (on
+    the mesh of `devices` when given, its data rows' replicas equal), its
+    silver digests, recruits and paths against the JAX engine's (`want`),
+    the two wavefront kernels once a window (wave_rounds once a window a
+    data row)."""
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
+    for mode in ("direct", "compressed"):
+        prefix = os.path.join(WORK, f"{tag}_{mode}")
+        before = {k.name: k.launches for k in kernels.WAVE}
+        t0 = time.time()
+        eng = Engine(PathConfig(input=fq, prefix_file=prefix,
+                                mibf_mode=mode, **case),
+                     device=devices or "cuda")
+        st = eng.run()
+        if devices:
+            replicas_equal(eng)
+        got_launches = {k.name: k.launches - before[k.name]
+                        for k in kernels.WAVE}
+        silver = {str(i): sha256_file(f"{prefix}_{i}.fq")
+                  for i in range(1, case["max_paths"] + 1)
+                  if os.path.exists(f"{prefix}_{i}.fq")}
+        got = {"recruits": st.recruits,
+               "paths_completed": st.paths_completed, "silver": silver}
+        d = eng.mesh.data
+        say("wave", part=part, case=tag, filter=mode,
+            window=eng.batch_reads, windows=st.num_batches,
+            **eng.consume_counts, **got_launches, recruits=st.recruits,
+            seconds=f"{time.time() - t0:.1f}", match=got == want[mode])
+        if (got != want[mode] or got_launches != {
+                "wave_adjacency": st.num_batches,
+                "wave_rounds": st.num_batches * d}):
+            raise AssertionError(f"{tag} {mode}: {got} vs {want[mode]}, "
+                                 f"launches {got_launches}")
 
 
 def wave_8192_digests(fx: dict) -> None:
@@ -3888,35 +4127,9 @@ def wave_8192_digests(fx: dict) -> None:
     wavefront engine over the one-tile reads in windows of 8,192 reads,
     its silver digests, recruits and paths against the JAX wavefront
     engine's; wave_adjacency and wave_rounds once a window."""
-    from goldrush_tpu_torch import kernels
-    from goldrush_tpu_torch.config import PathConfig
-    from goldrush_tpu_torch.path.engine import GoldenPathEngine as Engine
-    w8k = fx["wave_8192"]
-    fq = wave_8192_fastq(fx)
-    for mode in ("direct", "compressed"):
-        prefix = os.path.join(WORK, f"w8k_{mode}")
-        before = {k.name: k.launches for k in kernels.WAVE}
-        t0 = time.time()
-        eng = Engine(PathConfig(input=fq, prefix_file=prefix,
-                                mibf_mode=mode,
-                                **{**fx["engine"], **w8k["engine"]}),
-                     device="cuda")
-        st = eng.run()
-        got_launches = {k.name: k.launches - before[k.name]
-                        for k in kernels.WAVE}
-        silver = {str(i): sha256_file(f"{prefix}_{i}.fq")
-                  for i in range(1, fx["engine"]["max_paths"] + 1)
-                  if os.path.exists(f"{prefix}_{i}.fq")}
-        got = {"recruits": st.recruits,
-               "paths_completed": st.paths_completed, "silver": silver}
-        say("wave", part="d", filter=mode, window=eng.batch_reads,
-            windows=st.num_batches, **eng.consume_counts, **got_launches,
-            recruits=st.recruits, seconds=f"{time.time() - t0:.1f}",
-            match=got == w8k[mode])
-        if (got != w8k[mode] or eng.batch_reads != 8_192
-                or any(n != st.num_batches for n in got_launches.values())):
-            raise AssertionError(f"wave_8192 {mode}: {got} vs {w8k[mode]}, "
-                                 f"launches {got_launches}")
+    engine_digests(wave_8192_fastq(fx),
+                   {**fx["engine"], **fx["wave_8192"]["engine"]},
+                   fx["wave_8192"], "w8k", "d")
 
 
 def recruit_ids(prefix: str, max_paths: int) -> set:
@@ -4047,10 +4260,12 @@ def wave_digests(fx: dict, devices=None, model: int = 1,
 
 def phase_wave() -> tuple[dict, dict]:
     """Phase 9, the wavefront consume (K23): (a) both kernels against
-    their plain versions, and wave_rounds at 7,981 and 8,192 one-tile
-    reads; then, every launch count zeroed just before and read just
-    after, (b) the bench reads' throughput cell with wavefront=True, each
-    filter, (c) the "wavefront" digests and (d) the "wave_8192" digests.
+    their plain versions, wave_rounds at 7,910, 7,981 and 8,192 one-tile
+    reads and on windows of the largest tile buckets, the adjacency at
+    8,193 and 8,199 reads; then, every launch count
+    zeroed just before and read just after, (b) the bench reads'
+    throughput cell with wavefront=True, each filter, (c) the "wavefront"
+    digests, (d) the "wave_8192" digests and (e) the "wave_long" digests.
     Returns the launch counts and the two kernels' records."""
     import torch
     from goldrush_tpu_torch import kernels
@@ -4060,14 +4275,20 @@ def phase_wave() -> tuple[dict, dict]:
                            "torch_port_digests.json")) as f:
         fx = json.load(f)
     recs = wave_kernel_check(dev)
-    wide, err = wave_wide_check(dev, fx)
-    recs["wave_rounds"].update(wide)
-    recs["wave_rounds"]["max_abs_err"] = max(
-        recs["wave_rounds"]["max_abs_err"], err)
+    for check in (wave_wide_check, wave_long_check):
+        wide, err = check(dev, fx)
+        for key, v in wide.items():
+            name, _, k = key.rpartition(":")
+            recs[name or "wave_rounds"][k] = v
+        for name in ("wave_adjacency", "wave_rounds"):
+            recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
     launches = wave_bench()
     before = {k.name: k.launches for k in kernels.WAVE}
     wave_digests(fx)
     wave_8192_digests(fx)
+    engine_digests(wave_long_fastq(fx),
+                   {**fx["engine"], **fx["wave_long"]["engine"]},
+                   fx["wave_long"], "wave_long", "e")
     for k in kernels.WAVE:
         launches[k.name] = k.launches
         if k.launches <= before[k.name]:
@@ -4712,8 +4933,10 @@ def mesh_phase() -> tuple[dict, dict]:
     `mesh_cross_cards`; (d) the wavefront under the mesh,
     `mesh_wave_kernel_check` with 1, 2 and 4 banks on cuda:0 and
     `mesh_wave_engine_check` on ["cuda:0"] * 4 (phase 9's files and times
-    when it ran).  Runs alone from a driver that sets WORK.  Returns
-    (launches of (b) and (d), the kernels' banked checks and times)."""
+    when it ran); (e) the fixture's "wave_8192_d3" digests on ["cuda:0"] *
+    3, whose windows of 8,192 reads pad to 8,193.  Runs alone from a
+    driver that sets WORK.  Returns (launches of (b), (d) and (e), the
+    kernels' banked checks and times)."""
     import torch
     t0 = time.time()
     dev = torch.device("cuda", 0)
@@ -4727,13 +4950,283 @@ def mesh_phase() -> tuple[dict, dict]:
     more.append(mesh_wave_kernel_check(layouts, "m"))
     for name, n in mesh_wave_engine_check([dev] * 4).items():
         launches[name] = launches.get(name, 0) + n
+    t3 = time.time()
+    from goldrush_tpu_torch import kernels
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "torch_port_digests.json")) as f:
+        fx = json.load(f)
+    before = {k.name: k.launches for k in kernels.WAVE}
+    engine_digests(wave_8192_fastq(fx),
+                   {**fx["engine"], **fx["wave_8192_d3"]["engine"]},
+                   fx["wave_8192_d3"], "w8k_d3", "10e", devices=[dev] * 3)
+    for k in kernels.WAVE:
+        launches[k.name] = launches.get(k.name, 0) + k.launches \
+            - before[k.name]
     for name, rec in ((k, v) for r in more for k, v in r.items()):
         have = recs.setdefault(name, {"banked_err": 0})
         have["banked_err"] = max(have["banked_err"], rec.pop("banked_err"))
         have.update(rec)
     say("mesh", seconds=f"{time.time() - t0:.1f}",
-        seconds_10c=f"{t2 - t1:.1f}", seconds_10d=f"{time.time() - t2:.1f}")
+        seconds_10c=f"{t2 - t1:.1f}", seconds_10d=f"{t3 - t2:.1f}",
+        seconds_10e=f"{time.time() - t3:.1f}")
     return launches, recs
+
+
+# --------------------------------------------------------------- phase 11
+
+# 11(b)'s mesh layouts of sharded_train_step on ["cuda:0"] * n: (data rows,
+# banks a row); the filter is banked when a row has more than one device
+TRAIN_LAYOUTS = ((1, 2), (2, 1), (2, 2))
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's bytes (the fixture's digests of uint32 arrays,
+    whose bits the port's int32 tensors hold)."""
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def train_inputs(fx: dict) -> tuple:
+    """The fixture's "train_step" inputs on the card: the bench reads
+    (written once, `bench_fastq`) packed as 20-tile reads (codes uint8
+    [3,000, 21,000], lengths int32), the engine's geometry at their
+    width (`MibfParams`, 142,368,384 slots) and the seed family."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch.config import PathConfig
+    from goldrush_tpu_torch.io import fastq
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.ops.nthash import build_seed_family
+    from goldrush_tpu_torch.ops.seeds import make_seed_pattern
+    tr = fx["train_step"]
+    path = bench_fastq()
+    if sha256_file(path) != tr["dataset"]["sha256"]:
+        raise AssertionError("the bench dataset does not regenerate")
+    cfg = PathConfig(input=path, **tr["engine"])
+    L = (tr["num_tiles"] + 1) * cfg.tile_length
+    recs = list(fastq.read_records(path))
+    codes = np.zeros((len(recs), L), np.uint8)
+    lengths = np.zeros(len(recs), np.int32)
+    for i, r in enumerate(recs):
+        c = fastq.encode(r.seq)[: L - 1]
+        codes[i, : len(c)] = c
+        lengths[i] = len(c)
+    seeds = make_seed_pattern(cfg.seed_preset, cfg.kmer_size, cfg.weight,
+                              cfg.hash_num)
+    params = dm.MibfParams(
+        size=tr["size"], h=cfg.hash_num, k=cfg.kmer_size,
+        spans=tuple(len(s) for s in seeds), tile_length=cfg.tile_length,
+        threshold=cfg.threshold, block_size=cfg.block_size,
+        vote_topk=cfg.vote_topk)
+    return (torch.from_numpy(codes).cuda(), torch.from_numpy(lengths).cuda(),
+            params, build_seed_family(seeds))
+
+
+def train_kernel_check(bits, words, codes, lengths, params, fam,
+                       T: int) -> dict:
+    """11(a): kernel D as insert_read runs it against its plain version on
+    the bench-width filter: 16 recruits of the first 16 bench reads (whole
+    at max_blocks 2, trimmed tiles 3..16 at max_blocks 1), the words (or
+    ids) at every slot of the first 12 recruits' grids set to SAT
+    beforehand; the direct filter (keep = SAT | PRESENT) and the
+    compressed one frozen from the same presence (the slot grid mapped to
+    ranks in the launch, keep = SAT).  Words, ids and counters bit for
+    bit, SAT kept; then a whole recruit timed on scratch copies beside
+    the plain version and its bound: the window's grid entries, each
+    distinct key's counter read and written, the accepted entries read
+    and written, and the rank map's bitrank word an entry.  No PyTorch
+    call computes a reservoir insert: no library time.  Returns the
+    record's keys."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.mibf import compressed as cz
+    from goldrush_tpu_torch.mibf import mibf as dm
+    size, bs, SAT = params.size, params.block_size, dm.SAT_BIT
+    grid, _ = dm.build_slot_grid(codes[:16], lengths[:16], fam, params, T)
+    recruits = [(i, 0, T - 1, 100 + 4 * i, False, 2) if i % 2 == 0 else
+                (i, 3, 16, 100 + 4 * i, True, 1) for i in range(16)]
+    sat_slots = grid[:12][grid[:12] < size]
+    sat_int = SAT - (1 << 32)
+    cstate = cz.with_tables(*cz.build_rank(bits, size), size)
+    out, err = {}, 0
+    for label, filt, keep in (("direct", dm.MibfState(words.clone(),
+                                                     torch.zeros_like(words)),
+                               SAT | dm.PRESENT_BIT),
+                              ("compressed", cstate, SAT)):
+        ranked = label == "compressed"
+        table = filt.ids if ranked else filt.words
+        limit = filt.sentinel if ranked else size
+        sat_keys = (cz.rank_grid(filt, sat_slots, size) if ranked
+                    else sat_slots)
+        sat_keys = sat_keys[sat_keys < limit]
+        table[sat_keys] |= sat_int
+        plain = [table.clone(), filt.counts.clone()]
+        mod = cz if ranked else dm
+        before = kernels.INSERT_SORTED.launches
+        for i, lo, hi, base, tr, mb in recruits:
+            mod.insert_read(filt, grid[i], lo, hi, base, tr, params, mb, T)
+            keys = cz.rank_grid(filt, grid[i], size) if ranked else grid[i]
+            dm._insert_plain(*plain, keys, lo, min(hi, lo + mb * bs - 1),
+                             base, tr, params, T, limit, 0, keep)
+        launched = kernels.INSERT_SORTED.launches - before
+        e = max_abs_err([(table, plain[0]), (filt.counts, plain[1])])
+        kept = bool((table[sat_keys] < 0).all())
+        changed = int((plain[1] != 0).sum())
+        err = max(err, e)
+        # a whole recruit of a fresh read, timed on scratch copies
+        g = grid[15]
+        k = type(filt)(*(t.clone() for t in filt))
+        p = [table.clone(), filt.counts.clone()]
+        keys = cz.rank_grid(filt, g, size) if ranked else g
+        ms = cuda_ms(lambda: mod.insert_read(k, g, 0, T - 1, 17, False,
+                                             params, 2, T), 20)
+        pms = cuda_ms(lambda: dm._insert_plain(*p, keys, 0, T - 1, 17, False,
+                                               params, T, limit, 0, keep), 3)
+        q = [table.clone(), filt.counts.clone()]
+        dm._insert_plain(*q, keys, 0, T - 1, 17, False, params, T, limit, 0,
+                         keep)
+        accepted = int((q[0] != table).sum())
+        distinct = torch.unique(keys[keys < limit]).numel()
+        nbytes = g.numel() * 8 * (2 if ranked else 1) + distinct * 8 \
+            + accepted * 8
+        rec = checked(e, ms, pms, nbytes)
+        say("train", part="a", kernel="insert_sorted", filter=label,
+            keep=hex(keep), recruits=len(recruits), launches=launched,
+            max_abs_err=e, sat_kept=kept, counters_set=changed,
+            accepted=accepted, distinct_keys=distinct, ms=f"{ms:.4f}",
+            plain_ms=f"{pms:.4f}", bound_ms=f"{rec['bound_ms']:.5f}")
+        if e or not kept or launched != len(recruits) or not changed:
+            raise AssertionError(f"insert_read {label}: max_abs_err {e}, "
+                                 f"SAT kept {kept}, {launched} launches")
+        tag = "keep" if label == "direct" else "rank_map"
+        out.update({f"ms_{tag}": ms, f"plain_ms_{tag}": pms,
+                    f"bound_ms_{tag}": rec["bound_ms"]})
+        del k, p, q, plain
+    out["train_max_abs_err"] = err
+    return out
+
+
+def train_phase() -> tuple[dict, dict]:
+    """Phase 11, the state-mutating step (parallel/mesh.py train_step and
+    sharded_train_step; mibf.insert_read): the fixture's "train_step" case
+    at the bench width.  The port's pass-1 fill of all 3,000 bench reads
+    (kernel A's fill, the merge; its words held to the JAX fill's digest),
+    then (a) `train_kernel_check`; then, every launch count zeroed just
+    before and read just after, (b) four train_steps of 64 reads at each
+    of the fixture's max_blocks from the filled filter: after each step
+    the sha256 of the real slots' words and of the counters and
+    decisions against the JAX train_step's, its decision counts, ms (host
+    clock to a synchronize) and launches (A's grid, B and C once, D once a
+    recruit); and the same steps through sharded_train_step at each of
+    TRAIN_LAYOUTS on ["cuda:0"] * n: every row's replica (gathered) and
+    the decisions equal the single card's after each step, D once a
+    recruit a data row.  Returns (launches of (b), D's record keys)."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.parallel import mesh as tmesh
+    gc_cuda()
+    t_start = time.time()
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "torch_port_digests.json")) as f:
+        fx = json.load(f)
+    tr = fx["train_step"]
+    codes, lengths, params, fam = train_inputs(fx)
+    T, B, size = tr["num_tiles"], tr["steps"]["batch"], params.size
+    words = torch.zeros(params.alloc, dtype=torch.int32, device=dev)
+    bits = dm.presence_bitmap(size, dev)
+    for i in range(0, codes.shape[0], FILL_BATCH):
+        dm.fill_presence_bits(bits, codes[i: i + FILL_BATCH],
+                              lengths[i: i + FILL_BATCH], fam, size)
+    dm.merge_presence(words, bits, size)
+    present = int(((words[:size] >> 30) & 1).sum())
+    say("train", part="fill", size=size, present=present,
+        match=digest(words[:size]) == tr["filled"])
+    if digest(words[:size]) != tr["filled"] or present != tr["present"]:
+        raise AssertionError("train_step: the fill differs from JAX's")
+    d_rec = train_kernel_check(bits, words, codes, lengths, params, fam, T)
+    del bits
+    gc_cuda()
+    for k in kernels.ALL + (kernels.INSERT_SORTED,):
+        k.launches = 0
+    path = (kernels.SEED_HASH_GRID, kernels.PROBE_VOTE, kernels.CLASSIFY,
+            kernels.INSERT_SORTED)
+    snaps, step_ms = {}, []
+    for mb in tr["steps"]["max_blocks"]:
+        st = dm.MibfState(words.clone(), torch.zeros_like(words))
+        for s, want in enumerate(tr[f"max_blocks_{mb}"]):
+            sl = slice(s * B, (s + 1) * B)
+            base = 1 + 2 * np.arange(s * B, (s + 1) * B)
+            before = [k.launches for k in path]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            st, dec = tmesh.train_step(st, codes[sl], lengths[sl], base,
+                                       fam, params, T, mb)
+            torch.cuda.synchronize()
+            ms = (time.time() - t0) * 1e3
+            step_ms.append(ms)
+            launched = [k.launches - b for k, b in zip(path, before)]
+            got = {"words": digest(st.words[:size]),
+                   "counts": digest(st.counts[:size]),
+                   "decisions": digest(dec),
+                   "decision_counts": [int((dec == v).sum())
+                                       for v in (0, 1, 2)]}
+            recruits = B - got["decision_counts"][0]
+            say("train", part="b", layout="single", max_blocks=mb, step=s,
+                decisions=got["decision_counts"], ms=f"{ms:.1f}",
+                launches=launched, match=got == want)
+            if got != want or launched != [1, 1, 1, recruits]:
+                raise AssertionError(f"train_step max_blocks {mb} step {s}:"
+                                     f" {got} vs {want}, launches "
+                                     f"{launched}")
+            snaps[(mb, s)] = (st.words.clone(), st.counts.clone(),
+                              dec.clone())
+        del st
+    for data, model in TRAIN_LAYOUTS:
+        mesh = tmesh.make_mesh(data * model, data=data, model=model,
+                               devices=[dev] * (data * model))
+        for mb in tr["steps"]["max_blocks"]:
+            reps = tmesh.shard_state(
+                dm.MibfState(words, torch.zeros_like(words)), mesh, model > 1)
+            step = tmesh.sharded_train_step(mesh, fam, params, T, mb,
+                                            model > 1)
+            for s in range(tr["steps"]["steps"]):
+                sl = slice(s * B, (s + 1) * B)
+                before = kernels.INSERT_SORTED.launches
+                torch.cuda.synchronize()
+                t0 = time.time()
+                reps, dec = step(reps, codes[sl], lengths[sl],
+                                 1 + 2 * np.arange(s * B, (s + 1) * B))
+                torch.cuda.synchronize()
+                ms = (time.time() - t0) * 1e3
+                w, c, d = snaps[(mb, s)]
+                equal = torch.equal(dec, d) and all(
+                    torch.equal(dm.whole(r.words), w)
+                    and torch.equal(dm.whole(r.counts), c) for r in reps)
+                launched = kernels.INSERT_SORTED.launches - before
+                recruits = int((d != 0).sum())
+                say("train", part="b", layout=f"{data}x{model}",
+                    max_blocks=mb, step=s, ms=f"{ms:.1f}",
+                    insert_launches=launched, equal=equal)
+                if not equal or launched != recruits * data:
+                    raise AssertionError(
+                        f"sharded_train_step {data}x{model} max_blocks {mb} "
+                        f"step {s}: equal {equal}, {launched} launches")
+            del reps
+            gc_cuda()
+    launches = {k.name: k.launches for k in kernels.ALL}
+    d_rec["launches_train"] = kernels.INSERT_SORTED.launches
+    d_rec["train_step_ms"] = step_ms
+    for k in path:
+        if k.launches == 0:
+            raise AssertionError(f"train: {k.name} never launched")
+    say("train", seconds=f"{time.time() - t_start:.1f}",
+        step_ms_mean=f"{sum(step_ms) / len(step_ms):.1f}",
+        insert_launches=kernels.INSERT_SORTED.launches)
+    del snaps
+    gc_cuda()
+    return launches, d_rec
 
 
 def bench_fastq() -> str:
@@ -4828,11 +5321,16 @@ def main(argv: list[str]) -> int:
         mesh, mesh_checks = mesh_phase()
         for name, rec in mesh_checks.items():
             checks[name].update(rec)
+        train, train_d = train_phase()
+        checks["insert_sorted"]["max_abs_err"] = max(
+            checks["insert_sorted"]["max_abs_err"],
+            train_d.pop("train_max_abs_err"))
+        checks["insert_sorted"].update(train_d)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     runs = {"exact": exact, "throughput": throughput, "pipeline": pipeline,
             "genome": genome, "direct_2_32": direct, "capacity": capacity,
-            "ntcard": ntcard, "wave": wave, "mesh": mesh}
+            "ntcard": ntcard, "wave": wave, "mesh": mesh, "train": train}
     for name, rec in list(freeze.items()) + list(direct_checks.items()):
         checks[name].update(rec)
     # kernel D's and insert_max's code runs inside the consume kernel: their

@@ -25,6 +25,20 @@ constexpr unsigned kFull = 0xFFFFFFFFu;  // all lanes of a warp
 // Every kernel's dynamic shared memory.
 extern __shared__ __align__(16) unsigned char gr_smem[];
 
+// The rank of the slot at bit b of bitrank word e in the superblock whose
+// base is `sup` (rank.cu's layout: the rank of the word's first slot
+// within its superblock above, presence bits below), or `sentinel` if the
+// slot is absent.  Kernel A's rank grid (seed_hash.cu) and kernel D's
+// rank map (insert.cuh) read it.
+__device__ __forceinline__ int64_t rank_in(unsigned long long e, unsigned b,
+                                           unsigned long long sup,
+                                           int64_t sentinel) {
+  const uint32_t bits = static_cast<uint32_t>(e);
+  if (!((bits >> b) & 1u)) return sentinel;
+  return static_cast<int64_t>(sup + (e >> 32)) +
+         __popc(bits & ((1u << b) - 1u));
+}
+
 // the most banks a filter array splits into (mibf.py MAX_BANKS)
 constexpr int kMaxBanks = 8;
 

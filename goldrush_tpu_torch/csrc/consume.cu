@@ -483,7 +483,7 @@ consume_kernel(const ConsumeArgs a) {
         if (owner)
           owner_apply(view_of<Filt>(a.banks), buf, n_own,
                       n_own <= a.cap ? before : nullptr, lo, last, base,
-                      o.dec == 2, a.bs, a.or_bits);
+                      o.dec == 2, a.bs, a.or_bits, 0u);
         dirty = kWritten;
       }
       ++n_ins;

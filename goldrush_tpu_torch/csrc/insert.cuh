@@ -32,15 +32,25 @@ __device__ __forceinline__ uint32_t part_of(int64_t k, uint32_t parts) {
 
 // A recruit's window for kernel D: the entries of tiles t0..t1-1 of every
 // seed row of its insert grid [H, TF] (F frames a tile), keys below `limit`
-// real.
-struct Window {
+// real.  With kRankMap the grid holds the slots of a compressed filter of
+// `size` slots, and each entry's key is its slot's rank in the frozen
+// presence structure (compressed.py bitrank and supers, n_super
+// superblocks), read as the entry is: an absent slot, or one at or past
+// `size` (an invalid frame), takes the sentinel rank `limit`
+// (goldrush_tpu/mibf/compressed.py:352-354, compressed.rank_grid).
+template <bool kRankMap>
+struct WindowOf {
   const int64_t* slots;
   int H;
   int64_t TF;
   int F, t0, t1;
   int64_t limit;
+  const unsigned long long* bitrank = nullptr;
+  const unsigned long long* supers = nullptr;
+  int n_super = 1;
+  int64_t size = 0;
 
-  __device__ int64_t size() const {
+  __device__ int64_t size_of() const {
     return t1 > t0 ? static_cast<int64_t>(H) * (t1 - t0) * F : 0;
   }
   // window entry e: seed e / cols, column t0 * F + e % cols
@@ -50,10 +60,20 @@ struct Window {
   }
   __device__ int64_t key(int64_t e) const {
     const int64_t cols = static_cast<int64_t>(t1 - t0) * F;
-    return slots[(e / cols) * TF + column(e)];
+    const int64_t x = slots[(e / cols) * TF + column(e)];
+    if constexpr (kRankMap) {
+      if (x < 0 || x >= size) return limit;
+      const uint64_t s = static_cast<uint64_t>(x) >> 32;
+      return rank_in(bitrank[x >> 5], static_cast<unsigned>(x & 31),
+                     supers[s < static_cast<uint64_t>(n_super)
+                                ? s : n_super - 1],
+                     limit);
+    }
+    return x;
   }
   __device__ bool real(int64_t key) const { return key >= 0 && key < limit; }
 };
+using Window = WindowOf<false>;
 
 // Kernel D's sort entry of a real key (below 2^48, which the wrappers
 // check) at tile t: key << 16 | t.  A key's entries sort by tile, so by its
@@ -79,14 +99,15 @@ __device__ __forceinline__ void slice_of(int64_t W, int rank, int n,
 // that overflows is re-read by its owner).  The CTA counts its entries per
 // owner in shared memory, then reserves each owner's run with one global
 // atomic.  The window's grid is read-only for the launch.
-__device__ inline void scatter_window(const Window& w, int rank, int n,
+template <typename Win>
+__device__ inline void scatter_window(const Win& w, int rank, int n,
                                       uint32_t parts, int cap,
                                       unsigned* __restrict__ count,
                                       unsigned long long* __restrict__ bucket) {
   __shared__ unsigned s_cnt[kMaxParts];
   __shared__ unsigned s_base[kMaxParts];
   int64_t lo, hi;
-  slice_of(w.size(), rank, n, lo, hi);
+  slice_of(w.size_of(), rank, n, lo, hi);
   for (int p = threadIdx.x; p < static_cast<int>(parts); p += blockDim.x)
     s_cnt[p] = 0;
   __syncthreads();
@@ -129,14 +150,15 @@ __device__ inline void scatter_window(const Window& w, int rank, int n,
 // distinct entries it compacts them into `out` (cap / 2 entries), copies
 // them back to sbuf's front and returns their number; past that, -1.
 // Every thread calls it.
-__device__ inline int owner_distinct(const Window& w, uint32_t part,
+template <typename Win>
+__device__ inline int owner_distinct(const Win& w, uint32_t part,
                                      uint32_t parts, int cap, uint64_t* sbuf,
                                      uint64_t* out) {
   __shared__ int s_distinct, s_packed;
   for (int i = threadIdx.x; i < cap; i += blockDim.x) sbuf[i] = kSentinel64;
   if (threadIdx.x == 0) s_distinct = s_packed = 0;
   __syncthreads();
-  const int64_t W = w.size();
+  const int64_t W = w.size_of();
   const unsigned mask = static_cast<unsigned>(cap) - 1u;
   for (int64_t e = threadIdx.x; e < W; e += blockDim.x) {
     if (*static_cast<volatile int*>(&s_distinct) > cap / 2) break;
@@ -175,7 +197,8 @@ __device__ inline int owner_distinct(const Window& w, uint32_t part,
 // through `spill_count`, into which it re-reads the window.  Returns the
 // entries; *n_out their number.  Bucket and count were written by other
 // CTAs: read through L2.
-__device__ inline uint64_t* owner_sort(const Window& w, uint32_t part,
+template <typename Win>
+__device__ inline uint64_t* owner_sort(const Win& w, uint32_t part,
                                        uint32_t parts, int cap,
                                        unsigned* count,
                                        const unsigned long long* bucket,
@@ -207,7 +230,7 @@ __device__ inline uint64_t* owner_sort(const Window& w, uint32_t part,
     }
     __syncthreads();
     buf = s_spill;
-    const int64_t W = w.size();
+    const int64_t W = w.size_of();
     for (int64_t e = threadIdx.x; e < W; e += blockDim.x) {
       const int64_t key = w.key(e);
       if (w.real(key) && part_of(key, parts) == part)
@@ -248,15 +271,16 @@ __device__ inline void owner_prefetch(const uint64_t* buf, int n,
 // (t - lo) / bs, and writes counts[key] once and the word at most once: the
 // j-th distinct block (j from 1) sees cnt = counts[key] + j (u32) and
 // accepts iff (u32(key) ^ id_m) % max(cnt, 1) == cnt - 1; the last
-// accepting block's id wins.  `before` holds owner_prefetch's counters, or
-// is null (then read here, through L2).  The table and counters are
-// reached through the filter's view (common.cuh FlatTable or Banks).
-// Every thread calls it.
+// accepting block's id wins: the key's entry becomes (old & keep) |
+// or_bits | id (keep == 0, the engine's inserts: the old entry is not
+// read).  `before` holds owner_prefetch's counters, or is null (then read
+// here, through L2).  The table and counters are reached through the
+// filter's view (common.cuh FlatTable or Banks).  Every thread calls it.
 template <typename Filt>
 __device__ inline void owner_apply(const Filt filt, const uint64_t* buf,
                                    int n, const uint32_t* before, int lo,
                                    int last, uint32_t base, int trimmed,
-                                   int bs, uint32_t or_bits) {
+                                   int bs, uint32_t or_bits, uint32_t keep) {
   const uint32_t b = static_cast<uint32_t>(bs);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     if (!run_start(buf, i)) continue;
@@ -282,7 +306,9 @@ __device__ inline void owner_apply(const Filt filt, const uint64_t* buf,
     }
     if (j == 0) continue;
     *filt.count(key) = cnt0 + j;
-    if (won) *filt.word(key) = or_bits | id_won;
+    if (won)
+      *filt.word(key) = (keep ? *filt.word(key) & keep : 0u) | or_bits |
+                        id_won;
   }
 }
 

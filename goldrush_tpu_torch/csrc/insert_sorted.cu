@@ -8,7 +8,15 @@
 // filter: real iff < size, the word becomes PRESENT | id) or ranks
 // (compressed filter: real iff < the sentinel rank, the rank-indexed id
 // becomes id); `limit` and `or_bits` say which.  Below, "key" stands for
-// either.
+// either.  It also replaces the blockwise inserts of both filters'
+// `insert_read` (goldrush_tpu/mibf/mibf.py:449, compressed.py:338), which
+// the JAX train_step runs: their per-block sort and loop over the blocks
+// are XLA's form of the same rule (tests/test_insert_sorted.py).  For them
+// the accepted entry keeps bits of its old value (`keep`: SAT | PRESENT
+// in the direct filter, SAT in the compressed one), the wrapper limits
+// the tiles to the first max_blocks blocks, and the compressed filter's
+// grid holds slots, each mapped to its rank as the window is read (the
+// kRankMap instantiation, insert.cuh WindowOf).
 //
 // A key's result depends on that key's own occurrences only: its j-th
 // distinct block m (ascending, j from 1) sees the counter
@@ -51,8 +59,11 @@
 // Bound.  From memory it must move the window once (H * nf * 8 bytes, 480
 // KB for a 20-tile recruit at the defaults), and each distinct key's
 // counter read and written and the words it accepts written, random
-// accesses into the 570 MB words/counts (or the 251 MB rank tables).  The
-// buckets add one write and one read of the window's real entries in L2.
+// accesses into the 570 MB words/counts (or the 251 MB rank tables); with
+// a keep mask the accepted entries are also read.  The rank map reads each
+// window entry's bitrank word (8 random bytes, twice for an owner that
+// re-reads its window).  The buckets add one write and one read of the
+// window's real entries in L2.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -63,15 +74,18 @@ namespace cg = cooperative_groups;
 
 namespace gr {
 
-template <typename Filt>
+template <typename Filt, bool kRankMap>
 __global__ void __launch_bounds__(1024)
 insert_sorted_kernel(const Filt filt, const int64_t* __restrict__ slots,
-                     int H, int64_t TF,
-                     int F, int64_t limit, uint32_t or_bits, int lo, int last,
-                     uint32_t base, int trimmed, int bs, int cap,
-                     unsigned* bucket_count, unsigned long long* bucket,
-                     unsigned long long* spill) {
-  const Window w{slots, H, TF, F, lo, last + 1, limit};
+                     const unsigned long long* __restrict__ bitrank,
+                     const unsigned long long* __restrict__ supers,
+                     int n_super, int64_t size, int H, int64_t TF,
+                     int F, int64_t limit, uint32_t or_bits, uint32_t keep,
+                     int lo, int last, uint32_t base, int trimmed, int bs,
+                     int cap, unsigned* bucket_count,
+                     unsigned long long* bucket, unsigned long long* spill) {
+  const WindowOf<kRankMap> w{slots, H, TF, F, lo, last + 1, limit,
+                             bitrank, supers, n_super, size};
   scatter_window(w, blockIdx.x, gridDim.x, gridDim.x, cap, bucket_count,
                  bucket);
   cg::this_grid().sync();
@@ -81,28 +95,38 @@ insert_sorted_kernel(const Filt filt, const int64_t* __restrict__ slots,
       owner_sort(w, blockIdx.x, gridDim.x, cap, bucket_count, bucket, sbuf,
                  sbuf + cap, spill, reinterpret_cast<uint64_t*>(spill + 1),
                  &n);
-  owner_apply(filt, buf, n, nullptr, lo, last, base, trimmed, bs, or_bits);
+  owner_apply(filt, buf, n, nullptr, lo, last, base, trimmed, bs, or_bits,
+              keep);
 }
 
 }  // namespace gr
 
 // table/counts/n_banks/bank_len/remote: the bank view of the words (or
-// ids) and counters (common.cuh make_banks); bucket_count: uint32 [parts];
-// bucket: uint64 [parts * cap]; spill: its allocation counter, then less
-// than twice the window (or null when the window fits one bucket).  The
-// entry zeroes the counters.
+// ids) and counters (common.cuh make_banks); bitrank/supers: null, or the
+// compressed filter's rank structure (n_super superblocks of a filter of
+// `size` slots) through which the grid's slots map to ranks below the
+// sentinel `limit`; keep: the bits an accepted entry keeps;
+// bucket_count: uint32 [parts]; bucket: uint64 [parts * cap]; spill: its
+// allocation counter, then less than twice the window (or null when the
+// window fits one bucket).  The entry zeroes the counters.
 extern "C" int gr_insert_sorted(void* const* table, void* const* counts,
                                 int n_banks, int64_t bank_len, int remote,
-                                const int64_t* slots, int H, int64_t TF, int F,
-                                int64_t limit, uint32_t or_bits, int lo, int hi,
-                                uint32_t base, int trimmed, int bs, int parts,
-                                int threads, int cap, unsigned* bucket_count,
+                                const int64_t* slots,
+                                const unsigned long long* bitrank,
+                                const unsigned long long* supers, int n_super,
+                                int64_t size, int H, int64_t TF, int F,
+                                int64_t limit, uint32_t or_bits, uint32_t keep,
+                                int lo, int hi, uint32_t base, int trimmed,
+                                int bs, int parts, int threads, int cap,
+                                unsigned* bucket_count,
                                 unsigned long long* bucket,
                                 unsigned long long* spill,
                                 cudaStream_t stream) {
   gr::Banks banks;
+  const bool ranked = bitrank != nullptr;
   if (!counts ||
       !gr::make_banks(table, counts, n_banks, bank_len, remote, &banks) ||
+      (ranked && (!supers || n_super < 1 || size <= 0)) ||
       F <= 0 || bs <= 0 || TF % F || TF / F >= (1 << 16) || lo < 0 ||
       limit < 0 || parts <= 0 || parts > gr::kMaxParts || threads <= 0 ||
       threads > 1024 || cap < 4 * threads || (cap & (cap - 1)) ||
@@ -128,7 +152,9 @@ extern "C" int gr_insert_sorted(void* const* table, void* const* counts,
                                     dev)) != cudaSuccess)
     return err;
   return gr::with_view(banks, [&](auto filt) {
-    const auto kernel = gr::insert_sorted_kernel<decltype(filt)>;
+    const auto kernel =
+        ranked ? gr::insert_sorted_kernel<decltype(filt), true>
+               : gr::insert_sorted_kernel<decltype(filt), false>;
     cudaError_t e = gr::allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     int per_sm = 0;
@@ -138,9 +164,10 @@ extern "C" int gr_insert_sorted(void* const* table, void* const* counts,
     // a cooperative grid must be resident at once
     if (static_cast<int64_t>(per_sm) * sms < parts)
       return cudaErrorCooperativeLaunchTooLarge;
-    void* args[] = {&filt, &slots, &H, &TF, &F, &limit, &or_bits,
-                    &lo, &last, &base, &trimmed, &bs, &cap,
-                    &bucket_count, &bucket, &spill};
+    void* args[] = {&filt, &slots, &bitrank, &supers, &n_super, &size,
+                    &H, &TF, &F, &limit, &or_bits, &keep, &lo, &last,
+                    &base, &trimmed, &bs, &cap, &bucket_count, &bucket,
+                    &spill};
     e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                     dim3(parts), dim3(threads), args, smem,
                                     stream);

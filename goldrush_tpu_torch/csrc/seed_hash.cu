@@ -111,19 +111,6 @@ __device__ __forceinline__ uint64_t frame_slot(const Family& f,
   return slot_of(canon(st, left, p, s), size, mode);
 }
 
-// The rank of the slot at bit b of bitrank word e in the superblock whose
-// base is `sup` (rank.cu's layout: the rank of the word's first slot
-// within its superblock above, presence bits below), or `sentinel` if the
-// slot is absent.
-__device__ __forceinline__ int64_t rank_in(unsigned long long e, unsigned b,
-                                           unsigned long long sup,
-                                           int64_t sentinel) {
-  const uint32_t bits = static_cast<uint32_t>(e);
-  if (!((bits >> b) & 1u)) return sentinel;
-  return static_cast<int64_t>(sup + (e >> 32)) +
-         __popc(bits & ((1u << b) - 1u));
-}
-
 // grid (T, B): one CTA per (read, tile).  Frame j < TL / S of tile t sits
 // at tile position f = j * S and is valid iff t < len / TL and f <
 // frames_t; seed s probes position t*TL + f, or t*TL + F_ts - 1 once f >=

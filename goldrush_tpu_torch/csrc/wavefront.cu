@@ -91,9 +91,15 @@
 // Each CTA keeps the per-read state (flags, committed lengths, ceilings, a
 // read list, the unresolved bits: ~16.6 B a read) and the commit pass's
 // insert index (12 B a read) in its dynamic shared memory; a window whose
-// two parts would not fit beside the work region (past ~7,980 reads in the
+// two parts would not fit beside the work region (past 7,910 reads in the
 // bench's cells) keeps both in a global scratch instead, one slice a CTA
-// (the kSpill instantiation; the grid is then at most the slices).
+// (the kSpill instantiation; the grid is then at most the slices).  Kernel
+// C's buffer (one a warp: its rows and sort keys, 8 B a tile and more) is
+// a warp's region of the work region while the 16 of a CTA fit; reads of
+// 1,024 tiles or more at K = 32 run C on as many warps of a CTA as have a
+// buffer (7-14: a window of such reads holds at most 8,192 / 1,024 reads
+// and the mesh's padding, so the grid's warps still outnumber its reads),
+// and the warps' probe regions then keep only a warp tile's table.
 // Bound: the bytes of every round's work (each probed tile's grid entries
 // and words of both tables, each insert's window and two atomics per
 // entry, each reset's tables).  The words and the atomics are random 4-byte
@@ -122,6 +128,9 @@ constexpr int kAdjThreads = 512;    // the count's and the scatter's CTAs
 constexpr int kGroupThreads = 512;  // a partition's CTA
 constexpr int kGroupPer = 8;        // keys a group thread holds (cap)
 constexpr int kMaxParts = 1 << 12;  // a CTA's counters (count, split)
+// the most reads of a window (wavefront.MAX_ADJ_READS): a group's entry
+// holds a read order in 14 bits, and its least and greatest in 16
+constexpr int kMaxAdjReads = 1 << 14;
 // keys of a staged round: up to this many of a tile's frames and seeds in
 // the scatter (rounds of blockDim.x frames), this many in the split
 constexpr int kRoundKeys = 4096;
@@ -576,9 +585,9 @@ __global__ void __launch_bounds__(kGroupThreads) adj_group_kernel(
   __syncthreads();
   // 2. the group table: a group's entry holds the key that claimed it
   // (its index + 1, bits 0-15), the first order found strictly between the
-  // group's least and greatest (bits 16-29: B <= 2^13), whether one is
-  // (bit 31) and whether another is (bit 30); mm the least and greatest
-  // orders (16 bits each)
+  // group's least and greatest (bits 16-29: B <= kMaxAdjReads), whether
+  // one is (bit 31) and whether another is (bit 30); mm the least and
+  // greatest orders (16 bits each)
   const unsigned long long omask = (1ull << ob) - 1ull;
   const int lane = tid & 31;
   int gb = 1;
@@ -721,6 +730,10 @@ struct BracketWord {
 // a CTA of the rounds, and CTAs an SM (its registers: C's passes)
 constexpr int kWaveThreads = 512;
 constexpr int kWaveBlocks = 1;
+// the static shared memory the rounds' kernel may take (wavefront.py
+// WAVE_STATIC_SMEM; its own arrays and probe_vote_tile's, ~1.6 KB): the
+// dynamic region takes at most kMaxSmem less this
+constexpr size_t kWaveStatic = 2048;
 
 struct WaveArgs {
   // the id table (direct words or rank-indexed ids) and the side table,
@@ -742,7 +755,11 @@ struct WaveArgs {
   int vote_min_q, x_q, bits_q, vote_min_f, x_f, bits_f;
   int u_min, a_max, TL, bs, S, rech_on, silver, cbuf;
   int warp_q, warp_f;  // the tier's tiles probed one per warp
-  int warp_bytes;      // each warp's region: C's buffer, a warp tile's table
+  int warp_bytes;      // each warp's region for a warp tile's table
+  // kernel C runs on the first c_warps warps of a CTA, each with a buffer
+  // of c_bytes: every warp, its buffer its probe region, while the 16
+  // buffers fit in shared memory; fewer for reads of ~1,024 tiles or more
+  int c_warps, c_bytes;
   int64_t target, max_paths;
   int64_t* scal;      // [4] id reservations, bases, path index, done
   int64_t* rows;      // [B, 8]
@@ -900,11 +917,13 @@ __device__ void probe_rows(const WaveArgs& a, const Tier& tier,
     }
   }
   grid.sync();
-  for (int j = blockIdx.x * warps + warp; j < n; j += gridDim.x * warps) {
+  unsigned char* cown = gr_smem + static_cast<size_t>(warp) * a.c_bytes;
+  for (int j = blockIdx.x * a.c_warps + warp; warp < a.c_warps && j < n;
+       j += gridDim.x * a.c_warps) {
     const int r = list[j];
     const Outcome o = read_outcome(
         a.sums + static_cast<int64_t>(r) * 3 * T, a.vals + r * vb,
-        a.n_tiles[r], T, K, tier.threshold, a.u_min, a.a_max, a.cbuf, own,
+        a.n_tiles[r], T, K, tier.threshold, a.u_min, a.a_max, a.cbuf, cown,
         lane);
     if (lane == 0) {
       int64_t* row = a.rows + static_cast<int64_t>(r) * 8;
@@ -1361,7 +1380,7 @@ int gr_wave_adjacency(const int64_t* grid, int B, int H, int T, int F, int S,
                       int* boff, int* part_off, unsigned long long* keys,
                       unsigned long long* buckets, int* cnt,
                       cudaStream_t stream) {
-  if (B < 0 || B > (1 << 13) || H != h || H < 1 || T < 1 || S < 1 ||
+  if (B < 0 || B > gr::kMaxAdjReads || H != h || H < 1 || T < 1 || S < 1 ||
       F * S != TL || TL < k + h - 1 || L < 1 || limit <= 0 ||
       limit >= (1ll << 31) || parts < 1 || parts > (1 << 20) ||
       (parts & (parts - 1)) || shift < 0 || (1 << shift) > parts ||
@@ -1460,33 +1479,65 @@ int gr_wave_rounds(void* const* table, void* const* side, int n_banks,
   const int warp_f = rech_on && bits_f <= gr::kWarpBits;
   // each warp's region: kernel C's buffer, as the consume kernel sizes it,
   // or a warp tile's vote table and candidates
+  const auto align16 = [](size_t v) {
+    return (v + 15) & ~static_cast<size_t>(15);
+  };
   int t2 = 1;
   while (t2 < T) t2 <<= 1;
   const int chunk = (T < 32 ? T : 32) * K;
   const int cbuf = t2 > chunk ? t2 : chunk;
-  size_t warp_bytes = 8 * (((T + 1) & ~1) + static_cast<size_t>(cbuf));
-  if (warp_q) warp_bytes = std::max(warp_bytes, static_cast<size_t>(16) << bits_q);
-  if (warp_f) warp_bytes = std::max(warp_bytes, static_cast<size_t>(16) << bits_f);
-  warp_bytes = (warp_bytes + 15) & ~static_cast<size_t>(15);
-  // the work region: the warps' regions, or a CTA tile's table and
-  // candidates; and the commit pass's insert index (3 words a read), which
-  // shares it
-  size_t work = (kWaveThreads / 32) * warp_bytes;
+  const size_t c_bytes =
+      align16(8 * (((T + 1) & ~1) + static_cast<size_t>(cbuf)));
+  size_t probe_bytes = 0;
+  if (warp_q)
+    probe_bytes = std::max(probe_bytes, static_cast<size_t>(16) << bits_q);
+  if (warp_f)
+    probe_bytes = std::max(probe_bytes, static_cast<size_t>(16) << bits_f);
+  probe_bytes = align16(probe_bytes);
+  // a CTA tile's table and candidates
+  size_t tile = 0;
   for (int bits : {warp_q ? 1 : bits_q, warp_f || !rech_on ? 1 : bits_f})
-    work = std::max(work, ((static_cast<size_t>(1) << bits) + kWaveThreads) *
+    tile = std::max(tile, ((static_cast<size_t>(1) << bits) + kWaveThreads) *
                               sizeof(unsigned long long));
-  work = (work + 15) & ~static_cast<size_t>(15);
-  const size_t index = (12 * static_cast<size_t>(B) + 15) &
-                       ~static_cast<size_t>(15);
+  tile = align16(tile);
+  // the commit pass's insert index (3 words a read), which shares the
+  // work region, and the per-read state
+  const size_t index = align16(12 * static_cast<size_t>(B));
   const size_t state = ((B + 15) & ~15) + static_cast<size_t>(B) * 16 +
                        4 * static_cast<size_t>((B + 31) / 32);
+  // the work region of C on `cw` warps: the warps' regions (one stride for
+  // C's buffer and the probe's table while all 16 warps run C), or a CTA
+  // tile's
+  constexpr int kWarps = kWaveThreads / 32;
+  const size_t budget = gr::kMaxSmem - gr::kWaveStatic;
+  const auto work_of = [&](int cw) {
+    return cw == kWarps ? std::max(kWarps * std::max(c_bytes, probe_bytes),
+                                   tile)
+                        : std::max({kWarps * probe_bytes, tile,
+                                    cw * c_bytes});
+  };
+  // C on every warp while the work region fits; else on the most warps
+  // whose buffers fit beside the index and the state, or, failing that,
+  // alone
+  int c_warps = kWarps;
+  if (work_of(kWarps) > budget) {
+    c_warps = 0;
+    for (int cw = kWarps - 1; cw >= 1 && !c_warps; --cw)
+      if (std::max(work_of(cw), index) + state <= budget) c_warps = cw;
+    for (int cw = kWarps - 1; cw >= 1 && !c_warps; --cw)
+      if (work_of(cw) <= budget) c_warps = cw;
+    if (!c_warps) return cudaErrorInvalidValue;
+  }
   // the index and the state beside the work region while they fit, else
   // in a slice of spill a CTA
-  const bool spilled = std::max(work, index) + state > gr::kMaxSmem;
+  const size_t work = work_of(c_warps);
+  const bool spilled = std::max(work, index) + state > budget;
   const size_t smem = spilled ? work : std::max(work, index) + state;
-  if (smem > gr::kMaxSmem || (spilled && (spill == nullptr ||
+  if (smem > budget || (spilled && (spill == nullptr ||
                                           spill_ctas < 1)))
     return cudaErrorInvalidValue;
+  const size_t warp_bytes =
+      c_warps == kWarps ? std::max(c_bytes, probe_bytes) : probe_bytes;
   cudaError_t err;
   int dev = 0, sms = 0, coop = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -1501,15 +1552,20 @@ int gr_wave_rounds(void* const* table, void* const* side, int n_banks,
                  Hq, Fq, grid_i, ok_i, Hi, Fi, n_tiles, full_len, adj, B, T,
                  K, vote_min_q, x_q, bits_q, vote_min_f, x_f, bits_f, u_min,
                  a_max, TL, bs, S, rech_on, silver, cbuf, warp_q, warp_f,
-                 static_cast<int>(warp_bytes), target, max_paths, scal, rows,
+                 static_cast<int>(warp_bytes), c_warps,
+                 static_cast<int>(c_warps == kWarps ? warp_bytes : c_bytes),
+                 target, max_paths, scal, rows,
                  counters, sums, vals, binit, tmin, adj_bits,
                  std::max(work, index), spill,
                  index + ((state + 15) & ~static_cast<size_t>(15)), index};
   return gr::with_side_view(tabs, [&](auto tab) {
     const auto kernel = spilled ? gr::wave_kernel<decltype(tab), true>
                                 : gr::wave_kernel<decltype(tab), false>;
-    cudaError_t e = gr::opt_in_smem(kernel, smem);
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
     if (e != cudaSuccess) return e;
+    if (attr.sharedSizeBytes > gr::kWaveStatic) return cudaErrorInvalidValue;
+    if ((e = gr::opt_in_smem(kernel, smem)) != cudaSuccess) return e;
     int per_sm = 0;
     if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &per_sm, kernel, kWaveThreads, smem)) != cudaSuccess)

@@ -67,8 +67,8 @@ _SIGNATURES = {
     "gr_classify": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "gr_row_cummax": (_P, _I, _I, _P, _P),
-    "gr_insert_sorted": (*_BANKS, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I,
-                         _I, _I, _I, _I, _P, _P, _P, _P),
+    "gr_insert_sorted": (*_BANKS, _P, _P, _P, _I, _L, _I, _L, _I, _L, _U,
+                         _U, _I, _I, _U, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "gr_insert_max": (*_BANKS, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I, _I,
                       _P),
     "gr_rank_build": (_P, _L, _L, _P, _P, _P, _P),
@@ -221,7 +221,8 @@ CLASSIFY = Kernel(
 INSERT_SORTED = Kernel(
     "insert_sorted", "gr_insert_sorted",
     "goldrush_tpu_torch/csrc/insert_sorted.cu",
-    "goldrush_tpu/mibf/mibf.py:540")
+    "goldrush_tpu/mibf/mibf.py:540; insert_read goldrush_tpu/mibf/mibf.py:449, "
+    "goldrush_tpu/mibf/compressed.py:338")
 INSERT_MAX = Kernel(
     "insert_max", "gr_insert_max", "goldrush_tpu_torch/csrc/insert_max.cu",
     "goldrush_tpu/mibf/mibf.py:638; goldrush_tpu/mibf/compressed.py:480")

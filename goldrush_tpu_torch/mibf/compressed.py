@@ -36,7 +36,9 @@ tensor and its kernel for a CUDA tensor (or raises):
                    slot -> rank map
 
 The probe (kernel B) and both inserts (kernel D, and insert_max for the
-throughput mode) are the direct filter's, keyed on ranks.
+throughput mode) are the direct filter's, keyed on ranks; the blockwise
+``insert_read`` runs kernel D on the slot grid, mapping each slot to its
+rank inside the launch.
 """
 
 from __future__ import annotations
@@ -324,6 +326,23 @@ def insert_read_sorted(state: CompressedState, ranks: torch.Tensor,
     becomes the block id."""
     dm.insert_blocks(state.ids, state.counts, ranks, tile_lo, tile_hi,
                      base_id, trimmed, params, num_tiles, state.sentinel, 0)
+    return state
+
+
+def insert_read(state: CompressedState, slots: torch.Tensor, tile_lo: int,
+                tile_hi: int, base_id: int, trimmed: bool,
+                params: dm.MibfParams, max_blocks: int, num_tiles: int
+                ) -> CompressedState:
+    """Blockwise reservoir insert of one read on the rank-indexed tables,
+    in place: the JAX package's ``insert_read``
+    (goldrush_tpu/mibf/compressed.py:338-395).  ``slots`` [H, T*F] is the
+    read's slot grid; each slot maps to its rank (the sentinel rank when
+    absent, which never inserts), the first ``max_blocks`` blocks of tiles
+    lo..hi insert as ``insert_read_sorted``'s do, and an accepted id keeps
+    its SAT bit.  Kernel D with its rank map and keep = SAT on the card."""
+    dm.insert_blocks(state.ids, state.counts, slots, tile_lo, tile_hi,
+                     base_id, trimmed, params, num_tiles, state.sentinel, 0,
+                     keep=dm.SAT_BIT, max_blocks=max_blocks, rank_map=state)
     return state
 
 

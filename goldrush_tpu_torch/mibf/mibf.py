@@ -17,6 +17,7 @@ tensors and launches its CUDA kernel for CUDA tensors (or raises):
   build_slot_grid    kernel A, grid entry  (csrc/seed_hash.cu), any stride
   probe_and_vote     kernel B              (csrc/probe_vote.cu)
   insert_blocks      kernel D              (csrc/insert_sorted.cu), exact
+                     (also the blockwise ``insert_read``)
   insert_max         insert_max (K15)      (csrc/insert_max.cu), throughput
 
 A fill pass sets bits in a presence bitmap of ceil(size / 32) words batch
@@ -29,8 +30,8 @@ that already hold bits.  ``fill_presence`` does the OR for one batch.
 rank-compressed filter (``compressed.py``), keyed on ranks instead of slots.
 
 Unlike the JAX package, the filter is updated in place (``merge_presence``,
-``insert_read_sorted``, ``insert_read_max``, ``reset_ids``): a 1.14 GB
-filter is never copied.
+``insert_read``, ``insert_read_sorted``, ``insert_read_max``,
+``reset_ids``): a 1.14 GB filter is never copied.
 """
 
 from __future__ import annotations
@@ -899,21 +900,50 @@ def insert_read_sorted(state: MibfState, slots: torch.Tensor, tile_lo: int,
     return state
 
 
+def insert_read(state: MibfState, slots: torch.Tensor, tile_lo: int,
+                tile_hi: int, base_id: int, trimmed: bool,
+                params: MibfParams, max_blocks: int, num_tiles: int
+                ) -> MibfState:
+    """Blockwise reservoir insert of one read, in place: the JAX package's
+    ``insert_read`` (goldrush_tpu/mibf/mibf.py:449-521), which its
+    ``train_step`` runs.  The first ``max_blocks`` blocks of tiles lo..hi
+    of ``slots`` [H, T*F] insert as ``insert_read_sorted``'s do, except
+    that an accepted word keeps its SAT and PRESENT bits beside the block
+    id (a slot that was never presence-filled takes the bare id).  Kernel
+    D with keep = SAT | PRESENT on the card."""
+    insert_blocks(state.words, state.counts, slots, tile_lo, tile_hi,
+                  base_id, trimmed, params, num_tiles, params.size, 0,
+                  keep=SAT_BIT | PRESENT_BIT, max_blocks=max_blocks)
+    return state
+
+
 def insert_blocks(table: torch.Tensor, counts: torch.Tensor,
                   grid: torch.Tensor, lo: int, hi: int, base_id: int,
                   trimmed: bool, params: MibfParams, num_tiles: int,
-                  limit: int, or_bits: int) -> None:
+                  limit: int, or_bits: int, keep: int = 0,
+                  max_blocks: int | None = None, rank_map=None) -> None:
     """The reservoir insert over any key space (kernel D), in place: grid
     entries < ``limit`` are real keys into ``table``/``counts``, and an
-    accepted key's entry becomes ``or_bits | id``.  Direct filter: slots,
-    limit = size, or_bits = PRESENT; compressed filter: ranks, limit = the
-    sentinel rank, or_bits = 0 (compressed.py:414-476)."""
+    accepted key's entry becomes ``(old & keep) | or_bits | id``.  Direct
+    filter: slots, limit = size; compressed filter: ranks, limit = the
+    sentinel rank.  The engine's inserts take or_bits = PRESENT (direct)
+    or 0 and keep = 0 (compressed.py:414-476); the blockwise
+    ``insert_read`` of either filter keeps = SAT | PRESENT (direct) or SAT
+    and inserts only the first ``max_blocks`` blocks.  With ``rank_map``
+    (a ``compressed.CompressedState``) the grid holds that filter's slots,
+    each mapped to its rank, or to the sentinel when absent
+    (``compressed.rank_grid``)."""
+    if max_blocks is not None:
+        hi = min(hi, lo + max_blocks * params.block_size - 1)
     if table.is_cuda:
         _insert_cuda(table, counts, grid, lo, hi, base_id, trimmed, params,
-                     num_tiles, limit, or_bits)
+                     num_tiles, limit, or_bits, keep, rank_map)
     else:
+        if rank_map is not None:
+            from .compressed import rank_grid
+            grid = rank_grid(rank_map, grid, params.size)
         _insert_plain(table, counts, grid, lo, hi, base_id, trimmed, params,
-                      num_tiles, limit, or_bits)
+                      num_tiles, limit, or_bits, keep)
 
 
 def _block_id(base_id: int, m: int, bs: int, trimmed: bool) -> int:
@@ -940,13 +970,19 @@ def insert_part(keys: torch.Tensor, parts: int = INSERT_PARTS
 
 
 def _insert_cuda(words, counts, slots, lo, hi, base_id, trimmed, params, T,
-                 limit, or_bits):
+                 limit, or_bits, keep=0, rank_map=None):
     dev = words.device
     H, TF = slots.shape
     F = TF // T
     bs = params.block_size
     banks = kernels.banks_args(words, counts, dev)
     kernels.check(slots, "slots", torch.int64, device=dev)
+    bitrank = supers = None
+    if rank_map is not None:
+        bitrank, supers = rank_map.bitrank, rank_map.supers
+        kernels.check(bitrank, "bitrank", torch.int64,
+                      (-(-params.size // 32) + 1,), dev)
+        kernels.check(supers, "supers", torch.int64, device=dev)
     # a key is sorted as key << 16 | block (csrc/insert.cuh): below 2^48
     if (F * T != TF or T >= 1 << 16 or TF >= 1 << 31 or lo < 0
             or not 0 <= limit < min(1 << 48, words.shape[0])):
@@ -962,8 +998,10 @@ def _insert_cuda(words, counts, slots, lo, hi, base_id, trimmed, params, T,
     spill = (torch.empty(1 + 2 * window, dtype=torch.int64, device=dev)
              if window > INSERT_CAP else None)
     kernels.INSERT_SORTED(
-        dev, *banks, kernels.ptr(slots),
-        H, TF, F, int(limit), int(or_bits), int(lo), int(hi),
+        dev, *banks, kernels.ptr(slots), kernels.ptr(bitrank),
+        kernels.ptr(supers), 0 if supers is None else supers.shape[0],
+        params.size, H, TF, F, int(limit), int(or_bits) & _MASK32,
+        int(keep) & _MASK32, int(lo), int(hi),
         int(base_id) & _MASK32, int(bool(trimmed)), bs, INSERT_PARTS,
         INSERT_THREADS, INSERT_CAP, kernels.ptr(count), kernels.ptr(bucket),
         kernels.ptr(spill))
@@ -975,7 +1013,7 @@ def _as_int32(v: torch.Tensor) -> torch.Tensor:
 
 
 def _insert_plain(words, counts, slots, lo, hi, base_id, trimmed, params, T,
-                  limit, or_bits):
+                  limit, or_bits, keep=0):
     H, TF = slots.shape
     F = TF // T
     bs = params.block_size
@@ -991,9 +1029,13 @@ def _insert_plain(words, counts, slots, lo, hi, base_id, trimmed, params, T,
         put_(counts, u, _as_int32(cnt))
         accept = ((((u & _MASK32) ^ bid) % torch.clamp(cnt, min=1))
                   == (cnt - 1) & _MASK32)
+        won = u[accept]
         word = or_bits | bid
-        put_(words, u[accept],
-             word - (1 << 32) if word > 0x7FFFFFFF else word)
+        if keep:
+            put_(words, won, _as_int32(
+                (take(words, won).to(torch.int64) & keep) | word))
+        else:
+            put_(words, won, word - (1 << 32) if word > 0x7FFFFFFF else word)
         m += 1
 
 

@@ -22,9 +22,11 @@ plain tensors:
 
 One process holds the whole mesh: the consume scan probes the filter after
 every insert, read by read, inside one launch, so the banks are addressed
-from inside the kernel rather than through collectives.  A card may repeat
-in the mesh (``["cuda:0"] * 4``); ``"cpu"`` gives logical CPU devices,
-where the plain versions run.
+from inside the kernel rather than through collectives.  A card may
+repeat in the mesh (``["cuda:0"] * 4``); ``"cpu"`` gives logical CPU
+devices, where the plain versions run.  ``train_step`` and
+``sharded_train_step`` are the JAX module's state-mutating step: a
+batched classify, then each recruit's blockwise insert in batch order.
 """
 
 from __future__ import annotations
@@ -109,14 +111,25 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def make_mesh(n_devices: int, data: int | None = None, model: int = 1,
-              devices: Sequence | str = "cuda") -> Mesh:
+def make_mesh(n_devices: int | None = None, data: int | None = None,
+              model: int = 1, devices: Sequence | str = "cuda") -> Mesh:
     """The ``(data, model)`` mesh of the first ``n_devices`` of
     ``devices`` (a sequence, or ``"cuda"`` / ``"cpu"`` as
     ``resolve_devices`` reads them), laid out row-major as JAX's
     ``make_mesh`` lays out ``jax.devices()``, with its asserts.  As JAX's
     takes the accelerator, the default is the cards, and too few of them
-    raise; the CPU is asked for by name."""
+    raise; the CPU is asked for by name.  Without ``n_devices`` the mesh
+    takes every device, as JAX's does: a sequence's length, or
+    ``torch.cuda.device_count()`` cards; ``"cpu"`` has no count to take
+    and raises."""
+    if n_devices is None:
+        if isinstance(devices, (list, tuple)):
+            n_devices = len(devices)
+        elif resolve_device(devices).type == "cpu":
+            raise ValueError("make_mesh on 'cpu' needs n_devices: the CPU "
+                             "gives as many logical devices as asked for")
+        else:
+            n_devices = torch.cuda.device_count()
     if isinstance(devices, (list, tuple)):
         assert len(devices) >= n_devices, (len(devices), n_devices)
         devs = resolve_devices(list(devices[:n_devices]), n_devices)
@@ -181,3 +194,100 @@ def classify_step(words, codes: torch.Tensor, lengths: torch.Tensor,
                   rounding_mode="floor").to(torch.int32),
         threshold, unassigned_min, assigned_max)
     return res, slots, votes
+
+
+def _fetch_recruits(res, lengths: torch.Tensor, base_ids, params) -> list:
+    """The batch's (decision, trim start, trim end, tiles, base id) rows on
+    the host, in one fetch: n_t = lengths // tile_length
+    (goldrush_tpu/parallel/mesh.py:102) and base ids as uint32."""
+    dev = res.decision.device
+    if not torch.is_tensor(base_ids):
+        base_ids = torch.from_numpy(np.asarray(base_ids, dtype=np.int64))
+    cols = torch.stack([
+        res.decision.long(), res.trim_start.long(), res.trim_end.long(),
+        torch.div(lengths.to(dev).long(), params.tile_length,
+                  rounding_mode="floor"),
+        base_ids.to(dev, torch.int64) & 0xFFFFFFFF])
+    return cols.t().cpu().tolist()
+
+
+def _recruit(state, slots: torch.Tensor, rows: list, params: dm.MibfParams,
+             num_tiles_max: int, max_blocks: int) -> None:
+    """The recruits of a classified batch inserted in batch order into
+    ``state``, in place (the scan of goldrush_tpu/parallel/mesh.py:
+    86-108): a whole read (decision 1) inserts tiles 0..n_t-1 untrimmed, a
+    trimmed one (2) its tiles ts..te trimmed, a drop (0) nothing."""
+    for i, (dec, ts, te, n_t, bid) in enumerate(rows):
+        if dec == 0:
+            continue
+        lo, hi = (0, n_t - 1) if dec == 1 else (ts, te)
+        dm.insert_read(state, slots[i], lo, hi, bid, dec == 2, params,
+                       max_blocks, num_tiles_max)
+
+
+def train_step(state: dm.MibfState, codes: torch.Tensor,
+               lengths: torch.Tensor, base_ids, fam: SeedFamily,
+               params: dm.MibfParams, num_tiles_max: int, max_blocks: int,
+               threshold: int = 10, unassigned_min: int = 5,
+               assigned_max: int = 1):
+    """One full step over a read batch, in place: JAX's ``train_step``
+    (goldrush_tpu/parallel/mesh.py:77), the state-mutating analog of a
+    training step.  Kernel A's grid, B and C classify every read against
+    the direct filter ``state`` (``classify_step``; its arrays a tensor or
+    ``dm.Banks`` each), one fetch brings the batch's decisions, trims and
+    tile counts to the host, and each recruit then inserts in batch order
+    (``dm.insert_read``: kernel D with its keep mask on the card, the first
+    ``max_blocks`` blocks of the read).  ``base_ids`` [B] (a tensor or a
+    sequence) are the reads' first block ids.  Returns (state, decisions
+    int32 [B] on the state's device)."""
+    res, slots, _ = classify_step(state.words, codes, lengths, fam, params,
+                                  num_tiles_max, threshold, unassigned_min,
+                                  assigned_max)
+    _recruit(state, slots, _fetch_recruits(res, lengths, base_ids, params),
+             params, num_tiles_max, max_blocks)
+    return state, res.decision
+
+
+def sharded_train_step(mesh: Mesh, fam: SeedFamily, params: dm.MibfParams,
+                       num_tiles_max: int, max_blocks: int,
+                       shard_filter: bool):
+    """``train_step`` over ``mesh``: JAX's ``sharded_train_step``
+    (goldrush_tpu/parallel/mesh.py:110), the batch split over the data
+    rows and the filter replicated, or banked over each row's devices
+    (``shard_filter``).  Returns ``step(replicas, codes, lengths,
+    base_ids) -> (replicas, decisions)``: ``replicas`` as
+    ``shard_state(state, mesh, shard_filter)`` places the filter (one per
+    data row); data row i classifies reads [i B/d, (i+1) B/d) on its lead
+    against its replica (B through the bank view), as the engine's
+    ``_mesh_inputs`` does; every row then gets the whole batch's slot
+    grids and verdicts on its lead and inserts every recruit in batch order
+    into its own replica (kernel D through the bank view), so the replicas
+    stay equal with no traffic between them.  The decisions (int32 [B], on
+    row 0's lead) and the replicas equal ``train_step``'s on one device.
+    The batch size must be a multiple of the data rows, as JAX's
+    ``P("data")`` needs."""
+    def step(replicas: list, codes: torch.Tensor, lengths: torch.Tensor,
+             base_ids):
+        d = mesh.data
+        B = codes.shape[0]
+        if len(replicas) != d or B % d:
+            raise ValueError(f"{len(replicas)} replicas and a batch of {B} "
+                             f"reads for a mesh of {d} data rows")
+        per = B // d
+        # JAX's step is train_step at its default gates
+        parts = [classify_step(
+            replicas[i].words, codes[i * per: (i + 1) * per].to(mesh.lead(i)),
+            lengths[i * per: (i + 1) * per].to(mesh.lead(i)), fam, params,
+            num_tiles_max, threshold=10, unassigned_min=5, assigned_max=1)
+            for i in range(d)]
+        lead = mesh.lead(0)
+        res = type(parts[0][0])(*(torch.cat([p[0][k].to(lead)
+                                             for p in parts])
+                                  for k in range(len(parts[0][0]))))
+        rows = _fetch_recruits(res, lengths, base_ids, params)
+        for r in range(d):
+            slots = torch.cat([p[1].to(mesh.lead(r)) for p in parts])
+            _recruit(replicas[r], slots, rows, params, num_tiles_max,
+                     max_blocks)
+        return replicas, res.decision
+    return step

@@ -38,6 +38,7 @@ an output.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -67,6 +68,9 @@ MAX_H = 8
 WARP_BITS = 8
 MAX_TABLE_BITS = 14
 MAX_SMEM = 232_448
+# the shared memory wave_rounds' static arrays may take beside its dynamic
+# region (csrc/wavefront.cu kWaveStatic: the launcher checks its kernel's)
+WAVE_STATIC_SMEM = 2_048
 # the round loop's counters, per window summed over a pass: rounds, rows
 # classified, rows rechecked at full resolution, commits, silver
 # rotations, and windows that faulted (past the round cap, or ids reaching
@@ -85,6 +89,11 @@ ADJ_MAX_PARTS = 1 << 20
 # runs in them fill whole sectors of L2), then each bucket into its
 # partitions
 ADJ_BUCKETS = 256
+# the most reads a window's adjacency pairs: a group's entry holds a read
+# order in 14 bits (csrc/wavefront.cu adj_group_kernel), which takes the
+# tile budget's 8,192 reads and the mesh's padding of them to a multiple
+# of the data rows
+MAX_ADJ_READS = 1 << 14
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +176,22 @@ def adjacency_units(n_tiles: int, sms: int) -> int:
     return max(1, -(-n_tiles // (2 * sms)))
 
 
+def adjacency_plan(B: int, H: int, TF: int, T: int, S: int, TL: int,
+                   h: int, limit: int, sms: int) -> tuple[int, int, int]:
+    """wave_adjacency's launch for a window of B reads with an insert grid
+    [B, H, TF] of T tiles at stride S (h seeds in the family) and keys
+    below ``limit``, on a card of ``sms`` SMs: (partitions, buckets, tiles
+    a CTA keys).  Raises ValueError where the launcher refuses: past
+    MAX_ADJ_READS reads, 2^31 grid entries or keys."""
+    n = B * H * TF
+    if (TF % T or TF // T * S != TL or h != H or not 0 < limit < 1 << 31
+            or B > MAX_ADJ_READS or n >= 1 << 31):
+        raise ValueError(f"unsupported adjacency grid {(B, H, TF)} for "
+                         f"T={T}, stride {S}, limit {limit}")
+    parts = adjacency_parts(n)
+    return parts, min(parts, ADJ_BUCKETS), adjacency_units(B * T, sms)
+
+
 def _adjacency_cuda(spec, grid_ins, codes, limit, ranked, T, cap=ADJ_CAP):
     B, H, TF = grid_ins.shape
     dev = grid_ins.device
@@ -175,15 +200,12 @@ def _adjacency_cuda(spec, grid_ins, codes, limit, ranked, T, cap=ADJ_CAP):
     TL = spec.scan.params.tile_length
     kernels.check(grid_ins, "grid_ins", torch.int64, device=dev)
     kernels.check(codes, "codes", torch.uint8, device=dev)
+    if codes.shape[0] != B:
+        raise ValueError(f"{codes.shape[0]} reads of codes for a grid of {B}")
+    parts, nb, units = adjacency_plan(
+        B, H, TF, T, S, TL, fam.h, limit,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     n = B * H * TF
-    if (codes.shape[0] != B or TF % T or TF // T * S != TL or fam.h != H
-            or not 0 < limit < 1 << 31 or B > 1 << 13 or n >= 1 << 31):
-        raise ValueError(f"unsupported adjacency grid {tuple(grid_ins.shape)}"
-                         f" for T={T}, stride {S}, limit {limit}")
-    parts = adjacency_parts(n)
-    nb = min(parts, ADJ_BUCKETS)
-    units = adjacency_units(
-        B * T, torch.cuda.get_device_properties(dev).multi_processor_count)
     i32 = dict(dtype=torch.int32, device=dev)
     pcount = torch.empty((-(-(B * T) // units), nb), **i32)
     boff = torch.empty(nb + 1, **i32)
@@ -251,15 +273,27 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+class RoundsPlan(NamedTuple):
+    """wave_rounds' launch plan (``rounds_smem``)."""
+    smem: int          # dynamic shared memory of a CTA
+    slice_bytes: int   # each CTA's spill slice, 0 while none is needed
+    c_warps: int       # the warps of a CTA that run kernel C
+
+
 def rounds_smem(B: int, T: int, K: int, votes_q: int, votes_f: int,
-                rech_on: bool) -> tuple[int, int]:
-    """wave_rounds' dynamic shared memory for a window of B reads of T
-    tiles, K candidates a tile and ``votes_q`` / ``votes_f`` votes a tile
-    in the query and recheck tiers, and the bytes of each CTA's spill
-    slice: 0 while the commit pass's insert index (12 B a read) and the
-    per-read state (~16.6 B a read) fit beside the work region, else
-    both (csrc/wavefront.cu gr_wave_rounds, which sizes them alike).
-    Raises ValueError for a tile the work region cannot hold."""
+                rech_on: bool) -> RoundsPlan:
+    """wave_rounds' launch plan for a window of B reads of T tiles, K
+    candidates a tile and ``votes_q`` / ``votes_f`` votes a tile in the
+    query and recheck tiers (csrc/wavefront.cu gr_wave_rounds, which plans
+    alike): the dynamic shared memory; the bytes of each CTA's spill
+    slice, 0 while the commit pass's insert index (12 B a read) and the
+    per-read state (~16.6 B a read) fit beside the work region, else both;
+    and the warps of a CTA that run kernel C, all 16 while their buffers
+    fit in the work region, else as many as fit beside the index and the
+    state, or, failing that, alone (reads of ~1,024 tiles or more at K =
+    32).  The dynamic region takes what the card's MAX_SMEM leaves beside
+    the kernel's static arrays (WAVE_STATIC_SMEM).  Raises ValueError
+    where the launcher refuses."""
     bits_q, bits_f = [max(1, (v - 1).bit_length()) for v in (votes_q,
                                                              votes_f)]
     if bits_q > MAX_TABLE_BITS or (rech_on and bits_f > MAX_TABLE_BITS):
@@ -267,26 +301,40 @@ def rounds_smem(B: int, T: int, K: int, votes_q: int, votes_f: int,
                          f" takes at most 2^{MAX_TABLE_BITS}")
     warp_q = bits_q <= WARP_BITS
     warp_f = rech_on and bits_f <= WARP_BITS
-    # each warp's region: kernel C's buffer, or a warp tile's vote table
+    # kernel C's buffer, a warp tile's vote table, a CTA tile's
     cbuf = max(1 << max(0, (T - 1).bit_length()), min(T, 32) * K)
-    warp = 8 * (((T + 1) & ~1) + cbuf)
-    for on, bits in ((warp_q, bits_q), (warp_f, bits_f)):
-        if on:
-            warp = max(warp, 16 << bits)
-    work = WAVE_THREADS // 32 * _align16(warp)
-    for bits in (1 if warp_q else bits_q,
-                 1 if warp_f or not rech_on else bits_f):
-        work = max(work, ((1 << bits) + WAVE_THREADS) * 8)
-    work = _align16(work)
-    if work > MAX_SMEM:
-        raise ValueError(f"reads of {T} tiles at K={K}: wave_rounds' work "
-                         f"region takes {work} bytes of shared memory, past "
-                         f"{MAX_SMEM}")
+    c_bytes = _align16(8 * (((T + 1) & ~1) + cbuf))
+    probe = _align16(max([16 << b for on, b in ((warp_q, bits_q),
+                                               (warp_f, bits_f)) if on],
+                         default=0))
+    tile = _align16(max(((1 << bits) + WAVE_THREADS) * 8 for bits in (
+        1 if warp_q else bits_q, 1 if warp_f or not rech_on else bits_f)))
     index = _align16(12 * B)
     state = -(-B // 16) * 16 + 16 * B + 4 * -(-B // 32)
-    if max(work, index) + state <= MAX_SMEM:
-        return max(work, index) + state, 0
-    return work, index + _align16(state)
+    warps = WAVE_THREADS // 32
+
+    def work_of(cw):
+        if cw == warps:
+            return max(warps * max(c_bytes, probe), tile)
+        return max(warps * probe, tile, cw * c_bytes)
+
+    budget = MAX_SMEM - WAVE_STATIC_SMEM
+    c_warps = warps
+    if work_of(warps) > budget:
+        fits = [cw for cw in range(warps - 1, 0, -1)
+                if max(work_of(cw), index) + state <= budget] or \
+               [cw for cw in range(warps - 1, 0, -1)
+                if work_of(cw) <= budget]
+        if not fits:
+            raise ValueError(f"reads of {T} tiles at K={K}: one warp's "
+                             f"kernel C buffer ({c_bytes} bytes) and the "
+                             f"work region pass {budget} bytes of shared "
+                             "memory")
+        c_warps = fits[0]
+    work = work_of(c_warps)
+    if max(work, index) + state <= budget:
+        return RoundsPlan(max(work, index) + state, 0, c_warps)
+    return RoundsPlan(work, index + _align16(state), c_warps)
 
 
 def _window_cuda(spec, state, side, grid, frame_ok, grid_ins, ok_ins,
@@ -317,8 +365,8 @@ def _window_cuda(spec, state, side, grid, frame_ok, grid_ins, ok_ins,
             or (sc.rech_on and K > Hi * (TFi // T))):
         raise ValueError(f"unsupported grids {tuple(grid.shape)}, "
                          f"{tuple(grid_ins.shape)} for T={T}, K={K}")
-    _, slice_bytes = rounds_smem(B, T, K, Hq * (TFq // T), Hi * (TFi // T),
-                                 sc.rech_on)
+    slice_bytes = rounds_smem(B, T, K, Hq * (TFq // T), Hi * (TFi // T),
+                              sc.rech_on).slice_bytes
     # per read: its vote buffer (the consume kernel's layout), tile_min,
     # and its row of adjacency bits
     sums = torch.empty((B, 3, T), dtype=torch.int64, device=dev)

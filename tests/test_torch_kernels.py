@@ -297,6 +297,60 @@ def test_insert_hard_cases(cuda, space, kind, near_max):
     assert int((host[1] != torch.from_numpy(c.view(np.int32))).sum()) >= 3
 
 
+@pytest.mark.parametrize("kind", ["homopolymer", "one_partition", "random"])
+@pytest.mark.parametrize("space", ["slots", "ranks"])
+def test_insert_read_keep_and_rank_map(cuda, space, kind):
+    """Kernel D as the blockwise insert_read runs it, against its plain
+    version: the direct filter's words keep SAT and PRESENT (set at random
+    beforehand), the compressed filter's slot grid mapped to ranks inside
+    the launch (absent slots and the sentinel never insert) and its ids
+    keep SAT; blocks of 1, 3 and 10 tiles, max_blocks below and at the
+    block count, whole and trimmed recruits.  A repeated k-mer or keys of
+    one CTA take the global-scratch path, which re-reads the window
+    through the rank map."""
+    rng = np.random.default_rng([len(space), len(kind), 7])
+    T, F, size = 24, 1000, 10_000_019
+    grid = hard_grid(rng, kind, size, T, F)
+    if space == "slots":
+        n = -(-(size + 1) // 1024) * 1024
+        w = rng.integers(0, 1 << 30, n).astype(np.uint32) | (
+            rng.integers(0, 4, n).astype(np.uint32) << 30)
+        c = rng.integers(0, 5, n).astype(np.uint32)
+        host = tdm.state_from_numpy(w, c)
+    else:
+        w = None
+        bits = torch.from_numpy(
+            rng.integers(-(1 << 31), 1 << 31, -(-size // 32),
+                         dtype=np.int64).astype(np.int32))
+        host = tcz.with_tables(*tcz.build_rank(bits, size), size)
+        n = host.ids.shape[0]
+        host.ids.copy_(torch.from_numpy(
+            (rng.integers(0, 1 << 30, n) | (rng.integers(0, 2, n) << 31))
+            .astype(np.uint32).view(np.int32)))
+        host.counts.copy_(torch.from_numpy(
+            rng.integers(0, 5, n).astype(np.int32)))
+    dev = type(host)(*(t.to(cuda) for t in host))
+    grid_d = grid.to(cuda)
+    mod = tdm if space == "slots" else tcz
+    for bs in (1, 3, 10):
+        params = tdm.MibfParams(size=size, h=3, k=22, spans=FAM.spans,
+                                tile_length=F, block_size=bs)
+        for lo, hi, tr, base in [(0, T - 1, False, 5 + bs),
+                                 (3, T - 2, True, 70 + bs)]:
+            blocks = -(-(hi - lo + 1) // bs)
+            for mb in (max(1, blocks // 2), blocks):
+                before = kernels.INSERT_SORTED.launches
+                mod.insert_read(dev, grid_d, lo, hi, base, tr, params, mb, T)
+                assert kernels.INSERT_SORTED.launches == before + 1
+                mod.insert_read(host, grid, lo, hi, base, tr, params, mb, T)
+                assert_same(dev, host)
+    if w is not None:
+        got = host.words.numpy().view(np.uint32)
+        changed = got != w
+        assert changed.any()
+        assert (got[changed] >> 30 == w[changed] >> 30).all()
+
+
 def random_tables(rng, B, T, K, n_ids):
     curr_id = np.zeros((B, T), np.int32)
     ci = np.zeros((B, T, K), np.int32)
@@ -1141,8 +1195,9 @@ ONE_TILE_CFG = dict(genome_size=1_000_000, kmer_size=22, weight=16,
 def test_wave_rounds_past_7980_reads(cuda, tmp_path, mode):
     """wave_rounds on windows of 7,981 and 8,192 one-tile reads, whose
     insert index and per-read state leave shared memory for a global
-    scratch, against wave_window_plain: rows, scal, counters and both
-    tables bit for bit, one launch a window."""
+    scratch, and of 7,910, the largest whose state stays there beside the
+    kernel's static arrays, against wave_window_plain: rows, scal,
+    counters and both tables bit for bit, one launch a window."""
     from goldrush_tpu_torch.path import wavefront as wave
     genome = synth.random_genome(1_000_000, seed=51)
     path = str(tmp_path / "one_tile.fq")
@@ -1155,8 +1210,9 @@ def test_wave_rounds_past_7980_reads(cuda, tmp_path, mode):
     state_k = te.cstate if te.compressed else te.state
     _, _, ranked, limit, _ = wave._filter_view(state_k, te.size)
     recs = list(te._eligible(path))
-    for B in (7_981, 8_192):
-        assert wave.rounds_smem(B, 1, 32, 125, 3_000, True)[1] > 0
+    for B in (7_910, 7_981, 8_192):
+        assert (wave.rounds_smem(B, 1, 32, 125, 3_000, True)[1] > 0) == \
+            (B > 7_910)
         te.batch_reads = B
         codes, lengths, full, T = te._pack_batch(recs[:B])
         assert codes.shape[0] == B and T == 1
@@ -1181,6 +1237,99 @@ def test_wave_rounds_past_7980_reads(cuda, tmp_path, mode):
         assert_same([rows_k, scal_k, ck, side_k, *f_k],
                     [rows_p, scal_p, cp, side_p, *f_p])
         assert ck[3] > 0 and ck[5] == 0
+
+
+def test_wave_adjacency_past_8192_reads(cuda, tmp_path):
+    """wave_adjacency on a full window of 8,192 one-tile reads padded
+    with empty rows to 8,193 and 8,199 (the mesh's padding at 3 and 7
+    data rows, the engine's _pad_batch) and to 16,384 (its largest,
+    MAX_ADJ_READS) against its plain version."""
+    from goldrush_tpu_torch.ops.nthash import fingerprints
+    from goldrush_tpu_torch.path import wavefront as wave
+    genome = synth.random_genome(1_000_000, seed=51)
+    path = str(tmp_path / "one_tile.fq")
+    synth.write_fastq(path, synth.simulate_reads(
+        genome, 8_199, 1_500, seed=53, err_rate=0.05, indel_frac=0.4))
+    te = GoldenPathEngine(PathConfig(input=path, mibf_mode="direct",
+                                     **ONE_TILE_CFG), device=cuda)
+    te.calc_phred_threshold(path)
+    te.fill(path)
+    _, _, ranked, limit, _ = wave._filter_view(te.state, te.size)
+    recs = list(te._eligible(path))
+    te.batch_reads = 8_192
+    packed = te._pack_batch(recs[:8_192])
+    T = packed[3]
+    for B in (8_193, 8_199, wave.MAX_ADJ_READS):
+        codes, lengths, full = (np.pad(a, ((0, B - 8_192),) + ((0, 0),)
+                                       * (a.ndim - 1)) for a in packed[:3])
+        codes_d, _, _, gi, *_ = te._window_inputs(codes, lengths, full, T)
+        fp = fingerprints(codes_d, te.fam_ins, T * te.cfg.tile_length,
+                          te.params_ins.frame_stride, wave.FP_BITS)
+        got = wave.wave_adjacency(te.wave_spec, gi, codes_d, limit, ranked,
+                                  T)
+        want = wave.wave_adjacency_plain(gi, fp, limit, ranked)
+        assert got.shape == (B, B) and torch.equal(got, want)
+        assert int((want > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("mode", ["direct", "compressed"])
+def test_wave_rounds_long_reads(cuda, tmp_path, mode):
+    """wave_rounds on windows of reads in the 1,024-, 1,536- and
+    2,048-tile buckets at the bench cell's tiers (tiles of 1,000, one
+    probed seed at stride 8, the full-resolution recheck, K = 32), where
+    kernel C runs on fewer warps of a CTA (wavefront.rounds_smem), against
+    wave_window_plain: rows, scal, counters and both tables bit for
+    bit."""
+    from goldrush_tpu_torch.path import wavefront as wave
+    genome = synth.random_genome(3_000_000, seed=61)
+    path = str(tmp_path / "long.fq")
+    reads = []
+    for n_tiles, count, seed in ((1_000, 8, 62), (1_400, 5, 63),
+                                 (2_000, 4, 64)):
+        reads += synth.simulate_reads(genome, count, n_tiles * 1_000 + 500,
+                                      seed=seed, err_rate=0.05)
+    synth.write_fastq(path, reads)
+    cfg = dict(WAVE_CFG, genome_size=3_000_000, hash_universe=0,
+               min_length=20_000, vote_topk=32)
+    te = GoldenPathEngine(PathConfig(input=path, mibf_mode=mode, **cfg),
+                          device=cuda)
+    te.calc_phred_threshold(path)
+    te.fill(path)
+    state_k = te.cstate if te.compressed else te.state
+    _, _, ranked, limit, _ = wave._filter_view(state_k, te.size)
+    recs = list(te._eligible(path))
+    start = 0
+    for count, want_T, warps in ((8, 1_024, 14), (5, 1_536, 8),
+                                 (4, 2_048, 7)):
+        te.batch_reads = count
+        codes, lengths, full, T = te._pack_batch(recs[start: start + count])
+        start += count
+        assert T == want_T
+        codes_d, *inputs = te._window_inputs(codes, lengths, full, T)
+        grid, gi = inputs[0], inputs[2]
+        assert wave.rounds_smem(
+            codes.shape[0], T, 32, grid.shape[1] * grid.shape[2] // T,
+            gi.shape[1] * gi.shape[2] // T, True).c_warps == warps
+        adj = wave.wave_adjacency(te.wave_spec, gi, codes_d, limit, ranked, T)
+        f_k = type(state_k)(*(t.clone() for t in state_k))
+        f_p = type(state_k)(*(t.clone() for t in state_k))
+        side_k = torch.zeros_like(f_k.ids if te.compressed else f_k.words)
+        side_p = side_k.clone()
+        scal_k = torch.tensor([0, 0, 1, 0], dtype=torch.int64, device=cuda)
+        scal_p = scal_k.clone()
+        ck, cp = wave.new_counters(cuda), wave.new_counters(cuda)
+        rows_k = torch.empty((codes.shape[0], 8), dtype=torch.int64,
+                             device=cuda)
+        rows_p = torch.empty_like(rows_k)
+        before = kernels.WAVE_ROUNDS.launches
+        wave.wave_window(te.wave_spec, f_k, side_k, *inputs, adj, scal_k,
+                         rows_k, ck, T)
+        assert kernels.WAVE_ROUNDS.launches == before + 1
+        wave.wave_window_plain(te.wave_spec, f_p, side_p, *inputs, adj,
+                               scal_p, rows_p, cp, T)
+        assert_same([rows_k, scal_k, ck, side_k, *f_k],
+                    [rows_p, scal_p, cp, side_p, *f_p])
+        assert ck[5] == 0
 
 
 @pytest.mark.parametrize("mode", ["direct", "compressed"])

@@ -1,5 +1,6 @@
 """PyTorch port, the wavefront at the largest windows its tile budget makes:
-8,192 one-tile reads a window.
+8,192 one-tile reads a window (and the mesh's padding of it), and at the
+largest tile buckets (reads of 1,024-2,048 tiles).
 
 On the card such a window's per-read state and insert index leave
 wave_rounds' shared memory for a global scratch (`wavefront.rounds_smem`
@@ -45,22 +46,50 @@ def sha256(path: str) -> str:
 
 # (window reads, reads' tiles, query / recheck votes a tile) -> whether the
 # insert index and per-read state leave shared memory
-@pytest.mark.parametrize("B,T,spills", [(256, 20, False), (7_980, 1, False),
+@pytest.mark.parametrize("B,T,spills", [(256, 20, False), (7_910, 1, False),
                                         (7_981, 1, True), (8_192, 1, True),
                                         (8_199, 1, True)])
 def test_rounds_smem_plan(B, T, spills):
     """The bench cell's tiers (one probed seed at stride 8: 125 votes a
     tile; three seeds at full resolution: 3,000): shared memory within
-    the card's 232,448 bytes at every window up to 8,192 reads and the
-    mesh's padding past it, the state beside the work region through
-    7,980 reads and in a slice of 28-30 bytes a read after."""
-    smem, slice_bytes = wave.rounds_smem(B, T, 32, 125, 3_000, True)
-    assert smem <= wave.MAX_SMEM
+    the card's 232,448 bytes less the kernel's static arrays at every
+    window up to 8,192 reads and the mesh's padding past it, the state
+    beside the work region through 7,910 reads and in a slice of 28-30
+    bytes a read after, kernel C on every warp. Reads of the largest
+    tile buckets (1,024-2,048 tiles, a window of the tile budget plus
+    the mesh's padding) run C on fewer warps, whose buffers fit beside
+    the state, and spill nothing."""
+    smem, slice_bytes, c_warps = wave.rounds_smem(B, T, 32, 125, 3_000,
+                                                  True)
+    assert smem <= wave.MAX_SMEM - wave.WAVE_STATIC_SMEM and c_warps == 16
     assert (slice_bytes > 0) == spills
     if spills:
         assert 28 * B <= slice_bytes <= 30 * B
-    with pytest.raises(ValueError, match="shared memory"):
-        wave.rounds_smem(8, 1_024, 32, 125, 3_000, True)
+    for tiles, warps in ((1_024, 14), (1_536, 8), (2_048, 7)):
+        for reads in (1, 8_192 // tiles, 8_192 // tiles + 7):
+            plan = wave.rounds_smem(reads, tiles, 32, 125, 3_000, True)
+            assert plan.smem <= wave.MAX_SMEM - wave.WAVE_STATIC_SMEM
+            assert (plan.slice_bytes, plan.c_warps) == (0, warps)
+
+
+@pytest.mark.parametrize("d", [3, 5, 6, 7])
+def test_adjacency_plan_takes_mesh_padding(d):
+    """wave_adjacency takes the windows that the mesh's padding makes of a
+    full window of 8,192 one-tile reads (8,193-8,199 reads at d = 3, 5, 6
+    and 7 data rows, the engine's _pad_batch), up to the 14-bit read order
+    of its group entries, and raises past it."""
+    B = -(-8_192 // d) * d
+    assert 8_192 < B <= 8_199
+    parts, buckets, units = wave.adjacency_plan(B, 3, 1_000, 1, 1, 1_000,
+                                                3, 142_368_384, 132)
+    assert parts == wave.adjacency_parts(B * 3 * 1_000)
+    assert buckets == min(parts, wave.ADJ_BUCKETS) and units >= 1
+    assert wave.ord_bits(B) == 14
+    wave.adjacency_plan(wave.MAX_ADJ_READS, 3, 1_000, 1, 1, 1_000, 3,
+                        142_368_384, 132)
+    with pytest.raises(ValueError, match="adjacency"):
+        wave.adjacency_plan(wave.MAX_ADJ_READS + 1, 3, 1_000, 1, 1, 1_000,
+                            3, 142_368_384, 132)
 
 
 def test_wave_window_8192_matches_jax_digests(tmp_path):

@@ -85,6 +85,36 @@ the port to them.
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py ntcard insert
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py wavefront
     JAX_PLATFORMS=cpu python tools/torch_port_digests.py wave_8192  # ~40 s
+    JAX_PLATFORMS=cpu python tools/torch_port_digests.py train_step
+    JAX_PLATFORMS=cpu python tools/torch_port_digests.py wave_long
+    JAX_PLATFORMS=cpu python tools/torch_port_digests.py wave_8192_d3
+
+Under "train_step": the JAX package's ``train_step``
+(goldrush_tpu/parallel/mesh.py:77) at the bench cell's width: bench.py's
+reads (BENCH_DATASET: 3,000 x 20 kb of a 5 Mbp genome), the engine's
+direct filter for them (TRAIN_ENGINE: 142,368,384 slots, h = 3, tiles of
+1,000, every frame, K = 32, blocks of 10), presence-filled with every
+read (the pass-1 fill), then, from that filter, four steps of 64 reads
+(reads 0-255 in file order, base ids 1 + 2 i for read i) at each
+max_blocks of TRAIN_STEPS: after each step the sha256 of the words and
+counters of the real slots (the JAX fill also sets the sentinel slot,
+which the port's fill leaves) and of the decisions (int32), and the
+decisions' counts.  chip_smoke.py phase 11 holds the port's
+``train_step`` and ``sharded_train_step`` on the card to them.
+
+Under "wave_long": the JAX wavefront engine on reads of the 1,024-tile
+bucket (WAVE_LONG_DATASET: 24 reads of 240,000 bases; WAVE_LONG: tiles of
+256 at stride 8, so a window is 8 reads), the silver paths of each
+filter.  The JAX wavefront slices its classify and conflict passes in
+chunks of up to 64 rows; a window of 8 reads needs chunks of 8, which
+change no output (tests/test_torch_wavefront_engine.py patches them
+alike).  chip_smoke.py phase 9 holds the port on the card to them.
+
+Under "wave_8192_d3": the "wave_8192" case at three data rows (devices=3),
+whose windows of 8,192 reads the port pads to 8,193.  The JAX mesh engine
+cannot run three rows (its pass-1 fill shards batches of 64 reads), so
+the key states that the files are "wave_8192"'s and holds its digests.
+chip_smoke.py phase 10 holds the port's engine on ["cuda:0"] * 3 to them.
 """
 
 from __future__ import annotations
@@ -141,6 +171,19 @@ WAVE_8192_DATASET = dict(genome=1_000_000, genome_seed=51, n_reads=9_000,
                          indel_frac=0.4)
 WAVE_8192 = dict(THROUGHPUT, min_length=1_000, unassigned_min=1,
                  assigned_max=0, wavefront=True, wave_window=8_192)
+# bench.py's dataset and the train steps' engine geometry at its width
+BENCH_DATASET = dict(genome=5_000_000, genome_seed=11, n_reads=3_000,
+                     read_len=20_000, reads_seed=12, err_rate=0.05)
+TRAIN_ENGINE = dict(genome_size=5_000_000, kmer_size=22, weight=16,
+                    hash_num=3, seed_preset="1011011110110111101101")
+# four steps of 64 reads at each max_blocks
+TRAIN_STEPS = dict(steps=4, batch=64, max_blocks=[2, 1])
+# reads of the 1,024-tile bucket at tiles of 256 (937 tiles a read)
+WAVE_LONG_DATASET = dict(genome=1_000_000, genome_seed=51, n_reads=24,
+                         read_len=240_000, reads_seed=54, err_rate=0.05,
+                         indel_frac=0.4)
+WAVE_LONG = dict(THROUGHPUT, tile_length=256, wavefront=True,
+                 wave_window=8)
 
 
 def sha256_file(path: str) -> str:
@@ -336,6 +379,146 @@ def wave_8192_entry(fq: str, workdir: str) -> dict:
                for mode in ("direct", "compressed")}}
 
 
+def digest(a) -> str:
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def bench_codes():
+    """BENCH_DATASET's reads as the engine packs a batch of 20-tile reads:
+    codes uint8 [n, 21,000], lengths int32 [n], and the FASTQ's sha256
+    (written to a temporary file)."""
+    import numpy as np
+    from goldrush_tpu.io.fastq import encode
+    from goldrush_tpu.utils import synth
+    d = BENCH_DATASET
+    reads = synth.simulate_reads(
+        synth.random_genome(d["genome"], seed=d["genome_seed"]),
+        d["n_reads"], d["read_len"], seed=d["reads_seed"],
+        err_rate=d["err_rate"])
+    with tempfile.TemporaryDirectory(prefix="torch_port_bench_") as tmp:
+        fq = os.path.join(tmp, "bench_reads.fq")
+        synth.write_fastq(fq, reads)
+        sha = sha256_file(fq)
+    L = 21 * 1_000
+    codes = np.zeros((len(reads), L), np.uint8)
+    lengths = np.zeros(len(reads), np.int32)
+    for i, (_, seq, _) in enumerate(reads):
+        c = encode(seq)[: L - 1]
+        codes[i, : len(c)] = c
+        lengths[i] = len(c)
+    return codes, lengths, sha
+
+
+def train_step_entry(fq: str, workdir: str) -> dict:
+    """The "train_step" key: the JAX train_step at the bench width."""
+    import jax.numpy as jnp
+    import numpy as np
+    from goldrush_tpu.config import PathConfig, calc_optimal_size
+    from goldrush_tpu.mibf import mibf as dm
+    from goldrush_tpu.ops.nthash import build_seed_family, hash_positions
+    from goldrush_tpu.ops.seeds import make_seed_pattern
+    from goldrush_tpu.parallel import mesh
+    codes, lengths, sha = bench_codes()
+    cfg = PathConfig(input=fq, **TRAIN_ENGINE)
+    size = calc_optimal_size(cfg.derived_hash_universe(), 1, cfg.occupancy)
+    seeds = make_seed_pattern(cfg.seed_preset, cfg.kmer_size, cfg.weight,
+                              cfg.hash_num)
+    fam = build_seed_family(seeds)
+    params = dm.MibfParams(
+        size=size, h=cfg.hash_num, k=cfg.kmer_size,
+        spans=tuple(len(s) for s in seeds), tile_length=cfg.tile_length,
+        threshold=cfg.threshold, block_size=cfg.block_size,
+        vote_topk=cfg.vote_topk)
+    T = 20
+    # the pass-1 fill, 64 reads a batch at the engine's padded width
+    Lb, FB = 1 << 15, 64
+    P = Lb - params.k + 1
+    words = dm.init_state(params).words
+    for i in range(0, len(codes), FB):
+        n = len(codes[i: i + FB])
+        c = np.zeros((FB, Lb), np.uint8)
+        c[:n, : codes.shape[1]] = codes[i: i + n]
+        valid = np.zeros((FB, len(params.spans), P), bool)
+        for j in range(n):
+            for s, span in enumerate(params.spans):
+                valid[j, s, : max(int(lengths[i + j]) - span + 1, 0)] = True
+        words = dm.fill_presence(words, hash_positions(jnp.asarray(c), fam,
+                                                       P),
+                                 jnp.asarray(valid), size, params.idx_dtype)
+    filled = np.asarray(words)
+    out = {"dataset": {**BENCH_DATASET, "sha256": sha},
+           "engine": TRAIN_ENGINE, "size": size, "num_tiles": T,
+           "steps": TRAIN_STEPS,
+           "filled": digest(filled[:size]),
+           "present": int(((filled[:size] >> 30) & 1).sum())}
+    B = TRAIN_STEPS["batch"]
+    for mb in TRAIN_STEPS["max_blocks"]:
+        state = dm.MibfState(words=jnp.asarray(filled),
+                             counts=dm.init_state(params).counts)
+        steps = []
+        for k in range(TRAIN_STEPS["steps"]):
+            sl = slice(k * B, (k + 1) * B)
+            base = (1 + 2 * np.arange(k * B, (k + 1) * B)).astype(np.uint32)
+            state, dec = mesh.train_step(
+                state, jnp.asarray(codes[sl]), jnp.asarray(lengths[sl]),
+                jnp.asarray(base), fam, params, T, mb)
+            dec = np.asarray(dec).astype(np.int32)
+            steps.append({
+                "words": digest(np.asarray(state.words)[:size]),
+                "counts": digest(np.asarray(state.counts)[:size]),
+                "decisions": digest(dec),
+                "decision_counts": [int((dec == v).sum()) for v in (0, 1,
+                                                                    2)]})
+            print(f"train_step max_blocks={mb} step {k}: "
+                  f"{steps[-1]['decision_counts']}", flush=True)
+        out[f"max_blocks_{mb}"] = steps
+    return out
+
+
+def small_wave_chunks(rows: int) -> None:
+    """Cap the JAX wavefront's chunk slices at ``rows`` (chunking changes
+    no output): a window smaller than a chunk cannot be sliced."""
+    from goldrush_tpu.path import wavefront as jwave
+    for name in ("CLASSIFY_CHUNK", "CONFLICT_CHUNK", "RECHECK_CHUNK",
+                 "INSERT_CHUNK"):
+        setattr(jwave, name, min(getattr(jwave, name), rows))
+
+
+def wave_long_entry(fq: str, workdir: str) -> dict:
+    """The "wave_long" key: its dataset (written here) and the silver
+    digests of the wavefront over reads of the 1,024-tile bucket, each
+    filter."""
+    from goldrush_tpu.config import PathConfig
+    from goldrush_tpu.path.engine import GoldenPathEngine
+    from goldrush_tpu.utils import synth
+    small_wave_chunks(WAVE_LONG["wave_window"])
+    d = WAVE_LONG_DATASET
+    fq = os.path.join(workdir, "long_reads.fq")
+    synth.write_fastq(fq, synth.simulate_reads(
+        synth.random_genome(d["genome"], seed=d["genome_seed"]),
+        d["n_reads"], d["read_len"], seed=d["reads_seed"],
+        err_rate=d["err_rate"], indel_frac=d["indel_frac"]))
+    return {"dataset": {**d, "sha256": sha256_file(fq)}, "engine": WAVE_LONG,
+            **{mode: silver_run(GoldenPathEngine, PathConfig, fq,
+                                os.path.join(workdir, f"wl_{mode}"),
+                                {**WAVE_LONG, "mibf_mode": mode})
+               for mode in ("direct", "compressed")}}
+
+
+def wave_8192_d3_entry(fq: str, workdir: str) -> dict:
+    """The "wave_8192_d3" key: the "wave_8192" case on three data rows.
+    The JAX mesh engine cannot run it: its pass-1 fill splits batches of
+    64 reads over the data axis (goldrush_tpu/path/engine.py:456), which
+    three rows do not divide (a ValueError from its fill's sharding).  The
+    mesh changes no output of the JAX engine (one replica per row, each
+    running the whole window), so the key states that the case's files
+    are "wave_8192"'s and holds that key's digests, computed here."""
+    base = wave_8192_entry(fq, workdir)
+    return {"engine": dict(WAVE_8192, devices=3), "same_as": "wave_8192",
+            "direct": base["direct"], "compressed": base["compressed"]}
+
+
 def write_gate_dataset(path: str) -> None:
     from goldrush_tpu.utils import synth
     genome = synth.random_genome(DATASET["genome"],
@@ -366,7 +549,9 @@ def main() -> None:
         return
     keys = {"ntcard": ntcard_entry, "insert": insert_entry,
             "wavefront": wavefront_entry, "direct_2_32": direct_2_32_entry,
-            "wave_8192": wave_8192_entry}
+            "wave_8192": wave_8192_entry, "train_step": train_step_entry,
+            "wave_long": wave_long_entry,
+            "wave_8192_d3": wave_8192_d3_entry}
     if sys.argv[1:] and set(sys.argv[1:]) <= set(keys):
         with open(OUT) as f:
             out = json.load(f)
@@ -415,7 +600,10 @@ def main() -> None:
                "insert": insert_entry(fq, d),
                "wavefront": wavefront_entry(fq, d),
                "direct_2_32": direct_2_32_entry(fq, d),
-               "wave_8192": wave_8192_entry(fq, d)}
+               "wave_8192": wave_8192_entry(fq, d),
+               "train_step": train_step_entry(fq, d),
+               "wave_long": wave_long_entry(fq, d),
+               "wave_8192_d3": wave_8192_d3_entry(fq, d)}
     write(out)
 
 
