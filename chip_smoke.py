@@ -27,6 +27,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      both grids also at a frame stride: the throughput mode's query grid
      (B=64, h=1, S=8), S=2 with h=3 and its full-resolution insert grid
      (B=64, h=3), timed, and the grid cases of hard_cases.grid_lengths;
+     the throughput batch's query grid written by its insert grid's launch
+     (build_slot_grids, build_rank_grids) against those two launches and
+     the plain versions, bit for bit, timed (`fused_grid`);
      kernel D (the consume kernel's insert launched alone) also on
      recruits whose keys one of its CTAs owns or that repeat one k-mer
      (past a CTA's shared memory), in both filters, and timed on a
@@ -69,7 +72,10 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      probe (a batch with one live re-probe, less the same batch with an
      insert instead; and one trim recheck, less a batch of drops); and
      the first 16 (exact) or 8 (throughput) batches of a silver pass over
-     the bench reads, in order, timed per batch;
+     the bench reads, in order, timed per batch; in the throughput cell
+     also one insert of a probed recruit inside the kernel, its keys
+     staged in the owners' shared memory and loaded at the insert
+     (`probed_insert_ms`);
   4. end to end, two paths, each with every launch count zeroed just
      before it and read just after:
      exact: goldrush-path (silver M=5, then golden) through the CLI
@@ -85,7 +91,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      in both, the consume kernel, kernel B and kernel C once per batch
      (the batched probe and classify), kernel D and insert_max never
      from the host (their code runs inside the consume kernel), one
-     insert in it per recruit, and its live re-probes, trim rechecks,
+     insert in it per recruit, in the throughput cell kernel A's grid
+     entry once per batch (both grids from one launch), and its live
+     re-probes, trim rechecks,
      inserts and resets printed per pass; every kernel must have
      launched in each path; each run's times, reads/s and peak device
      memory are printed;
@@ -735,7 +743,7 @@ def strided_grids(codes, lengths, params, cs, n_care) -> tuple:
 
     def both(c, n, h, S, mode, Tg):
         """Both entries on the card and plain: their max_abs_err, and the
-        kernel's slots and frame_ok."""
+        kernel's slots and frame_ok (and ranks and frame_ok)."""
         p = par(h, S, mode)
         sk = dm.build_slot_grid(c, n, fams[h], p, Tg)
         rk = cz.build_rank_grid(cs, c, n, fams[h], p, Tg)
@@ -743,16 +751,18 @@ def strided_grids(codes, lengths, params, cs, n_care) -> tuple:
                                                             Tg)))
         er = max_abs_err(zip(rk, cz._build_rank_grid_plain(cs, c, n, fams[h],
                                                             p, Tg)))
-        return es, er, sk
+        return es, er, sk, rk
     slot_rec, rank_rec = {}, {}
     err_s = err_r = 0
+    apart = {}               # (tag, mode) -> the two entries' grids
     for tag, (B, h, S) in {"s8": (64, 1, 8), "s2": (32, 3, 2),
                            "ins_b64": (64, 3, 1)}.items():
         qc = torch.from_numpy(codes[:B, : T * TL + TL].copy()).to(dev)
         ql = torch.from_numpy(lengths[:B].copy()).to(dev)
         for mode in ("mod", "fastrange"):
-            es, er, (slots, ok) = both(qc, ql, h, S, mode, T)
+            es, er, (slots, ok), ranks = both(qc, ql, h, S, mode, T)
             err_s, err_r = max(err_s, es), max(err_r, er)
+            apart[tag, mode] = (slots, ok, *ranks)
         p, fam = par(h, S), fams[h]
         n_ok = int(ok.sum())
         ops = hash_ops(n_ok, n_ok * h, len(fam.care_left)
@@ -779,17 +789,87 @@ def strided_grids(codes, lengths, params, cs, n_care) -> tuple:
             rank_ms=f"{rank_rec['ms_' + tag]:.4f}",
             rank_plain_ms=f"{rank_rec['plain_ms_' + tag]:.4f}",
             rank_bound_ms=f"{rank_rec['bound_ms_' + tag]:.4f}")
+    if hasattr(dm, "build_slot_grids"):
+        # the throughput batch's query grid (s8) written by its insert
+        # grid's launch (ins_b64), against the two separate launches above
+        # (the parent's design) bit for bit, and timed
+        es, er = fused_grid(qc, ql, fams, par, cs, apart, T, slot_rec,
+                            rank_rec, n_care)
+        err_s, err_r = max(err_s, es), max(err_r, er)
     cases = hard.grid_lengths(TL, 22)
     for h, S in ((1, 8), (3, 2)):
         for case, (lens, Tc) in cases.items():
             c, n = (torch.from_numpy(a).to(dev) for a in
                     hard.read_batch(lens, Tc * TL + TL, seed=len(case)))
             for mode in ("mod", "fastrange"):
-                es, er, _ = both(c, n, h, S, mode, Tc)
+                es, er, *_ = both(c, n, h, S, mode, Tc)
                 err_s, err_r = max(err_s, es), max(err_r, er)
     say("kernels", kernel="seed_hash_grid+rank_grid", strides="8,2",
         grid_cases=len(cases), max_abs_err=max(err_s, err_r))
     return slot_rec, rank_rec, err_s, err_r
+
+
+def fused_grid(qc, ql, fams, par, cs, apart, T, slot_rec, rank_rec,
+               n_care) -> tuple:
+    """Kernel A's insert grid of a throughput batch (B=64, h=3, S=1) with
+    its query grid (h=1, S=8) written by the same launch
+    (build_slot_grids, build_rank_grids) against the two separate launches
+    (`apart`: (tag, mode) -> slots, frame_ok, ranks, frame_ok) and the
+    plain versions, in both slot maps; timed in the fastrange map beside
+    its bound (the codes in, both grids and frame_oks out, the insert
+    grid's hashing; the rank entry also gathers each distinct bitrank word
+    once).  Adds ms_fused, plain_ms_fused, bound_ms_fused to both records;
+    returns their max_abs_err."""
+    import torch
+    from goldrush_tpu_torch.mibf import compressed as cz
+    from goldrush_tpu_torch.mibf import mibf as dm
+
+    def plain_s(pi, pq):
+        g = dm._build_slot_grid_plain(qc, ql, fams[3], pi, T)
+        return (*dm.query_of(*g, pq, pi), *g)
+
+    def plain_r(pi, pq):
+        g = cz._build_rank_grid_plain(cs, qc, ql, fams[3], pi, T)
+        return (*dm.query_of(*g, pq, pi), *g)
+    err_s = err_r = 0
+    for mode in ("mod", "fastrange"):
+        pq, pi = par(1, 8, mode), par(3, 1, mode)
+        two_s = apart["s8", mode][:2] + apart["ins_b64", mode][:2]
+        two_r = apart["s8", mode][2:] + apart["ins_b64", mode][2:]
+        got_s = dm.build_slot_grids(qc, ql, fams[3], pi, pq, T)
+        got_r = cz.build_rank_grids(cs, qc, ql, fams[3], pi, pq, T)
+        err_s = max(err_s, max_abs_err(zip(got_s, two_s)),
+                    max_abs_err(zip(got_s, plain_s(pi, pq))))
+        err_r = max(err_r, max_abs_err(zip(got_r, two_r)),
+                    max_abs_err(zip(got_r, plain_r(pi, pq))))
+    pq, pi = par(1, 8), par(3, 1)
+    q, oq, g, og = got_s
+    n_ok = int(og.sum())
+    nbytes = (qc.numel() + ql.numel() * 4 + (q.numel() + g.numel()) * 8
+              + oq.numel() + og.numel())
+    ops = hash_ops(n_ok, n_ok * 3, n_care)
+    words = torch.unique(g[g < pi.size] >> 5).numel()
+    for rec, fn, plain, extra in (
+            (slot_rec, lambda: dm.build_slot_grids(qc, ql, fams[3], pi, pq,
+                                                   T),
+             lambda: plain_s(pi, pq), 0),
+            (rank_rec, lambda: cz.build_rank_grids(cs, qc, ql, fams[3], pi,
+                                                   pq, T),
+             lambda: plain_r(pi, pq), words * 8)):
+        r = checked(0, cuda_ms(fn, 20), cuda_ms(plain, 3), nbytes + extra,
+                    ops)
+        rec.update({f"{k}_fused": r[k]
+                    for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    say("kernels", kernel="seed_hash_grid+rank_grid", fused="s8_in_ins_b64",
+        max_abs_err=max(err_s, err_r), ms=f"{slot_rec['ms_fused']:.4f}",
+        apart_ms=f"{slot_rec['ms_s8'] + slot_rec['ms_ins_b64']:.4f}",
+        insert_grid_ms=f"{slot_rec['ms_ins_b64']:.4f}",
+        bound_ms=f"{slot_rec['bound_ms_fused']:.4f}",
+        rank_ms=f"{rank_rec['ms_fused']:.4f}",
+        rank_apart_ms=f"{rank_rec['ms_s8'] + rank_rec['ms_ins_b64']:.4f}",
+        rank_insert_grid_ms=f"{rank_rec['ms_ins_b64']:.4f}",
+        rank_bound_ms=f"{rank_rec['bound_ms_fused']:.4f}")
+    return err_s, err_r
 
 
 def minimizer_edges(dev, k: int, w: int) -> int:
@@ -1204,6 +1284,67 @@ def insert_in_kernel_ms(te, filt, inputs, T, dev) -> tuple:
     return ins - base, base
 
 
+def consume_counts_of(te, filt, inputs, rows0, T, dev) -> list:
+    """The counters of one consume launch on `inputs` with `rows0` from
+    scal [0, 0, 1, 0], the filter restored after it."""
+    import torch
+    from goldrush_tpu_torch.path import consume as tcons
+    saved = [t.clone() for t in filt]
+    ck = tcons.new_counters(dev)
+    tcons.consume_batch(te.spec, filt, *inputs[:-1], rows0,
+                        torch.tensor([0, 0, 1, 0], dtype=torch.int64,
+                                     device=dev),
+                        torch.empty((rows0.shape[0], 8), dtype=torch.int64,
+                                    device=dev), ck, T)
+    for t, v in zip(filt, saved):
+        t.copy_(v)
+    return ck.tolist()
+
+
+def probed_insert_ms(te, filt, inputs, T, dev) -> dict:
+    """One whole-read insert of a probed read inside the consume kernel, on
+    a batch of bench reads (rarely overlapping): read B-2 recruits at
+    batch time and read B-1, a batch-time recruit, re-probes and recruits
+    (one live probe, two inserts), less the same batch whose read B-1 is a
+    copy of read B-2 (the same probe, then assigned: one insert).  Under
+    the optimistic policy the kernel stages the probed read's keys in its
+    owners' shared memory while the runners classify it: "staged" with the
+    default budget, "loaded" with none (consume.STAGE_BYTES = 0; a tree
+    without staging gives "staged" alone, its only design).  The filter is
+    restored around every launch."""
+    import torch
+    from goldrush_tpu_torch.path import consume as tcons
+    B = inputs[-1].shape[0]
+    whole = torch.tensor([1, 0, T - 1, T])
+    rows = quiet_rows(inputs[-1])
+    rows[B - 2, :4] = whole
+    rows[B - 1, :4] = whole
+    perm = torch.cat([torch.arange(B - 1), torch.tensor([B - 2])]).to(dev)
+    twin = [t[perm] for t in inputs[:-1]] + [rows]
+    one = list(inputs[:-1]) + [rows]
+    budgets = {"staged": getattr(tcons, "STAGE_BYTES", None)}
+    if budgets["staged"] is not None:
+        budgets["loaded"] = 0
+    out = {}
+    try:
+        for name, budget in budgets.items():
+            if budget is not None:
+                tcons.STAGE_BYTES = budget
+            want = consume_counts_of(te, filt, one, rows, T, dev)
+            want_twin = consume_counts_of(te, filt, twin, rows, T, dev)
+            if (want[0] != 1 or want[2] != 2 or want_twin[0] != 1
+                    or want_twin[2] != 1):
+                raise AssertionError(f"probed insert batches: counters "
+                                     f"{want}, {want_twin}")
+            out[name] = (timed_consume(te, filt, one, rows, T, dev, want)
+                         - timed_consume(te, filt, twin, rows, T, dev,
+                                         want_twin))
+    finally:
+        if budgets["staged"] is not None:
+            tcons.STAGE_BYTES = budgets["staged"]
+    return out
+
+
 def probe_in_kernel_ms(te, filt, inputs, T, dev) -> dict:
     """One probe inside the consume kernel, on the 'overlap' batch (reads
     500 bases apart) after its read 0 was inserted: a batch whose reads
@@ -1483,6 +1624,8 @@ def consume_check(dev) -> dict:
                                      f"scal {scal.tolist()}")
             if name == "overlap":
                 overlap_inputs = inputs
+            if name == "rotate_done":
+                bench_inputs = inputs
         if cell != "exact_is8":
             # one whole-read insert and one probe inside the kernel, on the
             # overlap batch's reads, from the fresh filter
@@ -1491,12 +1634,23 @@ def consume_check(dev) -> dict:
             ins, idle = insert_in_kernel_ms(te, filt, overlap_inputs, 20,
                                             dev)
             probe = probe_in_kernel_ms(te, filt, overlap_inputs, 20, dev)
+            # insert_max of a probed read, staged and loaded
+            probed = (probed_insert_ms(te, filt, bench_inputs, 20, dev)
+                      if te.fast else {})
             bench = bench_batches_ms(te, filt, reads[200:], 20, dev,
                                      16 if cell == "exact" else 8)
             rec.update({f"ms_insert_{cell}_{mode}": ins,
                         f"ms_no_recruit_{cell}_{mode}": idle,
                         f"ms_probe_{cell}_{mode}": probe["live"],
                         f"ms_bench_{cell}_{mode}": bench["ms"]})
+            if probed:
+                rec[f"ms_insert_probed_{cell}_{mode}"] = probed["staged"]
+                if "loaded" in probed:
+                    rec[f"ms_insert_probed_loaded_{cell}_{mode}"] = \
+                        probed["loaded"]
+                say("kernels", kernel="consume", cell=cell, filter=mode,
+                    **{f"insert_in_kernel_ms_probed_{k}": f"{v:.4f}"
+                       for k, v in probed.items()})
             if probe["recheck"] is not None:
                 rec[f"ms_recheck_{cell}_{mode}"] = probe["recheck"]
             say("kernels", kernel="consume", cell=cell, filter=mode,
@@ -2192,9 +2346,11 @@ def phase_throughput() -> dict:
     every launch count zeroed just before and read just after.  The consume
     kernel must launch once per batch, kernels B and C once per batch (the
     batched probe and classify), kernel D and insert_max never from the
-    host, and every kernel of the path must launch; each pass prints the
-    consume kernel's live re-probes, trim rechecks, inserts and resets.
-    Returns the launch counts."""
+    host, kernel A's grid entry of the filter once per batch (its query
+    grid written by the insert grid's launch), and every kernel of the
+    path must launch; each pass prints the consume kernel's live
+    re-probes, trim rechecks, inserts and resets.  Returns the launch
+    counts."""
     import torch
     from goldrush_tpu_torch import kernels
     from goldrush_tpu_torch.config import PathConfig
@@ -2236,6 +2392,14 @@ def phase_throughput() -> dict:
             check_consume_launches(f"throughput {mode}", got,
                                    {k.name: k.launches for k in inserts},
                                    passes[n_pass:], st.recruits)
+            # kernel A: one launch a batch writes both grids (the query
+            # grid inside the insert grid)
+            grid = "seed_hash_rank_grid" if mode == "compressed" \
+                else "seed_hash_grid"
+            if not eng.fuse_q or got[grid] != st.num_batches:
+                raise AssertionError(f"throughput {mode}: {got[grid]} "
+                                     f"launches of {grid} for "
+                                     f"{st.num_batches} batches")
             target = eng.cfg.ratio * eng.cfg.genome_size
             for i in range(1, st.paths_completed + 1):
                 bases = sum(len(r.seq) for r in

@@ -59,9 +59,16 @@
 //      Thread-block clusters do not help here: a cooperative launch takes
 //      them (CUDA 12.9 on an H100), but a cluster barrier costs 0.64-0.71
 //      us, and no step's work lives in one cluster.
-// More: the reset is a grid-stride loop; insert_max is atomicMax over a
-// grid-stride loop, and two of them need no barrier between them (max
-// commutes); L1 is not coherent across SMs, so all memory that another CTA
+// More: the reset is a grid-stride loop; insert_max (insert.cuh) is a
+// reduction (red.global.max) per real key, and two of them need no
+// barrier between them (max commutes).  Under the optimistic policy each
+// owner stages its share of a probed read's full-resolution keys, all of
+// its tiles, in shared memory while the runners classify it (the exact
+// policy's scatter and sort take that time there), so that once the
+// decision arrives an insert is the tile-range test and the reductions; a
+// read whose shares exceed `stage_cap` keys, and a recruit that was not
+// probed, read their keys at the insert, a key a thread over the grid.
+// L1 is not coherent across SMs, so all memory that another CTA
 // of the launch writes (the filter, the vote buffers, the buckets, the
 // outcomes) is read through L2.  Scratch lives across launches: the
 // bucket counters, the spill counters and the outcomes' sequence numbers
@@ -159,6 +166,9 @@ struct ConsumeArgs {
   unsigned* bucket_count;     // [2, parts], zeroed
   unsigned long long* bucket;  // [2, parts, cap]
   unsigned long long* spill;  // [2 + 2 * Hi * T * Fi]: two counters, zeroed
+  // the optimistic policy's staging: keys an owner holds in shared memory
+  // (0: none staged)
+  int stage_cap;
 };
 
 // A probe tier: its grid, frame_ok and gates.
@@ -317,21 +327,27 @@ __device__ __forceinline__ void filter_barrier(const ConsumeArgs& a,
   grid.sync();
 }
 
-// insert_max of read i's tiles lo..last (ids from `base`) over the grid.
+// insert_max of read i's tiles lo..last (ids from `base`): from the
+// owners' staged slices of its nt tiles (`staged`), or read from the
+// insert grid by every thread of the grid.  Every thread calls it.
 template <typename Filt>
-__device__ void insert_max_read(const ConsumeArgs& a, int i, int lo,
-                                int last, uint32_t base, bool trimmed) {
-  if (last < lo) return;
+__device__ void insert_max_read(const ConsumeArgs& a, int i, int nt,
+                                bool staged, int lo, int last, uint32_t base,
+                                bool trimmed) {
+  const auto words = view_of<WordsOf<Filt>>(a.banks);
+  const int rank = blockIdx.x, n = gridDim.x;
+  if (staged && last < nt) {
+    if (rank >= kRunners)
+      insert_max_staged(words, reinterpret_cast<const int64_t*>(gr_smem),
+                        a.Fi, a.Hi, nt, lo, last, a.ins_limit, a.or_bits,
+                        base, trimmed, a.bs, rank - kRunners, n - kRunners);
+    return;
+  }
   const int64_t TF = static_cast<int64_t>(a.T) * a.Fi;
-  const int64_t* g = a.grid_i + static_cast<int64_t>(i) * a.Hi * TF;
-  const int64_t window = static_cast<int64_t>(last - lo + 1) * a.Fi;
-  const int64_t total = window * a.Hi;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    insert_max_entry(view_of<WordsOf<Filt>>(a.banks), g, TF, a.Fi,
-                     a.ins_limit, a.or_bits, lo, window, e, base, trimmed,
-                     a.bs);
+  insert_max_loaded(words, a.grid_i + static_cast<int64_t>(i) * a.Hi * TF,
+                    TF, a.Fi, a.Hi, lo, last, a.ins_limit, a.or_bits, base,
+                    trimmed, a.bs, rank * blockDim.x + threadIdx.x,
+                    n * blockDim.x);
 }
 
 // what the filter saw since the last grid barrier
@@ -350,6 +366,7 @@ consume_kernel(const ConsumeArgs a) {
       {a.grid_i, a.ok_i, a.Hi, a.Fi, a.vote_min_f, a.x_f, a.bits_f}};
   const int rank = blockIdx.x;
   const bool owner = rank >= kRunners;
+  const int n_owners = static_cast<int>(gridDim.x) - kRunners;
   const int64_t TFi = static_cast<int64_t>(a.T) * a.Fi;
   uint64_t* sbuf = reinterpret_cast<uint64_t*>(gr_smem);
   uint32_t* before = reinterpret_cast<uint32_t*>(sbuf + a.cap);
@@ -424,6 +441,15 @@ consume_kernel(const ConsumeArgs a) {
     const int64_t seq = probe ? ++probes : 0;
     if (probe && rank < kRunners && (rank == 0 ? live : rech))
       classify_tier(a, tiers[rank], rank, n_t, seq, &sh[rank]);
+    // the optimistic policy: the owners stage the probed read's keys while
+    // the runners classify it (published by the barriers below)
+    const bool staged =
+        a.fast && probe &&
+        stage_fits(a.Hi, nt, a.Fi, n_owners, a.stage_cap);
+    if (staged && owner)
+      stage_max_slice(a.grid_i + static_cast<int64_t>(i) * a.Hi * TFi, TFi,
+                      a.Fi, a.Hi, nt, rank - kRunners, n_owners,
+                      reinterpret_cast<int64_t*>(gr_smem));
     int n_own = 0;
     const uint64_t* buf = sbuf;
     if (scatter && owner) {
@@ -477,7 +503,8 @@ consume_kernel(const ConsumeArgs a) {
       if (a.fast) {
         // a reset's stores
         if (dirty == kWritten) filter_barrier<Filt>(a, grid);
-        insert_max_read<Filt>(a, i, lo, last, base, o.dec == 2);
+        insert_max_read<Filt>(a, i, nt, staged, lo, last, base,
+                              o.dec == 2);
         dirty = kMaxOnly;
       } else {
         if (owner)
@@ -557,7 +584,9 @@ extern "C" {
 // per tier at this T; outcome int64 [2 * 16], zeroed; under the exact
 // policy bucket_count uint32 [2 * parts] and spill's two counters zeroed,
 // bucket uint64 [2 * parts * cap], spill's data 2 * Hi * T * Fi entries.
-// `parts` must be the SMs less the two runners.
+// `parts` must be the SMs less the two runners.  stage_cap: the keys of a
+// probed read an owner stages under the optimistic policy (8 bytes each in
+// shared memory; 0 stages none).
 int gr_consume(void* const* table, void* const* counts, int n_banks,
                int64_t bank_len, int remote, int ranked,
                int64_t probe_limit, int64_t ins_limit, uint32_t or_bits,
@@ -568,7 +597,8 @@ int gr_consume(void* const* table, void* const* counts, int n_banks,
                int vote_min_q, int x_q, int vote_min_f, int x_f, int u_min,
                int a_max, int TL, int bs, int S, int fast, int rech_on,
                int silver, int64_t target, int64_t max_paths, int cap,
-               int parts, int64_t* scal, int64_t* rows, int64_t* counters,
+               int parts, int stage_cap, int64_t* scal, int64_t* rows,
+               int64_t* counters,
                unsigned long long* sums, int32_t* vals, bool* binit,
                int64_t* outcome, unsigned* bucket_count,
                unsigned long long* bucket, unsigned long long* spill,
@@ -590,7 +620,11 @@ int gr_consume(void* const* table, void* const* counts, int n_banks,
       Hq > gr::kMaxH || Hi > gr::kMaxH || K > Hq * Fq || bits_q > 14 ||
       (rech_on && (K > Hi * Fi || bits_f > 14)) || bs < 1 ||
       TL < 1 || cap < 4 * gr::kThreads || (cap & (cap - 1)) ||
+      stage_cap < 0 ||
       rows0_cols < (rech_on ? 9 : 8) || !outcome ||
+      // insert_max's window entries and block width are 32-bit
+      (fast && (static_cast<int64_t>(T) * Fi * Hi >= (int64_t{1} << 31) ||
+                static_cast<int64_t>(Fi) * bs >= (int64_t{1} << 31))) ||
       (!fast && (!spill || !bucket || !bucket_count || parts < 1 ||
                  parts > gr::kMaxParts)))
     return cudaErrorInvalidValue;
@@ -623,6 +657,8 @@ int gr_consume(void* const* table, void* const* counts, int n_banks,
   // an owner's sorted entries and its keys' counters (or half as many
   // entries again while it keeps the distinct ones of an overflow)
   if (!fast) smem = std::max(smem, static_cast<size_t>(cap) * 12);
+  // an owner's staged keys of a probed read
+  if (fast) smem = std::max(smem, static_cast<size_t>(stage_cap) * 8);
   if (smem > gr::kMaxSmem) return cudaErrorInvalidValue;
   if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
                                     dev)) != cudaSuccess)
@@ -637,7 +673,7 @@ int gr_consume(void* const* table, void* const* counts, int n_banks,
                     scal,
                     rows, counters, sums, vals, binit, outcome,
                     static_cast<uint32_t>(parts), bucket_count, bucket,
-                    spill};
+                    spill, fast ? stage_cap : 0};
   return gr::with_view(banks, [&](auto filt) {
     const auto kernel = gr::consume_kernel<decltype(filt)>;
     cudaError_t e = gr::allow_smem(kernel, smem);

@@ -1,7 +1,8 @@
 // The two inserts' device code: kernel D (the exact reservoir insert,
 // launched alone by insert_sorted.cu, whose note gives its design and
 // bound) and insert_max (the throughput mode's max-id-wins insert,
-// insert_max.cu), run as they are by the fused consume kernel (consume.cu).
+// insert_max.cu; below), run as they are by the fused consume kernel
+// (consume.cu), which also stages insert_max's keys of a probed read.
 //
 // Kernel D in three steps, every CTA of a cooperative grid taking part:
 //   1. scatter_window: each CTA reads its own slice of the recruit's window
@@ -312,25 +313,144 @@ __device__ inline void owner_apply(const Filt filt, const uint64_t* buf,
   }
 }
 
-// insert_max for the window entry e of a recruit: e / window is its seed
-// row of the grid [H, TF], e % window its column from tile lo.  A key below
-// `limit` raises its table entry (through the filter's view) to or_bits |
-// its block id.  The atomic is device-scoped: only the launching card's
-// threads write the banks during a launch, also a bank in peer memory,
-// where it needs native peer atomics (kernels.py require_peer).
-template <typename Filt>
-__device__ __forceinline__ void insert_max_entry(
-    const Filt filt, const int64_t* __restrict__ grid, int64_t TF, int F,
-    int64_t limit, uint32_t or_bits, int lo, int64_t window, int64_t e,
-    uint32_t base_id, bool trimmed, int bs) {
-  const int64_t s = e / window;
-  const int64_t col = static_cast<int64_t>(lo) * F + e % window;
-  const int64_t key = grid[s * TF + col];
+// insert_max (K15): every real key of a recruit's tiles lo..last raises
+// its table entry (through the filter's view) to or_bits | its block id,
+// by a reduction whose result is unused (red.global.max, device scope:
+// only the launching card's threads write the banks during a launch, also
+// a bank in peer memory, where it needs native peer atomics, kernels.py
+// require_peer).  Max commutes, so neither the order of the reductions nor
+// the split of the window over threads changes the table.
+//
+// A seed's tiles lo..last are one contiguous span of L = nw * F int64 keys
+// at g + s * TF + lo * F, so the window is H spans, entry e = s * L + c
+// (span column c).  A thread takes one entry at a time: its span and its
+// block, c / (F * bs), are two multiply-highs (Div32), with no division
+// per entry; the design it replaces spent three 64-bit divisions or
+// modulos per entry.  On an H100 (tools/torch_port_insert_max_variants.py)
+// two keys a thread by 16-byte loads over a CTA's slice of the spans was
+// slower alone and inside the consume kernel: fewer threads wait on the
+// same loads.
+
+// n / d for n < 2^31 and d >= 1: the multiply-high of n by floor((2^32 -
+// 1) / d) falls short of n / d by less than n (1 + 1/d) / 2^32 <= 1, so it
+// is floor(n / d) or one less, and one compare corrects it.
+struct Div32 {
+  uint32_t d, m;
+
+  __device__ explicit Div32(uint32_t d_) : d(d_), m(0xFFFFFFFFu / d_) {}
+  __device__ __forceinline__ uint32_t operator()(uint32_t n) const {
+    const uint32_t q = __umulhi(n, m);
+    return q + (n - q * d >= d ? 1u : 0u);
+  }
+};
+
+// A recruit's window of H spans of L keys (L * H < 2^31, which the
+// wrappers check) and its block ids: a key at span column c (from tile lo)
+// of tiles of F keys takes or_bits | base + m, or base + (m * bs + 1) / bs
+// when trimmed, m = (c / F) / bs = c / (F * bs); (m * bs + 1) / bs is m + 1
+// at bs = 1 and m above.
+struct MaxWindow {
+  uint32_t L, W;   // a span's keys; all keys, H * L
+  Div32 span, block;
+  uint32_t first;  // or_bits | base (+ 1 when trimmed at bs = 1)
+
+  __device__ MaxWindow(int H, int tiles, int F, int bs, uint32_t base,
+                       bool trimmed, uint32_t or_bits)
+      : L(static_cast<uint32_t>(tiles) * static_cast<uint32_t>(F)),
+        W(L * static_cast<uint32_t>(H)),
+        span(L > 0 ? L : 1u),
+        block(static_cast<uint32_t>(F) * static_cast<uint32_t>(bs)),
+        first(or_bits | (base + (trimmed && bs == 1 ? 1u : 0u))) {}
+  // entry e's seed and span column
+  __device__ __forceinline__ void at(uint32_t e, uint32_t& s,
+                                     uint32_t& c) const {
+    s = span(e);
+    c = e - s * L;
+  }
+  __device__ __forceinline__ uint32_t value(uint32_t c) const {
+    return first + block(c);
+  }
+};
+
+// A key below `limit` raises its entry to v.  The table's words hold no
+// saturation bit and ids stay below 2^30 (the wrappers check), so v and
+// every entry are non-negative int32 and the signed maximum is the JAX
+// package's uint32 scatter-max.
+template <typename Words>
+__device__ __forceinline__ void raise_max(const Words filt, int64_t key,
+                                          int64_t limit, uint32_t v) {
   if (key < 0 || key >= limit) return;
-  const uint32_t m = static_cast<uint32_t>(col / F - lo) / bs;
-  const uint32_t id = base_id + (trimmed ? (m * bs + 1) / bs : m);
-  atomicMax(reinterpret_cast<int*>(filt.word(key)),
-            static_cast<int>(or_bits | id));
+  asm volatile("red.relaxed.gpu.global.max.s32 [%0], %1;" ::"l"(
+                   __cvta_generic_to_global(filt.word(key))),
+               "r"(v)
+               : "memory");
+}
+
+// insert_max of tiles lo..last of a read's insert grid g [H, TF] (F frames
+// a tile), loaded as it goes: thread j of `threads` takes entries j, j +
+// threads, ...  The standalone launch (insert_max.cu: one entry a thread)
+// and the consume kernel's inserts that were not staged (the whole grid)
+// run it.
+template <typename Words>
+__device__ __forceinline__ void insert_max_loaded(
+    const Words filt, const int64_t* __restrict__ g, int64_t TF, int F,
+    int H, int lo, int last, int64_t limit, uint32_t or_bits, uint32_t base,
+    bool trimmed, int bs, uint32_t j, uint32_t threads) {
+  if (last < lo) return;
+  const MaxWindow w(H, last - lo + 1, F, bs, base, trimmed, or_bits);
+  const int64_t* g0 = g + static_cast<int64_t>(lo) * F;
+  for (uint32_t e = j; e < w.W; e += threads) {
+    uint32_t s, c;
+    w.at(e, s, c);
+    raise_max(filt, __ldg(g0 + s * TF + c), limit, w.value(c));
+  }
+}
+
+// Whether a read of nt tiles stages in n CTAs of `cap` keys each: its
+// whole window of tiles 0..nt-1 cut by slice_of, ceil(W / n) <= cap
+// (consume.py stage_fits).
+__device__ __forceinline__ bool stage_fits(int H, int nt, int F, int n,
+                                           int cap) {
+  const int64_t W = static_cast<int64_t>(H) * nt * F;
+  return cap > 0 && nt > 0 && W <= static_cast<int64_t>(n) * cap;
+}
+
+// The consume kernel's staging of a probed read, while its decision is
+// made: CTA `rank` of `n` copies its slice (slice_of) of the read's window
+// of tiles 0..nt-1 into stage[] (shared memory), in slice order.  Every
+// thread calls it; the caller's barrier publishes it.
+__device__ __forceinline__ void stage_max_slice(
+    const int64_t* __restrict__ g, int64_t TF, int F, int H, int nt,
+    int rank, int n, int64_t* stage) {
+  const MaxWindow w(H, nt, F, 1, 0u, false, 0u);
+  int64_t e0, e1;
+  slice_of(w.W, rank, n, e0, e1);
+  for (uint32_t j = threadIdx.x; j < e1 - e0; j += blockDim.x) {
+    uint32_t s, c;
+    w.at(static_cast<uint32_t>(e0) + j, s, c);
+    stage[j] = __ldg(g + s * TF + c);
+  }
+}
+
+// insert_max of tiles lo..last from the staged slices (lo >= 0, last <
+// nt): CTA `rank` of `n` raises its staged keys whose span columns lie in
+// the range.  Every thread calls it.
+template <typename Words>
+__device__ __forceinline__ void insert_max_staged(
+    const Words filt, const int64_t* stage, int F, int H, int nt, int lo,
+    int last, int64_t limit, uint32_t or_bits, uint32_t base, bool trimmed,
+    int bs, int rank, int n) {
+  if (last < lo) return;
+  const MaxWindow w(H, nt, F, bs, base, trimmed, or_bits);
+  const uint32_t a = static_cast<uint32_t>(lo) * F;   // the range's columns
+  const uint32_t b = static_cast<uint32_t>(last + 1) * F;
+  int64_t e0, e1;
+  slice_of(w.W, rank, n, e0, e1);
+  for (uint32_t j = threadIdx.x; j < e1 - e0; j += blockDim.x) {
+    uint32_t s, c;
+    w.at(static_cast<uint32_t>(e0) + j, s, c);
+    if (c >= a && c < b) raise_max(filt, stage[j], limit, w.value(c - a));
+  }
 }
 
 }  // namespace gr

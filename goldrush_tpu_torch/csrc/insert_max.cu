@@ -12,16 +12,18 @@
 //
 // The table's words hold no saturation bit and ids stay below 2^30 (the
 // wrapper checks base + blocks), so every value is a non-negative int32 and
-// the signed atomicMax takes the same maximum as the JAX package's uint32
+// the signed maximum (red.global.max.s32) is the JAX package's uint32
 // scatter-max.  Max is commutative, so the result does not depend on the
-// order of the atomics; the counters are not touched.
+// order of the reductions; the counters are not touched.
 //
-// One launch per recruit, one thread per entry of the window
-// H x (hi - lo + 1) x F, consecutive threads on consecutive frames of a
-// seed, so the window read is coalesced.  Bound at a 20-tile recruit of
-// h = 3 (F = 1000): the 480 KB window in, one 32-byte sector per distinct
-// key written; ~1 us at the card's rate, so a launch costs more than its
-// bytes.
+// One launch per recruit of the device code the consume kernel runs for
+// an insert that it did not stage (insert.cuh insert_max_loaded): one
+// thread per key of the window H x (hi - lo + 1) x F, consecutive threads
+// on consecutive frames of a seed, so the window read is coalesced; a
+// key's seed and block by two multiply-highs, a reduction per real key.
+// Bound at a 20-tile recruit of h = 3 (F = 1000): the 480 KB window in,
+// one 32-byte sector per distinct key written; ~0.7 us at the card's
+// rate, so a launch costs more than its bytes.
 #include "insert.cuh"
 
 namespace gr {
@@ -30,14 +32,13 @@ constexpr int kMaxThreads = 256;
 
 template <typename Filt>
 __global__ void __launch_bounds__(kMaxThreads) insert_max_kernel(
-    const Filt filt, const int64_t* __restrict__ grid, int64_t TF,
-    int F, int64_t limit, uint32_t or_bits, int lo, int64_t window,
-    int64_t total, uint32_t base_id, bool trimmed, int bs) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (e >= total) return;
-  insert_max_entry(filt, grid, TF, F, limit, or_bits, lo, window, e,
-                   base_id, trimmed, bs);
+    const Banks banks, const int64_t* __restrict__ grid, int64_t TF, int F,
+    int H, int64_t limit, uint32_t or_bits, int lo, int last,
+    uint32_t base_id, bool trimmed, int bs) {
+  insert_max_loaded(view_of<WordsOf<Filt>>(banks), grid, TF, F, H, lo,
+                    last, limit, or_bits, base_id, trimmed, bs,
+                    blockIdx.x * blockDim.x + threadIdx.x,
+                    gridDim.x * blockDim.x);
 }
 
 }  // namespace gr
@@ -54,21 +55,23 @@ int gr_insert_max(void* const* table, void* const* counts, int n_banks,
                   int hi, uint32_t base_id, int trimmed, int bs,
                   cudaStream_t stream) {
   gr::Banks banks;
+  // the window's entries and a block's keys are 32-bit (insert.cuh)
   if (H <= 0 || F <= 0 || TF % F || lo < 0 || bs <= 0 ||
+      TF * H >= (int64_t{1} << 31) ||
+      static_cast<int64_t>(F) * bs >= (int64_t{1} << 31) ||
       !gr::make_banks(table, counts, n_banks, bank_len, remote, &banks))
     return cudaErrorInvalidValue;
   const int64_t T = TF / F;
   const int64_t last = hi < T - 1 ? hi : T - 1;
   if (last < lo) return gr::kNoLaunch;
-  const int64_t window = (last - lo + 1) * F;
-  const int64_t total = window * H;
+  const int64_t total = (last - lo + 1) * F * H;
   const unsigned blocks = static_cast<unsigned>(
       (total + gr::kMaxThreads - 1) / gr::kMaxThreads);
   return gr::with_view(banks, [&](auto filt) {
     gr::insert_max_kernel<decltype(filt)>
         <<<blocks, gr::kMaxThreads, 0, stream>>>(
-            filt, grid, TF, F, limit, or_bits, lo, window, total, base_id,
-            trimmed != 0, bs);
+            banks, grid, TF, F, H, limit, or_bits, lo,
+            static_cast<int>(last), base_id, trimmed != 0, bs);
     return cudaGetLastError();
   });
 }

@@ -12,6 +12,11 @@
 //                        + _rank_lookup / rank_grid (goldrush_tpu/mibf/
 //                        compressed.py:218, :506), the resident-table gather
 //                        of tools/probe_pallas.py:59 (pallas_call :61);
+//   (both grid entries)  with a query grid beside the grid: the first hq
+//                        seeds at every q_step-th frame, the throughput
+//                        mode's query tier written by its insert grid's
+//                        launch (the sampled grid equals the dense one
+//                        subsampled: mibf.py query_in_insert_grid);
 //   seed_hash_fill       replaces hash_positions + slot_of + fill_presence
 //                        (mibf/mibf.py:122): one batch of pass 1, into a
 //                        presence bitmap;
@@ -46,7 +51,10 @@
 //    codes window, but computes right-half partials only where its frames
 //    and the stale-tail clamp read them, and hashes only the frames it
 //    emits: at B=64, T=20, h=1, S=8 (the throughput mode's query grid)
-//    1.3 MB of codes in and 1.4 MB out;
+//    1.3 MB of codes in and 1.4 MB out.  Written by the insert grid's
+//    launch (B=64, h=3, S=1, 30.7 MB of stores) that query grid adds 1.44
+//    MB of stores and no hashing: its slots (ranks) are the insert grid's
+//    first hq seeds at every q_step-th frame, computed once;
 //  - rank grid: the grid's stores, ranks in place of slots, plus one 8-byte
 //    bitrank[slot >> 5] gather per valid entry from a 35.6 MB table (at the
 //    bench sizing) that fits the 50 MB L2.  A thread computes its frame's h
@@ -132,14 +140,21 @@ __device__ __forceinline__ uint64_t frame_slot(const Family& f,
 // CTAs per SM.  A filter of one superblock runs without the base's
 // registers: with them its B=32, T=20 grid took 0.0392 ms on an H100
 // against 0.0334 without (chip_smoke.py --ab).
-template <int kStore>
+//
+// kQuery: also write the query grid [B, hq, T*Fq] and its frame_ok, Fq =
+// F / q_step: frame j of a tile, when j % q_step == 0, is query frame
+// j / q_step, and its first hq seeds' entries go there too.  At a stride
+// S = q_step * S_ins the query frame sits at tile position (j / q_step) *
+// S, which is where the sampled grid's frame probes, with the same clamp.
+template <int kStore, bool kQuery>
 __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
     const uint8_t* __restrict__ codes, int64_t L,
     const int* __restrict__ lengths, const Family f, int T, int TL, int S,
     int64_t size, int mode, const unsigned long long* __restrict__ bitrank,
     const unsigned long long* __restrict__ supers, int64_t n_super,
     int64_t sentinel, int64_t* __restrict__ grid,
-    bool* __restrict__ frame_ok) {
+    bool* __restrict__ frame_ok, int64_t* __restrict__ grid_q,
+    bool* __restrict__ ok_q, int hq, int q_step) {
   extern __shared__ ulonglong2 smem[];
   const int t = blockIdx.x, b = blockIdx.y;
   const int F = TL / S;                         // frames per tile
@@ -152,12 +167,37 @@ __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
   const uint64_t usize = static_cast<uint64_t>(size);
   bool* ok_row = frame_ok + b * TF + col0;
   int64_t* out = grid + static_cast<int64_t>(b) * f.h * TF + col0;
+  // the query grid's rows of this tile (kQuery)
+  int64_t TFq = 0;
+  bool* okq_row = nullptr;
+  int64_t* outq = nullptr;
+  if constexpr (kQuery) {
+    const int64_t Fq = F / q_step;
+    TFq = T * Fq;
+    okq_row = ok_q + b * TFq + t * Fq;
+    outq = grid_q + static_cast<int64_t>(b) * hq * TFq + t * Fq;
+  }
   const Stage st(smem, f, frames_t);
   if (frames_t > 0) stage(f, codes + b * L, L, pos0, frames_t, S, st);
+  // j = jq * q_step + rem, kept as j steps by blockDim.x (no division a
+  // frame): frame j is query frame jq when rem == 0
+  int jq = 0, rem = 0, jq_step = 0, rem_step = 0;
+  if constexpr (kQuery) {
+    jq = threadIdx.x / q_step;
+    rem = threadIdx.x - jq * q_step;
+    jq_step = blockDim.x / q_step;
+    rem_step = blockDim.x - jq_step * q_step;
+  }
   for (int j = threadIdx.x; j < F; j += blockDim.x) {
     const int fr = j * S;
     const bool ok = fr < frames_t;
     ok_row[j] = ok;
+    // the seeds of frame j that the query grid takes
+    int nq = 0;
+    if constexpr (kQuery) {
+      nq = rem == 0 ? hq : 0;
+      if (nq) okq_row[jq] = ok;
+    }
     ulonglong2 own = make_ulonglong2(0, 0);
     if (ok) own = left_at(f, st, fr);
     if constexpr (kStore != kSlots) {
@@ -180,17 +220,30 @@ __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
         }
 #pragma unroll
         for (int g = 0; g < kGather; ++g) {
-          if (s0 + g < f.h)
-            out[(s0 + g) * TF + j] =
+          if (s0 + g < f.h) {
+            const int64_t v =
                 ok ? rank_in(e[g], bit[g], sup[g], sentinel) : sentinel;
+            out[(s0 + g) * TF + j] = v;
+            if (kQuery && s0 + g < nq) outq[(s0 + g) * TFq + jq] = v;
+          }
         }
       }
     } else {
       for (int s = 0; s < f.h; ++s) {
-        out[s * TF + j] =
+        const int64_t v =
             ok ? static_cast<int64_t>(
                      frame_slot(f, st, own, fr, frames_t, s, usize, mode))
                : size;
+        out[s * TF + j] = v;
+        if (kQuery && s < nq) outq[s * TFq + jq] = v;
+      }
+    }
+    if constexpr (kQuery) {
+      jq += jq_step;
+      rem += rem_step;
+      if (rem >= q_step) {
+        rem -= q_step;
+        ++jq;
       }
     }
   }
@@ -254,25 +307,51 @@ __global__ void __launch_bounds__(kThreads) presence_merge_kernel(
   reinterpret_cast<uint4*>(words)[i] = w;
 }
 
-// Both grid entries: check the clamp invariant and the stride, and launch.
+// A grid entry's launch of the instantiation <kStore, kQuery>.
+template <int kStore, bool kQuery>
+cudaError_t launch_grid_as(const uint8_t* codes, int64_t B, int64_t L,
+                           const int* lengths, const Family& f, int T,
+                           int TL, int S, int64_t size, int mode,
+                           const unsigned long long* bitrank,
+                           const unsigned long long* supers, int64_t n_super,
+                           int64_t sentinel, int64_t* grid, bool* frame_ok,
+                           int64_t* grid_q, bool* ok_q, int hq, int q_step,
+                           cudaStream_t stream) {
+  const size_t smem = stage_bytes(f, TL);
+  const auto kernel = seed_hash_grid_kernel<kStore, kQuery>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 blocks(static_cast<unsigned>(T), static_cast<unsigned>(B));
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      codes, L, lengths, f, T, TL, S, size, mode, bitrank, supers, n_super,
+      sentinel, grid, frame_ok, grid_q, ok_q, hq, q_step);
+  return cudaGetLastError();
+}
+
+// Both grid entries: check the clamp invariant, the stride and the query
+// grid's (none when grid_q is null: hq seeds, 1 <= hq <= h, every q_step-th
+// frame, q_step dividing TL / S), and launch.
 template <int kStore>
 int launch_grid(const uint8_t* codes, int64_t B, int64_t L, const int* lengths,
                 const Family& f, int T, int TL, int S, int64_t size, int mode,
                 const unsigned long long* bitrank,
                 const unsigned long long* supers, int64_t n_super,
                 int64_t sentinel, int64_t* grid, bool* frame_ok,
+                int64_t* grid_q, bool* ok_q, int hq, int q_step,
                 cudaStream_t stream) {
   if (TL < f.k + f.h - 1) return cudaErrorInvalidValue;  // the clamp invariant
   if (S < 1 || TL % S) return cudaErrorInvalidValue;
+  if (grid_q && (!ok_q || hq < 1 || hq > f.h || q_step < 1 ||
+                 (TL / S) % q_step))
+    return cudaErrorInvalidValue;
   if (B == 0 || T == 0) return kNoLaunch;
-  const size_t smem = stage_bytes(f, TL);
-  const cudaError_t err = allow_smem(seed_hash_grid_kernel<kStore>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 blocks(static_cast<unsigned>(T), static_cast<unsigned>(B));
-  seed_hash_grid_kernel<kStore><<<blocks, kThreads, smem, stream>>>(
-      codes, L, lengths, f, T, TL, S, size, mode, bitrank, supers, n_super,
-      sentinel, grid, frame_ok);
-  return cudaGetLastError();
+  if (grid_q)
+    return launch_grid_as<kStore, true>(
+        codes, B, L, lengths, f, T, TL, S, size, mode, bitrank, supers,
+        n_super, sentinel, grid, frame_ok, grid_q, ok_q, hq, q_step, stream);
+  return launch_grid_as<kStore, false>(
+      codes, B, L, lengths, f, T, TL, S, size, mode, bitrank, supers,
+      n_super, sentinel, grid, frame_ok, nullptr, nullptr, 0, 1, stream);
 }
 
 }  // namespace gr
@@ -284,21 +363,25 @@ const char* gr_error_string(int err) {
 }
 
 // fam_table: the family's kernel_table on the card; h..pad its scalars;
-// S the frame stride (divides TL): slots [B, h, T*TL/S].
+// S the frame stride (divides TL): slots [B, h, T*TL/S].  With slots_q
+// (else null), also the query grid [B, hq, T*TL/(S*q_step)] and ok_q.
 int gr_seed_hash_grid(const uint8_t* codes, int64_t B, int64_t L,
                       const int* lengths, const uint64_t* fam_table, int h,
                       int k, int half, int nl, int nr, int pad, int T, int TL,
                       int S, int64_t size, int mode, int64_t* slots,
-                      bool* frame_ok, cudaStream_t stream) {
+                      bool* frame_ok, int64_t* slots_q, bool* ok_q, int hq,
+                      int q_step, cudaStream_t stream) {
   const gr::Family f{h, k, half, nl, nr, pad, fam_table};
   return gr::launch_grid<gr::kSlots>(codes, B, L, lengths, f, T, TL, S, size,
                                      mode, nullptr, nullptr, 0, 0, slots,
-                                     frame_ok, stream);
+                                     frame_ok, slots_q, ok_q, hq, q_step,
+                                     stream);
 }
 
 // bitrank, supers: the frozen structure of a filter of `size` slots
 // (ceil(size / 32) + 1 words, n_super = ceil(size / 2^32) superblock
-// bases); sentinel: the rank absent slots and invalid frames get.
+// bases); sentinel: the rank absent slots and invalid frames get.  With
+// ranks_q (else null), also the query grid and ok_q, as gr_seed_hash_grid.
 int gr_seed_hash_rank_grid(const uint8_t* codes, int64_t B, int64_t L,
                            const int* lengths, const uint64_t* fam_table,
                            int h, int k, int half, int nl, int nr, int pad,
@@ -306,17 +389,19 @@ int gr_seed_hash_rank_grid(const uint8_t* codes, int64_t B, int64_t L,
                            const unsigned long long* bitrank,
                            const unsigned long long* supers, int64_t n_super,
                            int64_t sentinel, int64_t* ranks, bool* frame_ok,
+                           int64_t* ranks_q, bool* ok_q, int hq, int q_step,
                            cudaStream_t stream) {
   if (n_super < 1) return cudaErrorInvalidValue;
   const gr::Family f{h, k, half, nl, nr, pad, fam_table};
   if (n_super == 1)
     return gr::launch_grid<gr::kRanks>(codes, B, L, lengths, f, T, TL, S,
                                        size, mode, bitrank, supers, n_super,
-                                       sentinel, ranks, frame_ok, stream);
+                                       sentinel, ranks, frame_ok, ranks_q,
+                                       ok_q, hq, q_step, stream);
   return gr::launch_grid<gr::kRanksSupers>(codes, B, L, lengths, f, T, TL, S,
                                            size, mode, bitrank, supers,
                                            n_super, sentinel, ranks, frame_ok,
-                                           stream);
+                                           ranks_q, ok_q, hq, q_step, stream);
 }
 
 int gr_seed_hash_fill(const uint8_t* codes, int64_t B, int64_t L,

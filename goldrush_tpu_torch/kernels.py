@@ -55,12 +55,12 @@ _BANKS = (_PP, _PP, _I, _L, _I)
 # NO_LAUNCH
 _SIGNATURES = {
     "gr_seed_hash_grid": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _L, _I, _P, _P, _P),
+                          _I, _I, _I, _L, _I, _P, _P, _P, _P, _I, _I, _P),
     "gr_seed_hash_fill": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
                           _L, _I, _P, _P),
     "gr_seed_hash_rank_grid": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _L, _I, _P, _P, _L, _L, _P, _P,
-                               _P),
+                               _P, _P, _I, _I, _P),
     "gr_presence_merge": (_P, _L, _P, _L, _I, _P),
     "gr_probe_vote": (*_BANKS, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
@@ -77,8 +77,8 @@ _SIGNATURES = {
     "gr_kmer_query": (_P, _I, _L, _I, _Q, _P, _P),
     "gr_consume": (*_BANKS, _I, _L, _L, _U, _P, _P, _I, _I, _P, _P, _I,
                    _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P, _P, _P, _P,
-                   _P, _P, _P, _P, _P, _P),
+                   _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _I, _P, _P, _P,
+                   _P, _P, _P, _P, _P, _P, _P),
     "gr_recheck_zone": (_P, _I, _I, _I, _I, _P),
     "gr_ntcard_count": (_P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I,
                         _P),

@@ -32,7 +32,8 @@ tensor and its kernel for a CUDA tensor (or raises):
                    steps: rank_pack's block cumsum, rank_scan's carries,
                    rank_carry's add)
   build_rank_grid  hash a batch to its probe grid of ranks at any stride
-                   (kernel A's rank grid entry); ``rank_grid`` is the plain
+                   (kernel A's rank grid entry; ``build_rank_grids``: with
+                   the query grid inside it); ``rank_grid`` is the plain
                    slot -> rank map
 
 The probe (kernel B) and both inserts (kernel D, and insert_max for the
@@ -288,16 +289,48 @@ def build_rank_grid(state: CompressedState, codes: torch.Tensor,
 def _build_rank_grid_cuda(state, codes, lengths, fam, params, T):
     ranks, frame_ok, args = dm.grid_launch_args(codes, lengths, fam, params,
                                                 T)
-    kernels.check(state.bitrank, "bitrank", torch.int64,
-                  (-(-params.size // 32) + 1,), ranks.device)
-    n_super = n_supers(params.size)
-    kernels.check(state.supers, "supers", torch.int64, (n_super,),
-                  ranks.device)
-    kernels.SEED_HASH_RANK_GRID(*args, kernels.ptr(state.bitrank),
-                                kernels.ptr(state.supers), n_super,
-                                state.sentinel, kernels.ptr(ranks),
-                                kernels.ptr(frame_ok))
+    kernels.SEED_HASH_RANK_GRID(*args, *_rank_args(state, params,
+                                                   ranks.device),
+                                kernels.ptr(ranks), kernels.ptr(frame_ok),
+                                *dm.NO_QUERY)
     return ranks, frame_ok
+
+
+def _rank_args(state, params, dev) -> tuple:
+    """The rank grid entry's arguments of the frozen structure, checked to
+    lie on ``dev``: bitrank, supers, their number and the sentinel rank."""
+    kernels.check(state.bitrank, "bitrank", torch.int64,
+                  (-(-params.size // 32) + 1,), dev)
+    n_super = n_supers(params.size)
+    kernels.check(state.supers, "supers", torch.int64, (n_super,), dev)
+    return (kernels.ptr(state.bitrank), kernels.ptr(state.supers), n_super,
+            state.sentinel)
+
+
+def build_rank_grids(state: CompressedState, codes: torch.Tensor,
+                     lengths: torch.Tensor, fam, params_ins: dm.MibfParams,
+                     params_q: dm.MibfParams, num_tiles_max: int) -> tuple:
+    """(ranks_q, ok_q, ranks_ins, ok_ins): ``build_rank_grid`` at
+    ``params_ins`` and the query grid of ``params_q`` inside it
+    (``dm.query_in_insert_grid``, else ValueError), the slots mapped to
+    ranks once, from one launch of kernel A on the card.  The plain version
+    maps the plain insert grid and takes the query grid from it
+    (``dm.query_of``)."""
+    if not dm.query_in_insert_grid(params_q, params_ins):
+        raise ValueError("the query grid does not lie in the insert grid")
+    if codes.is_cuda or lengths.is_cuda:
+        ranks, ok, args = dm.grid_launch_args(codes, lengths, fam,
+                                              params_ins, num_tiles_max)
+        q, ok_q, qargs = dm.query_launch_args(ranks, params_q, params_ins)
+        kernels.SEED_HASH_RANK_GRID(*args,
+                                    *_rank_args(state, params_ins,
+                                                ranks.device),
+                                    kernels.ptr(ranks), kernels.ptr(ok),
+                                    *qargs)
+        return q, ok_q, ranks, ok
+    ranks, ok = _build_rank_grid_plain(state, codes, lengths, fam,
+                                       params_ins, num_tiles_max)
+    return (*dm.query_of(ranks, ok, params_q, params_ins), ranks, ok)
 
 
 def _build_rank_grid_plain(state, codes, lengths, fam, params, T):

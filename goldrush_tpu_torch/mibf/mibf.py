@@ -15,6 +15,7 @@ tensors and launches its CUDA kernel for CUDA tensors (or raises):
   fill_presence_bits kernel A, fill entry  (csrc/seed_hash.cu)
   merge_presence     presence_merge        (csrc/seed_hash.cu)
   build_slot_grid    kernel A, grid entry  (csrc/seed_hash.cu), any stride
+                     (``build_slot_grids``: with the query grid inside it)
   probe_and_vote     kernel B              (csrc/probe_vote.cu)
   insert_blocks      kernel D              (csrc/insert_sorted.cu), exact
                      (also the blockwise ``insert_read``)
@@ -266,7 +267,9 @@ def gather_state(state):
     return type(state)(*(whole(t) for t in state))
 
 
-def init_state(params: MibfParams, device="cpu") -> MibfState:
+def init_state(params: MibfParams, device="cuda") -> MibfState:
+    """A zeroed filter on ``device``: the card unless the caller asks for
+    the CPU, as the JAX package's state lands on its accelerator."""
     return MibfState(
         words=torch.zeros(params.alloc, dtype=torch.int32, device=device),
         counts=torch.zeros(params.alloc, dtype=torch.int32, device=device))
@@ -652,8 +655,77 @@ def build_slot_grid(codes: torch.Tensor, lengths: torch.Tensor,
 
 def _build_slot_grid_cuda(codes, lengths, fam, params, T):
     grid, frame_ok, args = grid_launch_args(codes, lengths, fam, params, T)
-    kernels.SEED_HASH_GRID(*args, kernels.ptr(grid), kernels.ptr(frame_ok))
+    kernels.SEED_HASH_GRID(*args, kernels.ptr(grid), kernels.ptr(frame_ok),
+                           *NO_QUERY)
     return grid, frame_ok
+
+
+def query_in_insert_grid(params_q: MibfParams, params_ins: MibfParams
+                         ) -> bool:
+    """Whether the query grid of ``params_q`` lies inside the insert grid
+    of ``params_ins``: the insert stride divides the query stride, the
+    query's seeds are the first of the insert seeds, and both map into the
+    same filter (size, slot map).  Then the query grid is the insert
+    grid's first ``params_q.h`` seeds at every (S / S_ins)-th frame, with
+    its frame_ok: both are the dense grid subsampled (``tile_slot_grid``),
+    so one launch of kernel A writes both (``build_slot_grids``)."""
+    S, s = params_q.frame_stride, params_ins.frame_stride
+    return (S % s == 0 and params_q.h <= params_ins.h
+            and tuple(params_q.spans) == tuple(params_ins.spans[:params_q.h])
+            and (params_q.size, params_q.k, params_q.tile_length,
+                 params_q.slot_map)
+            == (params_ins.size, params_ins.k, params_ins.tile_length,
+                params_ins.slot_map))
+
+
+def query_of(grid: torch.Tensor, frame_ok: torch.Tensor,
+             params_q: MibfParams, params_ins: MibfParams) -> tuple:
+    """The query grid and its frame_ok taken from an insert grid [B, h,
+    T*F] and its frame_ok (``query_in_insert_grid``): its first
+    ``params_q.h`` seeds at every (S / S_ins)-th column, which is every
+    (S / S_ins)-th frame of every tile, since that step divides F."""
+    step = params_q.frame_stride // params_ins.frame_stride
+    return (grid[:, : params_q.h, ::step].contiguous(),
+            frame_ok[:, ::step].contiguous())
+
+
+def build_slot_grids(codes: torch.Tensor, lengths: torch.Tensor,
+                     fam: SeedFamily, params_ins: MibfParams,
+                     params_q: MibfParams, num_tiles_max: int) -> tuple:
+    """(grid_q, ok_q, grid_ins, ok_ins): the insert grid of ``fam``
+    (``build_slot_grid`` at ``params_ins``) and the query grid of
+    ``params_q`` inside it (``query_in_insert_grid``, else ValueError),
+    from one launch of kernel A on the card.  The plain version builds the
+    plain insert grid and takes the query grid from it (``query_of``)."""
+    if not query_in_insert_grid(params_q, params_ins):
+        raise ValueError("the query grid does not lie in the insert grid")
+    if codes.is_cuda or lengths.is_cuda:
+        grid, ok, args = grid_launch_args(codes, lengths, fam, params_ins,
+                                          num_tiles_max)
+        q, ok_q, qargs = query_launch_args(grid, params_q, params_ins)
+        kernels.SEED_HASH_GRID(*args, kernels.ptr(grid), kernels.ptr(ok),
+                               *qargs)
+        return q, ok_q, grid, ok
+    grid, ok = _build_slot_grid_plain(codes, lengths, fam, params_ins,
+                                      num_tiles_max)
+    return (*query_of(grid, ok, params_q, params_ins), grid, ok)
+
+
+# kernel A's grid entries without a query grid beside the grid
+NO_QUERY = (kernels.ptr(None), kernels.ptr(None), 0, 1)
+
+
+def query_launch_args(grid: torch.Tensor, params_q: MibfParams,
+                      params_ins: MibfParams) -> tuple:
+    """The empty query grid [B, h_q, T*F/step] (int64) and frame_ok beside
+    the insert grid ``grid`` [B, h, T*F] that kernel A fills with them, and
+    the entries' query arguments (grid, frame_ok, h_q, step)."""
+    B, _, TF = grid.shape
+    step = params_q.frame_stride // params_ins.frame_stride
+    q = torch.empty((B, params_q.h, TF // step), dtype=torch.int64,
+                    device=grid.device)
+    ok_q = torch.empty((B, TF // step), dtype=torch.bool, device=grid.device)
+    return q, ok_q, (kernels.ptr(q), kernels.ptr(ok_q), params_q.h, step)
 
 
 def _build_slot_grid_plain(codes, lengths, fam, params, T):
@@ -1128,10 +1200,10 @@ def save_state(state: MibfState, params: MibfParams, path: str) -> None:
         tile_length=params.tile_length)
 
 
-def load_state(path: str, device="cpu") -> tuple[MibfState, dict]:
-    """A saved filter (either package's .npz) on ``device``, or banked over
-    it when it is a sequence of devices (``state_from_numpy``), and its
-    geometry."""
+def load_state(path: str, device="cuda") -> tuple[MibfState, dict]:
+    """A saved filter (either package's .npz) on ``device`` (the card
+    unless the caller asks for the CPU), or banked over it when it is a
+    sequence of devices (``state_from_numpy``), and its geometry."""
     z = np.load(path)
     state = state_from_numpy(z["words"], z["counts"], device, copy=False)
     meta = {k: (int(z[k]) if z[k].ndim == 0 else tuple(int(x) for x in z[k]))

@@ -25,8 +25,8 @@ C, D and insert_max.
 
 The launch's host-side arithmetic is here, where the CPU tests reach it
 (``launch_shape``, ``gather_ctas``, ``scatter_sources``,
-``scatter_slices``, ``ConsumeScratch.sizes``; the key owners are
-``mibf.insert_part``): the kernel computes the same maps.
+``scatter_slices``, ``stage_fits``, ``ConsumeScratch.sizes``; the key
+owners are ``mibf.insert_part``): the kernel computes the same maps.
 """
 
 from __future__ import annotations
@@ -48,6 +48,12 @@ COUNTS = ("live", "recheck", "insert", "reset")
 RUNNERS = 2
 # int64 words of a runner's outcome slot (csrc/consume.cu kSlot)
 OUTCOME_SLOT = 16
+# under the optimistic policy each key owner stages its share of a probed
+# read's insert keys in this many bytes of shared memory (8 a key) while
+# the read is classified; a read whose shares do not fit reads its keys at
+# the insert.  16 KB holds a read of up to 88 tiles of 1,000 frames at
+# h = 3 on 130 owners; 0 stages none
+STAGE_BYTES = 16 * 1024
 
 
 def launch_shape(sms: int) -> tuple[int, int]:
@@ -84,6 +90,14 @@ def scatter_sources(ctas: int, jobs: int) -> list[int]:
     probed (0 jobs), every CTA."""
     busy = jobs if 2 * jobs <= ctas - RUNNERS else 0
     return list(range(RUNNERS)) + list(range(RUNNERS + busy, ctas))
+
+
+def stage_fits(H: int, tiles: int, F: int, owners: int, cap: int) -> bool:
+    """Whether the consume kernel stages a probed read of ``tiles`` tiles
+    (csrc/insert.cuh stage_fits): its window of H * tiles * F keys, cut by
+    ``scatter_slices`` over the key owners, at most ``cap`` keys each
+    (ceil(W / owners) <= cap, which is W <= owners * cap)."""
+    return cap > 0 and tiles > 0 and H * tiles * F <= owners * cap
 
 
 @dataclasses.dataclass
@@ -266,7 +280,7 @@ def _consume_cuda(spec, state, grid, frame_ok, grid_ins, ok_ins, n_tiles,
         spec.unassigned_min, spec.assigned_max, p.tile_length,
         p.block_size, p.frame_stride, int(spec.fast), int(spec.rech_on),
         int(spec.silver), int(spec.target), int(spec.max_paths),
-        dm.INSERT_CAP, parts,
+        dm.INSERT_CAP, parts, STAGE_BYTES // 8,
         kernels.ptr(scal), kernels.ptr(rows_out), kernels.ptr(counters),
         kernels.ptr(sc.sums), kernels.ptr(sc.vals), kernels.ptr(sc.binit),
         kernels.ptr(sc.outcome),

@@ -251,6 +251,12 @@ class GoldenPathEngine:
                         and (S > 1 or self.h_active < self.h_ins))
         self.reuse_q = (S == 1 and cfg.insert_stride == 1
                         and self.h_active == self.h_ins)
+        # elsewhere, where the query grid lies inside the insert grid (its
+        # seeds the first insert seeds, the insert stride dividing S), one
+        # launch of kernel A writes both (mibf.query_in_insert_grid)
+        self.fuse_q = (not self.reuse_q
+                       and dm.query_in_insert_grid(self.params,
+                                                   self.params_ins))
         # one filter per data row of the mesh (``state`` / ``cstate`` are
         # row 0's): the compressed filter freezes pass 1's bitmap into it
         # (fill) and never holds the direct words; the direct filter's
@@ -376,8 +382,9 @@ class GoldenPathEngine:
         st = self.stats
         if self.cfg.load_mibf:
             # resume from a saved filter (either package's .npz): skip
-            # pass 1; its gate bookkeeping is not reconstructed
-            state, meta = dm.load_state(self.cfg.load_mibf)
+            # pass 1; its gate bookkeeping is not reconstructed.  Staged on
+            # the host, so that a banked filter is never whole on one card
+            state, meta = dm.load_state(self.cfg.load_mibf, device="cpu")
             # the fill's geometry: every insert seed (a probed prefix of
             # them loads the same filter)
             p = self.params_full
@@ -540,11 +547,23 @@ class GoldenPathEngine:
         """One padded batch on row r's lead device: its codes, its query
         grid and frame_ok, the full-resolution grid of every insert seed
         (what recruits insert and the trim recheck probes) and its
-        frame_ok, n_tiles and the full lengths."""
+        frame_ok, n_tiles and the full lengths.  One grid serves both where
+        they are equal (``reuse_q``), one launch of kernel A writes both
+        where the query grid lies inside the insert grid (``fuse_q``), and
+        two launches write them elsewhere."""
         TL = self.params.tile_length
         codes_d, lengths_d = self._upload(codes, r), self._upload(lengths, r)
         n_tiles_d = self._upload((lengths // TL).astype(np.int32), r)
         full_d = self._upload(full_lengths, r)
+        if self.fuse_q:
+            if self.compressed:
+                grids = cz.build_rank_grids(self.replicas[r], codes_d,
+                                            lengths_d, self.fam_ins,
+                                            self.params_ins, self.params, T)
+            else:
+                grids = dm.build_slot_grids(codes_d, lengths_d, self.fam_ins,
+                                            self.params_ins, self.params, T)
+            return (codes_d, *grids, n_tiles_d, full_d)
         grid, frame_ok = self._grid(codes_d, lengths_d, T, self.fam_q,
                                     self.params, r)
         if self.reuse_q:

@@ -178,6 +178,55 @@ def test_seed_hash_grid_strided_cases(cuda, case, h, S, mode, ranked):
     assert_same(got, tcz.build_rank_grid(host, codes, lens, fam, params, T))
 
 
+# (query stride, insert stride, query seeds): bench.py's throughput cell,
+# a sampled insert grid, and the trim recheck's S=1 tier of one seed
+FUSED = [(8, 1, 1), (8, 2, 1), (1, 1, 1), (4, 2, 2)]
+
+
+@pytest.mark.parametrize("mode", ["fastrange", "mod"])
+@pytest.mark.parametrize("S,s_ins,hq", FUSED)
+@pytest.mark.parametrize("ranked", [False, True])
+def test_fused_grid_matches_separate_launches(cuda, ranked, S, s_ins, hq,
+                                              mode):
+    """Kernel A's insert grid with the query grid written by the same
+    launch (build_slot_grids / build_rank_grids) against the two separate
+    launches and against the plain versions, bit for bit, on the grid
+    cases at the path's tile length; one launch each."""
+    size = 1_000_003
+    seeds = make_seed_pattern("1011011110110111101101", 22, 16, 3)
+    fq = build_seed_family(seeds[:hq])
+    pq = tdm.MibfParams(size=size, h=hq, k=22, spans=fq.spans,
+                        tile_length=1000, frame_stride=S, slot_map=mode)
+    pi = tdm.MibfParams(size=size, h=3, k=22, spans=FAM.spans,
+                        tile_length=1000, frame_stride=s_ins, slot_map=mode)
+    rng = np.random.default_rng([S, s_ins, hq])
+    bits = torch.from_numpy(rng.integers(0, 2**31, -(-size // 32),
+                                         dtype=np.int64).astype(np.int32))
+    host = tcz.with_tables(*tcz.build_rank(bits, size), size)
+    dev = tcz.with_tables(*tcz.build_rank(bits.to(cuda), size), size)
+    kern = kernels.SEED_HASH_RANK_GRID if ranked else kernels.SEED_HASH_GRID
+    for case, (lengths, T) in hard.grid_lengths(1000, 22).items():
+        codes, lens = (torch.from_numpy(a) for a in hard.read_batch(
+            lengths, T * 1000 + 1000, seed=len(case)))
+        c, n = codes.to(cuda), lens.to(cuda)
+        if ranked:
+            def one(p, fam, st, cc, nn):
+                return tcz.build_rank_grid(st, cc, nn, fam, p, T)
+            fused = tcz.build_rank_grids
+            st_d, st_h = (dev,), (host,)
+        else:
+            def one(p, fam, st, cc, nn):
+                return tdm.build_slot_grid(cc, nn, fam, p, T)
+            fused = tdm.build_slot_grids
+            st_d = st_h = ()
+        before = kern.launches
+        got = fused(*st_d, c, n, FAM, pi, pq, T)
+        assert kern.launches == before + 1
+        apart = (*one(pq, fq, dev, c, n), *one(pi, FAM, dev, c, n))
+        assert_same(got, apart)
+        assert_same(got, fused(*st_h, codes, lens, FAM, pi, pq, T))
+
+
 @pytest.mark.parametrize("space", ["slots", "ranks"])
 @pytest.mark.parametrize("kind", ["homopolymer", "one_partition", "random"])
 def test_insert_max_cases(cuda, space, kind):
@@ -213,6 +262,58 @@ def test_insert_max_cases(cuda, space, kind):
             assert torch.equal(dev.cpu(), host)
     assert kernels.INSERT_MAX.launches == before + calls
     assert int((host != torch.from_numpy(w)).sum()) >= 3
+
+
+@pytest.mark.parametrize("banks", [1, 2])
+@pytest.mark.parametrize("F,shift", [(1000, 0), (1000, 1), (125, 0),
+                                     (125, 1), (7, 1)])
+def test_insert_max_rows_and_banks(cuda, F, shift, banks):
+    """insert_max's rows (csrc/insert.cuh): tiles of an odd number of
+    frames, a grid whose first key is not 16-byte aligned (the head and
+    tail keys of a row loaded alone), one and two banks of the table on
+    the card, against the plain version on the whole table, bs 1, 3, 10
+    and 20, whole, trimmed, one-tile, past-the-bucket and empty ranges."""
+    rng = np.random.default_rng([F, shift, banks])
+    T, H, limit = 24, 3, 2_000_003
+    buf = torch.from_numpy(rng.integers(0, limit, H * T * F + 1))
+    buf[torch.from_numpy(rng.random(buf.numel()) < 0.05)] = limit
+    grid = buf[shift: shift + H * T * F].view(H, T * F)
+    n = -(-(limit + 1) // 1024) * 1024
+    # ids below the recruits' (5-100), so that most keys take a new one
+    w = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)
+                         | tdm.PRESENT_BIT)
+    host = w.clone()
+    table = tdm.to_banks(w, [cuda] * banks)
+    grid_d = buf.to(cuda)[shift: shift + H * T * F].view(H, T * F)
+    assert grid_d.data_ptr() % 16 == 8 * shift
+    for bs in (1, 3, 10, 20):
+        params = tdm.MibfParams(size=limit, h=3, k=22, spans=FAM.spans,
+                                tile_length=F, block_size=bs)
+        for lo, hi, tr, base in [(0, T - 1, False, 5 + bs),
+                                 (3, T - 2, True, 70 + bs), (5, 5, True, 9),
+                                 (20, T + 5, False, 90), (7, 6, False, 1)]:
+            tdm.insert_max(table, grid_d, lo, hi, base, tr, params, T, limit,
+                           tdm.PRESENT_BIT)
+            tdm.insert_max(host, grid, lo, hi, base, tr, params, T, limit,
+                           tdm.PRESENT_BIT)
+            assert torch.equal(tdm.whole(table).cpu(), host)
+    assert int((host != w).sum()) > H * T * F // 10
+
+
+@pytest.mark.parametrize("stage", ["staged", "loaded"])
+@pytest.mark.parametrize("case", ["opt-direct", "opt-compressed-rotation",
+                                  "s5-p1-opt-direct-recheck",
+                                  "s5-is5-p1-opt-compressed"])
+def test_consume_insert_max_branches(cuda, tmp_path, monkeypatch, case,
+                                     stage):
+    """The consume kernel's insert_max on both branches: a probed read's
+    keys staged in its owners' shared memory while it is classified (the
+    default budget), or read from the grid at the insert (no staging),
+    against consume_batch_plain, bit for bit."""
+    from goldrush_tpu_torch.path import consume as tcons
+    if stage == "loaded":
+        monkeypatch.setattr(tcons, "STAGE_BYTES", 0)
+    test_consume_matches_plain(cuda, tmp_path, case)
 
 
 @pytest.mark.parametrize("bs,T", [(3, 6), (20, 24)])
@@ -610,13 +711,19 @@ def test_throughput_engine_on_card_matches_cpu(cuda, tmp_path, mode):
     for dev in ("cuda", "cpu"):
         before = (kernels.INSERT_MAX.launches, kernels.CONSUME.launches)
         prefix = str(tmp_path / f"{mode}-{dev}")
+        grids = (kernels.SEED_HASH_GRID.launches
+                 + kernels.SEED_HASH_RANK_GRID.launches)
         eng = GoldenPathEngine(PathConfig(input=path, prefix_file=prefix,
                                           **cfg), device=dev)
         st = eng.run()
         if dev == "cuda":
-            # the inserts run inside the consume kernel, one launch a batch
+            # the inserts run inside the consume kernel, one launch a batch;
+            # kernel A writes both grids of a batch in one launch
             assert kernels.INSERT_MAX.launches == before[0]
             assert kernels.CONSUME.launches - before[1] == st.num_batches
+            assert eng.fuse_q and (kernels.SEED_HASH_GRID.launches
+                                   + kernels.SEED_HASH_RANK_GRID.launches
+                                   - grids) == st.num_batches
         assert eng.consume_counts["insert"] == st.recruits > 0
         files = [open(f"{prefix}_{i}.fq", "rb").read() for i in (1, 2)
                  if os.path.exists(f"{prefix}_{i}.fq")]

@@ -3,6 +3,7 @@ reservoir insert, reset and .npz interchange equal goldrush_tpu (and the
 NumPy oracle) bit for bit."""
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -64,7 +65,7 @@ def test_fill_presence_matches_jax(mode):
     jw = jdm.fill_presence(jnp.zeros(JP.alloc, jnp.uint32),
                            jhash(codes, JFAM, P), jnp.asarray(valid), SIZE,
                            slot_mode=mode)
-    st = tdm.init_state(TP)
+    st = tdm.init_state(TP, device="cpu")
     tdm.fill_presence(st.words, torch.from_numpy(codes),
                       torch.from_numpy(lengths), FAM, SIZE, mode)
     # slot `size` is the JAX scatter's dump for invalid frames; real slots
@@ -92,7 +93,7 @@ def test_fill_bits_then_merge_matches_jax(mode):
                                SIZE, slot_mode=mode)
         tdm.fill_presence_bits(bits, torch.from_numpy(codes),
                                torch.from_numpy(lens), FAM, SIZE, mode)
-    st = tdm.init_state(TP)
+    st = tdm.init_state(TP, device="cpu")
     tdm.merge_presence(st.words, bits, SIZE)
     want = np.asarray(jw)[:SIZE]
     np.testing.assert_array_equal(words_np(st)[0][:SIZE], want)
@@ -363,7 +364,7 @@ def test_insert_and_probe_match_oracle():
     trimmed inserts against mibf_np.MibfOracle."""
     pool = [RNG.integers(0, 4, 400).astype(np.uint8) for _ in range(5)]
     oracle = MibfOracle(SIZE)
-    st = tdm.init_state(TP)
+    st = tdm.init_state(TP, device="cpu")
     for r in pool:
         oracle.fill_presence(onthash.multi_seed_canonical(r, SEEDS))
         tdm.fill_presence(st.words, torch.from_numpy(r[None]),
@@ -424,6 +425,14 @@ def test_reset_ids_matches_jax():
     np.testing.assert_array_equal(tc, np.asarray(j.counts))
 
 
+def test_state_constructors_default_to_the_card():
+    """init_state and load_state place the filter on the card unless the
+    caller asks for the CPU, as the JAX package's land on its
+    accelerator."""
+    for fn in (tdm.init_state, tdm.load_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 @pytest.mark.parametrize("writer", ["jax", "torch"])
 def test_npz_interchange(tmp_path, writer):
     w, c = random_state(JP.alloc, ids=1 << 29)
@@ -432,7 +441,7 @@ def test_npz_interchange(tmp_path, writer):
     if writer == "jax":
         jdm.save_state(jdm.MibfState(jnp.asarray(w), jnp.asarray(c)), JP,
                        path)
-        st, meta = tdm.load_state(path)
+        st, meta = tdm.load_state(path, device="cpu")
         got = words_np(st)
     else:
         tdm.save_state(tdm.state_from_numpy(w, c), TP, path)

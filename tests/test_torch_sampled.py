@@ -218,7 +218,7 @@ def test_insert_read_max_matches_jax(space, lo, hi, trimmed, base, bs):
 
 def test_insert_read_max_rejects_ids_past_id_mask():
     _, tp = params(3, block_size=1)
-    st = tdm.init_state(tp)
+    st = tdm.init_state(tp, device="cpu")
     slots = torch.zeros((3, 4 * TL), dtype=torch.int64)
     with pytest.raises(ValueError, match="2\\^30"):
         tdm.insert_read_max(st, slots, 0, 3, tdm.ID_MASK - 2, False, tp, 4)

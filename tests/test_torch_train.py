@@ -213,7 +213,7 @@ def torch_start(batch, filled: bool):
     codes, lengths = batch
     tp = tdm.MibfParams(**GEO)
     fam = build_seed_family(make_seed_pattern(*PATTERN))
-    state = tdm.init_state(tp)
+    state = tdm.init_state(tp, device="cpu")
     if filled:
         tdm.fill_presence(state.words, torch.from_numpy(codes),
                           torch.from_numpy(lengths), fam, tp.size)
