@@ -25,8 +25,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      launch) of the pass's bitmap against the plain freeze, beside
      torch.cumsum of the words' precomputed popcounts;
      both grids also at a frame stride: the throughput mode's query grid
-     (B=64, h=1, S=8), S=2 with h=3 and its full-resolution insert grid
-     (B=64, h=3), timed, and the grid cases of hard_cases.grid_lengths;
+     (B=64, h=1, S=8), S=2 and S=4 with h=3 and its full-resolution
+     insert grid (B=64, h=3), timed, and the grid cases of
+     hard_cases.grid_lengths;
      the throughput batch's query grid written by its insert grid's launch
      (build_slot_grids, build_rank_grids) against those two launches and
      the plain versions, bit for bit, timed (`fused_grid`);
@@ -245,21 +246,27 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
      slot grid mapped to ranks in the launch, keep = SAT) against its
      plain version on 16 recruits, 12 of them over words or ids with SAT
      set beforehand, and a whole recruit timed beside the plain version
-     and its bound; then, every launch count zeroed just before and read
-     just after, (b) four train_steps of 64 reads at max_blocks 2 and 1
-     against the fixture's "train_step" digests (words, counters,
-     decisions after each step), each step's ms and launches (A's grid,
-     B and C once, D once a recruit), and the same steps through
-     sharded_train_step at 1x2 and 2x2 (banked) and 2x1 (replicated) on
-     ["cuda:0"] * n, every replica and the decisions equal to the single
-     card's after each step.  `train_phase()` runs phase 11 alone from a
+     and its bound; D's batch entry (train_step's insert: a classified
+     batch in one launch) on the first step's batch and on it with reads
+     that share slots, against its plain version, D once a recruit and
+     the batch in chunks, timed beside both and its bound; then, every
+     launch count zeroed just before and read just after, (b) four
+     train_steps of 64 reads at max_blocks 2 and 1 against the fixture's
+     "train_step" digests (words, counters, decisions after each step),
+     with no host synchronisation inside a step, each step's ms and
+     launches (A's grid, B, C and the batch entry once, single-recruit D
+     never), and the same steps through sharded_train_step at 1x2 and 2x2
+     (banked) and 2x1 (replicated) on ["cuda:0"] * n, every replica and
+     the decisions equal to the single card's after each step, the batch
+     entry once a data row.  `train_phase()` runs phase 11 alone from a
      driver that sets WORK.
 The line before the last is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 With --ab DIR it runs phase 3, 8(a) and 9(a) alone (9(a) without its
-widest windows, which an earlier tree refuses) and the freeze at phase
-7's two sizes on synthetic bitmaps, four times, each in a
+widest windows, which an earlier tree refuses), the freeze at phase
+7's two sizes on synthetic bitmaps and phase 11's first step's insert
+and four steps (`train_ab_check`), four times, each in a
 process of its own that imports the port from its tree: DIR (for example
 a `git archive` of the parent commit, whose kernels' entry points may
 differ: only the Python wrappers are called), this checkout, this
@@ -717,11 +724,13 @@ def strided_grids(codes, lengths, params, cs, n_care) -> tuple:
     """Kernel A's slot and rank grid entries at a frame stride against their
     plain versions (the JAX package's sampled routes: the last-tile grid at
     S >= h, the general one below) in both slot maps: the throughput
-    mode's query grid (B=64, h=1, S=8), S=2 with h=3 at B=32, and the
+    mode's query grid (B=64, h=1, S=8), S=2 and S=4 with h=3 at B=32
+    (slots a CTA a tile below S = h and a thread a frame from S = h;
+    ranks of three seeds a CTA a tile), and the
     full-resolution grid a B=64 throughput batch inserts from (h=3, S=1),
     each timed in the fastrange map; and the grid cases of
-    hard_cases.grid_lengths at S=8 with h=1 and S=2 with h=3.  Returns the
-    two entries' extra record keys and their max_abs_err."""
+    hard_cases.grid_lengths at S=8 with h=1 and S=2 and 4 with h=3.
+    Returns the two entries' extra record keys and their max_abs_err."""
     import dataclasses
 
     import torch
@@ -756,6 +765,7 @@ def strided_grids(codes, lengths, params, cs, n_care) -> tuple:
     err_s = err_r = 0
     apart = {}               # (tag, mode) -> the two entries' grids
     for tag, (B, h, S) in {"s8": (64, 1, 8), "s2": (32, 3, 2),
+                           "s4": (32, 3, 4),
                            "ins_b64": (64, 3, 1)}.items():
         qc = torch.from_numpy(codes[:B, : T * TL + TL].copy()).to(dev)
         ql = torch.from_numpy(lengths[:B].copy()).to(dev)
@@ -797,14 +807,14 @@ def strided_grids(codes, lengths, params, cs, n_care) -> tuple:
                             rank_rec, n_care)
         err_s, err_r = max(err_s, es), max(err_r, er)
     cases = hard.grid_lengths(TL, 22)
-    for h, S in ((1, 8), (3, 2)):
+    for h, S in ((1, 8), (3, 2), (3, 4)):
         for case, (lens, Tc) in cases.items():
             c, n = (torch.from_numpy(a).to(dev) for a in
                     hard.read_batch(lens, Tc * TL + TL, seed=len(case)))
             for mode in ("mod", "fastrange"):
                 es, er, *_ = both(c, n, h, S, mode, Tc)
                 err_s, err_r = max(err_s, es), max(err_r, er)
-    say("kernels", kernel="seed_hash_grid+rank_grid", strides="8,2",
+    say("kernels", kernel="seed_hash_grid+rank_grid", strides="8,2,4",
         grid_cases=len(cases), max_abs_err=max(err_s, err_r))
     return slot_rec, rank_rec, err_s, err_r
 
@@ -5143,6 +5153,19 @@ def mesh_phase() -> tuple[dict, dict]:
 TRAIN_LAYOUTS = ((1, 2), (2, 1), (2, 2))
 
 
+@contextlib.contextmanager
+def no_host_sync():
+    """Raise on any host synchronisation with the card inside the block
+    (torch.cuda's sync debug mode): train_step fetches nothing before its
+    insert."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def digest(t) -> str:
     """sha256 of a tensor's bytes (the fixture's digests of uint32 arrays,
     whose bits the port's int32 tensors hold)."""
@@ -5269,35 +5292,19 @@ def train_kernel_check(bits, words, codes, lengths, params, fam,
     return out
 
 
-def train_phase() -> tuple[dict, dict]:
-    """Phase 11, the state-mutating step (parallel/mesh.py train_step and
-    sharded_train_step; mibf.insert_read): the fixture's "train_step" case
-    at the bench width.  The port's pass-1 fill of all 3,000 bench reads
-    (kernel A's fill, the merge; its words held to the JAX fill's digest),
-    then (a) `train_kernel_check`; then, every launch count zeroed just
-    before and read just after, (b) four train_steps of 64 reads at each
-    of the fixture's max_blocks from the filled filter: after each step
-    the sha256 of the real slots' words and of the counters and
-    decisions against the JAX train_step's, its decision counts, ms (host
-    clock to a synchronize) and launches (A's grid, B and C once, D once a
-    recruit); and the same steps through sharded_train_step at each of
-    TRAIN_LAYOUTS on ["cuda:0"] * n: every row's replica (gathered) and
-    the decisions equal the single card's after each step, D once a
-    recruit a data row.  Returns (launches of (b), D's record keys)."""
-    import numpy as np
+def train_filled(dev) -> tuple:
+    """The fixture's "train_step" case on the card (`train_inputs`) and
+    the port's pass-1 fill of all its reads into the bench-width direct
+    filter (kernel A's fill, the merge), its words held to the JAX fill's
+    digest.  Returns (case, codes, lengths, params, fam, words, bits)."""
     import torch
-    from goldrush_tpu_torch import kernels
     from goldrush_tpu_torch.mibf import mibf as dm
-    from goldrush_tpu_torch.parallel import mesh as tmesh
-    gc_cuda()
-    t_start = time.time()
-    dev = torch.device("cuda", 0)
     with open(os.path.join(REPO, "tests", "fixtures",
                            "torch_port_digests.json")) as f:
         fx = json.load(f)
     tr = fx["train_step"]
     codes, lengths, params, fam = train_inputs(fx)
-    T, B, size = tr["num_tiles"], tr["steps"]["batch"], params.size
+    size = params.size
     words = torch.zeros(params.alloc, dtype=torch.int32, device=dev)
     bits = dm.presence_bitmap(size, dev)
     for i in range(0, codes.shape[0], FILL_BATCH):
@@ -5309,24 +5316,241 @@ def train_phase() -> tuple[dict, dict]:
         match=digest(words[:size]) == tr["filled"])
     if digest(words[:size]) != tr["filled"] or present != tr["present"]:
         raise AssertionError("train_step: the fill differs from JAX's")
+    return tr, codes, lengths, params, fam, words, bits
+
+
+def recruit_windows(dec, ts, te, lengths, params, T: int, mb: int) -> list:
+    """Each read's (lo, last) as train_step inserts it (csrc/insert.cuh
+    batch_read), or None for a drop, on the host."""
+    rows = torch_rows(dec, ts, te, lengths)
+    out = []
+    for d, lo, hi, n in rows:
+        if d == 0:
+            out.append(None)
+            continue
+        lo, hi = (0, n // params.tile_length - 1) if d == 1 else (lo, hi)
+        out.append((lo, min(hi, lo + mb * params.block_size - 1, T - 1)))
+    return out
+
+
+def torch_rows(*cols) -> list:
+    """Rows of int tensors of one length, fetched to the host."""
+    import torch
+    return torch.stack([c.long().cpu() for c in cols]).t().tolist()
+
+
+def batch_kernel_check(words, codes, lengths, params, fam, T: int,
+                       B: int) -> dict:
+    """11(a), the batch entry: kernel D's batch entry (`dm.insert_batch`,
+    train_step's insert) on the first step's batch of B bench reads as
+    kernel C classifies it against the filled filter, and on that batch
+    with reads that share slots (read 1 repeating read 0, read 3 a trimmed
+    copy of read 2, every fifth read dropped), at max_blocks 2 and 1:
+    against its plain version, against kernel D launched once a recruit
+    in batch order (the design it replaces) and against the batch cut
+    into chunks of 8 reads, words and counters bit for bit, one launch a
+    batch.  Then the step's batch at max_blocks 2 timed beside the plain
+    version, the launches a recruit (their verdicts fetched beforehand)
+    and the bound: the recruits' windows' grid entries, the verdicts,
+    lengths and base ids read once, each distinct key's counter read and
+    written, each accepted word read and written.  No PyTorch call
+    computes a reservoir insert: no library time.  Returns the record."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.parallel import mesh as tmesh
+    dev, size = words.device, params.size
+    keep = dm.SAT_BIT | dm.PRESENT_BIT
+    counts0 = torch.zeros_like(words)
+
+    def fresh():
+        return dm.MibfState(words.clone(), counts0.clone())
+    res, slots, _ = tmesh.classify_step(words, codes[:B], lengths[:B], fam,
+                                        params, T, 10, 5, 1)
+    n = lengths[:B]
+    base = torch.arange(1, 1 + 2 * B, 2, dtype=torch.int64, device=dev)
+    real = (res.decision, res.trim_start, res.trim_end)
+    shared = slots.clone()
+    shared[1], shared[3] = slots[0], slots[2]
+    dec, ts, te = (t.clone() for t in real)
+    dec[:4] = torch.tensor([1, 1, 1, 2], dtype=dec.dtype, device=dev)
+    dec[4::5] = 0
+    ts[3], te[3] = 2, T - 3
+    H, TF = slots.shape[1], slots.shape[2]
+    err = 0
+    for label, g, verdicts in (("step", slots, real),
+                               ("shared", shared, (dec, ts, te))):
+        for mb in (2, 1):
+            got, plain, per, chunked = (fresh() for _ in range(4))
+            before = kernels.INSERT_BATCH.launches
+            dm.insert_batch(got, g, *verdicts, n, base, params, mb, T)
+            launched = kernels.INSERT_BATCH.launches - before
+            dm._insert_batch_plain(plain.words, plain.counts, g, *verdicts,
+                                   n, base, params, T, mb, size, 0, keep)
+            wins = recruit_windows(*verdicts, n, params, T, mb)
+            for i, (w, b) in enumerate(zip(wins, base.tolist())):
+                if w is not None:
+                    dm.insert_read(per, g[i], w[0], w[1], b,
+                                   bool(verdicts[0][i] == 2), params, mb, T)
+            dm._insert_batch_cuda(chunked.words, chunked.counts, g,
+                                  *verdicts, n, base, params, T, mb, size, 0,
+                                  keep, window=8 * H * TF)
+            e = max_abs_err([(x.words, plain.words) for x in
+                             (got, per, chunked)]
+                            + [(x.counts, plain.counts) for x in
+                               (got, per, chunked)])
+            recruits = sum(w is not None for w in wins)
+            counted = int((plain.counts != 0).sum())
+            say("train", part="a", kernel="insert_batch", batch=label,
+                max_blocks=mb, recruits=recruits, launches=launched,
+                counters_set=counted, max_abs_err=e)
+            if e or launched != 1 or not counted:
+                raise AssertionError(f"insert_batch {label} max_blocks {mb}:"
+                                     f" max_abs_err {e}, {launched} "
+                                     "launches")
+            err = max(err, e)
+    wins = recruit_windows(*real, n, params, T, 2)
+    F = TF // T
+    keys = torch.cat([slots[i][:, w[0] * F: (w[1] + 1) * F].reshape(-1)
+                      for i, w in enumerate(wins) if w is not None])
+    distinct = torch.unique(keys[keys < size]).numel()
+    q = fresh()
+    dm._insert_batch_plain(q.words, q.counts, slots, *real, n, base, params,
+                           T, 2, size, 0, keep)
+    accepted = int((q.words != words).sum())
+    k = fresh()
+    ms = cuda_ms(lambda: dm.insert_batch(k, slots, *real, n, base, params, 2,
+                                         T), 20)
+    p = fresh()
+    pms = cuda_ms(lambda: dm._insert_batch_plain(
+        p.words, p.counts, slots, *real, n, base, params, T, 2, size, 0,
+        keep), 2)
+    r = fresh()
+    rows = [(i, w, b, bool(d == 2)) for i, (w, b, d) in enumerate(
+        zip(wins, base.tolist(), real[0].tolist())) if w is not None]
+
+    def per_recruit():
+        for i, w, b, tr in rows:
+            dm.insert_read(r, slots[i], w[0], w[1], b, tr, params, 2, T)
+    per_ms = cuda_ms(per_recruit, 5, hold=len(rows) // 6 + 1)
+    nbytes = keys.numel() * 8 + B * 20 + distinct * 8 + accepted * 8
+    rec = checked(err, ms, pms, nbytes, per_recruit_ms=per_ms,
+                  recruits=len(rows), window_entries=keys.numel())
+    say("train", part="a", kernel="insert_batch", recruits=len(rows),
+        window_entries=keys.numel(), distinct_keys=distinct,
+        accepted=accepted, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+        per_recruit_ms=f"{per_ms:.4f}", bound_ms=f"{rec['bound_ms']:.5f}")
+    del q, k, p, r
+    return rec
+
+
+def train_ab_check(dev) -> dict:
+    """--ab's phase 11 times, in either tree: the first step's batch of the
+    fixture's "train_step" case classified against the filled filter, its
+    insert at max_blocks 2 (this tree: one launch of the batch entry; an
+    earlier one: kernel D once a recruit, the verdicts fetched beforehand),
+    held to the fixture's JAX digest of the step, and timed on the card
+    (`ms_insert`); and the fixture's four steps of train_step at
+    max_blocks 2 from the filled filter, each timed on the host's clock to
+    a synchronize (`ms_step`, their mean; two passes)."""
+    import numpy as np
+    import torch
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.parallel import mesh as tmesh
+    tr, codes, lengths, params, fam, words, bits = train_filled(dev)
+    del bits
+    T, B, size = tr["num_tiles"], tr["steps"]["batch"], params.size
+    res, slots, _ = tmesh.classify_step(words, codes[:B], lengths[:B], fam,
+                                        params, T, 10, 5, 1)
+    base = 1 + 2 * np.arange(B)
+    if hasattr(dm, "insert_batch"):
+        base_d = torch.from_numpy(base).to(dev)
+
+        def insert(st):
+            dm.insert_batch(st, slots, res.decision, res.trim_start,
+                            res.trim_end, lengths[:B], base_d, params, 2, T)
+        hold = 1
+    else:
+        rows = tmesh._fetch_recruits(res, lengths[:B], base, params)
+
+        def insert(st):
+            tmesh._recruit(st, slots, rows, params, T, 2)
+        hold = len(rows) // 6 + 1
+    st = dm.MibfState(words.clone(), torch.zeros_like(words))
+    insert(st)
+    want = tr["max_blocks_2"][0]
+    err = int(digest(st.words[:size]) != want["words"]
+              or digest(st.counts[:size]) != want["counts"])
+    ms_insert = cuda_ms(lambda: insert(st), 20, hold)
+    step_ms = []
+    for _ in range(2):
+        st = dm.MibfState(words.clone(), torch.zeros_like(words))
+        for s in range(tr["steps"]["steps"]):
+            sl = slice(s * B, (s + 1) * B)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            st, _ = tmesh.train_step(st, codes[sl], lengths[sl],
+                                     1 + 2 * np.arange(s * B, (s + 1) * B),
+                                     fam, params, T, 2)
+            torch.cuda.synchronize()
+            step_ms.append((time.time() - t0) * 1e3)
+    say("train", part="ab", max_abs_err=err, ms_insert=f"{ms_insert:.4f}",
+        ms_step=f"{sum(step_ms) / len(step_ms):.3f}")
+    if err:
+        raise AssertionError("train_step's insert differs from the JAX "
+                             "digest")
+    return {"max_abs_err": err, "ms_insert": ms_insert,
+            "ms_step": sum(step_ms) / len(step_ms)}
+
+
+def train_phase() -> tuple[dict, dict, dict]:
+    """Phase 11, the state-mutating step (parallel/mesh.py train_step and
+    sharded_train_step; mibf.insert_read and insert_batch): the fixture's
+    "train_step" case at the bench width.  The port's pass-1 fill of all
+    3,000 bench reads (`train_filled`), then (a) `train_kernel_check` and
+    `batch_kernel_check`; then, every launch count zeroed just before and
+    read just after, (b) four train_steps of 64 reads at each of the
+    fixture's max_blocks from the filled filter, with no host
+    synchronisation inside a step (`no_host_sync`): after each step the
+    sha256 of the real slots' words and of the counters and decisions
+    against the JAX train_step's, its decision counts, ms (host clock to a
+    synchronize) and launches (A's grid, B, C and D's batch entry once,
+    D's single-recruit entry never); and the same steps through
+    sharded_train_step at each of TRAIN_LAYOUTS on ["cuda:0"] * n: every
+    row's replica (gathered) and the decisions equal the single card's
+    after each step, the batch entry once a data row.  Returns (launches
+    of (b), D's record keys, the batch entry's record)."""
+    import torch
+    from goldrush_tpu_torch import kernels
+    from goldrush_tpu_torch.mibf import mibf as dm
+    from goldrush_tpu_torch.parallel import mesh as tmesh
+    gc_cuda()
+    t_start = time.time()
+    dev = torch.device("cuda", 0)
+    tr, codes, lengths, params, fam, words, bits = train_filled(dev)
+    T, B, size = tr["num_tiles"], tr["steps"]["batch"], params.size
     d_rec = train_kernel_check(bits, words, codes, lengths, params, fam, T)
     del bits
+    gc_cuda()
+    b_rec = batch_kernel_check(words, codes, lengths, params, fam, T, B)
     gc_cuda()
     for k in kernels.ALL + (kernels.INSERT_SORTED,):
         k.launches = 0
     path = (kernels.SEED_HASH_GRID, kernels.PROBE_VOTE, kernels.CLASSIFY,
-            kernels.INSERT_SORTED)
+            kernels.INSERT_BATCH, kernels.INSERT_SORTED)
     snaps, step_ms = {}, []
     for mb in tr["steps"]["max_blocks"]:
         st = dm.MibfState(words.clone(), torch.zeros_like(words))
         for s, want in enumerate(tr[f"max_blocks_{mb}"]):
             sl = slice(s * B, (s + 1) * B)
-            base = 1 + 2 * np.arange(s * B, (s + 1) * B)
+            base = torch.arange(1 + 2 * s * B, 1 + 2 * (s + 1) * B, 2,
+                                dtype=torch.int64, device=dev)
             before = [k.launches for k in path]
             torch.cuda.synchronize()
             t0 = time.time()
-            st, dec = tmesh.train_step(st, codes[sl], lengths[sl], base,
-                                       fam, params, T, mb)
+            with no_host_sync():
+                st, dec = tmesh.train_step(st, codes[sl], lengths[sl], base,
+                                           fam, params, T, mb)
             torch.cuda.synchronize()
             ms = (time.time() - t0) * 1e3
             step_ms.append(ms)
@@ -5336,17 +5560,17 @@ def train_phase() -> tuple[dict, dict]:
                    "decisions": digest(dec),
                    "decision_counts": [int((dec == v).sum())
                                        for v in (0, 1, 2)]}
-            recruits = B - got["decision_counts"][0]
             say("train", part="b", layout="single", max_blocks=mb, step=s,
-                decisions=got["decision_counts"], ms=f"{ms:.1f}",
+                decisions=got["decision_counts"], ms=f"{ms:.2f}",
                 launches=launched, match=got == want)
-            if got != want or launched != [1, 1, 1, recruits]:
+            if got != want or launched != [1, 1, 1, 1, 0]:
                 raise AssertionError(f"train_step max_blocks {mb} step {s}:"
                                      f" {got} vs {want}, launches "
                                      f"{launched}")
             snaps[(mb, s)] = (st.words.clone(), st.counts.clone(),
                               dec.clone())
         del st
+    mesh_ms = {}
     for data, model in TRAIN_LAYOUTS:
         mesh = tmesh.make_mesh(data * model, data=data, model=model,
                                devices=[dev] * (data * model))
@@ -5357,40 +5581,43 @@ def train_phase() -> tuple[dict, dict]:
                                             model > 1)
             for s in range(tr["steps"]["steps"]):
                 sl = slice(s * B, (s + 1) * B)
-                before = kernels.INSERT_SORTED.launches
+                base = torch.arange(1 + 2 * s * B, 1 + 2 * (s + 1) * B, 2,
+                                    dtype=torch.int64, device=dev)
+                before = [k.launches for k in path[3:]]
                 torch.cuda.synchronize()
                 t0 = time.time()
-                reps, dec = step(reps, codes[sl], lengths[sl],
-                                 1 + 2 * np.arange(s * B, (s + 1) * B))
+                with no_host_sync():
+                    reps, dec = step(reps, codes[sl], lengths[sl], base)
                 torch.cuda.synchronize()
                 ms = (time.time() - t0) * 1e3
+                mesh_ms.setdefault(f"{data}x{model}", []).append(ms)
                 w, c, d = snaps[(mb, s)]
                 equal = torch.equal(dec, d) and all(
                     torch.equal(dm.whole(r.words), w)
                     and torch.equal(dm.whole(r.counts), c) for r in reps)
-                launched = kernels.INSERT_SORTED.launches - before
-                recruits = int((d != 0).sum())
+                launched = [k.launches - x for k, x in zip(path[3:], before)]
                 say("train", part="b", layout=f"{data}x{model}",
-                    max_blocks=mb, step=s, ms=f"{ms:.1f}",
+                    max_blocks=mb, step=s, ms=f"{ms:.2f}",
                     insert_launches=launched, equal=equal)
-                if not equal or launched != recruits * data:
+                if not equal or launched != [data, 0]:
                     raise AssertionError(
                         f"sharded_train_step {data}x{model} max_blocks {mb} "
                         f"step {s}: equal {equal}, {launched} launches")
             del reps
             gc_cuda()
     launches = {k.name: k.launches for k in kernels.ALL}
-    d_rec["launches_train"] = kernels.INSERT_SORTED.launches
-    d_rec["train_step_ms"] = step_ms
-    for k in path:
+    b_rec["train_step_ms"] = step_ms
+    b_rec["sharded_train_step_ms"] = mesh_ms
+    for k in path[:4]:
         if k.launches == 0:
             raise AssertionError(f"train: {k.name} never launched")
     say("train", seconds=f"{time.time() - t_start:.1f}",
-        step_ms_mean=f"{sum(step_ms) / len(step_ms):.1f}",
-        insert_launches=kernels.INSERT_SORTED.launches)
+        step_ms_mean=f"{sum(step_ms) / len(step_ms):.2f}",
+        insert_batch_launches=kernels.INSERT_BATCH.launches,
+        insert_sorted_launches=kernels.INSERT_SORTED.launches)
     del snaps
     gc_cuda()
-    return launches, d_rec
+    return launches, d_rec, b_rec
 
 
 def bench_fastq() -> str:
@@ -5458,6 +5685,7 @@ def main(argv: list[str]) -> int:
         out["rank_build"].update(rec)
         out.update(wave_kernel_check(dev))
         out["ntcard_count"] = ntcard_kernel_check(dev, bench_fastq())
+        out["train_insert"] = train_ab_check(dev)
         print(json.dumps(out))
         return 0
     from goldrush_tpu_torch import kernels
@@ -5485,7 +5713,7 @@ def main(argv: list[str]) -> int:
         mesh, mesh_checks = mesh_phase()
         for name, rec in mesh_checks.items():
             checks[name].update(rec)
-        train, train_d = train_phase()
+        train, train_d, checks["insert_batch"] = train_phase()
         checks["insert_sorted"]["max_abs_err"] = max(
             checks["insert_sorted"]["max_abs_err"],
             train_d.pop("train_max_abs_err"))

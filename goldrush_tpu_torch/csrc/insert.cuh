@@ -14,6 +14,8 @@
 //      past `cap` entries re-reads the window and keeps its distinct
 //      entries, or, past cap / 2 of those, all of them in a slice of the
 //      spill buffer, and sorts there); owner_apply walks each key's run.
+// The batch entry (at the end) runs the same steps over every recruit of a
+// classified batch, each CTA owning several keys' buckets in turn.
 #pragma once
 
 #include "common.cuh"
@@ -73,6 +75,8 @@ struct WindowOf {
     return x;
   }
   __device__ bool real(int64_t key) const { return key >= 0 && key < limit; }
+  // the sort entry of entry e, whose key is `key` (insert_entry)
+  __device__ uint64_t entry(int64_t e, int64_t key) const;
 };
 using Window = WindowOf<false>;
 
@@ -82,6 +86,12 @@ using Window = WindowOf<false>;
 __device__ __forceinline__ uint64_t insert_entry(int64_t key, int64_t col,
                                                  int F) {
   return (static_cast<uint64_t>(key) << 16) | static_cast<uint64_t>(col / F);
+}
+
+template <bool kRankMap>
+__device__ __forceinline__ uint64_t WindowOf<kRankMap>::entry(
+    int64_t e, int64_t key) const {
+  return insert_entry(key, column(e), F);
 }
 
 // The slice of a window's W entries that CTA `rank` of `n` reads:
@@ -99,14 +109,15 @@ __device__ __forceinline__ void slice_of(int64_t W, int rank, int n,
 // bucket[p * cap + j] for j < cap, count[p] counting all of them (a bucket
 // that overflows is re-read by its owner).  The CTA counts its entries per
 // owner in shared memory, then reserves each owner's run with one global
-// atomic.  The window's grid is read-only for the launch.
-template <typename Win>
+// atomic.  The window's grid is read-only for the launch.  At most kParts
+// owners (parts <= kParts).
+template <int kParts = kMaxParts, typename Win>
 __device__ inline void scatter_window(const Win& w, int rank, int n,
                                       uint32_t parts, int cap,
                                       unsigned* __restrict__ count,
                                       unsigned long long* __restrict__ bucket) {
-  __shared__ unsigned s_cnt[kMaxParts];
-  __shared__ unsigned s_base[kMaxParts];
+  __shared__ unsigned s_cnt[kParts];
+  __shared__ unsigned s_base[kParts];
   int64_t lo, hi;
   slice_of(w.size_of(), rank, n, lo, hi);
   for (int p = threadIdx.x; p < static_cast<int>(parts); p += blockDim.x)
@@ -123,7 +134,7 @@ __device__ inline void scatter_window(const Win& w, int rank, int n,
       if (w.real(key)) {
         own = true;
         p = part_of(key, parts);
-        entry = insert_entry(key, w.column(e), w.F);
+        entry = w.entry(e, key);
         r = atomicAdd(&s_cnt[p], 1u);
       }
     }
@@ -165,7 +176,7 @@ __device__ inline int owner_distinct(const Win& w, uint32_t part,
     if (*static_cast<volatile int*>(&s_distinct) > cap / 2) break;
     const int64_t key = w.key(e);
     if (!w.real(key) || part_of(key, parts) != part) continue;
-    const uint64_t ent = insert_entry(key, w.column(e), w.F);
+    const uint64_t ent = w.entry(e, key);
     unsigned h = static_cast<unsigned>((ent * 0x9E3779B97F4A7C15ull) >> 40);
     for (;; h = (h + 1u) & mask) {
       const unsigned long long was = atomicCAS(
@@ -235,7 +246,7 @@ __device__ inline uint64_t* owner_sort(const Win& w, uint32_t part,
     for (int64_t e = threadIdx.x; e < W; e += blockDim.x) {
       const int64_t key = w.key(e);
       if (w.real(key) && part_of(key, parts) == part)
-        buf[atomicAdd(&s_fill, 1)] = insert_entry(key, w.column(e), w.F);
+        buf[atomicAdd(&s_fill, 1)] = w.entry(e, key);
     }
   } else if (s_n <= cap) {
     const unsigned long long* src = bucket + static_cast<int64_t>(part) * cap;
@@ -451,6 +462,249 @@ __device__ __forceinline__ void insert_max_staged(
     w.at(static_cast<uint32_t>(e0) + j, s, c);
     if (c >= a && c < b) raise_max(filt, stage[j], limit, w.value(c - a));
   }
+}
+
+// Kernel D over a classified batch (insert_batch, insert_sorted.cu): the
+// recruits of train_step's batch in one launch.  Read i of the batch
+// inserts its tiles lo..last (batch_read), block m = (t - lo) / bs taking
+// the id base_i + m, or base_i + (m * bs + 1) / bs when trimmed.  A key's
+// result depends only on its own occurrences in order, and train_step
+// inserts read after read, each read's blocks in order: so the batch is
+// exact when a key's entries sort by (read, tile).  A batch entry is
+// key << shift | read << tile_bits | tile, shift = tile_bits + read_bits
+// (the wrapper picks the bits, and cuts the batch into chunks of reads
+// whose order field fits beside the keys, launched in batch order).
+
+// the most reads of a launch (their tiles and ids staged in shared memory)
+// and the most owners of its keys
+constexpr int kBatchReads = 1024;
+constexpr int kBatchParts = 1024;
+
+// Read i's insert (train_step's scan, goldrush_tpu/parallel/mesh.py:
+// 86-108): decision 1 (whole) tiles 0..n_t - 1, 2 (trimmed) ts..te, 0
+// nothing; then the first max_blocks blocks (insert_read's limit) of the
+// tiles below T.  x = lo, y = last (last < lo: nothing), z = the base id,
+// w = trimmed.  n_t = len / tile_length.
+__device__ __forceinline__ int4 batch_read(int dec, int ts, int te, int len,
+                                           int tile_length, int max_blocks,
+                                           int bs, int T, uint32_t base) {
+  int lo = 1, hi = 0;
+  if (dec == 1) {
+    lo = 0;
+    hi = len / tile_length - 1;
+  } else if (dec == 2) {
+    lo = ts;
+    hi = te;
+  }
+  const int64_t cap = static_cast<int64_t>(lo) +
+                      static_cast<int64_t>(max_blocks) * bs - 1;
+  const int last = static_cast<int>(
+      min64(min64(hi, cap), static_cast<int64_t>(T) - 1));
+  return make_int4(lo, last, static_cast<int>(base), dec == 2 ? 1 : 0);
+}
+
+// A batch's window: every entry of its slot grid [n, H, T * F] (n * H * T
+// * F < 2^31, which the wrapper checks), entry e of read e / (H * T * F)
+// at column e % (T * F), real iff its tile lies in the read's lo..last
+// (`reads`, batch_read's) and its key below `limit`.
+struct BatchWindow {
+  const int64_t* slots;
+  const int4* reads;
+  uint32_t W, HTF, TF;
+  Div32 per_read, per_row, per_tile;
+  int64_t limit;
+  int tile_bits, shift;
+
+  __device__ BatchWindow(const int64_t* slots_, const int4* reads_, int n,
+                         int H, int T, int F, int64_t limit_, int tile_bits_,
+                         int shift_)
+      : slots(slots_), reads(reads_),
+        W(static_cast<uint32_t>(n) * H * T * F),
+        HTF(static_cast<uint32_t>(H) * T * F),
+        TF(static_cast<uint32_t>(T) * F), per_read(HTF), per_row(TF),
+        per_tile(static_cast<uint32_t>(F)), limit(limit_),
+        tile_bits(tile_bits_), shift(shift_) {}
+  __device__ int64_t size_of() const { return W; }
+  // entry e's read and tile
+  __device__ __forceinline__ void at(int64_t e, uint32_t& i,
+                                     uint32_t& t) const {
+    const uint32_t u = static_cast<uint32_t>(e);
+    i = per_read(u);
+    const uint32_t r = u - i * HTF;
+    t = per_tile(r - per_row(r) * TF);
+  }
+  __device__ int64_t key(int64_t e) const {
+    uint32_t i, t;
+    at(e, i, t);
+    const int4 rd = reads[i];
+    if (static_cast<int>(t) < rd.x || static_cast<int>(t) > rd.y)
+      return limit;
+    return __ldg(slots + e);
+  }
+  __device__ bool real(int64_t key) const { return key >= 0 && key < limit; }
+  __device__ uint64_t entry(int64_t e, int64_t key) const {
+    uint32_t i, t;
+    at(e, i, t);
+    return (static_cast<uint64_t>(key) << shift) |
+           (static_cast<uint64_t>(i) << tile_bits) | t;
+  }
+};
+
+// The reservoir rule for one key of a batch, its `n` entries' order fields
+// (read << tile_bits | tile) given by ord(k) in ascending order: each
+// distinct (read, block) bumps the u32 counter, cnt, and accepts iff
+// (u32(key) ^ id) % max(cnt, 1) == cnt - 1, the word then becoming (word &
+// keep) | or_bits | id, as the blocks of train_step's reads insert one
+// after another; counts[key] is written once and the word at most once.
+template <typename Filt, typename Ord>
+__device__ __forceinline__ void apply_key(const Filt filt, int64_t key, int n,
+                                          Ord ord, const int4* reads,
+                                          int tile_bits, uint32_t bs,
+                                          uint32_t or_bits, uint32_t keep) {
+  uint32_t cnt = __ldcg(filt.count(key)), word = 0;
+  uint32_t prev_r = 0xFFFFFFFFu, prev_m = 0xFFFFFFFFu;
+  bool won = false;
+  for (int k = 0; k < n; ++k) {
+    const uint32_t o = ord(k);
+    const uint32_t r = o >> tile_bits;
+    const int t = static_cast<int>(o & ((1u << tile_bits) - 1u));
+    const int4 rd = reads[r];
+    const uint32_t m = static_cast<uint32_t>(t - rd.x) / bs;
+    if (r == prev_r && m == prev_m) continue;
+    prev_r = r;
+    prev_m = m;
+    const uint32_t id = static_cast<uint32_t>(rd.z) +
+                        (rd.w ? (m * bs + 1u) / bs : m);
+    ++cnt;
+    // the accept rule keys on the key's low 32 bits, as the JAX package's
+    // u32(slot) ^ id does
+    if ((static_cast<uint32_t>(key) ^ id) % (cnt ? cnt : 1u) == cnt - 1u) {
+      if (!won && keep) word = *filt.word(key);
+      word = (word & keep) | or_bits | id;
+      won = true;
+    }
+  }
+  *filt.count(key) = cnt;
+  if (won) *filt.word(key) = word;
+}
+
+// apply_key over an owner's sorted batch entries (owner_sort's), one
+// thread per distinct key.  Every thread calls it.
+template <typename Filt>
+__device__ inline void owner_apply_batch(const Filt filt, const uint64_t* buf,
+                                         int n, const int4* reads, int shift,
+                                         int tile_bits, int bs,
+                                         uint32_t or_bits, uint32_t keep) {
+  const uint64_t order_mask = (1ull << shift) - 1ull;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const uint64_t kk = buf[i] >> shift;
+    if (i > 0 && buf[i - 1] >> shift == kk) continue;
+    int len = 1;
+    while (i + len < n && buf[i + len] >> shift == kk) ++len;
+    apply_key(filt, static_cast<int64_t>(kk), len,
+              [&](int k) {
+                return static_cast<uint32_t>(buf[i + k] & order_mask);
+              },
+              reads, tile_bits, static_cast<uint32_t>(bs), or_bits, keep);
+  }
+}
+
+// An owner's batch entries grouped by key without sorting them all: nearly
+// every key of a batch occurs once (3.64 M distinct keys in the bench
+// batch's 3.84 M entries), and a sort of an owner's ~5,800 entries in
+// shared memory took 0.57 of the launch's 0.96 ms on an H100
+// (tools/torch_port_insert_batch_variants.py).  The owner's `n` <= cap
+// entries (its bucket in global memory, written by other CTAs) go into an
+// open-addressing table of `cap` keys in shared memory with a count and
+// the first entry's order field each; the second and later entries of a
+// key, and then each such key's first, go to a list of at most cap / 2,
+// which alone is sorted, by (table slot, order field).  A key of one entry
+// is applied from the table, one thread a slot; a key of several from its
+// sorted run.  Returns false, with nothing applied, when the list
+// overflows (the caller then sorts the whole bucket).  smem: cap u64 keys,
+// cap u32 counts, cap u32 order fields, cap / 2 u64 list entries.  Every
+// thread calls it.
+template <typename Filt>
+__device__ inline bool owner_group_batch(const Filt filt,
+                                         const unsigned long long* bucket,
+                                         int n, int cap, unsigned char* smem,
+                                         const int4* reads, int shift,
+                                         int tile_bits, int bs,
+                                         uint32_t or_bits, uint32_t keep) {
+  __shared__ int s_multi;
+  uint64_t* hkey = reinterpret_cast<uint64_t*>(smem);
+  uint32_t* hcnt = reinterpret_cast<uint32_t*>(hkey + cap);
+  uint32_t* hord = hcnt + cap;
+  uint64_t* multi = reinterpret_cast<uint64_t*>(hord + cap);
+  const int max_multi = cap / 2;
+  const uint32_t mask = static_cast<uint32_t>(cap) - 1u;
+  const uint64_t order_mask = (1ull << shift) - 1ull;
+  for (int h = threadIdx.x; h < cap; h += blockDim.x) {
+    hkey[h] = kSentinel64;
+    hcnt[h] = 0;
+  }
+  if (threadIdx.x == 0) s_multi = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const uint64_t e = __ldcg(bucket + i);
+    const uint64_t key = e >> shift;
+    uint32_t h = static_cast<uint32_t>((key * 0x9E3779B97F4A7C15ull) >> 40) &
+                 mask;
+    for (;; h = (h + 1u) & mask) {
+      const unsigned long long was = atomicCAS(
+          reinterpret_cast<unsigned long long*>(hkey + h), kSentinel64,
+          static_cast<unsigned long long>(key));
+      if (was == kSentinel64 || was == key) break;
+    }
+    const uint32_t o = static_cast<uint32_t>(e & order_mask);
+    if (atomicAdd(hcnt + h, 1u) == 0) {
+      hord[h] = o;
+    } else {
+      const int m = atomicAdd(&s_multi, 1);
+      if (m < max_multi) multi[m] = (static_cast<uint64_t>(h) << 32) | o;
+    }
+  }
+  __syncthreads();
+  for (int h = threadIdx.x; h < cap; h += blockDim.x) {
+    if (hcnt[h] > 1) {
+      const int m = atomicAdd(&s_multi, 1);
+      if (m < max_multi)
+        multi[m] = (static_cast<uint64_t>(h) << 32) | hord[h];
+    }
+  }
+  __syncthreads();
+  const int n_multi = s_multi;
+  if (n_multi > max_multi) return false;
+  const uint32_t b = static_cast<uint32_t>(bs);
+  for (int h = threadIdx.x; h < cap; h += blockDim.x) {
+    if (hcnt[h] == 1) {
+      const uint32_t o = hord[h];
+      apply_key(filt, static_cast<int64_t>(hkey[h]), 1,
+                [&](int) { return o; }, reads, tile_bits, b, or_bits, keep);
+    }
+  }
+  int n2 = 1;
+  while (n2 < n_multi) n2 <<= 1;
+  for (int i = n_multi + threadIdx.x; i < n2; i += blockDim.x)
+    multi[i] = kSentinel64;
+  __syncthreads();
+  if (n_multi > 0) {
+    if (n2 <= static_cast<int>(blockDim.x)) {
+      block_bitonic_sort_small(multi, n2);
+    } else {
+      block_bitonic_sort(multi, n2);
+    }
+  }
+  for (int i = threadIdx.x; i < n_multi; i += blockDim.x) {
+    const uint64_t slot = multi[i] >> 32;
+    if (i > 0 && multi[i - 1] >> 32 == slot) continue;
+    int len = 1;
+    while (i + len < n_multi && multi[i + len] >> 32 == slot) ++len;
+    apply_key(filt, static_cast<int64_t>(hkey[slot]), len,
+              [&](int k) { return static_cast<uint32_t>(multi[i + k]); },
+              reads, tile_bits, b, or_bits, keep);
+  }
+  return true;
 }
 
 }  // namespace gr

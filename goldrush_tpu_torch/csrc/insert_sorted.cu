@@ -99,6 +99,96 @@ insert_sorted_kernel(const Filt filt, const int64_t* __restrict__ slots,
               keep);
 }
 
+// The batch entry: every recruit of a classified batch of n reads in one
+// cooperative launch, exact for the same reason as one recruit's (a key's
+// result depends only on its own occurrences, in (read, tile) order; see
+// insert.cuh).  Each CTA first works out every read's tiles and ids from
+// C's decisions on the card (batch_read), so nothing is fetched to the
+// host; then step 1 over the whole batch's window, the keys owned by
+// `parts` buckets (a multiple of the CTAs, sized by the wrapper so that a
+// bucket expects at most 3/4 of `cap` entries), and the grid barrier; then
+// each CTA takes its buckets one after another, grouping each bucket's
+// entries by key in shared memory (owner_group_batch: only the keys that
+// occur more than once are sorted), or, past the group's capacity, sorting
+// the whole bucket (owner_sort).  It replaces one launch of the
+// single-recruit entry per recruit, each with a window of ~60,000 entries
+// at the bench width, in which the scatter, the grid barrier and the sort's
+// fixed cost dominated (0.017 ms a recruit against a bound of 0.0004).  On
+// an H100 a bench step's batch (3.84 M grid entries, 64 recruits) takes
+// 0.52 ms at 1,024 threads a CTA, the launches a recruit 1.50 ms
+// (tools/torch_port_insert_batch_variants.py): 0.10 the scatter, 0.16 the
+// grouping, 0.25 the reservoir rule's random reads and writes of the
+// 570 MB tables.
+template <typename Filt>
+__global__ void __launch_bounds__(1024)
+insert_batch_kernel(const Filt filt, const int64_t* __restrict__ slots,
+                    const int* __restrict__ decision,
+                    const int* __restrict__ trim_start,
+                    const int* __restrict__ trim_end,
+                    const int* __restrict__ lengths,
+                    const int64_t* __restrict__ base_ids, int n,
+                    int tile_length, int max_blocks, int H, int T, int F,
+                    int64_t limit, uint32_t or_bits, uint32_t keep, int bs,
+                    int tile_bits, int shift, int parts, int cap,
+                    unsigned* bucket_count, unsigned long long* bucket,
+                    unsigned long long* spill) {
+  __shared__ int4 s_reads[kBatchReads];
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    s_reads[i] = batch_read(decision[i], trim_start[i], trim_end[i],
+                            lengths[i], tile_length, max_blocks, bs, T,
+                            static_cast<uint32_t>(base_ids[i]));
+  __syncthreads();
+  const BatchWindow w(slots, s_reads, n, H, T, F, limit, tile_bits, shift);
+  scatter_window<kBatchParts>(w, blockIdx.x, gridDim.x, parts, cap,
+                              bucket_count, bucket);
+  cg::this_grid().sync();
+  __shared__ int s_n;
+  uint64_t* sbuf = reinterpret_cast<uint64_t*>(gr_smem);
+  for (int p = blockIdx.x; p < parts; p += gridDim.x) {
+    __syncthreads();
+    if (threadIdx.x == 0) s_n = static_cast<int>(__ldcg(bucket_count + p));
+    __syncthreads();
+    if (s_n <= cap &&
+        owner_group_batch(filt, bucket + static_cast<int64_t>(p) * cap, s_n,
+                          cap, gr_smem, s_reads, shift, tile_bits, bs,
+                          or_bits, keep))
+      continue;
+    // past its bucket or its list of repeated keys: the whole bucket
+    // sorted (owner_sort), then walked key by key
+    int m = 0;
+    const uint64_t* buf =
+        owner_sort(w, p, parts, cap, bucket_count, bucket, sbuf, sbuf + cap,
+                   spill, reinterpret_cast<uint64_t*>(spill + 1), &m);
+    owner_apply_batch(filt, buf, m, s_reads, shift, tile_bits, bs, or_bits,
+                      keep);
+  }
+}
+
+// The cooperative launch of `kernel` on `ctas` CTAs of `threads` with
+// `smem` bytes of dynamic shared memory, after checking that they are
+// resident at once (a grid barrier needs every CTA resident).
+template <typename Kern>
+cudaError_t launch_cooperative(Kern kernel, int ctas, int threads,
+                               size_t smem, void** args,
+                               cudaStream_t stream) {
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return e;
+  if (static_cast<int64_t>(per_sm) * sms < ctas)
+    return cudaErrorCooperativeLaunchTooLarge;
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(ctas),
+                                  dim3(threads), args, smem, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace gr
 
 // table/counts/n_banks/bank_len/remote: the bank view of the words (or
@@ -146,32 +236,76 @@ extern "C" int gr_insert_sorted(void* const* table, void* const* counts,
   }
   // the bucket's entries, and half as many for owner_distinct
   const size_t smem = static_cast<size_t>(cap) * sizeof(uint64_t) * 3 / 2;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
   return gr::with_view(banks, [&](auto filt) {
     const auto kernel =
         ranked ? gr::insert_sorted_kernel<decltype(filt), true>
                : gr::insert_sorted_kernel<decltype(filt), false>;
-    cudaError_t e = gr::allow_smem(kernel, smem);
-    if (e != cudaSuccess) return e;
-    int per_sm = 0;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, threads, smem)) != cudaSuccess)
-      return e;
-    // a cooperative grid must be resident at once
-    if (static_cast<int64_t>(per_sm) * sms < parts)
-      return cudaErrorCooperativeLaunchTooLarge;
     void* args[] = {&filt, &slots, &bitrank, &supers, &n_super, &size,
                     &H, &TF, &F, &limit, &or_bits, &keep, &lo, &last,
                     &base, &trimmed, &bs, &cap, &bucket_count, &bucket,
                     &spill};
-    e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(parts), dim3(threads), args, smem,
+    return gr::launch_cooperative(kernel, parts, threads, smem, args,
+                                  stream);
+  });
+}
+
+// The batch entry (insert_batch_kernel): the bank view as gr_insert_sorted
+// takes it; slots int64 [n, H, T * F]; decision, trim_start, trim_end,
+// lengths int32 [n] and base_ids int64 [n] (low 32 bits) on the card;
+// tile_bits >= bits(T - 1) and read_bits >= bits(n - 1) with
+// bits(limit - 1) + tile_bits + read_bits <= 63, so that every entry lies
+// below the sort's sentinel, and tile_bits + read_bits <= 32 (an order
+// field of 32 bits); `parts` owners (a multiple of `ctas`, at most
+// kBatchParts), each a bucket of `cap` entries; spill: its allocation
+// counter, then less than twice the window (n * H * T * F entries).  The
+// entry zeroes the counters.
+extern "C" int gr_insert_batch(void* const* table, void* const* counts,
+                               int n_banks, int64_t bank_len, int remote,
+                               const int64_t* slots, const int* decision,
+                               const int* trim_start, const int* trim_end,
+                               const int* lengths, const int64_t* base_ids,
+                               int n, int tile_length, int max_blocks, int H,
+                               int T, int F, int64_t limit, uint32_t or_bits,
+                               uint32_t keep, int bs, int tile_bits,
+                               int read_bits, int ctas, int parts,
+                               int threads, int cap, unsigned* bucket_count,
+                               unsigned long long* bucket,
+                               unsigned long long* spill,
+                               cudaStream_t stream) {
+  gr::Banks banks;
+  int key_bits = 0;
+  while (key_bits < 63 && (limit - 1) >> key_bits) ++key_bits;
+  const int64_t window = static_cast<int64_t>(n) * H * T * F;
+  if (!counts ||
+      !gr::make_banks(table, counts, n_banks, bank_len, remote, &banks) ||
+      n < 0 || n > gr::kBatchReads || H <= 0 || T <= 0 || F <= 0 ||
+      tile_length <= 0 || max_blocks < 0 || bs <= 0 || limit <= 0 ||
+      window >= (int64_t{1} << 31) || tile_bits < 0 || read_bits < 0 ||
+      (T - 1) >> tile_bits || (n > 0 && (n - 1) >> read_bits) ||
+      key_bits + tile_bits + read_bits > 63 || tile_bits + read_bits > 32 ||
+      ctas <= 0 || parts < ctas ||
+      parts % ctas || parts > gr::kBatchParts || threads <= 0 ||
+      threads > 1024 || cap < 4 * threads || (cap & (cap - 1)) ||
+      !bucket_count || !bucket || !spill || !slots || !decision ||
+      !trim_start || !trim_end || !lengths || !base_ids)
+    return cudaErrorInvalidValue;
+  if (n == 0) return gr::kNoLaunch;
+  cudaError_t err = cudaMemsetAsync(bucket_count, 0, sizeof(unsigned) * parts,
                                     stream);
-    if (e != cudaSuccess) return e;
-    return cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = cudaMemsetAsync(spill, 0, sizeof(*spill), stream)) !=
+      cudaSuccess)
+    return err;
+  // owner_group_batch's table and list (owner_sort takes 12 bytes an entry)
+  const size_t smem = static_cast<size_t>(cap) * 20;
+  int shift = tile_bits + read_bits;
+  return gr::with_view(banks, [&](auto filt) {
+    void* args[] = {&filt, &slots, &decision, &trim_start, &trim_end,
+                    &lengths, &base_ids, &n, &tile_length, &max_blocks, &H,
+                    &T, &F, &limit, &or_bits, &keep, &bs, &tile_bits, &shift,
+                    &parts, &cap, &bucket_count, &bucket, &spill};
+    return gr::launch_cooperative(
+        gr::insert_batch_kernel<decltype(filt)>, ctas, threads, smem, args,
+        stream);
   });
 }

@@ -47,11 +47,13 @@
 //  - grid: one CTA per (read, tile) writes TL/S frames x h int64 slots plus
 //    frame_ok; at B=32, T=20, TL=1000, h=3, S=1 that is 15.4 MB of stores
 //    for 1.28 MB of codes: store-bound, each warp storing 256 contiguous
-//    bytes per seed.  At a stride S the CTA still stages its tile's whole
-//    codes window, but computes right-half partials only where its frames
-//    and the stale-tail clamp read them, and hashes only the frames it
-//    emits: at B=64, T=20, h=1, S=8 (the throughput mode's query grid)
-//    1.3 MB of codes in and 1.4 MB out.  Written by the insert grid's
+//    bytes per seed.  At a stride S >= h (ranks: of one seed) a thread
+//    takes a frame (seed_hash_sampled_kernel): at B=64, T=20, h=1, S=8
+//    (the throughput mode's query grid) 1.3 MB of codes in and 1.4 MB
+//    out, latency-bound.  At other strides the CTA still stages its
+//    tile's whole codes window, but computes right-half partials only
+//    where its frames and the stale-tail clamp read them, and hashes only
+//    the frames it emits.  Written by the insert grid's
 //    launch (B=64, h=3, S=1, 30.7 MB of stores) that query grid adds 1.44
 //    MB of stores and no hashing: its slots (ranks) are the insert grid's
 //    first hq seeds at every q_step-th frame, computed once;
@@ -249,6 +251,171 @@ __global__ void __launch_bounds__(kThreads) seed_hash_grid_kernel(
   }
 }
 
+// The standalone sampled grid at a stride S >= h (S > 1, no query grid
+// beside it: no right-half partial serves two frames), as slots, or as
+// ranks of one seed: a thread a frame,
+// over the batch's frames flattened as [B, T, F] (F = TL / S), kThreads
+// consecutive frames a CTA, whatever tiles they span.  The
+// frames, probe positions, stale-tail clamp and stores are those of
+// seed_hash_grid_kernel; only the work's layout and the hash's lookups
+// differ.  A CTA stages the family's block table (SeedFamily.block_table,
+// ntCard's: for each half and each block of 4 positions, the XOR of the
+// block's care constants for each of the 256 codes of the 4 positions)
+// behind one barrier; a thread loads its frame's codes with three 16-byte
+// loads, packs them two bits a code into the 32-code window from its probe
+// position (`window_at`), and takes a half's partials as one lookup a block
+// of 4 window positions, a byte of the window (`half_at`): at k = 22 three
+// lookups a half, where the care constants took eight.  Every care offset
+// of every seed lies in the window when k + h <= 33 and the blocks' bytes
+// do when 2 (half + h - 1) + 8 (nb - 1) <= 56 (the launcher checks both; a
+// family past them runs the CTA-per-tile kernel).  The design this
+// replaces ran a CTA per (read, tile) that staged the tile's whole codes
+// window byte by byte and its right-half partials behind two barriers,
+// with work for only F = TL / S of its 256 threads: at B=64, T=20, S=8
+// 1,280 CTAs whose staging's latency (tools/torch_port_sampled_grid_
+// variants.py: 0.009 of 0.014 ms), not their bytes, set the time.  Below
+// S = h a frame shares right-half partials with the next, which the
+// CTA-per-tile kernel computes once a position: there it stays, since a
+// thread a frame measured slower on an H100 at S=2, h=3 (B=32: 0.0162 ms
+// against 0.0137 as slots, 0.0283 against 0.0214 as ranks); so do ranks
+// of several seeds, slower at S=4, h=3 (0.0150 against 0.0135; 72
+// registers a thread hold fewer frames' gathers in flight), while slots
+// there took 0.0096 against 0.0114 (chip_smoke.py --ab).
+
+// 16 codes (the low two bits of 16 bytes) packed two bits a code, the
+// first in the lowest bits.
+__device__ __forceinline__ uint32_t pack4(uint32_t x) {
+  uint32_t t = x & 0x03030303u;
+  t = (t | (t >> 6)) & 0x000F000Fu;
+  return (t | (t >> 12)) & 0xFFu;
+}
+
+__device__ __forceinline__ uint32_t pack16(uint4 v) {
+  return pack4(v.x) | (pack4(v.y) << 8) | (pack4(v.z) << 16) |
+         (pack4(v.w) << 24);
+}
+
+// Codes [q, q + 32) of a row of L codes, two bits each, code q in the
+// lowest bits; 0 at or past L.  Three aligned 16-byte loads when they lie
+// inside the row's L bytes, else byte by byte.
+__device__ __forceinline__ uint64_t window_at(const uint8_t* __restrict__ row,
+                                              int64_t L, int64_t q) {
+  const uint8_t* p = row + q;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p) & ~uintptr_t{15};
+  if (a + 48 <= reinterpret_cast<uintptr_t>(row + L)) {
+    const uint4* v = reinterpret_cast<const uint4*>(a);
+    const uint32_t w0 = pack16(__ldg(v)), w1 = pack16(__ldg(v + 1)),
+                   w2 = pack16(__ldg(v + 2));
+    const unsigned sh = 2u * static_cast<unsigned>(
+                                 reinterpret_cast<uintptr_t>(p) - a);
+    const uint32_t lo = __funnelshift_r(w0, w1, sh);
+    const uint32_t hi = __funnelshift_r(w1, w2, sh);
+    return static_cast<uint64_t>(lo) | (static_cast<uint64_t>(hi) << 32);
+  }
+  uint64_t w = 0;
+  for (int i = 0; i < 32; ++i)
+    if (q + i < L) w |= static_cast<uint64_t>(__ldg(p + i) & 3u) << (2 * i);
+  return w;
+}
+
+// A half's partials from its nb blocks (`blk`: nb tables of 256 entries),
+// its first position at window offset `base`.
+__device__ __forceinline__ ulonglong2 half_at(const ulonglong2* blk, int nb,
+                                              int base, uint64_t win) {
+  uint64_t fw = 0, rv = 0;
+  for (int b = 0; b < nb; ++b) {
+    const ulonglong2 v =
+        blk[256 * b + static_cast<int>((win >> (2 * base + 8 * b)) & 255u)];
+    fw ^= v.x;
+    rv ^= v.y;
+  }
+  return make_ulonglong2(fw, rv);
+}
+
+template <int kStore>
+__global__ void __launch_bounds__(kThreads) seed_hash_sampled_kernel(
+    const uint8_t* __restrict__ codes, int64_t L,
+    const int* __restrict__ lengths, const Family f, int T, int TL, int S,
+    int64_t size, int mode, const unsigned long long* __restrict__ bitrank,
+    const unsigned long long* __restrict__ supers, int64_t n_super,
+    int64_t sentinel, int64_t* __restrict__ grid,
+    bool* __restrict__ frame_ok, uint32_t frames,
+    const ulonglong2* __restrict__ blocks, int nb) {
+  // the left half's nb tables, then the right half's
+  ulonglong2* blk = reinterpret_cast<ulonglong2*>(gr_smem);
+  for (int i = threadIdx.x; i < 2 * nb * 256; i += blockDim.x)
+    blk[i] = __ldg(blocks + i);
+  __syncthreads();
+  const uint32_t g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= frames) return;
+  const int F = TL / S;
+  const uint32_t TFu = static_cast<uint32_t>(T) * F;
+  const uint32_t b = g / TFu, col = g - b * TFu;
+  const int t = static_cast<int>(col / F), j = static_cast<int>(col) - t * F;
+  const int64_t TF = TFu;
+  const int64_t len = lengths[b];
+  const int64_t pos0 = static_cast<int64_t>(t) * TL;
+  const int frames_t = t < len / TL
+      ? static_cast<int>(min64(TL + f.k - 1, len - pos0)) - f.k + 1 : 0;
+  const int fr = j * S;
+  const bool ok = fr < frames_t;
+  frame_ok[static_cast<int64_t>(b) * TF + col] = ok;
+  int64_t* out = grid + static_cast<int64_t>(b) * f.h * TF + col;
+  if (!ok) {
+    const int64_t v = kStore == kSlots ? size : sentinel;
+    for (int s = 0; s < f.h; ++s) out[s * TF] = v;
+    return;
+  }
+  const uint8_t* row = codes + static_cast<int64_t>(b) * L;
+  const uint64_t usize = static_cast<uint64_t>(size);
+  const uint64_t own_win = window_at(row, L, pos0 + fr);
+  const ulonglong2 own = half_at(blk, nb, 0, own_win);
+  for (int s0 = 0; s0 < f.h; s0 += kGather) {
+    uint64_t slot[kGather];
+#pragma unroll
+    for (int g2 = 0; g2 < kGather; ++g2) {
+      const int s = s0 + g2;
+      if (s >= f.h) break;
+      // position fr, or frames_t - s - 1 once fr reaches it (the stale
+      // tail)
+      const int F_ts = frames_t - s;
+      const int p = fr < F_ts ? fr : F_ts - 1;
+      const uint64_t win = p == fr ? own_win : window_at(row, L, pos0 + p);
+      const ulonglong2 left = p == fr ? own : half_at(blk, nb, 0, win);
+      const ulonglong2 r = half_at(blk + 256 * nb, nb, f.half + s, win);
+      const uint64_t fwd = rol64(left.x, s) ^ r.x;
+      const uint64_t rev = left.y ^ rol64(r.y, s);
+      slot[g2] = slot_of(fwd < rev ? fwd : rev, usize, mode);
+    }
+    if constexpr (kStore == kSlots) {
+#pragma unroll
+      for (int g2 = 0; g2 < kGather; ++g2)
+        if (s0 + g2 < f.h)
+          out[(s0 + g2) * TF] = static_cast<int64_t>(slot[g2]);
+    } else {
+      // the gathers of up to kGather seeds in flight before any is used
+      unsigned long long e[kGather] = {}, sup[kGather] = {};
+#pragma unroll
+      for (int g2 = 0; g2 < kGather; ++g2) {
+        if (s0 + g2 < f.h) {
+          e[g2] = bitrank[slot[g2] >> 5];
+          if constexpr (kStore == kRanksSupers) {
+            const uint64_t sb = slot[g2] >> 32;
+            sup[g2] = supers[sb < static_cast<uint64_t>(n_super)
+                                 ? sb : n_super - 1];
+          }
+        }
+      }
+#pragma unroll
+      for (int g2 = 0; g2 < kGather; ++g2)
+        if (s0 + g2 < f.h)
+          out[(s0 + g2) * TF] = rank_in(
+              e[g2], static_cast<unsigned>(slot[g2] & 31u), sup[g2],
+              sentinel);
+    }
+  }
+}
+
 // grid (ceil(L / kFillChunk), B): one CTA per (read, chunk).  Frame p of
 // seed s is valid iff p < len - span_s + 1, i.e. p + s < len - k + 1; its
 // slot's bit is set in `bits`.
@@ -330,10 +497,14 @@ cudaError_t launch_grid_as(const uint8_t* codes, int64_t B, int64_t L,
 
 // Both grid entries: check the clamp invariant, the stride and the query
 // grid's (none when grid_q is null: hq seeds, 1 <= hq <= h, every q_step-th
-// frame, q_step dividing TL / S), and launch.
+// frame, q_step dividing TL / S), and launch: a standalone sampled grid
+// at S >= h, as slots or as ranks of one seed, with
+// seed_hash_sampled_kernel where the family's window and blocks (`blocks`,
+// nb a half) allow it, every other grid with seed_hash_grid_kernel.
 template <int kStore>
 int launch_grid(const uint8_t* codes, int64_t B, int64_t L, const int* lengths,
-                const Family& f, int T, int TL, int S, int64_t size, int mode,
+                const Family& f, const uint64_t* blocks, int nb, int T,
+                int TL, int S, int64_t size, int mode,
                 const unsigned long long* bitrank,
                 const unsigned long long* supers, int64_t n_super,
                 int64_t sentinel, int64_t* grid, bool* frame_ok,
@@ -345,6 +516,23 @@ int launch_grid(const uint8_t* codes, int64_t B, int64_t L, const int* lengths,
                  (TL / S) % q_step))
     return cudaErrorInvalidValue;
   if (B == 0 || T == 0) return kNoLaunch;
+  const int64_t frames = B * T * static_cast<int64_t>(TL / S);
+  if (S > 1 && S >= f.h && (kStore == kSlots || f.h == 1) && !grid_q &&
+      blocks && nb >= 1 && f.k + f.h <= 33 &&
+      2 * (f.half + f.h - 1) + 8 * (nb - 1) <= 56 &&
+      frames < (int64_t{1} << 32) - kThreads) {
+    // the standalone sampled grid: a thread a frame
+    const auto kernel = seed_hash_sampled_kernel<kStore>;
+    const size_t smem = sizeof(ulonglong2) * 2 * 256 * nb;
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>((frames + kThreads - 1) / kThreads),
+             kThreads, smem, stream>>>(
+        codes, L, lengths, f, T, TL, S, size, mode, bitrank, supers, n_super,
+        sentinel, grid, frame_ok, static_cast<uint32_t>(frames),
+        reinterpret_cast<const ulonglong2*>(blocks), nb);
+    return cudaGetLastError();
+  }
   if (grid_q)
     return launch_grid_as<kStore, true>(
         codes, B, L, lengths, f, T, TL, S, size, mode, bitrank, supers,
@@ -363,19 +551,22 @@ const char* gr_error_string(int err) {
 }
 
 // fam_table: the family's kernel_table on the card; h..pad its scalars;
-// S the frame stride (divides TL): slots [B, h, T*TL/S].  With slots_q
+// blocks: its block_table(nb) on the card (a standalone sampled grid's
+// lookups; may be null); S the frame stride (divides TL): slots [B, h,
+// T*TL/S].  With slots_q
 // (else null), also the query grid [B, hq, T*TL/(S*q_step)] and ok_q.
 int gr_seed_hash_grid(const uint8_t* codes, int64_t B, int64_t L,
                       const int* lengths, const uint64_t* fam_table, int h,
-                      int k, int half, int nl, int nr, int pad, int T, int TL,
-                      int S, int64_t size, int mode, int64_t* slots,
-                      bool* frame_ok, int64_t* slots_q, bool* ok_q, int hq,
-                      int q_step, cudaStream_t stream) {
+                      int k, int half, int nl, int nr, int pad,
+                      const uint64_t* blocks, int nb, int T, int TL, int S,
+                      int64_t size, int mode, int64_t* slots, bool* frame_ok,
+                      int64_t* slots_q, bool* ok_q, int hq, int q_step,
+                      cudaStream_t stream) {
   const gr::Family f{h, k, half, nl, nr, pad, fam_table};
-  return gr::launch_grid<gr::kSlots>(codes, B, L, lengths, f, T, TL, S, size,
-                                     mode, nullptr, nullptr, 0, 0, slots,
-                                     frame_ok, slots_q, ok_q, hq, q_step,
-                                     stream);
+  return gr::launch_grid<gr::kSlots>(codes, B, L, lengths, f, blocks, nb, T,
+                                     TL, S, size, mode, nullptr, nullptr, 0,
+                                     0, slots, frame_ok, slots_q, ok_q, hq,
+                                     q_step, stream);
 }
 
 // bitrank, supers: the frozen structure of a filter of `size` slots
@@ -385,7 +576,8 @@ int gr_seed_hash_grid(const uint8_t* codes, int64_t B, int64_t L,
 int gr_seed_hash_rank_grid(const uint8_t* codes, int64_t B, int64_t L,
                            const int* lengths, const uint64_t* fam_table,
                            int h, int k, int half, int nl, int nr, int pad,
-                           int T, int TL, int S, int64_t size, int mode,
+                           const uint64_t* blocks, int nb, int T, int TL,
+                           int S, int64_t size, int mode,
                            const unsigned long long* bitrank,
                            const unsigned long long* supers, int64_t n_super,
                            int64_t sentinel, int64_t* ranks, bool* frame_ok,
@@ -394,14 +586,14 @@ int gr_seed_hash_rank_grid(const uint8_t* codes, int64_t B, int64_t L,
   if (n_super < 1) return cudaErrorInvalidValue;
   const gr::Family f{h, k, half, nl, nr, pad, fam_table};
   if (n_super == 1)
-    return gr::launch_grid<gr::kRanks>(codes, B, L, lengths, f, T, TL, S,
-                                       size, mode, bitrank, supers, n_super,
-                                       sentinel, ranks, frame_ok, ranks_q,
-                                       ok_q, hq, q_step, stream);
-  return gr::launch_grid<gr::kRanksSupers>(codes, B, L, lengths, f, T, TL, S,
-                                           size, mode, bitrank, supers,
-                                           n_super, sentinel, ranks, frame_ok,
-                                           ranks_q, ok_q, hq, q_step, stream);
+    return gr::launch_grid<gr::kRanks>(codes, B, L, lengths, f, blocks, nb,
+                                       T, TL, S, size, mode, bitrank, supers,
+                                       n_super, sentinel, ranks, frame_ok,
+                                       ranks_q, ok_q, hq, q_step, stream);
+  return gr::launch_grid<gr::kRanksSupers>(
+      codes, B, L, lengths, f, blocks, nb, T, TL, S, size, mode, bitrank,
+      supers, n_super, sentinel, ranks, frame_ok, ranks_q, ok_q, hq, q_step,
+      stream);
 }
 
 int gr_seed_hash_fill(const uint8_t* codes, int64_t B, int64_t L,

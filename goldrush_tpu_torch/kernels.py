@@ -54,13 +54,14 @@ _BANKS = (_PP, _PP, _I, _L, _I)
 # C signatures: every entry returns the cudaError_t of its launch, or
 # NO_LAUNCH
 _SIGNATURES = {
-    "gr_seed_hash_grid": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _L, _I, _P, _P, _P, _P, _I, _I, _P),
+    "gr_seed_hash_grid": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                          _I, _I, _I, _I, _L, _I, _P, _P, _P, _P, _I, _I,
+                          _P),
     "gr_seed_hash_fill": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
                           _L, _I, _P, _P),
     "gr_seed_hash_rank_grid": (_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _L, _I, _P, _P, _L, _L, _P, _P,
-                               _P, _P, _I, _I, _P),
+                               _P, _I, _I, _I, _I, _L, _I, _P, _P, _L, _L,
+                               _P, _P, _P, _P, _I, _I, _P),
     "gr_presence_merge": (_P, _L, _P, _L, _I, _P),
     "gr_probe_vote": (*_BANKS, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
@@ -69,6 +70,9 @@ _SIGNATURES = {
     "gr_row_cummax": (_P, _I, _I, _P, _P),
     "gr_insert_sorted": (*_BANKS, _P, _P, _P, _I, _L, _I, _L, _I, _L, _U,
                          _U, _I, _I, _U, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "gr_insert_batch": (*_BANKS, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _L, _U, _U, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                        _P, _P),
     "gr_insert_max": (*_BANKS, _P, _I, _L, _I, _L, _U, _I, _I, _U, _I, _I,
                       _P),
     "gr_rank_build": (_P, _L, _L, _P, _P, _P, _P),
@@ -223,6 +227,11 @@ INSERT_SORTED = Kernel(
     "goldrush_tpu_torch/csrc/insert_sorted.cu",
     "goldrush_tpu/mibf/mibf.py:540; insert_read goldrush_tpu/mibf/mibf.py:449, "
     "goldrush_tpu/mibf/compressed.py:338")
+INSERT_BATCH = Kernel(
+    "insert_batch", "gr_insert_batch",
+    "goldrush_tpu_torch/csrc/insert_sorted.cu",
+    "goldrush_tpu/mibf/mibf.py:449 (insert_read, once a recruit in "
+    "train_step's scan, goldrush_tpu/parallel/mesh.py:86-108)")
 INSERT_MAX = Kernel(
     "insert_max", "gr_insert_max", "goldrush_tpu_torch/csrc/insert_max.cu",
     "goldrush_tpu/mibf/mibf.py:638; goldrush_tpu/mibf/compressed.py:480")
@@ -282,7 +291,10 @@ SIZING = (NTCARD_COUNT,)
 # when the engine runs with wavefront=True under the optimistic policy
 WAVE = (WAVE_ADJACENCY, WAVE_ROUNDS)
 STAGES = (MINIMIZER_KEYS, KMER_COUNT, KMER_QUERY)
-ALL = PATH + SIZING + WAVE + STAGES
+# the mesh module's state-mutating step (train_step, sharded_train_step):
+# kernel D over the whole classified batch, once a step a data row
+TRAIN = (INSERT_BATCH,)
+ALL = PATH + SIZING + WAVE + STAGES + TRAIN
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

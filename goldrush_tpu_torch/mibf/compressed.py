@@ -406,10 +406,11 @@ def reset_ids(state: CompressedState, counts: bool = True
     return state
 
 
-def state_from_numpy(bitrank, supers, ids, counts, device="cpu"
+def state_from_numpy(bitrank, supers, ids, counts, device="cuda"
                      ) -> CompressedState:
     """The JAX package's arrays (uint64 bitrank/supers, uint32 ids/counts)
-    as a state on ``device`` (bit views); the inverse of
+    as a state on ``device`` (bit views; the card unless the caller asks
+    for the CPU); the inverse of
     ``state_to_numpy``.  When ``device`` is a sequence of devices (a mesh
     row), ``ids``/``counts`` are banked over it (``dm.to_banks``) and
     ``bitrank``/``supers`` lie whole on its first."""

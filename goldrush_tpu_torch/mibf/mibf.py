@@ -276,12 +276,13 @@ def init_state(params: MibfParams, device="cuda") -> MibfState:
 
 
 def state_from_numpy(words: np.ndarray, counts: np.ndarray,
-                     device="cpu", copy: bool = True) -> MibfState:
-    """The JAX package's uint32 arrays as a state on ``device`` (bit view),
-    or banked over ``device`` when it is a sequence of devices (a mesh
-    row: ``to_banks``, always a copy).  On the CPU the state is one copy
-    of the arrays, or with ``copy=False`` the arrays themselves (uint32
-    and contiguous: a filter of 2^32 slots is 34 GB of host memory)."""
+                     device="cuda", copy: bool = True) -> MibfState:
+    """The JAX package's uint32 arrays as a state on ``device`` (bit view):
+    the card unless the caller asks for the CPU, or banked over ``device``
+    when it is a sequence of devices (a mesh row: ``to_banks``, always a
+    copy).  On the CPU the state is one copy of the arrays, or with
+    ``copy=False`` the arrays themselves (uint32 and contiguous: a filter
+    of 2^32 slots is 34 GB of host memory)."""
     def conv(a):
         a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
         # torch takes no read-only memory (a JAX array's numpy view)
@@ -293,10 +294,10 @@ def state_from_numpy(words: np.ndarray, counts: np.ndarray,
     return MibfState(words=conv(words), counts=conv(counts))
 
 
-def side_from_numpy(side: np.ndarray, device="cpu") -> torch.Tensor:
+def side_from_numpy(side: np.ndarray, device="cuda") -> torch.Tensor:
     """The JAX wavefront's side table (uint32, the id table's shape:
     goldrush_tpu/path/wavefront.py) as the port's, an int32 bit view on
-    ``device``."""
+    ``device``: the card unless the caller asks for the CPU."""
     a = np.ascontiguousarray(side, dtype=np.uint32).view(np.int32)
     return torch.from_numpy(a.copy()).to(device)
 
@@ -359,13 +360,27 @@ def _family_args(fam: SeedFamily, device) -> tuple:
             len(fam.care_right), fam.pad_needed)
 
 
+def _block_args(fam: SeedFamily, device) -> tuple:
+    """Kernel A's standalone sampled grid's lookups: the family's
+    ``block_table(nb)`` on ``device`` (copied there once per family and
+    device) and nb, its blocks a half."""
+    nb = max(fam.block_counts())
+    table = _FAMILY_TABLES.get((fam, device, "blocks"))
+    if table is None:
+        table = torch.from_numpy(fam.block_table(nb).view(np.int64)).to(
+            device)
+        _FAMILY_TABLES[(fam, device, "blocks")] = table
+    return kernels.ptr(table), nb
+
+
 # ---------------------------------------------------------------------------
 # pass-1 presence fill
 # ---------------------------------------------------------------------------
 
-def presence_bitmap(size: int, device="cpu") -> torch.Tensor:
-    """A zeroed presence bitmap: int32 [ceil(size / 32)] (uint32 bits), bit
-    slot & 31 of word slot >> 5 standing for slot."""
+def presence_bitmap(size: int, device="cuda") -> torch.Tensor:
+    """A zeroed presence bitmap on ``device`` (the card unless the caller
+    asks for the CPU): int32 [ceil(size / 32)] (uint32 bits), bit slot & 31
+    of word slot >> 5 standing for slot."""
     return torch.zeros(-(-size // 32), dtype=torch.int32, device=device)
 
 
@@ -762,8 +777,8 @@ def grid_launch_args(codes, lengths, fam, params, T) -> tuple:
                        device=dev)
     frame_ok = torch.empty((B, T * TL // S), dtype=torch.bool, device=dev)
     args = (dev, kernels.ptr(codes), B, L, kernels.ptr(lengths),
-            *_family_args(fam, dev), T, TL, S, params.size,
-            _slot_mode(params.slot_map))
+            *_family_args(fam, dev), *_block_args(fam, dev), T, TL, S,
+            params.size, _slot_mode(params.slot_map))
     return grid, frame_ok, args
 
 
@@ -1109,6 +1124,141 @@ def _insert_plain(words, counts, slots, lo, hi, base_id, trimmed, params, T,
         else:
             put_(words, won, word - (1 << 32) if word > 0x7FFFFFFF else word)
         m += 1
+
+
+# train_step's insert (kernel D's batch entry, csrc/insert_sorted.cu
+# insert_batch): the most reads a launch takes (csrc/insert.cuh
+# kBatchReads), the most owners of its keys (kBatchParts), and the window
+# a launch takes at most, so that no bucket of the most owners that are a
+# multiple of the CTAs expects more than 3/4 of INSERT_CAP entries (the
+# 64-read bench batch, 3.84 M entries, is one launch)
+BATCH_READS = 1_024
+BATCH_PARTS = 1_024
+# the batch entry's threads a CTA
+BATCH_THREADS = 1_024
+BATCH_WINDOW = (BATCH_PARTS // INSERT_PARTS * INSERT_PARTS * INSERT_CAP
+                * 3 // 4)
+
+
+def insert_batch(state: MibfState, slots: torch.Tensor,
+                 decision: torch.Tensor, trim_start: torch.Tensor,
+                 trim_end: torch.Tensor, lengths: torch.Tensor, base_ids,
+                 params: MibfParams, max_blocks: int, num_tiles: int
+                 ) -> MibfState:
+    """train_step's insert, in place: every recruit of a classified batch
+    in batch order, as the scan of goldrush_tpu/parallel/mesh.py:86-108
+    runs ``insert_read`` read by read.  ``slots`` int64 [B, H, T*F] is the
+    batch's slot grid, ``decision``/``trim_start``/``trim_end`` int32 [B]
+    kernel C's verdicts, ``lengths`` [B] the reads' lengths (n_t = length
+    // tile_length) and ``base_ids`` [B] (a tensor or a sequence; low 32
+    bits) their first block ids.  A whole read (decision 1) inserts tiles
+    0..n_t-1 untrimmed, a trimmed one (2) tiles ts..te trimmed, a drop (0)
+    nothing; each the first ``max_blocks`` blocks, an accepted word keeping
+    its SAT and PRESENT bits (``insert_read``).  On the card one launch of
+    kernel D's batch entry (more only when the batch's order field does not
+    fit beside its keys, ``batch_layout``), which reads the verdicts where
+    they lie: nothing is fetched to the host.  ``state``'s arrays may be
+    banked (``Banks``)."""
+    if not torch.is_tensor(base_ids):
+        base_ids = torch.from_numpy(np.asarray(base_ids, dtype=np.int64))
+    args = (slots, decision, trim_start, trim_end, lengths, base_ids, params,
+            num_tiles, max_blocks, params.size, 0, SAT_BIT | PRESENT_BIT)
+    if state.words.is_cuda:
+        _insert_batch_cuda(state.words, state.counts, *args)
+    else:
+        _insert_batch_plain(state.words, state.counts, *args)
+    return state
+
+
+def batch_layout(n_reads: int, H: int, T: int, F: int, limit: int,
+                 window: int = BATCH_WINDOW) -> tuple[int, int, int]:
+    """(tile_bits, read_bits, reads a launch) of kernel D's batch entry for
+    a batch of ``n_reads`` reads of grids [H, T*F] and keys below
+    ``limit``: an entry is key << (tile_bits + read_bits) | read <<
+    tile_bits | tile (csrc/insert.cuh BatchWindow), so the keys' bits and
+    the order field's take at most 63 (below the sort's sentinel), the
+    order field at most 32, and a launch takes at most BATCH_READS reads,
+    ``window`` grid entries (but at least one read) and fewer than 2^31
+    entries.  Consecutive chunks of that many reads, launched in batch
+    order, give the batch's result: a key's result depends only on its
+    occurrences in order."""
+    tile_bits = (T - 1).bit_length()
+    room = min(63 - (limit - 1).bit_length(), 32) - tile_bits
+    per_read = H * T * F
+    if room < 0 or per_read >= 1 << 31:
+        raise ValueError(f"a batch insert of grids [{H}, {T}*{F}] and keys "
+                         f"below {limit} has no room for its order field")
+    per = max(1, min(n_reads, BATCH_READS, 1 << room, window // per_read,
+                     ((1 << 31) - 1) // per_read))
+    return tile_bits, (per - 1).bit_length(), per
+
+
+def batch_parts(entries: int, ctas: int = INSERT_PARTS,
+                cap: int = INSERT_CAP) -> int:
+    """The owners of a batch launch's keys: a multiple of its ``ctas``
+    CTAs (each takes its owners' buckets in turn), enough that a bucket of
+    ``cap`` entries expects at most 3/4 of it from ``entries`` grid
+    entries, at most BATCH_PARTS (a larger window's owners spill)."""
+    k = max(1, -(-entries * 4 // (3 * cap * ctas)))
+    return ctas * min(k, BATCH_PARTS // ctas)
+
+
+def _insert_batch_cuda(words, counts, slots, decision, trim_start, trim_end,
+                       lengths, base_ids, params, T, max_blocks, limit,
+                       or_bits, keep, window=BATCH_WINDOW):
+    dev = words.device
+    B, H, TF = slots.shape
+    F = TF // T
+    banks = kernels.banks_args(words, counts, dev)
+    kernels.check(slots, "slots", torch.int64, device=dev)
+    if F * T != TF or not 0 < limit <= words.shape[0]:
+        raise ValueError(f"unsupported batch insert grid "
+                         f"{tuple(slots.shape)} or key limit {limit}")
+    cols = [t.to(dev, torch.int32).contiguous()
+            for t in (decision, trim_start, trim_end, lengths)]
+    for name, t in zip(("decision", "trim_start", "trim_end", "lengths"),
+                       cols):
+        kernels.check(t, name, torch.int32, (B,), dev)
+    base = base_ids.to(dev, torch.int64).contiguous()
+    kernels.check(base, "base_ids", torch.int64, (B,), dev)
+    tile_bits, read_bits, per = batch_layout(B, H, T, F, limit, window)
+    entries = min(per, B) * H * TF
+    # the owners' buckets and counters, and the spill buffer (its
+    # allocation counter, then less than twice the window), once a call
+    count = torch.empty(batch_parts(entries), dtype=torch.int32, device=dev)
+    bucket = torch.empty(count.shape[0] * INSERT_CAP, dtype=torch.int64,
+                         device=dev)
+    spill = torch.empty(1 + 2 * entries, dtype=torch.int64, device=dev)
+    for r0 in range(0, B, per):
+        n = min(per, B - r0)
+        parts = batch_parts(n * H * TF)
+        kernels.INSERT_BATCH(
+            dev, *banks, kernels.ptr(slots[r0:]),
+            *(kernels.ptr(t[r0:]) for t in (*cols, base)), n,
+            params.tile_length, int(max_blocks), H, T, F, int(limit),
+            int(or_bits) & _MASK32, int(keep) & _MASK32, params.block_size,
+            tile_bits, read_bits, INSERT_PARTS, parts, BATCH_THREADS,
+            INSERT_CAP, kernels.ptr(count), kernels.ptr(bucket),
+            kernels.ptr(spill))
+
+
+def _insert_batch_plain(words, counts, slots, decision, trim_start, trim_end,
+                        lengths, base_ids, params, T, max_blocks, limit,
+                        or_bits, keep):
+    """The plain version: the verdicts on the host, then ``_insert_plain``
+    read by read in batch order (``insert_read``'s tiles and block
+    limit)."""
+    rows = torch.stack([t.cpu().long() for t in (
+        decision, trim_start, trim_end, lengths, base_ids)]).t().tolist()
+    bs = params.block_size
+    for i, (dec, ts, te, length, base) in enumerate(rows):
+        if dec == 0:
+            continue
+        lo, hi = ((0, length // params.tile_length - 1) if dec == 1
+                  else (ts, te))
+        _insert_plain(words, counts, slots[i], lo,
+                      min(hi, lo + max_blocks * bs - 1), base & _MASK32,
+                      dec == 2, params, T, limit, or_bits, keep)
 
 
 def insert_read_max(state: MibfState, slots: torch.Tensor, tile_lo: int,

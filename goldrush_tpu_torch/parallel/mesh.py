@@ -26,7 +26,8 @@ from inside the kernel rather than through collectives.  A card may
 repeat in the mesh (``["cuda:0"] * 4``); ``"cpu"`` gives logical CPU
 devices, where the plain versions run.  ``train_step`` and
 ``sharded_train_step`` are the JAX module's state-mutating step: a
-batched classify, then each recruit's blockwise insert in batch order.
+batched classify, then every recruit's blockwise insert in batch order,
+one launch a data row.
 """
 
 from __future__ import annotations
@@ -172,7 +173,7 @@ def shard_side(side, mesh: Mesh, banked: bool) -> list:
     (``_wave_side``; JAX's ``NamedSharding(mesh, P("model"))`` when its
     filter is banked)."""
     if isinstance(side, np.ndarray):
-        side = dm.side_from_numpy(side)
+        side = dm.side_from_numpy(side, mesh.lead(0))
     side = dm.whole(side)
     return [to_banks(side, row if banked else row[:1]) for row in mesh.rows]
 
@@ -196,35 +197,6 @@ def classify_step(words, codes: torch.Tensor, lengths: torch.Tensor,
     return res, slots, votes
 
 
-def _fetch_recruits(res, lengths: torch.Tensor, base_ids, params) -> list:
-    """The batch's (decision, trim start, trim end, tiles, base id) rows on
-    the host, in one fetch: n_t = lengths // tile_length
-    (goldrush_tpu/parallel/mesh.py:102) and base ids as uint32."""
-    dev = res.decision.device
-    if not torch.is_tensor(base_ids):
-        base_ids = torch.from_numpy(np.asarray(base_ids, dtype=np.int64))
-    cols = torch.stack([
-        res.decision.long(), res.trim_start.long(), res.trim_end.long(),
-        torch.div(lengths.to(dev).long(), params.tile_length,
-                  rounding_mode="floor"),
-        base_ids.to(dev, torch.int64) & 0xFFFFFFFF])
-    return cols.t().cpu().tolist()
-
-
-def _recruit(state, slots: torch.Tensor, rows: list, params: dm.MibfParams,
-             num_tiles_max: int, max_blocks: int) -> None:
-    """The recruits of a classified batch inserted in batch order into
-    ``state``, in place (the scan of goldrush_tpu/parallel/mesh.py:
-    86-108): a whole read (decision 1) inserts tiles 0..n_t-1 untrimmed, a
-    trimmed one (2) its tiles ts..te trimmed, a drop (0) nothing."""
-    for i, (dec, ts, te, n_t, bid) in enumerate(rows):
-        if dec == 0:
-            continue
-        lo, hi = (0, n_t - 1) if dec == 1 else (ts, te)
-        dm.insert_read(state, slots[i], lo, hi, bid, dec == 2, params,
-                       max_blocks, num_tiles_max)
-
-
 def train_step(state: dm.MibfState, codes: torch.Tensor,
                lengths: torch.Tensor, base_ids, fam: SeedFamily,
                params: dm.MibfParams, num_tiles_max: int, max_blocks: int,
@@ -234,17 +206,18 @@ def train_step(state: dm.MibfState, codes: torch.Tensor,
     (goldrush_tpu/parallel/mesh.py:77), the state-mutating analog of a
     training step.  Kernel A's grid, B and C classify every read against
     the direct filter ``state`` (``classify_step``; its arrays a tensor or
-    ``dm.Banks`` each), one fetch brings the batch's decisions, trims and
-    tile counts to the host, and each recruit then inserts in batch order
-    (``dm.insert_read``: kernel D with its keep mask on the card, the first
-    ``max_blocks`` blocks of the read).  ``base_ids`` [B] (a tensor or a
-    sequence) are the reads' first block ids.  Returns (state, decisions
-    int32 [B] on the state's device)."""
+    ``dm.Banks`` each), then every recruit inserts in batch order
+    (``dm.insert_batch``: on the card one launch of kernel D's batch entry,
+    which reads C's verdicts where they lie, nothing fetched to the host;
+    each recruit's first ``max_blocks`` blocks, as ``insert_read``).
+    ``base_ids`` [B] (a tensor or a sequence) are the reads' first block
+    ids.  Returns (state, decisions int32 [B] on the state's device)."""
     res, slots, _ = classify_step(state.words, codes, lengths, fam, params,
                                   num_tiles_max, threshold, unassigned_min,
                                   assigned_max)
-    _recruit(state, slots, _fetch_recruits(res, lengths, base_ids, params),
-             params, num_tiles_max, max_blocks)
+    dm.insert_batch(state, slots, res.decision, res.trim_start,
+                    res.trim_end, lengths, base_ids, params, max_blocks,
+                    num_tiles_max)
     return state, res.decision
 
 
@@ -260,10 +233,12 @@ def sharded_train_step(mesh: Mesh, fam: SeedFamily, params: dm.MibfParams,
     data row); data row i classifies reads [i B/d, (i+1) B/d) on its lead
     against its replica (B through the bank view), as the engine's
     ``_mesh_inputs`` does; every row then gets the whole batch's slot
-    grids and verdicts on its lead and inserts every recruit in batch order
-    into its own replica (kernel D through the bank view), so the replicas
-    stay equal with no traffic between them.  The decisions (int32 [B], on
-    row 0's lead) and the replicas equal ``train_step``'s on one device.
+    grids and verdicts on its lead, device to device, and inserts every
+    recruit in batch order into its own replica (``dm.insert_batch``: one
+    launch of kernel D's batch entry through the bank view), so the
+    replicas stay equal with no traffic between them.  The decisions
+    (int32 [B], on row 0's lead) and the replicas equal ``train_step``'s
+    on one device.
     The batch size must be a multiple of the data rows, as JAX's
     ``P("data")`` needs."""
     def step(replicas: list, codes: torch.Tensor, lengths: torch.Tensor,
@@ -280,14 +255,13 @@ def sharded_train_step(mesh: Mesh, fam: SeedFamily, params: dm.MibfParams,
             lengths[i * per: (i + 1) * per].to(mesh.lead(i)), fam, params,
             num_tiles_max, threshold=10, unassigned_min=5, assigned_max=1)
             for i in range(d)]
-        lead = mesh.lead(0)
-        res = type(parts[0][0])(*(torch.cat([p[0][k].to(lead)
-                                             for p in parts])
-                                  for k in range(len(parts[0][0]))))
-        rows = _fetch_recruits(res, lengths, base_ids, params)
+        verdicts = [torch.cat([p[0][k].to(mesh.lead(0)) for p in parts])
+                    for k in range(3)]       # decision, trim_start, trim_end
         for r in range(d):
-            slots = torch.cat([p[1].to(mesh.lead(r)) for p in parts])
-            _recruit(replicas[r], slots, rows, params, num_tiles_max,
-                     max_blocks)
-        return replicas, res.decision
+            dev = mesh.lead(r)
+            dm.insert_batch(replicas[r],
+                            torch.cat([p[1].to(dev) for p in parts]),
+                            *(v.to(dev) for v in verdicts), lengths, base_ids,
+                            params, max_blocks, num_tiles_max)
+        return replicas, verdicts[0]
     return step

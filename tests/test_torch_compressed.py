@@ -144,7 +144,7 @@ def test_fill_bits_then_build_rank_matches_jax(mode):
     and with_tables, against freeze_device_words of goldrush_tpu's fill of
     the same batches: the engine's compressed pass 1."""
     jw = jnp.zeros(JP.alloc, jnp.uint32)
-    bits = tdm.presence_bitmap(SIZE)
+    bits = tdm.presence_bitmap(SIZE, device="cpu")
     for i, lengths in enumerate([[505, 333, 30, 0, 1024], [700, 21, 22, 23],
                                  [1024] * 3]):
         codes, lens = hard.read_batch(lengths, 1024, seed=i)

@@ -123,9 +123,9 @@ def port_state(je, compressed):
         c = je.cstate
         return tcz.state_from_numpy(*(np.asarray(getattr(c, k)) for k in
                                       ("bitrank", "supers", "ids",
-                                       "counts")))
+                                       "counts")), device="cpu")
     return tdm.state_from_numpy(np.asarray(je.state.words),
-                                np.asarray(je.state.counts))
+                                np.asarray(je.state.counts), device="cpu")
 
 
 def assert_same_filter(state, jfilt, size):

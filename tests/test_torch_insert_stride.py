@@ -77,7 +77,7 @@ def states(space, rng):
     c = rng.integers(0, 5, n).astype(np.uint32)
     if space == "slots":
         return (jdm.MibfState(jnp.asarray(w), jnp.asarray(c)),
-                tdm.state_from_numpy(w, c))
+                tdm.state_from_numpy(w, c, device="cpu"))
     empty = jnp.zeros(1, jnp.uint64)
     zero = torch.zeros(1, dtype=torch.int64)
     return (jcz.CompressedState(empty, empty, jnp.asarray(w), jnp.asarray(c)),

@@ -80,7 +80,7 @@ def test_seed_hash_fill_bits_and_merge(cuda, mode):
     rng = np.random.default_rng(2)
     size = 1_000_003
     bits_k = tdm.presence_bitmap(size, cuda)
-    bits_p = tdm.presence_bitmap(size)
+    bits_p = tdm.presence_bitmap(size, device="cpu")
     for lengths, width in [([20_000, 19_999, 5_432, 999, 21, 0], 21_000),
                            ([2_000, 1_024, 1_023, 22, 23], 32_768),
                            ([4_096] * 8, 4_096)]:
@@ -332,7 +332,8 @@ def test_probe_vote_and_insert(cuda, bs, T):
     w = rng.integers(0, 9, params.alloc).astype(np.uint32)
     w |= np.uint32(tdm.PRESENT_BIT)
     c = rng.integers(0, 3, params.alloc).astype(np.uint32)
-    host, dev = tdm.state_from_numpy(w, c), tdm.state_from_numpy(w, c, cuda)
+    host = tdm.state_from_numpy(w, c, device="cpu")
+    dev = tdm.state_from_numpy(w, c, cuda)
     for i, (lo, hi, base, tr) in enumerate([(0, T - 1, 3, False),
                                             (1, T - 2, 9, True),
                                             (0, 1, 40, False)]):
@@ -417,7 +418,7 @@ def test_insert_read_keep_and_rank_map(cuda, space, kind):
         w = rng.integers(0, 1 << 30, n).astype(np.uint32) | (
             rng.integers(0, 4, n).astype(np.uint32) << 30)
         c = rng.integers(0, 5, n).astype(np.uint32)
-        host = tdm.state_from_numpy(w, c)
+        host = tdm.state_from_numpy(w, c, device="cpu")
     else:
         w = None
         bits = torch.from_numpy(
@@ -450,6 +451,168 @@ def test_insert_read_keep_and_rank_map(cuda, space, kind):
         changed = got != w
         assert changed.any()
         assert (got[changed] >> 30 == w[changed] >> 30).all()
+
+
+def batch_inputs(rng, kind, size, B, T, F):
+    """A classified batch of B reads of [3, T*F] slot grids whose reads
+    share slots (read 1 repeats read 0, read 3 is a trimmed copy of read
+    2, drops between them), as hard_grid makes them (one_partition: keys
+    owned by the batch launch's first owner), with their verdicts,
+    lengths (tile length F) and base ids, on the host."""
+    if kind == "one_partition":
+        keys = torch.from_numpy(rng.integers(0, size, 2_000_000))
+        parts = tdm.batch_parts(B * 3 * T * F)
+        pool = keys[tdm.insert_part(keys, parts) == 0].numpy()
+        g = pool[rng.integers(0, len(pool), (B, 3, T * F))]
+        g[:, :, -377:] = size
+        grid = torch.from_numpy(g.astype(np.int64))
+    else:
+        grid = torch.stack([hard_grid(rng, kind, size, T, F)
+                            for _ in range(B)])
+    grid[1] = grid[0]
+    grid[3] = grid[2]
+    dec = np.array([1, 1, 1, 2, 0, 2, 1, 0, 2, 1, 2, 1][:B], np.int32)
+    ts = rng.integers(0, T // 2, B).astype(np.int32)
+    te = (ts + rng.integers(0, T, B)).astype(np.int32)
+    ts[3], te[3] = 2, T - 3
+    lengths = rng.integers(F * T // 2, F * (T + 2), B).astype(np.int32)
+    base = (5 + 40 * np.arange(B)).astype(np.int64)
+    return grid, *(torch.from_numpy(a) for a in (dec, ts, te, lengths, base))
+
+
+def banked_state(w, c, dev, banks):
+    """A direct state of words ``w`` and counters ``c`` on ``dev``, banked
+    over ``[dev] * banks`` when banks > 1."""
+    if banks == 1:
+        return tdm.state_from_numpy(w, c, dev)
+    return tdm.state_from_numpy(w, c, [dev] * banks)
+
+
+@pytest.mark.parametrize("banks", [1, 2])
+@pytest.mark.parametrize("kind", ["homopolymer", "one_partition", "random"])
+def test_insert_batch_matches_per_recruit(cuda, kind, banks):
+    """Kernel D's batch entry (train_step's insert: every recruit of a
+    classified batch in one launch, the verdicts read on the card) against
+    one launch of kernel D a recruit in batch order (insert_read) and the
+    plain version, on one bank and on two of ["cuda:0"] * 2: blocks of 1,
+    3 and 10 tiles, max_blocks 1, 2 and past the reads' blocks, words whose
+    SAT and PRESENT bits are set at random; then the same batch cut into
+    chunks of two reads (five more launches), bit for bit.  A repeated
+    k-mer or keys of one owner take the owners' distinct and spill
+    paths."""
+    rng = np.random.default_rng([len(kind), banks])
+    B, T, F, size = 12, 24, 1000, 10_000_019
+    grid, dec, ts, te, lengths, base = batch_inputs(rng, kind, size, B, T, F)
+    n = -(-(size + 1) // 1024) * 1024
+    w = rng.integers(0, 1 << 30, n).astype(np.uint32) | (
+        rng.integers(0, 4, n).astype(np.uint32) << 30)
+    c = rng.integers(0, 5, n).astype(np.uint32)
+    cols = [t.to(cuda) for t in (dec, ts, te, lengths, base)]
+    grid_d = grid.to(cuda)
+    rows = torch.stack([dec, ts, te, lengths]).t().tolist()
+    for bs in (1, 3, 10):
+        params = tdm.MibfParams(size=size, h=3, k=22, spans=FAM.spans,
+                                tile_length=F, block_size=bs)
+        for mb in (1, 2, 100):
+            got = banked_state(w, c, cuda, banks)
+            before = kernels.INSERT_BATCH.launches
+            tdm.insert_batch(got, grid_d, *cols, params, mb, T)
+            assert kernels.INSERT_BATCH.launches == before + 1
+            per = banked_state(w, c, cuda, banks)
+            for i, (d, lo, hi, ln) in enumerate(rows):
+                if d:
+                    lo, hi = (0, ln // F - 1) if d == 1 else (lo, hi)
+                    tdm.insert_read(per, grid_d[i], lo, hi, int(base[i]),
+                                    d == 2, params, mb, T)
+            host = tdm.state_from_numpy(w, c, device="cpu")
+            tdm.insert_batch(host, grid, dec, ts, te, lengths, base, params,
+                             mb, T)
+            want = (host.words, host.counts)
+            assert_same([tdm.whole(t) for t in got], want)
+            assert_same([tdm.whole(t) for t in per], want)
+    chunked = banked_state(w, c, cuda, banks)
+    before = kernels.INSERT_BATCH.launches
+    tdm._insert_batch_cuda(chunked.words, chunked.counts, grid_d, *cols,
+                           params, T, 100, size, 0,
+                           tdm.SAT_BIT | tdm.PRESENT_BIT,
+                           window=2 * 3 * T * F)
+    assert kernels.INSERT_BATCH.launches == before + B // 2
+    assert_same([tdm.whole(t) for t in chunked], want)
+    got = host.words.numpy().view(np.uint32)
+    changed = got != w
+    assert changed.any()
+    assert (got[changed] >> 30 == w[changed] >> 30).all()
+
+
+def train_batch():
+    """16 reads of 2 kb from a 20 kb genome packed as 8-tile reads of 250
+    (tests/test_torch_train.py's batch), a filter of 200,003 slots
+    presence-filled with them, and its geometry."""
+    from goldrush_tpu_torch.io.fastq import encode
+    genome = synth.random_genome(20_000, seed=7)
+    reads = synth.simulate_reads(genome, 16, 2_000, seed=8, err_rate=0.02)
+    T, TL = 8, 250
+    codes = np.zeros((16, T * TL + TL), np.uint8)
+    lengths = np.zeros(16, np.int32)
+    for i, (_, seq, _) in enumerate(reads):
+        c = encode(seq)[: T * TL + TL - 1]
+        codes[i, : len(c)] = c
+        lengths[i] = len(c)
+    params = tdm.MibfParams(size=200_003, h=3, k=22, spans=FAM.spans,
+                            tile_length=TL, block_size=2)
+    state = tdm.init_state(params, device="cpu")
+    tdm.fill_presence(state.words, torch.from_numpy(codes),
+                      torch.from_numpy(lengths), FAM, params.size)
+    return torch.from_numpy(codes), torch.from_numpy(lengths), state, params, T
+
+
+@pytest.mark.parametrize("layout", ["single", "1x2", "2x1"])
+def test_train_step_one_insert_launch(cuda, layout):
+    """train_step (one card) and sharded_train_step (1x2 banked, 2x1 on
+    ["cuda:0"] * 2) on the card: A's grid, B, C and one launch of kernel
+    D's batch entry a data row a step, no single-recruit D, and no host
+    synchronisation in the step (torch.cuda's sync debug mode raises on
+    one); two steps of 8 reads, replicas and decisions bit for bit with
+    the plain train_step on the CPU."""
+    from goldrush_tpu_torch.parallel import mesh as tmesh
+    codes, lengths, state, params, T = train_batch()
+    host = tdm.MibfState(state.words.clone(), state.counts.clone())
+    if layout == "single":
+        dev_state, rows = tdm.MibfState(state.words.to(cuda),
+                                        state.counts.to(cuda)), 1
+        step = None
+    else:
+        data, model = (1, 2) if layout == "1x2" else (2, 1)
+        mesh = tmesh.make_mesh(2, data=data, model=model, devices=[cuda] * 2)
+        dev_state = tmesh.shard_state(state, mesh, model > 1)
+        step = tmesh.sharded_train_step(mesh, FAM, params, T, 2, model > 1)
+        rows = data
+    path = (kernels.SEED_HASH_GRID, kernels.PROBE_VOTE, kernels.CLASSIFY,
+            kernels.INSERT_BATCH, kernels.INSERT_SORTED)
+    for k in range(2):
+        sl = slice(8 * k, 8 * (k + 1))
+        base = torch.arange(1 + 8 * k, 9 + 8 * k, dtype=torch.int64)
+        c, n, b = codes[sl].to(cuda), lengths[sl].to(cuda), base.to(cuda)
+        before = [kk.launches for kk in path]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            if step is None:
+                dev_state, dec = tmesh.train_step(dev_state, c, n, b, FAM,
+                                                  params, T, 2)
+            else:
+                dev_state, dec = step(dev_state, c, n, b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launched = [kk.launches - x for kk, x in zip(path, before)]
+        assert launched == [rows, rows, rows, rows, 0]
+        host, want = tmesh.train_step(host, codes[sl], lengths[sl], base,
+                                      FAM, params, T, 2)
+        assert torch.equal(dec.cpu(), want)
+        for rep in (dev_state if step else [dev_state]):
+            assert torch.equal(tdm.whole(rep.words).cpu(), host.words)
+            assert torch.equal(tdm.whole(rep.counts).cpu(), host.counts)
+    assert int((host.counts != 0).sum()) > 1_000
 
 
 def random_tables(rng, B, T, K, n_ids):
@@ -551,8 +714,8 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         tdm.fill_presence(words, codes.cpu(), lens, FAM, params.size)
     with pytest.raises(ValueError):
-        tdm.fill_presence_bits(tdm.presence_bitmap(params.size), codes, lens,
-                               FAM, params.size)
+        tdm.fill_presence_bits(tdm.presence_bitmap(params.size, "cpu"),
+                               codes, lens, FAM, params.size)
     with pytest.raises(ValueError):
         tdm.merge_presence(words[1:], tdm.presence_bitmap(params.size, cuda),
                            params.size)

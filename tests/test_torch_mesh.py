@@ -236,7 +236,7 @@ def test_plain_versions_route_through_banks(op, m):
     size, T = 200_003, 6
     for ranked in (False, True):
         p, words, counts = random_filter(rng, size, ranked)
-        st = tdm.state_from_numpy(words, counts)
+        st = tdm.state_from_numpy(words, counts, device="cpu")
         banked = tdm.state_from_numpy(words, counts, ["cpu"] * m)
         if m > 1:
             assert all(isinstance(t, tdm.Banks) for t in banked)

@@ -80,7 +80,7 @@ def test_fill_bits_then_merge_matches_jax(mode):
     against goldrush_tpu's fill_presence batch after batch, on the real
     slots; the bitmap holds exactly the filled slots."""
     jw = jnp.zeros(JP.alloc, jnp.uint32)
-    bits = tdm.presence_bitmap(SIZE)
+    bits = tdm.presence_bitmap(SIZE, device="cpu")
     for i, lengths in enumerate([[505, 333, 30, 0, 1024], [700, 21, 22, 23],
                                  [1024] * 3]):
         codes, lens = hard.read_batch(lengths, 1024, seed=i)
@@ -114,7 +114,7 @@ def test_merge_keeps_the_other_bits():
     set_[-5:] = True
     bits = np.packbits(np.pad(set_, (0, -SIZE % 32)),
                        bitorder="little").view(np.int32)
-    st = tdm.state_from_numpy(w, c)
+    st = tdm.state_from_numpy(w, c, device="cpu")
     tdm.merge_presence(st.words, torch.from_numpy(bits.copy()), SIZE)
     want = w.copy()
     want[:SIZE][set_] |= np.uint32(jdm.PRESENT_BIT)
@@ -194,7 +194,7 @@ def test_probe_and_vote_matches_jax(seed):
         tpar = dataclasses.replace(TP, vote_min=vote_min)
         want = jdm.probe_and_vote(jnp.asarray(jw), slots, ok, jpar,
                                   num_tiles=T)
-        st = tdm.state_from_numpy(jw, np.zeros_like(jw))
+        st = tdm.state_from_numpy(jw, np.zeros_like(jw), device="cpu")
         got = tdm.probe_and_vote(st.words, torch.from_numpy(
             np.array(slots, dtype=np.int64)), torch.from_numpy(
             np.array(ok)), tpar, num_tiles=T)
@@ -222,7 +222,7 @@ def test_probe_and_vote_hard_cases_match_jax(kind):
     w[:words.size] = words
     want = jdm.probe_and_vote(jnp.asarray(w), jnp.asarray(grid),
                               jnp.asarray(ok), JP, num_tiles=T)
-    got = tdm.probe_and_vote(tdm.state_from_numpy(w, np.zeros_like(w)).words,
+    got = tdm.probe_and_vote(tdm.state_from_numpy(w, np.zeros_like(w), device="cpu").words,
                              torch.from_numpy(grid), torch.from_numpy(ok), TP,
                              num_tiles=T)
     for name in got._fields:
@@ -264,7 +264,7 @@ def test_insert_matches_jax(lo, hi, trimmed):
     slots[1, 100:140] = slots[0, 100:140]             # cross-seed duplicates
     slots[2, 500:540] = slots[0, 100:140]             # same slots, later block
     w, c = random_state(JP.alloc)
-    st = tdm.state_from_numpy(w, c)
+    st = tdm.state_from_numpy(w, c, device="cpu")
     js = jdm.MibfState(jnp.asarray(w), jnp.asarray(c))
     for base in (7, 40):
         js = _jax_insert(js, slots, lo, hi, base, trimmed, T)
@@ -326,7 +326,7 @@ def test_insert_hard_cases_match_jax(space, kind, bs, near_max):
         base = 7
     if slots:
         j = jdm.MibfState(jnp.asarray(w), jnp.asarray(c))
-        t = tdm.state_from_numpy(w, c)
+        t = tdm.state_from_numpy(w, c, device="cpu")
     else:
         empty = jnp.zeros(1, jnp.uint64)
         j = jcz.CompressedState(empty, empty, jnp.asarray(w), jnp.asarray(c))
@@ -419,18 +419,35 @@ def test_reset_ids_matches_jax():
     w, c = random_state(JP.alloc, ids=1 << 20)
     w[::7] |= np.uint32(jdm.SAT_BIT)
     j = jdm.reset_ids(jdm.MibfState(jnp.asarray(w), jnp.asarray(c)))
-    st = tdm.reset_ids(tdm.state_from_numpy(w, c))
+    st = tdm.reset_ids(tdm.state_from_numpy(w, c, device="cpu"))
     tw, tc = words_np(st)
     np.testing.assert_array_equal(tw, np.asarray(j.words))
     np.testing.assert_array_equal(tc, np.asarray(j.counts))
 
 
-def test_state_constructors_default_to_the_card():
-    """init_state and load_state place the filter on the card unless the
-    caller asks for the CPU, as the JAX package's land on its
-    accelerator."""
-    for fn in (tdm.init_state, tdm.load_state):
-        assert inspect.signature(fn).parameters["device"].default == "cuda"
+@pytest.mark.parametrize("fn", [
+    tdm.init_state, tdm.load_state, tdm.state_from_numpy,
+    tdm.side_from_numpy, tdm.presence_bitmap, tcz.state_from_numpy],
+    ids=lambda fn: f"{fn.__module__.rsplit('.', 1)[-1]}.{fn.__name__}")
+def test_state_constructors_default_to_the_card(fn):
+    """Every constructor of a filter's tables (the direct and compressed
+    states, the wavefront's side table, the presence bitmap) places them
+    on the card unless the caller asks for the CPU, as the JAX package's
+    land on its accelerator: without a card, the default raises rather
+    than falling back to the CPU."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available() or fn is tdm.load_state:
+        return
+    args = {tdm.init_state: (TP,),
+            tdm.state_from_numpy: (np.zeros(8, np.uint32),) * 2,
+            tdm.side_from_numpy: (np.zeros(8, np.uint32),),
+            tdm.presence_bitmap: (64,),
+            tcz.state_from_numpy: (np.zeros(3, np.uint64),
+                                   np.zeros(1, np.uint64),
+                                   np.zeros(8, np.uint32),
+                                   np.zeros(8, np.uint32))}[fn]
+    with pytest.raises((RuntimeError, AssertionError)):
+        fn(*args)
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
@@ -444,7 +461,7 @@ def test_npz_interchange(tmp_path, writer):
         st, meta = tdm.load_state(path, device="cpu")
         got = words_np(st)
     else:
-        tdm.save_state(tdm.state_from_numpy(w, c), TP, path)
+        tdm.save_state(tdm.state_from_numpy(w, c, device="cpu"), TP, path)
         st, meta = jdm.load_state(path)
         got = (np.asarray(st.words), np.asarray(st.counts))
     np.testing.assert_array_equal(got[0], w)

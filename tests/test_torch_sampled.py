@@ -183,7 +183,7 @@ def test_insert_read_max_matches_jax(space, lo, hi, trimmed, base, bs):
                       np.uint32(0))
         want = jdm.insert_read_max(jnp.asarray(w), jnp.asarray(slots), *args,
                                    jp, num_tiles=T)
-        st = tdm.state_from_numpy(w, c)
+        st = tdm.state_from_numpy(w, c, device="cpu")
         tdm.insert_read_max(st, torch.from_numpy(slots), lo, hi, base,
                             trimmed, tp, T)
         got_w, got_c = tdm.state_to_numpy(st)
@@ -272,7 +272,7 @@ def test_optimistic_reset_keeps_counts(space):
     w = rng.integers(0, 1 << 31, 4096).astype(np.uint32)
     c = rng.integers(0, 9, 4096).astype(np.uint32)
     if space == "slots":
-        st = tdm.reset_ids(tdm.state_from_numpy(w, c), counts=False)
+        st = tdm.reset_ids(tdm.state_from_numpy(w, c, device="cpu"), counts=False)
         got_w, got_c = tdm.state_to_numpy(st)
         np.testing.assert_array_equal(
             got_w, np.asarray(jnp.asarray(w) & jdm.PRESENT_BIT))

@@ -48,9 +48,13 @@ def two_torch_threads():
 
 # ----------------------------------------------------------- insert_read
 
+TL_INSERT = 50
+
+
 def insert_params(bs: int):
-    geo = dict(size=10_007, h=3, k=22, spans=(22, 23, 24), tile_length=50,
-               threshold=3, block_size=bs, vote_topk=8)
+    geo = dict(size=10_007, h=3, k=22, spans=(22, 23, 24),
+               tile_length=TL_INSERT, threshold=3, block_size=bs,
+               vote_topk=8)
     return jdm.MibfParams(**geo), tdm.MibfParams(**geo)
 
 
@@ -94,7 +98,7 @@ def test_insert_read_direct_matches_jax(lo, hi, trimmed, bs, at_count):
         jdm.MibfState(jnp.asarray(words), jnp.asarray(counts)),
         jnp.asarray(slots.astype(np.int32)), jnp.int32(lo), jnp.int32(hi),
         np.uint32(7), jnp.asarray(trimmed), jp, max_blocks=mb, num_tiles=Tn)
-    st = tdm.state_from_numpy(words, counts)
+    st = tdm.state_from_numpy(words, counts, device="cpu")
     got = tdm.insert_read(st, torch.from_numpy(slots), lo, hi, 7, trimmed,
                           tp, mb, Tn)
     assert got is st
@@ -134,7 +138,8 @@ def test_insert_read_compressed_matches_jax(lo, hi, trimmed, bs, at_count):
         np.uint32(11), jnp.asarray(trimmed), jp, max_blocks=mb,
         num_tiles=Tn)
     st = tcz.state_from_numpy(np.asarray(frozen.bitrank),
-                              np.asarray(frozen.supers), ids, counts)
+                              np.asarray(frozen.supers), ids, counts,
+                              device="cpu")
     got = tcz.insert_read(st, torch.from_numpy(slots), lo, hi, 11, trimmed,
                           tp, mb, Tn)
     out = tcz.state_to_numpy(got)
@@ -144,6 +149,63 @@ def test_insert_read_compressed_matches_jax(lo, hi, trimmed, bs, at_count):
     assert changed.any()
     np.testing.assert_array_equal(out["ids"][changed] >> 31,
                                   ids[changed] >> 31)
+
+
+# ---------------------------------------------------------- insert_batch
+
+@pytest.mark.parametrize("bs", [1, 3])
+@pytest.mark.parametrize("mb", [1, 2])
+def test_insert_batch_matches_jax_recruits(bs, mb):
+    """train_step's insert of a whole classified batch (mibf.insert_batch,
+    its plain version here) against JAX's scan body, insert_read a recruit
+    at a time in batch order (goldrush_tpu/parallel/mesh.py:86-108), and
+    against the port's own per-recruit loop (mibf.insert_read): batches
+    whose reads share slots (one read repeated, a read and its trimmed
+    copy, drops between them), max_blocks 1 and 2, blocks of 1 tile (a
+    trimmed read's ids start at base + 1) and 3; then the Python model of
+    the card's launch (tests/test_torch_insert_batch_model.py) in one
+    launch and in chunks of two reads."""
+    from tests.test_torch_insert_batch_model import model_batch, shared_batch
+    jp, tp = insert_params(bs)
+    B, Tn, F = 8, 12, 50
+    rng = np.random.default_rng([bs, mb])
+    slots, dec, ts, te, lengths = shared_batch(rng, B, Tn, F, jp.size // 40)
+    slots[slots == jp.size // 40] = jp.size
+    base = (3 + 30 * np.arange(B)).astype(np.uint32)
+    words = random_words(rng, jp.alloc)
+    counts = rng.integers(0, 5, jp.alloc, dtype=np.uint32)
+    ref = jdm.MibfState(jnp.asarray(words), jnp.asarray(counts))
+    mine = tdm.state_from_numpy(words, counts, device="cpu")
+    for i in range(B):
+        if dec[i] == 0:
+            continue
+        lo, hi = ((0, int(lengths[i]) // TL_INSERT - 1) if dec[i] == 1
+                  else (int(ts[i]), int(te[i])))
+        ref = jdm.insert_read(ref, jnp.asarray(slots[i].astype(np.int32)),
+                              jnp.int32(lo), jnp.int32(hi), base[i],
+                              jnp.asarray(dec[i] == 2), jp, max_blocks=mb,
+                              num_tiles=Tn)
+        tdm.insert_read(mine, torch.from_numpy(slots[i]), lo, hi,
+                        int(base[i]), dec[i] == 2, tp, mb, Tn)
+    want = (np.asarray(ref.words), np.asarray(ref.counts))
+    st = tdm.state_from_numpy(words, counts, device="cpu")
+    got = tdm.insert_batch(st, torch.from_numpy(slots), *(
+        torch.from_numpy(a) for a in (dec, ts, te, lengths)),
+        torch.from_numpy(base.astype(np.int64)), tp, mb, Tn)
+    assert got is st
+    for state in (got, mine):
+        w, c = tdm.state_to_numpy(state)
+        np.testing.assert_array_equal(w, want[0])
+        np.testing.assert_array_equal(c, want[1])
+    assert (want[1] != counts).sum() > 100
+    for window in (tdm.BATCH_WINDOW, 2 * 3 * Tn * F):
+        w, c = words.copy(), counts.copy()
+        launches = model_batch(w, c, slots, dec, ts, te, lengths, base, Tn,
+                               TL_INSERT, mb, bs, jp.size, 0,
+                               tdm.SAT_BIT | tdm.PRESENT_BIT, window)
+        assert launches == (1 if window == tdm.BATCH_WINDOW else B // 2)
+        np.testing.assert_array_equal(w, want[0])
+        np.testing.assert_array_equal(c, want[1])
 
 
 # ------------------------------------------------------------ train_step

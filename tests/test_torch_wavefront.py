@@ -125,7 +125,7 @@ def test_window_plain_matches_jax(wave_reads, case):
             elif not te.cfg.silver_path:
                 assert after[4] == 0
             # the next window starts from the JAX package's side table
-            side = tdm.side_from_numpy(np.asarray(jside))
+            side = tdm.side_from_numpy(np.asarray(jside), device="cpu")
     if not te.rech_on:
         assert counters[2] == 0
     else:
